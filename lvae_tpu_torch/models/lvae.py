@@ -1,0 +1,397 @@
+"""The Ladder VAE, evaluation and generation (port of
+``lvae_tpu/models/lvae.py``).
+
+Conventions kept from the reference package: layer 0 is the bottom
+latent, layer L-1 the top; ``forward`` returns the same dict keys as
+``LadderVAE.__call__``; ``topdown_pass`` is the generative path when
+``bu_values is None``; submodules carry the flax names, so
+``state_dict()`` loads ``flax_to_torch_state_dict``'s output strictly.
+
+Layouts: the public methods take and return NHWC (images ``[B,H,W,C]``,
+latents ``[B,h,w,c]``); everything inside runs NCHW, so convolutions and
+BatchNorm go to cuDNN as they are. Latent noise is keyed per image
+(:class:`~lvae_tpu_torch.models.stochastic.Noise`); layer ``i`` draws on
+Philox stream ``i``.
+
+Eval only: ``train=True`` raises. fp32 only: building the model turns
+TF32 off (:func:`lvae_tpu_torch.fp32_math`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lvae_tpu_torch import fp32_math
+from lvae_tpu_torch.models.blocks import (
+    Conv2d,
+    MergeLayer,
+    ResBlockWithResampling,
+    ResidualBlock,
+    get_nonlin,
+    init_parameters,
+)
+from lvae_tpu_torch.models.likelihoods import make_likelihood
+from lvae_tpu_torch.models.stochastic import Noise, NormalStochasticBlock
+from lvae_tpu_torch.ops.math import crop_img_tensor, pad_img_tensor
+
+_TRAIN = "training runs only in lvae_tpu until the port's training PR"
+
+
+def _nchw(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.permute(0, 3, 1, 2)
+
+
+def _nhwc(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.permute(0, 2, 3, 1)
+
+
+class TopDownLayer(nn.Module):
+    """One rung of the generative ladder (see ``lvae_tpu``'s docstring):
+    q = conv(merge(bu, td)) (top: conv(bu)), p = conv(td) (top: the
+    prior); the sample's projection, optionally merged with a bypass of
+    the incoming state (``stochastic_skip``, before or after the blocks),
+    runs through ``n_res_blocks`` blocks that also upsample."""
+
+    def __init__(self, z_dim: int, n_filters: int, n_res_blocks: int,
+                 upsample_steps: int = 0, is_top: bool = False,
+                 learn_top_prior: bool = False,
+                 top_prior_hw: Tuple[int, int] = (4, 4),
+                 stochastic_skip: bool = False, skip_merge_mode: str = "pre",
+                 merge_type: str = "residual", block_type: str = "bacdbacd",
+                 nonlin: str = "elu", batchnorm: bool = True,
+                 gated: bool = False, fused: bool = False,
+                 resample_mode: str = "conv", conv_pad: str = "same"):
+        super().__init__()
+        self.is_top, self.z_dim = is_top, z_dim
+        self.top_prior_hw = tuple(top_prior_hw)
+        self.skip_merge_mode = skip_merge_mode
+        common = dict(block_type=block_type, nonlin=nonlin,
+                      batchnorm=batchnorm, conv_pad=conv_pad)
+        # the top rung has no incoming state: lvae_tpu never calls (so
+        # never creates) its merge or skip merge
+        self.merge = None if is_top else MergeLayer(n_filters, merge_type, **common)
+        self.skip_merge = (
+            MergeLayer(n_filters, merge_type, **common)
+            if stochastic_skip and not is_top else None
+        )
+        self.stochastic = NormalStochasticBlock(
+            n_filters, z_dim, n_filters, transform_p_params=not is_top,
+            fused=fused, conv_pad=conv_pad,
+        )
+        self.top_prior = (
+            nn.Parameter(torch.zeros(1, 2 * z_dim, *self.top_prior_hw))
+            if is_top and learn_top_prior else None
+        )
+        self.det_blocks = []
+        for j in range(n_res_blocks):
+            blk = ResBlockWithResampling(
+                "top-down", n_filters, n_filters, resample=j < upsample_steps,
+                resample_mode=resample_mode, gated=gated, **common,
+            )
+            self.add_module(f"det_blocks_{j}", blk)
+            self.det_blocks.append(blk)
+
+    def _top_prior_params(self, batch: int, device: torch.device) -> torch.Tensor:
+        if self.top_prior is not None:
+            p = self.top_prior
+        else:
+            p = torch.zeros(1, 2 * self.z_dim, *self.top_prior_hw, device=device)
+        return p.expand(batch, -1, -1, -1)  # a view: never materialised over B
+
+    def forward(self, td_in, bu_value, *, stream: int, n_img_prior=None,
+                noise=None, use_mode=False, forced_latent=None,
+                forced_eps=None, constant_latent=False, train=False,
+                temperature=1.0):
+        if self.is_top:
+            if bu_value is not None:
+                batch, device = bu_value.shape[0], bu_value.device
+            elif n_img_prior is not None:
+                batch, device = n_img_prior, self.stochastic.conv_out.weight.device
+            else:
+                raise ValueError("top layer needs bu_value or n_img_prior")
+            p_in = self._top_prior_params(batch, device)
+        else:
+            if td_in is None:
+                raise ValueError("non-top layer needs incoming top-down state")
+            p_in = td_in
+        if bu_value is not None:
+            q_in = bu_value if self.is_top else self.merge(bu_value, td_in)
+        else:
+            q_in = None
+        s = self.stochastic(
+            p_in, q_in, noise=noise, stream=stream,
+            forced_latent=forced_latent, forced_eps=forced_eps,
+            use_mode=use_mode, constant_latent=constant_latent, train=train,
+            temperature=temperature,
+        )
+        h = s["out"]
+        do_skip = self.skip_merge is not None and td_in is not None
+        if do_skip and self.skip_merge_mode == "pre":
+            h = self.skip_merge(h, td_in)
+        for blk in self.det_blocks:
+            h = blk(h)
+        if do_skip and self.skip_merge_mode == "post":
+            skip = td_in
+            if skip.shape[-2:] != h.shape[-2:]:
+                skip = F.interpolate(skip, size=h.shape[-2:], mode="nearest-exact")
+            h = self.skip_merge(h, skip)
+        return h, s
+
+
+class LadderVAE(nn.Module):
+    """Hierarchical Ladder VAE, eval mode. ``generator`` draws the initial
+    weights (seed 0 when omitted); real weights come through
+    ``load_state_dict``."""
+
+    def __init__(self, color_ch: int, z_dims: Sequence[int] = (32, 32, 32),
+                 blocks_per_layer: int = 2, n_filters: int = 64,
+                 stochastic_skip: bool = False, skip_merge_mode: str = "pre",
+                 gated: bool = False, downsample: Sequence[int] = (1, 1, 1),
+                 learn_top_prior: bool = False,
+                 img_size: Tuple[int, int] = (32, 32),
+                 data_size: Tuple[int, int] = (28, 28),
+                 likelihood: str = "bernoulli", batchnorm: bool = True,
+                 nonlin: str = "elu", res_block_type: str = "bacdbacd",
+                 merge_type: str = "residual", resample_mode: str = "conv",
+                 conv_pad: str = "same", no_initial_downscaling: bool = False,
+                 fused_stochastic: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if skip_merge_mode not in ("pre", "post"):
+            raise ValueError(f"unknown skip_merge_mode {skip_merge_mode!r}")
+        self.z_dims = tuple(z_dims)
+        self.blocks_per_layer = blocks_per_layer
+        self.downsample = tuple(downsample)
+        self.no_initial_downscaling = no_initial_downscaling
+        self.img_size, self.data_size = tuple(img_size), tuple(data_size)
+        self.act = get_nonlin(nonlin)
+        scales = self._scales()
+        total = scales[-1]
+        h, w = self.img_size
+        if h % (1 << total) or w % (1 << total):
+            raise ValueError(
+                f"img_size {self.img_size} not divisible by 2^{total} "
+                f"(initial downscale + sum(downsample))"
+            )
+        common = dict(block_type=res_block_type, nonlin=nonlin,
+                      batchnorm=batchnorm, conv_pad=conv_pad)
+
+        self.first_conv = Conv2d(color_ch, n_filters, 5,
+                                 stride=1 if no_initial_downscaling else 2,
+                                 conv_pad=conv_pad)
+        self.first_block = ResidualBlock(n_filters, gated=gated, **common)
+        self.bottom_up_layers = []
+        for i in range(self.n_layers):
+            layer = []
+            for j in range(blocks_per_layer):
+                blk = ResBlockWithResampling(
+                    "bottom-up", n_filters, n_filters,
+                    resample=j < self.downsample[i],
+                    resample_mode=resample_mode, gated=gated, **common,
+                )
+                self.add_module(f"bottom_up_layers_{i}_{j}", blk)
+                layer.append(blk)
+            self.bottom_up_layers.append(layer)
+
+        self.top_down_layers = []
+        for i in range(self.n_layers):
+            layer = TopDownLayer(
+                self.z_dims[i], n_filters, blocks_per_layer,
+                upsample_steps=self.downsample[i],
+                is_top=i == self.n_layers - 1,
+                learn_top_prior=learn_top_prior,
+                top_prior_hw=(h >> total, w >> total),
+                stochastic_skip=stochastic_skip,
+                skip_merge_mode=skip_merge_mode, merge_type=merge_type,
+                gated=gated, fused=fused_stochastic,
+                resample_mode=resample_mode, **common,
+            )
+            self.add_module(f"top_down_layers_{i}", layer)
+            self.top_down_layers.append(layer)
+
+        self.final_blocks = []
+        if not no_initial_downscaling:
+            self.final_blocks.append(ResBlockWithResampling(
+                "top-down", n_filters, n_filters, resample=True,
+                resample_mode=resample_mode, gated=gated, **common,
+            ))
+        self.final_blocks.append(ResidualBlock(n_filters, gated=gated, **common))
+        for j, blk in enumerate(self.final_blocks):
+            self.add_module(f"final_blocks_{j}", blk)
+        self.likelihood_head = make_likelihood(likelihood, n_filters, color_ch)
+
+        fp32_math()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_parameters(self, generator)
+        self.eval()
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.z_dims)
+
+    def _scales(self) -> list[int]:
+        """Downsampling factor (log2) at the output of each BU layer."""
+        if len(self.downsample) != self.n_layers:
+            raise ValueError("downsample must have one entry per layer")
+        if any(d > self.blocks_per_layer for d in self.downsample):
+            raise ValueError(
+                f"downsample {tuple(self.downsample)} has an entry larger "
+                f"than blocks_per_layer {self.blocks_per_layer}: a layer "
+                "can resample at most once per block"
+            )
+        s = 0 if self.no_initial_downscaling else 1
+        scales = []
+        for d in self.downsample:
+            s += d
+            scales.append(s)
+        return scales
+
+    @property
+    def device(self) -> torch.device:
+        return self.first_conv.weight.device
+
+    def _noise_here(self, noise: Optional[Noise]) -> Optional[Noise]:
+        if noise is None:
+            return None
+        sample = noise.sample
+        if isinstance(sample, torch.Tensor):
+            sample = sample.to(self.device)
+        return dataclasses.replace(noise, index=noise.index.to(self.device),
+                                   sample=sample)
+
+    # ------------------------------------------------------------------
+    # passes (NCHW inside)
+    # ------------------------------------------------------------------
+    def _bottomup(self, x: torch.Tensor) -> list[torch.Tensor]:
+        h = self.first_block(self.act(self.first_conv(x)))
+        bu_values = []
+        for layer in self.bottom_up_layers:
+            for blk in layer:
+                h = blk(h)
+            bu_values.append(h)
+        return bu_values
+
+    def _topdown(self, bu_values, *, n_img_prior, noise, forced_latent,
+                 forced_eps, mode_layers, constant_layers, temperature, train):
+        L = self.n_layers
+        bu_values = bu_values if bu_values is not None else [None] * L
+        forced_latent = forced_latent if forced_latent is not None else [None] * L
+        forced_eps = forced_eps if forced_eps is not None else [None] * L
+        if isinstance(temperature, (int, float)):
+            temps = [float(temperature)] * L
+        else:
+            temps = [float(t) for t in temperature]
+            if len(temps) == 1:
+                temps = temps * L
+            elif len(temps) != L:
+                raise ValueError(
+                    f"temperature needs 1 or {L} values, got {len(temps)}"
+                )
+        td = None
+        layer_data: list[dict[str, Any]] = [None] * L  # type: ignore[list-item]
+        for i in reversed(range(L)):
+            td, s = self.top_down_layers[i](
+                td, bu_values[i], stream=i, n_img_prior=n_img_prior,
+                noise=noise, use_mode=i in mode_layers,
+                forced_latent=_nchw(forced_latent[i]),
+                forced_eps=_nchw(forced_eps[i]),
+                constant_latent=i in constant_layers, train=train,
+                temperature=temps[i],
+            )
+            layer_data[i] = s
+        for blk in self.final_blocks:
+            td = blk(td)
+        return td, layer_data
+
+    # ------------------------------------------------------------------
+    # public surfaces (NHWC)
+    # ------------------------------------------------------------------
+    def topdown_pass(
+        self,
+        bu_values: Optional[Sequence[Optional[torch.Tensor]]] = None,
+        *,
+        noise: Optional[Noise] = None,
+        train: bool = False,
+        n_img_prior: Optional[int] = None,
+        forced_latent: Optional[Sequence[Optional[torch.Tensor]]] = None,
+        forced_eps: Optional[Sequence[Optional[torch.Tensor]]] = None,
+        mode_layers: Sequence[int] = (),
+        constant_layers: Sequence[int] = (),
+        temperature: Union[float, Sequence[float]] = 1.0,
+    ) -> Tuple[torch.Tensor, dict[str, Any]]:
+        """Top-down pass, the generative path when ``bu_values is None``.
+        ``temperature`` scales the sampling std, one value or one per
+        layer (bottom first)."""
+        if train:
+            raise NotImplementedError(_TRAIN)
+        bu = None if bu_values is None else [_nchw(b) for b in bu_values]
+        td, layer_data = self._topdown(
+            bu, n_img_prior=n_img_prior, noise=self._noise_here(noise),
+            forced_latent=forced_latent, forced_eps=forced_eps,
+            mode_layers=mode_layers, constant_layers=constant_layers,
+            temperature=temperature, train=train,
+        )
+        info = {
+            k: [_nhwc(d[k]) for d in layer_data]
+            for k in ("z", "kl_elementwise", "q_params", "p_params")
+        }
+        return _nhwc(td), info
+
+    def forward(self, x: torch.Tensor, *, noise: Optional[Noise] = None,
+                forced_eps=None, forced_latent=None,
+                train: bool = False) -> dict[str, Any]:
+        """Inference pass on an NHWC batch in [0, 1] (already binarised).
+        Sampled latents need ``noise``; ``forced_eps`` / ``forced_latent``
+        (per-layer NHWC lists) replace the draw."""
+        if train:
+            raise NotImplementedError(_TRAIN)
+        x_pad = pad_img_tensor(x, self.img_size)
+        bu = self._bottomup(_nchw(x_pad).contiguous())
+        td, layer_data = self._topdown(
+            bu, n_img_prior=None, noise=self._noise_here(noise),
+            forced_latent=forced_latent, forced_eps=forced_eps,
+            mode_layers=(), constant_layers=(), temperature=1.0, train=False,
+        )
+        td = _nchw(crop_img_tensor(_nhwc(td), self.data_size))
+        ll, lik = self.likelihood_head(td, _nchw(x))
+        kls = [d["kl_elementwise"] for d in layer_data]
+        return {
+            "ll": ll.sum(dim=(1, 2, 3)),
+            "kl_sep": torch.stack([k.sum(dim=(1, 2, 3)) for k in kls]),  # [L, B]
+            "kl_spatial": [k.sum(dim=1) for k in kls],                  # [B, h, w]
+            "z": [_nhwc(d["z"]) for d in layer_data],
+            "q_params": [_nhwc(d["q_params"]) for d in layer_data],
+            "p_params": [_nhwc(d["p_params"]) for d in layer_data],
+            "out_mean": _nhwc(lik["mean"]),
+            "out_mode": _nhwc(lik["mode"]),
+            "out_params": _nhwc(lik["params"]),
+        }
+
+    def sample_prior(self, n_img: int, *, seed: int,
+                     mode_layers: Sequence[int] = (),
+                     constant_layers: Sequence[int] = (),
+                     temperature: Union[float, Sequence[float]] = 1.0,
+                     ) -> dict[str, Any]:
+        """Generate ``n_img`` images from the prior; image ``i`` draws with
+        ``Noise(seed, index=i)``."""
+        noise = Noise(seed, torch.arange(n_img, device=self.device))
+        td, layer_data = self._topdown(
+            None, n_img_prior=n_img, noise=noise, forced_latent=None,
+            forced_eps=None, mode_layers=mode_layers,
+            constant_layers=constant_layers, temperature=temperature,
+            train=False,
+        )
+        td = _nchw(crop_img_tensor(_nhwc(td), self.data_size))
+        _, lik = self.likelihood_head(td, None)
+        return {
+            "out_mean": _nhwc(lik["mean"]),
+            "out_mode": _nhwc(lik["mode"]),
+            "out_params": _nhwc(lik["params"]),
+            "z": [_nhwc(d["z"]) for d in layer_data],
+        }

@@ -1,0 +1,130 @@
+"""Gaussian latent block (port of ``lvae_tpu/models/stochastic.py``).
+
+Conv heads give the (mu, log-variance) maps of p and q; a sample is drawn
+and the elementwise KL taken; the sample is projected back into the
+deterministic stream. With ``fused=True``, q present and ``train=False``
+the draw and the KL run in the CUDA sample+KL kernel
+(``kernels/stochastic.py``); otherwise in plain PyTorch (``ops/``). Both
+draw eps from the same keyed Philox stream, so they give the same z.
+
+Noise is keyed, not drawn from a global generator: ``noise`` is a
+:class:`Noise` ``(seed, index [B], sample)`` and ``stream`` the layer
+number, and row ``i`` draws with counter ``(offset, index[i], sample[i],
+stream)`` (``ops/philox.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from lvae_tpu_torch.models.blocks import Conv2d
+from lvae_tpu_torch.ops.philox import Ints
+from lvae_tpu_torch.ops.stochastic import gaussian_kl, normal_rsample, split_params
+
+
+@dataclasses.dataclass(frozen=True)
+class Noise:
+    """Where a forward's latent noise comes from: row ``i`` is keyed by
+    ``(seed, index[i], sample[i])`` (``sample`` an int or int64 ``[B]``)."""
+
+    seed: int
+    index: torch.Tensor
+    sample: Ints = 0
+
+
+class NormalStochasticBlock(nn.Module):
+    def __init__(self, c_in: int, c_vars: int, c_out: int, kernel_size: int = 3,
+                 transform_p_params: bool = True, fused: bool = False,
+                 conv_pad: str = "same"):
+        super().__init__()
+        self.c_vars = c_vars
+        self.fused = fused
+        # near-zero Gaussian heads (normal(1e-2)), as lvae_tpu's head_init
+        self.conv_in_p = (
+            Conv2d(c_in, 2 * c_vars, kernel_size, conv_pad=conv_pad, init_std=1e-2)
+            if transform_p_params else None
+        )
+        self.conv_in_q = Conv2d(c_in, 2 * c_vars, kernel_size,
+                                conv_pad=conv_pad, init_std=1e-2)
+        self.conv_out = Conv2d(c_vars, c_out, kernel_size, conv_pad=conv_pad)
+
+    def forward(
+        self,
+        p_in: torch.Tensor,
+        q_in: Optional[torch.Tensor] = None,
+        *,
+        noise: Optional[Noise] = None,
+        stream: int = 0,
+        forced_latent: Optional[torch.Tensor] = None,
+        forced_eps: Optional[torch.Tensor] = None,
+        use_mode: bool = False,
+        constant_latent: bool = False,
+        train: bool = False,
+        temperature: float = 1.0,
+    ) -> dict[str, Any]:
+        if self.conv_in_p is not None:
+            p_params = self.conv_in_p(p_in)
+        else:
+            if p_in.shape[1] != 2 * self.c_vars:
+                raise ValueError(
+                    f"expected direct p_params with {2 * self.c_vars} channels, "
+                    f"got {p_in.shape[1]}"
+                )
+            p_params = p_in
+        q_params = self.conv_in_q(q_in) if q_in is not None else None
+        mu, log_var = split_params(q_params if q_params is not None else p_params)
+
+        kl = None
+        # branch order of lvae_tpu/models/stochastic.py:95-137
+        if forced_latent is not None:
+            z = forced_latent
+        elif forced_eps is not None:
+            z = mu + torch.exp(0.5 * log_var) * forced_eps
+        elif use_mode:
+            z = mu
+        elif self.fused and q_params is not None and train:
+            raise NotImplementedError(
+                "the fused training branch (per-sample KL kernel, K1) comes "
+                "with the port's training PR"
+            )
+        elif self.fused and q_params is not None:
+            from lvae_tpu_torch.kernels.stochastic import sample_kl
+
+            n = _need(noise)
+            # the kernel reads NCHW-contiguous heads (a no-op unless a conv
+            # handed back channels-last); a stride-0 prior stays a view
+            p = p_params if p_params.stride(0) == 0 else p_params.contiguous()
+            z, kl = sample_kl(q_params.contiguous(), p, n.index, n.seed,
+                              n.sample, stream)
+        else:
+            n = _need(noise)
+            z = normal_rsample(mu, log_var, n.seed, n.index, n.sample, stream,
+                               temperature)
+
+        if q_params is not None and kl is None:
+            p_mu, p_lv = split_params(p_params)
+            kl = gaussian_kl(mu, log_var, p_mu, p_lv)
+
+        if constant_latent:
+            z = z[:1].expand_as(z)
+
+        return {
+            "z": z,
+            "out": self.conv_out(z),
+            "kl_elementwise": kl,
+            "q_params": q_params,
+            "p_params": p_params,
+        }
+
+
+def _need(noise: Optional[Noise]) -> Noise:
+    if noise is None:
+        raise ValueError(
+            "a sampled latent needs noise=Noise(seed, index, sample); pass "
+            "forced_eps, forced_latent or use_mode for a draw without it"
+        )
+    return noise
