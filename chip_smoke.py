@@ -6,13 +6,20 @@
 Builds the port's CUDA kernels from ``lvae_tpu_torch/csrc`` and checks each
 against its plain PyTorch version at the flagship's shapes, then drives the
 flagship model (static_mnist, z 32-32-32, 4 blocks per layer, 64 filters,
-gated, skip, learned top prior; seeded random weights) through the normal
-entry point, ``lvae_tpu_torch.evaluate.main``: test ELBO over 10,000
-synthetic static_mnist-shaped images and the k=100 IW log-likelihood over
-the first 1,000 of them (a prefix, to keep the run short). It checks that
-this run launched every kernel of the path, that the kernel path, the
-plain path and a CPU run agree, and times each kernel against its plain
-version and the two sweeps in images/s.
+gated, skip, learned top prior) through its two entry points:
+
+- evaluation, ``lvae_tpu_torch.evaluate.main`` (phases 2-5): seeded random
+  weights, test ELBO over 10,000 synthetic static_mnist-shaped images and
+  the k=100 IW log-likelihood over the first 1,000 of them;
+- training, ``lvae_tpu_torch.main`` (phases 6-9): the sample+KL kernels'
+  per-sample forward (K1) and both backward kernels held against their
+  plain versions, 300 steps of the flagship at batch 64 with data-dependent
+  init on 50,000 synthetic train images, the kernel path against the plain
+  path and the CPU on one step, and train images/s.
+
+Each entry point's run checks that it launched every kernel of its path;
+the kernel path, the plain path and a CPU run are held to agree, and each
+kernel is timed against its plain version.
 
 Prints the card (``nvidia-smi`` name and power limit), one JSON line with
 each kernel's launches, error and times, and last
@@ -35,6 +42,10 @@ B = 1000                                    # flagship eval batch
 LATENT_SHAPES = [(32, 8, 8), (32, 4, 4), (32, 2, 2)]   # (c, h, w) per layer
 N_TEST = 10_000
 IW_SAMPLES = 100
+TRAIN_B = 64                                # flagship train batch
+N_TRAIN = 50_000
+TRAIN_STEPS = 300
+ODD_SHAPE = (3, 7, 7)                       # F = 147: not a multiple of 128
 
 
 class SmokeFailure(Exception):
@@ -70,11 +81,13 @@ def cuda_ms(fn, reps=50, warmup=5):
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn, reps=1):
+def device_profile(fn, reps=1, host_top=None):
     """(device-busy ms per call, wall ms per call, table of the top
     kernels) from torch.profiler over ``reps`` calls. Device-busy time is
     the sum of the kernels' (device-side events') durations; the CPU-side
-    operator events, which carry their kernels' time too, are left out."""
+    operator events, which carry their kernels' time too, are left out.
+    ``host_top``: a list that receives the top host-side operators by
+    self CPU time (name, ms per call, calls per call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -87,23 +100,62 @@ def device_profile(fn, reps=1):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    kernels = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    # device-side events that are kernels (and copies), not the device
+    # spans of host annotations such as "Optimizer.step#Adamax.step",
+    # which also appear on the host under the same name
+    events = prof.key_averages()
+    host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+    kernels = [e for e in events if e.device_type != DeviceType.CPU
+               and e.key not in host_keys and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.device_time_total for e in kernels) / 1e3 / reps
     top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:8]
     table = [(e.key[:70], e.device_time_total / 1e3 / reps, e.count // reps)
              for e in top]
+    if host_top is not None:
+        ops = [e for e in events if e.device_type == DeviceType.CPU]
+        ops.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
+        host_top += [(e.key[:70], e.self_cpu_time_total / 1e3 / reps, e.count // reps)
+                     for e in ops[:12]]
     return busy, wall, table, sum(e.count for e in kernels)
 
 
 def device_ms(fn, reps=20, tries=3):
-    """Device-busy ms per call, or None ("not measured") when no trace of
-    ``tries`` holds as many kernel events as calls: the profiler was seen
-    to drop the events of kernels launched through ctypes."""
+    """Device-busy ms per call from the profiler. When no trace of
+    ``tries`` holds as many kernel events as calls (the profiler was seen
+    to drop the events of kernels launched through ctypes), the ms per
+    call of a CUDA graph of ``reps`` calls replayed, which has no host
+    launch cost; None ("not measured") if that cannot be captured."""
     for _ in range(tries):
         busy, _, _, n_events = device_profile(fn, reps)
         if n_events >= reps:
             return busy
-    return None
+    return graph_ms(fn, reps)
+
+
+def graph_ms(fn, reps=20, replays=10):
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as e:
+        print(f"  (no CUDA graph of the call: {e})")
+        return None
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
 
 
 def fmt_ms(v):
@@ -408,6 +460,413 @@ def phase_slice(card):
     out["launches"] = launches
     return out
 
+def rel_elem(a, b):
+    """max |a - b| / max(|b|, 1), elementwise."""
+    return ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+
+
+def rel_max(a, b, floor=0.0):
+    """max |a - b| relative to max |b| (or ``floor``, if larger)."""
+    return (a - b).abs().max().item() / max(b.abs().max().item(), floor, 1e-30)
+
+
+def phase_k1(card):
+    import torch
+
+    from lvae_tpu_torch.kernels import stochastic as sk
+
+    print("[6] per-sample sample+KL kernel (K1) vs its plain version", flush=True)
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(3)
+    err, times = 0.0, []
+    for b in (TRAIN_B, 256):
+        for layer, (c, h, w) in enumerate(LATENT_SHAPES + [ODD_SHAPE]):
+            shape = f"[{b},{2 * c},{h},{w}]"
+            q = (torch.randn(b, 2 * c, h, w, generator=g) * 0.7).to(dev)
+            p = (torch.randn(b, 2 * c, h, w, generator=g) * 0.7).to(dev)
+            eps = torch.randn(b, c, h, w, generator=g).to(dev)
+            index = torch.randperm(N_TRAIN, generator=g)[:b].to(dev)
+
+            z, kl = sk.sample_kl_per_sample_eps(q, p, eps)
+            zr, klr = sk._plain_sample_kl_per_sample_eps(q, p, eps)
+            rel = max(rel_elem(z, zr), rel_elem(kl, klr))
+            check(rel <= 1e-6, f"{shape} given eps: z, kl_b within 1e-6 relative "
+                               f"(max {rel:.2e})")
+            z, kl = sk.sample_kl_per_sample(q, p, index, 77, 5, layer)
+            zr, klr = sk._plain_sample_kl_per_sample(q, p, index, 77, 5, layer)
+            e = (z - zr).abs().max().item()
+            err = max(err, e, (kl - klr).abs().max().item())
+            rel = rel_elem(kl, klr)
+            check(e <= 1e-5 and rel <= 1e-5,
+                  f"{shape} Philox: z within {e:.2e} abs, kl_b {rel:.2e} relative of "
+                  f"the plain generator's")
+            zk2, _ = sk.sample_kl(q, p, index, 77, 5, layer)
+            check(torch.equal(z, zk2), f"{shape} K1 draws K2's z")
+            pb = p[:1].expand(b, -1, -1, -1)
+            zb, klb = sk.sample_kl_per_sample(q, pb, index, 77, 5, layer)
+            zf, klf = sk.sample_kl_per_sample(q, pb.contiguous(), index, 77, 5, layer)
+            check(torch.equal(zb, zf) and torch.equal(klb, klf),
+                  f"{shape} row-stride-0 prior equals the materialised prior")
+            z2, kl2 = sk.sample_kl_per_sample(q, p, index, 77, 5, layer)
+            check(torch.equal(z, z2) and torch.equal(kl, kl2),
+                  f"{shape} a second launch is bit-equal (deterministic row sums)")
+            if b != TRAIN_B or (c, h, w) not in LATENT_SHAPES:
+                continue
+            kernel = lambda: sk.sample_kl_per_sample(q, p, index, 77, 5, layer)  # noqa: E731
+            plain = lambda: sk._plain_sample_kl_per_sample(q, p, index, 77, 5, layer)  # noqa: E731
+            t = [cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)]
+            dk, dp = device_ms(kernel), device_ms(plain)
+            times.append(((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dp))
+            print(f"  time {shape} per call: kernel {times[-1][0]:.4f} ms, plain "
+                  f"{times[-1][1]:.4f} ms; device busy: kernel {fmt_ms(dk)}, plain "
+                  f"{fmt_ms(dp)}  ({card})")
+    return err, [total([t[i] for t in times]) for i in range(4)]
+
+
+def phase_bwd(card):
+    import torch
+
+    from lvae_tpu_torch.kernels import stochastic as sk
+
+    print("[7] backward kernels (K1-bwd, K2-bwd) vs autograd of the plain forward",
+          flush=True)
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(4)
+    err = {"k1": 0.0, "k2": 0.0}
+    times = {"k1": [], "k2": []}
+    b = TRAIN_B
+    for layer, (c, h, w) in enumerate(LATENT_SHAPES + [ODD_SHAPE]):
+        top = layer == len(LATENT_SHAPES) - 1     # the flagship's stride-0 prior
+        shape = f"[{b},{2 * c},{h},{w}]" + (" stride-0 prior" if top else "")
+        rnd = lambda *s: torch.randn(*s, generator=g).to(dev)  # noqa: E731
+        q = rnd(b, 2 * c, h, w) * 0.7
+        p1 = rnd(1 if top else b, 2 * c, h, w) * 0.7
+        eps, gz = rnd(b, c, h, w), rnd(b, c, h, w)
+        index = torch.randperm(N_TRAIN, generator=g)[:b].to(dev)
+        gkl_map = rnd(b, c, h, w)
+        gkl_map[::4] = 0.0                       # rows a free-bits clamp zeroes
+        gkl_row = rnd(b)
+        gkl_row[::3] = 0.0
+
+        def expand(t):
+            return t.expand(b, -1, -1, -1) if top else t
+
+        def grads(fn, gkl, *args):
+            qr, pr = q.clone().requires_grad_(), p1.clone().requires_grad_()
+            z, kl = fn(qr, expand(pr), *args)
+            torch.autograd.backward([z, kl], [gz, gkl])
+            return qr.grad, pr.grad
+
+        for name, per_sample, gkl in (("k2", False, gkl_map), ("k1", True, gkl_row)):
+            label = "K1-bwd" if per_sample else "K2-bwd"
+            plain_fwd = (sk._plain_sample_kl_per_sample_eps if per_sample
+                         else sk._plain_sample_kl_eps)
+            dq_r, dp_r = grads(plain_fwd, gkl, eps)
+            dq, dp = sk.sample_kl_backward(q, expand(p1), gz, gkl, eps=eps)
+            if top:
+                dp = dp.sum(dim=0, keepdim=True)
+            e = max(rel_max(dq, dq_r), rel_max(dp, dp_r))
+            err[name] = max(err[name], (dq - dq_r).abs().max().item(),
+                            (dp - dp_r).abs().max().item())
+            check(e <= 1e-5, f"{label} {shape}: dq, dp within 1e-5 relative of "
+                             f"autograd ({e:.2e})")
+            if per_sample and not top:
+                check(bool((dp[::3] == 0).all()), f"{label} rows with gkl = 0 give dp = 0")
+            # keyed noise through the autograd.Function: the backward kernel
+            # regenerates eps from the Philox counter
+            keyed = sk.sample_kl_per_sample if per_sample else sk.sample_kl
+            keyed_plain = (sk._plain_sample_kl_per_sample if per_sample
+                           else sk._plain_sample_kl)
+            a = grads(keyed, gkl, index, 9, 0, layer)
+            r = grads(keyed_plain, gkl, index, 9, 0, layer)
+            e = max(rel_max(a[0], r[0]), rel_max(a[1], r[1]))
+            check(e <= 1e-5, f"{label} {shape} keyed, through the autograd.Function "
+                             f"({e:.2e})")
+            if top or layer >= len(LATENT_SHAPES):
+                continue
+            pe = expand(p1)
+            kernel = lambda: sk.sample_kl_backward(q, pe, gz, gkl, eps=eps)  # noqa: E731
+            plain = lambda: sk._plain_sample_kl_bwd(q, pe, eps, gz, gkl)  # noqa: E731
+            t = [cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)]
+            dk, dpl = device_ms(kernel), device_ms(plain)
+            times[name].append(((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dpl))
+            print(f"  time {label} {shape} per call: kernel {times[name][-1][0]:.4f} ms, "
+                  f"plain {times[name][-1][1]:.4f} ms; device busy: kernel "
+                  f"{fmt_ms(dk)}, plain {fmt_ms(dpl)}  ({card})")
+    # the top layer's timing, with its stride-0 prior (the flagship's shapes)
+    for name, gkl_fn in (("k2", lambda: torch.randn(b, 32, 2, 2, generator=g)),
+                         ("k1", lambda: torch.randn(b, generator=g))):
+        q = torch.randn(b, 64, 2, 2, generator=g).to(dev)
+        pe = torch.randn(1, 64, 2, 2, generator=g).to(dev).expand(b, -1, -1, -1)
+        eps = torch.randn(b, 32, 2, 2, generator=g).to(dev)
+        gz = torch.randn(b, 32, 2, 2, generator=g).to(dev)
+        gkl = gkl_fn().to(dev)
+        kernel = lambda: sk.sample_kl_backward(q, pe, gz, gkl, eps=eps)  # noqa: E731
+        plain = lambda: sk._plain_sample_kl_bwd(q, pe, eps, gz, gkl)  # noqa: E731
+        t = [cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)]
+        dk, dpl = device_ms(kernel), device_ms(plain)
+        times[name].append(((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dpl))
+        print(f"  time {'K1-bwd' if name == 'k1' else 'K2-bwd'} [{b},64,2,2] stride-0 "
+              f"prior per call: kernel {times[name][-1][0]:.4f} ms, plain "
+              f"{times[name][-1][1]:.4f} ms; device busy: kernel {fmt_ms(dk)}, plain "
+              f"{fmt_ms(dpl)}  ({card})")
+    return err, {k: [total([t[i] for t in v]) for i in range(4)] for k, v in times.items()}
+
+
+FLAGSHIP_ARGS = [
+    "--dataset", "static_mnist", "--zdims", "32", "32", "32", "--downsample",
+    "1", "1", "1", "--nonlin", "elu", "--skip", "--blocks-per-layer", "4",
+    "--gated", "--freebits", "0.5", "--learn-top-prior", "--seed", "42",
+    "--batch-size", str(TRAIN_B), "--dropout", "0.2", "--test-batch-size", str(B),
+]
+
+
+def train_data():
+    """Synthetic static_mnist-shaped splits (50,000 train, 10,000 test)."""
+    from lvae_tpu_torch.data.sources import make_synthetic
+
+    return make_synthetic(n_train=N_TRAIN, n_test=N_TEST, seed=6)
+
+
+def flagship_dataset(train_u8, test_u8):
+    """The splits as the trainer's static_mnist dataset."""
+    from lvae_tpu_torch.data.registry import Dataset
+
+    return Dataset("static_mnist", test_u8, (28, 28), (32, 32), 1, "none", "bernoulli",
+                   train=train_u8)
+
+
+def init_k1_launches(train_u8, test_u8):
+    """K1 launches of the flagship's data-dependent init alone (its
+    train-mode statistics passes sample the latents with K1, as
+    ``lvae_tpu``'s do; a pass stops at the conv it measures)."""
+    import torch
+
+    from lvae_tpu_torch.config import config_from_args
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.train.trainer import Experiment
+
+    cfg, _ = config_from_args(FLAGSHIP_ARGS + ["--data-dep-init"])
+    exp = Experiment(cfg, torch.device("cuda"), flagship_dataset(train_u8, test_u8))
+    build.reset_launches()
+    exp.init_state()
+    torch.cuda.synchronize()
+    n = build.LAUNCHES["sample_kl_per_sample"]
+    build.reset_launches()
+    return n
+
+
+def phase_train(card, train_u8, test_u8):
+    import torch
+
+    from lvae_tpu_torch import evaluate
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.kernels import build
+
+    print("[8] the training slice through lvae_tpu_torch.main", flush=True)
+    n_init = init_k1_launches(train_u8, test_u8)
+    print(f"  data-dependent init alone launches K1 {n_init} times")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(os.path.join(data_dir, "static_mnist"))
+        for split, arr in (("train", train_u8), ("test", test_u8)):
+            write_amat(os.path.join(data_dir, "static_mnist",
+                                    f"binarized_mnist_{split}.amat"), arr)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_main.main(FLAGSHIP_ARGS + [
+            "--data-dir", data_dir, "--data-dep-init", "--max-steps", str(TRAIN_STEPS),
+            "--device", "cuda", "--log-interval", "30", "--test-interval", "150",
+            "--checkpoint-interval", "100", "--output-dir", os.path.join(tmp, "out"),
+            "--run-name", "flagship",
+        ])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        print(f"  launches in the training run: {launches}")
+        print(f"  run wall {wall:.1f} s (data parse, data-dependent init, "
+              f"{TRAIN_STEPS} steps, 2 test sweeps, 3 checkpoints)  ({card})")
+        n = 3 * TRAIN_STEPS
+        check(launches["sample_kl_per_sample"] == n + n_init,
+              f"K1: 3 launches per step and the init's {n_init} "
+              f"({launches['sample_kl_per_sample']})")
+        check(launches["sample_kl_per_sample_bwd"] == n,
+              f"K1-bwd: 3 launches per step ({launches['sample_kl_per_sample_bwd']})")
+        check(launches["sample_kl"] > 0 and launches["sample_kl_bwd"] == 0,
+              f"the test hook ran K2 forward only ({launches['sample_kl']} launches)")
+        hist = trainer.logger.history
+        check(all(np.isfinite(np.asarray(v, dtype=np.float64)).all()
+                  for _, _, m in hist for v in m.values()),
+              f"every logged metric finite ({len(hist)} lines)")
+        train_lines = {step: m for kind, step, m in hist if kind == "train"}
+        first, last = float(train_lines[30]["loss"]), float(train_lines[TRAIN_STEPS]["loss"])
+        check(last < first, f"EMA loss {last:.2f} at step {TRAIN_STEPS} below "
+                            f"{first:.2f} at step 30")
+        tests = [m for kind, _, m in hist if kind == "test"]
+        check(len(tests) == 2, "the test hook ran at steps 150 and 300")
+        ckpt = os.path.join(trainer.run_dir, "checkpoints", f"ckpt_{TRAIN_STEPS:08d}.pt")
+        res = evaluate.main(["--load", trainer.run_dir, "--state-dict", ckpt,
+                             "--device", "cuda"])
+        e = res["elbo"]
+        d = abs(e["elbo"] - tests[-1]["elbo"])
+        check(np.isfinite(e["elbo"]) and d <= 1e-2,
+              f"evaluate scores the checkpoint: ELBO {e['elbo']:.3f}, the run's "
+              f"last test ELBO {tests[-1]['elbo']:.3f}")
+        out["launches"] = launches
+        out["wall_s"] = wall
+        out["log_rates"] = {step: float(m["images_per_sec"]) for step, m in train_lines.items()}
+        # the lines from step 120 on: 30-step windows over steps 91-300
+        late = [r for step, r in out["log_rates"].items() if step > 100]
+        out["log_rate_91_300"] = len(late) / sum(1.0 / r for r in late)
+        print(f"  logged train rate over steps 91-{TRAIN_STEPS} (a metric sync every "
+              f"30 steps, the checkpoints at 100 and 200 inside): "
+              f"{out['log_rate_91_300']:.1f} img/s  ({card})")
+        out["test_elbo"] = [float(m["elbo"]) for m in tests]
+        out["ema_loss"] = (first, last)
+    return out
+
+
+def bn_fed_biases(model):
+    """Names of the conv biases whose output only a BatchNorm reads: in a
+    residual block, a conv whose next letter of the block type other than
+    dropout's is a BatchNorm. Without dropout their gradient is zero but
+    for roundoff (the BatchNorm takes out any per-channel shift)."""
+    from lvae_tpu_torch.models.blocks import ResidualBlock
+
+    names = set()
+    for name, m in model.named_modules():
+        if isinstance(m, ResidualBlock) and m.batchnorm:
+            letters = m.block_type.replace("d", "")
+            for nc, i in enumerate(i for i, ch in enumerate(letters) if ch == "c"):
+                if letters[i + 1: i + 2] == "b":
+                    names.add(f"{name}.Conv_{nc}.bias")
+    return names
+
+
+def phase_step(card, train_u8, test_u8):
+    import dataclasses
+
+    import torch
+
+    from lvae_tpu_torch.config import config_from_args
+    from lvae_tpu_torch.data.device import preprocess_batch
+    from lvae_tpu_torch.models.stochastic import Noise
+    from lvae_tpu_torch.ops.math import linear_anneal
+    from lvae_tpu_torch.train.state import loss_terms
+    from lvae_tpu_torch.train.trainer import Experiment, Trainer
+
+    print("[9] one step: the kernel path vs the plain path and the CPU; train "
+          "images/s", flush=True)
+    cfg, _ = config_from_args(FLAGSHIP_ARGS)
+    data = flagship_dataset(train_u8, test_u8)
+    weights = flagship_model(torch.device("cpu")).state_dict()
+    order = np.random.default_rng((cfg.seed, 0)).permutation(N_TRAIN)
+
+    def one_step(fused, device, dropout):
+        exp = Experiment(dataclasses.replace(cfg, fused=fused, dropout=dropout),
+                         torch.device(device), data)
+        exp.model.load_state_dict(weights)
+        state = exp.init_state(data_dep_init=False)
+        index = torch.from_numpy(order[:TRAIN_B]).to(device)
+        x = preprocess_batch(exp.train_data.gather(index), "none", state.seed, index, 0)
+        loss, m = loss_terms(exp.model, x, Noise(state.seed, index, 0),
+                             linear_anneal(0, 0.0, 1.0, cfg.beta_anneal), cfg.freebits)
+        loss.backward()
+        return (loss.item(), m["kl_layers"].detach().cpu(),
+                {k: p.grad.detach().cpu() for k, p in exp.model.named_parameters()},
+                {k: b.detach().cpu() for k, b in exp.model.named_buffers()
+                 if k.endswith(("running_mean", "running_var"))},
+                bn_fed_biases(exp.model))
+
+    def compare(a, b, tol, what, zero_grads=()):
+        """Each gradient within ``tol`` of its own max; those named in
+        ``zero_grads`` (zero but for roundoff) within ``tol`` of the
+        largest gradient's."""
+        rel = abs(a[0] - b[0]) / abs(b[0])
+        gmax = max(g.abs().max().item() for g in b[2].values())
+        errs = {k: rel_max(a[2][k], g, gmax if k in zero_grads else 0.0)
+                for k, g in b[2].items()}
+        worst = max((e, k) for k, e in errs.items() if k not in zero_grads)
+        stats = max((a[3][k] - v).abs().max().item() for k, v in b[3].items())
+        print(f"  {what}: loss {a[0]:.6f} vs {b[0]:.6f} (rel {rel:.2e}); worst "
+              f"gradient {worst[0]:.2e} ({worst[1]}); BN running stats {stats:.2e}")
+        if zero_grads:
+            zw = max((errs[k], k) for k in zero_grads)
+            own = max((rel_max(a[2][k], b[2][k]), k) for k in zero_grads)
+            print(f"  {what}: the {len(zero_grads)} biases that only a BatchNorm reads: "
+                  f"worst {zw[0]:.2e} of the largest gradient ({zw[1]}); "
+                  f"{own[0]:.2e} of its own max ({own[1]})")
+            worst = max(worst, zw)
+        check(rel <= tol, f"{what}: loss within {tol:g} relative")
+        check(worst[0] <= tol, f"{what}: every parameter gradient within {tol:g} "
+                               f"relative to its max")
+        return stats
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        k = one_step("auto", "cuda", cfg.dropout)
+        p = one_step("none", "cuda", cfg.dropout)
+        print(f"  per-layer KL of the batch: {k[1].numpy()} (free bits {cfg.freebits})")
+        stats = compare(k, p, 1e-4, "kernels vs plain on the card")
+        check(stats <= 1e-6, f"BN running stats within 1e-6 ({stats:.2e})")
+        # CPU and CUDA generators give other dropout bytes: no dropout here
+        kc = one_step("auto", "cuda", 0.0)
+        c = one_step("none", "cpu", 0.0)
+        compare(kc, c, 1e-3, "the card (kernels) vs the CPU", zero_grads=c[4])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+    def trainer(fused, steps, log_interval):
+        """A Trainer (the entry point's loop: its index stream and log
+        hook) over ``steps`` steps, no data-dependent init, no test,
+        checkpoint or files."""
+        run_cfg = dataclasses.replace(
+            cfg, fused=fused, max_steps=steps, log_interval=log_interval,
+            test_interval=10 ** 9, checkpoint_interval=10 ** 9, dry_run=True)
+        return Trainer(Experiment(run_cfg, torch.device("cuda"), data))
+
+    def train_rate(fused):
+        """Images/s over steps 101-300 from the Trainer's log lines at
+        200 and 300."""
+        tr = trainer(fused, TRAIN_STEPS, 100)
+        tr.run()
+        rates = [float(m["images_per_sec"]) for kind, step, m in tr.logger.history
+                 if kind == "train" and step > 100]
+        return len(rates) / sum(1.0 / r for r in rates)
+
+    rates = {True: [], False: []}
+    for fused in (True, False, False, True):
+        rates[fused].append(train_rate("auto" if fused else "none"))
+    out = {"train_images_per_sec": {"kernels": float(np.mean(rates[True])),
+                                     "plain": float(np.mean(rates[False])),
+                                     "runs": {"kernels": rates[True], "plain": rates[False]}}}
+    for name, fused in (("kernels", True), ("plain", False)):
+        r = out["train_images_per_sec"][name]
+        print(f"  Trainer.run, steps 101-{TRAIN_STEPS}, batch {TRAIN_B}, {name}: "
+              f"{r:.1f} img/s, {1e3 * TRAIN_B / r:.2f} ms/step (runs {rates[fused]})  "
+              f"({card})")
+
+    # where a step's time goes: Trainer.run over 5 kernel-path steps (its
+    # set-up inside: a fresh optimiser and the epoch's shuffle)
+    prof_run = trainer("auto", 5, 5)
+    host = []
+    busy, wall, table, n_events = device_profile(prof_run.run, host_top=host)
+    out["train_profile"] = {"device_busy_ms": busy, "wall_ms": wall,
+                            "idle_share": 1.0 - busy / wall, "top": table,
+                            "host_top": host, "kernel_events": n_events}
+    print(f"  train profile, Trainer.run of 5 steps of {TRAIN_B}: wall {wall:.2f} ms, "
+          f"device busy {busy:.2f} ms ({busy / 5:.2f} ms per step), idle share "
+          f"{1.0 - busy / wall:.3f}, {n_events} kernel events  ({card})")
+    for name, ms, count in table:
+        print(f"    {ms:8.3f} ms  x{count:<4d} {name}")
+    print("  host operators by self CPU time, 5 steps (under the profiler):")
+    for name, ms, count in host:
+        print(f"    {ms:8.3f} ms  x{count:<5d} {name}")
+    return out
+
 
 def main():
     try:
@@ -422,6 +881,10 @@ def main():
     sys.path.insert(0, REPO)
     import lvae_tpu_torch  # noqa: F401  (fails when run outside the repository)
 
+    # phase 9 turns deterministic algorithms on; cuBLAS needs this set
+    # before its first use
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -431,26 +894,54 @@ def main():
           f"tf32 off", flush=True)
     t0 = time.perf_counter()
     phase_build()
+    res = {"card": card}
     k2_err, k2_t = phase_sample_kl(card)
     k4_err, k4_t = phase_logsumexp(card)
-    res = phase_slice(card)
-    print(f"total {time.perf_counter() - t0:.1f} s")
-    print(card)
-    print(json.dumps({"kernels": [
+    ev = phase_slice(card)
+    res.update(images_per_sec=ev["rates"], elbo_profile=ev["elbo_profile"])
+    kernels = [
         {"name": "sample_kl", "route": "cuda",
          "source": "lvae_tpu_torch/csrc/stochastic_kl.cu",
          "replaces": "lvae_tpu/kernels/stochastic_pallas.py:149",
-         "launches": res["launches"]["sample_kl"], "max_abs_err": k2_err,
+         "launches": ev["launches"]["sample_kl"], "max_abs_err": k2_err,
          "ms": k2_t[0], "plain_ms": k2_t[1], "device_ms": k2_t[2],
-         "plain_device_ms": k2_t[3], "shapes": "3 layers at B=1000"},
+         "plain_device_ms": k2_t[3], "shapes": "3 layers at B=1000",
+         "path": "evaluate"},
         {"name": "logsumexp", "route": "cuda",
          "source": "lvae_tpu_torch/csrc/logsumexp.cu",
          "replaces": "lvae_tpu/kernels/logsumexp_pallas.py:36",
-         "launches": res["launches"]["logsumexp"], "max_abs_err": k4_err,
+         "launches": ev["launches"]["logsumexp"], "max_abs_err": k4_err,
          "ms": k4_t[0], "plain_ms": k4_t[1], "device_ms": k4_t[2],
-         "plain_device_ms": k4_t[3], "shapes": "[100, 1000]"},
-    ], "images_per_sec": res["rates"], "elbo_profile": res["elbo_profile"],
-        "card": card}))
+         "plain_device_ms": k4_t[3], "shapes": "[100, 1000]", "path": "evaluate"},
+    ]
+    k1_err, k1_t = phase_k1(card)
+    bwd_err, bwd_t = phase_bwd(card)
+    train_u8, test_u8 = train_data()
+    tr = phase_train(card, train_u8, test_u8)
+    res.update(train_run={k: tr[k] for k in ("wall_s", "log_rates", "log_rate_91_300",
+                                            "test_elbo", "ema_loss")})
+    res.update(phase_step(card, train_u8, test_u8))
+    train_path = "lvae_tpu_torch.main (training)"
+    for name, replaces, e, t, path in (
+        ("sample_kl_per_sample", "lvae_tpu/kernels/stochastic_pallas.py:318", k1_err, k1_t,
+         train_path),
+        ("sample_kl_per_sample_bwd", "lvae_tpu/kernels/stochastic_pallas.py:350",
+         bwd_err["k1"], bwd_t["k1"], train_path),
+        # K2's gradient: neither entry point differentiates through K2 (the
+        # trainer's K1 takes every shape, so it never falls back to K2 as
+        # lvae_tpu's does for F % 128 != 0); held to autograd in phase 7
+        ("sample_kl_bwd", "lvae_tpu/kernels/stochastic_pallas.py:178",
+         bwd_err["k2"], bwd_t["k2"], "not on either entry point's path; phase 7"),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "lvae_tpu_torch/csrc/stochastic_kl.cu",
+            "replaces": replaces, "launches": tr["launches"][name], "max_abs_err": e,
+            "ms": t[0], "plain_ms": t[1], "device_ms": t[2], "plain_device_ms": t[3],
+            "shapes": "3 layers at B=64", "path": path,
+        })
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(card)
+    print(json.dumps({"kernels": kernels, **res}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

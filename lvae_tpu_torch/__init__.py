@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of ``lvae_tpu`` for one NVIDIA H100.
 
-This package runs the flagship Ladder VAE's evaluation and serving path
-(test ELBO, k-sample IW log-likelihood, reconstruct / encode / generate)
-through two hand-written CUDA kernels: the fused sample+KL kernel
-(``kernels/stochastic.py``) and the IW logsumexp (``kernels/logsumexp.py``).
-Training comes later.
+This package trains the flagship Ladder VAE (``python -m
+lvae_tpu_torch.main``) and runs its evaluation and serving path (test
+ELBO, k-sample IW log-likelihood, reconstruct / encode / generate)
+through hand-written CUDA kernels: the fused sample+KL kernels, forward
+per element (K2) and per sample (K1) with their backward
+(``kernels/stochastic.py``), and the IW logsumexp
+(``kernels/logsumexp.py``).
 
 It imports torch and numpy, never jax or ``lvae_tpu``; ``lvae_tpu`` stays
 the reference it is tested against (``tests/test_torch_*.py``). Public

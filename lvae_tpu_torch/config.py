@@ -1,16 +1,20 @@
-"""Model and evaluation configuration (port of ``lvae_tpu/config.py``).
+"""Configuration and the training CLI's flags (port of ``lvae_tpu/config.py``).
 
-Only the fields the evaluation and serving path reads are kept. A
-``lvae_tpu`` run's ``config.json`` loads through :func:`config_from_dict`,
-which drops the train-only fields unread: they are neither stored nor
-validated here, so a stored train batch size can never block an
-evaluation.
+:class:`EvalConfig` holds the fields the evaluation and serving path
+reads. A run's ``config.json`` (``lvae_tpu``'s or this port's trainer's)
+loads through :func:`config_from_dict`, which drops the train-only fields
+unread: they are neither stored nor validated there, so a stored train
+batch size can never block an evaluation. :class:`TrainConfig` adds the
+training fields, validated as ``lvae_tpu`` validates them; what the port
+does not run is rejected with its flag named.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from typing import Optional, Tuple
+import time
+from typing import Optional, Sequence, Tuple
 
 # Values this slice does not run; each names the flag it came from.
 _LATER = "a later PR of the port"
@@ -118,3 +122,220 @@ def config_from_dict(d: dict) -> EvalConfig:
             v = None
         kwargs[k] = v
     return EvalConfig(**kwargs)
+
+
+@dataclasses.dataclass
+class TrainConfig(EvalConfig):
+    """The training fields of ``lvae_tpu/config.py:ExperimentConfig``."""
+
+    batch_size: int = 64
+    dropout: float = 0.2
+    dropout_impl: str = "bits8"
+    freebits: float = 0.0
+    beta_anneal: int = 0
+    lr: float = 3e-4
+    max_grad_norm: Optional[float] = None
+    max_steps: int = 100_000
+    ema_decay: float = 0.999
+    data_dep_init: bool = False
+    seed: int = 54321
+    log_interval: int = 1000
+    test_interval: int = 10_000
+    checkpoint_interval: int = 10_000
+    keep_checkpoints: int = 2
+    output_dir: str = "./output"
+    run_name: Optional[str] = None
+    load: Optional[str] = None
+    auto_resume: bool = False
+    dry_run: bool = False
+    # lvae_tpu options this port does not run: stored so a run directory
+    # says what it ran, and rejected below at anything but the value the
+    # port runs
+    grad_accum: int = 1
+    remat: bool = False
+    streaming: bool = False
+    num_data_shards: int = 1
+    steps_per_call: int = 1
+    rng_impl: str = "threefry"
+
+    def __post_init__(self):
+        super().__post_init__()
+
+        def _positive(name, v):
+            if v < 1:
+                raise ValueError(f"--{name} must be >= 1, got {v}")
+
+        for name in ("batch-size", "max-steps", "log-interval", "test-interval",
+                     "checkpoint-interval", "keep-checkpoints"):
+            _positive(name, getattr(self, name.replace("-", "_")))
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"--dropout must be in [0, 1), got {self.dropout}")
+        if self.dropout_impl not in ("bits8", "float"):
+            raise ValueError(f"--dropout-impl must be bits8 or float, got {self.dropout_impl!r}")
+        if self.freebits < 0:
+            raise ValueError(f"--freebits must be >= 0, got {self.freebits}")
+        if self.beta_anneal < 0:
+            raise ValueError(f"--beta-anneal must be >= 0, got {self.beta_anneal}")
+        if self.lr <= 0:
+            raise ValueError(f"--lr must be > 0, got {self.lr}")
+        if self.max_grad_norm is not None and self.max_grad_norm <= 0:
+            raise ValueError(f"--max-grad-norm must be > 0, got {self.max_grad_norm}")
+        if not 0.0 <= self.ema_decay <= 1.0:
+            raise ValueError(f"--ema-decay must be in [0, 1], got {self.ema_decay}")
+        _positive("grad-accum", self.grad_accum)
+        _positive("num-data-shards", self.num_data_shards)
+        _positive("steps-per-call", self.steps_per_call)
+        # what the port's trainer does not run, each rejected by its flag
+        for flag, bad, why in (
+            ("--grad-accum", self.grad_accum > 1, "gradient accumulation"),
+            ("--remat", self.remat, "rematerialisation"),
+            ("--streaming", self.streaming, "the host streaming pipeline"),
+            ("--num-data-shards", self.num_data_shards > 1, "multi-GPU training"),
+            ("--steps-per-call", self.steps_per_call > 1,
+             "several steps per dispatch (a CUDA graph in the port)"),
+        ):
+            if bad:
+                raise ValueError(
+                    f"{flag} {getattr(self, flag[2:].replace('-', '_'))}: {why} "
+                    f"is not ported yet; it comes in {_LATER}"
+                )
+        if self.rng_impl != "threefry":
+            raise ValueError(
+                f"--rng-impl {self.rng_impl}: the port's noise is a keyed, "
+                f"counter-based Philox (batch-invariant like threefry); "
+                f"rbg is not ported"
+            )
+
+    def describe(self) -> str:
+        """The run directory's descriptive suffix, as ``lvae_tpu`` names it."""
+        parts = [self.dataset.replace(":", ""), "z" + "-".join(map(str, self.zdims)),
+                 f"f{self.n_filters}", f"b{self.blocks_per_layer}"]
+        for flag, name in ((self.skip, "skip"), (self.gated, "gated")):
+            if flag:
+                parts.append(name)
+        if self.freebits:
+            parts.append(f"fb{self.freebits:g}")
+        if self.beta_anneal:
+            parts.append(f"anneal{self.beta_anneal}")
+        if self.learn_top_prior:
+            parts.append("ltp")
+        if self.conv_pad != "same":
+            parts.append(f"pad-{self.conv_pad}")
+        if self.skip_merge != "pre":
+            parts.append(f"sm-{self.skip_merge}")
+        parts.append(f"seed{self.seed}")
+        return ",".join(parts)
+
+    def make_run_name(self) -> str:
+        return self.run_name or f"{time.strftime('%y%m%d_%H%M%S')}_{self.describe()}"
+
+
+def train_config_from_dict(d: dict) -> TrainConfig:
+    """A :class:`TrainConfig` from a saved ``config.json`` (resume)."""
+    names = {f.name for f in dataclasses.fields(TrainConfig)}
+    return TrainConfig(**{k: tuple(v) if isinstance(v, list) else
+                          (None if v == "None" else v)
+                          for k, v in d.items() if k in names})
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """``lvae_tpu``'s training flags, spelled as there, plus ``--device``."""
+    p = argparse.ArgumentParser(
+        description="Ladder VAE training with the PyTorch/CUDA port",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    d = TrainConfig()
+    add = p.add_argument
+    # data
+    add("--dataset", default=d.dataset)
+    add("--data-dir", default=d.data_dir)
+    add("--batch-size", type=int, default=d.batch_size)
+    add("--test-batch-size", type=int, default=d.test_batch_size)
+    # model
+    add("--zdims", type=int, nargs="+", default=list(d.zdims))
+    add("--downsample", type=int, nargs="+", default=list(d.downsample))
+    add("--nonlin", default=d.nonlin,
+        choices=["relu", "leakyrelu", "elu", "selu", "gelu", "silu"])
+    add("--skip", action="store_true", help="stochastic skip connections")
+    add("--blocks-per-layer", type=int, default=d.blocks_per_layer)
+    add("--gated", action="store_true")
+    add("--freebits", type=float, default=d.freebits)
+    add("--learn-top-prior", action="store_true")
+    add("--data-dep-init", action="store_true")
+    add("--seed", type=int, default=d.seed)
+    add("--n-filters", type=int, default=d.n_filters)
+    add("--no-initial-downscaling", action="store_true")
+    add("--dropout", type=float, default=d.dropout)
+    add("--dropout-impl", default=d.dropout_impl, choices=["bits8", "float"])
+    add("--residual-type", default=d.residual_type)
+    add("--merge-layers", default=d.merge_layers, choices=["linear", "residual"])
+    add("--resample-mode", default=d.resample_mode, choices=["conv", "interpolate"])
+    add("--conv-pad", default=d.conv_pad, choices=["same", "torch"])
+    add("--skip-merge", default=d.skip_merge, choices=["pre", "post"])
+    add("--no-bn", action="store_true", help="disable batchnorm")
+    add("--bn-stat-samples", type=int, default=d.bn_stat_samples)
+    add("--likelihood", default=None,
+        choices=["bernoulli", "gaussian", "discretized_logistic",
+                 "discretized_logistic_mix"])
+    # loss / optimization
+    add("--beta-anneal", type=int, default=d.beta_anneal, help="KL warmup steps (0 = off)")
+    add("--lr", type=float, default=d.lr)
+    add("--max-grad-norm", type=float, default=None)
+    add("--grad-accum", type=int, default=d.grad_accum)
+    add("--max-steps", type=int, default=d.max_steps)
+    add("--ema-decay", type=float, default=d.ema_decay)
+    # infrastructure
+    add("--rng-impl", default=d.rng_impl, choices=["rbg", "threefry"])
+    add("--precision", default=d.precision, choices=["fp32", "bf16"])
+    add("--fused", default=d.fused,
+        choices=["auto", "none", "stochastic", "mixture", "pallas", "segments", "all"],
+        help="kernel policy: 'auto' turns the sample+KL kernels on on CUDA; "
+             "'none' is plain PyTorch")
+    add("--remat", action="store_true")
+    add("--steps-per-call", type=int, default=d.steps_per_call)
+    add("--streaming", action="store_true")
+    add("--num-data-shards", type=int, default=d.num_data_shards)
+    add("--spatial-shards", type=int, default=d.spatial_shards)
+    add("--log-interval", type=int, default=d.log_interval)
+    add("--test-interval", type=int, default=d.test_interval)
+    add("--checkpoint-interval", type=int, default=d.checkpoint_interval)
+    add("--keep-checkpoints", type=int, default=d.keep_checkpoints)
+    add("--output-dir", default=d.output_dir)
+    add("--run-name", default=None)
+    add("--load", default=None, help="run name (or dir) to resume from")
+    add("--auto-resume", action="store_true",
+        help="restore this run's latest checkpoint if one exists")
+    add("--dry-run", action="store_true", help="no checkpoints, no run directory")
+    # lvae_tpu flags the port rejects when set
+    add("--profile", default=None, metavar="A-B")
+    add("--debug-nans", action="store_true")
+    add("--defer-metrics", action="store_true")
+    # devices
+    add("--device", default="cuda", choices=["cuda", "cpu"],
+        help="cuda needs a visible card and never falls back to the CPU")
+    add("--platform", default=None,
+        help="lvae_tpu's backend switch; the port takes cuda or cpu (as --device)")
+    return p
+
+
+def config_from_args(argv: Optional[Sequence[str]] = None) -> Tuple[TrainConfig, str]:
+    """``(config, device)`` from the command line."""
+    args = build_parser().parse_args(argv)
+    for flag, bad in (("--profile", args.profile is not None),
+                      ("--debug-nans", args.debug_nans),
+                      ("--defer-metrics", args.defer_metrics)):
+        if bad:
+            raise ValueError(f"{flag} is not ported yet; it comes in {_LATER}")
+    device = args.device
+    if args.platform is not None:
+        if args.platform not in ("cuda", "cpu"):
+            raise ValueError(
+                f"--platform {args.platform}: the port runs on cuda or cpu only"
+            )
+        device = args.platform
+    names = {f.name for f in dataclasses.fields(TrainConfig)}
+    kw = {k: v for k, v in vars(args).items() if k in names}
+    kw["batchnorm"] = not args.no_bn
+    for k in ("zdims", "downsample"):
+        kw[k] = tuple(kw[k])
+    return TrainConfig(**kw), device

@@ -1,2 +1,2 @@
-"""Test-set loading and eval preprocessing (a subset of ``lvae_tpu/data``:
-the Bernoulli datasets of the flagship slice)."""
+"""Dataset loading, preprocessing and the device-resident train split (a
+subset of ``lvae_tpu/data``: the flagship's Bernoulli datasets)."""

@@ -1,10 +1,12 @@
-"""Dataset metadata and test-set loading (a subset of
-``lvae_tpu/data/registry.py``: the flagship's Bernoulli datasets)."""
+"""Dataset metadata and loading (a subset of ``lvae_tpu/data/registry.py``:
+the flagship's Bernoulli datasets). :func:`load_test_set` reads the test
+split alone (evaluation never parses a train split); :func:`load_dataset`
+both."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -37,10 +39,33 @@ class TestSet:
     def data_dims(self) -> int:
         return self.img_size[0] * self.img_size[1] * self.color_ch
 
+    @property
+    def data_shape(self) -> Tuple[int, int, int]:
+        return (*self.img_size, self.color_ch)
+
+
+@dataclasses.dataclass(frozen=True)
+class Dataset(TestSet):
+    """Both splits (uint8 NHWC) with the metadata."""
+
+    train: Optional[np.ndarray] = None
+
 
 def load_test_set(name: str, data_dir: str = "./data") -> TestSet:
     """The test split of a dataset, with its metadata (``synthetic:N``
     takes lvae_tpu's size suffix)."""
+    test, _, meta = _load(name, data_dir, with_train=False)
+    return TestSet(name, test, *meta)
+
+
+def load_dataset(name: str, data_dir: str = "./data") -> Dataset:
+    """Both splits: static_mnist's train is train + valid, mnist's the
+    idx train file, ``synthetic[:N]`` lvae_tpu's fixture."""
+    test, train, meta = _load(name, data_dir, with_train=True)
+    return Dataset(name, test, *meta, train=train)
+
+
+def _load(name: str, data_dir: str, with_train: bool):
     base, _, size = name.partition(":")
     if base not in _META:
         raise NotImplementedError(
@@ -49,10 +74,15 @@ def load_test_set(name: str, data_dir: str = "./data") -> TestSet:
             f"mixture-head PR"
         )
     meta = _META[base]
+    train = None
     if base == "static_mnist":
         test = sources.load_static_mnist_test(data_dir)
+        if with_train:
+            train = sources.load_static_mnist_train(data_dir)
     elif base == "mnist":
         test = sources.load_mnist_test(data_dir)
+        if with_train:
+            train = sources.load_mnist_train(data_dir)
     else:
         # lvae_tpu's fixture rule: 'synthetic:N' = N train images, test
         # N//4 clamped to [128, 1024]
@@ -65,6 +95,6 @@ def load_test_set(name: str, data_dir: str = "./data") -> TestSet:
                     "with a positive integer N"
                 )
         n_test = min(max(n_train // 4, 128), 1024)
-        _, test = sources.make_synthetic(n_train=n_train, n_test=n_test,
-                                         img=meta[0][0])
-    return TestSet(name, test, *meta)
+        train, test = sources.make_synthetic(n_train=n_train, n_test=n_test,
+                                             img=meta[0][0])
+    return test, train, meta

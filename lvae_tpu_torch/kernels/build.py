@@ -33,18 +33,32 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"sample_kl": 0, "sample_kl_eps": 0, "logsumexp": 0}
+LAUNCHES = {
+    "sample_kl": 0,                  # K2, keyed noise
+    "sample_kl_eps": 0,              # K2, given eps
+    "sample_kl_per_sample": 0,       # K1, keyed noise
+    "sample_kl_per_sample_eps": 0,   # K1, given eps
+    "sample_kl_bwd": 0,              # K2-bwd
+    "sample_kl_per_sample_bwd": 0,   # K1-bwd
+    "logsumexp": 0,                  # K4
+}
 
 _P = ctypes.c_void_p
+_I64, _U32, _U64, _INT = ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint64, ctypes.c_int
+# q, p, p_row_stride, index, sample (or NULL), sample_word, seed, stream_word
+_KEYED = (_P, _P, _I64, _P, _P, _U32, _U64, _U32)
 _SIGNATURES = {
-    # q, p, p_row_stride, index, sample (or NULL), sample_word, seed,
-    # stream_word, z, kl, rows, c, hw, stream
-    "lvae_sample_kl": (_P, _P, ctypes.c_int64, _P, _P, ctypes.c_uint32,
-                       ctypes.c_uint64, ctypes.c_uint32, _P, _P, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_int, _P),
+    # keyed, z, kl, rows, c, hw, stream
+    "lvae_sample_kl": (*_KEYED, _P, _P, _I64, _INT, _INT, _P),
     # q, p, p_row_stride, eps, z, kl, rows, c, hw, stream
-    "lvae_sample_kl_eps": (_P, _P, ctypes.c_int64, _P, _P, _P,
-                           ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P),
+    "lvae_sample_kl_eps": (_P, _P, _I64, _P, _P, _P, _I64, _INT, _INT, _P),
+    # keyed, eps (or NULL: keyed noise), z, kl_rows, rows, c, hw, stream
+    "lvae_sample_kl_per_sample": (*_KEYED, _P, _P, _P, _I64, _INT, _INT, _P),
+    # keyed, eps (or NULL: regenerate the keyed noise), gz, gkl, dq, dp,
+    # rows, c, hw, stream
+    "lvae_sample_kl_bwd": (*_KEYED, _P, _P, _P, _P, _P, _I64, _INT, _INT, _P),
+    "lvae_sample_kl_per_sample_bwd": (*_KEYED, _P, _P, _P, _P, _P, _I64, _INT,
+                                      _INT, _P),
     # x, k, b, out, stream
     "lvae_logsumexp": (_P, ctypes.c_int, ctypes.c_int64, _P, _P),
 }

@@ -1,14 +1,17 @@
-"""Deterministic building blocks, eval mode (port of
-``lvae_tpu/models/blocks.py``).
+"""Deterministic building blocks (port of ``lvae_tpu/models/blocks.py``).
 
 NCHW inside; convolutions and BatchNorm go to cuDNN. Submodules carry the
 flax names (``Conv_0``, ``BatchNorm_1``, ``GateLayer_0``,
 ``ResidualBlock_0``, ``ConvTranspose_0``) so ``state_dict()`` keys equal
 ``lvae_tpu.train.convert.torch_key_for`` of the flax paths.
 
-Eval only: BatchNorm always normalises with its running statistics and
-dropout is the identity. Train-mode dropout and the BatchNorm update come
-with the training slice.
+Every block takes ``train``, as ``lvae_tpu``'s do. Eval: BatchNorm
+normalises with its running statistics and dropout is the identity.
+Train: BatchNorm normalises with the batch mean and biased variance and
+moves its running statistics as flax does (momentum 0.9, biased
+variance); dropout draws its mask from a generator keyed by (train seed,
+step, dropout site) (:class:`DropoutKey`), so a step's masks are a
+function of the step alone.
 """
 
 from __future__ import annotations
@@ -19,6 +22,9 @@ from typing import Callable, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from lvae_tpu_torch.ops.math import bits8_dropout_f32, bits8_keep_threshold
+from lvae_tpu_torch.ops.philox import mix_seed
 
 NONLINEARITIES: dict[str, Callable] = {
     "relu": F.relu,
@@ -138,6 +144,75 @@ def batch_norm_eval(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
                         bn.bias, False, 0.0, bn.eps)
 
 
+def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor,
+                     momentum: float = 0.9) -> torch.Tensor:
+    """flax's ``nn.BatchNorm(use_running_average=False, momentum=0.9)``:
+    normalise with the batch mean and *biased* variance (gradients flow
+    through both), then ``ra = m * ra + (1 - m) * batch`` with the biased
+    variance. ``nn.BatchNorm2d``'s own update would store the unbiased
+    one, so its running buffers are only read here: the one BatchNorm
+    kernel writes the batch statistics into fresh buffers (momentum 1),
+    and the running statistics are moved from those."""
+    c = x.shape[1]
+    mean = torch.zeros(c, dtype=x.dtype, device=x.device)
+    var = torch.ones(c, dtype=x.dtype, device=x.device)
+    y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, 1.0, bn.eps)
+    n = x.numel() // c
+    with torch.no_grad():
+        biased = var * ((n - 1) / n)       # the kernel stored n/(n-1) x it
+        bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * biased)
+    return y
+
+
+class DropoutKey:
+    """The dropout keys of one model: every :class:`Dropout` of the model
+    holds this one object and its own site number, and draws its bits from
+    a ``torch.Generator`` seeded with ``mix_seed(seed, step, site)``. The
+    model sets ``seed`` and ``step`` before a training forward."""
+
+    def __init__(self):
+        self.seed, self.step = 0, 0
+        self._generators: dict = {}
+
+    def generator(self, device: torch.device, site: int) -> torch.Generator:
+        g = self._generators.get(device)
+        if g is None:
+            g = self._generators[device] = torch.Generator(device=device)
+        g.manual_seed(mix_seed(self.seed, self.step, site))
+        return g
+
+
+class Dropout(nn.Module):
+    """``lvae_tpu``'s dropout: ``bits8`` keeps an element iff its random
+    byte is below ``t = round(256 (1 - rate))`` and scales survivors by
+    ``256 / t`` in fp32 (``FastDropout``); ``float`` is plain dropout at
+    the exact rate (``nn.Dropout``). The identity outside training."""
+
+    def __init__(self, rate: float, impl: str = "bits8"):
+        super().__init__()
+        if impl not in ("bits8", "float"):
+            raise ValueError(f"unknown dropout_impl {impl!r}; use 'bits8' or 'float'")
+        self.rate, self.impl = rate, impl
+        self.site = 0
+        self.key = DropoutKey()   # the model replaces it with its shared one
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        g = self.key.generator(x.device, self.site)
+        if self.impl == "float":
+            keep = 1.0 - self.rate
+            u = torch.rand(x.shape, dtype=x.dtype, device=x.device, generator=g)
+            return torch.where(u < keep, x / keep, 0.0)
+        t = bits8_keep_threshold(self.rate)
+        if t >= 256:      # rate below the 8-bit resolution: keep everything
+            return x
+        if t <= 0:        # rate ~ 1: drop everything
+            return torch.zeros_like(x)
+        return bits8_dropout_f32(x, g, t)
+
+
 class GateLayer(nn.Module):
     """a * sigmoid(b) from a 1x1 conv to 2x the channels."""
 
@@ -158,12 +233,13 @@ class ResidualBlock(nn.Module):
     def __init__(self, channels: int, block_type: str = "bacdbacd",
                  kernel_size: int = 3, nonlin: str = "elu",
                  batchnorm: bool = True, gated: bool = False,
-                 conv_pad: str = "same"):
+                 conv_pad: str = "same", dropout_rate: float = 0.0,
+                 dropout_impl: str = "bits8"):
         super().__init__()
         self.block_type = block_type
         self.act = get_nonlin(nonlin)
         self.batchnorm = batchnorm
-        nb = nc = 0
+        nb = nc = nd = 0
         for ch in block_type:
             if ch == "b" and batchnorm:
                 self.add_module(f"BatchNorm_{nb}", nn.BatchNorm2d(channels, eps=1e-5))
@@ -174,22 +250,29 @@ class ResidualBlock(nn.Module):
                     Conv2d(channels, channels, kernel_size, conv_pad=conv_pad),
                 )
                 nc += 1
+            elif ch == "d":
+                self.add_module(f"Dropout_{nd}", Dropout(dropout_rate, dropout_impl))
+                nd += 1
             elif ch not in "abcd":
                 raise ValueError(f"unknown block_type char {ch!r} in {block_type!r}")
         self.GateLayer_0 = GateLayer(channels) if gated else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h = x
-        nb = nc = 0
+        nb = nc = nd = 0
         for ch in self.block_type:
             if ch == "b" and self.batchnorm:
-                h = batch_norm_eval(getattr(self, f"BatchNorm_{nb}"), h)
+                bn = getattr(self, f"BatchNorm_{nb}")
+                h = batch_norm_train(bn, h) if train else batch_norm_eval(bn, h)
                 nb += 1
             elif ch == "a":
                 h = self.act(h)
             elif ch == "c":
                 h = getattr(self, f"Conv_{nc}")(h)
                 nc += 1
+            elif ch == "d":
+                h = getattr(self, f"Dropout_{nd}")(h, train)
+                nd += 1
         if self.GateLayer_0 is not None:
             h = self.GateLayer_0(h)
         return x + h
@@ -205,7 +288,8 @@ class ResBlockWithResampling(nn.Module):
                  resample: bool = False, resample_mode: str = "conv",
                  block_type: str = "bacdbacd", kernel_size: int = 3,
                  nonlin: str = "elu", batchnorm: bool = True,
-                 gated: bool = False, conv_pad: str = "same"):
+                 gated: bool = False, conv_pad: str = "same",
+                 dropout_rate: float = 0.0, dropout_impl: str = "bits8"):
         super().__init__()
         if mode not in ("bottom-up", "top-down"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -225,10 +309,11 @@ class ResBlockWithResampling(nn.Module):
         elif cin != channels:
             self.Conv_0 = Conv2d(cin, channels, 1)
         self.ResidualBlock_0 = ResidualBlock(
-            channels, block_type, kernel_size, nonlin, batchnorm, gated, conv_pad
+            channels, block_type, kernel_size, nonlin, batchnorm, gated, conv_pad,
+            dropout_rate, dropout_impl,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.resample and self.resample_mode == "interpolate":
             h, w = x.shape[-2], x.shape[-1]
             hw = (h // 2, w // 2) if self.mode == "bottom-up" else (2 * h, 2 * w)
@@ -238,7 +323,7 @@ class ResBlockWithResampling(nn.Module):
             x = self.ConvTranspose_0(x)
         elif self.Conv_0 is not None:
             x = self.Conv_0(x)
-        return self.ResidualBlock_0(x)
+        return self.ResidualBlock_0(x, train)
 
 
 class MergeLayer(nn.Module):
@@ -247,19 +332,21 @@ class MergeLayer(nn.Module):
 
     def __init__(self, channels: int, merge_type: str = "residual",
                  block_type: str = "bacdbacd", nonlin: str = "elu",
-                 batchnorm: bool = True, conv_pad: str = "same"):
+                 batchnorm: bool = True, conv_pad: str = "same",
+                 dropout_rate: float = 0.0, dropout_impl: str = "bits8"):
         super().__init__()
         if merge_type not in ("linear", "residual"):
             raise ValueError(f"unknown merge_type {merge_type!r}")
         self.Conv_0 = Conv2d(2 * channels, channels, 1)
         self.ResidualBlock_0 = (
             ResidualBlock(channels, block_type, 3, nonlin, batchnorm, False,
-                          conv_pad)
+                          conv_pad, dropout_rate, dropout_impl)
             if merge_type == "residual" else None
         )
 
-    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def forward(self, a: torch.Tensor, b: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         x = self.Conv_0(torch.cat([a, b], dim=1))
         if self.ResidualBlock_0 is not None:
-            x = self.ResidualBlock_0(x)
+            x = self.ResidualBlock_0(x, train)
         return x

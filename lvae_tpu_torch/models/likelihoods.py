@@ -21,7 +21,7 @@ class BernoulliLikelihood(nn.Module):
 
     def forward(self, h: torch.Tensor, x: Optional[torch.Tensor]
                 ) -> Tuple[Optional[torch.Tensor], dict]:
-        logits = self.param_conv(h)
+        logits = self.param_conv(h).float()   # fp32 whatever the convs' dtype
         mean = torch.sigmoid(logits)
         data = {"params": logits, "mean": mean, "mode": torch.round(mean)}
         ll = bernoulli_log_prob(x, logits) if x is not None else None

@@ -1,4 +1,4 @@
-"""The Ladder VAE, evaluation and generation (port of
+"""The Ladder VAE: training, evaluation and generation (port of
 ``lvae_tpu/models/lvae.py``).
 
 Conventions kept from the reference package: layer 0 is the bottom
@@ -13,7 +13,11 @@ BatchNorm go to cuDNN as they are. Latent noise is keyed per image
 (:class:`~lvae_tpu_torch.models.stochastic.Noise`); layer ``i`` draws on
 Philox stream ``i``.
 
-Eval only: ``train=True`` raises. fp32 only: building the model turns
+``train=True`` runs BatchNorm on batch statistics (and moves the running
+ones), dropout keyed by ``(noise.seed, step = noise.sample, site)``, and,
+with ``fused_stochastic``, the per-sample KL kernel K1 in every latent
+layer: ``kl_sep`` then comes from its ``[B]`` sums and ``kl_spatial`` is
+``None``, as in ``lvae_tpu``. fp32 on the card: building the model turns
 TF32 off (:func:`lvae_tpu_torch.fp32_math`).
 """
 
@@ -29,6 +33,8 @@ from torch import nn
 from lvae_tpu_torch import fp32_math
 from lvae_tpu_torch.models.blocks import (
     Conv2d,
+    Dropout,
+    DropoutKey,
     MergeLayer,
     ResBlockWithResampling,
     ResidualBlock,
@@ -38,8 +44,6 @@ from lvae_tpu_torch.models.blocks import (
 from lvae_tpu_torch.models.likelihoods import make_likelihood
 from lvae_tpu_torch.models.stochastic import Noise, NormalStochasticBlock
 from lvae_tpu_torch.ops.math import crop_img_tensor, pad_img_tensor
-
-_TRAIN = "training runs only in lvae_tpu until the port's training PR"
 
 
 def _nchw(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -65,13 +69,15 @@ class TopDownLayer(nn.Module):
                  merge_type: str = "residual", block_type: str = "bacdbacd",
                  nonlin: str = "elu", batchnorm: bool = True,
                  gated: bool = False, fused: bool = False,
-                 resample_mode: str = "conv", conv_pad: str = "same"):
+                 resample_mode: str = "conv", conv_pad: str = "same",
+                 dropout_rate: float = 0.0, dropout_impl: str = "bits8"):
         super().__init__()
         self.is_top, self.z_dim = is_top, z_dim
         self.top_prior_hw = tuple(top_prior_hw)
         self.skip_merge_mode = skip_merge_mode
         common = dict(block_type=block_type, nonlin=nonlin,
-                      batchnorm=batchnorm, conv_pad=conv_pad)
+                      batchnorm=batchnorm, conv_pad=conv_pad,
+                      dropout_rate=dropout_rate, dropout_impl=dropout_impl)
         # the top rung has no incoming state: lvae_tpu never calls (so
         # never creates) its merge or skip merge
         self.merge = None if is_top else MergeLayer(n_filters, merge_type, **common)
@@ -120,33 +126,33 @@ class TopDownLayer(nn.Module):
                 raise ValueError("non-top layer needs incoming top-down state")
             p_in = td_in
         if bu_value is not None:
-            q_in = bu_value if self.is_top else self.merge(bu_value, td_in)
+            q_in = bu_value if self.is_top else self.merge(bu_value, td_in, train)
         else:
             q_in = None
         s = self.stochastic(
             p_in, q_in, noise=noise, stream=stream,
             forced_latent=forced_latent, forced_eps=forced_eps,
-            use_mode=use_mode, constant_latent=constant_latent, train=train,
+            use_mode=use_mode, constant_latent=constant_latent,
+            train=train,
             temperature=temperature,
         )
         h = s["out"]
         do_skip = self.skip_merge is not None and td_in is not None
         if do_skip and self.skip_merge_mode == "pre":
-            h = self.skip_merge(h, td_in)
+            h = self.skip_merge(h, td_in, train)
         for blk in self.det_blocks:
-            h = blk(h)
+            h = blk(h, train)
         if do_skip and self.skip_merge_mode == "post":
             skip = td_in
             if skip.shape[-2:] != h.shape[-2:]:
                 skip = F.interpolate(skip, size=h.shape[-2:], mode="nearest-exact")
-            h = self.skip_merge(h, skip)
+            h = self.skip_merge(h, skip, train)
         return h, s
 
 
 class LadderVAE(nn.Module):
-    """Hierarchical Ladder VAE, eval mode. ``generator`` draws the initial
-    weights (seed 0 when omitted); real weights come through
-    ``load_state_dict``."""
+    """Hierarchical Ladder VAE. ``generator`` draws the initial weights
+    (seed 0 when omitted); real weights come through ``load_state_dict``."""
 
     def __init__(self, color_ch: int, z_dims: Sequence[int] = (32, 32, 32),
                  blocks_per_layer: int = 2, n_filters: int = 64,
@@ -159,7 +165,8 @@ class LadderVAE(nn.Module):
                  nonlin: str = "elu", res_block_type: str = "bacdbacd",
                  merge_type: str = "residual", resample_mode: str = "conv",
                  conv_pad: str = "same", no_initial_downscaling: bool = False,
-                 fused_stochastic: bool = False,
+                 fused_stochastic: bool = False, dropout_rate: float = 0.2,
+                 dropout_impl: str = "bits8",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if skip_merge_mode not in ("pre", "post"):
@@ -179,7 +186,9 @@ class LadderVAE(nn.Module):
                 f"(initial downscale + sum(downsample))"
             )
         common = dict(block_type=res_block_type, nonlin=nonlin,
-                      batchnorm=batchnorm, conv_pad=conv_pad)
+                      batchnorm=batchnorm, conv_pad=conv_pad,
+                      dropout_rate=dropout_rate, dropout_impl=dropout_impl)
+        self.dropout_rate = dropout_rate
 
         self.first_conv = Conv2d(color_ch, n_filters, 5,
                                  stride=1 if no_initial_downscaling else 2,
@@ -224,6 +233,10 @@ class LadderVAE(nn.Module):
         for j, blk in enumerate(self.final_blocks):
             self.add_module(f"final_blocks_{j}", blk)
         self.likelihood_head = make_likelihood(likelihood, n_filters, color_ch)
+        # one dropout key for the model; each dropout site has its number
+        self.dropout_key = DropoutKey()
+        for site, m in enumerate(m for m in self.modules() if isinstance(m, Dropout)):
+            m.site, m.key = site, self.dropout_key
 
         fp32_math()
         if generator is None:
@@ -268,12 +281,24 @@ class LadderVAE(nn.Module):
     # ------------------------------------------------------------------
     # passes (NCHW inside)
     # ------------------------------------------------------------------
-    def _bottomup(self, x: torch.Tensor) -> list[torch.Tensor]:
-        h = self.first_block(self.act(self.first_conv(x)))
+    def _set_dropout_step(self, noise: Optional[Noise]) -> None:
+        """Key a training forward's dropout by ``(noise.seed, step)``; the
+        step is ``noise.sample``."""
+        if self.dropout_rate <= 0.0:
+            return
+        if noise is None or isinstance(noise.sample, torch.Tensor):
+            raise ValueError(
+                "a training forward with dropout needs noise=Noise(seed, "
+                "index, step) with the step as an int sample"
+            )
+        self.dropout_key.seed, self.dropout_key.step = int(noise.seed), int(noise.sample)
+
+    def _bottomup(self, x: torch.Tensor, train: bool = False) -> list[torch.Tensor]:
+        h = self.first_block(self.act(self.first_conv(x)), train)
         bu_values = []
         for layer in self.bottom_up_layers:
             for blk in layer:
-                h = blk(h)
+                h = blk(h, train)
             bu_values.append(h)
         return bu_values
 
@@ -306,7 +331,7 @@ class LadderVAE(nn.Module):
             )
             layer_data[i] = s
         for blk in self.final_blocks:
-            td = blk(td)
+            td = blk(td, train)
         return td, layer_data
 
     # ------------------------------------------------------------------
@@ -328,11 +353,12 @@ class LadderVAE(nn.Module):
         """Top-down pass, the generative path when ``bu_values is None``.
         ``temperature`` scales the sampling std, one value or one per
         layer (bottom first)."""
+        noise = self._noise_here(noise)
         if train:
-            raise NotImplementedError(_TRAIN)
+            self._set_dropout_step(noise)
         bu = None if bu_values is None else [_nchw(b) for b in bu_values]
         td, layer_data = self._topdown(
-            bu, n_img_prior=n_img_prior, noise=self._noise_here(noise),
+            bu, n_img_prior=n_img_prior, noise=noise,
             forced_latent=forced_latent, forced_eps=forced_eps,
             mode_layers=mode_layers, constant_layers=constant_layers,
             temperature=temperature, train=train,
@@ -341,30 +367,38 @@ class LadderVAE(nn.Module):
             k: [_nhwc(d[k]) for d in layer_data]
             for k in ("z", "kl_elementwise", "q_params", "p_params")
         }
+        info["kl_sample"] = [d["kl_sample"] for d in layer_data]
         return _nhwc(td), info
 
     def forward(self, x: torch.Tensor, *, noise: Optional[Noise] = None,
-                forced_eps=None, forced_latent=None,
-                train: bool = False) -> dict[str, Any]:
+                forced_eps=None, forced_latent=None, train: bool = False) -> dict[str, Any]:
         """Inference pass on an NHWC batch in [0, 1] (already binarised).
-        Sampled latents need ``noise``; ``forced_eps`` / ``forced_latent``
-        (per-layer NHWC lists) replace the draw."""
+        Sampled latents need ``noise`` (in training ``Noise(seed, index,
+        step)``); ``forced_eps`` / ``forced_latent`` (per-layer NHWC lists)
+        replace the draw."""
+        noise = self._noise_here(noise)
         if train:
-            raise NotImplementedError(_TRAIN)
+            self._set_dropout_step(noise)
         x_pad = pad_img_tensor(x, self.img_size)
-        bu = self._bottomup(_nchw(x_pad).contiguous())
+        bu = self._bottomup(_nchw(x_pad).contiguous(), train)
         td, layer_data = self._topdown(
-            bu, n_img_prior=None, noise=self._noise_here(noise),
+            bu, n_img_prior=None, noise=noise,
             forced_latent=forced_latent, forced_eps=forced_eps,
-            mode_layers=(), constant_layers=(), temperature=1.0, train=False,
+            mode_layers=(), constant_layers=(), temperature=1.0, train=train,
         )
         td = _nchw(crop_img_tensor(_nhwc(td), self.data_size))
         ll, lik = self.likelihood_head(td, _nchw(x))
         kls = [d["kl_elementwise"] for d in layer_data]
+        # the K1 branch summed each layer's KL per sample in the kernel
+        # (lvae_tpu/models/lvae.py:454-463); elementwise maps elsewhere
+        kl_sep = torch.stack([
+            d["kl_sample"] if d["kl_sample"] is not None else k.sum(dim=(1, 2, 3))
+            for d, k in zip(layer_data, kls)
+        ])                                                              # [L, B]
         return {
             "ll": ll.sum(dim=(1, 2, 3)),
-            "kl_sep": torch.stack([k.sum(dim=(1, 2, 3)) for k in kls]),  # [L, B]
-            "kl_spatial": [k.sum(dim=1) for k in kls],                  # [B, h, w]
+            "kl_sep": kl_sep,
+            "kl_spatial": [None if k is None else k.sum(dim=1) for k in kls],  # [B, h, w]
             "z": [_nhwc(d["z"]) for d in layer_data],
             "q_params": [_nhwc(d["q_params"]) for d in layer_data],
             "p_params": [_nhwc(d["p_params"]) for d in layer_data],

@@ -1,11 +1,14 @@
 """Gaussian latent block (port of ``lvae_tpu/models/stochastic.py``).
 
 Conv heads give the (mu, log-variance) maps of p and q; a sample is drawn
-and the elementwise KL taken; the sample is projected back into the
-deterministic stream. With ``fused=True``, q present and ``train=False``
-the draw and the KL run in the CUDA sample+KL kernel
-(``kernels/stochastic.py``); otherwise in plain PyTorch (``ops/``). Both
-draw eps from the same keyed Philox stream, so they give the same z.
+and the KL taken; the sample is projected back into the deterministic
+stream. With ``fused=True`` and q present the draw and the KL run in the
+CUDA sample+KL kernels (``kernels/stochastic.py``), forward and backward:
+with ``train=True`` K1, which returns the KL summed per sample
+(``kl_sample [B]``) and no elementwise map, as ``lvae_tpu``'s training
+branch does; otherwise K2, the elementwise map. Without ``fused`` the
+plain PyTorch ops (``ops/``) run under autograd. All draw eps from the same
+keyed Philox stream, so they give the same z.
 
 Noise is keyed, not drawn from a global generator: ``noise`` is a
 :class:`Noise` ``(seed, index [B], sample)`` and ``stream`` the layer
@@ -75,10 +78,13 @@ class NormalStochasticBlock(nn.Module):
                     f"got {p_in.shape[1]}"
                 )
             p_params = p_in
-        q_params = self.conv_in_q(q_in) if q_in is not None else None
+        # the latent math runs in fp32 whatever the convs' dtype, as in
+        # lvae_tpu (no-ops in the port's fp32)
+        p_params = p_params.float()
+        q_params = self.conv_in_q(q_in).float() if q_in is not None else None
         mu, log_var = split_params(q_params if q_params is not None else p_params)
 
-        kl = None
+        kl = kl_sample = None
         # branch order of lvae_tpu/models/stochastic.py:95-137
         if forced_latent is not None:
             z = forced_latent
@@ -86,26 +92,25 @@ class NormalStochasticBlock(nn.Module):
             z = mu + torch.exp(0.5 * log_var) * forced_eps
         elif use_mode:
             z = mu
-        elif self.fused and q_params is not None and train:
-            raise NotImplementedError(
-                "the fused training branch (per-sample KL kernel, K1) comes "
-                "with the port's training PR"
-            )
         elif self.fused and q_params is not None:
-            from lvae_tpu_torch.kernels.stochastic import sample_kl
+            from lvae_tpu_torch.kernels import stochastic as sk
 
             n = _need(noise)
-            # the kernel reads NCHW-contiguous heads (a no-op unless a conv
+            # the kernels read NCHW-contiguous heads (a no-op unless a conv
             # handed back channels-last); a stride-0 prior stays a view
             p = p_params if p_params.stride(0) == 0 else p_params.contiguous()
-            z, kl = sample_kl(q_params.contiguous(), p, n.index, n.seed,
-                              n.sample, stream)
+            fn = sk.sample_kl_per_sample if train else sk.sample_kl
+            z, kl_out = fn(q_params.contiguous(), p, n.index, n.seed, n.sample, stream)
+            if train:
+                kl_sample = kl_out
+            else:
+                kl = kl_out
         else:
             n = _need(noise)
             z = normal_rsample(mu, log_var, n.seed, n.index, n.sample, stream,
                                temperature)
 
-        if q_params is not None and kl is None:
+        if q_params is not None and kl is None and kl_sample is None:
             p_mu, p_lv = split_params(p_params)
             kl = gaussian_kl(mu, log_var, p_mu, p_lv)
 
@@ -114,8 +119,9 @@ class NormalStochasticBlock(nn.Module):
 
         return {
             "z": z,
-            "out": self.conv_out(z),
+            "out": self.conv_out(z.to(self.conv_out.weight.dtype)),
             "kl_elementwise": kl,
+            "kl_sample": kl_sample,   # [B] where K1 ran
             "q_params": q_params,
             "p_params": p_params,
         }

@@ -8,8 +8,9 @@ port keeps that property with a counter-based generator:
 - counter: ``(offset, index[i], sample[i], stream)`` where ``offset`` is
   the element's position within its image's map (row-major in the
   tensor's own layout), ``index[i]`` the image's global dataset index,
-  ``sample[i]`` the importance sample, and ``stream`` the latent layer (or
-  a stream id such as :data:`STREAM_BINARIZE`);
+  ``sample[i]`` the importance sample (in training: the step), and
+  ``stream`` the latent layer (or a stream id above every layer, such as
+  :data:`STREAM_BINARIZE`);
 - a uniform is the top 24 bits of a word, ``(i24 + 1) / 2^24``, in (0, 1];
 - a normal is Box-Muller over output words 0 and 1:
   ``sqrt(-2 ln u1) * cos(2 pi u2)``.
@@ -35,9 +36,25 @@ _ROUNDS = 10
 _TWO_PI = 6.283185307179586
 
 # stream words above every layer index
-STREAM_BINARIZE = 0x80000000
+STREAM_BINARIZE = 0x80000000          # eval binarisation (fixed seed)
+STREAM_TRAIN_BINARIZE = 0x80000001    # train binarisation, keyed per step
+STREAM_TRAIN_DEQUANTIZE = 0x80000002  # train dequantisation noise, per step
 
 Ints = Union[int, torch.Tensor]
+
+_M64 = (1 << 64) - 1
+
+
+def mix_seed(*words: int) -> int:
+    """A 63-bit seed from a sequence of integers (splitmix64 over each
+    word in turn): the seed of a ``torch.Generator`` keyed by, e.g.,
+    ``(train seed, step, dropout site)``."""
+    h = 0x9E3779B97F4A7C15
+    for w in words:
+        h = (h ^ (int(w) & _M64)) * 0xBF58476D1CE4E5B9 & _M64
+        h = (h ^ (h >> 27)) * 0x94D049BB133111EB & _M64
+        h ^= h >> 31
+    return h >> 1
 
 
 def _mulhilo(m: int, b: torch.Tensor):

@@ -1,2 +1,3 @@
-"""The eval half of ``lvae_tpu/train``: weight conversion and the
-per-image forward. Training itself comes in a later PR."""
+"""Training and its support (port of ``lvae_tpu/train``): the train step
+and test-ELBO sweep (``state``), the loop (``trainer``), data-dependent
+init, checkpoints, logging and weight conversion."""

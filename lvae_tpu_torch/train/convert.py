@@ -8,7 +8,8 @@ Two routes reach the port:
   bit-exactly (pure transposes and flips);
 - a ``.pt`` written by ``tools/export_torch_checkpoint.py`` (that
   function's output, saved with ``torch.save``) loads as it is, with
-  :func:`load_state_dict_file`, and needs no orbax.
+  :func:`load_state_dict_file`, and needs no orbax; so does a checkpoint
+  of the port's own trainer.
 """
 
 from __future__ import annotations
@@ -73,6 +74,8 @@ def params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
 
 
 def load_state_dict_file(path: str, map_location="cpu") -> dict[str, torch.Tensor]:
-    """A ``torch.save``d state dict of tensors (loaded with
-    ``weights_only``: no pickled code runs)."""
-    return torch.load(path, map_location=map_location, weights_only=True)
+    """A ``torch.save``d state dict of tensors, or the ``"model"`` entry of
+    a checkpoint the port's trainer wrote (loaded with ``weights_only``:
+    no pickled code runs)."""
+    d = torch.load(path, map_location=map_location, weights_only=True)
+    return d["model"] if isinstance(d.get("model"), dict) else d

@@ -1,32 +1,65 @@
-"""Kernel policy and the model factory (the parts of
-``lvae_tpu/train/trainer.py`` the eval path needs)."""
+"""Kernel policy, the model factory, and the training loop (port of
+``lvae_tpu/train/trainer.py``, the device-resident loop).
+
+:class:`Experiment` owns the config, model, optimiser and the two splits
+on the device; :class:`Trainer` runs the loop: an epoch order drawn from
+``np.random.default_rng((seed, epoch))`` as ``lvae_tpu`` draws it (so both
+see the same batches), one :func:`~lvae_tpu_torch.train.state.train_step`
+per batch, and the log, test and checkpoint hooks at their intervals.
+"""
 
 from __future__ import annotations
 
+import os
+import time
+from typing import Optional
+
+import numpy as np
 import torch
 
-from lvae_tpu_torch.config import EvalConfig
-from lvae_tpu_torch.data.registry import TestSet
+from lvae_tpu_torch.config import EvalConfig, TrainConfig
+from lvae_tpu_torch.data.device import DeviceDataset, eval_preprocess_batch
+from lvae_tpu_torch.data.registry import Dataset, TestSet, load_dataset
 from lvae_tpu_torch.models.lvae import LadderVAE
+from lvae_tpu_torch.models.stochastic import Noise
+from lvae_tpu_torch.train.checkpoint import CheckpointManager, save_config
+from lvae_tpu_torch.train.init import data_dependent_init
+from lvae_tpu_torch.train.logging import MetricLogger
+from lvae_tpu_torch.train.state import (
+    LossConfig,
+    TrainState,
+    evaluate_elbo,
+    init_ema,
+    make_optimizer,
+    train_step,
+)
 
 FUSED_POLICIES = ("auto", "none", "stochastic", "mixture", "pallas",
                   "segments", "all")
 
 
-def resolve_fused(policy: str, device: torch.device) -> dict:
+def resolve_fused(policy: str, device: torch.device, train: bool = False) -> dict:
     """Map ``--fused`` to the port's kernel switches.
 
-    On CUDA, ``auto`` turns the sample+KL kernel on; ``stochastic``,
-    ``pallas`` and ``all`` (``lvae_tpu``'s spellings) do so on any
-    device, and on the CPU the kernel's wrapper runs its plain version.
-    ``none`` is the user's explicit choice of plain PyTorch. The other
-    kernels named by ``lvae_tpu``'s policies (mixture head, train-mode
-    segments) are not on this slice. PROVISIONAL: ``auto``'s choice is
-    taken before any A/B of the port on the H100 (ROADMAP Queue 1,
-    item 9); the TPU's measured policy is no evidence for it.
+    On CUDA, ``auto`` turns the sample+KL kernels on (K1 in training, K2
+    in eval, both with their backward kernels); ``stochastic``, ``pallas``
+    and ``all`` (``lvae_tpu``'s spellings) do so on any device, and on the
+    CPU the kernels' wrappers run their plain versions. ``none`` is the
+    user's explicit choice of plain PyTorch. ``segments`` and ``all`` ask
+    for ``lvae_tpu``'s train-mode dropout+BatchNorm+activation kernel (K5),
+    which is not ported: training raises rather than run plain BatchNorm
+    in its place. PROVISIONAL: ``auto``'s choice is taken before any A/B
+    of the port on the H100 decided it (ROADMAP Queue 1); the TPU's
+    measured policy is no evidence for it.
     """
     if policy not in FUSED_POLICIES:
         raise ValueError(f"unknown --fused {policy!r}; choose from {FUSED_POLICIES}")
+    if train and policy in ("segments", "all"):
+        raise ValueError(
+            f"--fused {policy} asks for the fused dropout+BatchNorm+activation "
+            f"segment kernel (K5), which the port does not run yet; use "
+            f"--fused auto, stochastic or none"
+        )
     if policy == "auto":
         return {"fused_stochastic": torch.device(device).type == "cuda"}
     return {"fused_stochastic": policy in ("stochastic", "pallas", "all")}
@@ -39,9 +72,12 @@ def default_logsumexp(device: torch.device) -> str:
 
 
 def make_model(cfg: EvalConfig, data: TestSet, device: torch.device,
-               generator: torch.Generator | None = None) -> LadderVAE:
+               generator: torch.Generator | None = None,
+               train: bool = False) -> LadderVAE:
     """The configured model on ``device``; ``generator`` draws the
-    initial weights."""
+    initial weights. ``train`` (with a :class:`TrainConfig`) adds the
+    dropout and checks the kernel policy for training."""
+    drop = dict(dropout_rate=cfg.dropout, dropout_impl=cfg.dropout_impl) if train else {}
     model = LadderVAE(
         color_ch=data.color_ch,
         z_dims=cfg.zdims,
@@ -63,6 +99,137 @@ def make_model(cfg: EvalConfig, data: TestSet, device: torch.device,
         conv_pad=cfg.conv_pad,
         no_initial_downscaling=cfg.no_initial_downscaling,
         generator=generator,
-        **resolve_fused(cfg.fused, device),
+        **drop,
+        **resolve_fused(cfg.fused, device, train),
     )
     return model.to(device)
+
+
+class Experiment:
+    """Config, model, optimiser and data (``lvae_tpu``'s ``Experiment``)."""
+
+    def __init__(self, cfg: TrainConfig, device: torch.device,
+                 data: Optional[Dataset] = None):
+        self.cfg, self.device = cfg, torch.device(device)
+        self.data = data if data is not None else load_dataset(cfg.dataset, cfg.data_dir)
+        self.model = make_model(cfg, self.data, self.device,
+                                generator=torch.Generator().manual_seed(cfg.seed),
+                                train=True)
+        self.loss_cfg = LossConfig(
+            free_bits=cfg.freebits, beta_anneal_steps=cfg.beta_anneal,
+            preprocess=self.data.preprocess, ema_decay=cfg.ema_decay,
+            max_grad_norm=cfg.max_grad_norm,
+        )
+        self.train_data = DeviceDataset(self.data.train, self.device)
+        self.test_data = torch.from_numpy(self.data.test).to(self.device)
+
+    def init_state(self, data_dep_init: Optional[bool] = None) -> TrainState:
+        """A fresh train state; ``data_dep_init`` (default: the config's)
+        rescales the convs from the first ``batch_size`` train images,
+        their noise and dropout keyed by seed + 2 as in ``lvae_tpu``."""
+        cfg = self.cfg
+        state = TrainState(step=0, model=self.model,
+                           optimizer=make_optimizer(self.model, cfg.lr),
+                           ema=init_ema(len(cfg.zdims), self.device), seed=cfg.seed + 1)
+        if cfg.data_dep_init if data_dep_init is None else data_dep_init:
+            n = min(cfg.batch_size, self.train_data.n)
+            index = torch.arange(n, device=self.device)
+            x = eval_preprocess_batch(self.train_data.array[:n], self.data.preprocess, index)
+            data_dependent_init(self.model, x, Noise(cfg.seed + 2, index, 0))
+        return state
+
+    def evaluate(self, state: TrainState, max_batches: Optional[int] = None) -> dict:
+        """Test-set ELBO (eval mode, keyed per image: the same for any
+        batch size)."""
+        bs = min(self.cfg.test_batch_size, self.test_data.shape[0])
+        return evaluate_elbo(state.model, self.test_data, self.data.preprocess, bs,
+                             self.data.data_dims, max_batches=max_batches)
+
+
+class Trainer:
+    """The train loop (``lvae_tpu``'s ``Trainer``; SIGTERM handling is not
+    ported yet)."""
+
+    def __init__(self, experiment: Experiment):
+        self.exp = experiment
+        self.cfg = experiment.cfg
+        self.logger: Optional[MetricLogger] = None
+        self.run_dir: Optional[str] = None
+        self.state: Optional[TrainState] = None
+
+    def run(self) -> TrainState:
+        cfg, exp = self.cfg, self.exp
+        run_dir = self.run_dir = os.path.join(cfg.output_dir, cfg.make_run_name())
+        logger = self.logger = MetricLogger(run_dir, enable_tb=not cfg.dry_run)
+        ckpt = None
+        if not cfg.dry_run:
+            os.makedirs(run_dir, exist_ok=True)
+            ckpt = CheckpointManager(run_dir, keep=cfg.keep_checkpoints)
+        resume = ckpt is not None and cfg.auto_resume and ckpt.latest_step() is not None
+        state = exp.init_state(data_dep_init=False if (cfg.load or resume) else None)
+        try:
+            if cfg.load:
+                load_dir = cfg.load if os.path.isdir(cfg.load) else os.path.join(
+                    cfg.output_dir, cfg.load)
+                state = CheckpointManager(load_dir).restore(state)
+                print(f"resumed from {load_dir} at step {state.step}", flush=True)
+            elif resume:
+                state = ckpt.restore(state)
+                print(f"auto-resumed {run_dir} at step {state.step}", flush=True)
+        finally:
+            if not cfg.dry_run:
+                save_config(run_dir, cfg)
+
+        n_params = sum(p.numel() for p in state.model.parameters())
+        print(f"run {os.path.basename(run_dir)}: {exp.train_data.n} train / "
+              f"{exp.test_data.shape[0]} test images on {exp.device}, "
+              f"{n_params:,} params", flush=True)
+        if cfg.batch_size > exp.train_data.n:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} exceeds the training set "
+                f"({exp.train_data.n} images): an epoch would yield no batch"
+            )
+
+        steps_per_epoch = exp.train_data.n // cfg.batch_size
+
+        def index_stream(step):
+            """Endless [batch] device index vectors from the restored step
+            on; epoch e's shuffle is a function of (seed, e) alone."""
+            epoch, pos = divmod(step, steps_per_epoch)
+            while True:
+                erng = np.random.default_rng((cfg.seed, epoch))
+                for bi, idx in enumerate(exp.train_data.epoch_indices(erng, cfg.batch_size)):
+                    if bi >= pos:
+                        yield idx
+                pos = 0
+                epoch += 1
+
+        def crossed(step, interval):
+            return (step // interval) > ((step - 1) // interval)
+
+        step = state.step
+        t_last, since_log = time.perf_counter(), 0
+        try:
+            for index in index_stream(step):
+                if step >= cfg.max_steps:
+                    break
+                train_step(state, exp.train_data.gather(index), index, exp.loss_cfg)
+                step = state.step
+                since_log += 1
+                if crossed(step, cfg.log_interval):
+                    ema = {k: v.cpu() for k, v in state.ema.items()}   # waits for the step
+                    dt = time.perf_counter() - t_last
+                    logger.log_train(step, ema, since_log * cfg.batch_size / dt)
+                    t_last, since_log = time.perf_counter(), 0
+                if crossed(step, cfg.test_interval):
+                    logger.log_test(step, exp.evaluate(state))
+                    t_last, since_log = time.perf_counter(), 0
+                if ckpt is not None and crossed(step, cfg.checkpoint_interval):
+                    ckpt.save(state)
+        except KeyboardInterrupt:
+            print("interrupted: saving a final checkpoint", flush=True)
+        if ckpt is not None and ckpt.latest_step() != state.step:
+            ckpt.save(state)
+        logger.close()
+        self.state = state
+        return state

@@ -213,14 +213,27 @@ class TestBlocks:
 
 class TestGuards:
     def test_fused_train_branch_names_later_pr(self):
+        """The fused training branch (K1) returns the per-sample KL and no
+        elementwise map; its z and KL equal the plain branch's summed map
+        (rtol 1e-6: fp64 row sums against fp32 ones)."""
         blk = NormalStochasticBlock(4, 2, 4, fused=True)
-        x = torch.zeros(1, 4, 2, 2)
-        with pytest.raises(NotImplementedError, match="training"):
-            blk(x, x, noise=Noise(0, torch.zeros(1, dtype=torch.int64)), train=True)
+        blk.conv_in_p.weight.data.normal_(0, 0.1, generator=torch.Generator().manual_seed(0))
+        x = torch.randn(3, 4, 2, 2, generator=torch.Generator().manual_seed(1))
+        noise = Noise(0, torch.arange(3))
+        out = blk(x, x, noise=noise, train=True)
+        assert out["kl_elementwise"] is None and out["kl_sample"].shape == (3,)
+        blk.fused = False
+        ref = blk(x, x, noise=noise, train=True)
+        assert ref["kl_sample"] is None
+        np.testing.assert_array_equal(out["z"].detach().numpy(), ref["z"].detach().numpy())
+        np.testing.assert_allclose(out["kl_sample"].detach().numpy(),
+                                   ref["kl_elementwise"].sum(dim=(1, 2, 3)).detach().numpy(),
+                                   rtol=1e-6, atol=1e-7)
 
     def test_train_mode_raises(self):
+        """A training forward with dropout needs the step's noise key."""
         tm = LadderVAE(color_ch=1, **CFG)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="noise"):
             tm(torch.zeros(1, 14, 14, 1), train=True)
 
     def test_sampling_needs_noise(self):
