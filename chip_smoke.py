@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``lvae_tpu_torch/csrc`` and checks each
-against its plain PyTorch version at the flagship's shapes, then drives the
-flagship model (static_mnist, z 32-32-32, 4 blocks per layer, 64 filters,
-gated, skip, learned top prior) through its two entry points:
+against its plain PyTorch version at the shapes of the models that run it,
+then drives two models through their two entry points. The flagship
+(static_mnist, z 32-32-32, 4 blocks per layer, 64 filters, gated, skip,
+learned top prior):
 
 - evaluation, ``lvae_tpu_torch.evaluate.main`` (phases 2-5): seeded random
   weights, test ELBO over 10,000 synthetic static_mnist-shaped images and
@@ -16,6 +17,14 @@ gated, skip, learned top prior) through its two entry points:
   plain versions, 300 steps of the flagship at batch 64 with data-dependent
   init on 50,000 synthetic train images, the kernel path against the plain
   path and the CPU on one step, and train images/s.
+
+And celeba64 (64x64 RGB, z 32-32-32-32, 2 blocks per layer, 64 filters,
+the discretized-logistic-mixture head; phases 10-13): the mixture
+log-prob kernel and its backward (K3, K3-bwd) against their plain
+versions; evaluation over 2,000 synthetic 64x64 RGB images read from
+``celeba/celeba_64.npz`` with the k=100 IW log-likelihood over the first
+500; 200 training steps at batch 128 on 20,000 images; one step against
+the plain path and the CPU, and train images/s.
 
 Each entry point's run checks that it launched every kernel of its path;
 the kernel path, the plain path and a CPU run are held to agree, and each
@@ -313,21 +322,19 @@ FLAGSHIP = {
 }
 
 
-def flagship_model(device):
-    """The flagship with seeded random weights: lecun-scale convs, the
-    Gaussian heads at their normal(1e-2) init, small random biases and top
-    prior (so every layer's KL is well above 0), BatchNorm running stats
-    away from 0/1."""
+def seeded_model(config, meta, device, seed=2024):
+    """The model of ``config`` (a run's config dict) over the dataset
+    metadata ``meta`` with seeded random weights: lecun-scale convs, the
+    Gaussian and likelihood heads at their normal(1e-2) init, small random
+    biases and top prior (so every layer's KL is well above 0), BatchNorm
+    running stats away from 0/1."""
     import torch
 
     from lvae_tpu_torch.config import config_from_dict
-    from lvae_tpu_torch.data.registry import load_test_set
     from lvae_tpu_torch.train.trainer import make_model
 
-    cfg = config_from_dict(FLAGSHIP)
-    meta = load_test_set("synthetic")     # the same 28x28x1 Bernoulli metadata
-    g = torch.Generator().manual_seed(2024)
-    model = make_model(cfg, meta, device, generator=g)
+    g = torch.Generator().manual_seed(seed)
+    model = make_model(config_from_dict(config), meta, device, generator=g)
     with torch.no_grad():
         for name, t in model.state_dict().items():
             if name.endswith("running_mean"):
@@ -337,6 +344,22 @@ def flagship_model(device):
             elif name.endswith("bias") or name.endswith("top_prior"):
                 t.copy_(torch.randn(t.shape, generator=g) * 0.05)
     return model
+
+
+def flagship_model(device):
+    from lvae_tpu_torch.data.registry import load_test_set
+
+    # the same 28x28x1 Bernoulli metadata
+    return seeded_model(FLAGSHIP, load_test_set("synthetic"), device)
+
+
+def set_kernels(model, on):
+    """Every kernel switch of ``model``: the sample+KL kernels of each
+    latent layer and, with a mixture head, K3."""
+    for layer in model.top_down_layers:
+        layer.stochastic.fused = on
+    if hasattr(model.likelihood_head, "fused"):
+        model.likelihood_head.fused = on
 
 
 def per_image_elbo(model, x, index, seed=0):
@@ -393,16 +416,13 @@ def phase_slice(card):
     x = eval_preprocess_batch(test_dev[:B], "none", index)
     with torch.no_grad():
         e_fused = per_image_elbo(model, x, index)
-        for layer in model.top_down_layers:
-            layer.stochastic.fused = False
+        set_kernels(model, False)
         e_plain = per_image_elbo(model, x, index)
         model_cpu = flagship_model(torch.device("cpu"))
         model_cpu.load_state_dict(model.state_dict())
-        for layer in model_cpu.top_down_layers:
-            layer.stochastic.fused = False
+        set_kernels(model_cpu, False)
         e_cpu = per_image_elbo(model_cpu, x[:16].cpu(), index[:16].cpu())
-        for layer in model.top_down_layers:
-            layer.stochastic.fused = True
+        set_kernels(model, True)
     # log-mean-exp >= mean: the k=100 bound sits above the ELBO of the same
     # images, up to the noise of a one-sample ELBO mean (4 standard errors)
     mean, se = e_fused.mean().item(), e_fused.std().item() / B ** 0.5
@@ -431,13 +451,11 @@ def phase_slice(card):
     torch.cuda.synchronize()
     rates = {}
     for fused in (True, False, False, True):
-        for layer in model.top_down_layers:
-            layer.stochastic.fused = fused
+        set_kernels(model, fused)
         r = evaluate_elbo(model, test_dev, "none", B, 784)
         rates.setdefault(("elbo", fused), []).append(r["images_per_sec"])
     for fused, impl in ((True, "kernel"), (False, "streaming")):
-        for layer in model.top_down_layers:
-            layer.stochastic.fused = fused
+        set_kernels(model, fused)
         r = evaluate_iwll(model, test_dev, "none", 784, IW_SAMPLES, B,
                           logsumexp_impl=impl, max_batches=1)
         rates[("iw", fused)] = [r["images_per_sec"]]
@@ -447,8 +465,7 @@ def phase_slice(card):
         print(f"  {k}: {v:.1f} img/s  ({card})")
 
     # where a test-ELBO batch's time goes (kernels on, 2 batches)
-    for layer in model.top_down_layers:
-        layer.stochastic.fused = True
+    set_kernels(model, True)
     busy, wall, table, _ = device_profile(
         lambda: evaluate_elbo(model, test_dev[:2 * B], "none", B, 784), 3)
     out["elbo_profile"] = {"device_busy_ms": busy, "wall_ms": wall,
@@ -636,22 +653,23 @@ def flagship_dataset(train_u8, test_u8):
                    train=train_u8)
 
 
-def init_k1_launches(train_u8, test_u8):
-    """K1 launches of the flagship's data-dependent init alone (its
-    train-mode statistics passes sample the latents with K1, as
-    ``lvae_tpu``'s do; a pass stops at the conv it measures)."""
+def init_launches(args, data):
+    """The kernel launches of the data-dependent init alone of the model
+    of the training CLI ``args`` on ``data`` (its train-mode statistics
+    passes sample the latents with K1, as ``lvae_tpu``'s do; a pass stops
+    at the conv it measures)."""
     import torch
 
     from lvae_tpu_torch.config import config_from_args
     from lvae_tpu_torch.kernels import build
     from lvae_tpu_torch.train.trainer import Experiment
 
-    cfg, _ = config_from_args(FLAGSHIP_ARGS + ["--data-dep-init"])
-    exp = Experiment(cfg, torch.device("cuda"), flagship_dataset(train_u8, test_u8))
+    cfg, _ = config_from_args(args + ["--data-dep-init"])
+    exp = Experiment(cfg, torch.device("cuda"), data)
     build.reset_launches()
     exp.init_state()
     torch.cuda.synchronize()
-    n = build.LAUNCHES["sample_kl_per_sample"]
+    n = dict(build.LAUNCHES)
     build.reset_launches()
     return n
 
@@ -664,7 +682,8 @@ def phase_train(card, train_u8, test_u8):
     from lvae_tpu_torch.kernels import build
 
     print("[8] the training slice through lvae_tpu_torch.main", flush=True)
-    n_init = init_k1_launches(train_u8, test_u8)
+    n_init = init_launches(FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8))[
+        "sample_kl_per_sample"]
     print(f"  data-dependent init alone launches K1 {n_init} times")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -744,7 +763,13 @@ def bn_fed_biases(model):
     return names
 
 
-def phase_step(card, train_u8, test_u8):
+def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log):
+    """One step of the model of the training CLI ``args`` on ``data``
+    from ``weights``: the kernel path against the plain path on the card
+    (deterministic cuDNN) and against the CPU at ``cpu_batch`` images
+    without dropout; then train images/s through ``Trainer.run``, kernels
+    against plain (K, P, P, K, ``ab_steps`` steps each, the rate over the
+    steps after ``ab_log``), and a 5-step profile."""
     import dataclasses
 
     import torch
@@ -756,20 +781,18 @@ def phase_step(card, train_u8, test_u8):
     from lvae_tpu_torch.train.state import loss_terms
     from lvae_tpu_torch.train.trainer import Experiment, Trainer
 
-    print("[9] one step: the kernel path vs the plain path and the CPU; train "
-          "images/s", flush=True)
-    cfg, _ = config_from_args(FLAGSHIP_ARGS)
-    data = flagship_dataset(train_u8, test_u8)
-    weights = flagship_model(torch.device("cpu")).state_dict()
-    order = np.random.default_rng((cfg.seed, 0)).permutation(N_TRAIN)
+    print(title, flush=True)
+    cfg, _ = config_from_args(args)
+    order = np.random.default_rng((cfg.seed, 0)).permutation(data.train.shape[0])
 
-    def one_step(fused, device, dropout):
+    def one_step(fused, device, dropout, batch):
         exp = Experiment(dataclasses.replace(cfg, fused=fused, dropout=dropout),
                          torch.device(device), data)
         exp.model.load_state_dict(weights)
         state = exp.init_state(data_dep_init=False)
-        index = torch.from_numpy(order[:TRAIN_B]).to(device)
-        x = preprocess_batch(exp.train_data.gather(index), "none", state.seed, index, 0)
+        index = torch.from_numpy(order[:batch]).to(device)
+        x = preprocess_batch(exp.train_data.gather(index), data.preprocess, state.seed,
+                             index, 0)
         loss, m = loss_terms(exp.model, x, Noise(state.seed, index, 0),
                              linear_anneal(0, 0.0, 1.0, cfg.beta_anneal), cfg.freebits)
         loss.backward()
@@ -806,15 +829,16 @@ def phase_step(card, train_u8, test_u8):
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True)
     try:
-        k = one_step("auto", "cuda", cfg.dropout)
-        p = one_step("none", "cuda", cfg.dropout)
+        k = one_step("auto", "cuda", cfg.dropout, cfg.batch_size)
+        p = one_step("none", "cuda", cfg.dropout, cfg.batch_size)
         print(f"  per-layer KL of the batch: {k[1].numpy()} (free bits {cfg.freebits})")
-        stats = compare(k, p, 1e-4, "kernels vs plain on the card")
+        stats = compare(k, p, 1e-4, f"kernels vs plain on the card, batch {cfg.batch_size}")
         check(stats <= 1e-6, f"BN running stats within 1e-6 ({stats:.2e})")
         # CPU and CUDA generators give other dropout bytes: no dropout here
-        kc = one_step("auto", "cuda", 0.0)
-        c = one_step("none", "cpu", 0.0)
-        compare(kc, c, 1e-3, "the card (kernels) vs the CPU", zero_grads=c[4])
+        kc = one_step("auto", "cuda", 0.0, cpu_batch)
+        c = one_step("none", "cpu", 0.0, cpu_batch)
+        compare(kc, c, 1e-3, f"the card (kernels) vs the CPU, batch {cpu_batch}",
+                zero_grads=c[4])
     finally:
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
@@ -829,12 +853,12 @@ def phase_step(card, train_u8, test_u8):
         return Trainer(Experiment(run_cfg, torch.device("cuda"), data))
 
     def train_rate(fused):
-        """Images/s over steps 101-300 from the Trainer's log lines at
-        200 and 300."""
-        tr = trainer(fused, TRAIN_STEPS, 100)
+        """Images/s over the steps after ``ab_log`` from the Trainer's log
+        lines."""
+        tr = trainer(fused, ab_steps, ab_log)
         tr.run()
         rates = [float(m["images_per_sec"]) for kind, step, m in tr.logger.history
-                 if kind == "train" and step > 100]
+                 if kind == "train" and step > ab_log]
         return len(rates) / sum(1.0 / r for r in rates)
 
     rates = {True: [], False: []}
@@ -843,11 +867,11 @@ def phase_step(card, train_u8, test_u8):
     out = {"train_images_per_sec": {"kernels": float(np.mean(rates[True])),
                                      "plain": float(np.mean(rates[False])),
                                      "runs": {"kernels": rates[True], "plain": rates[False]}}}
+    b = cfg.batch_size
     for name, fused in (("kernels", True), ("plain", False)):
         r = out["train_images_per_sec"][name]
-        print(f"  Trainer.run, steps 101-{TRAIN_STEPS}, batch {TRAIN_B}, {name}: "
-              f"{r:.1f} img/s, {1e3 * TRAIN_B / r:.2f} ms/step (runs {rates[fused]})  "
-              f"({card})")
+        print(f"  Trainer.run, steps {ab_log + 1}-{ab_steps}, batch {b}, {name}: "
+              f"{r:.1f} img/s, {1e3 * b / r:.2f} ms/step (runs {rates[fused]})  ({card})")
 
     # where a step's time goes: Trainer.run over 5 kernel-path steps (its
     # set-up inside: a fresh optimiser and the epoch's shuffle)
@@ -857,7 +881,7 @@ def phase_step(card, train_u8, test_u8):
     out["train_profile"] = {"device_busy_ms": busy, "wall_ms": wall,
                             "idle_share": 1.0 - busy / wall, "top": table,
                             "host_top": host, "kernel_events": n_events}
-    print(f"  train profile, Trainer.run of 5 steps of {TRAIN_B}: wall {wall:.2f} ms, "
+    print(f"  train profile, Trainer.run of 5 steps of {b}: wall {wall:.2f} ms, "
           f"device busy {busy:.2f} ms ({busy / 5:.2f} ms per step), idle share "
           f"{1.0 - busy / wall:.3f}, {n_events} kernel events  ({card})")
     for name, ms, count in table:
@@ -865,6 +889,320 @@ def phase_step(card, train_u8, test_u8):
     print("  host operators by self CPU time, 5 steps (under the profiler):")
     for name, ms, count in host:
         print(f"    {ms:8.3f} ms  x{count:<5d} {name}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# celeba64: the mixture-head model (phases 10-13)
+# ---------------------------------------------------------------------------
+
+K_MIX = 10
+# (B, C, H, W): celeba64's training and evaluation batches, and a C = 1 case
+MIX_SHAPES = [(128, 3, 64, 64), (500, 3, 64, 64), (16, 1, 32, 32)]
+CELEBA_B, CELEBA_EVAL_B = 128, 500
+CELEBA_N_TRAIN, CELEBA_N_TEST = 20_000, 2_000
+CELEBA_STEPS = 200
+CELEBA_LATENTS = [(16, 16, 32), (8, 8, 32), (4, 4, 32), (2, 2, 32)]   # NHWC per layer
+CELEBA = {
+    "dataset": "celeba", "zdims": [32] * 4, "downsample": [1] * 4,
+    "blocks_per_layer": 2, "n_filters": 64, "gated": True, "skip": True,
+    "learn_top_prior": True, "nonlin": "elu", "dropout": 0.2, "freebits": 0.5,
+    "test_batch_size": CELEBA_EVAL_B, "fused": "auto", "batch_size": CELEBA_B,
+}
+CELEBA_ARGS = [
+    "--dataset", "celeba", "--zdims", "32", "32", "32", "32", "--downsample", "1", "1",
+    "1", "1", "--blocks-per-layer", "2", "--n-filters", "64", "--skip", "--gated",
+    "--learn-top-prior", "--freebits", "0.5", "--dropout", "0.2", "--seed", "42",
+    "--batch-size", str(CELEBA_B), "--test-batch-size", str(CELEBA_EVAL_B),
+]
+
+
+def rgb_blobs(n, seed, img=64):
+    """``n`` synthetic RGB images, uint8 ``[n, img, img, 3]``: a Gaussian
+    blob per channel at a random centre and radius (the shape of
+    ``lvae_tpu``'s RGB fixture), drawn on the card."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ax = torch.arange(img, device=dev, dtype=torch.float32)
+    yy, xx = ax.view(1, img, 1, 1), ax.view(1, 1, img, 1)
+
+    def draw(lo, hi):
+        return torch.rand(n, 1, 1, 3, generator=g, device=dev) * (hi - lo) * img + lo * img
+
+    cx, cy, r = draw(0.25, 0.75), draw(0.25, 0.75), draw(0.1, 0.3)
+    blob = torch.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * r ** 2))
+    return (blob * 255).clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def celeba_dataset(train_u8, test_u8):
+    """The splits as the registry's celeba (64x64 RGB, dequantized, the
+    mixture head)."""
+    from lvae_tpu_torch.data.registry import Dataset
+
+    return Dataset("celeba", test_u8, (64, 64), (64, 64), 3, "dequantize",
+                   "discretized_logistic_mix", train=train_u8)
+
+
+def write_celeba(data_dir, train_u8, test_u8):
+    """The splits as the loader's ``celeba/celeba_64.npz`` cache."""
+    os.makedirs(os.path.join(data_dir, "celeba"), exist_ok=True)
+    np.savez(os.path.join(data_dir, "celeba", "celeba_64.npz"), train=train_u8, test=test_u8)
+
+
+def phase_mixture(card):
+    import torch
+
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.kernels import mixture as km
+
+    print("[10] mixture log-prob kernels (K3, K3-bwd) vs their plain versions", flush=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    k = K_MIX
+    err = {"fwd": 0.0, "bwd": 0.0}
+    times = {}
+    for b, c, h, w in MIX_SHAPES:
+        shape = f"[{b},{k * (1 + 3 * c)},{h},{w}] C={c}"
+        u = torch.randint(0, 256, (b, c, h, w), generator=g, device=dev)
+        u[:, :, 0] = 0                      # exact 0 and 1 pixels: the edge bins
+        u[:, :, -1] = 255
+        x = u.float() / 255.0
+        p = torch.randn(b, k * (1 + 3 * c), h, w, generator=g, device=dev)
+        lo = k + k * c                      # the first log-scale channels
+        p[:, lo:lo + 2] = -9.0 + torch.rand(b, 2, h, w, generator=g, device=dev)
+        gg = torch.randn(b, h, w, generator=g, device=dev)
+
+        ll = km.mix_log_prob(x, p, k)
+        ref = km._plain_mix_log_prob(x, p, k, 256)
+        e = ((ll - ref).abs() - 1e-5 * ref.abs()).max().item()
+        err["fwd"] = max(err["fwd"], (ll - ref).abs().max().item())
+        check(e <= 1e-4, f"K3 {shape}: ll within 1e-4 + 1e-5 |ll| (max |d| - 1e-5 |ll| "
+                         f"= {e:.2e}; ll in [{ref.min().item():.1f}, {ref.max().item():.1f}])")
+        check(torch.equal(ll, km.mix_log_prob(x, p, k)), f"K3 {shape}: a second launch "
+                                                         f"is bit-equal")
+
+        dp, dx = km.mix_log_prob_backward(x, p, gg, k)
+        dp_h, dx_h = km._plain_mix_log_prob_bwd(x, p, gg, k, 256)
+        xr, pr = x.clone().requires_grad_(), p.clone().requires_grad_()
+        km._plain_mix_log_prob(xr, pr, k, 256).backward(gg)
+        for what, dpr, dxr in (("the plain hand backward", dp_h, dx_h),
+                               ("autograd of the plain forward", pr.grad, xr.grad)):
+            e = max(rel_max(dp, dpr), rel_max(dx, dxr))
+            check(e <= 1e-4, f"K3-bwd {shape}: dparams, dx within 1e-4 of their max vs "
+                             f"{what} ({e:.2e})")
+        err["bwd"] = max(err["bwd"], (dp - dp_h).abs().max().item(),
+                         (dx - dx_h).abs().max().item())
+        check(bool((dp[:, lo:lo + 2] == 0).all()) and bool((pr.grad[:, lo:lo + 2] == 0).all()),
+              f"K3-bwd {shape}: no gradient where the log-scale is below -7")
+        dp2, dx2 = km.mix_log_prob_backward(x, p, gg, k)
+        check(torch.equal(dp, dp2) and torch.equal(dx, dx2),
+              f"K3-bwd {shape}: a second launch is bit-equal")
+        pk = p.clone().requires_grad_()
+        build.reset_launches()
+        km.mix_log_prob(x, pk, k).backward(gg)
+        check(build.LAUNCHES["mix_log_prob"] == 1 and build.LAUNCHES["mix_log_prob_bwd"] == 1,
+              f"{shape}: the autograd.Function launches K3 and K3-bwd once each")
+        check(torch.equal(pk.grad, dp), f"{shape}: its gradient is K3-bwd's")
+        build.reset_launches()
+        if c != 3:
+            continue
+        fwd = lambda: km.mix_log_prob(x, p, k)                          # noqa: E731
+        fwd_plain = lambda: km._plain_mix_log_prob(x, p, k, 256)        # noqa: E731
+        # the trainer's call: x needs no gradient
+        bwd = lambda: km.mix_log_prob_backward(x, p, gg, k, need_dx=False)  # noqa: E731
+        bwd_plain = lambda: km._plain_mix_log_prob_bwd(x, p, gg, k, 256)     # noqa: E731
+        for name, kern, plain in (("K3", fwd, fwd_plain), ("K3-bwd", bwd, bwd_plain)):
+            t = [cuda_ms(plain, 10), cuda_ms(kern, 20), cuda_ms(kern, 20), cuda_ms(plain, 10)]
+            dk, dpl = device_ms(kern, 10), device_ms(plain, 5)
+            times[(name, b)] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dpl)
+            print(f"  time {name} {shape} per call: kernel {times[(name, b)][0]:.4f} ms, "
+                  f"plain {times[(name, b)][1]:.4f} ms; device busy: kernel {fmt_ms(dk)}, "
+                  f"plain {fmt_ms(dpl)}  ({card})")
+        del xr, pr, pk
+    torch.cuda.empty_cache()
+    return err, times
+
+
+def phase_celeba_eval(card, train_u8, test_u8):
+    import torch
+
+    from lvae_tpu_torch import evaluate, serving
+    from lvae_tpu_torch.data.device import eval_preprocess_batch
+    from lvae_tpu_torch.eval.iwll import evaluate_iwll
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.train.state import evaluate_elbo
+
+    print("[11] celeba64 through lvae_tpu_torch.evaluate.main", flush=True)
+    dev = torch.device("cuda")
+    meta = celeba_dataset(train_u8, test_u8)
+    model = seeded_model(CELEBA, meta, dev)
+    b, dims = CELEBA_EVAL_B, 64 * 64 * 3
+    out = {}
+    with tempfile.TemporaryDirectory() as run_dir:
+        data_dir = os.path.join(run_dir, "data")
+        write_celeba(data_dir, train_u8[:1], test_u8)
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            json.dump(dict(CELEBA, data_dir=data_dir), f)
+        weights = os.path.join(run_dir, "weights.pt")
+        torch.save(model.state_dict(), weights)
+
+        build.reset_launches()
+        res = evaluate.main(["--load", run_dir, "--state-dict", weights, "--ll",
+                             "--iw-samples", str(IW_SAMPLES), "--iw-max-batches", "1",
+                             "--device", "cuda"])
+        launches = dict(build.LAUNCHES)
+    n_fwd = CELEBA_N_TEST // b + IW_SAMPLES
+    print(f"  launches in the evaluate run: {launches}")
+    check(launches["mix_log_prob"] == n_fwd and launches["mix_log_prob_bwd"] == 0,
+          f"K3: 1 launch per forward ({launches['mix_log_prob']}), no K3-bwd")
+    check(launches["sample_kl"] == 4 * n_fwd,
+          f"K2: 4 launches per forward ({launches['sample_kl']})")
+    check(launches["logsumexp"] == 1, "K4: 1 launch per IW batch")
+    m, iw = res["elbo"], res["iw"]
+    check(m["n_images"] == CELEBA_N_TEST and iw["n_images"] == b, "sweep sizes")
+    vals = [m["elbo"], m["ll"], m["kl"], m["bpd"], iw["iw_ll"], iw["iw_bpd"], *m["kl_layers"]]
+    check(all(np.isfinite(v) for v in vals), "finite metrics")
+    check(min(m["kl_layers"]) > 0.1, f"every layer has KL > 0.1 nats ({m['kl_layers']})")
+    check(abs(m["bpd"] + m["elbo"] / (dims * np.log(2))) < 1e-9, "bpd over 64 x 64 x 3")
+    out["elbo"], out["iw"] = m, iw
+
+    test_dev = torch.from_numpy(test_u8).to(dev)
+    index = torch.arange(b, device=dev)
+    x = eval_preprocess_batch(test_dev[:b], "dequantize", index)
+    with torch.no_grad():
+        e_k = per_image_elbo(model, x, index)
+        set_kernels(model, False)
+        e_p = per_image_elbo(model, x, index)
+        model_cpu = seeded_model(CELEBA, meta, torch.device("cpu"))
+        model_cpu.load_state_dict(model.state_dict())
+        set_kernels(model_cpu, False)
+        e_cpu = per_image_elbo(model_cpu, x[:8].cpu(), index[:8].cpu())
+        set_kernels(model, True)
+    mean, se = e_k.mean().item(), e_k.std().item() / b ** 0.5
+    check(iw["iw_ll"] >= mean - 4 * se,
+          f"IW-LL {iw['iw_ll']:.2f} >= ELBO {mean:.2f} - 4 se ({se:.2f}) of the same "
+          f"{b} images")
+    d = ((e_k - e_p).abs() / e_p.abs()).max().item()
+    check(d <= 1e-5, f"per-image ELBO, kernels vs plain: within {d:.2e} of its magnitude")
+    d = ((e_k[:8].cpu() - e_cpu).abs() / e_cpu.abs()).max().item()
+    check(d <= 1e-4, f"per-image ELBO, GPU vs CPU: within {d:.2e} of its magnitude")
+
+    u8 = test_dev[:64]
+    r = serving.reconstruct(model, u8, 0, index[:64], preprocess="dequantize")
+    check(r["out_mean"].shape == (64, 64, 64, 3) and torch.isfinite(r["elbo"]).all(),
+          "reconstruct")
+    d = ((r["elbo"] - e_k[:64]).abs() / e_k[:64].abs()).max().item()
+    check(d <= 1e-6, f"reconstruct's ELBO is evaluate's ({d:.2e} relative)")
+    d = (r["bpd"] + r["elbo"] / (dims * np.log(2))).abs().max().item()
+    check(d <= 1e-6, "reconstruct's bpd over 64 x 64 x 3")
+    enc = serving.encode(model, u8, 0, index[:64], preprocess="dequantize")
+    check([tuple(t.shape) for t in enc["mu"]] == [(64, *s) for s in CELEBA_LATENTS],
+          "encode: 4 layers")
+    gen = serving.generate(model, 16, seed=3)
+    check(gen.shape == (16, 64, 64, 3) and bool(((gen >= 0) & (gen <= 1)).all()),
+          "generate: [16, 64, 64, 3] in [0, 1]")
+
+    torch.cuda.synchronize()
+    rates = {}
+    for fused in (True, False, False, True):
+        set_kernels(model, fused)
+        r = evaluate_elbo(model, test_dev, "dequantize", b, dims)
+        rates.setdefault(("elbo", fused), []).append(r["images_per_sec"])
+    for fused, impl in ((True, "kernel"), (False, "streaming")):
+        set_kernels(model, fused)
+        r = evaluate_iwll(model, test_dev, "dequantize", dims, IW_SAMPLES, b,
+                          logsumexp_impl=impl, max_batches=1)
+        rates[("iw", fused)] = [r["images_per_sec"]]
+    out["rates"] = {f"{k[0]}_{'kernels' if k[1] else 'plain'}": float(np.mean(v))
+                    for k, v in rates.items()}
+    for k, v in out["rates"].items():
+        print(f"  celeba64 {k}: {v:.1f} img/s  ({card})")
+
+    set_kernels(model, True)
+    busy, wall, table, _ = device_profile(
+        lambda: evaluate_elbo(model, test_dev[:2 * b], "dequantize", b, dims), 3)
+    out["elbo_profile"] = {"device_busy_ms": busy, "wall_ms": wall,
+                           "idle_share": 1.0 - busy / wall, "top": table}
+    print(f"  celeba64 test-ELBO profile, 2 batches of {b}: wall {wall:.2f} ms, device "
+          f"busy {busy:.2f} ms, idle share {1.0 - busy / wall:.3f}  ({card})")
+    for name, ms, count in table:
+        print(f"    {ms:8.3f} ms  x{count:<4d} {name}")
+    out["launches"] = launches
+    return out
+
+
+def phase_celeba_train(card, train_u8, test_u8):
+    import torch
+
+    from lvae_tpu_torch import evaluate
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.kernels import build
+
+    print("[12] celeba64 training through lvae_tpu_torch.main --dataset celeba", flush=True)
+    init = init_launches(CELEBA_ARGS, celeba_dataset(train_u8, test_u8))
+    print(f"  data-dependent init alone launches K1 {init['sample_kl_per_sample']} and K3 "
+          f"{init['mix_log_prob']} times")
+    steps, n_sweeps = CELEBA_STEPS, 2
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        write_celeba(data_dir, train_u8, test_u8)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_main.main(CELEBA_ARGS + [
+            "--data-dir", data_dir, "--data-dep-init", "--max-steps", str(steps),
+            "--device", "cuda", "--log-interval", "20", "--test-interval", "100",
+            "--checkpoint-interval", "100", "--output-dir", os.path.join(tmp, "out"),
+            "--run-name", "celeba64",
+        ])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        print(f"  launches in the training run: {launches}")
+        print(f"  run wall {wall:.1f} s (data load, data-dependent init, {steps} steps, "
+              f"{n_sweeps} test sweeps, 2 checkpoints)  ({card})")
+        sweep_batches = n_sweeps * (CELEBA_N_TEST // CELEBA_EVAL_B)
+        check(launches["mix_log_prob_bwd"] == steps,
+              f"K3-bwd: 1 launch per step ({launches['mix_log_prob_bwd']})")
+        check(launches["mix_log_prob"] == steps + sweep_batches + init["mix_log_prob"],
+              f"K3: 1 launch per step, per test batch ({sweep_batches}) and the init's "
+              f"{init['mix_log_prob']} ({launches['mix_log_prob']})")
+        check(launches["sample_kl_per_sample"] == 4 * steps + init["sample_kl_per_sample"],
+              f"K1: 4 launches per step and the init's {init['sample_kl_per_sample']} "
+              f"({launches['sample_kl_per_sample']})")
+        check(launches["sample_kl_per_sample_bwd"] == 4 * steps,
+              f"K1-bwd: 4 launches per step ({launches['sample_kl_per_sample_bwd']})")
+        check(launches["sample_kl"] == 4 * sweep_batches and launches["sample_kl_bwd"] == 0,
+              f"the test hook ran K2 forward only ({launches['sample_kl']} launches)")
+        hist = trainer.logger.history
+        check(all(np.isfinite(np.asarray(v, dtype=np.float64)).all()
+                  for _, _, m in hist for v in m.values()),
+              f"every logged metric finite ({len(hist)} lines)")
+        train_lines = {step: m for kind, step, m in hist if kind == "train"}
+        first, last = float(train_lines[20]["loss"]), float(train_lines[steps]["loss"])
+        check(last < first, f"EMA loss {last:.2f} at step {steps} below {first:.2f} at "
+                            f"step 20")
+        tests = [m for kind, _, m in hist if kind == "test"]
+        check(len(tests) == n_sweeps, "the test hook ran at steps 100 and 200")
+        ckpt = os.path.join(trainer.run_dir, "checkpoints", f"ckpt_{steps:08d}.pt")
+        res = evaluate.main(["--load", trainer.run_dir, "--state-dict", ckpt,
+                             "--device", "cuda"])
+        e = res["elbo"]
+        d = abs(e["elbo"] - tests[-1]["elbo"])
+        check(np.isfinite(e["elbo"]) and d <= 1e-2,
+              f"evaluate scores the checkpoint: ELBO {e['elbo']:.3f}, the run's last "
+              f"test ELBO {tests[-1]['elbo']:.3f}")
+        out["launches"] = launches
+        out["wall_s"] = wall
+        out["log_rates"] = {step: float(m["images_per_sec"]) for step, m in train_lines.items()}
+        late = [r for step, r in out["log_rates"].items() if step > 100]
+        out["log_rate_101_200"] = len(late) / sum(1.0 / r for r in late)
+        print(f"  logged train rate over steps 101-{steps} (a metric sync every 20 steps): "
+              f"{out['log_rate_101_200']:.1f} img/s  ({card})")
+        out["test_elbo"] = [float(m["elbo"]) for m in tests]
+        out["ema_loss"] = (first, last)
     return out
 
 
@@ -881,8 +1219,8 @@ def main():
     sys.path.insert(0, REPO)
     import lvae_tpu_torch  # noqa: F401  (fails when run outside the repository)
 
-    # phase 9 turns deterministic algorithms on; cuBLAS needs this set
-    # before its first use
+    # phases 9 and 13 turn deterministic algorithms on; cuBLAS needs this
+    # set before its first use
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     torch.backends.cudnn.allow_tf32 = False
@@ -920,7 +1258,25 @@ def main():
     tr = phase_train(card, train_u8, test_u8)
     res.update(train_run={k: tr[k] for k in ("wall_s", "log_rates", "log_rate_91_300",
                                             "test_elbo", "ema_loss")})
-    res.update(phase_step(card, train_u8, test_u8))
+    res.update(phase_step(
+        card, "[9] one step: the kernel path vs the plain path and the CPU; train "
+        "images/s", FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8),
+        flagship_model(torch.device("cpu")).state_dict(), TRAIN_B, TRAIN_STEPS, 100))
+    mix_err, mix_t = phase_mixture(card)
+    c_all = rgb_blobs(CELEBA_N_TRAIN + CELEBA_N_TEST, seed=12)
+    c_train, c_test = c_all[:CELEBA_N_TRAIN], c_all[CELEBA_N_TRAIN:]
+    cev = phase_celeba_eval(card, c_train, c_test)
+    ctr = phase_celeba_train(card, c_train, c_test)
+    cst = phase_step(
+        card, "[13] one celeba64 step: the kernel path vs the plain path and the CPU; "
+        "train images/s", CELEBA_ARGS, celeba_dataset(c_train, c_test),
+        seeded_model(CELEBA, celeba_dataset(c_train, c_test), torch.device("cpu")).state_dict(),
+        16, 150, 50)
+    res["celeba64"] = {
+        "images_per_sec": cev["rates"], "elbo_profile": cev["elbo_profile"],
+        "train_run": {k: ctr[k] for k in ("wall_s", "log_rates", "log_rate_101_200",
+                                         "test_elbo", "ema_loss")},
+        **cst}
     train_path = "lvae_tpu_torch.main (training)"
     for name, replaces, e, t, path in (
         ("sample_kl_per_sample", "lvae_tpu/kernels/stochastic_pallas.py:318", k1_err, k1_t,
@@ -938,6 +1294,20 @@ def main():
             "replaces": replaces, "launches": tr["launches"][name], "max_abs_err": e,
             "ms": t[0], "plain_ms": t[1], "device_ms": t[2], "plain_device_ms": t[3],
             "shapes": "3 layers at B=64", "path": path,
+        })
+    for name, replaces, e, t in (
+        ("mix_log_prob", "lvae_tpu/kernels/mixture_pallas.py:323", mix_err["fwd"],
+         mix_t[("K3", CELEBA_B)]),
+        ("mix_log_prob_bwd", "lvae_tpu/kernels/mixture_pallas.py:338", mix_err["bwd"],
+         mix_t[("K3-bwd", CELEBA_B)]),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "lvae_tpu_torch/csrc/mixture.cu",
+            "replaces": replaces, "launches": ctr["launches"][name],
+            "launches_eval": cev["launches"][name], "max_abs_err": e,
+            "ms": t[0], "plain_ms": t[1], "device_ms": t[2], "plain_device_ms": t[3],
+            "shapes": f"[{CELEBA_B},100,64,64], C=3",
+            "path": "celeba64: lvae_tpu_torch.main (training), lvae_tpu_torch.evaluate",
         })
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)

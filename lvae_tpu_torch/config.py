@@ -16,8 +16,10 @@ import dataclasses
 import time
 from typing import Optional, Sequence, Tuple
 
-# Values this slice does not run; each names the flag it came from.
+# Values the port does not run yet; each names the flag it came from.
 _LATER = "a later PR of the port"
+# lvae_tpu/models/likelihoods.py:LIKELIHOODS, all four ported
+LIKELIHOODS = ("bernoulli", "gaussian", "discretized_logistic", "discretized_logistic_mix")
 
 
 @dataclasses.dataclass
@@ -83,13 +85,12 @@ class EvalConfig:
                     f"{self.blocks_per_layer}: a layer can resample at most "
                     f"once per block"
                 )
-        # what this slice does not run, each rejected with its flag named
-        if self.likelihood not in (None, "bernoulli"):
+        if self.likelihood not in (None, *LIKELIHOODS):
             raise ValueError(
-                f"--likelihood {self.likelihood} is not ported yet (only "
-                f"bernoulli runs on this slice; the other heads come in "
-                f"{_LATER})"
+                f"--likelihood {self.likelihood}: unknown head; choose from "
+                f"{LIKELIHOODS}"
             )
+        # what the port does not run, each rejected with its flag named
         if self.precision != "fp32":
             raise ValueError(
                 f"--precision {self.precision} is not ported yet: this port "
@@ -274,9 +275,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--skip-merge", default=d.skip_merge, choices=["pre", "post"])
     add("--no-bn", action="store_true", help="disable batchnorm")
     add("--bn-stat-samples", type=int, default=d.bn_stat_samples)
-    add("--likelihood", default=None,
-        choices=["bernoulli", "gaussian", "discretized_logistic",
-                 "discretized_logistic_mix"])
+    add("--likelihood", default=None, choices=list(LIKELIHOODS),
+        help="output head (default: the dataset's)")
     # loss / optimization
     add("--beta-anneal", type=int, default=d.beta_anneal, help="KL warmup steps (0 = off)")
     add("--lr", type=float, default=d.lr)
@@ -289,8 +289,13 @@ def build_parser() -> argparse.ArgumentParser:
     add("--precision", default=d.precision, choices=["fp32", "bf16"])
     add("--fused", default=d.fused,
         choices=["auto", "none", "stochastic", "mixture", "pallas", "segments", "all"],
-        help="kernel policy: 'auto' turns the sample+KL kernels on on CUDA; "
-             "'none' is plain PyTorch")
+        help="kernel policy: 'auto' turns on, on CUDA, the sample+KL kernels "
+             "and, for the discretized_logistic_mix head, the mixture "
+             "log-prob kernel; 'stochastic' the sample+KL kernels, "
+             "'mixture' the mixture kernel, 'pallas' both, on any device (the "
+             "CPU runs their plain versions); 'none' is plain PyTorch; "
+             "'segments' and 'all' ask for the unported BatchNorm segment "
+             "kernel and are rejected")
     add("--remat", action="store_true")
     add("--steps-per-call", type=int, default=d.steps_per_call)
     add("--streaming", action="store_true")

@@ -47,8 +47,11 @@ def parse_args(argv=None):
     p.add_argument("--num-data-shards", type=int, default=None,
                    help="only 1: the port evaluates on one device")
     p.add_argument("--fused", default=None, choices=FUSED_POLICIES,
-                   help="override the run's kernel policy ('auto' turns the "
-                        "sample+KL kernel on on CUDA; 'none' is plain PyTorch)")
+                   help="override the run's kernel policy: 'auto' turns on, on "
+                        "CUDA, the sample+KL kernel and, for the "
+                        "discretized_logistic_mix head, the mixture log-prob "
+                        "kernel; 'stochastic', 'mixture' and 'pallas' (both) "
+                        "turn them on on any device; 'none' is plain PyTorch")
     p.add_argument("--data-dir", default=None, help="override the run's data dir")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the latent noise (binarisation is fixed)")

@@ -41,6 +41,8 @@ LAUNCHES = {
     "sample_kl_bwd": 0,              # K2-bwd
     "sample_kl_per_sample_bwd": 0,   # K1-bwd
     "logsumexp": 0,                  # K4
+    "mix_log_prob": 0,               # K3
+    "mix_log_prob_bwd": 0,           # K3-bwd
 }
 
 _P = ctypes.c_void_p
@@ -61,6 +63,10 @@ _SIGNATURES = {
                                       _INT, _P),
     # x, k, b, out, stream
     "lvae_logsumexp": (_P, ctypes.c_int, ctypes.c_int64, _P, _P),
+    # x, params, out, b, hw, k, c, n_bins, stream
+    "lvae_mix_log_prob": (_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P),
+    # x, params, g, dparams, dx (or NULL), b, hw, k, c, n_bins, stream
+    "lvae_mix_log_prob_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P),
 }
 
 

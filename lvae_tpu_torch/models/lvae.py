@@ -17,8 +17,9 @@ Philox stream ``i``.
 ones), dropout keyed by ``(noise.seed, step = noise.sample, site)``, and,
 with ``fused_stochastic``, the per-sample KL kernel K1 in every latent
 layer: ``kl_sep`` then comes from its ``[B]`` sums and ``kl_spatial`` is
-``None``, as in ``lvae_tpu``. fp32 on the card: building the model turns
-TF32 off (:func:`lvae_tpu_torch.fp32_math`).
+``None``, as in ``lvae_tpu``. ``fused_mixture`` puts a mixture head's
+log-prob on the kernel K3 (and its gradient on K3-bwd). fp32 on the
+card: building the model turns TF32 off (:func:`lvae_tpu_torch.fp32_math`).
 """
 
 from __future__ import annotations
@@ -165,7 +166,8 @@ class LadderVAE(nn.Module):
                  nonlin: str = "elu", res_block_type: str = "bacdbacd",
                  merge_type: str = "residual", resample_mode: str = "conv",
                  conv_pad: str = "same", no_initial_downscaling: bool = False,
-                 fused_stochastic: bool = False, dropout_rate: float = 0.2,
+                 fused_stochastic: bool = False, fused_mixture: bool = False,
+                 dropout_rate: float = 0.2,
                  dropout_impl: str = "bits8",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -232,7 +234,8 @@ class LadderVAE(nn.Module):
         self.final_blocks.append(ResidualBlock(n_filters, gated=gated, **common))
         for j, blk in enumerate(self.final_blocks):
             self.add_module(f"final_blocks_{j}", blk)
-        self.likelihood_head = make_likelihood(likelihood, n_filters, color_ch)
+        self.likelihood_head = make_likelihood(likelihood, n_filters, color_ch,
+                                               fused_mixture=fused_mixture)
         # one dropout key for the model; each dropout site has its number
         self.dropout_key = DropoutKey()
         for site, m in enumerate(m for m in self.modules() if isinstance(m, Dropout)):

@@ -39,6 +39,8 @@ _TWO_PI = 6.283185307179586
 STREAM_BINARIZE = 0x80000000          # eval binarisation (fixed seed)
 STREAM_TRAIN_BINARIZE = 0x80000001    # train binarisation, keyed per step
 STREAM_TRAIN_DEQUANTIZE = 0x80000002  # train dequantisation noise, per step
+STREAM_SAMPLE_SELECT = 0x80000003     # image sampling: the mixture component
+STREAM_SAMPLE_DRAW = 0x80000004       # image sampling: the per-pixel draw
 
 Ints = Union[int, torch.Tensor]
 

@@ -1,6 +1,6 @@
-"""Gaussian reparameterisation and analytic KL (port of
-``lvae_tpu/ops/stochastic.py``); the plain oracles of the sample+KL
-kernel.
+"""Gaussian reparameterisation, the logistic draw and the analytic KL
+(port of ``lvae_tpu/ops/stochastic.py``); the plain oracles of the
+sample+KL kernel.
 
 A params tensor is the channel concatenation ``[mu, log_var]``. The port
 keeps channels on axis 1 (NCHW) inside its modules, so :func:`split_params`
@@ -9,11 +9,11 @@ takes the axis; the halves are views and nothing is copied.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from lvae_tpu_torch.ops.philox import Ints, keyed_normal
+from lvae_tpu_torch.ops.philox import Ints, keyed_normal, keyed_uniform
 
 
 def split_params(params: torch.Tensor, dim: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -29,6 +29,28 @@ def normal_rsample(mu: torch.Tensor, log_var: torch.Tensor, seed: int,
     (row ``i`` keyed by ``(seed, index[i], sample[i], stream)``)."""
     eps = keyed_normal(mu.shape, seed, index, sample, stream)
     return mu + temperature * torch.exp(0.5 * log_var) * eps
+
+
+def logistic_rsample(mu: torch.Tensor, log_scale: torch.Tensor,
+                     u: Optional[torch.Tensor] = None, *,
+                     generator: Optional[torch.Generator] = None,
+                     keyed: Optional[tuple] = None) -> torch.Tensor:
+    """z = mu + e^log_scale * logit(u), a Logistic(mu, e^log_scale) draw.
+
+    ``u``: uniforms of ``mu``'s shape given as an operand (a test hands in
+    numpy's or JAX's), or drawn from ``generator`` (a ``torch.Generator`` on
+    ``mu``'s device) or from the keyed Philox, ``keyed=(seed, index, sample,
+    stream)``. Clipped to [1e-6, 1 - 1e-6] for a finite logit, the range
+    ``lvae_tpu`` draws from."""
+    if u is None:
+        if (generator is None) == (keyed is None):
+            raise ValueError("pass u, or exactly one of generator= and keyed=")
+        if keyed is not None:
+            u = keyed_uniform(mu.shape, *keyed).to(mu.dtype)
+        else:
+            u = torch.rand(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+    u = u.clamp(1e-6, 1.0 - 1e-6)
+    return mu + torch.exp(log_scale) * (torch.log(u) - torch.log1p(-u))
 
 
 def gaussian_kl(q_mu: torch.Tensor, q_log_var: torch.Tensor,

@@ -1,10 +1,10 @@
 """Serving surfaces as plain functions (the contracts of
 ``lvae_tpu/serving.py:63-175``; ``torch.export`` artifacts come later).
 
-- ``reconstruct(model, x_u8, seed, index)`` -> ``{out_mean, ll, kl, elbo,
-  bpd}``
-- ``encode(model, x_u8, seed, index)`` -> ``{mu, z}``: per-layer posterior
-  means and draws, tuples indexed bottom-up
+- ``reconstruct(model, x_u8, seed, index, preprocess)`` -> ``{out_mean,
+  ll, kl, elbo, bpd}``, bpd over the image's H x W x C dimensions
+- ``encode(model, x_u8, seed, index, preprocess)`` -> ``{mu, z}``:
+  per-layer posterior means and draws, tuples indexed bottom-up
 - ``generate(model, n, seed)`` -> ``[n, H, W, C]`` prior samples (the
   likelihood mean)
 
@@ -12,7 +12,9 @@ Keying contract: image ``i``'s preprocessing and latents are keyed by
 ``(seed, index[i])``. Pass global dataset indices for ``evaluate``'s
 keying (outputs then invariant to batching and permutation), or
 ``arange(B)`` for position keying. Inputs are uint8 NHWC on the model's
-device or the host; outputs are float32 NHWC on the model's device.
+device or the host, preprocessed as the dataset is evaluated
+(``preprocess``: ``none``, ``binarize``, or ``dequantize`` for the RGB
+datasets); outputs are float32 NHWC on the model's device.
 """
 
 from __future__ import annotations

@@ -38,19 +38,30 @@ FUSED_POLICIES = ("auto", "none", "stochastic", "mixture", "pallas",
                   "segments", "all")
 
 
-def resolve_fused(policy: str, device: torch.device, train: bool = False) -> dict:
-    """Map ``--fused`` to the port's kernel switches.
+def resolve_fused(policy: str, device: torch.device, train: bool = False,
+                  likelihood: str = "bernoulli") -> dict:
+    """Map ``--fused`` to the port's kernel switches, ``fused_stochastic``
+    (the sample+KL kernels: K1 in training, K2 in eval, each with its
+    backward kernel) and ``fused_mixture`` (K3 and K3-bwd, the mixture
+    head's log-prob).
 
-    On CUDA, ``auto`` turns the sample+KL kernels on (K1 in training, K2
-    in eval, both with their backward kernels); ``stochastic``, ``pallas``
-    and ``all`` (``lvae_tpu``'s spellings) do so on any device, and on the
-    CPU the kernels' wrappers run their plain versions. ``none`` is the
-    user's explicit choice of plain PyTorch. ``segments`` and ``all`` ask
-    for ``lvae_tpu``'s train-mode dropout+BatchNorm+activation kernel (K5),
-    which is not ported: training raises rather than run plain BatchNorm
-    in its place. PROVISIONAL: ``auto``'s choice is taken before any A/B
-    of the port on the H100 decided it (ROADMAP Queue 1); the TPU's
-    measured policy is no evidence for it.
+    - ``auto``: on CUDA, the sample+KL kernels, and K3 when the head is
+      ``discretized_logistic_mix``; on the CPU, nothing.
+    - ``stochastic``: the sample+KL kernels, on any device.
+    - ``mixture``: K3 (with a mixture head), on any device.
+    - ``pallas``: both (``lvae_tpu``'s spelling), on any device.
+    - ``all``: both, and ``lvae_tpu``'s train-mode dropout+BatchNorm+
+      activation kernel (K5), which is not ported: training raises rather
+      than run plain BatchNorm in its place; eval runs both kernels.
+    - ``segments``: K5 alone; training raises, eval runs plain PyTorch.
+    - ``none``: the user's explicit choice of plain PyTorch.
+
+    On the CPU a kernel's wrapper runs its plain version. A head other than
+    the mixture gets ``fused_mixture=False``, as in
+    ``lvae_tpu/train/trainer.py:87-97``. PROVISIONAL: ``auto``'s choices on
+    CUDA (K2/K1 and K3) are taken before any A/B of the port on the H100
+    decided them (ROADMAP Queue 1); the TPU's measured policy is no
+    evidence for them.
     """
     if policy not in FUSED_POLICIES:
         raise ValueError(f"unknown --fused {policy!r}; choose from {FUSED_POLICIES}")
@@ -58,11 +69,14 @@ def resolve_fused(policy: str, device: torch.device, train: bool = False) -> dic
         raise ValueError(
             f"--fused {policy} asks for the fused dropout+BatchNorm+activation "
             f"segment kernel (K5), which the port does not run yet; use "
-            f"--fused auto, stochastic or none"
+            f"--fused auto, stochastic, mixture, pallas or none"
         )
+    mixture_head = likelihood == "discretized_logistic_mix"
     if policy == "auto":
-        return {"fused_stochastic": torch.device(device).type == "cuda"}
-    return {"fused_stochastic": policy in ("stochastic", "pallas", "all")}
+        on_cuda = torch.device(device).type == "cuda"
+        return {"fused_stochastic": on_cuda, "fused_mixture": on_cuda and mixture_head}
+    return {"fused_stochastic": policy in ("stochastic", "pallas", "all"),
+            "fused_mixture": mixture_head and policy in ("mixture", "pallas", "all")}
 
 
 def default_logsumexp(device: torch.device) -> str:
@@ -78,6 +92,7 @@ def make_model(cfg: EvalConfig, data: TestSet, device: torch.device,
     initial weights. ``train`` (with a :class:`TrainConfig`) adds the
     dropout and checks the kernel policy for training."""
     drop = dict(dropout_rate=cfg.dropout, dropout_impl=cfg.dropout_impl) if train else {}
+    likelihood = cfg.likelihood or data.default_likelihood
     model = LadderVAE(
         color_ch=data.color_ch,
         z_dims=cfg.zdims,
@@ -90,7 +105,7 @@ def make_model(cfg: EvalConfig, data: TestSet, device: torch.device,
         learn_top_prior=cfg.learn_top_prior,
         img_size=data.padded_size,
         data_size=data.img_size,
-        likelihood=cfg.likelihood or data.default_likelihood,
+        likelihood=likelihood,
         batchnorm=cfg.batchnorm,
         nonlin=cfg.nonlin,
         res_block_type=cfg.residual_type,
@@ -100,7 +115,7 @@ def make_model(cfg: EvalConfig, data: TestSet, device: torch.device,
         no_initial_downscaling=cfg.no_initial_downscaling,
         generator=generator,
         **drop,
-        **resolve_fused(cfg.fused, device, train),
+        **resolve_fused(cfg.fused, device, train, likelihood),
     )
     return model.to(device)
 

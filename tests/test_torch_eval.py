@@ -139,6 +139,30 @@ class TestServing:
         g = serving.generate(model, 3, seed=0, temperature=0.5)
         assert g.shape == (3, 14, 14, 1) and torch.isfinite(g).all()
 
+    def test_rgb_surfaces_dequantize(self):
+        """An RGB mixture-head model: reconstruct dequantizes as the test
+        sweep does, its ELBO is the sweep's per-image ELBO and its bpd is
+        over H x W x C; generate gives mixture means in [0, 1]."""
+        from lvae_tpu_torch.data.device import eval_preprocess_batch
+
+        model = LadderVAE(color_ch=3, likelihood="discretized_logistic_mix",
+                          fused_mixture=True, generator=torch.Generator().manual_seed(2),
+                          **dict(CFG, data_size=(16, 16)))
+        rng = np.random.default_rng(3)
+        x_u8 = torch.from_numpy(rng.integers(0, 256, size=(3, 16, 16, 3), dtype=np.uint8))
+        index = torch.tensor([5, 0, 2])
+        r = serving.reconstruct(model, x_u8, 4, index, preprocess="dequantize")
+        with torch.no_grad():
+            ll, kl_sep = per_image_forward(
+                model, eval_preprocess_batch(x_u8, "dequantize", index), index, 4)
+        np.testing.assert_allclose(r["elbo"].numpy(), (ll - kl_sep.sum(0)).numpy(),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(r["bpd"].numpy(),
+                                   (-r["elbo"] / (768 * math.log(2))).numpy(), rtol=1e-6)
+        assert r["out_mean"].shape == (3, 16, 16, 3)
+        g = serving.generate(model, 2, seed=1)
+        assert g.shape == (2, 16, 16, 3) and bool(((g >= 0) & (g <= 1)).all())
+
     def test_rejects_bad_inputs(self):
         model = _model()
         with pytest.raises(ValueError):

@@ -165,6 +165,62 @@ class TestWholeSlice:
         assert (zc - zc[:1]).abs().max() == 0
 
 
+RGB_CFG = dict(CFG, img_size=(16, 16), data_size=(16, 16))
+
+
+@functools.lru_cache(maxsize=None)
+def make_rgb_pair(fused_mixture=False, seed=0, batch=4):
+    """As :func:`make_pair`, for a 16x16 RGB model with the
+    discretized-logistic-mixture head: pixels on the 256-level grid with
+    exact 0/1 edges."""
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(0, 256, size=(batch, 16, 16, 3)) / 255.0).astype(np.float32)
+    x[:, 0, 0] = 0.0
+    x[:, 1, 1] = 1.0
+    jm = JaxLVAE(color_ch=3, dropout_rate=0.0, likelihood="discretized_logistic_mix",
+                 **RGB_CFG)
+    v = jm.init({"params": jax.random.key(seed), "sample": jax.random.key(1)},
+                jnp.asarray(x), train=True)
+    v = _perturbed(v, rng)
+    tm = LadderVAE(color_ch=3, likelihood="discretized_logistic_mix",
+                   fused_mixture=fused_mixture, **RGB_CFG)
+    tm.load_state_dict(params_from_flax(v["params"], v["batch_stats"]), strict=True)
+    return jm, v, tm, x
+
+
+class TestMixtureHeadModel:
+    @pytest.mark.parametrize("fused_mixture", [False, True], ids=["plain", "K3"])
+    def test_forward_matches_with_shared_eps(self, fused_mixture):
+        """A whole mixture-head model (3 channels, 16x16, z 3-3, 8
+        filters) against lvae_tpu's with the same eps, at the tolerances
+        of the Bernoulli slice; K3's switch on the CPU runs its plain
+        version."""
+        jm, v, tm, x = make_rgb_pair(fused_mixture)
+        rng = np.random.default_rng(8)
+        eps = [rng.normal(size=s).astype(np.float32) for s in latent_shapes(jm, v, x)]
+        oj = jm.apply(v, jnp.asarray(x), [jnp.asarray(e) for e in eps], method=_jax_forced)
+        with torch.no_grad():
+            ot = tm(torch.from_numpy(x), forced_eps=[torch.from_numpy(e) for e in eps])
+        for k in ("ll", "kl_sep", "out_mean"):
+            np.testing.assert_allclose(ot[k].numpy(), np.asarray(oj[k]),
+                                       rtol=RTOL, atol=ATOL, err_msg=k)
+        assert ot["out_params"].shape == (4, 16, 16, 100)
+        assert np.abs(ot["ll"].numpy()).max() > 100.0
+
+    def test_generation_means_on_the_unit_interval(self):
+        """sample_prior and serving.generate give mixture means in [0, 1]."""
+        from lvae_tpu_torch import serving
+
+        _, _, tm, _ = make_rgb_pair()
+        with torch.no_grad():
+            prior = tm.sample_prior(5, seed=3)
+        gen = serving.generate(tm, 5, seed=3, temperature=0.7)
+        for m in (prior["out_mean"], prior["out_mode"], gen):
+            assert m.shape == (5, 16, 16, 3)
+            assert bool(((m >= 0) & (m <= 1)).all()) and m.std() > 1e-3
+        assert prior["out_params"].shape == (5, 16, 16, 100)
+
+
 class TestBlocks:
     @pytest.mark.parametrize("mode", ["bottom-up", "top-down"])
     @pytest.mark.parametrize("resample_mode", ["conv", "interpolate"])
@@ -248,9 +304,16 @@ class TestGuards:
             LadderVAE(color_ch=1, z_dims=(2,), downsample=(1,), img_size=(6, 6),
                       data_size=(6, 6))
 
-    def test_other_heads_name_later_pr(self):
-        with pytest.raises(NotImplementedError, match="mixture"):
-            LadderVAE(color_ch=3, likelihood="discretized_logistic_mix", **CFG)
+    def test_mixture_head_builds_with_flax_names(self):
+        """The mixture head builds (RGB: K(1 + 3C) = 100 parameter maps)
+        and loads lvae_tpu's weights strictly under the flax names."""
+        jm, v, tm, _ = make_rgb_pair(fused_mixture=True)
+        assert tm.likelihood_head.param_conv.weight.shape == (100, 8, 1, 1)
+        assert tm.likelihood_head.fused
+        sd = params_from_flax(v["params"], v["batch_stats"])
+        assert "likelihood_head.param_conv.weight" in sd
+        LadderVAE(color_ch=3, likelihood="discretized_logistic_mix",
+                  **RGB_CFG).load_state_dict(sd, strict=True)
 
     def test_init_is_seeded_by_its_generator(self):
         a = LadderVAE(color_ch=1, generator=torch.Generator().manual_seed(3), **CFG)

@@ -176,7 +176,7 @@ class TestConfig:
         assert cfg.likelihood is None and not hasattr(cfg, "batch_size")
 
     @pytest.mark.parametrize("field,value,flag", [
-        ("likelihood", "discretized_logistic_mix", "--likelihood"),
+        ("likelihood", "laplace", "--likelihood"),
         ("precision", "bf16", "--precision"),
         ("spatial_shards", 2, "--spatial-shards"),
         ("bn_stat_samples", 8, "--bn-stat-samples"),
@@ -186,6 +186,20 @@ class TestConfig:
     def test_rejects_with_the_flag_named(self, field, value, flag):
         with pytest.raises(ValueError, match=flag):
             EvalConfig(**{field: value})
+
+    @pytest.mark.parametrize("head", ["bernoulli", "gaussian", "discretized_logistic",
+                                      "discretized_logistic_mix"])
+    def test_every_head_is_accepted_and_built(self, head):
+        """--likelihood takes each of lvae_tpu's four heads, and make_model
+        builds it over the dataset's channels."""
+        from lvae_tpu_torch.train.trainer import make_model
+
+        cfg = EvalConfig(zdims=(2,), downsample=(1,), blocks_per_layer=1, n_filters=4,
+                         likelihood=head)
+        model = make_model(cfg, load_test_set("synthetic_rgb:4"), torch.device("cpu"))
+        q = {"bernoulli": 3, "gaussian": 6, "discretized_logistic": 6,
+             "discretized_logistic_mix": 100}[head]
+        assert model.likelihood_head.param_conv.weight.shape[0] == q
 
     def test_synthetic_test_set_matches_lvae_tpu(self):
         from lvae_tpu.data.registry import load_dataset
@@ -204,3 +218,119 @@ class TestConfig:
         ts = load_test_set("static_mnist", str(tmp_path))
         assert ts.test.shape == (5, 28, 28, 1) and ts.preprocess == "none"
         np.testing.assert_array_equal(ts.test.reshape(5, 784), bits)
+
+
+class TestRGBData:
+    @pytest.mark.parametrize("name", ["synthetic_rgb", "synthetic_rgb:40",
+                                      "synthetic_celeba", "synthetic_celeba:20"])
+    def test_fixtures_match_lvae_tpu(self, name):
+        """lvae_tpu's fixture rule, element for element, with its metadata."""
+        from lvae_tpu.data.registry import load_dataset as j_load
+        from lvae_tpu_torch.data.registry import load_dataset
+
+        ref, got = j_load(name), load_dataset(name)
+        np.testing.assert_array_equal(got.train, ref.train)
+        np.testing.assert_array_equal(got.test, ref.test)
+        np.testing.assert_array_equal(load_test_set(name).test, ref.test)
+        for f in ("img_size", "padded_size", "color_ch", "preprocess", "default_likelihood"):
+            assert getattr(got, f) == getattr(ref, f), f
+
+    def test_registry_rows_match_lvae_tpu(self):
+        from lvae_tpu.data.registry import _META as J_META
+        from lvae_tpu_torch.data.registry import _META
+
+        assert set(_META) <= set(J_META)
+        assert {"cifar10", "svhn", "celeba", "synthetic_rgb", "synthetic_celeba"} <= set(_META)
+        for name, row in _META.items():
+            assert row == J_META[name], name
+        assert load_test_set("synthetic_celeba:8").data_dims == 64 * 64 * 3
+
+    def _compare(self, name, root, j_loader):
+        from lvae_tpu_torch.data.registry import load_dataset
+
+        train, test = j_loader(str(root))
+        got = load_dataset(name, str(root))
+        np.testing.assert_array_equal(got.train, train)
+        np.testing.assert_array_equal(got.test, test)
+        np.testing.assert_array_equal(load_test_set(name, str(root)).test, test)
+        assert got.test.dtype == np.uint8 and got.test.shape[1:] == got.data_shape
+        return got
+
+    def test_cifar10_pickle_batches(self, tmp_path, rng):
+        import pickle
+
+        from lvae_tpu.data.sources import load_cifar10
+
+        d = tmp_path / "cifar10" / "cifar-10-batches-py"
+        d.mkdir(parents=True)
+        for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+            rows = rng.integers(0, 256, size=(3, 3072), dtype=np.uint8)
+            with open(d / name, "wb") as f:
+                pickle.dump({"data": rows, "labels": [0, 1, 2]}, f)
+        got = self._compare("cifar10", tmp_path, load_cifar10)
+        assert got.train.shape == (15, 32, 32, 3)
+        assert got.default_likelihood == "discretized_logistic_mix"
+
+    def test_svhn_mat_files(self, tmp_path, rng):
+        from scipy.io import savemat
+
+        from lvae_tpu.data.sources import load_svhn
+
+        (tmp_path / "svhn").mkdir()
+        for split, n in (("train", 5), ("test", 3)):
+            x = rng.integers(0, 256, size=(32, 32, 3, n), dtype=np.uint8)
+            savemat(tmp_path / "svhn" / f"{split}_32x32.mat", {"X": x, "y": np.ones((n, 1))})
+        got = self._compare("svhn", tmp_path, load_svhn)
+        assert got.train.shape == (5, 32, 32, 3)
+        assert got.default_likelihood == "discretized_logistic"
+
+    def test_celeba_npz_cache(self, tmp_path, rng):
+        from lvae_tpu.data.sources import load_celeba
+
+        (tmp_path / "celeba").mkdir()
+        np.savez_compressed(tmp_path / "celeba" / "celeba_64.npz",
+                            train=rng.integers(0, 256, size=(4, 64, 64, 3), dtype=np.uint8),
+                            test=rng.integers(0, 256, size=(2, 64, 64, 3), dtype=np.uint8))
+        got = self._compare("celeba", tmp_path, load_celeba)
+        assert got.preprocess == "dequantize" and got.padded_size == (64, 64)
+
+    def test_missing_files_and_bad_names(self, tmp_path):
+        with pytest.raises(FileNotFoundError, match="celeba_64.npz"):
+            load_test_set("celeba", str(tmp_path))
+        with pytest.raises(FileNotFoundError):
+            load_test_set("cifar10", str(tmp_path))
+        with pytest.raises(NotImplementedError, match="multi_mnist_binary"):
+            load_test_set("multi_mnist_binary", str(tmp_path))
+        with pytest.raises(ValueError, match="size"):
+            load_test_set("synthetic_celeba:0")
+
+
+class TestResolveFused:
+    @pytest.mark.parametrize("policy,device,head,stochastic,mixture", [
+        ("auto", "cuda", "discretized_logistic_mix", True, True),
+        ("auto", "cuda", "bernoulli", True, False),
+        ("auto", "cuda", "discretized_logistic", True, False),
+        ("auto", "cpu", "discretized_logistic_mix", False, False),
+        ("none", "cuda", "discretized_logistic_mix", False, False),
+        ("stochastic", "cpu", "discretized_logistic_mix", True, False),
+        ("mixture", "cpu", "discretized_logistic_mix", False, True),
+        ("mixture", "cuda", "gaussian", False, False),
+        ("pallas", "cpu", "discretized_logistic_mix", True, True),
+        ("pallas", "cuda", "bernoulli", True, False),
+        ("all", "cpu", "discretized_logistic_mix", True, True),
+        ("segments", "cuda", "discretized_logistic_mix", False, False),
+    ])
+    def test_switches(self, policy, device, head, stochastic, mixture):
+        """Each --fused policy's kernels per head and device; a head other
+        than the mixture never gets K3 (lvae_tpu/train/trainer.py:87-97)."""
+        from lvae_tpu_torch.train.trainer import resolve_fused
+
+        assert resolve_fused(policy, torch.device(device), False, head) == {
+            "fused_stochastic": stochastic, "fused_mixture": mixture}
+
+    @pytest.mark.parametrize("policy", ["segments", "all"])
+    def test_training_rejects_the_segment_kernel(self, policy):
+        from lvae_tpu_torch.train.trainer import resolve_fused
+
+        with pytest.raises(ValueError, match="K5"):
+            resolve_fused(policy, torch.device("cpu"), True, "discretized_logistic_mix")

@@ -44,8 +44,15 @@ CFG = dict(
     gated=True, downsample=(1, 1), learn_top_prior=True, img_size=(16, 16),
     data_size=(14, 14),
 )
+MIX = "discretized_logistic_mix"
+# per head: (model kwargs of both packages, the batch's NHWC shape)
+HEAD_CFG = {
+    "bernoulli": (dict(color_ch=1, **CFG), (14, 14, 1)),
+    MIX: (dict(color_ch=3, likelihood=MIX, **dict(CFG, data_size=(16, 16))), (16, 16, 3)),
+}
 B = 8
 N_STEPS = 8
+MIX_STEPS = 3         # the mixture head's run
 LR = 3e-3             # tests/test_parity.py::TestTrajectoryParity's
 FREE_BITS, ANNEAL = 0.5, 4
 
@@ -94,15 +101,20 @@ _HEADS = ("conv_in_p", "conv_in_q", "param_conv")
 
 
 @functools.lru_cache(maxsize=None)
-def _setup():
+def _setup(head="bernoulli"):
     """The JAX model, float32 variables drawn with numpy at flax's init
     scales (lecun-normal convs, normal(1e-2) Gaussian and likelihood
-    heads) and moved off them, the batches and the per-step eps."""
+    heads) and moved off them, the batches and the per-step eps. The
+    Bernoulli batches are binary uint8; the mixture head's are pixels on
+    the 256-level grid in [0, 1] (both packages' 'none' preprocessing
+    casts them to float32)."""
     rng = np.random.default_rng(21)
-    jm = JaxLVAE(color_ch=1, dropout_rate=0.0, **CFG)
+    kw, xshape = HEAD_CFG[head]
+    n_steps = N_STEPS if head == "bernoulli" else MIX_STEPS
+    jm = JaxLVAE(dropout_rate=0.0, **kw)
     shapes = jax.eval_shape(lambda: jm.init(
         {"params": jax.random.key(3), "sample": jax.random.key(4)},
-        jnp.zeros((B, 14, 14, 1)), train=True))
+        jnp.zeros((B, *xshape)), train=True))
 
     def draw(path, shape):
         name = path[-1]
@@ -122,19 +134,25 @@ def _setup():
                              for k, v in flatten_dict(shapes["params"]).items()})
     stats = unflatten_dict({k: (np.zeros if k[-1] == "mean" else np.ones)(v.shape, np.float32)
                             for k, v in flatten_dict(shapes["batch_stats"]).items()})
-    batches = [(rng.uniform(size=(B, 14, 14, 1)) < 0.4).astype(np.uint8)
-               for _ in range(N_STEPS)]
+    if head == "bernoulli":
+        batches = [(rng.uniform(size=(B, *xshape)) < 0.4).astype(np.uint8)
+                   for _ in range(n_steps)]
+    else:
+        batches = [(rng.integers(0, 256, size=(B, *xshape)) / 255.0).astype(np.float32)
+                   for _ in range(n_steps)]
     shapes = [(B, 4, 4, 3), (B, 2, 2, 3)]
-    eps = [[rng.normal(size=s) for s in shapes] for _ in range(N_STEPS)]
+    eps = [[rng.normal(size=s) for s in shapes] for _ in range(n_steps)]
     return jm, params, stats, batches, eps
 
 
 @functools.lru_cache(maxsize=None)
-def _trajectories():
+def _trajectories(head="bernoulli"):
     """Per step: (loss, params, batch_stats) of lvae_tpu's
     make_batch_train_step and of the port's train_step, float64, with
-    free bits and a beta anneal and the same eps."""
-    jm, params, stats, batches, eps = _setup()
+    free bits and a beta anneal and the same eps. The port's mixture head
+    runs K3's switch (on the CPU: the plain forward and the hand-written
+    backward); lvae_tpu's takes jax.grad of its oracle."""
+    jm, params, stats, batches, eps = _setup(head)
     jcfg = JLossConfig(free_bits=FREE_BITS, beta_anneal_steps=ANNEAL, preprocess="none")
     tx = j_make_optimizer(LR)
     out_j = []
@@ -156,7 +174,7 @@ def _trajectories():
             out_j.append((float(m["loss"]), flatten_dict(jax.device_get(state.params)),
                           flatten_dict(jax.device_get(state.batch_stats))))
 
-    tm = LadderVAE(color_ch=1, dropout_rate=0.0, **CFG)
+    tm = LadderVAE(dropout_rate=0.0, fused_mixture=head == MIX, **HEAD_CFG[head][0])
     tm.load_state_dict(params_from_flax(params, stats), strict=True)
     tm = tm.double()
     tstate = TrainState(step=0, model=tm, optimizer=make_optimizer(tm, LR),
@@ -176,7 +194,17 @@ class TestTrainStepParity:
 
     @pytest.mark.parametrize("steps", [1, N_STEPS])
     def test_matches_lvae_tpu(self, steps):
-        out_j, out_t = _trajectories()
+        self.check(steps)
+
+    @pytest.mark.parametrize("steps", [1, MIX_STEPS])
+    def test_mixture_head_matches_lvae_tpu(self, steps):
+        """The same parity with the discretized-logistic-mixture head
+        (16x16 RGB) and its hand-written backward."""
+        self.check(steps, MIX)
+
+    @staticmethod
+    def check(steps, head="bernoulli"):
+        out_j, out_t = _trajectories(head)
         np.testing.assert_allclose([t[0] for t in out_t[:steps]],
                                    [j[0] for j in out_j[:steps]], rtol=1e-7, atol=0)
         _, params_j, stats_j = out_j[steps - 1]
@@ -186,7 +214,7 @@ class TestTrainStepParity:
                 want = params_from_flax({path[0]: _nest(path[1:], a)})[torch_key_for(path)]
                 np.testing.assert_allclose(sd[torch_key_for(path)].numpy(), want.numpy(),
                                            rtol=0, atol=1e-6, err_msg=str(path))
-        _, params0, _, _, _ = _setup()
+        _, params0, _, _, _ = _setup(head)
         moved = max(np.abs(np.asarray(a) - np.asarray(flatten_dict(params0)[k])).max()
                     for k, a in params_j.items())
         assert moved > 1e-3
