@@ -26,12 +26,20 @@ versions; evaluation over 2,000 synthetic 64x64 RGB images read from
 500; 200 training steps at batch 128 on 20,000 images; one step against
 the plain path and the CPU, and train images/s.
 
+Then the train-mode dropout+BatchNorm+activation segments (phases 14-16):
+the segment kernel and its backward (K5, K5-bwd) against their plain
+versions at every segment shape of both models, timed against their
+plain versions, the port's unfused chain and their bound; 100 celeba64
+steps through ``lvae_tpu_torch.main --fused all``; one step of each model
+under ``--fused all`` against the path without the segments (and, for
+celeba64, the CPU), and train images/s.
+
 Each entry point's run checks that it launched every kernel of its path;
 the kernel path, the plain path and a CPU run are held to agree, and each
 kernel is timed against its plain version.
 
 Prints the card (``nvidia-smi`` name and power limit), one JSON line with
-each kernel's launches, error and times, and last
+each kernel's launches, error, times, bound and library call, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and no result line is printed. Exits non-zero at once
 when no CUDA device is visible.
@@ -171,6 +179,28 @@ def fmt_ms(v):
     return "not measured" if v is None else f"{v:.4f} ms"
 
 
+# NVIDIA H100 SXM, published peak rates (HBM3 bandwidth, fp32 non-tensor)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+def bound(n_bytes, n_ops=0.0):
+    """The least time the card could take for a call: the larger of its
+    bytes (each input read once, each output written once) over the memory
+    rate and its fp32 operations over the peak rate. Returns (ms, "bytes"
+    or "operations")."""
+    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# fp32 operations per element, counted from the kernels' code (a Philox
+# call as ~70 integer operations, a transcendental as one): the sample+KL
+# kernels ~110 with keyed noise (Philox, Box-Muller's log, cos and sqrt,
+# three exp), ~40 given eps; their backward ~30 (+ Philox); the segment
+# ~25 per pass (a quarter of a Philox call, the normalise, the act)
+OPS_SAMPLE_KL, OPS_SAMPLE_KL_EPS, OPS_SAMPLE_KL_BWD, OPS_SEGMENT = 110, 40, 30, 25
+
+
 def total(values):
     return None if any(v is None for v in values) else sum(values)
 
@@ -209,7 +239,7 @@ def phase_sample_kl(card):
     print("[2] sample+KL kernel vs its plain version", flush=True)
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
-    err, times = 0.0, []
+    err, times, n_bytes, n_ops = 0.0, [], 0, 0
     for layer, (c, h, w) in enumerate(LATENT_SHAPES):
         q = (torch.randn(B, 2 * c, h, w, generator=g) * 0.7).to(dev)
         p = (torch.randn(B, 2 * c, h, w, generator=g) * 0.7).to(dev)
@@ -245,6 +275,9 @@ def phase_sample_kl(card):
         t = [cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)]
         dk, dp = device_ms(kernel), device_ms(plain)
         times.append(((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dp))
+        # q, p (4 floats) in, z and the KL map out; the rows' index
+        n_bytes += B * c * h * w * 24 + B * 8
+        n_ops += B * c * h * w * OPS_SAMPLE_KL
         print(f"  time [{B},{c},{h},{w}] per call: kernel {times[-1][0]:.4f} ms, "
               f"plain {times[-1][1]:.4f} ms; device busy: kernel {fmt_ms(dk)}, "
               f"plain {fmt_ms(dp)}  ({card})")
@@ -271,7 +304,7 @@ def phase_sample_kl(card):
     check(ks.pvalue > 1e-3, f"KS vs N(0,1): D={ks.statistic:.2e} p={ks.pvalue:.3f}")
     lag = float(np.corrcoef(draws[0][:-1], draws[0][1:])[0, 1])
     check(abs(lag) < 6 / np.sqrt(draws[0].size), f"lag-1 autocorr {lag:+.2e}")
-    return err, [total([t[i] for t in times]) for i in range(4)]
+    return err, [total([t[i] for t in times]) for i in range(4)], bound(n_bytes, n_ops)
 
 
 def phase_logsumexp(card):
@@ -308,10 +341,13 @@ def phase_logsumexp(card):
     ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
     dk = device_ms(lambda: lse.logsumexp(x))
     dp = device_ms(lambda: lse._plain_logsumexp(x))
+    library_ms = cuda_ms(lambda: torch.logsumexp(x, 0))     # timed only, never called
     print(f"  time [{IW_SAMPLES},{B}] per call: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms; device busy: kernel {fmt_ms(dk)}, plain "
-          f"{fmt_ms(dp)}  ({card})")
-    return err, [ms, plain_ms, dk, dp]
+          f"{plain_ms:.4f} ms, torch.logsumexp {library_ms:.4f} ms; device busy: "
+          f"kernel {fmt_ms(dk)}, plain {fmt_ms(dp)}  ({card})")
+    # [k, B] in, [B] out; an exp, an add and a compare per element
+    return err, [ms, plain_ms, dk, dp], bound(4 * IW_SAMPLES * B + 4 * B, 3 * IW_SAMPLES * B), \
+        library_ms
 
 
 FLAGSHIP = {
@@ -495,7 +531,7 @@ def phase_k1(card):
     print("[6] per-sample sample+KL kernel (K1) vs its plain version", flush=True)
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(3)
-    err, times = 0.0, []
+    err, times, n_bytes, n_ops = 0.0, [], 0, 0
     for b in (TRAIN_B, 256):
         for layer, (c, h, w) in enumerate(LATENT_SHAPES + [ODD_SHAPE]):
             shape = f"[{b},{2 * c},{h},{w}]"
@@ -534,10 +570,13 @@ def phase_k1(card):
             t = [cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)]
             dk, dp = device_ms(kernel), device_ms(plain)
             times.append(((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dp))
+            # q, p (4 floats) in, z out; the rows' index and KL sums
+            n_bytes += b * c * h * w * 20 + b * 12
+            n_ops += b * c * h * w * OPS_SAMPLE_KL
             print(f"  time {shape} per call: kernel {times[-1][0]:.4f} ms, plain "
                   f"{times[-1][1]:.4f} ms; device busy: kernel {fmt_ms(dk)}, plain "
                   f"{fmt_ms(dp)}  ({card})")
-    return err, [total([t[i] for t in times]) for i in range(4)]
+    return err, [total([t[i] for t in times]) for i in range(4)], bound(n_bytes, n_ops)
 
 
 def phase_bwd(card):
@@ -551,6 +590,15 @@ def phase_bwd(card):
     g = torch.Generator().manual_seed(4)
     err = {"k1": 0.0, "k2": 0.0}
     times = {"k1": [], "k2": []}
+    traffic = {"k1": [0, 0], "k2": [0, 0]}       # bytes, operations of the timed calls
+
+    def count(name, n, prior_rows):
+        """q, eps, gz (and K2-bwd's gkl map) in, dq and dp out; the prior
+        p read once per row of its own."""
+        per = 4 * 2 + 4 + 4 + 4 * 2 + 4 * 2 + (4 if name == "k2" else 0)
+        traffic[name][0] += n * per + prior_rows * (n // b) * 8
+        traffic[name][1] += n * OPS_SAMPLE_KL_BWD
+
     b = TRAIN_B
     for layer, (c, h, w) in enumerate(LATENT_SHAPES + [ODD_SHAPE]):
         top = layer == len(LATENT_SHAPES) - 1     # the flagship's stride-0 prior
@@ -607,6 +655,7 @@ def phase_bwd(card):
             t = [cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)]
             dk, dpl = device_ms(kernel), device_ms(plain)
             times[name].append(((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dpl))
+            count(name, b * c * h * w, b)
             print(f"  time {label} {shape} per call: kernel {times[name][-1][0]:.4f} ms, "
                   f"plain {times[name][-1][1]:.4f} ms; device busy: kernel "
                   f"{fmt_ms(dk)}, plain {fmt_ms(dpl)}  ({card})")
@@ -623,11 +672,13 @@ def phase_bwd(card):
         t = [cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)]
         dk, dpl = device_ms(kernel), device_ms(plain)
         times[name].append(((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dpl))
+        count(name, b * 32 * 2 * 2, 1)
         print(f"  time {'K1-bwd' if name == 'k1' else 'K2-bwd'} [{b},64,2,2] stride-0 "
               f"prior per call: kernel {times[name][-1][0]:.4f} ms, plain "
               f"{times[name][-1][1]:.4f} ms; device busy: kernel {fmt_ms(dk)}, plain "
               f"{fmt_ms(dpl)}  ({card})")
-    return err, {k: [total([t[i] for t in v]) for i in range(4)] for k, v in times.items()}
+    return (err, {k: [total([t[i] for t in v]) for i in range(4)] for k, v in times.items()},
+            {k: bound(*v) for k, v in traffic.items()})
 
 
 FLAGSHIP_ARGS = [
@@ -763,13 +814,30 @@ def bn_fed_biases(model):
     return names
 
 
-def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log):
+def keyed_dropout_only(model):
+    """Turn off every dropout that no fused segment absorbed: those draw
+    from a ``torch.Generator``, whose CPU and CUDA streams differ, while a
+    segment's bytes are the keyed Philox bytes on both."""
+    from lvae_tpu_torch.models.blocks import Dropout, ResidualBlock
+
+    absorbed = {id(seg.dropout) for m in model.modules() if isinstance(m, ResidualBlock)
+                for _, seg in m._segments.values() if seg.dropout is not None}
+    for m in model.modules():
+        if isinstance(m, Dropout) and id(m) not in absorbed:
+            m.rate = 0.0
+
+
+def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log,
+               paths=("auto", "none"), card_dropout=None, cpu=("none", 0.0)):
     """One step of the model of the training CLI ``args`` on ``data``
-    from ``weights``: the kernel path against the plain path on the card
-    (deterministic cuDNN) and against the CPU at ``cpu_batch`` images
-    without dropout; then train images/s through ``Trainer.run``, kernels
-    against plain (K, P, P, K, ``ab_steps`` steps each, the rate over the
-    steps after ``ab_log``), and a 5-step profile."""
+    from ``weights``: the kernel path ``paths[0]`` against the path
+    ``paths[1]`` on the card (deterministic cuDNN; dropout ``card_dropout``,
+    the config's when None) and against the CPU's path ``cpu[0]`` at
+    ``cpu_batch`` images with dropout ``cpu[1]`` (no CPU step when
+    ``cpu_batch`` is None; with dropout, only the fused segments' keyed
+    masks are on); then train images/s through ``Trainer.run``, the two
+    paths alternating (K, P, P, K, ``ab_steps`` steps each, the rate over
+    the steps after ``ab_log``), and a 5-step profile of ``paths[0]``."""
     import dataclasses
 
     import torch
@@ -785,10 +853,12 @@ def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log):
     cfg, _ = config_from_args(args)
     order = np.random.default_rng((cfg.seed, 0)).permutation(data.train.shape[0])
 
-    def one_step(fused, device, dropout, batch):
+    def one_step(fused, device, dropout, batch, keyed_only=False):
         exp = Experiment(dataclasses.replace(cfg, fused=fused, dropout=dropout),
                          torch.device(device), data)
         exp.model.load_state_dict(weights)
+        if keyed_only:
+            keyed_dropout_only(exp.model)
         state = exp.init_state(data_dep_init=False)
         index = torch.from_numpy(order[:batch]).to(device)
         x = preprocess_batch(exp.train_data.gather(index), data.preprocess, state.seed,
@@ -826,19 +896,29 @@ def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log):
                                f"relative to its max")
         return stats
 
+    kern, plain = paths
+    drop = cfg.dropout if card_dropout is None else card_dropout
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True)
     try:
-        k = one_step("auto", "cuda", cfg.dropout, cfg.batch_size)
-        p = one_step("none", "cuda", cfg.dropout, cfg.batch_size)
+        k = one_step(kern, "cuda", drop, cfg.batch_size)
+        p = one_step(plain, "cuda", drop, cfg.batch_size)
         print(f"  per-layer KL of the batch: {k[1].numpy()} (free bits {cfg.freebits})")
-        stats = compare(k, p, 1e-4, f"kernels vs plain on the card, batch {cfg.batch_size}")
+        # a BatchNorm-fed bias's gradient is roundoff: where one path runs
+        # the fused segments and the other does not, it is held to the
+        # largest gradient
+        segments = {"segments", "all"}
+        stats = compare(k, p, 1e-4, f"--fused {kern} vs {plain} on the card, batch "
+                                    f"{cfg.batch_size}, dropout {drop}",
+                        zero_grads=k[4] if (kern in segments) != (plain in segments) else ())
         check(stats <= 1e-6, f"BN running stats within 1e-6 ({stats:.2e})")
-        # CPU and CUDA generators give other dropout bytes: no dropout here
-        kc = one_step("auto", "cuda", 0.0, cpu_batch)
-        c = one_step("none", "cpu", 0.0, cpu_batch)
-        compare(kc, c, 1e-3, f"the card (kernels) vs the CPU, batch {cpu_batch}",
-                zero_grads=c[4])
+        if cpu_batch is not None:
+            # CPU and CUDA generators give other dropout bytes: dropout only
+            # where it is keyed (cpu[1] > 0: the segments' masks)
+            kc = one_step(kern, "cuda", cpu[1], cpu_batch, keyed_only=cpu[1] > 0)
+            c = one_step(cpu[0], "cpu", cpu[1], cpu_batch, keyed_only=cpu[1] > 0)
+            compare(kc, c, 1e-3, f"the card (--fused {kern}) vs the CPU (--fused {cpu[0]}), "
+                                 f"batch {cpu_batch}, dropout {cpu[1]}", zero_grads=c[4])
     finally:
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
@@ -863,27 +943,30 @@ def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log):
 
     rates = {True: [], False: []}
     for fused in (True, False, False, True):
-        rates[fused].append(train_rate("auto" if fused else "none"))
+        rates[fused].append(train_rate(kern if fused else plain))
     out = {"train_images_per_sec": {"kernels": float(np.mean(rates[True])),
                                      "plain": float(np.mean(rates[False])),
+                                     "paths": [kern, plain],
                                      "runs": {"kernels": rates[True], "plain": rates[False]}}}
     b = cfg.batch_size
     for name, fused in (("kernels", True), ("plain", False)):
         r = out["train_images_per_sec"][name]
-        print(f"  Trainer.run, steps {ab_log + 1}-{ab_steps}, batch {b}, {name}: "
-              f"{r:.1f} img/s, {1e3 * b / r:.2f} ms/step (runs {rates[fused]})  ({card})")
+        print(f"  Trainer.run, steps {ab_log + 1}-{ab_steps}, batch {b}, --fused "
+              f"{kern if fused else plain}: {r:.1f} img/s, {1e3 * b / r:.2f} ms/step "
+              f"(runs {rates[fused]})  ({card})")
 
     # where a step's time goes: Trainer.run over 5 kernel-path steps (its
     # set-up inside: a fresh optimiser and the epoch's shuffle)
-    prof_run = trainer("auto", 5, 5)
+    prof_run = trainer(kern, 5, 5)
     host = []
     busy, wall, table, n_events = device_profile(prof_run.run, host_top=host)
     out["train_profile"] = {"device_busy_ms": busy, "wall_ms": wall,
                             "idle_share": 1.0 - busy / wall, "top": table,
                             "host_top": host, "kernel_events": n_events}
-    print(f"  train profile, Trainer.run of 5 steps of {b}: wall {wall:.2f} ms, "
-          f"device busy {busy:.2f} ms ({busy / 5:.2f} ms per step), idle share "
-          f"{1.0 - busy / wall:.3f}, {n_events} kernel events  ({card})")
+    print(f"  train profile, --fused {kern}, Trainer.run of 5 steps of {b}: wall "
+          f"{wall:.2f} ms, device busy {busy:.2f} ms ({busy / 5:.2f} ms per step), idle "
+          f"share {1.0 - busy / wall:.3f}, {n_events} kernel events ({n_events / 5:.0f} "
+          f"per step)  ({card})")
     for name, ms, count in table:
         print(f"    {ms:8.3f} ms  x{count:<4d} {name}")
     print("  host operators by self CPU time, 5 steps (under the profiler):")
@@ -902,6 +985,7 @@ MIX_SHAPES = [(128, 3, 64, 64), (500, 3, 64, 64), (16, 1, 32, 32)]
 CELEBA_B, CELEBA_EVAL_B = 128, 500
 CELEBA_N_TRAIN, CELEBA_N_TEST = 20_000, 2_000
 CELEBA_STEPS = 200
+SEGMENT_STEPS = 100                         # phase 15
 CELEBA_LATENTS = [(16, 16, 32), (8, 8, 32), (4, 4, 32), (2, 2, 32)]   # NHWC per layer
 CELEBA = {
     "dataset": "celeba", "zdims": [32] * 4, "downsample": [1] * 4,
@@ -1016,7 +1100,14 @@ def phase_mixture(card):
         for name, kern, plain in (("K3", fwd, fwd_plain), ("K3-bwd", bwd, bwd_plain)):
             t = [cuda_ms(plain, 10), cuda_ms(kern, 20), cuda_ms(kern, 20), cuda_ms(plain, 10)]
             dk, dpl = device_ms(kern, 10), device_ms(plain, 5)
-            times[(name, b)] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dpl)
+            # per pixel: params (100 floats), x (3) and ll in; the backward
+            # adds g and writes dparams. Operations: ~40 per bin (30 bins;
+            # each transcendental counted once), twice in the backward
+            q = k * (1 + 3 * c)
+            per = 4 * (q + c + 1) + (4 * q if name == "K3-bwd" else 0)
+            ops = k * c * 40 * (2 if name == "K3-bwd" else 1)
+            times[(name, b)] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dpl,
+                                *bound(b * h * w * per, b * h * w * ops))
             print(f"  time {name} {shape} per call: kernel {times[(name, b)][0]:.4f} ms, "
                   f"plain {times[(name, b)][1]:.4f} ms; device busy: kernel {fmt_ms(dk)}, "
                   f"plain {fmt_ms(dpl)}  ({card})")
@@ -1203,6 +1294,282 @@ def phase_celeba_train(card, train_u8, test_u8):
               f"{out['log_rate_101_200']:.1f} img/s  ({card})")
         out["test_elbo"] = [float(m["elbo"]) for m in tests]
         out["ema_loss"] = (first, last)
+        out["state_keys"] = list(trainer.state.model.state_dict())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the fused dropout+BatchNorm+activation segments (phases 14-16)
+# ---------------------------------------------------------------------------
+
+FLAGSHIP_IMAGE, CELEBA_IMAGE = (28, 28, 1), (64, 64, 3)       # NHWC, unpadded
+
+
+def segment_shapes(config, meta, batch, image_shape):
+    """{[B, C, H, W]: segments per step}: every shape that a fused segment
+    of the model of ``config`` sees in a training forward at ``batch``,
+    largest first, from forward pre-hooks on the residual blocks (every
+    segment of a block sees the block's input shape)."""
+    import torch
+
+    from lvae_tpu_torch.models.blocks import ResidualBlock
+    from lvae_tpu_torch.models.stochastic import Noise
+
+    dev = torch.device("cuda")
+    model = seeded_model(config, meta, dev)
+    counts = {}
+
+    def record(mod, inp):
+        shape = tuple(inp[0].shape)
+        counts[shape] = counts.get(shape, 0) + len(mod._segments)
+
+    hooks = [m.register_forward_pre_hook(record)
+             for m in model.modules() if isinstance(m, ResidualBlock) and m._segments]
+    index = torch.arange(batch, device=dev)
+    with torch.no_grad():
+        model(torch.rand(batch, *image_shape, device=dev), noise=Noise(0, index, 0), train=True)
+    for h in hooks:
+        h.remove()
+    del model
+    torch.cuda.empty_cache()
+    return dict(sorted(counts.items(), key=lambda kv: -np.prod(kv[0])))
+
+
+def segments_per_step(model):
+    """Fused segments a training step of ``model`` runs."""
+    from lvae_tpu_torch.models.blocks import ResidualBlock
+
+    return sum(len(m._segments) for m in model.modules()
+               if isinstance(m, ResidualBlock) and m.fused_segments)
+
+
+def phase_segment(card, per_step, timed):
+    """K5 and K5-bwd against their plain versions at every segment shape of
+    the models ``per_step`` ({model: {shape: segments per step}}), with
+    each kernel's device time there and its sum over a training step; the
+    plain versions and the unfused chain timed too at the shapes
+    ``timed``."""
+    import torch
+    import torch.nn.functional as F
+
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.kernels import segment as seg
+    from lvae_tpu_torch.models.blocks import Dropout, DropoutKey, batch_norm_train
+    from lvae_tpu_torch.ops.math import bits8_keep_threshold, segment_backward, segment_forward
+    from lvae_tpu_torch.ops.philox import dropout_bytes, mix_seed
+
+    print("[14] segment kernels (K5, K5-bwd) vs their plain versions", flush=True)
+    dev = torch.device("cuda")
+    g_ = torch.Generator(device=dev).manual_seed(14)
+    err = {"fwd": 0.0, "bwd": 0.0}
+    seed = mix_seed(42, 7, 3)
+    shapes = [s for counts in per_step.values() for s in counts]
+    at_shape = {}           # device ms of K5, K5-bwd (rate 0.2, elu) and their bounds
+    for shape in shapes:
+        c = shape[1]
+        x = torch.randn(shape, generator=g_, device=dev) * 1.5 + 0.3
+        g = torch.randn(shape, generator=g_, device=dev)
+        gamma = torch.rand(c, generator=g_, device=dev) + 0.5
+        beta = torch.randn(c, generator=g_, device=dev) * 0.2
+        for rate in (0.0, 0.2):
+            t = bits8_keep_threshold(rate)
+            bytes_ = dropout_bytes(shape, seed, dev) if t < 256 else None
+            for act in ("elu", "relu"):
+                what = f"{list(shape)} rate {rate} {act}"
+                rm, rv = torch.full((c,), 0.3, device=dev), torch.full((c,), 1.7, device=dev)
+                rm_p, rv_p = rm.clone(), rv.clone()
+                y, mean, var = seg.dropout_bn_act(x, gamma, beta, rate=rate, act=act, seed=seed,
+                                                  running_mean=rm, running_var=rv)
+                yp, mp, vp, rp = segment_forward(x, gamma, beta, t, act, mask_bytes=bytes_,
+                                                 running_mean=rm_p, running_var=rv_p)
+                e = rel_max(y, yp)
+                err["fwd"] = max(err["fwd"], (y - yp).abs().max().item())
+                check(e <= 1e-5, f"K5 {what}: y within 1e-5 of max|y| ({e:.2e})")
+                e = max(rel_elem(mean, mp), rel_elem(var, vp))
+                check(e <= 1e-6, f"K5 {what}: mean, var within 1e-6 relative ({e:.2e})")
+                e = max(rel_elem(rm, rm_p), rel_elem(rv, rv_p))
+                check(e <= 1e-6, f"K5 {what}: running stats moved as the plain version's "
+                                 f"({e:.2e}, bit-equal: {torch.equal(rm, rm_p) and torch.equal(rv, rv_p)})")
+                y2, stats = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, seed, None, None, 0.9)
+                check(torch.equal(y, y2) and torch.equal(mean, stats[0])
+                      and torch.equal(var, stats[1]), f"K5 {what}: a second launch is bit-equal")
+
+                dx, dgamma, dbeta = seg.dropout_bn_act_backward(x, g, gamma, beta, stats, t, act, seed)
+                hand = segment_backward(x, g, gamma, beta, mp, rp, t, act, bytes_)
+                xr, gr, br = (v.clone().requires_grad_() for v in (x, gamma, beta))
+                segment_forward(xr, gr, br, t, act, mask_bytes=bytes_)[0].backward(g)
+                for ref, against in ((hand, "the plain hand backward"),
+                                     ((xr.grad, gr.grad, br.grad), "autograd of the plain forward")):
+                    e = max(rel_max(a, r) for a, r in zip((dx, dgamma, dbeta), ref))
+                    check(e <= 1e-5, f"K5-bwd {what}: dx, dgamma, dbeta within 1e-5 of their "
+                                     f"max vs {against} ({e:.2e})")
+                err["bwd"] = max(err["bwd"], *((a - r).abs().max().item()
+                                               for a, r in zip((dx, dgamma, dbeta), hand)))
+                check(torch.equal(dx == 0, hand[0] == 0),
+                      f"K5-bwd {what}: dx is exactly 0 where the plain version's is "
+                      f"({int((dx == 0).sum())} zeros)")
+                dx2, dg2, db2 = seg.dropout_bn_act_backward(x, g, gamma, beta, stats, t, act, seed)
+                check(torch.equal(dx, dx2) and torch.equal(dgamma, dg2) and torch.equal(dbeta, db2),
+                      f"K5-bwd {what}: a second launch is bit-equal")
+                xk = x.clone().requires_grad_()
+                build.reset_launches()
+                seg.dropout_bn_act(xk, gamma, beta, rate=rate, act=act, seed=seed)[0].backward(g)
+                check(build.LAUNCHES["segment"] == 1 and build.LAUNCHES["segment_bwd"] == 1
+                      and torch.equal(xk.grad, dx),
+                      f"{what}: the autograd.Function launches K5 and K5-bwd once each and "
+                      f"returns K5-bwd's dx")
+                build.reset_launches()
+                del xr, gr, br, xk, hand
+        t, n = bits8_keep_threshold(0.2), int(np.prod(shape))
+        _, stats = seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, seed, None, None, 0.9)
+        at_shape[shape] = (
+            device_ms(lambda: seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, seed, None,
+                                              None, 0.9), 10),
+            device_ms(lambda: seg.dropout_bn_act_backward(x, g, gamma, beta, stats, t, "elu", seed), 10),
+            bound(8 * n, OPS_SEGMENT * n)[0], bound(12 * n, 2 * OPS_SEGMENT * n)[0])
+        print(f"  device {list(shape)}: K5 {fmt_ms(at_shape[shape][0])}, K5-bwd "
+              f"{fmt_ms(at_shape[shape][1])}; bounds {at_shape[shape][2]:.4f}, "
+              f"{at_shape[shape][3]:.4f} ms  ({card})")
+        build.reset_launches()
+        del x, g
+        torch.cuda.empty_cache()
+    steps = {}
+    for model, counts in per_step.items():
+        steps[model] = {"segments": sum(counts.values())}
+        for i, name in enumerate(("K5", "K5-bwd")):
+            steps[model][name] = {
+                "device_ms": total([None if at_shape[s][i] is None else n * at_shape[s][i]
+                                    for s, n in counts.items()]),
+                "bound_ms": sum(n * at_shape[s][2 + i] for s, n in counts.items())}
+        print(f"  per {model} training step ({steps[model]['segments']} segments): "
+              + "; ".join(f"{k} device {fmt_ms(v['device_ms'])}, bound {v['bound_ms']:.4f} ms"
+                          for k, v in steps[model].items() if k != "segments")
+              + f"  ({card})")
+
+    # times at each model's largest shape, rate 0.2 and ELU (the models' case)
+    times = {}
+    for shape in timed:
+        c, n = shape[1], int(np.prod(shape))
+        x = torch.randn(shape, generator=g_, device=dev) * 1.5 + 0.3
+        g = torch.randn(shape, generator=g_, device=dev)
+        gamma = torch.rand(c, generator=g_, device=dev) + 0.5
+        beta = torch.randn(c, generator=g_, device=dev) * 0.2
+        t = bits8_keep_threshold(0.2)
+        _, stats = seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, seed, None, None, 0.9)
+        _, mp, _, rp = segment_forward(x, gamma, beta, t, "elu",
+                                       mask_bytes=dropout_bytes(shape, seed, dev))
+        # the port's unfused chain: keyed Dropout, batch_norm_train, ELU
+        bn = torch.nn.BatchNorm2d(c).to(dev)
+        drop = Dropout(0.2)
+        drop.key = DropoutKey()
+        chain = lambda v: F.elu(batch_norm_train(bn, drop(v, True)))  # noqa: E731
+        xr = x.clone().requires_grad_()
+        y_chain = chain(xr)
+        calls = {
+            "K5": (lambda: seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, seed, None, None, 0.9),
+                   lambda: segment_forward(x, gamma, beta, t, "elu",
+                                           mask_bytes=dropout_bytes(shape, seed, dev)),
+                   lambda: chain(x), bound(8 * n, OPS_SEGMENT * n)),
+            "K5-bwd": (lambda: seg.dropout_bn_act_backward(x, g, gamma, beta, stats, t, "elu", seed),
+                       lambda: segment_backward(x, g, gamma, beta, mp, rp, t, "elu",
+                                                dropout_bytes(shape, seed, dev)),
+                       lambda: torch.autograd.grad(y_chain, (xr, bn.weight, bn.bias), g,
+                                                   retain_graph=True),
+                       bound(12 * n, 2 * OPS_SEGMENT * n)),
+        }
+        for name, (kern, plain, unfused, bnd) in calls.items():
+            ct = [cuda_ms(plain, 5), cuda_ms(kern, 20), cuda_ms(kern, 20), cuda_ms(plain, 5)]
+            un = cuda_ms(unfused, 10)
+            dk, dpl, dun = device_ms(kern, 10), device_ms(plain, 3), device_ms(unfused, 5)
+            times[(name, shape)] = {
+                "ms": (ct[1] + ct[2]) / 2, "plain_ms": (ct[0] + ct[3]) / 2, "device_ms": dk,
+                "plain_device_ms": dpl, "unfused_ms": un, "unfused_device_ms": dun,
+                "bound_ms": bnd[0], "bound_by": bnd[1]}
+            r = times[(name, shape)]
+            print(f"  time {name} {list(shape)} rate 0.2 elu per call: kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, the unfused chain {un:.4f} ms; device: "
+                  f"kernel {fmt_ms(dk)}, plain {fmt_ms(dpl)}, unfused {fmt_ms(dun)}; bound "
+                  f"{bnd[0]:.4f} ms ({bnd[1]})  ({card})")
+        del x, g, xr, y_chain
+        torch.cuda.empty_cache()
+    return err, times, steps
+
+
+def phase_celeba_segments(card, train_u8, test_u8, phase12):
+    """celeba64 training through lvae_tpu_torch.main --fused all."""
+    import torch
+
+    from lvae_tpu_torch import evaluate
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.kernels import build
+
+    print("[15] celeba64 training through lvae_tpu_torch.main --dataset celeba --fused all",
+          flush=True)
+    args = CELEBA_ARGS + ["--fused", "all"]
+    init = init_launches(args, celeba_dataset(train_u8, test_u8))
+    print(f"  data-dependent init alone launches K5 {init['segment']}, K1 "
+          f"{init['sample_kl_per_sample']} and K3 {init['mix_log_prob']} times")
+    steps, n_sweeps = SEGMENT_STEPS, 1
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        write_celeba(data_dir, train_u8, test_u8)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_main.main(args + [
+            "--data-dir", data_dir, "--data-dep-init", "--max-steps", str(steps),
+            "--device", "cuda", "--log-interval", "20", "--test-interval", str(steps),
+            "--checkpoint-interval", str(steps), "--output-dir", os.path.join(tmp, "out"),
+            "--run-name", "celeba64-segments",
+        ])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        n_seg = segments_per_step(trainer.state.model)
+        print(f"  launches in the training run: {launches}")
+        print(f"  run wall {wall:.1f} s (data load, data-dependent init, {steps} steps, "
+              f"{n_sweeps} test sweep, 1 checkpoint)  ({card})")
+        sweep_batches = n_sweeps * (CELEBA_N_TEST // CELEBA_EVAL_B)
+        check(launches["segment"] == n_seg * steps + init["segment"],
+              f"K5: {n_seg} segments per step and the init's {init['segment']} "
+              f"({launches['segment']})")
+        check(launches["segment_bwd"] == n_seg * steps,
+              f"K5-bwd: {n_seg} per step ({launches['segment_bwd']})")
+        check(launches["mix_log_prob_bwd"] == steps
+              and launches["mix_log_prob"] == steps + sweep_batches + init["mix_log_prob"],
+              f"K3, K3-bwd as in phase 12 ({launches['mix_log_prob']}, "
+              f"{launches['mix_log_prob_bwd']})")
+        check(launches["sample_kl_per_sample"] == 4 * steps + init["sample_kl_per_sample"]
+              and launches["sample_kl_per_sample_bwd"] == 4 * steps,
+              f"K1, K1-bwd as in phase 12 ({launches['sample_kl_per_sample']}, "
+              f"{launches['sample_kl_per_sample_bwd']})")
+        check(launches["sample_kl"] == 4 * sweep_batches and launches["sample_kl_bwd"] == 0,
+              f"the test hook ran K2 forward only ({launches['sample_kl']} launches)")
+        hist = trainer.logger.history
+        check(all(np.isfinite(np.asarray(v, dtype=np.float64)).all()
+                  for _, _, m in hist for v in m.values()),
+              f"every logged metric finite ({len(hist)} lines)")
+        train_lines = {step: m for kind, step, m in hist if kind == "train"}
+        first, last = float(train_lines[20]["loss"]), float(train_lines[steps]["loss"])
+        check(last < first, f"EMA loss {last:.2f} at step {steps} below {first:.2f} at "
+                            f"step 20")
+        tests = [m for kind, _, m in hist if kind == "test"]
+        ckpt = os.path.join(trainer.run_dir, "checkpoints", f"ckpt_{steps:08d}.pt")
+        res = evaluate.main(["--load", trainer.run_dir, "--state-dict", ckpt,
+                             "--device", "cuda"])
+        e = res["elbo"]
+        d = abs(e["elbo"] - tests[-1]["elbo"])
+        check(np.isfinite(e["elbo"]) and d <= 1e-2,
+              f"evaluate scores the checkpoint: ELBO {e['elbo']:.3f}, the run's last "
+              f"test ELBO {tests[-1]['elbo']:.3f}")
+        check(list(trainer.state.model.state_dict()) == phase12["state_keys"],
+              "its state_dict keys are phase 12's (--fused auto)")
+        out["launches"] = launches
+        out["segments_per_step"] = n_seg
+        out["wall_s"] = wall
+        out["log_rates"] = {step: float(m["images_per_sec"]) for step, m in train_lines.items()}
+        out["test_elbo"] = [float(m["elbo"]) for m in tests]
+        out["ema_loss"] = (first, last)
     return out
 
 
@@ -1233,82 +1600,113 @@ def main():
     t0 = time.perf_counter()
     phase_build()
     res = {"card": card}
-    k2_err, k2_t = phase_sample_kl(card)
-    k4_err, k4_t = phase_logsumexp(card)
+    k2_err, k2_t, k2_b = phase_sample_kl(card)
+    k4_err, k4_t, k4_b, k4_lib = phase_logsumexp(card)
     ev = phase_slice(card)
     res.update(images_per_sec=ev["rates"], elbo_profile=ev["elbo_profile"])
+
+    def entry(name, source, replaces, launches, err, t, bnd, library_ms, **more):
+        return {"name": name, "route": "cuda", "source": f"lvae_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": t[0], "plain_ms": t[1], "device_ms": t[2], "plain_device_ms": t[3],
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms, **more}
+
     kernels = [
-        {"name": "sample_kl", "route": "cuda",
-         "source": "lvae_tpu_torch/csrc/stochastic_kl.cu",
-         "replaces": "lvae_tpu/kernels/stochastic_pallas.py:149",
-         "launches": ev["launches"]["sample_kl"], "max_abs_err": k2_err,
-         "ms": k2_t[0], "plain_ms": k2_t[1], "device_ms": k2_t[2],
-         "plain_device_ms": k2_t[3], "shapes": "3 layers at B=1000",
-         "path": "evaluate"},
-        {"name": "logsumexp", "route": "cuda",
-         "source": "lvae_tpu_torch/csrc/logsumexp.cu",
-         "replaces": "lvae_tpu/kernels/logsumexp_pallas.py:36",
-         "launches": ev["launches"]["logsumexp"], "max_abs_err": k4_err,
-         "ms": k4_t[0], "plain_ms": k4_t[1], "device_ms": k4_t[2],
-         "plain_device_ms": k4_t[3], "shapes": "[100, 1000]", "path": "evaluate"},
+        entry("sample_kl", "stochastic_kl.cu", "lvae_tpu/kernels/stochastic_pallas.py:149",
+              ev["launches"]["sample_kl"], k2_err, k2_t, k2_b, None,
+              shapes="3 layers at B=1000", path="evaluate"),
+        entry("logsumexp", "logsumexp.cu", "lvae_tpu/kernels/logsumexp_pallas.py:36",
+              ev["launches"]["logsumexp"], k4_err, k4_t, k4_b, k4_lib,
+              library="torch.logsumexp(x, 0)", shapes="[100, 1000]", path="evaluate"),
     ]
-    k1_err, k1_t = phase_k1(card)
-    bwd_err, bwd_t = phase_bwd(card)
+    k1_err, k1_t, k1_b = phase_k1(card)
+    bwd_err, bwd_t, bwd_b = phase_bwd(card)
     train_u8, test_u8 = train_data()
     tr = phase_train(card, train_u8, test_u8)
     res.update(train_run={k: tr[k] for k in ("wall_s", "log_rates", "log_rate_91_300",
                                             "test_elbo", "ema_loss")})
+    flagship_weights = flagship_model(torch.device("cpu")).state_dict()
     res.update(phase_step(
         card, "[9] one step: the kernel path vs the plain path and the CPU; train "
-        "images/s", FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8),
-        flagship_model(torch.device("cpu")).state_dict(), TRAIN_B, TRAIN_STEPS, 100))
+        "images/s", FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8), flagship_weights,
+        TRAIN_B, TRAIN_STEPS, 100))
     mix_err, mix_t = phase_mixture(card)
     c_all = rgb_blobs(CELEBA_N_TRAIN + CELEBA_N_TEST, seed=12)
     c_train, c_test = c_all[:CELEBA_N_TRAIN], c_all[CELEBA_N_TRAIN:]
+    c_data = celeba_dataset(c_train, c_test)
     cev = phase_celeba_eval(card, c_train, c_test)
     ctr = phase_celeba_train(card, c_train, c_test)
+    celeba_weights = seeded_model(CELEBA, c_data, torch.device("cpu")).state_dict()
     cst = phase_step(
         card, "[13] one celeba64 step: the kernel path vs the plain path and the CPU; "
-        "train images/s", CELEBA_ARGS, celeba_dataset(c_train, c_test),
-        seeded_model(CELEBA, celeba_dataset(c_train, c_test), torch.device("cpu")).state_dict(),
-        16, 150, 50)
+        "train images/s", CELEBA_ARGS, c_data, celeba_weights, 16, 150, 50)
     res["celeba64"] = {
         "images_per_sec": cev["rates"], "elbo_profile": cev["elbo_profile"],
         "train_run": {k: ctr[k] for k in ("wall_s", "log_rates", "log_rate_101_200",
                                          "test_elbo", "ema_loss")},
         **cst}
+
+    per_step = {
+        "celeba64": segment_shapes(CELEBA, c_data, CELEBA_B, CELEBA_IMAGE),
+        "flagship": segment_shapes(FLAGSHIP, flagship_dataset(train_u8, test_u8), TRAIN_B,
+                                   FLAGSHIP_IMAGE)}
+    for model, counts in per_step.items():
+        print(f"  {model}'s segments per step by shape: "
+              f"{ {str(list(k)): v for k, v in counts.items()} }")
+    timed = tuple(next(iter(per_step[m])) for m in ("celeba64", "flagship"))
+    seg_err, seg_t, seg_steps = phase_segment(card, per_step, timed)
+    csg = phase_celeba_segments(card, c_train, c_test, ctr)
+    res["celeba64"]["segments_run"] = {k: csg[k] for k in ("wall_s", "log_rates", "test_elbo",
+                                                           "ema_loss", "segments_per_step")}
+    res["celeba64"]["segments_step"] = phase_step(
+        card, "[16a] one celeba64 step: --fused all vs pallas on the card and vs the CPU; "
+        "train images/s", CELEBA_ARGS, c_data, celeba_weights, 16, 100, 50,
+        paths=("all", "pallas"), card_dropout=0.0, cpu=("all", 0.2))
+    res["segments_step"] = phase_step(
+        card, "[16b] one flagship step: --fused all vs stochastic on the card; train "
+        "images/s", FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8), flagship_weights,
+        None, 150, 50, paths=("all", "stochastic"), card_dropout=0.0)
+
     train_path = "lvae_tpu_torch.main (training)"
-    for name, replaces, e, t, path in (
+    for name, replaces, e, t, bnd, path in (
         ("sample_kl_per_sample", "lvae_tpu/kernels/stochastic_pallas.py:318", k1_err, k1_t,
-         train_path),
+         k1_b, train_path),
         ("sample_kl_per_sample_bwd", "lvae_tpu/kernels/stochastic_pallas.py:350",
-         bwd_err["k1"], bwd_t["k1"], train_path),
+         bwd_err["k1"], bwd_t["k1"], bwd_b["k1"], train_path),
         # K2's gradient: neither entry point differentiates through K2 (the
         # trainer's K1 takes every shape, so it never falls back to K2 as
         # lvae_tpu's does for F % 128 != 0); held to autograd in phase 7
         ("sample_kl_bwd", "lvae_tpu/kernels/stochastic_pallas.py:178",
-         bwd_err["k2"], bwd_t["k2"], "not on either entry point's path; phase 7"),
+         bwd_err["k2"], bwd_t["k2"], bwd_b["k2"], "not on either entry point's path; phase 7"),
     ):
-        kernels.append({
-            "name": name, "route": "cuda", "source": "lvae_tpu_torch/csrc/stochastic_kl.cu",
-            "replaces": replaces, "launches": tr["launches"][name], "max_abs_err": e,
-            "ms": t[0], "plain_ms": t[1], "device_ms": t[2], "plain_device_ms": t[3],
-            "shapes": "3 layers at B=64", "path": path,
-        })
+        kernels.append(entry(name, "stochastic_kl.cu", replaces, tr["launches"][name], e, t,
+                             bnd, None, shapes="3 layers at B=64", path=path))
     for name, replaces, e, t in (
         ("mix_log_prob", "lvae_tpu/kernels/mixture_pallas.py:323", mix_err["fwd"],
          mix_t[("K3", CELEBA_B)]),
         ("mix_log_prob_bwd", "lvae_tpu/kernels/mixture_pallas.py:338", mix_err["bwd"],
          mix_t[("K3-bwd", CELEBA_B)]),
     ):
-        kernels.append({
-            "name": name, "route": "cuda", "source": "lvae_tpu_torch/csrc/mixture.cu",
-            "replaces": replaces, "launches": ctr["launches"][name],
-            "launches_eval": cev["launches"][name], "max_abs_err": e,
-            "ms": t[0], "plain_ms": t[1], "device_ms": t[2], "plain_device_ms": t[3],
-            "shapes": f"[{CELEBA_B},100,64,64], C=3",
-            "path": "celeba64: lvae_tpu_torch.main (training), lvae_tpu_torch.evaluate",
-        })
+        kernels.append(entry(name, "mixture.cu", replaces, ctr["launches"][name], e, t,
+                             t[4:6], None, launches_eval=cev["launches"][name],
+                             shapes=f"[{CELEBA_B},100,64,64], C=3",
+                             path="celeba64: lvae_tpu_torch.main (training), "
+                                  "lvae_tpu_torch.evaluate"))
+    for name, replaces, e, key in (
+        ("segment", "lvae_tpu/kernels/segment_pallas.py:291", seg_err["fwd"], "K5"),
+        ("segment_bwd", "lvae_tpu/kernels/segment_pallas.py:318", seg_err["bwd"], "K5-bwd"),
+    ):
+        big = seg_t[(key, timed[0])]
+        t = [big[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")]
+        kernels.append(entry(
+            name, "segment.cu", replaces, csg["launches"][name], e, t,
+            (big["bound_ms"], big["bound_by"]), None, unfused_ms=big["unfused_ms"],
+            unfused_device_ms=big["unfused_device_ms"],
+            flagship=seg_t[(key, timed[1])],
+            per_step={m: v[key] for m, v in seg_steps.items()},
+            shapes=f"{list(timed[0])}, rate 0.2, elu (flagship: {list(timed[1])})",
+            path="celeba64 and the flagship: lvae_tpu_torch.main (training) --fused "
+                 "segments|all"))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, **res}))

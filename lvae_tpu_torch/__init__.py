@@ -1,12 +1,14 @@
 """PyTorch/CUDA port of ``lvae_tpu`` for one NVIDIA H100.
 
-This package trains the flagship Ladder VAE (``python -m
-lvae_tpu_torch.main``) and runs its evaluation and serving path (test
-ELBO, k-sample IW log-likelihood, reconstruct / encode / generate)
-through hand-written CUDA kernels: the fused sample+KL kernels, forward
-per element (K2) and per sample (K1) with their backward
-(``kernels/stochastic.py``), and the IW logsumexp
-(``kernels/logsumexp.py``).
+This package trains the flagship Ladder VAE and the RGB models
+(``python -m lvae_tpu_torch.main``) and runs their evaluation and serving
+path (test ELBO, k-sample IW log-likelihood, reconstruct / encode /
+generate) through hand-written CUDA kernels: the fused sample+KL kernels,
+forward per element (K2) and per sample (K1) with their backward
+(``kernels/stochastic.py``), the IW logsumexp (``kernels/logsumexp.py``),
+the mixture head's log-prob and its backward (``kernels/mixture.py``) and
+the train-mode dropout+BatchNorm+activation segment and its backward
+(``kernels/segment.py``).
 
 It imports torch and numpy, never jax or ``lvae_tpu``; ``lvae_tpu`` stays
 the reference it is tested against (``tests/test_torch_*.py``). Public

@@ -4,7 +4,9 @@
 reads. A run's ``config.json`` (``lvae_tpu``'s or this port's trainer's)
 loads through :func:`config_from_dict`, which drops the train-only fields
 unread: they are neither stored nor validated there, so a stored train
-batch size can never block an evaluation. :class:`TrainConfig` adds the
+batch size can never block an evaluation. ``bn_stat_samples`` is kept (the
+model takes it) but validated only for training: evaluation normalises
+with the running statistics whatever its value. :class:`TrainConfig` adds the
 training fields, validated as ``lvae_tpu`` validates them; what the port
 does not run is rejected with its flag named.
 """
@@ -101,11 +103,6 @@ class EvalConfig:
                 f"--spatial-shards {self.spatial_shards} is not supported by "
                 f"the port (single-GPU eval only)"
             )
-        if self.bn_stat_samples > 0:
-            raise ValueError(
-                f"--bn-stat-samples {self.bn_stat_samples} is a train-mode "
-                f"BatchNorm option the port does not run"
-            )
 
 
 def config_from_dict(d: dict) -> EvalConfig:
@@ -183,6 +180,13 @@ class TrainConfig(EvalConfig):
             raise ValueError(f"--max-grad-norm must be > 0, got {self.max_grad_norm}")
         if not 0.0 <= self.ema_decay <= 1.0:
             raise ValueError(f"--ema-decay must be in [0, 1], got {self.ema_decay}")
+        if self.bn_stat_samples < 0:
+            raise ValueError(f"--bn-stat-samples must be >= 0, got {self.bn_stat_samples}")
+        if self.bn_stat_samples > self.batch_size:
+            raise ValueError(
+                f"--bn-stat-samples {self.bn_stat_samples} exceeds --batch-size "
+                f"{self.batch_size} (stats come from the leading N batch rows)"
+            )
         _positive("grad-accum", self.grad_accum)
         _positive("num-data-shards", self.num_data_shards)
         _positive("steps-per-call", self.steps_per_call)
@@ -224,6 +228,8 @@ class TrainConfig(EvalConfig):
             parts.append(f"pad-{self.conv_pad}")
         if self.skip_merge != "pre":
             parts.append(f"sm-{self.skip_merge}")
+        if self.bn_stat_samples:
+            parts.append(f"bnss{self.bn_stat_samples}")
         parts.append(f"seed{self.seed}")
         return ",".join(parts)
 
@@ -274,7 +280,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--conv-pad", default=d.conv_pad, choices=["same", "torch"])
     add("--skip-merge", default=d.skip_merge, choices=["pre", "post"])
     add("--no-bn", action="store_true", help="disable batchnorm")
-    add("--bn-stat-samples", type=int, default=d.bn_stat_samples)
+    add("--bn-stat-samples", type=int, default=d.bn_stat_samples,
+        help="BatchNorm training statistics from the leading N batch rows (0: all)")
     add("--likelihood", default=None, choices=list(LIKELIHOODS),
         help="output head (default: the dataset's)")
     # loss / optimization
@@ -292,10 +299,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="kernel policy: 'auto' turns on, on CUDA, the sample+KL kernels "
              "and, for the discretized_logistic_mix head, the mixture "
              "log-prob kernel; 'stochastic' the sample+KL kernels, "
-             "'mixture' the mixture kernel, 'pallas' both, on any device (the "
-             "CPU runs their plain versions); 'none' is plain PyTorch; "
-             "'segments' and 'all' ask for the unported BatchNorm segment "
-             "kernel and are rejected")
+             "'mixture' the mixture kernel, 'pallas' both; 'segments' the "
+             "train-mode dropout+BatchNorm+activation segment kernel, 'all' "
+             "the three; on any device (the CPU runs their plain versions); "
+             "'none' is plain PyTorch")
     add("--remat", action="store_true")
     add("--steps-per-call", type=int, default=d.steps_per_call)
     add("--streaming", action="store_true")

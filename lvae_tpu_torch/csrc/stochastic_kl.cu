@@ -57,28 +57,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
-constexpr uint32_t kM0 = 0xD2511F53u;
-constexpr uint32_t kM1 = 0xCD9E8D57u;
-constexpr uint32_t kW0 = 0x9E3779B9u;
-constexpr uint32_t kW1 = 0xBB67AE85u;
+using lvae::philox4x32_10;
+
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += kW0;
-      k1 += kW1;
-    }
-    const uint32_t lo0 = kM0 * c.x, hi0 = __umulhi(kM0, c.x);
-    const uint32_t lo1 = kM1 * c.z, hi1 = __umulhi(kM1, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
 
 __device__ __forceinline__ float uniform24(uint32_t bits) {
   return (static_cast<float>(bits >> 8) + 1.0f) * (1.0f / 16777216.0f);

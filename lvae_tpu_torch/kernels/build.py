@@ -2,7 +2,8 @@
 with ``ctypes``.
 
 The library has a plain C interface (no PyTorch headers), so a cold
-build takes seconds. It is built at first use into
+build takes seconds: one ``nvcc`` per source, all started together, then
+one link. It is built at first use into
 ``build/lvae_tpu_torch/<hash>/`` at the repository root, keyed by a hash
 of the sources and flags, and loaded once per process. A missing
 ``nvcc`` or a failed build raises: there is no fallback.
@@ -30,7 +31,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "lvae_tpu_torch"
 # the FMAs would buy nothing).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
 LAUNCHES = {
@@ -43,6 +44,8 @@ LAUNCHES = {
     "logsumexp": 0,                  # K4
     "mix_log_prob": 0,               # K3
     "mix_log_prob_bwd": 0,           # K3-bwd
+    "segment": 0,                    # K5
+    "segment_bwd": 0,                # K5-bwd
 }
 
 _P = ctypes.c_void_p
@@ -67,6 +70,15 @@ _SIGNATURES = {
     "lvae_mix_log_prob": (_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P),
     # x, params, g, dparams, dx (or NULL), b, hw, k, c, n_bins, stream
     "lvae_mix_log_prob_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P),
+    # x, gamma, beta, running_mean, running_var (or NULL), y, stats, partial,
+    # b, c, hw, slices, t, act, eps, momentum, 1 - momentum, seed, vec, stream
+    "lvae_segment_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _INT, _INT,
+                         _INT, ctypes.c_double, ctypes.c_float, ctypes.c_float, _U64,
+                         _INT, _P),
+    # x, g, gamma, stats, dx, bstats, partial, b, c, hw, slices, t, act,
+    # seed, vec, stream
+    "lvae_segment_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _INT, _INT, _INT,
+                         _U64, _INT, _P),
 }
 
 
@@ -91,28 +103,35 @@ def build() -> tuple[Path, str]:
     empty when the library was already built)."""
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in sorted(CSRC.glob("*.cu*")):       # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_ROOT / h.hexdigest()[:16] / "liblvae_tpu_torch.so"
     if out.exists():
         return out, ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    sources = [str(s) for s in srcs]
-    # build to a temporary name, then rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
-    os.replace(tmp, out)
-    return out, res.stdout + res.stderr
+    nvcc = _nvcc()
+    # build in a temporary directory, then rename the library: a concurrent
+    # or interrupted build never leaves a half-written one under its name
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in zip(srcs, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        lib = os.path.join(tmp, out.name)
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", lib, *objs]
+        for cmd, p, log in zip(cmds, procs, logs):
+            _check_run(cmd, p.returncode, log)
+        res = subprocess.run(link, capture_output=True, text=True)
+        _check_run(link, res.returncode, res.stdout + res.stderr)
+        os.replace(lib, out)
+    return out, "".join(logs)
+
+
+def _check_run(cmd: list, returncode: int, log: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{log}")
 
 
 @functools.lru_cache(maxsize=None)

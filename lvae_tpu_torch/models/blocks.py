@@ -11,7 +11,10 @@ Train: BatchNorm normalises with the batch mean and biased variance and
 moves its running statistics as flax does (momentum 0.9, biased
 variance); dropout draws its mask from a generator keyed by (train seed,
 step, dropout site) (:class:`DropoutKey`), so a step's masks are a
-function of the step alone.
+function of the step alone. ``bn_stat_samples > 0`` takes the training
+statistics from the batch's leading rows (``SubsampledBatchNorm``), and
+``fused_segments`` runs each ``[d] b a`` run of a residual branch as one
+:class:`FusedBNActSegment` (the kernels K5 and K5-bwd) in training.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lvae_tpu_torch.ops.math import bits8_dropout_f32, bits8_keep_threshold
+from lvae_tpu_torch.kernels.segment import dropout_bn_act
+from lvae_tpu_torch.ops.math import SEGMENT_ACTS, bits8_dropout_f32, bits8_keep_threshold
 from lvae_tpu_torch.ops.philox import mix_seed
 
 NONLINEARITIES: dict[str, Callable] = {
@@ -165,6 +169,26 @@ def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor,
     return y
 
 
+def subsampled_batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor, stat_samples: int,
+                                momentum: float = 0.9) -> torch.Tensor:
+    """``lvae_tpu``'s ``SubsampledBatchNorm`` in training
+    (``lvae_tpu/models/blocks.py:209-290``): the mean and biased variance
+    of the contiguous leading ``n = min(stat_samples, B)`` rows, in fp32,
+    the variance clamped at 0; the whole batch normalised with them (the
+    gradient reaches the statistics through those rows only); the running
+    statistics moved as flax moves them."""
+    n = max(1, min(stat_samples, x.shape[0]))
+    xs = x[:n].float()
+    mean = xs.mean(dim=(0, 2, 3))
+    var = torch.clamp_min((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * var)
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    shift = bn.bias - mean * inv
+    return (x.float() * inv.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype)
+
+
 class DropoutKey:
     """The dropout keys of one model: every :class:`Dropout` of the model
     holds this one object and its own site number, and draws its bits from
@@ -175,11 +199,15 @@ class DropoutKey:
         self.seed, self.step = 0, 0
         self._generators: dict = {}
 
+    def seed_for(self, site: int) -> int:
+        """The key of dropout site ``site`` at this step."""
+        return mix_seed(self.seed, self.step, site)
+
     def generator(self, device: torch.device, site: int) -> torch.Generator:
         g = self._generators.get(device)
         if g is None:
             g = self._generators[device] = torch.Generator(device=device)
-        g.manual_seed(mix_seed(self.seed, self.step, site))
+        g.manual_seed(self.seed_for(site))
         return g
 
 
@@ -213,6 +241,35 @@ class Dropout(nn.Module):
         return bits8_dropout_f32(x, g, t)
 
 
+class FusedBNActSegment:
+    """``[dropout ->] BatchNorm -> activation`` of a residual branch as one
+    unit in training: K5 forward and K5-bwd backward
+    (:func:`lvae_tpu_torch.kernels.segment.dropout_bn_act`; the plain
+    versions for a CPU tensor), the port of ``lvae_tpu``'s
+    ``FusedBNActSegment`` (``lvae_tpu/models/blocks.py:132-206``).
+
+    Not a module: it reads ``BatchNorm_n``'s weight, bias and running
+    buffers in place (the kernel's finalise moves the buffers: momentum
+    0.9, biased variance), so ``state_dict()`` keys are the same under
+    every ``--fused`` value and checkpoints interoperate. The mask is keyed
+    by the absorbed ``Dropout_n``'s site, as that dropout keys its own, so
+    only the generator differs from the unfused ops (keyed Philox bytes,
+    not a ``torch.Generator``'s). As in ``lvae_tpu``, the segment computes
+    in fp32 whatever the input's dtype and casts ``y`` back."""
+
+    def __init__(self, bn: nn.BatchNorm2d, act: str, dropout: "Dropout | None" = None):
+        self.bn, self.act, self.dropout = bn, act, dropout
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        bn, drop = self.bn, self.dropout
+        rate = drop.rate if drop is not None else 0.0
+        y, _, _ = dropout_bn_act(
+            x.float(), bn.weight.float(), bn.bias.float(), rate=rate, act=self.act,
+            eps=bn.eps, seed=drop.key.seed_for(drop.site) if rate > 0.0 else 0,
+            running_mean=bn.running_mean, running_var=bn.running_var)
+        return y.to(x.dtype)
+
+
 class GateLayer(nn.Module):
     """a * sigmoid(b) from a 1x1 conv to 2x the channels."""
 
@@ -228,17 +285,26 @@ class GateLayer(nn.Module):
 class ResidualBlock(nn.Module):
     """Residual block whose branch is spelled by ``block_type``: ``b``
     BatchNorm, ``a`` activation, ``c`` 3x3 conv, ``d`` dropout (the
-    identity in eval); an optional GateLayer ends the branch."""
+    identity in eval); an optional GateLayer ends the branch.
+
+    With ``fused_segments``, training runs every ``[d] b a`` run as one
+    :class:`FusedBNActSegment`. That needs BatchNorm on full-batch
+    statistics (``bn_stat_samples == 0``), ELU or ReLU and bits8 dropout;
+    anything else keeps the unfused ops, silently, as ``lvae_tpu`` does
+    (``lvae_tpu/models/blocks.py:321-357``). Eval is the same either way."""
 
     def __init__(self, channels: int, block_type: str = "bacdbacd",
                  kernel_size: int = 3, nonlin: str = "elu",
                  batchnorm: bool = True, gated: bool = False,
                  conv_pad: str = "same", dropout_rate: float = 0.0,
-                 dropout_impl: str = "bits8"):
+                 dropout_impl: str = "bits8", bn_stat_samples: int = 0,
+                 fused_segments: bool = False):
         super().__init__()
         self.block_type = block_type
         self.act = get_nonlin(nonlin)
         self.batchnorm = batchnorm
+        self.bn_stat_samples = bn_stat_samples
+        self.fused_segments = fused_segments
         nb = nc = nd = 0
         for ch in block_type:
             if ch == "b" and batchnorm:
@@ -256,14 +322,41 @@ class ResidualBlock(nn.Module):
             elif ch not in "abcd":
                 raise ValueError(f"unknown block_type char {ch!r} in {block_type!r}")
         self.GateLayer_0 = GateLayer(channels) if gated else None
+        # position in block_type -> (length, segment) of each [d] b a run
+        self._segments: dict[int, tuple[int, FusedBNActSegment]] = {}
+        if (batchnorm and bn_stat_samples == 0 and nonlin in SEGMENT_ACTS
+                and dropout_impl == "bits8"):
+            nb = nd = i = 0
+            while i < len(block_type):
+                run = (3 if block_type.startswith("dba", i)
+                       else 2 if block_type.startswith("ba", i) else 0)
+                if run:
+                    drop = getattr(self, f"Dropout_{nd}") if run == 3 else None
+                    self._segments[i] = (run, FusedBNActSegment(
+                        getattr(self, f"BatchNorm_{nb}"), nonlin, drop))
+                    nb, nd, i = nb + 1, nd + (run == 3), i + run
+                else:
+                    nb, nd, i = nb + (block_type[i] == "b"), nd + (block_type[i] == "d"), i + 1
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        segments = self._segments if train and self.fused_segments else {}
         h = x
-        nb = nc = nd = 0
-        for ch in self.block_type:
+        nb = nc = nd = i = 0
+        while i < len(self.block_type):
+            if i in segments:
+                run, seg = segments[i]
+                h = seg(h)
+                nb, nd, i = nb + 1, nd + (run == 3), i + run
+                continue
+            ch = self.block_type[i]
             if ch == "b" and self.batchnorm:
                 bn = getattr(self, f"BatchNorm_{nb}")
-                h = batch_norm_train(bn, h) if train else batch_norm_eval(bn, h)
+                if not train:
+                    h = batch_norm_eval(bn, h)
+                elif self.bn_stat_samples > 0:
+                    h = subsampled_batch_norm_train(bn, h, self.bn_stat_samples)
+                else:
+                    h = batch_norm_train(bn, h)
                 nb += 1
             elif ch == "a":
                 h = self.act(h)
@@ -273,6 +366,7 @@ class ResidualBlock(nn.Module):
             elif ch == "d":
                 h = getattr(self, f"Dropout_{nd}")(h, train)
                 nd += 1
+            i += 1
         if self.GateLayer_0 is not None:
             h = self.GateLayer_0(h)
         return x + h
@@ -289,7 +383,8 @@ class ResBlockWithResampling(nn.Module):
                  block_type: str = "bacdbacd", kernel_size: int = 3,
                  nonlin: str = "elu", batchnorm: bool = True,
                  gated: bool = False, conv_pad: str = "same",
-                 dropout_rate: float = 0.0, dropout_impl: str = "bits8"):
+                 dropout_rate: float = 0.0, dropout_impl: str = "bits8",
+                 bn_stat_samples: int = 0, fused_segments: bool = False):
         super().__init__()
         if mode not in ("bottom-up", "top-down"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -310,7 +405,7 @@ class ResBlockWithResampling(nn.Module):
             self.Conv_0 = Conv2d(cin, channels, 1)
         self.ResidualBlock_0 = ResidualBlock(
             channels, block_type, kernel_size, nonlin, batchnorm, gated, conv_pad,
-            dropout_rate, dropout_impl,
+            dropout_rate, dropout_impl, bn_stat_samples, fused_segments,
         )
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -333,14 +428,16 @@ class MergeLayer(nn.Module):
     def __init__(self, channels: int, merge_type: str = "residual",
                  block_type: str = "bacdbacd", nonlin: str = "elu",
                  batchnorm: bool = True, conv_pad: str = "same",
-                 dropout_rate: float = 0.0, dropout_impl: str = "bits8"):
+                 dropout_rate: float = 0.0, dropout_impl: str = "bits8",
+                 bn_stat_samples: int = 0, fused_segments: bool = False):
         super().__init__()
         if merge_type not in ("linear", "residual"):
             raise ValueError(f"unknown merge_type {merge_type!r}")
         self.Conv_0 = Conv2d(2 * channels, channels, 1)
         self.ResidualBlock_0 = (
             ResidualBlock(channels, block_type, 3, nonlin, batchnorm, False,
-                          conv_pad, dropout_rate, dropout_impl)
+                          conv_pad, dropout_rate, dropout_impl, bn_stat_samples,
+                          fused_segments)
             if merge_type == "residual" else None
         )
 

@@ -18,8 +18,12 @@ ones), dropout keyed by ``(noise.seed, step = noise.sample, site)``, and,
 with ``fused_stochastic``, the per-sample KL kernel K1 in every latent
 layer: ``kl_sep`` then comes from its ``[B]`` sums and ``kl_spatial`` is
 ``None``, as in ``lvae_tpu``. ``fused_mixture`` puts a mixture head's
-log-prob on the kernel K3 (and its gradient on K3-bwd). fp32 on the
-card: building the model turns TF32 off (:func:`lvae_tpu_torch.fp32_math`).
+log-prob on the kernel K3 (and its gradient on K3-bwd); ``fused_segments``
+runs every ``[d] b a`` run of a residual branch in training as one
+dropout+BatchNorm+activation segment, K5 (and K5-bwd); ``bn_stat_samples >
+0`` takes training BatchNorm statistics from the batch's leading rows.
+fp32 on the card: building the model turns TF32 off
+(:func:`lvae_tpu_torch.fp32_math`).
 """
 
 from __future__ import annotations
@@ -71,14 +75,16 @@ class TopDownLayer(nn.Module):
                  nonlin: str = "elu", batchnorm: bool = True,
                  gated: bool = False, fused: bool = False,
                  resample_mode: str = "conv", conv_pad: str = "same",
-                 dropout_rate: float = 0.0, dropout_impl: str = "bits8"):
+                 dropout_rate: float = 0.0, dropout_impl: str = "bits8",
+                 bn_stat_samples: int = 0, fused_segments: bool = False):
         super().__init__()
         self.is_top, self.z_dim = is_top, z_dim
         self.top_prior_hw = tuple(top_prior_hw)
         self.skip_merge_mode = skip_merge_mode
         common = dict(block_type=block_type, nonlin=nonlin,
                       batchnorm=batchnorm, conv_pad=conv_pad,
-                      dropout_rate=dropout_rate, dropout_impl=dropout_impl)
+                      dropout_rate=dropout_rate, dropout_impl=dropout_impl,
+                      bn_stat_samples=bn_stat_samples, fused_segments=fused_segments)
         # the top rung has no incoming state: lvae_tpu never calls (so
         # never creates) its merge or skip merge
         self.merge = None if is_top else MergeLayer(n_filters, merge_type, **common)
@@ -167,6 +173,7 @@ class LadderVAE(nn.Module):
                  merge_type: str = "residual", resample_mode: str = "conv",
                  conv_pad: str = "same", no_initial_downscaling: bool = False,
                  fused_stochastic: bool = False, fused_mixture: bool = False,
+                 fused_segments: bool = False, bn_stat_samples: int = 0,
                  dropout_rate: float = 0.2,
                  dropout_impl: str = "bits8",
                  generator: Optional[torch.Generator] = None):
@@ -189,7 +196,8 @@ class LadderVAE(nn.Module):
             )
         common = dict(block_type=res_block_type, nonlin=nonlin,
                       batchnorm=batchnorm, conv_pad=conv_pad,
-                      dropout_rate=dropout_rate, dropout_impl=dropout_impl)
+                      dropout_rate=dropout_rate, dropout_impl=dropout_impl,
+                      bn_stat_samples=bn_stat_samples, fused_segments=fused_segments)
         self.dropout_rate = dropout_rate
 
         self.first_conv = Conv2d(color_ch, n_filters, 5,

@@ -1,9 +1,11 @@
-"""Shape, schedule and dropout utilities (port of ``lvae_tpu/ops/math.py``).
-The shape ops take NHWC, like the reference package's public layout."""
+"""Shape, schedule and dropout utilities (port of ``lvae_tpu/ops/math.py``),
+and the plain math of the fused dropout + BatchNorm + activation segment.
+The shape ops take NHWC, like the reference package's public layout; the
+segment takes the model's NCHW maps."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -74,3 +76,103 @@ def bits8_dropout_f32(u: torch.Tensor, generator: torch.Generator,
     bits = torch.randint(0, 256, u.shape, dtype=torch.uint8, device=u.device,
                          generator=generator)
     return torch.where(bits < t, u * float(np.float32(256.0 / t)), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the fused segment: [bits8 dropout ->] BatchNorm (train) -> ELU/ReLU
+# ---------------------------------------------------------------------------
+
+SEGMENT_ACTS = ("elu", "relu")
+
+
+def _segment_act(z: torch.Tensor, act: str) -> torch.Tensor:
+    """ELU (``expm1``-based) or ReLU."""
+    if act == "elu":
+        return torch.where(z > 0, z, torch.expm1(z))
+    if act == "relu":
+        return torch.where(z > 0, z, 0.0)
+    raise ValueError(f"unsupported fused-segment act {act!r}; choose from {SEGMENT_ACTS}")
+
+
+def _segment_act_grad(z: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "elu":
+        return torch.where(z > 0, 1.0, torch.exp(z))
+    return (z > 0).to(z.dtype)
+
+
+def _dropped(x: torch.Tensor, t: int, mask_bytes: Optional[torch.Tensor]) -> torch.Tensor:
+    """u: x where its byte is below ``t``, scaled by ``256 / t`` rounded to
+    fp32, else 0; x itself for ``t >= 256``, zeros for ``t <= 0``."""
+    if t >= 256:
+        return x
+    if t <= 0:
+        return torch.zeros_like(x)
+    return torch.where(mask_bytes < t, x * float(np.float32(256.0 / t)), 0.0)
+
+
+def _channel(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1)
+
+
+def segment_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, t: int,
+                    act: str, eps: float = 1e-5,
+                    mask_bytes: Optional[torch.Tensor] = None,
+                    running_mean: Optional[torch.Tensor] = None,
+                    running_var: Optional[torch.Tensor] = None,
+                    momentum: float = 0.9) -> Tuple[torch.Tensor, ...]:
+    """The train-mode segment over NCHW ``x`` in ``x``'s dtype
+    (``segment_pallas.py:291-315``): ``(y, mean, var, r)`` with the batch
+    mean and biased variance of ``u``, the dropped input (``t`` is the
+    bits8 keep threshold; ``mask_bytes`` the uint8 byte of each element,
+    needed when ``0 < t < 256``), and ``r = 1 / sqrt(var + eps)``.
+
+    The sums are taken in fp64, as the kernel takes them: ``E[u^2] -
+    mean^2`` cancels in fp32 at 64x64 maps. Given the running buffers, it
+    moves them as flax does: ``ra = m ra + (1 - m) stat``. Differentiable
+    by autograd; the hand-written backward is :func:`segment_backward`."""
+    u = _dropped(x, t, mask_bytes)
+    n = u.numel() // u.shape[1]
+    ud = u.double()
+    mean_d = ud.sum(dim=(0, 2, 3)) / n
+    var_d = (ud * ud).sum(dim=(0, 2, 3)) / n - mean_d * mean_d
+    r_d = 1.0 / torch.sqrt(var_d + eps)
+    mean, var, r = (v.to(x.dtype) for v in (mean_d, var_d, r_d))
+    scale = gamma * r
+    shift = beta - mean * scale
+    y = _segment_act(u * _channel(scale) + _channel(shift), act)
+    if running_mean is not None:
+        with torch.no_grad():
+            running_mean.copy_(momentum * running_mean
+                               + (1.0 - momentum) * mean.to(running_mean.dtype))
+            running_var.copy_(momentum * running_var
+                              + (1.0 - momentum) * var.to(running_var.dtype))
+    return y, mean, var, r
+
+
+def segment_backward(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, mean: torch.Tensor, r: torch.Tensor, t: int,
+                     act: str, mask_bytes: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The hand-written backward of :func:`segment_forward`
+    (``segment_pallas.py:318-347``): ``(dx, dgamma, dbeta)`` from the
+    cotangent ``g`` of ``y``, recomputing ``u``, ``z`` and ``act'(z)`` from
+    ``x`` and the forward's ``mean`` and ``r``. It includes the
+    batch-statistics terms ``m1 = mean(dz)``, ``m2 = mean(dz xhat)``; ``dx``
+    is exactly 0 where the mask dropped the element."""
+    u = _dropped(x, t, mask_bytes)
+    n = u.numel() // u.shape[1]
+    scale = gamma * r
+    shift = beta - mean * scale
+    dz = g * _segment_act_grad(u * _channel(scale) + _channel(shift), act)
+    xhat = (u - _channel(mean)) * _channel(r)
+    s1 = dz.double().sum(dim=(0, 2, 3))
+    s2 = (dz * xhat).double().sum(dim=(0, 2, 3))
+    dbeta, dgamma, m1, m2 = (v.to(x.dtype) for v in (s1, s2, s1 / n, s2 / n))
+    du = _channel(gamma * r) * ((dz - _channel(m1)) - xhat * _channel(m2))
+    if t >= 256:
+        dx = du
+    elif t <= 0:
+        dx = torch.zeros_like(du)
+    else:
+        dx = torch.where(mask_bytes < t, du * float(np.float32(256.0 / t)), 0.0)
+    return dx, dgamma, dbeta

@@ -41,6 +41,7 @@ STREAM_TRAIN_BINARIZE = 0x80000001    # train binarisation, keyed per step
 STREAM_TRAIN_DEQUANTIZE = 0x80000002  # train dequantisation noise, per step
 STREAM_SAMPLE_SELECT = 0x80000003     # image sampling: the mixture component
 STREAM_SAMPLE_DRAW = 0x80000004       # image sampling: the per-pixel draw
+STREAM_SEGMENT_DROPOUT = 0x80000005   # the fused segment's dropout bytes
 
 Ints = Union[int, torch.Tensor]
 
@@ -121,6 +122,27 @@ def keyed_words(shape: Sequence[int], seed: int, index: torch.Tensor,
         k0, k1,
     )
     return [w.expand(b, n) for w in words]
+
+
+def dropout_bytes(shape: Sequence[int], seed: int,
+                  device: torch.device | None = None) -> torch.Tensor:
+    """The fused segment's dropout byte of every element of a tensor of
+    ``shape`` (uint8, on ``device``): element ``e`` (its flat row-major
+    index) takes byte ``j = e % 16`` of the Philox output at counter
+    ``(e // 16 low word, high word, 0, STREAM_SEGMENT_DROPOUT)`` under the
+    key of ``seed``, i.e. ``(word[j // 4] >> 8 (j % 4)) & 255``: one call
+    gives 16 bytes. ``seed`` is ``mix_seed(train seed, step, site)``;
+    ``csrc/segment.cu`` regenerates the same bytes in every pass."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    grp = torch.arange((n + 15) // 16, dtype=torch.int64, device=device)
+    k0, k1 = seed_words(seed)
+    words = torch.stack(philox4x32(grp & _M32, grp >> 32, 0, STREAM_SEGMENT_DROPOUT,
+                                   k0, k1), dim=1)                    # [n/16, 4]
+    shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int64, device=device)
+    b = (words.unsqueeze(-1) >> shifts) & 255                         # [n/16, 4, 4]
+    return b.reshape(-1)[:n].to(torch.uint8).reshape(tuple(shape))
 
 
 def keyed_normal(shape: Sequence[int], seed: int, index: torch.Tensor,

@@ -42,41 +42,38 @@ def resolve_fused(policy: str, device: torch.device, train: bool = False,
                   likelihood: str = "bernoulli") -> dict:
     """Map ``--fused`` to the port's kernel switches, ``fused_stochastic``
     (the sample+KL kernels: K1 in training, K2 in eval, each with its
-    backward kernel) and ``fused_mixture`` (K3 and K3-bwd, the mixture
-    head's log-prob).
+    backward kernel), ``fused_mixture`` (K3 and K3-bwd, the mixture head's
+    log-prob) and ``fused_segments`` (K5 and K5-bwd, the train-mode
+    dropout+BatchNorm+activation segments).
 
     - ``auto``: on CUDA, the sample+KL kernels, and K3 when the head is
-      ``discretized_logistic_mix``; on the CPU, nothing.
+      ``discretized_logistic_mix``; on the CPU, nothing. Never K5.
     - ``stochastic``: the sample+KL kernels, on any device.
     - ``mixture``: K3 (with a mixture head), on any device.
     - ``pallas``: both (``lvae_tpu``'s spelling), on any device.
-    - ``all``: both, and ``lvae_tpu``'s train-mode dropout+BatchNorm+
-      activation kernel (K5), which is not ported: training raises rather
-      than run plain BatchNorm in its place; eval runs both kernels.
-    - ``segments``: K5 alone; training raises, eval runs plain PyTorch.
+    - ``segments``: K5 alone, in training.
+    - ``all``: the three, K5 in training.
     - ``none``: the user's explicit choice of plain PyTorch.
 
     On the CPU a kernel's wrapper runs its plain version. A head other than
     the mixture gets ``fused_mixture=False``, as in
-    ``lvae_tpu/train/trainer.py:87-97``. PROVISIONAL: ``auto``'s choices on
-    CUDA (K2/K1 and K3) are taken before any A/B of the port on the H100
+    ``lvae_tpu/train/trainer.py:87-97``. Evaluation runs BatchNorm on the
+    running statistics whatever the policy, so ``fused_segments`` is set
+    for training only. PROVISIONAL: ``auto``'s choices on CUDA (K2/K1 and
+    K3 on, K5 off) are taken before any A/B of the port on the H100
     decided them (ROADMAP Queue 1); the TPU's measured policy is no
     evidence for them.
     """
     if policy not in FUSED_POLICIES:
         raise ValueError(f"unknown --fused {policy!r}; choose from {FUSED_POLICIES}")
-    if train and policy in ("segments", "all"):
-        raise ValueError(
-            f"--fused {policy} asks for the fused dropout+BatchNorm+activation "
-            f"segment kernel (K5), which the port does not run yet; use "
-            f"--fused auto, stochastic, mixture, pallas or none"
-        )
     mixture_head = likelihood == "discretized_logistic_mix"
     if policy == "auto":
         on_cuda = torch.device(device).type == "cuda"
-        return {"fused_stochastic": on_cuda, "fused_mixture": on_cuda and mixture_head}
+        return {"fused_stochastic": on_cuda, "fused_mixture": on_cuda and mixture_head,
+                "fused_segments": False}
     return {"fused_stochastic": policy in ("stochastic", "pallas", "all"),
-            "fused_mixture": mixture_head and policy in ("mixture", "pallas", "all")}
+            "fused_mixture": mixture_head and policy in ("mixture", "pallas", "all"),
+            "fused_segments": train and policy in ("segments", "all")}
 
 
 def default_logsumexp(device: torch.device) -> str:
@@ -90,7 +87,7 @@ def make_model(cfg: EvalConfig, data: TestSet, device: torch.device,
                train: bool = False) -> LadderVAE:
     """The configured model on ``device``; ``generator`` draws the
     initial weights. ``train`` (with a :class:`TrainConfig`) adds the
-    dropout and checks the kernel policy for training."""
+    dropout and the kernel policy's training switches."""
     drop = dict(dropout_rate=cfg.dropout, dropout_impl=cfg.dropout_impl) if train else {}
     likelihood = cfg.likelihood or data.default_likelihood
     model = LadderVAE(
@@ -107,6 +104,7 @@ def make_model(cfg: EvalConfig, data: TestSet, device: torch.device,
         data_size=data.img_size,
         likelihood=likelihood,
         batchnorm=cfg.batchnorm,
+        bn_stat_samples=cfg.bn_stat_samples,
         nonlin=cfg.nonlin,
         res_block_type=cfg.residual_type,
         merge_type=cfg.merge_layers,

@@ -151,14 +151,26 @@ class TestCLI:
         (["--steps-per-call", "4"], "--steps-per-call"),
         (["--rng-impl", "rbg"], "--rng-impl"),
         (["--platform", "tpu"], "--platform"),
-        (["--fused", "segments"], "--fused"),
-        (["--fused", "all"], "--fused"),
-        (["--bn-stat-samples", "8"], "--bn-stat-samples"),
         (["--precision", "bf16"], "--precision"),
     ])
     def test_rejects_what_the_port_does_not_run(self, tmp_path, flags, name):
         with pytest.raises(ValueError, match=name):
             _train(tmp_path, "--max-steps", "1", "--dry-run", *flags)
+
+    @pytest.mark.parametrize("flags", [["--fused", "segments"], ["--fused", "all"],
+                                       ["--bn-stat-samples", "8"]],
+                             ids=["fused-segments", "fused-all", "bn-stat-samples"])
+    def test_trains_the_batchnorm_branch(self, tmp_path, flags):
+        """The three values the trainer rejected before the segment kernel
+        (K5) and SubsampledBatchNorm were ported: two finite steps, with
+        the model's switch set."""
+        tr = _train(tmp_path, "--max-steps", "2", "--dry-run", *flags)
+        blocks = [m for m in tr.state.model.modules() if type(m).__name__ == "ResidualBlock"]
+        assert tr.state.step == 2 and blocks
+        assert all(b.fused_segments == ("--fused" in flags) for b in blocks)
+        assert all(b.bn_stat_samples == (8 if "--bn-stat-samples" in flags else 0)
+                   for b in blocks)
+        assert all(np.isfinite(float(v)) for v in tr.state.ema.values() if v.dim() == 0)
 
     def test_trains_the_gaussian_head(self, tmp_path):
         """--likelihood overrides the dataset's head; the Gaussian head

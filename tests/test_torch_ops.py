@@ -179,13 +179,20 @@ class TestConfig:
         ("likelihood", "laplace", "--likelihood"),
         ("precision", "bf16", "--precision"),
         ("spatial_shards", 2, "--spatial-shards"),
-        ("bn_stat_samples", 8, "--bn-stat-samples"),
         ("downsample", (1, 1), "--downsample"),
         ("blocks_per_layer", 0, "--blocks-per-layer"),
     ])
     def test_rejects_with_the_flag_named(self, field, value, flag):
         with pytest.raises(ValueError, match=flag):
             EvalConfig(**{field: value})
+
+    def test_eval_reads_bn_stat_samples_unvalidated(self):
+        """A run trained with --bn-stat-samples 16 is scored: evaluation
+        normalises with the running statistics whatever the value
+        (lvae_tpu/models/blocks.py:270-271), so it is neither rejected nor
+        checked against the stored batch size."""
+        cfg = config_from_dict({"zdims": [8, 8], "bn_stat_samples": 16, "batch_size": 8})
+        assert cfg.bn_stat_samples == 16
 
     @pytest.mark.parametrize("head", ["bernoulli", "gaussian", "discretized_logistic",
                                       "discretized_logistic_mix"])
@@ -320,17 +327,30 @@ class TestResolveFused:
         ("all", "cpu", "discretized_logistic_mix", True, True),
         ("segments", "cuda", "discretized_logistic_mix", False, False),
     ])
-    def test_switches(self, policy, device, head, stochastic, mixture):
-        """Each --fused policy's kernels per head and device; a head other
-        than the mixture never gets K3 (lvae_tpu/train/trainer.py:87-97)."""
+    @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+    def test_switches(self, policy, device, head, stochastic, mixture, train):
+        """Each --fused policy's kernels per head, device and mode; a head
+        other than the mixture never gets K3 (lvae_tpu/train/trainer.py:
+        87-97); K5 only in training, and never from auto."""
         from lvae_tpu_torch.train.trainer import resolve_fused
 
-        assert resolve_fused(policy, torch.device(device), False, head) == {
-            "fused_stochastic": stochastic, "fused_mixture": mixture}
+        assert resolve_fused(policy, torch.device(device), train, head) == {
+            "fused_stochastic": stochastic, "fused_mixture": mixture,
+            "fused_segments": train and policy in ("segments", "all")}
 
     @pytest.mark.parametrize("policy", ["segments", "all"])
-    def test_training_rejects_the_segment_kernel(self, policy):
-        from lvae_tpu_torch.train.trainer import resolve_fused
+    def test_training_turns_on_the_segment_kernel(self, policy):
+        """--fused segments|all builds a training model whose residual
+        blocks run the fused segments; its eval model does not."""
+        from lvae_tpu_torch.config import TrainConfig
+        from lvae_tpu_torch.models.blocks import ResidualBlock
+        from lvae_tpu_torch.train.trainer import make_model
 
-        with pytest.raises(ValueError, match="K5"):
-            resolve_fused(policy, torch.device("cpu"), True, "discretized_logistic_mix")
+        cfg = TrainConfig(zdims=(2,), downsample=(1,), blocks_per_layer=1, n_filters=4,
+                          fused=policy)
+        for train in (True, False):
+            model = make_model(cfg, load_test_set("synthetic"), torch.device("cpu"),
+                               train=train)
+            blocks = [m for m in model.modules() if isinstance(m, ResidualBlock)]
+            assert blocks and all(b.fused_segments == train for b in blocks)
+            assert all(b._segments for b in blocks)
