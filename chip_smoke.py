@@ -47,6 +47,7 @@ when no CUDA device is visible.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -227,6 +228,21 @@ def phase_build():
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  " + line.strip())
+    return log
+
+
+def ptxas_usage(log, marker):
+    """{entry function: "registers, shared memory; spills"} from the
+    ``-Xptxas -v`` log, for the entries whose mangled name holds
+    ``marker``."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else None
+        elif entry and marker in entry and ("registers" in line or "spill" in line):
+            out[entry] = (out.get(entry, "") + "; " if entry in out else "") + \
+                line.split(":", 1)[-1].strip()
+    return out
 
 
 def phase_sample_kl(card):
@@ -1343,12 +1359,100 @@ def segments_per_step(model):
                if isinstance(m, ResidualBlock) and m.fused_segments)
 
 
-def phase_segment(card, per_step, timed):
+def segment_paths(shape):
+    """{label: (path argument, forward plan or None, backward plan or None)}:
+    "default", the plans that a caller gets at ``shape``, and each path it
+    can be forced to, with the direction's plan where that path is legal
+    and differs from the default."""
+    from lvae_tpu_torch.kernels import segment as seg
+
+    default = tuple(seg._plan(*shape, d) for d in ("fwd", "bwd"))
+    out = {"default": (None, *default)}
+    for path in seg.PATHS:
+        plans = []
+        for direction, plan in zip(("fwd", "bwd"), default):
+            try:
+                forced = seg._plan(*shape, direction, path)
+            except ValueError:
+                forced = None
+            plans.append(None if forced == plan else forced)
+        if any(plans):
+            out[f"forced {path}"] = (path, *plans)
+    return out
+
+
+def kernel_events(fn, want):
+    """{kernel name: events} of the device kernels of one profiled call of
+    ``fn``: the first of up to five traces whose events add up to
+    ``want``, else the last. (The profiler was seen to drop some or all
+    events of the ctypes-launched kernels from a trace; it never adds
+    any, so a trace with more than ``want`` fails the check however many
+    were dropped elsewhere.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    found = {}
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+        found = {e.key: e.count for e in events if e.device_type != DeviceType.CPU
+                 and e.key not in host_keys and not getattr(e, "is_user_annotation", False)}
+        if sum(found.values()) >= want:
+            break
+    return found
+
+
+def graph_kernel_nodes(fn):
+    """Kernel nodes of a CUDA graph of one call of ``fn``, counted through
+    libcuda (``cuGraphGetNodes``, ``cuGraphNodeGetType``): the count of
+    kernels a call launches where the profiler drops their events."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    def ok(status, what):
+        if status != 0:
+            raise SmokeFailure(f"{what}: CUresult {status}")
+
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kinds = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        kinds.append(kind.value)
+    return sum(k == 0 for k in kinds)          # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def phase_segment(card, per_step, timed, build_log=""):
     """K5 and K5-bwd against their plain versions at every segment shape of
-    the models ``per_step`` ({model: {shape: segments per step}}), with
-    each kernel's device time there and its sum over a training step; the
-    plain versions and the unfused chain timed too at the shapes
-    ``timed``."""
+    the models ``per_step`` ({model: {shape: segments per step}}), with the
+    default plan and every path that the plan can be forced to there, with
+    each plan's kernel events per call, device time, occupancy and the
+    kernels' registers; each kernel's sum over a training step (the
+    default path); the wrappers' host time per call at the flagship's
+    [64,64,4,4]; the plain versions and the unfused chain timed too at
+    the shapes ``timed``."""
     import torch
     import torch.nn.functional as F
 
@@ -1359,77 +1463,140 @@ def phase_segment(card, per_step, timed):
     from lvae_tpu_torch.ops.philox import dropout_bytes, mix_seed
 
     print("[14] segment kernels (K5, K5-bwd) vs their plain versions", flush=True)
+    usage, ptxas = ptxas_usage(build_log, "segment_cu"), {}
+    for entry, line in usage.items():
+        m = re.search(r"(fwd|bwd)_kernelILi(\d+)ELi(\d)E", entry)
+        name = f"{m[1]}_kernel<{m[2]}, {('elu', 'relu')[int(m[3])]}>" if m else entry
+        print(f"  ptxas {name}: {line}")
+        ptxas[name] = line
+    if not usage:
+        print("  ptxas: the library was built earlier in this process' build directory; "
+              "no log")
     dev = torch.device("cuda")
     g_ = torch.Generator(device=dev).manual_seed(14)
     err = {"fwd": 0.0, "bwd": 0.0}
     seed = mix_seed(42, 7, 3)
     shapes = [s for counts in per_step.values() for s in counts]
-    at_shape = {}           # device ms of K5, K5-bwd (rate 0.2, elu) and their bounds
+    at_shape = {}           # device ms of K5, K5-bwd (rate 0.2, elu, default path), bounds
+    by_path = {}            # {(shape, path): {...}} per path
     for shape in shapes:
-        c = shape[1]
+        c, n = shape[1], int(np.prod(shape))
         x = torch.randn(shape, generator=g_, device=dev) * 1.5 + 0.3
         g = torch.randn(shape, generator=g_, device=dev)
         gamma = torch.rand(c, generator=g_, device=dev) + 0.5
         beta = torch.randn(c, generator=g_, device=dev) * 0.2
+        paths = segment_paths(shape)
         for rate in (0.0, 0.2):
             t = bits8_keep_threshold(rate)
             bytes_ = dropout_bytes(shape, seed, dev) if t < 256 else None
             for act in ("elu", "relu"):
                 what = f"{list(shape)} rate {rate} {act}"
-                rm, rv = torch.full((c,), 0.3, device=dev), torch.full((c,), 1.7, device=dev)
-                rm_p, rv_p = rm.clone(), rv.clone()
-                y, mean, var = seg.dropout_bn_act(x, gamma, beta, rate=rate, act=act, seed=seed,
-                                                  running_mean=rm, running_var=rv)
+                rm_p, rv_p = torch.full((c,), 0.3, device=dev), torch.full((c,), 1.7, device=dev)
                 yp, mp, vp, rp = segment_forward(x, gamma, beta, t, act, mask_bytes=bytes_,
                                                  running_mean=rm_p, running_var=rv_p)
-                e = rel_max(y, yp)
-                err["fwd"] = max(err["fwd"], (y - yp).abs().max().item())
-                check(e <= 1e-5, f"K5 {what}: y within 1e-5 of max|y| ({e:.2e})")
-                e = max(rel_elem(mean, mp), rel_elem(var, vp))
-                check(e <= 1e-6, f"K5 {what}: mean, var within 1e-6 relative ({e:.2e})")
-                e = max(rel_elem(rm, rm_p), rel_elem(rv, rv_p))
-                check(e <= 1e-6, f"K5 {what}: running stats moved as the plain version's "
-                                 f"({e:.2e}, bit-equal: {torch.equal(rm, rm_p) and torch.equal(rv, rv_p)})")
-                y2, stats = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, seed, None, None, 0.9)
-                check(torch.equal(y, y2) and torch.equal(mean, stats[0])
-                      and torch.equal(var, stats[1]), f"K5 {what}: a second launch is bit-equal")
-
-                dx, dgamma, dbeta = seg.dropout_bn_act_backward(x, g, gamma, beta, stats, t, act, seed)
                 hand = segment_backward(x, g, gamma, beta, mp, rp, t, act, bytes_)
                 xr, gr, br = (v.clone().requires_grad_() for v in (x, gamma, beta))
                 segment_forward(xr, gr, br, t, act, mask_bytes=bytes_)[0].backward(g)
-                for ref, against in ((hand, "the plain hand backward"),
-                                     ((xr.grad, gr.grad, br.grad), "autograd of the plain forward")):
-                    e = max(rel_max(a, r) for a, r in zip((dx, dgamma, dbeta), ref))
-                    check(e <= 1e-5, f"K5-bwd {what}: dx, dgamma, dbeta within 1e-5 of their "
-                                     f"max vs {against} ({e:.2e})")
-                err["bwd"] = max(err["bwd"], *((a - r).abs().max().item()
-                                               for a, r in zip((dx, dgamma, dbeta), hand)))
-                check(torch.equal(dx == 0, hand[0] == 0),
-                      f"K5-bwd {what}: dx is exactly 0 where the plain version's is "
-                      f"({int((dx == 0).sum())} zeros)")
-                dx2, dg2, db2 = seg.dropout_bn_act_backward(x, g, gamma, beta, stats, t, act, seed)
-                check(torch.equal(dx, dx2) and torch.equal(dgamma, dg2) and torch.equal(dbeta, db2),
-                      f"K5-bwd {what}: a second launch is bit-equal")
+                auto = (xr.grad, gr.grad, br.grad)
+                del xr, gr, br
+                for label, (path, pf, pb) in paths.items():
+                    k = f"{what} {label}"
+                    if pf is not None:
+                        rm = torch.full((c,), 0.3, device=dev)
+                        rv = torch.full((c,), 1.7, device=dev)
+                        y, stats = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, seed, rm, rv,
+                                                   0.9, path)
+                        mean, var = stats[0], stats[1]
+                        e = rel_max(y, yp)
+                        err["fwd"] = max(err["fwd"], (y - yp).abs().max().item())
+                        check(e <= 1e-5, f"K5 {k}: y within 1e-5 of max|y| ({e:.2e})")
+                        e = max(rel_elem(mean, mp), rel_elem(var, vp))
+                        check(e <= 1e-6, f"K5 {k}: mean, var within 1e-6 relative ({e:.2e})")
+                        e = max(rel_elem(rm, rm_p), rel_elem(rv, rv_p))
+                        check(e <= 1e-6, f"K5 {k}: running stats moved as the plain version's "
+                                         f"({e:.2e}, bit-equal: "
+                                         f"{torch.equal(rm, rm_p) and torch.equal(rv, rv_p)})")
+                        y2, stats2 = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, seed, None,
+                                                     None, 0.9, path)
+                        check(torch.equal(y, y2) and torch.equal(stats, stats2),
+                              f"K5 {k}: a second launch is bit-equal")
+                        del y, y2
+                    else:
+                        _, stats = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, seed, None,
+                                                   None, 0.9)
+                    if pb is None:
+                        continue
+                    dx, dgamma, dbeta = seg._launch_bwd(x, g, gamma, stats, t, act, seed, path)
+                    for ref, against in ((hand, "the plain hand backward"),
+                                         (auto, "autograd of the plain forward")):
+                        e = max(rel_max(a, r) for a, r in zip((dx, dgamma, dbeta), ref))
+                        check(e <= 1e-5, f"K5-bwd {k}: dx, dgamma, dbeta within 1e-5 of "
+                                         f"their max vs {against} ({e:.2e})")
+                    err["bwd"] = max(err["bwd"], *((a - r).abs().max().item()
+                                                   for a, r in zip((dx, dgamma, dbeta), hand)))
+                    check(torch.equal(dx == 0, hand[0] == 0),
+                          f"K5-bwd {k}: dx is exactly 0 where the plain version's is "
+                          f"({int((dx == 0).sum())} zeros)")
+                    dx2, dg2, db2 = seg._launch_bwd(x, g, gamma, stats, t, act, seed, path)
+                    check(torch.equal(dx, dx2) and torch.equal(dgamma, dg2)
+                          and torch.equal(dbeta, db2), f"K5-bwd {k}: a second launch is "
+                                                       f"bit-equal")
+                    del dx, dx2
+                dx_ref = seg.dropout_bn_act_backward(
+                    x, g, gamma, beta, seg._launch_fwd(x, gamma, beta, t, act, 1e-5, seed,
+                                                       None, None, 0.9)[1], t, act, seed)[0]
                 xk = x.clone().requires_grad_()
                 build.reset_launches()
-                seg.dropout_bn_act(xk, gamma, beta, rate=rate, act=act, seed=seed)[0].backward(g)
+                y, _, _ = seg.dropout_bn_act(xk, gamma, beta, rate=rate, act=act, seed=seed)
+                y.backward(g)
                 check(build.LAUNCHES["segment"] == 1 and build.LAUNCHES["segment_bwd"] == 1
-                      and torch.equal(xk.grad, dx),
+                      and torch.equal(xk.grad, dx_ref),
                       f"{what}: the autograd.Function launches K5 and K5-bwd once each and "
                       f"returns K5-bwd's dx")
                 build.reset_launches()
-                del xr, gr, br, xk, hand
-        t, n = bits8_keep_threshold(0.2), int(np.prod(shape))
+                del xk, y, hand, auto, dx_ref
+        # per path at rate 0.2, elu (the models' case): kernel events per
+        # call (one trace of every path's calls), device time, occupancy
+        t = bits8_keep_threshold(0.2)
+        bnd = (bound(8 * n, OPS_SEGMENT * n)[0], bound(12 * n, 2 * OPS_SEGMENT * n)[0])
         _, stats = seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, seed, None, None, 0.9)
-        at_shape[shape] = (
-            device_ms(lambda: seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, seed, None,
-                                              None, 0.9), 10),
-            device_ms(lambda: seg.dropout_bn_act_backward(x, g, gamma, beta, stats, t, "elu", seed), 10),
-            bound(8 * n, OPS_SEGMENT * n)[0], bound(12 * n, 2 * OPS_SEGMENT * n)[0])
-        print(f"  device {list(shape)}: K5 {fmt_ms(at_shape[shape][0])}, K5-bwd "
-              f"{fmt_ms(at_shape[shape][1])}; bounds {at_shape[shape][2]:.4f}, "
-              f"{at_shape[shape][3]:.4f} ms  ({card})")
+        calls = {}
+        for label, (path, pf, pb) in paths.items():
+            if pf is not None:
+                calls[("K5", label)] = (pf, lambda p=path: seg._launch_fwd(
+                    x, gamma, beta, t, "elu", 1e-5, seed, None, None, 0.9, p))
+            if pb is not None:
+                calls[("K5-bwd", label)] = (pb, lambda p=path: seg._launch_bwd(
+                    x, g, gamma, stats, t, "elu", seed, p))
+        events = kernel_events(lambda: [fn() for _, fn in calls.values()], len(calls))
+        dropped = sum(events.values()) < len(calls)
+        for name, entry in (("K5", "fwd_kernel"), ("K5-bwd", "bwd_kernel")):
+            want = sum(1 for k in calls if k[0] == name)
+            if dropped:     # the profiler dropped the ctypes kernels' events
+                nodes = [graph_kernel_nodes(fn) for k, (_, fn) in calls.items() if k[0] == name]
+                check(nodes == [1] * want,
+                      f"{name} {list(shape)}: one CUDA kernel per call of each of its {want} "
+                      f"plans (the profiler dropped their events in 5 traces; kernel nodes "
+                      f"of a CUDA graph of each call: {nodes})")
+                continue
+            got = sum(v for k, v in events.items() if entry in k)
+            check(got == want and sum(events.values()) == len(calls),
+                  f"{name} {list(shape)}: one CUDA kernel per call of each of its {want} "
+                  f"plans ({got} {entry} events of {sum(events.values())})")
+        for (name, path), (plan, call) in calls.items():
+            ms = device_ms(call, 10)
+            occ = seg.max_active_clusters(plan, "fwd" if name == "K5" else "bwd")
+            by_path.setdefault((shape, path), {})[name] = {
+                "device_ms": ms, "bound_ms": bnd[name == "K5-bwd"],
+                "max_active_clusters": occ, "plan": plan._asdict() | {"path": plan.path}}
+            print(f"  {name} {list(shape)} {path} ({plan.path}): device {fmt_ms(ms)}, bound "
+                  f"{bnd[name == 'K5-bwd']:.4f} ms; cluster {plan.cluster} x {plan.threads} "
+                  f"threads, {plan.units} units per CTA, {plan.chip} of them on chip, "
+                  f"{plan.clusters} clusters ({plan.channels_per_cta} channels per CTA), "
+                  f"{plan.smem} B dynamic shared memory, at most {occ} clusters active"
+                  f"  ({card})")
+        at_shape[shape] = (by_path[(shape, "default")]["K5"]["device_ms"],
+                           by_path[(shape, "default")]["K5-bwd"]["device_ms"], *bnd)
         build.reset_launches()
         del x, g
         torch.cuda.empty_cache()
@@ -1445,6 +1612,33 @@ def phase_segment(card, per_step, timed):
               + "; ".join(f"{k} device {fmt_ms(v['device_ms'])}, bound {v['bound_ms']:.4f} ms"
                           for k, v in steps[model].items() if k != "segments")
               + f"  ({card})")
+
+    # the wrappers' host time where the call is host-bound: the flagship's
+    # 4x4 maps, through the autograd.Function as the model calls it
+    shape = (TRAIN_B, 64, 4, 4)
+    x = torch.randn(shape, generator=g_, device=dev).requires_grad_()
+    g = torch.randn(shape, generator=g_, device=dev)
+    gamma = (torch.rand(64, generator=g_, device=dev) + 0.5).requires_grad_()
+    beta = (torch.randn(64, generator=g_, device=dev) * 0.2).requires_grad_()
+    host = {}
+    for name, reps in (("forward", 300), ("forward + backward", 300)):
+        def call():
+            y = seg.dropout_bn_act(x, gamma, beta, rate=0.2, act="elu", seed=seed)[0]
+            if name != "forward":
+                y.backward(g)
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        host[name] = (time.perf_counter() - t0) * 1e3 / reps
+    print(f"  host ms per call at {list(shape)} (dropout_bn_act, rate 0.2, elu; wall over "
+          f"300 calls, the card idle between): forward {host['forward']:.4f} ms, forward + "
+          f"backward {host['forward + backward']:.4f} ms  ({card})")
+    del x, g
+    build.reset_launches()
 
     # times at each model's largest shape, rate 0.2 and ELU (the models' case)
     times = {}
@@ -1492,7 +1686,7 @@ def phase_segment(card, per_step, timed):
                   f"{bnd[0]:.4f} ms ({bnd[1]})  ({card})")
         del x, g, xr, y_chain
         torch.cuda.empty_cache()
-    return err, times, steps
+    return err, times, steps, {"by_path": by_path, "host_ms": host, "ptxas": ptxas}
 
 
 def phase_celeba_segments(card, train_u8, test_u8, phase12):
@@ -1598,7 +1792,7 @@ def main():
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"tf32 off", flush=True)
     t0 = time.perf_counter()
-    phase_build()
+    build_log = phase_build()
     res = {"card": card}
     k2_err, k2_t, k2_b = phase_sample_kl(card)
     k4_err, k4_t, k4_b, k4_lib = phase_logsumexp(card)
@@ -1654,7 +1848,13 @@ def main():
         print(f"  {model}'s segments per step by shape: "
               f"{ {str(list(k)): v for k, v in counts.items()} }")
     timed = tuple(next(iter(per_step[m])) for m in ("celeba64", "flagship"))
-    seg_err, seg_t, seg_steps = phase_segment(card, per_step, timed)
+    t14 = time.perf_counter()
+    seg_err, seg_t, seg_steps, seg_more = phase_segment(card, per_step, timed, build_log)
+    print(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
+    res["segment_paths"] = {f"{list(shape)} {path}": row
+                            for (shape, path), row in seg_more["by_path"].items()}
+    res["segment_host_ms"] = seg_more["host_ms"]
+    res["segment_ptxas"] = seg_more["ptxas"]
     csg = phase_celeba_segments(card, c_train, c_test, ctr)
     res["celeba64"]["segments_run"] = {k: csg[k] for k in ("wall_s", "log_rates", "test_elbo",
                                                            "ema_loss", "segments_per_step")}

@@ -25,46 +25,90 @@
 // Dropout bytes: element e (its flat NCHW index) takes byte e % 16 of
 // Philox4x32-10 at counter (e / 16 low word, high word, 0, kStream) under
 // the two words of the 64-bit seed: word (e % 16) / 4, bits 8 (e % 4) up.
-// Every pass regenerates the bytes, so no mask is ever stored; the seed
-// is mix_seed(train seed, step, dropout site), computed by the caller.
+// No mask is stored in device memory; the seed is mix_seed(train seed,
+// step, dropout site), computed by the caller.
 //
-// Layout and design. The TPU kernel folds NHWC to [N/f, f C] rows for its
-// 128 lanes and carries the sums across its sequential grid in place. On
-// the card the port's maps are NCHW, so one channel is B strips of H W
-// contiguous floats, and blocks run in no order. Every pass here uses one
-// grid: channel x a fixed number of batch slices (chosen by the caller from
-// the shape). A block walks its strips in units of 4 floats (a 16-byte
-// load, and one Philox call per unit) where H W % 4 == 0 and the pointers
-// are 16-byte aligned, else one float at a time. The reduce passes write
-// one fp64 partial pair per block; a finalise kernel (one thread per
-// channel) adds the partials in a fixed order, so there are no atomics and
-// two launches are bit-equal. fp64: E[u^2] - mean^2 cancels in fp32 at
-// n = 524,288 (celeba64's 64x64 maps). The forward's finalise also moves
-// the running statistics (ra = m ra + (1 - m) stat, biased variance), so
-// the caller has no [C]-sized launches left. Residuals are x and the [C]
-// statistics: the backward recomputes u, z and act'(z) from x.
+// What bounds it. Both directions are a per-channel reduction followed by
+// an elementwise map that needs the reduction's result, so the least work
+// reads each input once and writes each output once: 8 B per element
+// forward (x in, y out), 12 B backward (x and g in, dx out); at [128, 64,
+// 64, 64] 0.080 and 0.120 ms at 3.35 TB/s. The TPU kernel carries its sums
+// across a sequential grid; on the card blocks run in no order, so a
+// reduction across blocks needs a second pass over the data or an
+// exchange between blocks, and a launch per pass costs 6-9 us at the small
+// maps of the models.
 //
-// Bound: device memory. The forward reads x twice and writes y (12 B per
-// element), the backward reads x and g twice and writes dx (20 B); a
-// one-pass kernel would move 8 and 12 B. At [128, 64, 64, 64] (134 MB per
-// map) that is 0.12 ms forward and 0.20 ms backward at 3.35 TB/s, against
-// one-pass floors of 0.08 and 0.12 ms. The generator costs ~70 integer
-// operations per Philox call, one per 4 elements (4x the 16 bytes a call
-// gives; the unit is 4 so that a channel of a 2x2 map still takes 16-byte
-// loads), ~18 per element per pass.
+// Design: one launch per direction, at every shape, with the launch's shape
+// from kernels/segment.py _plan (a function of the tensor's shape alone).
+// - A thread block cluster reduces one channel. Each CTA takes a fixed
+//   contiguous share of the channel's units; its threads walk the share 16
+//   bytes at a time, neighbouring threads on neighbouring addresses. Each
+//   thread sums in fp64 (E[u^2] - mean^2 cancels in fp32 at n = 524,288),
+//   the CTA in a fixed tree (warp shuffles, then warp 0 over the warps).
+//   The CTAs exchange their pairs through distributed shared memory and
+//   every CTA adds them in the same fixed tree over the ranks, so all hold
+//   the same statistics, two launches are bit-equal and no float atomics
+//   are used. Rank 0 writes the [5, C] row and moves the running
+//   statistics (forward), or writes dgamma and dbeta (backward); the
+//   channel's gamma, beta and running statistics are loaded while its data
+//   is in flight. A channel of up to 2,048 16-byte accesses takes a
+//   cluster of one, which needs no cluster barrier (a launch at the
+//   models' maps from 8x8 down then takes 3-6 us on an H100). The grid
+//   holds at most the clusters that fit on the card at once
+//   (cudaOccupancyMaxActiveClusters, asked once per kernel and plan), and
+//   they walk the channels.
+// - On chip: where a CTA's share fits in shared memory (up to ~200 KB, a
+//   cluster of up to 16; every map of the models but celeba64's 64x64
+//   backward), the CTA copies its share in with cp.async, all of it in
+//   flight at once, turns it into u (forward) or dz and xhat (backward) in
+//   place, and writes the output from there: 8 and 12 B per element of
+//   device memory, the bound. Each slot, once written out, takes the
+//   CTA's next channel, so that channel's reads overlap this one's writes.
+//   Where the share does not fit, the CTA keeps what fits beside a second
+//   CTA on the SM and reads the rest twice, the second time last chunk
+//   first (the likeliest still in L2); the outputs and the second reads
+//   stream past L2 (evict first) so that the rest stays there.
+// - The dropout bytes: a unit is 16 consecutive elements of one (b, c)
+//   strip where H W % 16 == 0, else 4 (a 2x2 map) or 1; one Philox call
+//   (~70 integer operations) per unit gives its keep bits, staged in
+//   shared memory while the share's copies are in flight, generated once
+//   per direction on chip.
+// - What still costs: at 64x64 a cluster of 16 takes an SM per CTA and
+//   only 7 fit on an H100 at once (112 of its 132 SMs), and each channel's
+//   reduction and cluster barrier stall its SM between the reads and the
+//   writes: K5 runs at about twice its bound there.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "philox.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kFinalThreads = 128;
+constexpr int kMaxThreads = 512;          // 16 warps: sum16's lanes
+constexpr int kSmemMax = 232448;          // a CTA's shared memory on an H100
 constexpr uint32_t kStream = 0x80000005u;   // ops/philox.py STREAM_SEGMENT_DROPOUT
 
 enum Act { kElu = 0, kRelu = 1 };
+
+}  // namespace
+
+// kernels/segment.py _Plan, field for field (ctypes.Structure _CPlan)
+struct SegPlan {
+  long long b, hw;
+  int c;
+  int vec;        // elements per unit: 16, 4 or 1
+  int cluster;    // CTAs per channel (the cluster's size)
+  int threads;    // per CTA, a multiple of 32, <= 512
+  int clusters;   // the grid; cluster i takes channels i, i + clusters, ...
+  int chip;       // units of a CTA's share kept in shared memory (0: none)
+  int smem;       // dynamic shared memory per CTA
+};
+
+namespace {
 
 struct Drop {
   bool on;        // t < 256: a mask applies (t <= 0 drops everything)
@@ -72,30 +116,6 @@ struct Drop {
   float scale;    // 256 / t rounded to fp32 (0 when t <= 0)
   uint32_t k0, k1;
 };
-
-// The Philox word that holds the bytes of elements e & ~3 .. (e & ~3) + 3.
-__device__ __forceinline__ uint32_t mask_word(const Drop& d, long long e) {
-  const unsigned long long grp = static_cast<unsigned long long>(e) >> 4;
-  const uint4 w = lvae::philox4x32_10(
-      make_uint4(static_cast<uint32_t>(grp), static_cast<uint32_t>(grp >> 32), 0u, kStream),
-      d.k0, d.k1);
-  switch ((e >> 2) & 3) {
-    case 0: return w.x;
-    case 1: return w.y;
-    case 2: return w.z;
-    default: return w.w;
-  }
-}
-
-__device__ __forceinline__ bool kept(const Drop& d, uint32_t word, int j) {
-  return static_cast<int>((word >> (8 * j)) & 255u) < d.t;
-}
-
-// u of one element: x where kept (scaled), 0 where dropped
-__device__ __forceinline__ float dropped(const Drop& d, float v, bool keep) {
-  if (!d.on) return v;
-  return keep ? v * d.scale : 0.0f;
-}
 
 template <int kAct>
 __device__ __forceinline__ float act(float z) {
@@ -109,221 +129,522 @@ __device__ __forceinline__ float act_grad(float z) {
   return z > 0.0f ? 1.0f : 0.0f;
 }
 
-// kVec consecutive floats at p (kVec = 4: one 16-byte access)
-template <int kVec>
+__device__ __forceinline__ uint32_t word_of(const uint4& w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+
+// bit j: whether element e + j of a unit of V is kept (all set without a
+// mask); one Philox call for the unit
+template <int V>
+__device__ __forceinline__ uint32_t keep_bits(const Drop& d, long long e) {
+  if (!d.on) return 0xFFFFFFFFu;
+  const unsigned long long grp = static_cast<unsigned long long>(e) >> 4;
+  const uint4 w = lvae::philox4x32_10(
+      make_uint4(static_cast<uint32_t>(grp), static_cast<uint32_t>(grp >> 32), 0u, kStream),
+      d.k0, d.k1);
+  uint32_t bits = 0;
+  if constexpr (V == 16) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int byte = static_cast<int>((word_of(w, j >> 2) >> (8 * (j & 3))) & 255u);
+      bits |= static_cast<uint32_t>(byte < d.t) << j;
+    }
+  } else {
+    const uint32_t word = word_of(w, static_cast<int>((e >> 2) & 3));
+    const int lo = static_cast<int>(e & 3);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int byte = static_cast<int>((word >> (8 * (lo + j))) & 255u);
+      bits |= static_cast<uint32_t>(byte < d.t) << j;
+    }
+  }
+  return bits;
+}
+
+// u of one element: x where kept (scaled), 0 where dropped
+__device__ __forceinline__ float dropped(const Drop& d, float v, bool keep) {
+  if (!d.on) return v;
+  return keep ? v * d.scale : 0.0f;
+}
+
+// F consecutive floats (F = 4: one 16-byte access). The device-memory
+// accesses that are a value's last (an output, the second sweep's reads)
+// stream (evict first), so that L2 keeps what the second sweep reads again.
+template <int F>
 struct Vec {
-  float v[kVec];
-  __device__ __forceinline__ void load(const float* __restrict__ p) {
-    if constexpr (kVec == 4) {
-      const float4 q = *reinterpret_cast<const float4*>(p);
+  float v[F];
+  __device__ __forceinline__ void load(const float* __restrict__ p, bool last = false) {
+    if constexpr (F == 4) {
+      const float4* q4 = reinterpret_cast<const float4*>(p);
+      const float4 q = last ? __ldcs(q4) : *q4;
       v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
     } else {
-      v[0] = *p;
+      v[0] = last ? __ldcs(p) : *p;
     }
   }
   __device__ __forceinline__ void store(float* __restrict__ p) const {
-    if constexpr (kVec == 4) {
+    if constexpr (F == 4) {
       *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
     } else {
       *p = v[0];
     }
   }
-};
-
-// Calls f(e, keep[]) for every unit of kVec elements of channel blockIdx.x
-// in batch slice blockIdx.y of `slices`; keep[j] is element e + j's mask
-// (all true when no mask applies).
-template <int kVec, typename F>
-__device__ __forceinline__ void for_units(long long b, int c, long long hw, int slices,
-                                          const Drop& d, F&& f) {
-  const int ch = blockIdx.x;
-  const long long b0 = b * blockIdx.y / slices, b1 = b * (blockIdx.y + 1) / slices;
-  const unsigned per_row = static_cast<unsigned>(hw / kVec);
-  const unsigned units = static_cast<unsigned>(b1 - b0) * per_row;
-  for (unsigned u = threadIdx.x; u < units; u += blockDim.x) {
-    const unsigned r = u / per_row;
-    const long long e = ((b0 + r) * c + ch) * hw + static_cast<long long>(u - r * per_row) * kVec;
-    bool keep[kVec];
-    if (d.on) {
-      const uint32_t word = mask_word(d, e);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) keep[j] = kept(d, word, static_cast<int>((e + j) & 3));
+  __device__ __forceinline__ void stream(float* __restrict__ p) const {
+    if constexpr (F == 4) {
+      __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
     } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) keep[j] = true;
+      __stcs(p, v[0]);
     }
-    f(e, keep);
   }
-}
-
-// The block's two fp64 sums to partial[0][ch][slice], partial[1][ch][slice]
-// (a fixed tree: the same order every launch).
-__device__ __forceinline__ void block_partials(double s1, double s2, double* partial, int c,
-                                               int slices) {
-  __shared__ double sh[2][kThreads];
-  sh[0][threadIdx.x] = s1;
-  sh[1][threadIdx.x] = s2;
-  __syncthreads();
-#pragma unroll
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      sh[0][threadIdx.x] += sh[0][threadIdx.x + s];
-      sh[1][threadIdx.x] += sh[1][threadIdx.x + s];
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    const long long i = static_cast<long long>(blockIdx.x) * slices + blockIdx.y;
-    partial[i] = sh[0][0];
-    partial[static_cast<long long>(c) * slices + i] = sh[1][0];
-  }
-}
-
-// K5 pass 1: sum(u), sum(u^2) per (channel, slice)
-template <int kVec>
-__global__ void __launch_bounds__(kThreads)
-stats_kernel(const float* __restrict__ x, long long b, int c, long long hw, int slices,
-             Drop d, double* __restrict__ partial) {
-  double s1 = 0.0, s2 = 0.0;
-  for_units<kVec>(b, c, hw, slices, d, [&](long long e, const bool (&keep)[kVec]) {
-    Vec<kVec> xv;
-    xv.load(x + e);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      const double u = dropped(d, xv.v[j], keep[j]);
-      s1 += u;
-      s2 += u * u;
-    }
-  });
-  block_partials(s1, s2, partial, c, slices);
-}
-
-// stats rows: mean, var, r, scale, shift (each [c])
-__global__ void stats_final_kernel(const double* __restrict__ partial, int c, int slices,
-                                   double n, double eps, const float* __restrict__ gamma,
-                                   const float* __restrict__ beta, float* __restrict__ stats,
-                                   float* __restrict__ running_mean,
-                                   float* __restrict__ running_var, float momentum,
-                                   float one_minus_momentum) {
-  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ch >= c) return;
-  double s1 = 0.0, s2 = 0.0;
-  for (int s = 0; s < slices; ++s) {
-    s1 += partial[static_cast<long long>(ch) * slices + s];
-    s2 += partial[static_cast<long long>(c + ch) * slices + s];
-  }
-  const double mean_d = s1 / n;
-  const double var_d = s2 / n - mean_d * mean_d;
-  const float mean = static_cast<float>(mean_d);
-  const float var = static_cast<float>(var_d);
-  const float r = static_cast<float>(1.0 / sqrt(var_d + eps));
-  const float scale = gamma[ch] * r;
-  stats[ch] = mean;
-  stats[c + ch] = var;
-  stats[2 * c + ch] = r;
-  stats[3 * c + ch] = scale;
-  stats[4 * c + ch] = beta[ch] - mean * scale;
-  if (running_mean != nullptr) {
-    running_mean[ch] = momentum * running_mean[ch] + one_minus_momentum * mean;
-    running_var[ch] = momentum * running_var[ch] + one_minus_momentum * var;
-  }
-}
-
-// K5 pass 2: y = act(u scale + shift)
-template <int kVec, int kAct>
-__global__ void __launch_bounds__(kThreads)
-apply_kernel(const float* __restrict__ x, const float* __restrict__ stats, long long b, int c,
-             long long hw, int slices, Drop d, float* __restrict__ y) {
-  const float scale = stats[3 * c + blockIdx.x], shift = stats[4 * c + blockIdx.x];
-  for_units<kVec>(b, c, hw, slices, d, [&](long long e, const bool (&keep)[kVec]) {
-    Vec<kVec> v;
-    v.load(x + e);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      v.v[j] = act<kAct>(dropped(d, v.v[j], keep[j]) * scale + shift);
-    }
-    v.store(y + e);
-  });
-}
-
-// the recomputed forward of one element: dz and xhat
-struct Fwd {
-  float mean, r, scale, shift;
 };
 
-template <int kAct>
-__device__ __forceinline__ void dz_xhat(const Fwd& f, float u, float g, float& dz, float& xhat) {
-  dz = g * act_grad<kAct>(u * f.scale + f.shift);
-  xhat = (u - f.mean) * f.r;
+// 16 bytes from device to shared memory, asynchronously (cp.async; the
+// thread that waits with cp_async_wait_all() sees them)
+__device__ __forceinline__ void cp_async16(void* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
-__device__ __forceinline__ Fwd fwd_of(const float* __restrict__ stats, int c, int ch) {
-  return Fwd{stats[ch], stats[2 * c + ch], stats[3 * c + ch], stats[4 * c + ch]};
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// K5-bwd pass 1: sum(dz), sum(dz xhat) per (channel, slice)
-template <int kVec, int kAct>
-__global__ void __launch_bounds__(kThreads)
-bwd_reduce_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                  const float* __restrict__ stats, long long b, int c, long long hw,
-                  int slices, Drop d, double* __restrict__ partial) {
-  const Fwd f = fwd_of(stats, c, blockIdx.x);
-  double s1 = 0.0, s2 = 0.0;
-  for_units<kVec>(b, c, hw, slices, d, [&](long long e, const bool (&keep)[kVec]) {
-    Vec<kVec> xv, gv;
-    xv.load(x + e);
-    gv.load(g + e);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      float dz, xhat;
-      dz_xhat<kAct>(f, dropped(d, xv.v[j], keep[j]), gv.v[j], dz, xhat);
-      s1 += static_cast<double>(dz);
-      s2 += static_cast<double>(dz * xhat);
-    }
-  });
-  block_partials(s1, s2, partial, c, slices);
-}
+// This CTA's units of a channel, and where its elements lie in device
+// memory. A unit is a Philox group of V elements; the sweeps walk the
+// share F elements at a time, neighbouring threads on neighbouring 16
+// bytes.
+struct Share {
+  unsigned lo, n;           // first unit (of the channel's) and count
+  int vec;
+  int hw_shift;             // log2(hw) where hw is a power of two, else -1
+  unsigned hw;              // strip length
+  long long chw;            // C H W
 
-// bstats rows: dgamma, dbeta, m1, m2, gamma r (each [c])
-__global__ void bwd_final_kernel(const double* __restrict__ partial, int c, int slices,
-                                 double n, const float* __restrict__ gamma,
-                                 const float* __restrict__ stats, float* __restrict__ bstats) {
-  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ch >= c) return;
-  double s1 = 0.0, s2 = 0.0;
-  for (int s = 0; s < slices; ++s) {
-    s1 += partial[static_cast<long long>(ch) * slices + s];
-    s2 += partial[static_cast<long long>(c + ch) * slices + s];
+  // the flat NCHW index of the channel's element ce (channel-local, < 2^31)
+  __device__ __forceinline__ long long at(unsigned ce, int ch) const {
+    const unsigned row = hw_shift >= 0 ? ce >> hw_shift : ce / hw;
+    return static_cast<long long>(row) * chw +
+           (static_cast<long long>(ch) * hw + (ce - row * hw));
   }
-  bstats[ch] = static_cast<float>(s2);
-  bstats[c + ch] = static_cast<float>(s1);
-  bstats[2 * c + ch] = static_cast<float>(s1 / n);
-  bstats[3 * c + ch] = static_cast<float>(s2 / n);
-  bstats[4 * c + ch] = gamma[ch] * stats[2 * c + ch];
+  // the share's element l (l = 0 is unit lo's first)
+  __device__ __forceinline__ long long elem(unsigned l, int ch) const {
+    return at(lo * static_cast<unsigned>(vec) + l, ch);
+  }
+};
+
+__device__ __forceinline__ Share share_of(const SegPlan& p, unsigned rank) {
+  const unsigned long long units = static_cast<unsigned long long>(p.b) * p.hw / p.vec;
+  Share s;
+  s.lo = static_cast<unsigned>(units * rank / p.cluster);
+  s.n = static_cast<unsigned>(units * (rank + 1) / p.cluster) - s.lo;
+  s.vec = p.vec;
+  s.hw_shift = (p.hw & (p.hw - 1)) == 0 ? __ffsll(p.hw) - 1 : -1;
+  s.hw = static_cast<unsigned>(p.hw);
+  s.chw = static_cast<long long>(p.c) * p.hw;
+  return s;
 }
 
-// K5-bwd pass 2: dx
-template <int kVec, int kAct>
-__global__ void __launch_bounds__(kThreads)
-bwd_apply_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                 const float* __restrict__ stats, const float* __restrict__ bstats,
-                 long long b, int c, long long hw, int slices, Drop d, float* __restrict__ dx) {
-  const int ch = blockIdx.x;
-  const Fwd f = fwd_of(stats, c, ch);
-  const float m1 = bstats[2 * c + ch], m2 = bstats[3 * c + ch], gr = bstats[4 * c + ch];
-  for_units<kVec>(b, c, hw, slices, d, [&](long long e, const bool (&keep)[kVec]) {
-    Vec<kVec> xv, gv;
-    xv.load(x + e);
-    gv.load(g + e);
+// units [u0, u0 + n) of the share: their keep words into keep[0 .. n),
+// one Philox call each (nothing without a mask)
+template <int V>
+__device__ __forceinline__ void keep_words(const Share& sh, int ch, const Drop& d, unsigned u0,
+                                           unsigned n, uint32_t* keep) {
+  if (!d.on) return;
+  for (unsigned u = threadIdx.x; u < n; u += blockDim.x) {
+    keep[u] = keep_bits<V>(d, sh.elem((u0 + u) * V, ch));
+  }
+}
+
+// the keep bits of the elements from the share's element l (bit 0 is l's),
+// of a chunk whose keep words start at unit u0
+template <int V>
+__device__ __forceinline__ uint32_t keep_of(const Drop& d, const uint32_t* keep, unsigned u0,
+                                            unsigned l) {
+  if (!d.on) return 0xFFFFFFFFu;
+  return keep[l / V - u0] >> (l % V);
+}
+
+// Lanes 0-15's (a, b) summed in a fixed butterfly (IEEE addition commutes,
+// so every lane ends with the same bits); lanes 16-31 hold zeros
+__device__ __forceinline__ void sum16(double& a, double& b) {
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      float dz, xhat;
-      dz_xhat<kAct>(f, dropped(d, xv.v[j], keep[j]), gv.v[j], dz, xhat);
-      const float du = gr * ((dz - m1) - xhat * m2);
-      xv.v[j] = d.on ? (keep[j] ? du * d.scale : 0.0f) : du;
+  for (int o = 8; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xFFFFFFFFu, a, o);
+    b += __shfl_xor_sync(0xFFFFFFFFu, b, o);
+  }
+}
+
+// The cluster barrier in two halves (barrier.cluster, release then
+// acquire): the kernel arrives once its last distributed shared memory
+// read is done and waits just before it exits, so no CTA exits while
+// another may still read its `red`, and the wait overlaps the output.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The channel's two fp64 sums in every thread of every CTA of the cluster:
+// each CTA's by a fixed tree (shuffles within the warps, then warp 0 over
+// the warps), the CTAs' through distributed shared memory in a fixed tree
+// over the ranks; a cluster of one skips the exchange. `red` alternates
+// between two slots from one channel to the next: a CTA writes a slot
+// again only after the next channel's cluster.sync(), which every CTA
+// reaches after reading it (`total`, where every thread reads the sums,
+// alternates alike).
+__device__ __forceinline__ void cluster_sums(cg::cluster_group& cluster, double& s1,
+                                             double& s2, double (*warp_sums)[2],
+                                             double* red, double* total) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_down_sync(0xFFFFFFFFu, s1, o);
+    s2 += __shfl_down_sync(0xFFFFFFFFu, s2, o);
+  }
+  const unsigned lane = threadIdx.x & 31;
+  if (lane == 0) {
+    warp_sums[threadIdx.x >> 5][0] = s1;
+    warp_sums[threadIdx.x >> 5][1] = s2;
+  }
+  __syncthreads();
+  const unsigned k = cluster.num_blocks();
+  if (threadIdx.x < 32) {
+    const bool mine = lane < (blockDim.x >> 5);
+    double a = mine ? warp_sums[lane][0] : 0.0, b = mine ? warp_sums[lane][1] : 0.0;
+    sum16(a, b);
+    if (lane == 0) {
+      double* to = k == 1 ? total : red;
+      to[0] = a;
+      to[1] = b;
     }
-    xv.store(dx + e);
-  });
+  }
+  if (k > 1) {
+    cluster.sync();
+    // warp 0: lane r reads rank r's pair
+    if (threadIdx.x < 32) {
+      double q1 = 0.0, q2 = 0.0;
+      if (lane < k) {
+        const double* q = cluster.map_shared_rank(red, lane);
+        q1 = q[0];
+        q2 = q[1];
+      }
+      sum16(q1, q2);
+      if (lane == 0) {
+        total[0] = q1;
+        total[1] = q2;
+      }
+    }
+  }
+  __syncthreads();
+  s1 = total[0];
+  s2 = total[1];
+}
+
+// The keep words of the units swept twice are staged kChunk at a time
+constexpr unsigned kChunk = 2048;
+
+// For each unit chunk [u0, u0 + nu) of the units [from, sh.n) of the
+// share, in order, or last to first where `reverse` (the second sweep:
+// what the first sweep read last is the likeliest still in L2): its keep
+// words staged in keep[0 .. nu) (the second sweep of a single chunk keeps
+// the first's), then for every F elements, kUnroll
+// accesses in flight per thread: load(k, e, reverse) of the element e, then
+// body(k, l, bits) with l the share's element index and bits their keep
+// bits
+template <int V, int F, int kUnroll, typename Load, typename Body>
+__device__ __forceinline__ void sweep_rest(const Share& sh, int ch, const Drop& d,
+                                           unsigned from, bool reverse, uint32_t* keep,
+                                           Load&& load, Body&& body) {
+  const unsigned T = blockDim.x;
+  const unsigned chunks = sh.n > from ? (sh.n - from + kChunk - 1) / kChunk : 0;
+  for (unsigned q = 0; q < chunks; ++q) {
+    const unsigned u0 = from + (reverse ? chunks - 1 - q : q) * kChunk;
+    const unsigned nu = min(kChunk, sh.n - u0), m = nu * V / F, l0 = u0 * V;
+    if (chunks > 1 || !reverse) {
+      __syncthreads();
+      keep_words<V>(sh, ch, d, u0, nu, keep);
+      __syncthreads();
+    }
+    for (unsigned i = threadIdx.x; i < m; i += kUnroll * T) {
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        if (i + k * T < m) load(k, sh.elem(l0 + (i + k * T) * F, ch), reverse);
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        if (i + k * T < m) {
+          const unsigned l = l0 + (i + k * T) * F;
+          body(k, l, keep_of<V>(d, keep, u0, l));
+        }
+      }
+    }
+  }
+}
+
+struct FwdArgs {
+  const float* x;
+  const float* gamma;
+  const float* beta;
+  float* running_mean;      // NULL: not moved
+  float* running_var;
+  float* y;
+  float* stats;             // [5, c]: mean, var, r, scale, shift
+  SegPlan p;
+  Drop d;
+  double eps;
+  float momentum, one_minus_momentum;
+};
+
+// K5: stats, then y, in one launch. The first p.chip units of a CTA's
+// share are staged in shared memory in element order (cp.async, all in
+// flight while their keep words are computed), turned into u in place and
+// read back for y, each slot then taking the CTA's next channel; the rest
+// of the share (none where it fits) is read twice from device memory. Shared memory: [chip V] floats of u, [chip]
+// keep words, [kChunk] keep words of the rest.
+template <int V, int kAct>
+__global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs a) {
+  constexpr int F = V == 1 ? 1 : 4;
+  constexpr int kUnroll = 4;
+  extern __shared__ float4 smem4[];
+  __shared__ double warp_sums[kMaxThreads / 32][2];
+  __shared__ double red[2][2], total[2][2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Share sh = share_of(a.p, cluster.block_rank());
+  const unsigned chip = static_cast<unsigned>(a.p.chip);
+  float* u_smem = reinterpret_cast<float*>(smem4);
+  uint32_t* keep_chip = reinterpret_cast<uint32_t*>(u_smem + static_cast<size_t>(V) * chip);
+  uint32_t* keep_rest = keep_chip + chip;
+  const Drop& d = a.d;
+  const int c = a.p.c;
+  const double n = static_cast<double>(a.p.b * a.p.hw);
+  const unsigned T = blockDim.x;
+  const unsigned n_chip = min(sh.n, chip), m_chip = n_chip * V / F;
+  auto drop = [&](Vec<F>& v, uint32_t bits) {
+#pragma unroll
+    for (int j = 0; j < F; ++j) v.v[j] = dropped(d, v.v[j], (bits >> j) & 1u);
+  };
+  const int ch_step = gridDim.x / a.p.cluster;
+  // the chip units of channel ch into shared memory, asynchronously
+  auto stage = [&](int ch) {
+    if constexpr (F == 4) {
+      for (unsigned i = threadIdx.x; i < m_chip; i += T) {
+        cp_async16(smem4 + i, a.x + sh.elem(i * F, ch));
+      }
+    }
+  };
+  const bool multi = cluster.num_blocks() > 1;
+  const bool writer = cluster.block_rank() == 0 && threadIdx.x == 0;
+  stage(blockIdx.x / a.p.cluster);
+  for (int ch = blockIdx.x / a.p.cluster; ch < c; ch += ch_step) {
+    const int next = ch + ch_step;
+    // the channel's parameters, loaded while its copies are in flight
+    const float gam = a.gamma[ch], bet = a.beta[ch];
+    float rm = 0.0f, rv = 0.0f;
+    if (writer && a.running_mean != nullptr) {
+      rm = a.running_mean[ch];
+      rv = a.running_var[ch];
+    }
+    double s1 = 0.0, s2 = 0.0;
+    auto add = [&](const Vec<F>& v) {
+#pragma unroll
+      for (int j = 0; j < F; ++j) {
+        const double u = v.v[j];
+        s1 += u;
+        s2 = __fma_rn(u, u, s2);
+      }
+    };
+    Vec<F> buf[kUnroll];
+    auto load = [&](int k, long long e, bool last) { buf[k].load(a.x + e, last); };
+    if constexpr (F == 4) {
+      // channel ch's copies were issued by stage() before the loop or
+      // during the previous channel's output
+      keep_words<V>(sh, ch, d, 0, n_chip, keep_chip);
+      cp_async_wait_all();
+      __syncthreads();
+      for (unsigned i = threadIdx.x; i < m_chip; i += T) {
+        Vec<F> v;
+        v.load(u_smem + i * F);
+        drop(v, keep_of<V>(d, keep_chip, 0, i * F));
+        add(v);
+        v.store(u_smem + i * F);
+      }
+    }
+    sweep_rest<V, F, kUnroll>(sh, ch, d, n_chip, false, keep_rest, load,
+                              [&](int k, unsigned, uint32_t bits) {
+                                drop(buf[k], bits);
+                                add(buf[k]);
+                              });
+    const int slot = (ch / ch_step) & 1;
+    cluster_sums(cluster, s1, s2, warp_sums, red[slot], total[slot]);
+    if (multi && next >= c) cluster_arrive();
+    const double mean_d = s1 / n;
+    const double var_d = s2 / n - mean_d * mean_d;
+    const float mean = static_cast<float>(mean_d);
+    const float var = static_cast<float>(var_d);
+    const float r = static_cast<float>(1.0 / sqrt(var_d + a.eps));
+    const float scale = gam * r;
+    const float shift = bet - mean * scale;
+    if (writer) {
+      a.stats[ch] = mean;
+      a.stats[c + ch] = var;
+      a.stats[2 * c + ch] = r;
+      a.stats[3 * c + ch] = scale;
+      a.stats[4 * c + ch] = shift;
+      if (a.running_mean != nullptr) {
+        a.running_mean[ch] = a.momentum * rm + a.one_minus_momentum * mean;
+        a.running_var[ch] = a.momentum * rv + a.one_minus_momentum * var;
+      }
+    }
+    auto emit = [&](Vec<F>& v, unsigned l) {
+#pragma unroll
+      for (int j = 0; j < F; ++j) v.v[j] = act<kAct>(v.v[j] * scale + shift);
+      v.stream(a.y + sh.elem(l, ch));
+    };
+    if constexpr (F == 4) {
+      // each slot, once read, takes the next channel's x (the thread
+      // that reads a slot is the one that fills it)
+      for (unsigned i = threadIdx.x; i < m_chip; i += T) {
+        Vec<F> v;
+        v.load(u_smem + i * F);
+        emit(v, i * F);
+        if (next < c) cp_async16(smem4 + i, a.x + sh.elem(i * F, next));
+      }
+    }
+    sweep_rest<V, F, kUnroll>(sh, ch, d, n_chip, true, keep_rest, load,
+                              [&](int k, unsigned l, uint32_t bits) {
+                                drop(buf[k], bits);
+                                emit(buf[k], l);
+                              });
+  }
+  if (multi) cluster_wait();   // no CTA exits while another may read its `red`
+}
+
+struct BwdArgs {
+  const float* x;
+  const float* g;
+  const float* gamma;
+  const float* stats;       // the forward's [5, c]
+  float* dx;
+  float* dgb;               // [2, c]: dgamma, dbeta
+  SegPlan p;
+  Drop d;
+};
+
+// K5-bwd: sum(dz), sum(dz xhat), then dx, in one launch. As the forward:
+// the first p.chip units of the share of g and x are staged and turned
+// into dz and xhat in place, the rest read twice. Shared memory: [chip V]
+// floats of dz, [chip V] of xhat, [chip] keep words, [kChunk] keep words.
+template <int V, int kAct>
+__global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs a) {
+  constexpr int F = V == 1 ? 1 : 4;
+  constexpr int kUnroll = 2;
+  extern __shared__ float4 smem4[];
+  __shared__ double warp_sums[kMaxThreads / 32][2];
+  __shared__ double red[2][2], total[2][2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Share sh = share_of(a.p, cluster.block_rank());
+  const unsigned chip = static_cast<unsigned>(a.p.chip);
+  float* dz_smem = reinterpret_cast<float*>(smem4);
+  float* xhat_smem = dz_smem + static_cast<size_t>(V) * chip;
+  uint32_t* keep_chip = reinterpret_cast<uint32_t*>(xhat_smem + static_cast<size_t>(V) * chip);
+  uint32_t* keep_rest = keep_chip + chip;
+  const Drop& d = a.d;
+  const int c = a.p.c;
+  const double n = static_cast<double>(a.p.b * a.p.hw);
+  const unsigned T = blockDim.x;
+  const unsigned n_chip = min(sh.n, chip), m_chip = n_chip * V / F;
+  const int ch_step = gridDim.x / a.p.cluster;
+  // the chip units of g and x of channel ch into shared memory
+  auto stage_slot = [&](unsigned i, int ch) {
+    const long long e = sh.elem(i * F, ch);
+    cp_async16(reinterpret_cast<float4*>(dz_smem) + i, a.g + e);
+    cp_async16(reinterpret_cast<float4*>(xhat_smem) + i, a.x + e);
+  };
+  if constexpr (F == 4) {
+    for (unsigned i = threadIdx.x; i < m_chip; i += T) stage_slot(i, blockIdx.x / a.p.cluster);
+  }
+  const bool multi = cluster.num_blocks() > 1;
+  for (int ch = blockIdx.x / a.p.cluster; ch < c; ch += ch_step) {
+    const int next = ch + ch_step;
+    // the channel's parameters, loaded while its copies are in flight
+    const float mean = a.stats[ch], r = a.stats[2 * c + ch];
+    const float scale = a.stats[3 * c + ch], shift = a.stats[4 * c + ch];
+    const float gr = a.gamma[ch] * r;
+    // g, x -> dz, xhat of F elements, in place
+    auto recompute = [&](Vec<F>& dz, Vec<F>& xhat, uint32_t bits) {
+#pragma unroll
+      for (int j = 0; j < F; ++j) {
+        const float u = dropped(d, xhat.v[j], (bits >> j) & 1u);
+        dz.v[j] = dz.v[j] * act_grad<kAct>(u * scale + shift);
+        xhat.v[j] = (u - mean) * r;
+      }
+    };
+    double s1 = 0.0, s2 = 0.0;
+    auto add = [&](const Vec<F>& dz, const Vec<F>& xhat) {
+#pragma unroll
+      for (int j = 0; j < F; ++j) {
+        s1 += static_cast<double>(dz.v[j]);
+        s2 += static_cast<double>(dz.v[j] * xhat.v[j]);
+      }
+    };
+    Vec<F> gb[kUnroll], xb[kUnroll];
+    auto load = [&](int k, long long e, bool last) {
+      gb[k].load(a.g + e, last);
+      xb[k].load(a.x + e, last);
+    };
+    if constexpr (F == 4) {
+      __syncthreads();     // the previous channel's output has read keep_chip
+      keep_words<V>(sh, ch, d, 0, n_chip, keep_chip);
+      cp_async_wait_all();
+      __syncthreads();
+      for (unsigned i = threadIdx.x; i < m_chip; i += T) {
+        Vec<F> dz, xhat;
+        dz.load(dz_smem + i * F);
+        xhat.load(xhat_smem + i * F);
+        recompute(dz, xhat, keep_of<V>(d, keep_chip, 0, i * F));
+        add(dz, xhat);
+        dz.store(dz_smem + i * F);
+        xhat.store(xhat_smem + i * F);
+      }
+    }
+    sweep_rest<V, F, kUnroll>(sh, ch, d, n_chip, false, keep_rest, load,
+                              [&](int k, unsigned, uint32_t bits) {
+                                recompute(gb[k], xb[k], bits);
+                                add(gb[k], xb[k]);
+                              });
+    const int slot = (ch / ch_step) & 1;
+    cluster_sums(cluster, s1, s2, warp_sums, red[slot], total[slot]);
+    if (multi && next >= c) cluster_arrive();
+    const float m1 = static_cast<float>(s1 / n), m2 = static_cast<float>(s2 / n);
+    if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+      a.dgb[ch] = static_cast<float>(s2);
+      a.dgb[c + ch] = static_cast<float>(s1);
+    }
+    auto emit = [&](Vec<F>& dz, const Vec<F>& xhat, uint32_t bits, unsigned l) {
+#pragma unroll
+      for (int j = 0; j < F; ++j) {
+        const float du = gr * ((dz.v[j] - m1) - xhat.v[j] * m2);
+        dz.v[j] = d.on ? (((bits >> j) & 1u) ? du * d.scale : 0.0f) : du;
+      }
+      dz.stream(a.dx + sh.elem(l, ch));
+    };
+    if constexpr (F == 4) {
+      for (unsigned i = threadIdx.x; i < m_chip; i += T) {
+        Vec<F> dz, xhat;
+        dz.load(dz_smem + i * F);
+        xhat.load(xhat_smem + i * F);
+        emit(dz, xhat, keep_of<V>(d, keep_chip, 0, i * F), i * F);
+        if (next < c) stage_slot(i, next);
+      }
+    }
+    sweep_rest<V, F, kUnroll>(sh, ch, d, n_chip, true, keep_rest, load,
+                              [&](int k, unsigned l, uint32_t bits) {
+                                recompute(gb[k], xb[k], bits);
+                                emit(gb[k], xb[k], bits, l);
+                              });
+  }
+  if (multi) cluster_wait();   // no CTA exits while another may read its `red`
 }
 
 Drop make_drop(int t, unsigned long long seed) {
@@ -336,93 +657,174 @@ Drop make_drop(int t, unsigned long long seed) {
   return d;
 }
 
-// shapes the kernels take: a channel's units index in 32 bits
-bool bad_shape(long long b, int c, long long hw, int slices, int vec) {
-  return b < 1 || c < 1 || hw < 1 || slices < 1 || slices > b || slices > 65535 ||
-         (vec != 1 && vec != 4) || hw % vec != 0 || b * hw > 0x7FFFFFFFLL;
+// dynamic shared memory per CTA: the chip units' data (x forward; g and
+// x backward; 4 B per element each) and keep words, and the keep words of
+// a chunk of the units swept twice, where the share has more than chip
+long long smem_of(const SegPlan& p, bool bwd) {
+  const long long units = p.b * p.hw / p.vec;
+  const long long stride = (units + p.cluster - 1) / p.cluster;
+  const long long rest = stride - p.chip;
+  return p.chip * ((bwd ? 8LL : 4LL) * p.vec + 4) + 4LL * (rest < kChunk ? rest : kChunk);
+}
+
+// a plan the kernels take (kernels/segment.py _plan makes only these)
+bool bad_plan(const SegPlan& p, bool bwd) {
+  if (p.b < 1 || p.c < 1 || p.hw < 1 || p.b * p.hw > 0x7FFFFFFFLL) return true;
+  if ((p.vec != 1 && p.vec != 4 && p.vec != 16) || p.hw % p.vec != 0) return true;
+  if (p.cluster < 1 || p.cluster > 16 || p.threads < 32 || p.threads > kMaxThreads ||
+      p.threads % 32 != 0 || p.clusters < 1 || p.clusters > p.c) return true;
+  const long long stride = (p.b * p.hw / p.vec + p.cluster - 1) / p.cluster;
+  if (p.chip < 0 || p.chip > stride || (p.vec == 1 && p.chip != 0)) return true;
+  return static_cast<long long>(p.smem) != smem_of(p, bwd);
+}
+
+template <typename Args>
+using Kernel = void (*)(Args);
+
+Kernel<FwdArgs> pick_fwd(const SegPlan& p, int act) {
+  if (p.vec == 16) return act == kElu ? fwd_kernel<16, kElu> : fwd_kernel<16, kRelu>;
+  if (p.vec == 4) return act == kElu ? fwd_kernel<4, kElu> : fwd_kernel<4, kRelu>;
+  return act == kElu ? fwd_kernel<1, kElu> : fwd_kernel<1, kRelu>;
+}
+
+Kernel<BwdArgs> pick_bwd(const SegPlan& p, int act) {
+  if (p.vec == 16) return act == kElu ? bwd_kernel<16, kElu> : bwd_kernel<16, kRelu>;
+  if (p.vec == 4) return act == kElu ? bwd_kernel<4, kElu> : bwd_kernel<4, kRelu>;
+  return act == kElu ? bwd_kernel<1, kElu> : bwd_kernel<1, kRelu>;
+}
+
+// The launch configuration of a plan. The first use of a kernel allows it
+// the most dynamic shared memory and clusters of 16 (non-portable).
+template <typename Args>
+cudaError_t config_of(Kernel<Args> fn, const SegPlan& p, cudaStream_t s,
+                      cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+  static const void* ready[64];
+  static int n_ready = 0;
+  bool found = false;
+  for (int i = 0; i < n_ready; ++i) found = found || ready[i] == reinterpret_cast<const void*>(fn);
+  if (!found) {
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmemMax - static_cast<int>(fa.sharedSizeBytes));
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    if (err != cudaSuccess) return err;
+    if (n_ready < 64) ready[n_ready++] = reinterpret_cast<const void*>(fn);
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(static_cast<unsigned>(p.clusters) * p.cluster);
+  cfg->blockDim = dim3(p.threads);
+  cfg->dynamicSmemBytes = static_cast<size_t>(p.smem);
+  cfg->stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// cudaOccupancyMaxActiveClusters of a configuration (0 where it fails),
+// asked once per kernel and plan shape
+template <typename Args>
+int active_clusters(Kernel<Args> fn, const SegPlan& p, const cudaLaunchConfig_t& cfg) {
+  struct Seen {
+    const void* fn;
+    int cluster, threads, smem, n;
+  };
+  static Seen seen[256];
+  static int n_seen = 0;
+  const void* key = reinterpret_cast<const void*>(fn);
+  for (int i = 0; i < n_seen; ++i) {
+    const Seen& e = seen[i];
+    if (e.fn == key && e.cluster == p.cluster && e.threads == p.threads && e.smem == p.smem) {
+      return e.n;
+    }
+  }
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, fn, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    n = 0;
+  }
+  if (n_seen < 256) seen[n_seen++] = Seen{key, p.cluster, p.threads, p.smem, n};
+  return n;
+}
+
+// One launch of fn with plan p: a grid of at most as many clusters as fit
+// on the card at once, which walk the channels (the order of every sum
+// depends on the shape alone, not on the grid).
+template <typename Args>
+int launch(Kernel<Args> fn, const SegPlan& p, const Args& args, cudaStream_t s) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = config_of(fn, p, s, attr, &cfg);
+  if (err == cudaSuccess) {
+    const int n = active_clusters(fn, p, cfg);
+    if (n > 0 && n < p.clusters) cfg.gridDim = dim3(static_cast<unsigned>(n) * p.cluster);
+    err = cudaLaunchKernelEx(&cfg, fn, args);
+  }
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
 
 // K5: x [b, c, hw] -> y, stats [5, c] (mean, var, r, scale, shift); moves
-// running_mean / running_var (unless NULL). partial: fp64 scratch [2, c,
-// slices]. vec 4 needs hw % 4 == 0 and 16-byte aligned x and y. act 0 elu,
-// 1 relu.
-extern "C" int lvae_segment_fwd(const void* x, const void* gamma, const void* beta,
-                                void* running_mean, void* running_var, void* y, void* stats,
-                                void* partial, long long b, int c, long long hw, int slices,
-                                int t, int act, double eps, float momentum,
-                                float one_minus_momentum, unsigned long long seed, int vec,
-                                void* stream) {
-  if (bad_shape(b, c, hw, slices, vec) || (act != kElu && act != kRelu)) {
+// running_mean / running_var (unless NULL). x and y 16-byte aligned where
+// the plan's vec is 4 or 16. act 0 elu, 1 relu.
+extern "C" int lvae_segment_fwd(const SegPlan* plan, const void* x, const void* gamma,
+                                const void* beta, void* running_mean, void* running_var,
+                                void* y, void* stats, int t, int act, double eps,
+                                float momentum, float one_minus_momentum,
+                                unsigned long long seed, void* stream) {
+  if (bad_plan(*plan, false) || (act != kElu && act != kRelu)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto s = static_cast<cudaStream_t>(stream);
-  const Drop d = make_drop(t, seed);
-  const dim3 grid(c, slices);
-  auto xp = static_cast<const float*>(x);
-  auto pp = static_cast<double*>(partial);
-  auto st = static_cast<float*>(stats);
-  auto yp = static_cast<float*>(y);
-  if (vec == 4) {
-    stats_kernel<4><<<grid, kThreads, 0, s>>>(xp, b, c, hw, slices, d, pp);
-  } else {
-    stats_kernel<1><<<grid, kThreads, 0, s>>>(xp, b, c, hw, slices, d, pp);
-  }
-  stats_final_kernel<<<(c + kFinalThreads - 1) / kFinalThreads, kFinalThreads, 0, s>>>(
-      pp, c, slices, static_cast<double>(b * hw), eps, static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), st, static_cast<float*>(running_mean),
-      static_cast<float*>(running_var), momentum, one_minus_momentum);
-  if (vec == 4 && act == kElu) {
-    apply_kernel<4, kElu><<<grid, kThreads, 0, s>>>(xp, st, b, c, hw, slices, d, yp);
-  } else if (vec == 4) {
-    apply_kernel<4, kRelu><<<grid, kThreads, 0, s>>>(xp, st, b, c, hw, slices, d, yp);
-  } else if (act == kElu) {
-    apply_kernel<1, kElu><<<grid, kThreads, 0, s>>>(xp, st, b, c, hw, slices, d, yp);
-  } else {
-    apply_kernel<1, kRelu><<<grid, kThreads, 0, s>>>(xp, st, b, c, hw, slices, d, yp);
-  }
-  return static_cast<int>(cudaGetLastError());
+  FwdArgs a{static_cast<const float*>(x), static_cast<const float*>(gamma),
+            static_cast<const float*>(beta), static_cast<float*>(running_mean),
+            static_cast<float*>(running_var), static_cast<float*>(y),
+            static_cast<float*>(stats), *plan, make_drop(t, seed), eps, momentum,
+            one_minus_momentum};
+  return launch(pick_fwd(*plan, act), *plan, a, static_cast<cudaStream_t>(stream));
 }
 
-// K5-bwd: g [b, c, hw] with the forward's x and stats -> dx and bstats [5,
-// c] (dgamma, dbeta, m1, m2, gamma r). partial: fp64 scratch [2, c,
-// slices]; vec 4 needs hw % 4 == 0 and 16-byte aligned x, g and dx.
-extern "C" int lvae_segment_bwd(const void* x, const void* g, const void* gamma,
-                                const void* stats, void* dx, void* bstats, void* partial,
-                                long long b, int c, long long hw, int slices, int t, int act,
-                                unsigned long long seed, int vec, void* stream) {
-  if (bad_shape(b, c, hw, slices, vec) || (act != kElu && act != kRelu)) {
+// K5-bwd: g [b, c, hw] with the forward's x and stats -> dx and dgb [2, c]
+// (dgamma, dbeta); x, g and dx 16-byte aligned where vec is 4 or 16.
+extern "C" int lvae_segment_bwd(const SegPlan* plan, const void* x, const void* g,
+                                const void* gamma, const void* stats, void* dx, void* dgb,
+                                int t, int act, unsigned long long seed, void* stream) {
+  if (bad_plan(*plan, true) || (act != kElu && act != kRelu)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto s = static_cast<cudaStream_t>(stream);
-  const Drop d = make_drop(t, seed);
-  const dim3 grid(c, slices);
-  auto xp = static_cast<const float*>(x);
-  auto gp = static_cast<const float*>(g);
-  auto st = static_cast<const float*>(stats);
-  auto pp = static_cast<double*>(partial);
-  auto bs = static_cast<float*>(bstats);
-  auto dxp = static_cast<float*>(dx);
-  if (vec == 4 && act == kElu) {
-    bwd_reduce_kernel<4, kElu><<<grid, kThreads, 0, s>>>(xp, gp, st, b, c, hw, slices, d, pp);
-  } else if (vec == 4) {
-    bwd_reduce_kernel<4, kRelu><<<grid, kThreads, 0, s>>>(xp, gp, st, b, c, hw, slices, d, pp);
-  } else if (act == kElu) {
-    bwd_reduce_kernel<1, kElu><<<grid, kThreads, 0, s>>>(xp, gp, st, b, c, hw, slices, d, pp);
-  } else {
-    bwd_reduce_kernel<1, kRelu><<<grid, kThreads, 0, s>>>(xp, gp, st, b, c, hw, slices, d, pp);
+  BwdArgs a{static_cast<const float*>(x), static_cast<const float*>(g),
+            static_cast<const float*>(gamma), static_cast<const float*>(stats),
+            static_cast<float*>(dx), static_cast<float*>(dgb), *plan, make_drop(t, seed)};
+  return launch(pick_bwd(*plan, act), *plan, a, static_cast<cudaStream_t>(stream));
+}
+
+// cudaOccupancyMaxActiveClusters of a plan's kernel (direction 0 forward,
+// 1 backward) into *out; returns the CUDA status.
+extern "C" int lvae_segment_max_clusters(const SegPlan* plan, int direction, int act,
+                                         int* out) {
+  if (bad_plan(*plan, direction != 0) || (act != kElu && act != kRelu)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  bwd_final_kernel<<<(c + kFinalThreads - 1) / kFinalThreads, kFinalThreads, 0, s>>>(
-      pp, c, slices, static_cast<double>(b * hw), static_cast<const float*>(gamma), st, bs);
-  if (vec == 4 && act == kElu) {
-    bwd_apply_kernel<4, kElu><<<grid, kThreads, 0, s>>>(xp, gp, st, bs, b, c, hw, slices, d, dxp);
-  } else if (vec == 4) {
-    bwd_apply_kernel<4, kRelu><<<grid, kThreads, 0, s>>>(xp, gp, st, bs, b, c, hw, slices, d, dxp);
-  } else if (act == kElu) {
-    bwd_apply_kernel<1, kElu><<<grid, kThreads, 0, s>>>(xp, gp, st, bs, b, c, hw, slices, d, dxp);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cudaError_t err;
+  if (direction == 0) {
+    const Kernel<FwdArgs> fn = pick_fwd(*plan, act);
+    err = config_of(fn, *plan, nullptr, attr, &cfg);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(out, fn, &cfg);
   } else {
-    bwd_apply_kernel<1, kRelu><<<grid, kThreads, 0, s>>>(xp, gp, st, bs, b, c, hw, slices, d, dxp);
+    const Kernel<BwdArgs> fn = pick_bwd(*plan, act);
+    err = config_of(fn, *plan, nullptr, attr, &cfg);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(out, fn, &cfg);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -70,15 +70,15 @@ _SIGNATURES = {
     "lvae_mix_log_prob": (_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P),
     # x, params, g, dparams, dx (or NULL), b, hw, k, c, n_bins, stream
     "lvae_mix_log_prob_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P),
-    # x, gamma, beta, running_mean, running_var (or NULL), y, stats, partial,
-    # b, c, hw, slices, t, act, eps, momentum, 1 - momentum, seed, vec, stream
-    "lvae_segment_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _INT, _INT,
-                         _INT, ctypes.c_double, ctypes.c_float, ctypes.c_float, _U64,
-                         _INT, _P),
-    # x, g, gamma, stats, dx, bstats, partial, b, c, hw, slices, t, act,
-    # seed, vec, stream
-    "lvae_segment_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _I64, _INT, _INT, _INT,
-                         _U64, _INT, _P),
+    # plan (kernels/segment.py _CPlan), x, gamma, beta, running_mean,
+    # running_var (or NULL), y, stats, t, act, eps, momentum, 1 - momentum,
+    # seed, stream
+    "lvae_segment_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, ctypes.c_double,
+                         ctypes.c_float, ctypes.c_float, _U64, _P),
+    # plan, x, g, gamma, stats, dx, dgb, t, act, seed, stream
+    "lvae_segment_bwd": (_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _U64, _P),
+    # plan, direction, act, out
+    "lvae_segment_max_clusters": (_P, _INT, _INT, _P),
 }
 
 

@@ -3,15 +3,21 @@ backward: the port of ``fused_dropout_bn_act``
 (``lvae_tpu/kernels/segment_pallas.py:380``).
 
 :func:`dropout_bn_act` is a ``torch.autograd.Function``: the forward is K5
-(``_segment_fwd_impl`` :291, two passes and a finalise that also moves the
-running statistics), the backward K5-bwd (``_segment_bwd_impl`` :318).
-Both take the model's NCHW map ``x [B, C, H, W]`` as it is, with any B,
-C, H and W; the dropout bytes are the keyed Philox bytes of
-:func:`lvae_tpu_torch.ops.philox.dropout_bytes`, regenerated in every
-pass from ``seed``.
+(``_segment_fwd_impl`` :291; it also moves the running statistics), the
+backward K5-bwd (``_segment_bwd_impl`` :318). Both take the model's NCHW
+map ``x [B, C, H, W]`` as it is, with any B, C, H and W; the dropout bytes
+are the keyed Philox bytes of
+:func:`lvae_tpu_torch.ops.philox.dropout_bytes`, generated in the kernel
+from ``seed``.
 
-A CUDA tensor launches ``csrc/segment.cu`` or raises; a CPU tensor takes
-the plain versions, ``ops.math.segment_forward`` and the hand-written
+Each direction is one launch of ``csrc/segment.cu`` whose shape
+:func:`_plan` computes from the tensor's shape alone: a thread block
+cluster per channel, and whether the second sweep reads shared memory
+("on_chip", for as much of the channel as fits) or the inputs again
+("two_sweep").
+
+A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
+versions, ``ops.math.segment_forward`` and the hand-written
 ``ops.math.segment_backward``. Unlike ``lvae_tpu``, which falls back to
 plain XLA for channel counts its lanes cannot tile
 (``segment_pallas.py:221-240``), the kernel takes every shape, so the
@@ -20,7 +26,9 @@ wrapper never falls back.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -34,14 +42,138 @@ from lvae_tpu_torch.ops.math import (
 )
 from lvae_tpu_torch.ops.philox import dropout_bytes
 
-_TARGET_BLOCKS = 528        # ~4 blocks of 256 threads per SM of an H100
-_MIN_BLOCK_ELEMENTS = 2048
+SMS = 132                       # streaming multiprocessors of an H100 SXM
+SMEM_MAX = 232_448              # shared memory a CTA can have
+SMEM_STATIC = 1024              # what the kernels declare statically, rounded up
+SMEM_BUDGET = 200 * 1024        # the dynamic shared memory a CTA's share may take
+PART_BUDGET = 104 * 1024        # ... where only part fits: two CTAs per SM
+KEEP_CHUNK = 2048               # csrc/segment.cu kChunk: keep words staged per step
+MAX_ACCESSES = 4096             # 16-byte accesses per CTA that a cluster aims under
+ONE_CTA = 2048                  # ... and a channel of at most this many takes one CTA
+MAX_THREADS = 512               # csrc/segment.cu kMaxThreads
+PATHS = ("on_chip", "two_sweep")
 
 
-def _batch_slices(b: int, c: int, hw: int) -> int:
-    """The kernels' batch slices: grid (c, slices), a function of the shape
-    alone, so the order of the sums (and their bits) is too."""
-    return max(1, min(b, -(-_TARGET_BLOCKS // c), b * hw // _MIN_BLOCK_ELEMENTS))
+class Plan(NamedTuple):
+    """One launch's shape (csrc/segment.cu ``SegPlan``)."""
+
+    b: int
+    hw: int
+    c: int
+    vec: int            # elements per unit (one Philox call): 16, 4 or 1
+    cluster: int        # CTAs per channel, the cluster's size
+    threads: int        # per CTA
+    clusters: int       # the grid; cluster i takes channels i, i + clusters, ...
+    chip: int           # units of a CTA's share kept in shared memory
+    smem: int           # dynamic shared memory per CTA
+
+    @property
+    def path(self) -> str:
+        return PATHS[0] if self.chip == self.units else PATHS[1]
+
+    @property
+    def units(self) -> int:
+        """Units of a CTA's share (the largest share)."""
+        return -(-self.b * self.hw // self.vec // self.cluster)
+
+    @property
+    def channels_per_cta(self) -> int:
+        return -(-self.c // self.clusters)
+
+    @property
+    def portable(self) -> bool:
+        """A cluster of at most 8 CTAs; 16 needs the non-portable size."""
+        return self.cluster <= 8
+
+
+class _CPlan(ctypes.Structure):
+    _fields_ = [("b", ctypes.c_int64), ("hw", ctypes.c_int64)] + [
+        (k, ctypes.c_int) for k in ("c", "vec", "cluster", "threads", "clusters", "chip",
+                                    "smem")]
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(b: int, c: int, h: int, w: int, direction: str, path: Optional[str] = None) -> Plan:
+    """The kernel's launch for ``[b, c, h, w]`` in ``direction`` ("fwd" or
+    "bwd"), a function of the shape alone (so the order of every sum, and
+    its bits, is too). ``path`` forces "on_chip" (which needs ``h w % 4 ==
+    0``) or "two_sweep"; by default on chip where it can be.
+
+    A channel's ``b h w / vec`` units split into ``cluster`` contiguous
+    shares, one per CTA: at most ``MAX_ACCESSES`` 16-byte accesses each,
+    one CTA (no cluster barrier) up to ``ONE_CTA`` and two or more above,
+    and on chip small enough that two CTAs fit on an SM (``PART_BUDGET``)
+    where a cluster of 16 allows and the grid has more CTAs than SMs; one
+    access per thread up to ``MAX_THREADS``, or 8 where the grid has four
+    CTAs per SM. On chip, a CTA keeps its share in shared memory: x (4 B
+    per element) forward, g and x (8 B) backward, and a keep word per unit,
+    within ``SMEM_BUDGET``. The two-sweep path
+    reads the share twice from device memory, all of it where forced,
+    else what does not fit beside a second CTA (``PART_BUDGET``); it
+    stages the keep words ``KEEP_CHUNK`` at a time. (The constants are
+    fitted to an H100's timings at the models' shapes.)"""
+    if direction not in ("fwd", "bwd"):
+        raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction!r}")
+    if path not in (None, *PATHS):
+        raise ValueError(f"path must be one of {PATHS} or None, got {path!r}")
+    if min(b, c, h, w) < 1 or b * h * w > 0x7FFFFFFF:
+        raise ValueError(f"the segment kernels take [B, C, H, W] with B H W < 2^31, "
+                         f"got {[b, c, h, w]}")
+    hw = h * w
+    vec = 16 if hw % 16 == 0 else 4 if hw % 4 == 0 else 1
+    units = b * hw // vec
+    per_unit = (4 if direction == "fwd" else 8) * vec + 4
+    per_f = 4 if vec > 1 else 1                # elements per access
+    accesses = b * hw // per_f                  # per channel
+    k = _pow2_at_least(-(-accesses // MAX_ACCESSES))
+    if accesses > ONE_CTA:
+        k = max(k, 2)
+    one_wave = c * k <= SMS and -(-units // k) * per_unit <= SMEM_BUDGET
+    if vec > 1 and not one_wave:                # on chip, two CTAs per SM where possible
+        k = max(k, _pow2_at_least(-(-units * per_unit // PART_BUDGET)))
+    k = min(16, k)
+    stride = -(-units // k)
+    mine = -(-stride * vec // per_f)            # accesses per CTA
+    threads = min(MAX_THREADS, 32 * -(-mine // (32 * (8 if c * k >= 4 * SMS else 1))))
+    fits = vec > 1 and stride * per_unit <= SMEM_BUDGET
+    if path == PATHS[0] and not fits:
+        raise ValueError(f"{[b, c, h, w]} {direction}: a CTA's share does not fit in shared "
+                         f"memory, or H W % 4 != 0; only the two-sweep path takes it")
+    if fits and path != PATHS[1]:
+        chip = stride
+    elif vec > 1 and path is None:      # keep what fits beside a second CTA on the SM
+        chip = min(stride, (PART_BUDGET - 4 * KEEP_CHUNK) // per_unit)
+    else:
+        chip = 0
+    smem = chip * per_unit + 4 * min(stride - chip, KEEP_CHUNK)      # csrc smem_of
+    return Plan(b, hw, c, vec, k, threads, c, chip, smem)
+
+
+def _c_struct(p: Plan) -> _CPlan:
+    return _CPlan(p.b, p.hw, p.c, p.vec, p.cluster, p.threads, p.clusters, p.chip, p.smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _c_plan(b: int, c: int, h: int, w: int, direction: str, path: Optional[str] = None):
+    """(the plan as the C entry points take it, its address)."""
+    cp = _c_struct(_plan(b, c, h, w, direction, path))
+    return cp, ctypes.addressof(cp)
+
+
+def max_active_clusters(plan: Plan, direction: str, act: str = "elu") -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the kernel that ``plan``
+    launches, on the current device."""
+    cp = _c_struct(plan)
+    out = ctypes.c_int(0)
+    status = build.library().lvae_segment_max_clusters(
+        ctypes.addressof(cp), ("fwd", "bwd").index(direction), SEGMENT_ACTS.index(act),
+        ctypes.addressof(out))
+    build.check(status, "segment occupancy")
+    return out.value
 
 
 def _checked(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, act: str) -> None:
@@ -71,38 +203,65 @@ def _plain_bytes(x: torch.Tensor, t: int, seed: int) -> Optional[torch.Tensor]:
     return dropout_bytes(x.shape, seed, x.device) if 0 < t < 256 else None
 
 
-def _vec(*tensors: torch.Tensor) -> int:
-    """4 (16-byte accesses) where every map is 16-byte aligned and a
-    channel's strip is a multiple of 4 floats, else 1."""
-    hw = tensors[0].shape[2] * tensors[0].shape[3]
-    return 4 if hw % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
+def _aligned(v: torch.Tensor) -> torch.Tensor:
+    """``v``, or a copy where its data is not 16-byte aligned (a view at an
+    offset): the kernels' units are 16-byte accesses."""
+    return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _on_device(x: torch.Tensor, launch):
+    """``launch(stream)`` with ``x``'s device current (no guard when it
+    already is)."""
+    if x.get_device() == torch.cuda.current_device():
+        return launch(torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(x.device):
+        return launch(torch.cuda.current_stream().cuda_stream)
 
 
-def _launch_fwd(x, gamma, beta, t, act, eps, seed, running_mean, running_var, momentum):
+def _launch_fwd(x, gamma, beta, t, act, eps, seed, running_mean, running_var, momentum,
+                path=None):
+    """K5 on a checked contiguous CUDA ``x``: ``(y, stats)``, stats the
+    rows mean, var, r, scale, shift. ``path`` forces the plan's path."""
     b, c, h, w = x.shape
-    slices = _batch_slices(b, c, h * w)
+    _, plan = _c_plan(b, c, h, w, "fwd", path)
+    x = _aligned(x)
     y = torch.empty_like(x)
-    stats = torch.empty((5, c), device=x.device)                  # mean, var, r, scale, shift
-    partial = torch.empty((2, c, slices), dtype=torch.float64, device=x.device)
+    stats = x.new_empty((5, c))
     if running_mean is not None:
         for name, v in (("running_mean", running_mean), ("running_var", running_var)):
-            if v.dtype != torch.float32 or v.shape != (c,) or v.device != x.device:
+            if v.dtype != torch.float32 or v.shape != (c,) or v.get_device() != x.get_device():
                 raise ValueError(f"{name} must be float32 [{c}] on {x.device}")
-    with torch.cuda.device(x.device):
-        status = build.library().lvae_segment_fwd(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            None if running_mean is None else running_mean.data_ptr(),
-            None if running_var is None else running_var.data_ptr(),
-            y.data_ptr(), stats.data_ptr(), partial.data_ptr(), b, c, h * w, slices, t,
-            SEGMENT_ACTS.index(act), eps, momentum, 1.0 - momentum, seed & (2 ** 64 - 1),
-            _vec(x, y), _stream(x))
+    status = _on_device(x, lambda stream: build.library().lvae_segment_fwd(
+        plan, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        None if running_mean is None else running_mean.data_ptr(),
+        None if running_var is None else running_var.data_ptr(),
+        y.data_ptr(), stats.data_ptr(), t, SEGMENT_ACTS.index(act), eps, momentum,
+        1.0 - momentum, seed & (2 ** 64 - 1), stream))
     build.LAUNCHES["segment"] += 1
     build.check(status, "segment")
     return y, stats
+
+
+def _launch_bwd(x, g, gamma, stats, t, act, seed, path=None):
+    """K5-bwd on checked contiguous CUDA tensors: ``(dx, dgamma, dbeta)``."""
+    b, c, h, w = x.shape
+    _, plan = _c_plan(b, c, h, w, "bwd", path)
+    x, g = _aligned(x), _aligned(g)
+    dx = torch.empty_like(x)
+    dgb = x.new_empty((2, c))                                    # dgamma, dbeta
+    status = _on_device(x, lambda stream: build.library().lvae_segment_bwd(
+        plan, x.data_ptr(), g.data_ptr(), gamma.data_ptr(), stats.data_ptr(), dx.data_ptr(),
+        dgb.data_ptr(), t, SEGMENT_ACTS.index(act), seed & (2 ** 64 - 1), stream))
+    build.LAUNCHES["segment_bwd"] += 1
+    build.check(status, "segment_bwd")
+    return (dx, *dgb.unbind(0))
+
+
+def _backward(x, g, gamma, beta, stats, t, act, seed):
+    if not x.is_cuda:
+        return segment_backward(x, g, gamma, beta, stats[0], stats[2], t, act,
+                                _plain_bytes(x, t, seed))
+    return _launch_bwd(x, g, gamma, stats, t, act, seed)
 
 
 def dropout_bn_act_backward(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
@@ -113,23 +272,7 @@ def dropout_bn_act_backward(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tenso
     _checked(x, gamma, beta, act)
     if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
         raise ValueError(f"g must be {x.dtype} {tuple(x.shape)} on {x.device}")
-    g = g.contiguous()
-    if x.device.type == "cpu":
-        return segment_backward(x, g, gamma, beta, stats[0], stats[2], t, act,
-                                _plain_bytes(x, t, seed))
-    b, c, h, w = x.shape
-    slices = _batch_slices(b, c, h * w)
-    dx = torch.empty_like(x)
-    bstats = torch.empty((5, c), device=x.device)        # dgamma, dbeta, m1, m2, gamma r
-    partial = torch.empty((2, c, slices), dtype=torch.float64, device=x.device)
-    with torch.cuda.device(x.device):
-        status = build.library().lvae_segment_bwd(
-            x.data_ptr(), g.data_ptr(), gamma.data_ptr(), stats.data_ptr(), dx.data_ptr(),
-            bstats.data_ptr(), partial.data_ptr(), b, c, h * w, slices, t,
-            SEGMENT_ACTS.index(act), seed & (2 ** 64 - 1), _vec(x, g, dx), _stream(x))
-    build.LAUNCHES["segment_bwd"] += 1
-    build.check(status, "segment_bwd")
-    return dx, bstats[0], bstats[1]
+    return _backward(x, g.contiguous(), gamma, beta, stats, t, act, seed)
 
 
 class _Segment(torch.autograd.Function):
@@ -139,7 +282,7 @@ class _Segment(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, running_mean, running_var, t, act, eps, seed, momentum):
-        if x.device.type == "cpu":
+        if not x.is_cuda:
             y, mean, var, r = segment_forward(x, gamma, beta, t, act, eps,
                                               _plain_bytes(x, t, seed), running_mean,
                                               running_var, momentum)
@@ -156,9 +299,10 @@ class _Segment(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g, _gstats):
+        # x, gamma, beta were checked in the forward; g has y's shape
         x, gamma, beta, stats = ctx.saved_tensors
-        dx, dgamma, dbeta = dropout_bn_act_backward(x, g, gamma, beta, stats, ctx.t, ctx.act,
-                                                    ctx.seed)
+        dx, dgamma, dbeta = _backward(x, g.contiguous(), gamma, beta, stats, ctx.t, ctx.act,
+                                      ctx.seed)
         return dx, dgamma, dbeta, None, None, None, None, None, None, None
 
 
@@ -182,4 +326,5 @@ def dropout_bn_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     _checked(x, gamma, beta, act)
     y, stats = _Segment.apply(x, gamma, beta, running_mean, running_var,
                               bits8_keep_threshold(rate), act, eps, int(seed), momentum)
-    return y, stats[0], stats[1]
+    mean, var, *_ = stats.unbind(0)
+    return y, mean, var

@@ -12,6 +12,7 @@ fallback, is the reference. Tolerances are ``tests/test_pallas.py``'s
 (forward 1e-5, gradients 1e-4) unless a test says otherwise."""
 
 import functools
+import inspect
 import os
 
 import numpy as np
@@ -210,6 +211,144 @@ class TestPhiloxMask:
         y.backward(g)
         kept = dropout_bytes(x.shape, seed) < bits8_keep_threshold(0.2)
         assert torch.equal(xr.grad != 0, kept)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch plan (kernels/segment.py _plan, csrc/segment.cu)
+# ---------------------------------------------------------------------------
+
+# every segment shape of celeba64 (B = 128) and the flagship (B = 64)
+MODEL_SHAPES = [(128, 64, s, s) for s in (64, 32, 16, 8, 4, 2)] + \
+               [(64, 64, s, s) for s in (32, 16, 8, 4, 2)]
+ODD_SHAPES = [(4, 3, 7, 7), (2, 5, 1, 1), (8, 3, 16, 16), (1, 64, 8, 8), (3, 2, 5, 6),
+              (256, 64, 128, 128)]
+DIRECTIONS = ("fwd", "bwd")
+
+
+def _share_elements(plan, rank):
+    """The channel-local elements of CTA ``rank``'s share, in the order of
+    the kernels' float accesses (csrc/segment.cu share_of, Share.elem)."""
+    units = plan.b * plan.hw // plan.vec
+    lo, hi = units * rank // plan.cluster, units * (rank + 1) // plan.cluster
+    return np.arange(lo * plan.vec, hi * plan.vec)
+
+
+def _assert_legal(plan, shape, direction):
+    from lvae_tpu_torch.kernels import segment as seg
+
+    b, c, h, w = shape
+    per_unit = (4 if direction == "fwd" else 8) * plan.vec + 4
+    assert (plan.b, plan.c, plan.hw) == (b, c, h * w)
+    assert plan.vec in (1, 4, 16) and plan.hw % plan.vec == 0
+    assert plan.vec == 16 or (plan.hw % 16 != 0 and (plan.vec == 4) == (plan.hw % 4 == 0))
+    assert plan.cluster in (1, 2, 4, 8, 16)
+    assert plan.portable == (plan.cluster <= 8)       # 16 only as the non-portable size
+    assert 32 <= plan.threads <= seg.MAX_THREADS and plan.threads % 32 == 0
+    assert 1 <= plan.clusters <= c and plan.channels_per_cta * plan.clusters >= c
+    assert plan.smem + seg.SMEM_STATIC <= seg.SMEM_MAX
+    # on chip only where the CTA's whole share fits, and never for 4-byte units
+    if plan.path == "on_chip":
+        assert plan.vec > 1 and plan.chip == plan.units
+        assert plan.units * per_unit <= seg.SMEM_BUDGET
+    else:
+        assert plan.chip < plan.units and (plan.vec > 1 or plan.chip == 0)
+        assert plan.units * per_unit > seg.SMEM_BUDGET or plan.chip == 0
+        assert plan.smem <= seg.PART_BUDGET
+    assert plan.smem == plan.chip * per_unit + 4 * min(plan.units - plan.chip, seg.KEEP_CHUNK)
+    # the CTAs' shares partition the channel's units, every share within
+    # `units` of the plan
+    units = b * h * w // plan.vec
+    bounds = [units * r // plan.cluster for r in range(plan.cluster + 1)]
+    assert bounds[0] == 0 and bounds[-1] == units
+    assert all(0 <= hi - lo <= plan.units for lo, hi in zip(bounds, bounds[1:]))
+
+
+def _assert_every_element_once(plan):
+    """Each element of the map falls to exactly one (channel, CTA, thread)
+    access: channels walked by the clusters, shares by the ranks, floats by
+    the threads (F = 4 per access where vec > 1)."""
+    b, c, hw = plan.b, plan.c, plan.hw
+    f = 1 if plan.vec == 1 else 4
+    seen = np.zeros(b * c * hw, np.int64)
+    for cid in range(plan.clusters):
+        for ch in range(cid, c, plan.clusters):
+            for rank in range(plan.cluster):
+                ce = _share_elements(plan, rank)[::f]          # each access's first float
+                # access i is thread i % threads's (i // threads)-th
+                tid = np.arange(len(ce)) % plan.threads
+                assert np.bincount(tid, minlength=plan.threads).max() <= \
+                    -(-len(ce) // plan.threads)
+                e = (ce // hw) * c * hw + ch * hw + ce % hw
+                for j in range(f):
+                    np.add.at(seen, e + j, 1)
+    assert (seen == 1).all()
+
+
+class TestPlan:
+    @pytest.mark.parametrize("direction", DIRECTIONS)
+    @pytest.mark.parametrize("shape", MODEL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+    def test_model_shapes_get_a_legal_plan(self, shape, direction):
+        """All 11 segment shapes of the two models, both directions, on
+        the default path and on every path it can be forced to."""
+        from lvae_tpu_torch.kernels import segment as seg
+
+        plan = seg._plan(*shape, direction)
+        _assert_legal(plan, shape, direction)
+        two = seg._plan(*shape, direction, "two_sweep")
+        _assert_legal(two, shape, direction)
+        assert two.path == "two_sweep" and two.chip == 0 and plan.cluster == two.cluster
+        # every map of the models fits a CTA's share on chip but celeba64's
+        # 64x64 backward (4 MB of g and x per channel)
+        assert plan.path == ("two_sweep" if shape[2] == 64 and direction == "bwd"
+                             else "on_chip")
+
+    @pytest.mark.parametrize("shape", [s for s in MODEL_SHAPES if np.prod(s) <= 2 ** 19],
+                             ids=lambda s: "x".join(map(str, s)))
+    def test_every_element_assigned_once(self, shape):
+        from lvae_tpu_torch.kernels import segment as seg
+
+        for direction in DIRECTIONS:
+            _assert_every_element_once(seg._plan(*shape, direction))
+
+    @pytest.mark.parametrize("shape", [MODEL_SHAPES[0], MODEL_SHAPES[6], ODD_SHAPES[0]],
+                             ids=lambda s: "x".join(map(str, s)))
+    def test_a_function_of_the_shape_alone(self, shape):
+        """Equal on repeated calls (the cache cleared between them) and for
+        any data: the wrapper reads nothing but the shape."""
+        from lvae_tpu_torch.kernels import segment as seg
+
+        first = [seg._plan(*shape, d, p) for d in DIRECTIONS for p in (None, "two_sweep")]
+        seg._plan.cache_clear()
+        assert first == [seg._plan(*shape, d, p) for d in DIRECTIONS for p in (None, "two_sweep")]
+        sig = inspect.signature(seg._plan.__wrapped__)
+        assert list(sig.parameters) == ["b", "c", "h", "w", "direction", "path"]
+
+    @pytest.mark.parametrize("shape", ODD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+    def test_odd_shapes_get_a_legal_plan(self, shape):
+        """H W = 49 and 30 (no 16-byte unit: only the two-sweep path), 1x1,
+        C = 3, B = 1, and a channel larger than any cluster's shared memory,
+        which takes the two-sweep path."""
+        from lvae_tpu_torch.kernels import segment as seg
+
+        for direction in DIRECTIONS:
+            plan = seg._plan(*shape, direction)
+            _assert_legal(plan, shape, direction)
+            if np.prod(shape) <= 2 ** 16:
+                _assert_every_element_once(plan)
+            if shape[2] * shape[3] % 4 != 0 or shape == (256, 64, 128, 128):
+                assert plan.path == "two_sweep"
+                with pytest.raises(ValueError, match="two-sweep"):
+                    seg._plan(*shape, direction, "on_chip")
+
+    def test_rejects_what_the_kernels_do_not_take(self):
+        from lvae_tpu_torch.kernels import segment as seg
+
+        with pytest.raises(ValueError, match="direction"):
+            seg._plan(4, 8, 8, 8, "both")
+        with pytest.raises(ValueError, match="path"):
+            seg._plan(4, 8, 8, 8, "fwd", "one_sweep")
+        with pytest.raises(ValueError, match="2\\^31"):
+            seg._plan(2 ** 16, 1, 2 ** 8, 2 ** 8, "fwd")
 
 
 # ---------------------------------------------------------------------------
