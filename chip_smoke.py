@@ -20,8 +20,8 @@ learned top prior):
 
 And celeba64 (64x64 RGB, z 32-32-32-32, 2 blocks per layer, 64 filters,
 the discretized-logistic-mixture head; phases 10-13): the mixture
-log-prob kernel and its backward (K3, K3-bwd) against their plain
-versions; evaluation over 2,000 synthetic 64x64 RGB images read from
+log-prob kernel and its backward (K3, K3-bwd, on each of its two plans)
+against their plain versions; evaluation over 2,000 synthetic 64x64 RGB images read from
 ``celeba/celeba_64.npz`` with the k=100 IW log-likelihood over the first
 500; 200 training steps at batch 128 on 20,000 images; one step against
 the plain path and the CPU, and train images/s.
@@ -996,8 +996,11 @@ def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log,
 # ---------------------------------------------------------------------------
 
 K_MIX = 10
-# (B, C, H, W): celeba64's training and evaluation batches, and a C = 1 case
-MIX_SHAPES = [(128, 3, 64, 64), (500, 3, 64, 64), (16, 1, 32, 32)]
+# (B, C, H, W, K): celeba64's training and evaluation batches, a C = 1 case,
+# and a K whose one-pass terms leave no room for a second CTA on an SM (the
+# two-pass plan by default; every model of the repo has K = 10)
+MIX_SHAPES = [(128, 3, 64, 64, K_MIX), (500, 3, 64, 64, K_MIX), (16, 1, 32, 32, K_MIX),
+              (32, 3, 64, 64, 24)]
 CELEBA_B, CELEBA_EVAL_B = 128, 500
 CELEBA_N_TRAIN, CELEBA_N_TEST = 20_000, 2_000
 CELEBA_STEPS = 200
@@ -1051,20 +1054,32 @@ def write_celeba(data_dir, train_u8, test_u8):
     np.savez(os.path.join(data_dir, "celeba", "celeba_64.npz"), train=train_u8, test=test_u8)
 
 
-def phase_mixture(card):
+def mix_kernel_name(entry):
+    m = re.search(r"(mix_\w+?_kernel)ILi(\d)E", entry)
+    return f"{m[1]}<{m[2]}>" if m else entry
+
+
+def phase_mixture(card, build_log=""):
+    """K3 and K3-bwd against their plain versions at every ``MIX_SHAPES``
+    entry, K3-bwd on each of its plans; both timed at celeba64's batches,
+    K3-bwd on each plan at the training batch and at the large K; the
+    kernels' registers, spills and shared memory."""
     import torch
 
     from lvae_tpu_torch.kernels import build
     from lvae_tpu_torch.kernels import mixture as km
 
     print("[10] mixture log-prob kernels (K3, K3-bwd) vs their plain versions", flush=True)
+    more = {"ptxas": {}, "plans": {}}
+    for entry, line in ptxas_usage(build_log, "mixture_cu").items():
+        more["ptxas"][mix_kernel_name(entry)] = line
+        print(f"  ptxas {mix_kernel_name(entry)}: {line}")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(10)
-    k = K_MIX
     err = {"fwd": 0.0, "bwd": 0.0}
     times = {}
-    for b, c, h, w in MIX_SHAPES:
-        shape = f"[{b},{k * (1 + 3 * c)},{h},{w}] C={c}"
+    for b, c, h, w, k in MIX_SHAPES:
+        shape = f"[{b},{k * (1 + 3 * c)},{h},{w}] C={c} K={k}"
         u = torch.randint(0, 256, (b, c, h, w), generator=g, device=dev)
         u[:, :, 0] = 0                      # exact 0 and 1 pixels: the edge bins
         u[:, :, -1] = 255
@@ -1083,22 +1098,43 @@ def phase_mixture(card):
         check(torch.equal(ll, km.mix_log_prob(x, p, k)), f"K3 {shape}: a second launch "
                                                          f"is bit-equal")
 
+        default = km.bwd_plan(k, c)
+        plans = km.PLANS                    # one_pass fits a CTA at every K here
+        more["plans"][shape] = {"default": default.name, "smem": default.smem}
+        print(f"  K3-bwd {shape}: default plan {default.name} ({default.smem} B of shared "
+              f"memory per CTA of {km.THREADS}); checked: {', '.join(plans)}")
         dp, dx = km.mix_log_prob_backward(x, p, gg, k)
         dp_h, dx_h = km._plain_mix_log_prob_bwd(x, p, gg, k, 256)
         xr, pr = x.clone().requires_grad_(), p.clone().requires_grad_()
         km._plain_mix_log_prob(xr, pr, k, 256).backward(gg)
-        for what, dpr, dxr in (("the plain hand backward", dp_h, dx_h),
-                               ("autograd of the plain forward", pr.grad, xr.grad)):
-            e = max(rel_max(dp, dpr), rel_max(dx, dxr))
-            check(e <= 1e-4, f"K3-bwd {shape}: dparams, dx within 1e-4 of their max vs "
-                             f"{what} ({e:.2e})")
-        err["bwd"] = max(err["bwd"], (dp - dp_h).abs().max().item(),
-                         (dx - dx_h).abs().max().item())
-        check(bool((dp[:, lo:lo + 2] == 0).all()) and bool((pr.grad[:, lo:lo + 2] == 0).all()),
-              f"K3-bwd {shape}: no gradient where the log-scale is below -7")
-        dp2, dx2 = km.mix_log_prob_backward(x, p, gg, k)
-        check(torch.equal(dp, dp2) and torch.equal(dx, dx2),
-              f"K3-bwd {shape}: a second launch is bit-equal")
+        check(bool((pr.grad[:, lo:lo + 2] == 0).all()),
+              f"{shape}: autograd of the plain forward has no gradient where the "
+              f"log-scale is below -7")
+        for plan in plans:
+            dpf, dxf = km.mix_log_prob_backward(x, p, gg, k, plan=plan)
+            for what, dpr, dxr in (("the plain hand backward", dp_h, dx_h),
+                                   ("autograd of the plain forward", pr.grad, xr.grad)):
+                e = max(rel_max(dpf, dpr), rel_max(dxf, dxr))
+                check(e <= 1e-4, f"K3-bwd {shape} {plan}: dparams, dx within 1e-4 of their "
+                                 f"max vs {what} ({e:.2e})")
+            err["bwd"] = max(err["bwd"], (dpf - dp_h).abs().max().item(),
+                             (dxf - dx_h).abs().max().item())
+            # each block of channels against its own max (printed, not checked)
+            blocks = {"dpi": (0, k), "dm": (k, lo), "dls": (lo, lo + k * c),
+                      "dco": (lo + k * c, None)}
+            by = {n: rel_max(dpf[:, a:z], dp_h[:, a:z]) for n, (a, z) in blocks.items()}
+            more["plans"][shape][f"{plan}_rel_err_by_block"] = by
+            print(f"  K3-bwd {shape} {plan}: each block within its own max vs the plain hand "
+                  f"backward: " + ", ".join(f"{n} {v:.2e}" for n, v in by.items()))
+            check(bool((dpf[:, lo:lo + 2] == 0).all()),
+                  f"K3-bwd {shape} {plan}: no gradient where the log-scale is below -7")
+            dp2, dx2 = km.mix_log_prob_backward(x, p, gg, k, plan=plan)
+            check(torch.equal(dpf, dp2) and torch.equal(dxf, dx2),
+                  f"K3-bwd {shape} {plan}: a second launch is bit-equal")
+            if plan == default.name:
+                check(torch.equal(dpf, dp) and torch.equal(dxf, dx),
+                      f"K3-bwd {shape}: the default launch is {plan}, bit for bit")
+            del dpf, dxf, dp2, dx2
         pk = p.clone().requires_grad_()
         build.reset_launches()
         km.mix_log_prob(x, pk, k).backward(gg)
@@ -1106,20 +1142,30 @@ def phase_mixture(card):
               f"{shape}: the autograd.Function launches K3 and K3-bwd once each")
         check(torch.equal(pk.grad, dp), f"{shape}: its gradient is K3-bwd's")
         build.reset_launches()
-        if c != 3:
+        del xr, pr, pk, dp_h, dx_h
+        if c == 3 and k != K_MIX:           # both plans where two passes is the default
+            for plan in plans:
+                t = cuda_ms(lambda: km.mix_log_prob_backward(x, p, gg, k, need_dx=False,
+                                                             plan=plan), 10)
+                more["plans"][shape][f"{plan}_ms"] = t
+                print(f"  time K3-bwd {shape} {plan} per call: {t:.4f} ms  ({card})")
+        if c != 3 or k != K_MIX:
             continue
         fwd = lambda: km.mix_log_prob(x, p, k)                          # noqa: E731
         fwd_plain = lambda: km._plain_mix_log_prob(x, p, k, 256)        # noqa: E731
         # the trainer's call: x needs no gradient
         bwd = lambda: km.mix_log_prob_backward(x, p, gg, k, need_dx=False)  # noqa: E731
         bwd_plain = lambda: km._plain_mix_log_prob_bwd(x, p, gg, k, 256)     # noqa: E731
+        two = lambda: km.mix_log_prob_backward(x, p, gg, k, need_dx=False,   # noqa: E731
+                                               plan="two_pass")
+        q = k * (1 + 3 * c)
         for name, kern, plain in (("K3", fwd, fwd_plain), ("K3-bwd", bwd, bwd_plain)):
             t = [cuda_ms(plain, 10), cuda_ms(kern, 20), cuda_ms(kern, 20), cuda_ms(plain, 10)]
             dk, dpl = device_ms(kern, 10), device_ms(plain, 5)
             # per pixel: params (100 floats), x (3) and ll in; the backward
             # adds g and writes dparams. Operations: ~40 per bin (30 bins;
-            # each transcendental counted once), twice in the backward
-            q = k * (1 + 3 * c)
+            # each transcendental counted once), as many again for the
+            # backward's gradient terms
             per = 4 * (q + c + 1) + (4 * q if name == "K3-bwd" else 0)
             ops = k * c * 40 * (2 if name == "K3-bwd" else 1)
             times[(name, b)] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dpl,
@@ -1127,9 +1173,16 @@ def phase_mixture(card):
             print(f"  time {name} {shape} per call: kernel {times[(name, b)][0]:.4f} ms, "
                   f"plain {times[(name, b)][1]:.4f} ms; device busy: kernel {fmt_ms(dk)}, "
                   f"plain {fmt_ms(dpl)}  ({card})")
-        del xr, pr, pk
+        if b != CELEBA_B:
+            continue
+        # the default plan against the two-pass schedule, in turns
+        t = [cuda_ms(two, 20), cuda_ms(bwd, 20), cuda_ms(bwd, 20), cuda_ms(two, 20)]
+        times[("K3-bwd two_pass", b)] = ((t[0] + t[3]) / 2, device_ms(two, 10))
+        print(f"  time K3-bwd {shape} per call: {default.name} {(t[1] + t[2]) / 2:.4f} ms, "
+              f"two_pass {times[('K3-bwd two_pass', b)][0]:.4f} ms (device "
+              f"{fmt_ms(times[('K3-bwd two_pass', b)][1])})  ({card})")
     torch.cuda.empty_cache()
-    return err, times
+    return err, times, more
 
 
 def phase_celeba_eval(card, train_u8, test_u8):
@@ -1824,7 +1877,8 @@ def main():
         card, "[9] one step: the kernel path vs the plain path and the CPU; train "
         "images/s", FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8), flagship_weights,
         TRAIN_B, TRAIN_STEPS, 100))
-    mix_err, mix_t = phase_mixture(card)
+    mix_err, mix_t, mix_more = phase_mixture(card, build_log)
+    res["mixture"] = mix_more
     c_all = rgb_blobs(CELEBA_N_TRAIN + CELEBA_N_TEST, seed=12)
     c_train, c_test = c_all[:CELEBA_N_TRAIN], c_all[CELEBA_N_TRAIN:]
     c_data = celeba_dataset(c_train, c_test)
@@ -1881,14 +1935,17 @@ def main():
     ):
         kernels.append(entry(name, "stochastic_kl.cu", replaces, tr["launches"][name], e, t,
                              bnd, None, shapes="3 layers at B=64", path=path))
-    for name, replaces, e, t in (
+    two_pass = mix_t[("K3-bwd two_pass", CELEBA_B)]
+    for name, replaces, e, t, more in (
         ("mix_log_prob", "lvae_tpu/kernels/mixture_pallas.py:323", mix_err["fwd"],
-         mix_t[("K3", CELEBA_B)]),
+         mix_t[("K3", CELEBA_B)], {}),
         ("mix_log_prob_bwd", "lvae_tpu/kernels/mixture_pallas.py:338", mix_err["bwd"],
-         mix_t[("K3-bwd", CELEBA_B)]),
+         mix_t[("K3-bwd", CELEBA_B)],
+         {"plan": mix_more["plans"][f"[{CELEBA_B},100,64,64] C=3 K={K_MIX}"]["default"],
+          "two_pass_ms": two_pass[0], "two_pass_device_ms": two_pass[1]}),
     ):
         kernels.append(entry(name, "mixture.cu", replaces, ctr["launches"][name], e, t,
-                             t[4:6], None, launches_eval=cev["launches"][name],
+                             t[4:6], None, launches_eval=cev["launches"][name], **more,
                              shapes=f"[{CELEBA_B},100,64,64], C=3",
                              path="celeba64: lvae_tpu_torch.main (training), "
                                   "lvae_tpu_torch.evaluate"))

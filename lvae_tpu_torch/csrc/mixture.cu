@@ -39,27 +39,47 @@
 // backward writes dparams in the same layout, and dx only when given a
 // pointer. K is a runtime argument; C is 1 or 3 (a template argument).
 //
-// Registers, not storage: each thread loops over the K components keeping
-// two running (max, sum) pairs, for logsumexp(pi) and logsumexp(t), in
-// place of the 100 values of its pixel. The backward makes two passes over
-// j: the first finds the two logsumexps, the second recomputes t_j and its
-// bin terms and writes that component's 1 + 3C gradients. Recomputing the
-// ~30 bin log-probs costs less than storing them.
+// The forward keeps two running (max, sum) pairs in registers, for
+// logsumexp(pi) and logsumexp(t), in place of the 100 values of its pixel.
+// The backward has two schedules (kernels/mixture.py bwd_plan):
+//   one pass (the default where it fits, K (2 + 2C + 3[C = 3]) floats a
+//     thread, 56,320 B a CTA of 128 at K = 10, C = 3: four CTAs per SM):
+//     each component is built once, with its gradient factors sharing the
+//     bin's exponentials (bin_terms), and its t_j, pi_j, dm, masked dls and
+//     tanh(coeffs) wait in shared memory, [value][thread], until the two
+//     logsumexps are known; a second loop over them writes the gradients
+//     with two exponentials a component and no bin math. This is the Pallas
+//     kernel's idea (_mixture_core holds every bin's lp, dm and dls in
+//     VMEM) in a CTA's shared memory.
+//   two passes (any K; the default where one pass leaves no room for a
+//     second CTA on an SM): the first pass finds the two logsumexps, the
+//     second recomputes every t_j and its bin terms and writes that
+//     component's 1 + 3C gradients.
 //
 // Bound: at celeba64's training shape [128, 100, 64, 64] the forward reads
 // 400 B of params, 12 B of x and writes 4 B per pixel: 218 MB, ~65 us at
 // 3.35 TB/s. The backward reads the same plus g (4 B) and writes 400 B of
-// dparams (and 12 B of dx when asked): ~420-435 MB, ~130 us. Each pass also
-// runs a few hundred special-function operations per pixel (expf, log1pf,
-// expm1f, tanhf; ~4 per bin, 30 bins, twice in the backward), so a pass may
-// sit near the compute line rather than the memory line. Measured on an
-// NVIDIA H100 80GB HBM3 at 700 W: 0.129 ms forward and 0.358 ms backward
-// (dparams only) of device time, twice and three times the memory bound,
-// against 1.96 and 3.64 ms for the plain PyTorch versions. Determinism:
-// every pixel is independent, with no atomics, so two launches are
-// bit-equal.
+// dparams (and 12 B of dx when asked): ~420-435 MB, ~128 us. What bounds
+// the two-pass schedule on an H100 is instruction issue: ~30 accurate
+// special functions per bin per pass (expf, log1pf, expm1f, logf, two
+// divisions, tanhf), 2,696 SASS instructions (90 MUFU) for
+// mix_bwd_kernel<3>, and a throwaway build with -use_fast_math ran it 20%
+// faster. The one pass builds each bin once, shares e^-|v| between
+// softplus and sigmoid, and uses the hardware's approximate exp, log and
+// reciprocal where a few ulp are harmless (1,128 instructions, 44 MUFU);
+// fast math gains it only 6%, and prefetching the next component's ten
+// loads 2.4% (4.6% at C = 1). Measured by chip_smoke.py phase 10 on an
+// NVIDIA H100 80GB HBM3 at 700 W, dparams only (PERF.md section 6 has each
+// run's numbers): one pass ~0.19 ms, two passes ~0.36 ms of device time
+// (the forward ~0.13 ms), against ~3.5 ms for the plain PyTorch backward,
+// 1.5x the memory bound; a one-pass CTA alone on its SM (K = 24) is slower
+// than two passes (~0.29 against ~0.23 ms per call at [32, 240, 64, 64]).
+// Determinism: every pixel is independent, with no atomics, so two
+// launches are bit-equal.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <atomic>
 
 namespace {
 
@@ -258,10 +278,234 @@ __global__ void mix_bwd_kernel(const float* __restrict__ x, const float* __restr
   }
 }
 
+// One bin's log-prob and its two gradient factors for the one-pass
+// backward, with the special functions shared between them: e = e^-|v|
+// gives softplus(v) = max(v, 0) + log1p(e) and both sigmoid(v) and
+// sigmoid(-v) through one reciprocal, for v = a and v = a + d; and
+// 1 + 1/expm1(d) = -1/expm1(-d) reuses the interior's log term. The
+// exponentials, logarithms and reciprocals are the hardware's approximate
+// ones (__expf, __logf, __fdividef: a few ulp, which moves dparams by about
+// 1e-6 of their max); expm1f stays accurate, as 1/expm1(-d) needs its
+// relative accuracy at small d. The forward's bin_logprob<false> is left as
+// it is.
+__device__ __forceinline__ Bin bin_terms(float xs, float m, float ls, float hb) {
+  const float inv_s = __expf(-ls);
+  const float a = inv_s * ((xs - m) - hb);
+  const float d = (2.0f * hb) * inv_s;
+  const float plus = a + d;
+  const float ea = __expf(-fabsf(a)), ep = __expf(-fabsf(plus));
+  const float ra = __fdividef(1.0f, 1.0f + ea), rp = __fdividef(1.0f, 1.0f + ep);
+  const float sig_a = a >= 0.0f ? ra : ea * ra;          // sigmoid(a)
+  const float sig_p = plus >= 0.0f ? rp : ep * rp;       // sigmoid(a + d)
+  const float sp_a = fmaxf(a, 0.0f) + __logf(1.0f + ea); // softplus(a)
+  const float l1p = __logf(1.0f + ep);
+  Bin r;
+  float da, dd;
+  if (xs < -1.0f + hb) {            // left edge: log sigmoid(a + d)
+    r.lp = -(fmaxf(-plus, 0.0f) + l1p);
+    da = dd = plus >= 0.0f ? ep * rp : rp;               // sigmoid(-(a + d))
+  } else if (xs > 1.0f - hb) {      // right edge: log sigmoid(-a)
+    r.lp = -sp_a;
+    da = -sig_a;
+    dd = 0.0f;
+  } else {                          // interior, cancellation-free
+    const float em = expm1f(-d);    // in (-1, 0)
+    r.lp = plus + __logf(-em) - sp_a - (fmaxf(plus, 0.0f) + l1p);
+    da = (a >= 0.0f ? ea * ra : ra) - sig_p;             // sigmoid(-a) - sigmoid(a + d)
+    dd = -__fdividef(1.0f, em) - sig_p;
+  }
+  r.dm = -inv_s * da;
+  r.dls = -a * da - d * dd;
+  return r;
+}
+
+// lse_push with the hardware's approximate exponential (the one-pass
+// backward's weights; lse_push, which the forward uses, stays as it is).
+__device__ __forceinline__ void lse_push_approx(float& m, float& s, float v) {
+  if (v > m) {
+    s = s * __expf(m - v) + 1.0f;
+    m = v;
+  } else if (v != -INFINITY) {
+    s += __expf(v - m);
+  }
+}
+
+// Floats the one-pass backward keeps per component: t_j, pi_j, dm and the
+// masked dls per channel, and tanh(coeffs) (C = 3).
+template <int C>
+constexpr int kStored = C == 3 ? 11 : 4;
+// Parameter values a component reads: pi, means, log-scales, coeffs (C = 3)
+template <int C>
+constexpr int kRead = C == 3 ? 10 : 3;
+
+template <int C>
+__device__ __forceinline__ void load_component(const float* p, long long hw, int k, int j,
+                                               float (&v)[kRead<C>]) {
+  v[0] = p[j * hw];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    v[1 + c] = p[(k + C * j + c) * hw];
+    v[1 + C + c] = p[(k + k * C + C * j + c) * hw];
+    if constexpr (C == 3) v[1 + 2 * C + c] = p[(k + 2 * k * C + C * j + c) * hw];
+  }
+}
+
+// K3-bwd in one pass of bin math: each thread builds its pixel's K
+// components once (bin_terms), keeps what the gradients need in shared
+// memory as [value][thread] (a warp's 32 accesses on 32 banks) and folds
+// t_j and pi_j into the two running logsumexps; a second loop over the
+// stored values writes the 1 + 3C gradients per component with two
+// exponentials and products. Component j + 1's values load while j is
+// computed.
+template <int C>
+__global__ void __launch_bounds__(kThreads, 4)
+mix_bwd_one_pass_kernel(const float* __restrict__ x, const float* __restrict__ params,
+                        const float* __restrict__ g, float* __restrict__ dparams,
+                        float* __restrict__ dx, long long npix, long long hw, int k,
+                        float hb) {
+  extern __shared__ float stash[];
+  constexpr int V = kStored<C>;
+  const long long q = static_cast<long long>(k) * (1 + 3 * C);
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  float* mine = stash + threadIdx.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < npix; i += step) {
+    const long long b = i / hw, p = i - b * hw;
+    const float gi = g[i];
+    float xs[C];
+    load_xs<C>(x, b, hw, p, xs);
+    const float* pp = params + b * q * hw + p;
+    float* dp = dparams + b * q * hw + p;
+    float mp = -INFINITY, sp = 0.0f, mt = -INFINITY, st = 0.0f;
+    float cur[kRead<C>];
+    load_component<C>(pp, hw, k, 0, cur);
+    for (int j = 0; j < k; ++j) {
+      float nxt[kRead<C>];
+      load_component<C>(pp, hw, k, j + 1 < k ? j + 1 : j, nxt);
+      float* s = mine + j * V * kThreads;
+      float m[C], co[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) m[c] = cur[1 + c];
+      if constexpr (C == 3) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          co[c] = tanhf(cur[1 + 2 * C + c]);
+          s[(2 + 2 * C + c) * kThreads] = co[c];
+        }
+        m[1] = m[1] + co[0] * xs[0];
+        m[2] = (m[2] + co[1] * xs[0]) + co[2] * xs[1];
+      }
+      float lp = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float raw = cur[1 + C + c];
+        const Bin r = bin_terms(xs[c], m[c], fmaxf(raw, kLogScaleMin), hb);
+        lp += r.lp;
+        s[(2 + c) * kThreads] = r.dm;
+        s[(2 + C + c) * kThreads] = raw > kLogScaleMin ? r.dls : 0.0f;
+      }
+      const float t = lp + cur[0];
+      s[0] = t;
+      s[kThreads] = cur[0];
+      lse_push_approx(mp, sp, cur[0]);
+      lse_push_approx(mt, st, t);
+#pragma unroll
+      for (int v = 0; v < kRead<C>; ++v) cur[v] = nxt[v];
+    }
+    const float lse_pi = mp + logf(sp), lse_t = mt + logf(st);
+    float dxs[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) dxs[c] = 0.0f;
+    for (int j = 0; j < k; ++j) {
+      const float* s = mine + j * V * kThreads;
+      const float w = __expf(s[0] - lse_t);
+      const float gw = gi * w;
+      dp[j * hw] = gi * (w - __expf(s[kThreads] - lse_pi));
+      float dm[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        dm[c] = gw * s[(2 + c) * kThreads];
+        dp[(k + C * j + c) * hw] = dm[c];
+        dp[(k + k * C + C * j + c) * hw] = gw * s[(2 + C + c) * kThreads];
+      }
+      float* dco = dp + (k + 2 * k * C + C * j) * hw;
+      if constexpr (C == 3) {
+        float co[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) co[c] = s[(2 + 2 * C + c) * kThreads];
+        dco[0] = dm[1] * xs[0] * (1.0f - co[0] * co[0]);
+        dco[hw] = dm[2] * xs[0] * (1.0f - co[1] * co[1]);
+        dco[2 * hw] = dm[2] * xs[1] * (1.0f - co[2] * co[2]);
+        dxs[0] += (-dm[0] + dm[1] * co[0]) + dm[2] * co[1];
+        dxs[1] += -dm[1] + dm[2] * co[2];
+        dxs[2] += -dm[2];
+      } else {
+        dco[0] = 0.0f;
+        dxs[0] += -dm[0];
+      }
+    }
+    if (dx != nullptr) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) dx[(b * C + c) * hw + p] = 2.0f * dxs[c];
+    }
+  }
+}
+
 unsigned int grid_for(long long npix) {
   long long blocks = (npix + kThreads - 1) / kThreads;
   if (blocks > (1LL << 20)) blocks = 1LL << 20;
   return static_cast<unsigned int>(blocks);
+}
+
+// The backward's schedules, which kernels/mixture.py bwd_plan chooses
+// from K and C: kOnePass keeps each pixel's component terms in kStored<C> K
+// floats of shared memory per thread and needs them to fit one CTA;
+// kTwoPass, the original schedule, recomputes them (no shared memory, any
+// K).
+constexpr int kOnePass = 0, kTwoPass = 1;
+constexpr long long kSmemMax = 232448;         // what one CTA can have
+constexpr int kMaxDevices = 64;
+
+long long one_pass_smem(int k, int c) {
+  return 4LL * k * (c == 3 ? kStored<3> : kStored<1>) * kThreads;
+}
+
+// Lift the one-pass kernel's dynamic shared memory limit to kSmemMax, once
+// per device. The limit is only a ceiling: each launch's own size sets its
+// occupancy.
+template <int C>
+cudaError_t allow_one_pass_smem() {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev].load()) {
+    e = cudaFuncSetAttribute(mix_bwd_one_pass_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemMax));
+    if (e != cudaSuccess) return e;
+    done[dev].store(true);
+  }
+  return cudaSuccess;
+}
+
+template <int C>
+int launch_bwd(int plan, const float* x, const float* params, const float* g,
+               float* dparams, float* dx, long long npix, long long hw, int k, float hb,
+               cudaStream_t s) {
+  if (plan == kTwoPass) {
+    mix_bwd_kernel<C><<<grid_for(npix), kThreads, 0, s>>>(x, params, g, dparams, dx, npix,
+                                                          hw, k, hb);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long smem = one_pass_smem(k, C);
+  if (plan != kOnePass || smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = allow_one_pass_smem<C>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  mix_bwd_one_pass_kernel<C><<<grid_for(npix), kThreads, smem, s>>>(
+      x, params, g, dparams, dx, npix, hw, k, hb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -287,10 +531,10 @@ extern "C" int lvae_mix_log_prob(const void* x, const void* params, void* out, l
 }
 
 // g [b, hw] -> dparams [b, k (1 + 3c), hw] and, when dx is not NULL, dx
-// [b, c, hw].
-extern "C" int lvae_mix_log_prob_bwd(const void* x, const void* params, const void* g,
-                                     void* dparams, void* dx, long long b, long long hw,
-                                     int k, int c, int n_bins, void* stream) {
+// [b, c, hw], on the schedule plan (kOnePass or kTwoPass).
+extern "C" int lvae_mix_log_prob_bwd_plan(const void* x, const void* params, const void* g,
+                                          void* dparams, void* dx, long long b, long long hw,
+                                          int k, int c, int n_bins, int plan, void* stream) {
   const long long npix = b * hw;
   if (npix == 0) return 0;
   const float hb = 1.0f / static_cast<float>(n_bins - 1);
@@ -300,12 +544,17 @@ extern "C" int lvae_mix_log_prob_bwd(const void* x, const void* params, const vo
   auto gp = static_cast<const float*>(g);
   auto dpp = static_cast<float*>(dparams);
   auto dxp = static_cast<float*>(dx);
-  if (c == 3) {
-    mix_bwd_kernel<3><<<grid_for(npix), kThreads, 0, s>>>(xp, pp, gp, dpp, dxp, npix, hw, k, hb);
-  } else if (c == 1) {
-    mix_bwd_kernel<1><<<grid_for(npix), kThreads, 0, s>>>(xp, pp, gp, dpp, dxp, npix, hw, k, hb);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (c == 3) return launch_bwd<3>(plan, xp, pp, gp, dpp, dxp, npix, hw, k, hb, s);
+  if (c == 1) return launch_bwd<1>(plan, xp, pp, gp, dpp, dxp, npix, hw, k, hb, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same on one pass where its terms fit one CTA, else two passes (the
+// port's wrapper calls lvae_mix_log_prob_bwd_plan with bwd_plan's choice).
+extern "C" int lvae_mix_log_prob_bwd(const void* x, const void* params, const void* g,
+                                     void* dparams, void* dx, long long b, long long hw,
+                                     int k, int c, int n_bins, void* stream) {
+  const int plan = one_pass_smem(k, c) <= kSmemMax ? kOnePass : kTwoPass;
+  return lvae_mix_log_prob_bwd_plan(x, params, g, dparams, dx, b, hw, k, c, n_bins, plan,
+                                    stream);
 }

@@ -8,6 +8,13 @@ gradient only when x needs one. Both take the model's NCHW layout as it
 is: x ``[B, C, H, W]`` in [0, 1], params ``[B, K(1 + 3C), H, W]`` (flax's
 channel order), ll ``[B, H, W]``; C is 1 or 3.
 
+K3-bwd has two schedules (:func:`bwd_plan`): "one_pass" builds each
+component's bin terms once and keeps them in shared memory until the
+logsumexps are known; "two_pass", the original kernel, finds the
+logsumexps in a first pass and recomputes every component in a second,
+and takes any K. The wrapper chooses from K and C alone: one pass where
+its CTA leaves room for a second on an SM.
+
 A CUDA tensor launches ``csrc/mixture.cu`` or raises; a CPU tensor takes
 the plain PyTorch versions beside it: the forward is
 ``ops.likelihoods.discretized_logistic_mix_log_prob`` (the oracle's
@@ -18,7 +25,7 @@ takes C = 1, so the wrapper never falls back.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -96,6 +103,48 @@ def _plain_mix_log_prob_bwd(x: torch.Tensor, params: torch.Tensor, g: torch.Tens
 
 
 # ---------------------------------------------------------------------------
+# the backward's schedule
+# ---------------------------------------------------------------------------
+
+PLANS = ("one_pass", "two_pass")   # csrc/mixture.cu kOnePass, kTwoPass
+THREADS = 128                      # csrc/mixture.cu kThreads
+# one pass by default while a second CTA fits on an SM beside the first
+# (228 KB each, less 1 KB reserved per CTA): at K = 24, C = 3, one CTA per
+# SM, two passes were faster on an H100 (PERF.md)
+ONE_PASS_BUDGET = 115_712
+SMEM_MAX = 232_448                 # csrc/mixture.cu kSmemMax: what one CTA can have
+
+
+class Plan(NamedTuple):
+    name: str       # one of PLANS
+    smem: int       # dynamic shared memory per CTA of THREADS threads
+
+
+def stored_per_component(c: int) -> int:
+    """Floats the one-pass backward keeps per component and pixel: t_j,
+    pi_j, dm and the masked dls per channel, and tanh(coeffs) for C = 3."""
+    return 2 + 2 * c + (3 if c == 3 else 0)
+
+
+def bwd_plan(k: int, c: int, plan: Optional[str] = None) -> Plan:
+    """K3-bwd's schedule for K components of C channels (any batch and
+    map: the plan depends on neither). ``plan`` forces one; by default
+    "one_pass" where its shared memory is within ``ONE_PASS_BUDGET``, else
+    "two_pass". A forced "one_pass" must fit one CTA (``SMEM_MAX``)."""
+    if plan not in (None, *PLANS):
+        raise ValueError(f"plan must be one of {PLANS} or None, got {plan!r}")
+    smem = 4 * k * stored_per_component(c) * THREADS
+    if plan is None:
+        plan = PLANS[0] if smem <= ONE_PASS_BUDGET else PLANS[1]
+    if plan == "two_pass":
+        return Plan(plan, 0)
+    if smem > SMEM_MAX:
+        raise ValueError(f"plan 'one_pass' keeps {smem} B per CTA for K = {k}, C = {c}: "
+                         f"more than the {SMEM_MAX} B a CTA can have")
+    return Plan(plan, smem)
+
+
+# ---------------------------------------------------------------------------
 # operand checks and launches
 # ---------------------------------------------------------------------------
 
@@ -141,15 +190,17 @@ def _launch_fwd(x: torch.Tensor, params: torch.Tensor, k: int, n_bins: int) -> t
 
 def mix_log_prob_backward(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor,
                           n_components: int = 10, n_bins: int = 256,
-                          need_dx: bool = True
+                          need_dx: bool = True, plan: Optional[str] = None
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K3-bwd: ``(dparams [B, Q, H, W], dx [B, C, H, W] or None)`` from the
-    cotangent ``g [B, H, W]`` of the per-pixel log-prob."""
+    cotangent ``g [B, H, W]`` of the per-pixel log-prob. ``plan`` forces a
+    schedule of :func:`bwd_plan` (the CPU's plain version ignores it)."""
     _checked(x, params, n_components, n_bins)
     b, c, h, w = x.shape
     if tuple(g.shape) != (b, h, w) or g.device != x.device:
         raise ValueError(f"g must be [{b}, {h}, {w}] on {x.device}, got "
                          f"{tuple(g.shape)} on {g.device}")
+    chosen = bwd_plan(n_components, c, plan)
     if x.device.type == "cpu":
         dparams, dx = _plain_mix_log_prob_bwd(x, params, g.to(params.dtype),
                                               n_components, n_bins)
@@ -160,10 +211,10 @@ def mix_log_prob_backward(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor
     dparams = torch.empty_like(params)
     dx = torch.empty_like(x) if need_dx else None
     with torch.cuda.device(x.device):
-        status = build.library().lvae_mix_log_prob_bwd(
+        status = build.library().lvae_mix_log_prob_bwd_plan(
             x.data_ptr(), params.data_ptr(), g.data_ptr(), dparams.data_ptr(),
             None if dx is None else dx.data_ptr(), b, h * w, n_components, c, n_bins,
-            _stream(x))
+            PLANS.index(chosen.name), _stream(x))
     build.LAUNCHES["mix_log_prob_bwd"] += 1
     build.check(status, "mix_log_prob_bwd")
     return dparams, dx

@@ -191,6 +191,64 @@ HEADS = [("bernoulli", 1), ("gaussian", 3), ("discretized_logistic", 3),
          ("discretized_logistic_mix", 3), ("discretized_logistic_mix", 1)]
 
 
+class TestBwdPlan:
+    """K3-bwd's schedule (``kernels/mixture.py`` ``bwd_plan``), which the
+    wrapper passes to the C entry on every launch; the kernels themselves
+    run on the card (``chip_smoke.py`` phase 10 holds both plans to the
+    plain versions)."""
+
+    @pytest.mark.parametrize("k,c,plan,smem", [
+        (10, 3, "one_pass", 56_320),      # every RGB model's head (celeba64, cifar10, svhn)
+        (10, 1, "one_pass", 20_480),      # a grey-scale mixture head
+        (1, 3, "one_pass", 5_632),
+        (20, 3, "one_pass", 112_640),     # the largest K with two CTAs per SM, C = 3
+        (21, 3, "two_pass", 0),
+        (24, 3, "two_pass", 0),           # chip_smoke.py's two-pass shape
+        (56, 1, "one_pass", 114_688),     # ... and C = 1
+        (57, 1, "two_pass", 0),
+    ])
+    def test_default_plan(self, k, c, plan, smem):
+        assert km.bwd_plan(k, c) == km.Plan(plan, smem)
+        if plan == "one_pass":   # room for a second CTA, and its 1 KB reserve, on an SM
+            assert 2 * (smem + 1024) <= 233_472
+        assert km.bwd_plan(k, c, "two_pass") == km.Plan("two_pass", 0)
+
+    @pytest.mark.parametrize("k,c,fits", [(21, 3, True), (41, 3, True), (42, 3, False),
+                                          (113, 1, True), (114, 1, False)])
+    def test_forced_one_pass_fits_one_cta(self, k, c, fits):
+        want = 4 * k * km.stored_per_component(c) * km.THREADS
+        if fits:
+            assert km.bwd_plan(k, c, "one_pass") == km.Plan("one_pass", want)
+            assert want <= km.SMEM_MAX
+        else:
+            with pytest.raises(ValueError, match="one_pass"):
+                km.bwd_plan(k, c, "one_pass")
+
+    def test_rejects_unknown_or_oversized_plans_on_any_device(self, rng):
+        x, p = (_nchw(a) for a in _mix_data(rng, b=2, h=4, w=4))
+        g = torch.ones(2, 4, 4)
+        with pytest.raises(ValueError, match="plan"):
+            km.bwd_plan(10, 3, "three_pass")
+        with pytest.raises(ValueError, match="plan"):
+            km.mix_log_prob_backward(x, p, g, plan="three_pass")
+        k = 42
+        xs, ps = (_nchw(a) for a in _mix_data(rng, b=1, h=4, w=4, k=k))
+        with pytest.raises(ValueError, match="one_pass"):
+            km.mix_log_prob_backward(xs, ps, torch.ones(1, 4, 4), k, plan="one_pass")
+
+    @pytest.mark.parametrize("plan", [None, *km.PLANS])
+    def test_cpu_plain_version_ignores_the_plan(self, rng, plan):
+        """On the CPU every plan is the plain hand backward, bit for bit,
+        and launches nothing."""
+        x, p = (_nchw(a) for a in _mix_data(rng, b=2, h=4, w=4))
+        g = torch.from_numpy(rng.standard_normal((2, 4, 4)).astype(np.float32))
+        before = dict(build.LAUNCHES)
+        dp, dx = km.mix_log_prob_backward(x, p, g, plan=plan)
+        dp_h, dx_h = km._plain_mix_log_prob_bwd(x, p, g, 10, 256)
+        assert torch.equal(dp, dp_h) and torch.equal(dx, dx_h)
+        assert build.LAUNCHES == before
+
+
 def _head_pair(rng, name, c, fused=False):
     """lvae_tpu's head and its variables, the port's head with the same
     weights (through params_from_flax), features and a target."""
