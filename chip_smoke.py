@@ -14,7 +14,8 @@ learned top prior):
   the k=100 IW log-likelihood over the first 1,000 of them;
 - training, ``lvae_tpu_torch.main`` (phases 6-9): the sample+KL kernels'
   per-sample forward (K1) and both backward kernels held against their
-  plain versions, 300 steps of the flagship at batch 64 with data-dependent
+  plain versions and timed at the flagship's and celeba64's training
+  shapes, 300 steps of the flagship at batch 64 with data-dependent
   init on 50,000 synthetic train images, the kernel path against the plain
   path and the CPU on one step, and train images/s.
 
@@ -64,6 +65,7 @@ TRAIN_B = 64                                # flagship train batch
 N_TRAIN = 50_000
 TRAIN_STEPS = 300
 ODD_SHAPE = (3, 7, 7)                       # F = 147: not a multiple of 128
+LONG_ROW = (32, 32, 32)                     # F = 32,768: 16 float4 units a K1 thread
 
 
 class SmokeFailure(Exception):
@@ -539,63 +541,174 @@ def rel_max(a, b, floor=0.0):
     return (a - b).abs().max().item() / max(b.abs().max().item(), floor, 1e-30)
 
 
-def phase_k1(card):
+def training_latents():
+    """{model: (B, [(c, h, w) of each layer])}: the K1 and K1-bwd calls of
+    one training step; the last layer reads the learned top prior with row
+    stride 0."""
+    return {"flagship": (TRAIN_B, list(LATENT_SHAPES)),
+            "celeba64": (CELEBA_B, [(c, h, w) for h, w, c in CELEBA_LATENTS])}
+
+
+def time_calls(fns):
+    """(ms per call, device ms per call) of the "kernel" and the "plain"
+    version in ``fns``."""
+    per_call = {"kernel": cuda_ms(fns["kernel"], 50), "plain": cuda_ms(fns["plain"], 10)}
+    device = {"kernel": device_ms(fns["kernel"], 20), "plain": device_ms(fns["plain"], 5)}
+    return per_call, device
+
+
+def host_ms(fn, reps=300):
+    """Wall ms per call over ``reps`` calls after a warm-up, the card idle
+    between: at a small shape, the wrapper's host time."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def timing_row(per_call, device, bnd):
+    return {"ms": per_call["kernel"], "plain_ms": per_call.get("plain"),
+            "device_ms": device["kernel"], "plain_device_ms": device.get("plain"),
+            "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+
+def sum_rows(rows):
+    """The rows of one model's layers summed (bound_by: that of the sum)."""
+    keys = [k for k in rows[0] if k.endswith("ms")]
+    out = {k: total([r[k] for r in rows]) for k in keys}
+    out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
+    return out
+
+
+def print_times(label, shape, row, card):
+    print(f"  time {label} {shape} per call: kernel {fmt_ms(row['ms'])}, plain "
+          f"{fmt_ms(row['plain_ms'])}; device: kernel {fmt_ms(row['device_ms'])}, plain "
+          f"{fmt_ms(row['plain_device_ms'])}; bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})  ({card})")
+
+
+def phase_k1(card, build_log=""):
+    """K1 against its plain version: given eps and keyed, relaunches, the
+    stride-0 prior, at the flagship's and celeba64's training shapes, at
+    B=256, at ODD_SHAPE and at LONG_ROW (16 units a thread); its launch
+    plan at each; each model's training shapes timed (per call, device)
+    with the plain version; the wrapper's host ms per call; the sample+KL
+    kernels' registers, shared memory and spills from the ``-Xptxas -v``
+    log ``build_log``."""
     import torch
 
     from lvae_tpu_torch.kernels import stochastic as sk
 
     print("[6] per-sample sample+KL kernel (K1) vs its plain version", flush=True)
+    for entry, line in ptxas_usage(build_log, "stochastic_kl_cu").items():
+        m = re.search(r"(sample_kl\w*?_kernel)(I(?:L\w\d+E)+E)?", entry)
+        args = [v if t != "b" else ("false", "true")[int(v)]
+                for t, v in re.findall(r"L(\w)(\d+)E", m[2] or "")] if m else []
+        name = (m[1] + (f"<{', '.join(args)}>" if args else "")) if m else entry
+        print(f"  ptxas {name}: {line}")
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(3)
-    err, times, n_bytes, n_ops = 0.0, [], 0, 0
-    for b in (TRAIN_B, 256):
-        for layer, (c, h, w) in enumerate(LATENT_SHAPES + [ODD_SHAPE]):
-            shape = f"[{b},{2 * c},{h},{w}]"
-            q = (torch.randn(b, 2 * c, h, w, generator=g) * 0.7).to(dev)
-            p = (torch.randn(b, 2 * c, h, w, generator=g) * 0.7).to(dev)
-            eps = torch.randn(b, c, h, w, generator=g).to(dev)
-            index = torch.randperm(N_TRAIN, generator=g)[:b].to(dev)
 
-            z, kl = sk.sample_kl_per_sample_eps(q, p, eps)
-            zr, klr = sk._plain_sample_kl_per_sample_eps(q, p, eps)
-            rel = max(rel_elem(z, zr), rel_elem(kl, klr))
-            check(rel <= 1e-6, f"{shape} given eps: z, kl_b within 1e-6 relative "
-                               f"(max {rel:.2e})")
-            z, kl = sk.sample_kl_per_sample(q, p, index, 77, 5, layer)
-            zr, klr = sk._plain_sample_kl_per_sample(q, p, index, 77, 5, layer)
-            e = (z - zr).abs().max().item()
-            err = max(err, e, (kl - klr).abs().max().item())
-            rel = rel_elem(kl, klr)
-            check(e <= 1e-5 and rel <= 1e-5,
-                  f"{shape} Philox: z within {e:.2e} abs, kl_b {rel:.2e} relative of "
-                  f"the plain generator's")
-            zk2, _ = sk.sample_kl(q, p, index, 77, 5, layer)
-            check(torch.equal(z, zk2), f"{shape} K1 draws K2's z")
-            pb = p[:1].expand(b, -1, -1, -1)
-            zb, klb = sk.sample_kl_per_sample(q, pb, index, 77, 5, layer)
-            zf, klf = sk.sample_kl_per_sample(q, pb.contiguous(), index, 77, 5, layer)
-            check(torch.equal(zb, zf) and torch.equal(klb, klf),
-                  f"{shape} row-stride-0 prior equals the materialised prior")
-            z2, kl2 = sk.sample_kl_per_sample(q, p, index, 77, 5, layer)
-            check(torch.equal(z, z2) and torch.equal(kl, kl2),
-                  f"{shape} a second launch is bit-equal (deterministic row sums)")
-            if b != TRAIN_B or (c, h, w) not in LATENT_SHAPES:
-                continue
-            kernel = lambda: sk.sample_kl_per_sample(q, p, index, 77, 5, layer)  # noqa: E731
-            plain = lambda: sk._plain_sample_kl_per_sample(q, p, index, 77, 5, layer)  # noqa: E731
-            t = [cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)]
-            dk, dp = device_ms(kernel), device_ms(plain)
-            times.append(((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dp))
-            # q, p (4 floats) in, z out; the rows' index and KL sums
-            n_bytes += b * c * h * w * 20 + b * 12
-            n_ops += b * c * h * w * OPS_SAMPLE_KL
-            print(f"  time {shape} per call: kernel {times[-1][0]:.4f} ms, plain "
-                  f"{times[-1][1]:.4f} ms; device busy: kernel {fmt_ms(dk)}, plain "
-                  f"{fmt_ms(dp)}  ({card})")
-    return err, [total([t[i] for t in times]) for i in range(4)], bound(n_bytes, n_ops)
+    def rnd(*s):
+        return (torch.randn(*s, generator=g) * 0.7).to(dev)
+
+    err = 0.0
+    celeba = training_latents()["celeba64"][1]
+    checked = ([(TRAIN_B, s) for s in LATENT_SHAPES + [ODD_SHAPE]]
+               + [(256, s) for s in LATENT_SHAPES + [ODD_SHAPE]]
+               + [(CELEBA_B, s) for s in celeba] + [(8, LONG_ROW)])
+    for layer, (b, (c, h, w)) in enumerate(checked):
+        shape = f"[{b},{2 * c},{h},{w}]"
+        print(f"  {shape} {sk.k1_plan(b, c, h * w)}")
+        q, p = rnd(b, 2 * c, h, w), rnd(b, 2 * c, h, w)
+        eps = torch.randn(b, c, h, w, generator=g).to(dev)
+        index = torch.randperm(N_TRAIN, generator=g)[:b].to(dev)
+
+        z, kl = sk.sample_kl_per_sample_eps(q, p, eps)
+        zr, klr = sk._plain_sample_kl_per_sample_eps(q, p, eps)
+        rel = max(rel_elem(z, zr), rel_elem(kl, klr))
+        check(rel <= 1e-6, f"{shape} given eps: z, kl_b within 1e-6 relative "
+                           f"(max {rel:.2e})")
+        z, kl = sk.sample_kl_per_sample(q, p, index, 77, 5, layer)
+        zr, klr = sk._plain_sample_kl_per_sample(q, p, index, 77, 5, layer)
+        e = (z - zr).abs().max().item()
+        err = max(err, e, (kl - klr).abs().max().item())
+        rel = rel_elem(kl, klr)
+        check(e <= 1e-5 and rel <= 1e-5,
+              f"{shape} Philox: z within {e:.2e} abs, kl_b {rel:.2e} relative of "
+              f"the plain generator's")
+        zk2, _ = sk.sample_kl(q, p, index, 77, 5, layer)
+        check(torch.equal(z, zk2), f"{shape} K1 draws K2's z")
+        pb = p[:1].expand(b, -1, -1, -1)
+        zb, klb = sk.sample_kl_per_sample(q, pb, index, 77, 5, layer)
+        zf, klf = sk.sample_kl_per_sample(q, pb.contiguous(), index, 77, 5, layer)
+        check(torch.equal(zb, zf) and torch.equal(klb, klf),
+              f"{shape} row-stride-0 prior equals the materialised prior")
+        z2, kl2 = sk.sample_kl_per_sample(q, p, index, 77, 5, layer)
+        check(torch.equal(z, z2) and torch.equal(kl, kl2),
+              f"{shape} a second launch is bit-equal (deterministic row sums)")
+
+    # each model's training shapes, the top layer with its stride-0 prior
+    times = {}
+    for model, (b, shapes) in training_latents().items():
+        rows = []
+        for layer, (c, h, w) in enumerate(shapes):
+            top = layer == len(shapes) - 1
+            n = b * c * h * w
+            q = rnd(b, 2 * c, h, w)
+            p = rnd(1, 2 * c, h, w).expand(b, -1, -1, -1) if top else rnd(b, 2 * c, h, w)
+            index = torch.randperm(N_TRAIN, generator=g)[:b].to(dev)
+            args = (q, p, index, 77, 5, layer)
+            fns = {"plain": lambda: sk._plain_sample_kl_per_sample(*args),
+                   "kernel": lambda: sk.sample_kl_per_sample(*args)}
+            per_call, device = time_calls(fns)
+            # q in, z out (4 B each per element, q two planes); p once per
+            # row of its own; the rows' index in, their KL sums out
+            n_bytes = n * 12 + (1 if top else b) * c * h * w * 8 + b * 12
+            rows.append(timing_row(per_call, device, bound(n_bytes, n * OPS_SAMPLE_KL)))
+            print_times("K1", f"[{b},{2 * c},{h},{w}]" + (" stride-0 prior" if top else ""),
+                        rows[-1], card)
+        times[model] = {**sum_rows(rows), "layers": rows}
+        print_times("K1", f"{model}, {len(shapes)} layers at B={b} summed", times[model], card)
+
+    # the wrapper's host time, where the call is host-bound: the flagship's
+    # 4x4 layer, through the autograd.Function as the model calls it
+    c, h, w = LATENT_SHAPES[1]
+    q = rnd(TRAIN_B, 2 * c, h, w).requires_grad_()
+    p = rnd(TRAIN_B, 2 * c, h, w).requires_grad_()
+    gz = torch.randn(TRAIN_B, c, h, w, generator=g).to(dev)
+    gkl = torch.randn(TRAIN_B, generator=g).to(dev)
+    index = torch.randperm(N_TRAIN, generator=g)[:TRAIN_B].to(dev)
+    keyed = sk.Keyed(index, 77, 5, 1)
+
+    def fwd_bwd():
+        z, kl = sk.sample_kl_per_sample(q, p, index, 77, 5, 1)
+        torch.autograd.backward([z, kl], [gz, gkl])
+
+    with torch.no_grad():
+        host = {"forward": host_ms(lambda: sk.sample_kl_per_sample(q, p, index, 77, 5, 1)),
+                "backward": host_ms(lambda: sk.sample_kl_backward(q, p, gz, gkl, keyed=keyed))}
+    host["forward + backward"] = host_ms(fwd_bwd)
+    print(f"  host ms per call at [{TRAIN_B},{2 * c},{h},{w}] (wall over 300 calls, the card "
+          f"idle between): sample_kl_per_sample {host['forward']:.4f} ms, sample_kl_backward "
+          f"keyed {host['backward']:.4f} ms, forward + backward through autograd "
+          f"{host['forward + backward']:.4f} ms  ({card})")
+    return err, times, host
 
 
 def phase_bwd(card):
+    """K1-bwd and K2-bwd against autograd of the plain forward, given eps
+    and keyed, at the flagship's and celeba64's training shapes and at
+    ODD_SHAPE; the stride-0 prior's gradient summed in the kernel against
+    the plain per-row one summed over B; K1-bwd timed keyed, as the
+    trainer calls it, and given eps, at both models' training shapes, and
+    K2-bwd given eps at the flagship's."""
     import torch
 
     from lvae_tpu_torch.kernels import stochastic as sk
@@ -605,21 +718,11 @@ def phase_bwd(card):
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(4)
     err = {"k1": 0.0, "k2": 0.0}
-    times = {"k1": [], "k2": []}
-    traffic = {"k1": [0, 0], "k2": [0, 0]}       # bytes, operations of the timed calls
 
-    def count(name, n, prior_rows):
-        """q, eps, gz (and K2-bwd's gkl map) in, dq and dp out; the prior
-        p read once per row of its own."""
-        per = 4 * 2 + 4 + 4 + 4 * 2 + 4 * 2 + (4 if name == "k2" else 0)
-        traffic[name][0] += n * per + prior_rows * (n // b) * 8
-        traffic[name][1] += n * OPS_SAMPLE_KL_BWD
+    def rnd(*s):
+        return torch.randn(*s, generator=g).to(dev)
 
-    b = TRAIN_B
-    for layer, (c, h, w) in enumerate(LATENT_SHAPES + [ODD_SHAPE]):
-        top = layer == len(LATENT_SHAPES) - 1     # the flagship's stride-0 prior
-        shape = f"[{b},{2 * c},{h},{w}]" + (" stride-0 prior" if top else "")
-        rnd = lambda *s: torch.randn(*s, generator=g).to(dev)  # noqa: E731
+    def operands(b, c, h, w, top):
         q = rnd(b, 2 * c, h, w) * 0.7
         p1 = rnd(1 if top else b, 2 * c, h, w) * 0.7
         eps, gz = rnd(b, c, h, w), rnd(b, c, h, w)
@@ -628,6 +731,17 @@ def phase_bwd(card):
         gkl_map[::4] = 0.0                       # rows a free-bits clamp zeroes
         gkl_row = rnd(b)
         gkl_row[::3] = 0.0
+        return q, p1, eps, gz, index, gkl_map, gkl_row
+
+    flag_b, flag = training_latents()["flagship"]
+    cel_b, cel = training_latents()["celeba64"]
+    checked = ([(flag_b, s, i == len(flag) - 1) for i, s in enumerate(flag)]
+               + [(flag_b, ODD_SHAPE, False)]
+               + [(cel_b, s, i == len(cel) - 1) for i, s in enumerate(cel)])
+    for layer, (b, (c, h, w), top) in enumerate(checked):
+        shape = f"[{b},{2 * c},{h},{w}]" + (" stride-0 prior" if top else "")
+        q, p1, eps, gz, index, gkl_map, gkl_row = operands(b, c, h, w, top)
+        print(f"  {shape} {sk.k1_bwd_plan(b, c, h * w, top)}")
 
         def expand(t):
             return t.expand(b, -1, -1, -1) if top else t
@@ -645,7 +759,14 @@ def phase_bwd(card):
             dq_r, dp_r = grads(plain_fwd, gkl, eps)
             dq, dp = sk.sample_kl_backward(q, expand(p1), gz, gkl, eps=eps)
             if top:
-                dp = dp.sum(dim=0, keepdim=True)
+                check(tuple(dp.shape) == tuple(p1.shape),
+                      f"{label} {shape}: the prior's gradient comes back "
+                      f"{list(p1.shape)} ({list(dp.shape)})")
+                _, dp_rows = sk._plain_sample_kl_bwd(q, expand(p1).contiguous(), eps, gz, gkl)
+                e = rel_max(dp, dp_rows.sum(dim=0, keepdim=True))
+                check(e <= 1e-5, f"{label} {shape}: the prior's gradient summed in the kernel "
+                                 f"within 1e-5 of its max of the plain per-row one summed "
+                                 f"over B ({e:.2e})")
             e = max(rel_max(dq, dq_r), rel_max(dp, dp_r))
             err[name] = max(err[name], (dq - dq_r).abs().max().item(),
                             (dp - dp_r).abs().max().item())
@@ -663,38 +784,54 @@ def phase_bwd(card):
             e = max(rel_max(a[0], r[0]), rel_max(a[1], r[1]))
             check(e <= 1e-5, f"{label} {shape} keyed, through the autograd.Function "
                              f"({e:.2e})")
-            if top or layer >= len(LATENT_SHAPES):
-                continue
-            pe = expand(p1)
-            kernel = lambda: sk.sample_kl_backward(q, pe, gz, gkl, eps=eps)  # noqa: E731
-            plain = lambda: sk._plain_sample_kl_bwd(q, pe, eps, gz, gkl)  # noqa: E731
-            t = [cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)]
-            dk, dpl = device_ms(kernel), device_ms(plain)
-            times[name].append(((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dpl))
-            count(name, b * c * h * w, b)
-            print(f"  time {label} {shape} per call: kernel {times[name][-1][0]:.4f} ms, "
-                  f"plain {times[name][-1][1]:.4f} ms; device busy: kernel "
-                  f"{fmt_ms(dk)}, plain {fmt_ms(dpl)}  ({card})")
-    # the top layer's timing, with its stride-0 prior (the flagship's shapes)
-    for name, gkl_fn in (("k2", lambda: torch.randn(b, 32, 2, 2, generator=g)),
-                         ("k1", lambda: torch.randn(b, generator=g))):
-        q = torch.randn(b, 64, 2, 2, generator=g).to(dev)
-        pe = torch.randn(1, 64, 2, 2, generator=g).to(dev).expand(b, -1, -1, -1)
-        eps = torch.randn(b, 32, 2, 2, generator=g).to(dev)
-        gz = torch.randn(b, 32, 2, 2, generator=g).to(dev)
-        gkl = gkl_fn().to(dev)
-        kernel = lambda: sk.sample_kl_backward(q, pe, gz, gkl, eps=eps)  # noqa: E731
-        plain = lambda: sk._plain_sample_kl_bwd(q, pe, eps, gz, gkl)  # noqa: E731
-        t = [cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)]
-        dk, dpl = device_ms(kernel), device_ms(plain)
-        times[name].append(((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, dk, dpl))
-        count(name, b * 32 * 2 * 2, 1)
-        print(f"  time {'K1-bwd' if name == 'k1' else 'K2-bwd'} [{b},64,2,2] stride-0 "
-              f"prior per call: kernel {times[name][-1][0]:.4f} ms, plain "
-              f"{times[name][-1][1]:.4f} ms; device busy: kernel {fmt_ms(dk)}, plain "
-              f"{fmt_ms(dpl)}  ({card})")
-    return (err, {k: [total([t[i] for t in v]) for i in range(4)] for k, v in times.items()},
-            {k: bound(*v) for k, v in traffic.items()})
+        del q, p1, eps, gz, gkl_map
+
+    def traffic(b, c, h, w, top, eps_in, gkl_map):
+        """q, gz (and eps, K2-bwd's gkl map) in, dq out; p in and dp out
+        once per row of their own; the rows' index and gkl."""
+        n = b * c * h * w
+        per = 8 + 4 + 8 + (4 if eps_in else 0) + (4 if gkl_map else 0)
+        n_bytes = n * per + (1 if top else b) * c * h * w * 16 + b * (4 + (0 if eps_in else 8))
+        return bound(n_bytes, n * (OPS_SAMPLE_KL_BWD + (0 if eps_in else OPS_SAMPLE_KL)))
+
+    times = {"k1": {}, "k1_eps": {}}
+    for model, (b, shapes) in training_latents().items():
+        rows = {"k1": [], "k1_eps": []}
+        for layer, (c, h, w) in enumerate(shapes):
+            top = layer == len(shapes) - 1
+            shape = f"[{b},{2 * c},{h},{w}]" + (" stride-0 prior" if top else "")
+            q, p1, eps, gz, index, _, gkl = operands(b, c, h, w, top)
+            pe = p1.expand(b, -1, -1, -1) if top else p1
+            keyed = sk.Keyed(index, 9, 0, layer)
+            for name, kw in (("k1", {"keyed": keyed}), ("k1_eps", {"eps": eps})):
+                fns = {"plain": lambda: sk._plain_sample_kl_bwd(
+                           q, pe, kw["eps"] if "eps" in kw else sk._eps_of(keyed, q), gz, gkl),
+                       "kernel": lambda: sk.sample_kl_backward(q, pe, gz, gkl, **kw)}
+                per_call, device = time_calls(fns)
+                rows[name].append(timing_row(per_call, device,
+                                             traffic(b, c, h, w, top, name == "k1_eps", False)))
+                print_times("K1-bwd " + ("keyed" if name == "k1" else "given eps"), shape,
+                            rows[name][-1], card)
+        for name in rows:
+            times[name][model] = {**sum_rows(rows[name]), "layers": rows[name]}
+            print_times("K1-bwd " + ("keyed" if name == "k1" else "given eps"),
+                        f"{model}, {len(shapes)} layers at B={b} summed", times[name][model],
+                        card)
+
+    # K2-bwd (on no entry point's path), given eps at the flagship's shapes
+    rows = []
+    for layer, (c, h, w) in enumerate(flag):
+        top = layer == len(flag) - 1
+        q, p1, eps, gz, _, gkl, _ = operands(flag_b, c, h, w, top)
+        pe = p1.expand(flag_b, -1, -1, -1) if top else p1
+        fns = {"plain": lambda: sk._plain_sample_kl_bwd(q, pe, eps, gz, gkl),
+               "kernel": lambda: sk.sample_kl_backward(q, pe, gz, gkl, eps=eps)}
+        per_call, device = time_calls(fns)
+        rows.append(timing_row(per_call, device, traffic(flag_b, c, h, w, top, True, True)))
+        print_times("K2-bwd given eps", f"[{flag_b},{2 * c},{h},{w}]"
+                    + (" stride-0 prior" if top else ""), rows[-1], card)
+    times["k2"] = {**sum_rows(rows), "layers": rows}
+    return err, times
 
 
 FLAGSHIP_ARGS = [
@@ -1674,19 +1811,12 @@ def phase_segment(card, per_step, timed, build_log=""):
     gamma = (torch.rand(64, generator=g_, device=dev) + 0.5).requires_grad_()
     beta = (torch.randn(64, generator=g_, device=dev) * 0.2).requires_grad_()
     host = {}
-    for name, reps in (("forward", 300), ("forward + backward", 300)):
+    for name in ("forward", "forward + backward"):
         def call():
             y = seg.dropout_bn_act(x, gamma, beta, rate=0.2, act="elu", seed=seed)[0]
             if name != "forward":
                 y.backward(g)
-        for _ in range(20):
-            call()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-        host[name] = (time.perf_counter() - t0) * 1e3 / reps
+        host[name] = host_ms(call)
     print(f"  host ms per call at {list(shape)} (dropout_bn_act, rate 0.2, elu; wall over "
           f"300 calls, the card idle between): forward {host['forward']:.4f} ms, forward + "
           f"backward {host['forward + backward']:.4f} ms  ({card})")
@@ -1866,8 +1996,10 @@ def main():
               ev["launches"]["logsumexp"], k4_err, k4_t, k4_b, k4_lib,
               library="torch.logsumexp(x, 0)", shapes="[100, 1000]", path="evaluate"),
     ]
-    k1_err, k1_t, k1_b = phase_k1(card)
-    bwd_err, bwd_t, bwd_b = phase_bwd(card)
+    t6 = time.perf_counter()
+    k1_err, k1_t, k1_host = phase_k1(card, build_log=build_log)
+    bwd_err, bwd_t = phase_bwd(card)
+    print(f"  phases 6-7 took {time.perf_counter() - t6:.1f} s")
     train_u8, test_u8 = train_data()
     tr = phase_train(card, train_u8, test_u8)
     res.update(train_run={k: tr[k] for k in ("wall_s", "log_rates", "log_rate_91_300",
@@ -1921,20 +2053,36 @@ def main():
         "images/s", FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8), flagship_weights,
         None, 150, 50, paths=("all", "stochastic"), card_dropout=0.0)
 
+    def times_and_bound(t):
+        return [t[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")], \
+            (t["bound_ms"], t["bound_by"])
+
+    def summary(t):
+        return {k: v for k, v in t.items() if k != "layers"}
+
     train_path = "lvae_tpu_torch.main (training)"
-    for name, replaces, e, t, bnd, path in (
+    for name, replaces, e, t, more in (
         ("sample_kl_per_sample", "lvae_tpu/kernels/stochastic_pallas.py:318", k1_err, k1_t,
-         k1_b, train_path),
+         {"host_ms": k1_host["forward"]}),
         ("sample_kl_per_sample_bwd", "lvae_tpu/kernels/stochastic_pallas.py:350",
-         bwd_err["k1"], bwd_t["k1"], bwd_b["k1"], train_path),
-        # K2's gradient: neither entry point differentiates through K2 (the
-        # trainer's K1 takes every shape, so it never falls back to K2 as
-        # lvae_tpu's does for F % 128 != 0); held to autograd in phase 7
-        ("sample_kl_bwd", "lvae_tpu/kernels/stochastic_pallas.py:178",
-         bwd_err["k2"], bwd_t["k2"], bwd_b["k2"], "not on either entry point's path; phase 7"),
+         bwd_err["k1"], bwd_t["k1"],
+         {"host_ms": k1_host["backward"], "noise": "keyed, as the trainer calls it",
+          "given_eps": {m: summary(v) for m, v in bwd_t["k1_eps"].items()}}),
     ):
-        kernels.append(entry(name, "stochastic_kl.cu", replaces, tr["launches"][name], e, t,
-                             bnd, None, shapes="3 layers at B=64", path=path))
+        kernels.append(entry(name, "stochastic_kl.cu", replaces, ctr["launches"][name], e,
+                             *times_and_bound(t["celeba64"]), None, flagship=summary(t["flagship"]),
+                             launches_flagship=tr["launches"][name],
+                             shapes="celeba64: 4 layers at B=128 (flagship: 3 layers at B=64), "
+                                    "the top layer's prior with row stride 0",
+                             path=train_path, **more))
+    # K2's gradient: neither entry point differentiates through K2 (the
+    # trainer's K1 takes every shape, so it never falls back to K2 as
+    # lvae_tpu's does for F % 128 != 0); held to autograd in phase 7
+    kernels.append(entry("sample_kl_bwd", "stochastic_kl.cu",
+                         "lvae_tpu/kernels/stochastic_pallas.py:178", tr["launches"]["sample_kl_bwd"],
+                         bwd_err["k2"], *times_and_bound(bwd_t["k2"]), None,
+                         shapes="3 layers at B=64, given eps",
+                         path="not on either entry point's path; phase 7"))
     two_pass = mix_t[("K3-bwd two_pass", CELEBA_B)]
     for name, replaces, e, t, more in (
         ("mix_log_prob", "lvae_tpu/kernels/mixture_pallas.py:323", mix_err["fwd"],

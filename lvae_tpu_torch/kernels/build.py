@@ -24,6 +24,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "lvae_tpu_torch"
 # -fmad=false: no multiply-add contraction, so each kernel rounds every
@@ -61,12 +63,13 @@ _SIGNATURES = {
     "lvae_sample_kl": (*_KEYED, _P, _P, _I64, _INT, _INT, _P),
     # q, p, p_row_stride, eps, z, kl, rows, c, hw, stream
     "lvae_sample_kl_eps": (_P, _P, _I64, _P, _P, _P, _I64, _INT, _INT, _P),
-    # keyed, eps (or NULL: keyed noise), z, kl_rows, rows, c, hw, stream
-    "lvae_sample_kl_per_sample": (*_KEYED, _P, _P, _P, _I64, _INT, _INT, _P),
-    # keyed, eps (or NULL: regenerate the keyed noise), gz, gkl, dq, dp,
-    # rows, c, hw, stream
-    "lvae_sample_kl_bwd": (*_KEYED, _P, _P, _P, _P, _P, _I64, _INT, _INT, _P),
-    "lvae_sample_kl_per_sample_bwd": (*_KEYED, _P, _P, _P, _P, _P, _I64, _INT,
+    # plan (kernels/stochastic.py K1Plan), keyed, eps (or NULL: keyed
+    # noise), z, kl_rows, rows, c, hw, stream
+    "lvae_sample_kl_per_sample": (_P, *_KEYED, _P, _P, _P, _I64, _INT, _INT, _P),
+    # plan (kernels/stochastic.py BwdPlan), keyed, eps (or NULL: regenerate
+    # the keyed noise), gz, gkl, dq, dp, rows, c, hw, stream
+    "lvae_sample_kl_bwd": (_P, *_KEYED, _P, _P, _P, _P, _P, _I64, _INT, _INT, _P),
+    "lvae_sample_kl_per_sample_bwd": (_P, *_KEYED, _P, _P, _P, _P, _P, _I64, _INT,
                                       _INT, _P),
     # x, k, b, out, stream
     "lvae_logsumexp": (_P, ctypes.c_int, ctypes.c_int64, _P, _P),
@@ -153,6 +156,15 @@ def library() -> ctypes.CDLL:
     lib.lvae_error_string.argtypes = [ctypes.c_int]
     lib.lvae_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def on_device(t: torch.Tensor, launch):
+    """``launch(stream)``, the stream the current one of ``t``'s device,
+    with that device current (no device guard when it already is)."""
+    if t.get_device() == torch.cuda.current_device():
+        return launch(torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(t.device):
+        return launch(torch.cuda.current_stream().cuda_stream)
 
 
 def check(status: int, name: str) -> None:

@@ -209,15 +209,6 @@ def _aligned(v: torch.Tensor) -> torch.Tensor:
     return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
-def _on_device(x: torch.Tensor, launch):
-    """``launch(stream)`` with ``x``'s device current (no guard when it
-    already is)."""
-    if x.get_device() == torch.cuda.current_device():
-        return launch(torch.cuda.current_stream().cuda_stream)
-    with torch.cuda.device(x.device):
-        return launch(torch.cuda.current_stream().cuda_stream)
-
-
 def _launch_fwd(x, gamma, beta, t, act, eps, seed, running_mean, running_var, momentum,
                 path=None):
     """K5 on a checked contiguous CUDA ``x``: ``(y, stats)``, stats the
@@ -231,7 +222,7 @@ def _launch_fwd(x, gamma, beta, t, act, eps, seed, running_mean, running_var, mo
         for name, v in (("running_mean", running_mean), ("running_var", running_var)):
             if v.dtype != torch.float32 or v.shape != (c,) or v.get_device() != x.get_device():
                 raise ValueError(f"{name} must be float32 [{c}] on {x.device}")
-    status = _on_device(x, lambda stream: build.library().lvae_segment_fwd(
+    status = build.on_device(x, lambda stream: build.library().lvae_segment_fwd(
         plan, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         None if running_mean is None else running_mean.data_ptr(),
         None if running_var is None else running_var.data_ptr(),
@@ -249,7 +240,7 @@ def _launch_bwd(x, g, gamma, stats, t, act, seed, path=None):
     x, g = _aligned(x), _aligned(g)
     dx = torch.empty_like(x)
     dgb = x.new_empty((2, c))                                    # dgamma, dbeta
-    status = _on_device(x, lambda stream: build.library().lvae_segment_bwd(
+    status = build.on_device(x, lambda stream: build.library().lvae_segment_bwd(
         plan, x.data_ptr(), g.data_ptr(), gamma.data_ptr(), stats.data_ptr(), dx.data_ptr(),
         dgb.data_ptr(), t, SEGMENT_ACTS.index(act), seed & (2 ** 64 - 1), stream))
     build.LAUNCHES["segment_bwd"] += 1

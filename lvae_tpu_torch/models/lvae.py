@@ -109,12 +109,11 @@ class TopDownLayer(nn.Module):
             self.add_module(f"det_blocks_{j}", blk)
             self.det_blocks.append(blk)
 
-    def _top_prior_params(self, batch: int, device: torch.device) -> torch.Tensor:
+    def _top_prior_row(self, device: torch.device) -> torch.Tensor:
+        """The top prior's params as one row ``[1, 2z, h, w]``."""
         if self.top_prior is not None:
-            p = self.top_prior
-        else:
-            p = torch.zeros(1, 2 * self.z_dim, *self.top_prior_hw, device=device)
-        return p.expand(batch, -1, -1, -1)  # a view: never materialised over B
+            return self.top_prior
+        return torch.zeros(1, 2 * self.z_dim, *self.top_prior_hw, device=device)
 
     def forward(self, td_in, bu_value, *, stream: int, n_img_prior=None,
                 noise=None, use_mode=False, forced_latent=None,
@@ -127,17 +126,18 @@ class TopDownLayer(nn.Module):
                 batch, device = n_img_prior, self.stochastic.conv_out.weight.device
             else:
                 raise ValueError("top layer needs bu_value or n_img_prior")
-            p_in = self._top_prior_params(batch, device)
+            p_row = self._top_prior_row(device)
+            p_in = p_row.expand(batch, -1, -1, -1)  # a view: never materialised over B
         else:
             if td_in is None:
                 raise ValueError("non-top layer needs incoming top-down state")
-            p_in = td_in
+            p_in, p_row = td_in, None
         if bu_value is not None:
             q_in = bu_value if self.is_top else self.merge(bu_value, td_in, train)
         else:
             q_in = None
         s = self.stochastic(
-            p_in, q_in, noise=noise, stream=stream,
+            p_in, q_in, noise=noise, stream=stream, p_row=p_row,
             forced_latent=forced_latent, forced_eps=forced_eps,
             use_mode=use_mode, constant_latent=constant_latent,
             train=train,

@@ -10,6 +10,10 @@ branch does; otherwise K2, the elementwise map. Without ``fused`` the
 plain PyTorch ops (``ops/``) run under autograd. All draw eps from the same
 keyed Philox stream, so they give the same z.
 
+``p_row``, where given, is the one row ``[1, 2c, h, w]`` that ``p_in``
+broadcasts over B (the top layer's prior, ``p_in`` its stride-0 view):
+the fused kernels take it as it is and read it with row stride 0.
+
 Noise is keyed, not drawn from a global generator: ``noise`` is a
 :class:`Noise` ``(seed, index [B], sample)`` and ``stream`` the layer
 number, and row ``i`` draws with counter ``(offset, index[i], sample[i],
@@ -62,6 +66,7 @@ class NormalStochasticBlock(nn.Module):
         *,
         noise: Optional[Noise] = None,
         stream: int = 0,
+        p_row: Optional[torch.Tensor] = None,
         forced_latent: Optional[torch.Tensor] = None,
         forced_eps: Optional[torch.Tensor] = None,
         use_mode: bool = False,
@@ -97,8 +102,9 @@ class NormalStochasticBlock(nn.Module):
 
             n = _need(noise)
             # the kernels read NCHW-contiguous heads (a no-op unless a conv
-            # handed back channels-last); a stride-0 prior stays a view
-            p = p_params if p_params.stride(0) == 0 else p_params.contiguous()
+            # handed back channels-last); a prior given as its one row goes
+            # in as that row, so its gradient comes back summed over B
+            p = p_row.float() if p_row is not None else p_params.contiguous()
             fn = sk.sample_kl_per_sample if train else sk.sample_kl
             z, kl_out = fn(q_params.contiguous(), p, n.index, n.seed, n.sample, stream)
             if train:
