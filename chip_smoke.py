@@ -325,47 +325,84 @@ def phase_sample_kl(card):
     return err, [total([t[i] for t in times]) for i in range(4)], bound(n_bytes, n_ops)
 
 
-def phase_logsumexp(card):
+def phase_logsumexp(card, build_log=""):
+    """K4 against its plain version at both models' IW shapes ([100, 1000]
+    flagship, [100, 500] celeba64), a ragged B, k = 1000 (several register
+    loads a thread) and B = 100,000 (a large grid: 4 warps a CTA): edge
+    columns (all -inf, all but one -inf, +-1e30, a NaN, a +inf), bit-equal
+    relaunches, each shape's launch plan;
+    the kernel's registers, shared memory and spills from the ``-Xptxas
+    -v`` log ``build_log``; per call and device time at the IW shapes
+    beside the plain version and ``torch.logsumexp`` (timed only, never
+    called by the port), the [1, 1] launch floor and the wrapper's host ms
+    per call."""
     import torch
 
     from lvae_tpu_torch.kernels import logsumexp as lse
 
-    print("[3] logsumexp kernel vs its plain version", flush=True)
+    print("[3] logsumexp kernel (K4) vs its plain version", flush=True)
+    ptxas = ptxas_usage(build_log, "logsumexp_cu")
+    for entry, line in ptxas.items():
+        print(f"  ptxas {'logsumexp_kernel' if 'logsumexp_kernel' in entry else entry}: {line}")
     g = torch.Generator().manual_seed(1)
     err = 0.0
-    for b in (1000, 777):
-        x = torch.randn(100, b, generator=g) * 30 - 200
+    for k, b in ((IW_SAMPLES, B), (IW_SAMPLES, 777), (IW_SAMPLES, CELEBA_EVAL_B), (1000, 64),
+                 (IW_SAMPLES, 100_000)):
+        shape = f"[{k},{b}]"
+        print(f"  {shape} {lse.lse_plan(k, b)}")
+        x = torch.randn(k, b, generator=g) * 30 - 200
         x[:, 0] = float("-inf")             # all -inf -> -inf
         x[1:, 1] = float("-inf")            # all but one -> that one
         x[:, 2] = 1e30
         x[:, 3] = -1e30
         x[::2, 4] = 1e30
+        x[k // 3, 5] = float("nan")         # a NaN -> -inf
+        x[k - 1, 6] = float("inf")          # a +inf -> -inf
         x = x.cuda()
         out, ref = lse.logsumexp(x), lse._plain_logsumexp(x)
         check(out[0].item() == float("-inf") and not torch.isnan(out).any(),
-              f"[100,{b}] all -inf column gives -inf, no NaN")
-        check(out[1].item() == x[0, 1].item(), f"[100,{b}] all-but-one -inf column")
+              f"{shape} all -inf column gives -inf, no NaN")
+        check(out[1].item() == x[0, 1].item(), f"{shape} all-but-one -inf column")
         check(out[2].item() == x[0, 2].item() and out[3].item() == x[0, 3].item(),
-              f"[100,{b}] columns at +-1e30")
+              f"{shape} columns at +-1e30")
+        check(out[5].item() == float("-inf") and out[6].item() == float("-inf"),
+              f"{shape} a NaN column and a +inf column give -inf")
         fin = torch.isfinite(ref)
-        check(torch.equal(fin, torch.isfinite(out)), "the same columns are finite")
+        check(torch.equal(fin, torch.isfinite(out)), f"{shape} the same columns are finite")
         e = (out[fin] - ref[fin]).abs().max().item()
-        rel = ((out[fin] - ref[fin]).abs() / ref[fin].abs().clamp_min(1.0)).max().item()
+        rel = rel_elem(out[fin], ref[fin])
         err = max(err, e)
-        check(rel <= 1e-6, f"[100,{b}] within 1e-6 relative (max abs {e:.2e})")
-    x = (torch.randn(IW_SAMPLES, B, generator=g) * 30 - 200).cuda()
-    t = [cuda_ms(lambda: lse._plain_logsumexp(x)), cuda_ms(lambda: lse.logsumexp(x)),
-         cuda_ms(lambda: lse.logsumexp(x)), cuda_ms(lambda: lse._plain_logsumexp(x))]
-    ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-    dk = device_ms(lambda: lse.logsumexp(x))
-    dp = device_ms(lambda: lse._plain_logsumexp(x))
-    library_ms = cuda_ms(lambda: torch.logsumexp(x, 0))     # timed only, never called
-    print(f"  time [{IW_SAMPLES},{B}] per call: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.logsumexp {library_ms:.4f} ms; device busy: "
-          f"kernel {fmt_ms(dk)}, plain {fmt_ms(dp)}  ({card})")
-    # [k, B] in, [B] out; an exp, an add and a compare per element
-    return err, [ms, plain_ms, dk, dp], bound(4 * IW_SAMPLES * B + 4 * B, 3 * IW_SAMPLES * B), \
-        library_ms
+        check(rel <= 1e-6, f"{shape} within 1e-6 relative (max {rel:.2e}, abs {e:.2e})")
+        check(torch.equal(out, lse.logsumexp(x)), f"{shape} a second launch is bit-equal")
+
+    rows, more = {}, {}
+    for b in (B, CELEBA_EVAL_B):
+        x = (torch.randn(IW_SAMPLES, b, generator=g) * 30 - 200).cuda()
+        fns = {"plain": lambda: lse._plain_logsumexp(x), "kernel": lambda: lse.logsumexp(x)}
+        t = [cuda_ms(fns["plain"]), cuda_ms(fns["kernel"]), cuda_ms(fns["kernel"]),
+             cuda_ms(fns["plain"])]
+        library = lambda: torch.logsumexp(x, 0)       # noqa: E731  (timed only, never called)
+        # [k, B] in, [B] out; an exp, an add and a compare per element
+        n = IW_SAMPLES * b
+        rows[b] = {**timing_row({"kernel": (t[1] + t[2]) / 2, "plain": (t[0] + t[3]) / 2},
+                                {"kernel": device_ms(fns["kernel"]),
+                                 "plain": device_ms(fns["plain"])},
+                                bound(4 * n + 4 * b, 3 * n)),
+                   "library_ms": cuda_ms(library), "library_device_ms": device_ms(library),
+                   "plan": lse.lse_plan(IW_SAMPLES, b)._asdict()}
+        r = rows[b]
+        print_times("K4", f"[{IW_SAMPLES},{b}]", r, card)
+        print(f"    torch.logsumexp(x, 0): per call {fmt_ms(r['library_ms'])}, device "
+              f"{fmt_ms(r['library_device_ms'])}  ({card})")
+    one = torch.randn(1, 1, generator=g).cuda()
+    more["floor_device_ms"] = device_ms(lambda: lse.logsumexp(one))
+    more["host_ms"] = host_ms(lambda: lse.logsumexp(one))
+    print(f"  [1,1]: device {fmt_ms(more['floor_device_ms'])} (the launch floor), the "
+          f"wrapper's host ms per call {more['host_ms']:.4f} (wall over 300 calls, the card "
+          f"idle between)  ({card})")
+    more["celeba64"] = rows[CELEBA_EVAL_B]
+    more["ptxas"] = list(ptxas.values())
+    return err, rows[B], more
 
 
 FLAGSHIP = {
@@ -1978,7 +2015,7 @@ def main():
     build_log = phase_build()
     res = {"card": card}
     k2_err, k2_t, k2_b = phase_sample_kl(card)
-    k4_err, k4_t, k4_b, k4_lib = phase_logsumexp(card)
+    k4_err, k4, k4_more = phase_logsumexp(card, build_log)
     ev = phase_slice(card)
     res.update(images_per_sec=ev["rates"], elbo_profile=ev["elbo_profile"])
 
@@ -1993,8 +2030,12 @@ def main():
               ev["launches"]["sample_kl"], k2_err, k2_t, k2_b, None,
               shapes="3 layers at B=1000", path="evaluate"),
         entry("logsumexp", "logsumexp.cu", "lvae_tpu/kernels/logsumexp_pallas.py:36",
-              ev["launches"]["logsumexp"], k4_err, k4_t, k4_b, k4_lib,
-              library="torch.logsumexp(x, 0)", shapes="[100, 1000]", path="evaluate"),
+              ev["launches"]["logsumexp"], k4_err,
+              [k4[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")],
+              (k4["bound_ms"], k4["bound_by"]), k4["library_ms"],
+              library="torch.logsumexp(x, 0)", library_device_ms=k4["library_device_ms"],
+              plan=k4["plan"], shapes=f"[{IW_SAMPLES}, {B}] (celeba64: [{IW_SAMPLES}, "
+              f"{CELEBA_EVAL_B}])", path="evaluate", **k4_more),
     ]
     t6 = time.perf_counter()
     k1_err, k1_t, k1_host = phase_k1(card, build_log=build_log)
@@ -2015,6 +2056,7 @@ def main():
     c_train, c_test = c_all[:CELEBA_N_TRAIN], c_all[CELEBA_N_TRAIN:]
     c_data = celeba_dataset(c_train, c_test)
     cev = phase_celeba_eval(card, c_train, c_test)
+    kernels[1]["launches_celeba64"] = cev["launches"]["logsumexp"]
     ctr = phase_celeba_train(card, c_train, c_test)
     celeba_weights = seeded_model(CELEBA, c_data, torch.device("cpu")).state_dict()
     cst = phase_step(

@@ -4,10 +4,10 @@ log p(x) ~= logsumexp_j(elbo_j) - log k over k posterior samples.
 Sample ``j`` of image ``i`` is keyed ``(seed, index[i], j, layer)``, so
 the estimate does not depend on ``--test-batch-size``, sweep order or
 ``chunk`` (the number of samples stacked into one forward of ``chunk x
-B`` rows). ``logsumexp_impl``: ``'kernel'`` stacks the ``[k, B]`` ELBO
-matrix and reduces it with the CUDA logsumexp (``kernels/logsumexp.py``);
-``'streaming'`` folds each chunk into an online (max, sum-exp)
-accumulator and never holds the matrix.
+B`` rows). ``logsumexp_impl``: ``'kernel'`` writes each chunk's ELBO
+rows into one ``[k, B]`` matrix and reduces it with the CUDA logsumexp
+(``kernels/logsumexp.py``); ``'streaming'`` folds each chunk into an
+online (max, sum-exp) accumulator and never holds the matrix.
 """
 
 from __future__ import annotations
@@ -56,22 +56,21 @@ def iwll_batch(model, x: torch.Tensor, index: torch.Tensor, seed: int,
     if chunk < 1:
         raise ValueError(f"--iw-chunk must be >= 1, got {chunk}")
     b = x.shape[0]
-    rows, carry = [], streaming_logsumexp_init(b, x.device)
+    kernel = logsumexp_impl == "kernel"
+    elbos, carry = None, streaming_logsumexp_init(b, x.device)
     for j0 in range(0, n_samples, chunk):
         c = min(chunk, n_samples - j0)
         sample = torch.arange(j0, j0 + c, device=x.device).repeat_interleave(b)
         ll, kl_sep = per_image_forward(
             model, x.repeat(c, 1, 1, 1), index.repeat(c), seed, sample
         )
-        elbo = (ll - kl_sep.sum(dim=0)).view(c, b)
-        if logsumexp_impl == "kernel":
-            rows.append(elbo)
+        if kernel:
+            if elbos is None:                       # [k, B], once per batch
+                elbos = ll.new_empty(n_samples, b)
+            torch.sub(ll, kl_sep.sum(dim=0), out=elbos[j0:j0 + c].view(-1))
         else:
-            carry = streaming_logsumexp_update_block(carry, elbo)
-    if logsumexp_impl == "kernel":
-        lse = logsumexp(torch.cat(rows, dim=0))
-    else:
-        lse = streaming_logsumexp_final(carry)
+            carry = streaming_logsumexp_update_block(carry, (ll - kl_sep.sum(dim=0)).view(c, b))
+    lse = logsumexp(elbos) if kernel else streaming_logsumexp_final(carry)
     return lse - math.log(n_samples)
 
 

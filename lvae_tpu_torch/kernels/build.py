@@ -71,8 +71,8 @@ _SIGNATURES = {
     "lvae_sample_kl_bwd": (_P, *_KEYED, _P, _P, _P, _P, _P, _I64, _INT, _INT, _P),
     "lvae_sample_kl_per_sample_bwd": (_P, *_KEYED, _P, _P, _P, _P, _P, _I64, _INT,
                                       _INT, _P),
-    # x, k, b, out, stream
-    "lvae_logsumexp": (_P, ctypes.c_int, ctypes.c_int64, _P, _P),
+    # plan (kernels/logsumexp.py LsePlan), x, k, b, out, stream
+    "lvae_logsumexp": (_P, _P, ctypes.c_int, ctypes.c_int64, _P, _P),
     # x, params, out, b, hw, k, c, n_bins, stream
     "lvae_mix_log_prob": (_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P),
     # x, params, g, dparams, dx (or NULL), b, hw, k, c, n_bins, stream

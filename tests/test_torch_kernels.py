@@ -268,6 +268,17 @@ class TestLogsumexp:
         got = self._both(x)
         assert got[0] == -np.inf and got[1] == x[0, 1]
 
+    def test_nan_and_plus_inf_columns(self, rng):
+        """A column that holds a NaN or a +inf has no finite max: -inf, as
+        the TPU kernel's guard gives; the other columns are untouched."""
+        x = rng.standard_normal((100, 5)).astype(np.float32)
+        x[37, 0] = np.nan
+        x[:, 1] = np.nan
+        x[99, 2] = np.inf
+        x[:, 3] = np.inf
+        got = self._both(x)
+        assert (got[:4] == -np.inf).all() and np.isfinite(got[4])
+
     def test_rejects_bad_operands(self):
         with pytest.raises(ValueError):
             lse.logsumexp(torch.zeros(3))
