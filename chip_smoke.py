@@ -33,7 +33,16 @@ versions at every segment shape of both models, timed against their
 plain versions, the port's unfused chain and their bound; 100 celeba64
 steps through ``lvae_tpu_torch.main --fused all``; one step of each model
 under ``--fused all`` against the path without the segments (and, for
-celeba64, the CPU), and train images/s.
+celeba64, the CPU), and train images/s. Phase 14b holds the unfused bits8
+dropout's kernel to its plain version.
+
+Last, ``--steps-per-call 10`` (phase 17): for the flagship (``--fused
+auto`` and ``all``) and celeba64 (``all``), 30 steps through one CUDA
+graph of 10 bit-equal to 30 eager steps, the graph's kernel nodes by
+kernel against the eager launches, train images/s, device time and idle
+share graphed against eager; and 200 flagship steps through
+``lvae_tpu_torch.main --steps-per-call 10``, resumed from the middle
+checkpoint bit-equal.
 
 Each entry point's run checks that it launched every kernel of its path;
 the kernel path, the plain path and a CPU run are held to agree, and each
@@ -915,6 +924,14 @@ def init_launches(args, data):
     return n
 
 
+def write_mnist(data_dir, train_u8, test_u8):
+    """The splits as static_mnist's .amat files under ``data_dir``."""
+    os.makedirs(os.path.join(data_dir, "static_mnist"))
+    for split, arr in (("train", train_u8), ("test", test_u8)):
+        write_amat(os.path.join(data_dir, "static_mnist", f"binarized_mnist_{split}.amat"),
+                   arr)
+
+
 def phase_train(card, train_u8, test_u8):
     import torch
 
@@ -923,16 +940,14 @@ def phase_train(card, train_u8, test_u8):
     from lvae_tpu_torch.kernels import build
 
     print("[8] the training slice through lvae_tpu_torch.main", flush=True)
-    n_init = init_launches(FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8))[
-        "sample_kl_per_sample"]
-    print(f"  data-dependent init alone launches K1 {n_init} times")
+    init = init_launches(FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8))
+    n_init = init["sample_kl_per_sample"]
+    print(f"  data-dependent init alone launches K1 {n_init} times and the dropout kernel "
+          f"{init['dropout']}")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = os.path.join(tmp, "data")
-        os.makedirs(os.path.join(data_dir, "static_mnist"))
-        for split, arr in (("train", train_u8), ("test", test_u8)):
-            write_amat(os.path.join(data_dir, "static_mnist",
-                                    f"binarized_mnist_{split}.amat"), arr)
+        write_mnist(data_dir, train_u8, test_u8)
         build.reset_launches()
         t0 = time.perf_counter()
         trainer = train_main.main(FLAGSHIP_ARGS + [
@@ -953,6 +968,10 @@ def phase_train(card, train_u8, test_u8):
               f"({launches['sample_kl_per_sample']})")
         check(launches["sample_kl_per_sample_bwd"] == n,
               f"K1-bwd: 3 launches per step ({launches['sample_kl_per_sample_bwd']})")
+        sites = unfused_dropouts(trainer.state.model)
+        check(sites > 0 and launches["dropout"] == 2 * sites * TRAIN_STEPS + init["dropout"],
+              f"the dropout kernel: forward and backward at each of the {sites} dropout "
+              f"sites per step, and the init's {init['dropout']} ({launches['dropout']})")
         check(launches["sample_kl"] > 0 and launches["sample_kl_bwd"] == 0,
               f"the test hook ran K2 forward only ({launches['sample_kl']} launches)")
         hist = trainer.logger.history
@@ -1004,19 +1023,6 @@ def bn_fed_biases(model):
     return names
 
 
-def keyed_dropout_only(model):
-    """Turn off every dropout that no fused segment absorbed: those draw
-    from a ``torch.Generator``, whose CPU and CUDA streams differ, while a
-    segment's bytes are the keyed Philox bytes on both."""
-    from lvae_tpu_torch.models.blocks import Dropout, ResidualBlock
-
-    absorbed = {id(seg.dropout) for m in model.modules() if isinstance(m, ResidualBlock)
-                for _, seg in m._segments.values() if seg.dropout is not None}
-    for m in model.modules():
-        if isinstance(m, Dropout) and id(m) not in absorbed:
-            m.rate = 0.0
-
-
 def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log,
                paths=("auto", "none"), card_dropout=None, cpu=("none", 0.0)):
     """One step of the model of the training CLI ``args`` on ``data``
@@ -1024,8 +1030,8 @@ def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log,
     ``paths[1]`` on the card (deterministic cuDNN; dropout ``card_dropout``,
     the config's when None) and against the CPU's path ``cpu[0]`` at
     ``cpu_batch`` images with dropout ``cpu[1]`` (no CPU step when
-    ``cpu_batch`` is None; with dropout, only the fused segments' keyed
-    masks are on); then train images/s through ``Trainer.run``, the two
+    ``cpu_batch`` is None; every dropout mask is keyed Philox bytes, the
+    same on both); then train images/s through ``Trainer.run``, the two
     paths alternating (K, P, P, K, ``ab_steps`` steps each, the rate over
     the steps after ``ab_log``), and a 5-step profile of ``paths[0]``."""
     import dataclasses
@@ -1043,12 +1049,10 @@ def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log,
     cfg, _ = config_from_args(args)
     order = np.random.default_rng((cfg.seed, 0)).permutation(data.train.shape[0])
 
-    def one_step(fused, device, dropout, batch, keyed_only=False):
+    def one_step(fused, device, dropout, batch):
         exp = Experiment(dataclasses.replace(cfg, fused=fused, dropout=dropout),
                          torch.device(device), data)
         exp.model.load_state_dict(weights)
-        if keyed_only:
-            keyed_dropout_only(exp.model)
         state = exp.init_state(data_dep_init=False)
         index = torch.from_numpy(order[:batch]).to(device)
         x = preprocess_batch(exp.train_data.gather(index), data.preprocess, state.seed,
@@ -1103,10 +1107,9 @@ def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log,
                         zero_grads=k[4] if (kern in segments) != (plain in segments) else ())
         check(stats <= 1e-6, f"BN running stats within 1e-6 ({stats:.2e})")
         if cpu_batch is not None:
-            # CPU and CUDA generators give other dropout bytes: dropout only
-            # where it is keyed (cpu[1] > 0: the segments' masks)
-            kc = one_step(kern, "cuda", cpu[1], cpu_batch, keyed_only=cpu[1] > 0)
-            c = one_step(cpu[0], "cpu", cpu[1], cpu_batch, keyed_only=cpu[1] > 0)
+            # the dropout masks are keyed Philox bytes: the same on both
+            kc = one_step(kern, "cuda", cpu[1], cpu_batch)
+            c = one_step(cpu[0], "cpu", cpu[1], cpu_batch)
             compare(kc, c, 1e-3, f"the card (--fused {kern}) vs the CPU (--fused {cpu[0]}), "
                                  f"batch {cpu_batch}, dropout {cpu[1]}", zero_grads=c[4])
     finally:
@@ -1702,6 +1705,9 @@ def phase_segment(card, per_step, timed, build_log=""):
     dev = torch.device("cuda")
     g_ = torch.Generator(device=dev).manual_seed(14)
     err = {"fwd": 0.0, "bwd": 0.0}
+    # the kernels' key: train seed 42, step 7 (read from device memory, as
+    # the trainer's step is), site 3; the plain versions take its bytes
+    key = seg.Key(42, torch.tensor(7, dtype=torch.int64, device=dev), 3)
     seed = mix_seed(42, 7, 3)
     shapes = [s for counts in per_step.values() for s in counts]
     at_shape = {}           # device ms of K5, K5-bwd (rate 0.2, elu, default path), bounds
@@ -1731,7 +1737,7 @@ def phase_segment(card, per_step, timed, build_log=""):
                     if pf is not None:
                         rm = torch.full((c,), 0.3, device=dev)
                         rv = torch.full((c,), 1.7, device=dev)
-                        y, stats = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, seed, rm, rv,
+                        y, stats = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, key, rm, rv,
                                                    0.9, path)
                         mean, var = stats[0], stats[1]
                         e = rel_max(y, yp)
@@ -1743,17 +1749,17 @@ def phase_segment(card, per_step, timed, build_log=""):
                         check(e <= 1e-6, f"K5 {k}: running stats moved as the plain version's "
                                          f"({e:.2e}, bit-equal: "
                                          f"{torch.equal(rm, rm_p) and torch.equal(rv, rv_p)})")
-                        y2, stats2 = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, seed, None,
+                        y2, stats2 = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, key, None,
                                                      None, 0.9, path)
                         check(torch.equal(y, y2) and torch.equal(stats, stats2),
                               f"K5 {k}: a second launch is bit-equal")
                         del y, y2
                     else:
-                        _, stats = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, seed, None,
+                        _, stats = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, key, None,
                                                    None, 0.9)
                     if pb is None:
                         continue
-                    dx, dgamma, dbeta = seg._launch_bwd(x, g, gamma, stats, t, act, seed, path)
+                    dx, dgamma, dbeta = seg._launch_bwd(x, g, gamma, stats, t, act, key, path)
                     for ref, against in ((hand, "the plain hand backward"),
                                          (auto, "autograd of the plain forward")):
                         e = max(rel_max(a, r) for a, r in zip((dx, dgamma, dbeta), ref))
@@ -1764,17 +1770,17 @@ def phase_segment(card, per_step, timed, build_log=""):
                     check(torch.equal(dx == 0, hand[0] == 0),
                           f"K5-bwd {k}: dx is exactly 0 where the plain version's is "
                           f"({int((dx == 0).sum())} zeros)")
-                    dx2, dg2, db2 = seg._launch_bwd(x, g, gamma, stats, t, act, seed, path)
+                    dx2, dg2, db2 = seg._launch_bwd(x, g, gamma, stats, t, act, key, path)
                     check(torch.equal(dx, dx2) and torch.equal(dgamma, dg2)
                           and torch.equal(dbeta, db2), f"K5-bwd {k}: a second launch is "
                                                        f"bit-equal")
                     del dx, dx2
                 dx_ref = seg.dropout_bn_act_backward(
-                    x, g, gamma, beta, seg._launch_fwd(x, gamma, beta, t, act, 1e-5, seed,
-                                                       None, None, 0.9)[1], t, act, seed)[0]
+                    x, g, gamma, beta, seg._launch_fwd(x, gamma, beta, t, act, 1e-5, key,
+                                                       None, None, 0.9)[1], t, act, *key)[0]
                 xk = x.clone().requires_grad_()
                 build.reset_launches()
-                y, _, _ = seg.dropout_bn_act(xk, gamma, beta, rate=rate, act=act, seed=seed)
+                y, _, _ = seg.dropout_bn_act(xk, gamma, beta, rate=rate, act=act, **key._asdict())
                 y.backward(g)
                 check(build.LAUNCHES["segment"] == 1 and build.LAUNCHES["segment_bwd"] == 1
                       and torch.equal(xk.grad, dx_ref),
@@ -1786,15 +1792,15 @@ def phase_segment(card, per_step, timed, build_log=""):
         # call (one trace of every path's calls), device time, occupancy
         t = bits8_keep_threshold(0.2)
         bnd = (bound(8 * n, OPS_SEGMENT * n)[0], bound(12 * n, 2 * OPS_SEGMENT * n)[0])
-        _, stats = seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, seed, None, None, 0.9)
+        _, stats = seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, key, None, None, 0.9)
         calls = {}
         for label, (path, pf, pb) in paths.items():
             if pf is not None:
                 calls[("K5", label)] = (pf, lambda p=path: seg._launch_fwd(
-                    x, gamma, beta, t, "elu", 1e-5, seed, None, None, 0.9, p))
+                    x, gamma, beta, t, "elu", 1e-5, key, None, None, 0.9, p))
             if pb is not None:
                 calls[("K5-bwd", label)] = (pb, lambda p=path: seg._launch_bwd(
-                    x, g, gamma, stats, t, "elu", seed, p))
+                    x, g, gamma, stats, t, "elu", key, p))
         events = kernel_events(lambda: [fn() for _, fn in calls.values()], len(calls))
         dropped = sum(events.values()) < len(calls)
         for name, entry in (("K5", "fwd_kernel"), ("K5-bwd", "bwd_kernel")):
@@ -1850,7 +1856,7 @@ def phase_segment(card, per_step, timed, build_log=""):
     host = {}
     for name in ("forward", "forward + backward"):
         def call():
-            y = seg.dropout_bn_act(x, gamma, beta, rate=0.2, act="elu", seed=seed)[0]
+            y = seg.dropout_bn_act(x, gamma, beta, rate=0.2, act="elu", **key._asdict())[0]
             if name != "forward":
                 y.backward(g)
         host[name] = host_ms(call)
@@ -1869,22 +1875,23 @@ def phase_segment(card, per_step, timed, build_log=""):
         gamma = torch.rand(c, generator=g_, device=dev) + 0.5
         beta = torch.randn(c, generator=g_, device=dev) * 0.2
         t = bits8_keep_threshold(0.2)
-        _, stats = seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, seed, None, None, 0.9)
+        _, stats = seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, key, None, None, 0.9)
         _, mp, _, rp = segment_forward(x, gamma, beta, t, "elu",
                                        mask_bytes=dropout_bytes(shape, seed, dev))
         # the port's unfused chain: keyed Dropout, batch_norm_train, ELU
         bn = torch.nn.BatchNorm2d(c).to(dev)
         drop = Dropout(0.2)
         drop.key = DropoutKey()
+        drop.key.step = key.step
         chain = lambda v: F.elu(batch_norm_train(bn, drop(v, True)))  # noqa: E731
         xr = x.clone().requires_grad_()
         y_chain = chain(xr)
         calls = {
-            "K5": (lambda: seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, seed, None, None, 0.9),
+            "K5": (lambda: seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, key, None, None, 0.9),
                    lambda: segment_forward(x, gamma, beta, t, "elu",
                                            mask_bytes=dropout_bytes(shape, seed, dev)),
                    lambda: chain(x), bound(8 * n, OPS_SEGMENT * n)),
-            "K5-bwd": (lambda: seg.dropout_bn_act_backward(x, g, gamma, beta, stats, t, "elu", seed),
+            "K5-bwd": (lambda: seg.dropout_bn_act_backward(x, g, gamma, beta, stats, t, "elu", *key),
                        lambda: segment_backward(x, g, gamma, beta, mp, rp, t, "elu",
                                                 dropout_bytes(shape, seed, dev)),
                        lambda: torch.autograd.grad(y_chain, (xr, bn.weight, bn.bias), g,
@@ -1907,6 +1914,90 @@ def phase_segment(card, per_step, timed, build_log=""):
         del x, g, xr, y_chain
         torch.cuda.empty_cache()
     return err, times, steps, {"by_path": by_path, "host_ms": host, "ptxas": ptxas}
+
+
+def unfused_dropouts(model):
+    """Dropout sites of ``model`` that a training step runs through the
+    bits8 dropout kernel: those with a mask that no fused segment
+    absorbs."""
+    from lvae_tpu_torch.models.blocks import Dropout, ResidualBlock
+    from lvae_tpu_torch.ops.math import bits8_keep_threshold
+
+    absorbed = {id(seg.dropout) for m in model.modules()
+                if isinstance(m, ResidualBlock) and m.fused_segments
+                for _, seg in m._segments.values() if seg.dropout is not None}
+    return sum(1 for m in model.modules() if isinstance(m, Dropout) and m.impl == "bits8"
+               and id(m) not in absorbed and 0 < bits8_keep_threshold(m.rate) < 256)
+
+
+DROPOUT_ODD = (3, 5, 7, 2)                   # 210 elements: a ragged last group
+
+
+def phase_dropout(card, shapes):
+    """The bits8 dropout kernel (K5's bytes and key, alone; the unfused
+    Dropout's path on CUDA) against its plain version at every segment
+    shape, a ragged one and a misaligned one: bit-equal forward and
+    backward, relaunches bit-equal; timed at the largest shape (in turns
+    with the plain version) beside its bound."""
+    import torch
+
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.kernels import segment as seg
+    from lvae_tpu_torch.ops.math import bits8_dropout_f32, bits8_keep_threshold
+    from lvae_tpu_torch.ops.philox import dropout_bytes, mix_seed
+
+    print("[14b] the bits8 dropout kernel vs its plain version", flush=True)
+    dev = torch.device("cuda")
+    g_ = torch.Generator(device=dev).manual_seed(141)
+    key = seg.Key(42, torch.tensor(7, dtype=torch.int64, device=dev), 3)
+    seed = mix_seed(42, 7, 3)
+    n_checked, err = 0, 0.0
+    for shape in list(shapes) + [DROPOUT_ODD, "misaligned"]:
+        if shape == "misaligned":       # a contiguous view 4 bytes past an aligned base
+            shape = (4, 8, 6, 6)
+            x = torch.randn(int(np.prod(shape)) + 1, generator=g_, device=dev)[1:].view(shape)
+        else:
+            x = torch.randn(shape, generator=g_, device=dev)
+        bytes_ = dropout_bytes(shape, seed, dev)
+        for rate in (0.1, 0.2, 0.5):
+            t = bits8_keep_threshold(rate)
+            plain = bits8_dropout_f32(x, bytes_, t)
+            y = seg._launch_dropout(x, t, key)
+            err = max(err, (y - plain).abs().max().item())
+            check(torch.equal(y, plain) and torch.equal(seg._launch_dropout(x, t, key), y),
+                  f"dropout {list(shape)} rate {rate}: bit-equal to the plain version, and "
+                  f"a relaunch")
+            n_checked += 1
+        g = torch.randn(shape, generator=g_, device=dev)
+        xr = x.clone().requires_grad_()
+        build.reset_launches()
+        y = seg.dropout_bits8(xr, 0.2, *key)
+        y.backward(g)
+        t = bits8_keep_threshold(0.2)
+        check(build.LAUNCHES["dropout"] == 2 and torch.equal(xr.grad, bits8_dropout_f32(g, bytes_, t)),
+              f"dropout {list(shape)}: dropout_bits8 launches the kernel forward and backward, "
+              f"and dx is the cotangent dropped by the same bytes")
+        build.reset_launches()
+    shape = max(shapes, key=lambda s: int(np.prod(s)))
+    n = int(np.prod(shape))
+    x = torch.randn(shape, generator=g_, device=dev)
+    t = bits8_keep_threshold(0.2)
+    kern = lambda: seg._launch_dropout(x, t, key)     # noqa: E731
+    plain = lambda: bits8_dropout_f32(x, dropout_bytes(shape, mix_seed(*key), dev), t)  # noqa
+    ct = [cuda_ms(plain, 5), cuda_ms(kern, 20), cuda_ms(kern, 20), cuda_ms(plain, 5)]
+    bnd = bound(8 * n, OPS_SEGMENT * n)
+    times = {"ms": (ct[1] + ct[2]) / 2, "plain_ms": (ct[0] + ct[3]) / 2,
+             "device_ms": device_ms(kern, 10), "plain_device_ms": device_ms(plain, 3),
+             "bound_ms": bnd[0], "bound_by": bnd[1], "shape": list(shape)}
+    small = torch.randn((TRAIN_B, 64, 4, 4), generator=g_, device=dev)
+    times["host_ms"] = host_ms(lambda: seg._launch_dropout(small, t, key))
+    print(f"  dropout {list(shape)} rate 0.2 per call: kernel {times['ms']:.4f} ms, plain "
+          f"{times['plain_ms']:.4f} ms; device: kernel {fmt_ms(times['device_ms'])}, plain "
+          f"{fmt_ms(times['plain_device_ms'])}; bound {bnd[0]:.4f} ms ({bnd[1]}); host "
+          f"{times['host_ms']:.4f} ms a call at [{TRAIN_B}, 64, 4, 4]; {n_checked} "
+          f"shape-rate checks  ({card})")
+    build.reset_launches()
+    return err, times
 
 
 def phase_celeba_segments(card, train_u8, test_u8, phase12):
@@ -1949,6 +2040,11 @@ def phase_celeba_segments(card, train_u8, test_u8, phase12):
               f"({launches['segment']})")
         check(launches["segment_bwd"] == n_seg * steps,
               f"K5-bwd: {n_seg} per step ({launches['segment_bwd']})")
+        sites = unfused_dropouts(trainer.state.model)
+        check(sites > 0 and launches["dropout"] == 2 * sites * steps + init["dropout"],
+              f"the dropout kernel: forward and backward at the {sites} dropout sites per "
+              f"step that no segment absorbs, and the init's {init['dropout']} "
+              f"({launches['dropout']})")
         check(launches["mix_log_prob_bwd"] == steps
               and launches["mix_log_prob"] == steps + sweep_batches + init["mix_log_prob"],
               f"K3, K3-bwd as in phase 12 ({launches['mix_log_prob']}, "
@@ -1984,6 +2080,345 @@ def phase_celeba_segments(card, train_u8, test_u8, phase12):
         out["log_rates"] = {step: float(m["images_per_sec"]) for step, m in train_lines.items()}
         out["test_elbo"] = [float(m["elbo"]) for m in tests]
         out["ema_loss"] = (first, last)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# --steps-per-call k: one CUDA graph of k train steps (phase 17)
+# ---------------------------------------------------------------------------
+
+GRAPH_K = 10
+GRAPH_CLI_STEPS = 200
+GRAPH_RATE_STEPS = 40                       # per timed Trainer.run, the first call untimed
+# the kernels of a train step by the identifier in their symbol; K3-bwd
+# has two plans (kernels/mixture.py bwd_plan)
+GRAPH_KERNELS = {"dropout_kernel": "dropout",
+                 "sample_kl_rows_kernel": "sample_kl_per_sample",
+                 "sample_kl_bwd_kernel": "sample_kl_per_sample_bwd",
+                 "mix_fwd_kernel": "mix_log_prob", "mix_bwd_one_pass_kernel": "mix_log_prob_bwd",
+                 "mix_bwd_kernel": "mix_log_prob_bwd", "fwd_kernel": "segment",
+                 "bwd_kernel": "segment_bwd"}
+
+
+def graph_kernel_names(raw_graph):
+    """{kernel symbol: kernel nodes} of a captured CUDA graph, through
+    libcuda: ``cuGraphGetNodes``, ``cuGraphNodeGetType``,
+    ``cuGraphKernelNodeGetParams`` (its ``func`` or ``kern`` field) and
+    ``cuFuncGetName`` / ``cuKernelGetName``."""
+    import collections
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(status, what):
+        if status != 0:
+            raise SmokeFailure(f"{what}: CUresult {status}")
+
+    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2", None) or \
+        cu.cuGraphKernelNodeGetParams
+    handle, n = ctypes.c_void_p(raw_graph), ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = collections.Counter()
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        if kind.value != 0:                     # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = (ctypes.c_byte * 256)()        # CUDA_KERNEL_NODE_PARAMS_v2 and room
+        ok(get_params(ctypes.c_void_p(node), params), "cuGraphKernelNodeGetParams")
+        func = ctypes.c_void_p.from_buffer(params, 0).value
+        kern = ctypes.c_void_p.from_buffer(params, 56).value
+        name = ctypes.c_char_p()
+        if func:
+            ok(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)), "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(kern)),
+               "cuKernelGetName")
+        names[name.value.decode()] += 1
+    return names
+
+
+def port_kernel(symbol):
+    """The launch counter of the port's kernel whose mangled symbol this is
+    (None for another kernel): its identifier with the length prefix the
+    mangling gives it, so not a longer identifier ending in it."""
+    for ident, counter in GRAPH_KERNELS.items():
+        if f"{len(ident)}{ident}" in symbol:
+            return counter
+    return None
+
+
+def state_equal(a, b):
+    """Names of what differs, bit for bit, between two train states:
+    parameters and BatchNorm statistics, EMA, Adamax state, the step."""
+    import torch
+
+    bad = [k for k, t in a.model.state_dict().items()
+           if not torch.equal(t, b.model.state_dict()[k])]
+    bad += [f"ema.{k}" for k in a.ema if not torch.equal(a.ema[k], b.ema[k])]
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    bad += [f"adamax.{i}.{k}" for i in sa for k in ("step", "exp_avg", "exp_inf")
+            if not torch.equal(sa[i][k], sb[i][k])]
+    if a.step != b.step or int(a.step_t) != int(b.step_t):
+        bad.append("step")
+    return bad
+
+
+def device_union(fn, reps=1):
+    """(device ms per call as the union of the kernels' intervals, the sum
+    of their durations, wall ms per call, kernel events) of ``reps`` calls
+    of ``fn`` under torch.profiler (device activity only, which keeps the
+    trace of an eager call's ~10^5 host operators out), after one call
+    outside it. A graph replay may run independent kernels at once, so
+    the sum can exceed the wall time; the union is the time the device had
+    a kernel running."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    events = prof.events()
+    host_keys = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CPU}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type != DeviceType.CPU and e.name not in host_keys
+                   and not getattr(e, "is_user_annotation", False))
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    total_us = sum(b - a for a, b in spans)
+    return union / 1e3 / reps, total_us / 1e3 / reps, wall, len(spans)
+
+
+def graph_cell(card, name, args, data, weights):
+    """One model and kernel policy under ``--steps-per-call GRAPH_K``: 3k
+    steps through MultiStep (a warm-up call of k eager steps, which
+    captures the graph, then two replays) against 3k eager train steps
+    from the same state and batches, bit for bit (deterministic
+    algorithms on, as phases 9 and 13); the graph's kernel nodes by
+    kernel against the eager steps' launches; then train images/s through
+    Trainer.run with k = 1 and k = GRAPH_K in turns (E, G, G, E), and each
+    path's device ms per step and idle share from a profile."""
+    import dataclasses
+
+    import torch
+
+    from lvae_tpu_torch.config import config_from_args
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.train.state import MultiStep, train_step
+    from lvae_tpu_torch.train.trainer import Experiment, Trainer, index_stream
+
+    k = GRAPH_K
+    cfg, _ = config_from_args(args)
+    print(f"  {name}: batch {cfg.batch_size}, dropout {cfg.dropout}, --fused {cfg.fused}, "
+          f"k = {k}", flush=True)
+
+    def setup():
+        exp = Experiment(cfg, torch.device("cuda"), data)
+        exp.model.load_state_dict(weights)
+        return exp, exp.init_state(data_dep_init=False)
+
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        exp, eager = setup()
+        stream = index_stream(exp.train_data, cfg.batch_size, cfg.seed, 0, k)
+        blocks = [next(stream) for _ in range(3)]
+        build.reset_launches()
+        for block in blocks:
+            for row in block:
+                train_step(eager, exp.train_data.gather(row), row, exp.loss_cfg)
+        torch.cuda.synchronize()
+        per_step = {n: v / (3 * k) for n, v in build.LAUNCHES.items() if v}
+        _, graphed = setup()
+        multi = MultiStep(graphed, exp.train_data.gather, exp.loss_cfg, k)
+        build.reset_launches()
+        for block in blocks:
+            multi(block)
+        torch.cuda.synchronize()
+        run_launches = dict(build.LAUNCHES)
+        build.reset_launches()
+        bad = state_equal(graphed, eager)
+        check(not bad, f"{name}: {3 * k} steps (k eager, then 2 replays of the graph) "
+                       f"bit-equal to {3 * k} eager steps: parameters, BatchNorm statistics, "
+                       f"EMA, Adamax state, step (differ: {bad[:5]})")
+        check(all(run_launches.get(n, 0) == 3 * k * v for n, v in per_step.items()),
+              f"{name}: the launch counts of the graphed run (the warm-up's and 2 replays' "
+              f"{run_launches}) are the eager run's")
+        symbols = graph_kernel_names(multi.graph.raw_cuda_graph())
+        nodes = sum(symbols.values())
+        ours = {}
+        for sym, v in symbols.items():
+            counter = port_kernel(sym)
+            if counter is not None:
+                ours[counter] = ours.get(counter, 0) + v
+        print(f"  {name}: the graph holds {nodes} kernel nodes ({nodes / k:.0f} per step); "
+              f"the port's kernels per step: "
+              f"{ {n: v / k for n, v in ours.items()} }; eager launches per step: {per_step}")
+        for sym, v in symbols.most_common(12):
+            print(f"    {v / k:7.1f} per step  {sym[:110]}")
+        for sym in sorted(s for s in symbols if port_kernel(s)):
+            print(f"    {symbols[sym] / k:7.1f} per step  {sym[:110]}")
+        want = {n for n in per_step if n in GRAPH_KERNELS.values()}
+        check(want and {n: v / k for n, v in ours.items()} == {n: per_step[n] for n in want},
+              f"{name}: the graph's kernel nodes name each kernel of the step "
+              f"({sorted(want)}) at the eager per-step counts")
+        check(multi.launches == {n: v * k for n, v in per_step.items()},
+              f"{name}: a replay counts the graph's launches ({multi.launches})")
+        out.update(kernel_nodes_per_step=nodes / k,
+                   port_kernels_per_step={n: v / k for n, v in ours.items()})
+        del exp, eager, graphed, multi, blocks, stream
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    def trainer(steps_per_call, steps):
+        run_cfg = dataclasses.replace(
+            cfg, steps_per_call=steps_per_call, max_steps=steps, log_interval=k,
+            test_interval=10 ** 9, checkpoint_interval=10 ** 9, dry_run=True)
+        return Trainer(Experiment(run_cfg, torch.device("cuda"), data))
+
+    def rate(steps_per_call):
+        tr = trainer(steps_per_call, GRAPH_RATE_STEPS)
+        tr.run()
+        rates = [float(m["images_per_sec"]) for kind, step, m in tr.logger.history
+                 if kind == "train" and step > k]
+        return len(rates) / sum(1.0 / r for r in rates)
+
+    runs = {1: [], k: []}
+    for spc in (1, k, k, 1):
+        runs[spc].append(rate(spc))
+    b = cfg.batch_size
+    for spc, label in ((1, "eager"), (k, "graphed")):
+        r = float(np.mean(runs[spc]))
+        out[label] = {"images_per_sec": r, "ms_per_step": 1e3 * b / r, "runs": runs[spc]}
+        print(f"  {name} {label} (--steps-per-call {spc}): Trainer.run, steps "
+              f"{k + 1}-{GRAPH_RATE_STEPS}, batch {b}: {r:.1f} img/s, {1e3 * b / r:.2f} ms/step "
+              f"(runs {runs[spc]})  ({card})")
+
+    # device time and idle share: a call of k steps, after a first call
+    # (the graphed path's warm-up and capture) outside the profile
+    for spc, label in ((1, "eager"), (k, "graphed")):
+        exp, state = setup()
+        stream = index_stream(exp.train_data, cfg.batch_size, cfg.seed, 0, k)
+        if spc == 1:
+            def call():
+                for row in next(stream):
+                    train_step(state, exp.train_data.gather(row), row, exp.loss_cfg)
+        else:
+            multi = MultiStep(state, exp.train_data.gather, exp.loss_cfg, k)
+            call = lambda: multi(next(stream))   # noqa: E731
+        call()
+        busy, kernel_sum, wall, n_events = device_union(call)
+        out[label].update(device_ms_per_step=busy / k, kernel_ms_per_step=kernel_sum / k,
+                          profiled_ms_per_step=wall / k, idle_share=1.0 - busy / wall,
+                          kernel_events_per_step=n_events / k)
+        print(f"  {name} {label}: profile of a call of {k} steps: device busy {busy / k:.2f} ms "
+              f"per step (the union of kernel intervals; their sum {kernel_sum / k:.2f}), wall "
+              f"{wall / k:.2f} ms per step, idle share {1.0 - busy / wall:.3f}, "
+              f"{n_events / k:.0f} kernel events per step  ({card})")
+        del exp, state, stream
+        torch.cuda.empty_cache()
+    return out
+
+
+def graph_cli(card, train_u8, test_u8):
+    """``lvae_tpu_torch.main --steps-per-call GRAPH_K``: GRAPH_CLI_STEPS
+    flagship steps with the log, test and checkpoint hooks, then an
+    ``--auto-resume`` from its middle checkpoint to the same step, bit-equal
+    to the uninterrupted run (deterministic algorithms on in both)."""
+    import shutil
+
+    import torch
+
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.kernels import build
+
+    n, half = GRAPH_CLI_STEPS, GRAPH_CLI_STEPS // 2
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data_dir = os.path.join(tmp, "data")
+            write_mnist(data_dir, train_u8, test_u8)
+
+            def run(out_dir, *extra):
+                return train_main.main(FLAGSHIP_ARGS + [
+                    "--data-dir", data_dir, "--max-steps", str(n), "--device", "cuda",
+                    "--steps-per-call", str(GRAPH_K), "--log-interval", "50",
+                    "--test-interval", str(half), "--checkpoint-interval", str(half),
+                    "--output-dir", out_dir, "--run-name", "graphed", *extra])
+
+            build.reset_launches()
+            t0 = time.perf_counter()
+            whole = run(os.path.join(tmp, "a"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(build.LAUNCHES)
+            print(f"  the CLI run: {n} steps, 2 test sweeps, 2 checkpoints in {wall:.1f} s; "
+                  f"launches {launches}  ({card})")
+            check(launches["sample_kl_per_sample"] == 3 * n
+                  and launches["sample_kl_per_sample_bwd"] == 3 * n,
+                  f"K1, K1-bwd: 3 launches per step, counted through the replays "
+                  f"({launches['sample_kl_per_sample']}, "
+                  f"{launches['sample_kl_per_sample_bwd']})")
+            hist = whole.logger.history
+            check(all(np.isfinite(np.asarray(v, dtype=np.float64)).all()
+                      for _, _, m in hist for v in m.values()),
+                  f"every logged metric finite ({len(hist)} lines)")
+            check([s for kind, s, _ in hist if kind == "test"] == [half, n]
+                  and [s for kind, s, _ in hist if kind == "train"] == list(range(50, n + 1, 50)),
+                  "the log and test hooks fired where a 10-step call crossed their intervals")
+            ckpts = sorted(os.listdir(os.path.join(whole.run_dir, "checkpoints")))
+            check(ckpts == [f"ckpt_{half:08d}.pt", f"ckpt_{n:08d}.pt"],
+                  f"checkpoints at steps {half} and {n} ({ckpts})")
+            second = os.path.join(tmp, "b", "graphed")
+            shutil.copytree(whole.run_dir, second)
+            os.unlink(os.path.join(second, "checkpoints", f"ckpt_{n:08d}.pt"))
+            t0 = time.perf_counter()
+            resumed = run(os.path.join(tmp, "b"), "--auto-resume")
+            print(f"  resumed at step {half} and ran to {n} in "
+                  f"{time.perf_counter() - t0:.1f} s  ({card})")
+            bad = state_equal(resumed.state, whole.state)
+            check(not bad, f"the run resumed from its step-{half} checkpoint is bit-equal to "
+                           f"the uninterrupted one at step {n} (differ: {bad[:5]})")
+            out.update(wall_s=wall, launches=launches,
+                       test_elbo=[float(m["elbo"]) for kind, _, m in hist if kind == "test"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def phase_graph(card, train_u8, test_u8, flagship_weights, c_data, celeba_weights):
+    t0 = time.perf_counter()
+    print(f"[17] --steps-per-call {GRAPH_K}: one CUDA graph of {GRAPH_K} train steps",
+          flush=True)
+    out = {}
+    for name, args, data, weights in (
+            ("flagship auto", FLAGSHIP_ARGS + ["--fused", "auto"],
+             flagship_dataset(train_u8, test_u8), flagship_weights),
+            ("flagship all", FLAGSHIP_ARGS + ["--fused", "all"],
+             flagship_dataset(train_u8, test_u8), flagship_weights),
+            ("celeba64 all", CELEBA_ARGS + ["--fused", "all"], c_data, celeba_weights)):
+        out[name] = graph_cell(card, name, args, data, weights)
+    out["cli"] = graph_cli(card, train_u8, test_u8)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 17 took {out['wall_s']:.1f} s")
     return out
 
 
@@ -2049,7 +2484,7 @@ def main():
     res.update(phase_step(
         card, "[9] one step: the kernel path vs the plain path and the CPU; train "
         "images/s", FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8), flagship_weights,
-        TRAIN_B, TRAIN_STEPS, 100))
+        TRAIN_B, 150, 50))
     mix_err, mix_t, mix_more = phase_mixture(card, build_log)
     res["mixture"] = mix_more
     c_all = rgb_blobs(CELEBA_N_TRAIN + CELEBA_N_TEST, seed=12)
@@ -2078,6 +2513,7 @@ def main():
     timed = tuple(next(iter(per_step[m])) for m in ("celeba64", "flagship"))
     t14 = time.perf_counter()
     seg_err, seg_t, seg_steps, seg_more = phase_segment(card, per_step, timed, build_log)
+    drop_err, drop_t = phase_dropout(card, [s for c in per_step.values() for s in c])
     print(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
     res["segment_paths"] = {f"{list(shape)} {path}": row
                             for (shape, path), row in seg_more["by_path"].items()}
@@ -2094,6 +2530,8 @@ def main():
         card, "[16b] one flagship step: --fused all vs stochastic on the card; train "
         "images/s", FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8), flagship_weights,
         None, 150, 50, paths=("all", "stochastic"), card_dropout=0.0)
+    res["steps_per_call"] = phase_graph(card, train_u8, test_u8, flagship_weights, c_data,
+                                        celeba_weights)
 
     def times_and_bound(t):
         return [t[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")], \
@@ -2154,6 +2592,14 @@ def main():
             shapes=f"{list(timed[0])}, rate 0.2, elu (flagship: {list(timed[1])})",
             path="celeba64 and the flagship: lvae_tpu_torch.main (training) --fused "
                  "segments|all"))
+    kernels.append(entry(
+        "dropout_bits8", "segment.cu", "lvae_tpu/models/blocks.py:86 (FastDropout: jax.random "
+        "bits, no pl.pallas_call)", tr["launches"]["dropout"], drop_err,
+        [drop_t[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")],
+        (drop_t["bound_ms"], drop_t["bound_by"]), None, host_ms=drop_t["host_ms"],
+        launches_celeba64_all=csg["launches"]["dropout"],
+        shapes=f"{drop_t['shape']}, rate 0.2", path="the flagship and celeba64: "
+        "lvae_tpu_torch.main (training), every bits8 dropout that no segment absorbs"))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, **res}))

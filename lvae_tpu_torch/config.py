@@ -196,8 +196,6 @@ class TrainConfig(EvalConfig):
             ("--remat", self.remat, "rematerialisation"),
             ("--streaming", self.streaming, "the host streaming pipeline"),
             ("--num-data-shards", self.num_data_shards > 1, "multi-GPU training"),
-            ("--steps-per-call", self.steps_per_call > 1,
-             "several steps per dispatch (a CUDA graph in the port)"),
         ):
             if bad:
                 raise ValueError(

@@ -24,9 +24,12 @@
 //
 // Dropout bytes: element e (its flat NCHW index) takes byte e % 16 of
 // Philox4x32-10 at counter (e / 16 low word, high word, 0, kStream) under
-// the two words of the 64-bit seed: word (e % 16) / 4, bits 8 (e % 4) up.
-// No mask is stored in device memory; the seed is mix_seed(train seed,
-// step, dropout site), computed by the caller.
+// the two words of the 64-bit key: word (e % 16) / 4, bits 8 (e % 4) up.
+// No mask is stored in device memory. The key is mix_seed(train seed,
+// step, dropout site) (ops/philox.py): the caller passes the seed and the
+// site by value and the step as a pointer to device memory, and every
+// thread derives the key from them at its start (drop_key), so a CUDA
+// graph of a train step launches the kernels with the step of each replay.
 //
 // What bounds it. Both directions are a per-channel reduction followed by
 // an elementwise map that needs the reduction's result, so the least work
@@ -114,8 +117,33 @@ struct Drop {
   bool on;        // t < 256: a mask applies (t <= 0 drops everything)
   int t;
   float scale;    // 256 / t rounded to fp32 (0 when t <= 0)
-  uint32_t k0, k1;
+  unsigned long long seed, site;   // the train seed and the dropout site
+  const long long* step;           // the step in device memory (NULL: no bytes drawn)
+  uint32_t k0, k1;                 // the Philox key, set on chip by drop_key
 };
+
+// one word of ops/philox.py mix_seed (splitmix64)
+__device__ __forceinline__ unsigned long long mix_word(unsigned long long h,
+                                                       unsigned long long w) {
+  h = (h ^ w) * 0xBF58476D1CE4E5B9ull;
+  h = (h ^ (h >> 27)) * 0x94D049BB133111EBull;
+  return h ^ (h >> 31);
+}
+
+// d with its Philox key mix_seed(seed, *step, site); every thread reads
+// the same 8 bytes of the step
+__device__ __forceinline__ Drop drop_key(Drop d) {
+  if (d.step != nullptr) {
+    unsigned long long h = 0x9E3779B97F4A7C15ull;
+    h = mix_word(h, d.seed);
+    h = mix_word(h, static_cast<unsigned long long>(*d.step));
+    h = mix_word(h, d.site);
+    h >>= 1;
+    d.k0 = static_cast<uint32_t>(h);
+    d.k1 = static_cast<uint32_t>(h >> 32);
+  }
+  return d;
+}
 
 template <int kAct>
 __device__ __forceinline__ float act(float z) {
@@ -415,7 +443,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs a) {
   float* u_smem = reinterpret_cast<float*>(smem4);
   uint32_t* keep_chip = reinterpret_cast<uint32_t*>(u_smem + static_cast<size_t>(V) * chip);
   uint32_t* keep_rest = keep_chip + chip;
-  const Drop& d = a.d;
+  const Drop d = drop_key(a.d);
   const int c = a.p.c;
   const double n = static_cast<double>(a.p.b * a.p.hw);
   const unsigned T = blockDim.x;
@@ -549,7 +577,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs a) {
   float* xhat_smem = dz_smem + static_cast<size_t>(V) * chip;
   uint32_t* keep_chip = reinterpret_cast<uint32_t*>(xhat_smem + static_cast<size_t>(V) * chip);
   uint32_t* keep_rest = keep_chip + chip;
-  const Drop& d = a.d;
+  const Drop d = drop_key(a.d);
   const int c = a.p.c;
   const double n = static_cast<double>(a.p.b * a.p.hw);
   const unsigned T = blockDim.x;
@@ -647,15 +675,20 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs a) {
   if (multi) cluster_wait();   // no CTA exits while another may read its `red`
 }
 
-Drop make_drop(int t, unsigned long long seed) {
+// the bytes are drawn only for 0 < t < 256, and then the step is needed
+Drop make_drop(int t, unsigned long long seed, unsigned long long site, const void* step) {
   Drop d;
   d.on = t < 256;
   d.t = t;
   d.scale = t > 0 ? static_cast<float>(256.0 / t) : 0.0f;
-  d.k0 = static_cast<uint32_t>(seed);
-  d.k1 = static_cast<uint32_t>(seed >> 32);
+  d.seed = seed;
+  d.site = site;
+  d.step = t > 0 && t < 256 ? static_cast<const long long*>(step) : nullptr;
+  d.k0 = d.k1 = 0;
   return d;
 }
+
+bool bad_key(int t, const void* step) { return t > 0 && t < 256 && step == nullptr; }
 
 // dynamic shared memory per CTA: the chip units' data (x forward; g and
 // x backward; 4 B per element each) and keep words, and the keep words of
@@ -772,38 +805,100 @@ int launch(Kernel<Args> fn, const SegPlan& p, const Args& args, cudaStream_t s) 
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
+// The dropout alone, for a bits8 Dropout that no segment absorbs (the
+// trailing 'd' of a residual block, or every dropout without --fused
+// segments|all): y = u, the segment's dropped input, under the segment's
+// bytes and key. Linear in x, so the backward is the same kernel on the
+// cotangent. A thread takes 16 consecutive elements, one Philox call; its
+// bound is the bytes, x read and y written once (8 B an element). The
+// port's plain version (ops/philox.py dropout_bytes, ~270 PyTorch ops a
+// call) would put hundreds of launches a site into every train step.
+__global__ void __launch_bounds__(256) dropout_kernel(const float* __restrict__ x,
+                                                     float* __restrict__ y, long long n,
+                                                     const Drop a) {
+  const Drop d = drop_key(a);
+  const long long groups = (n + 15) / 16;
+  const bool vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(y) % 16 == 0);
+  for (long long grp = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       grp < groups; grp += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long e0 = grp * 16;
+    const uint32_t bits = keep_bits<16>(d, e0);
+    if (vec && e0 + 16 <= n) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float4 v = reinterpret_cast<const float4*>(x + e0)[q];
+        v.x = dropped(d, v.x, (bits >> (4 * q)) & 1u);
+        v.y = dropped(d, v.y, (bits >> (4 * q + 1)) & 1u);
+        v.z = dropped(d, v.z, (bits >> (4 * q + 2)) & 1u);
+        v.w = dropped(d, v.w, (bits >> (4 * q + 3)) & 1u);
+        reinterpret_cast<float4*>(y + e0)[q] = v;
+      }
+    } else {
+      for (int j = 0; j < 16 && e0 + j < n; ++j) {
+        y[e0 + j] = dropped(d, x[e0 + j], (bits >> j) & 1u);
+      }
+    }
+  }
+}
+
 }  // namespace
+
+// The bits8 dropout alone: y = x where its byte (the segment's, under
+// mix_seed(seed, *step, site)) is below t, scaled by 256 / t, else 0; for
+// 0 < t < 256 (the caller takes the other thresholds). x and y [n] fp32.
+extern "C" int lvae_dropout_bits8(const void* x, void* y, long long n, int t,
+                                  unsigned long long seed, unsigned long long site,
+                                  const void* step, void* stream) {
+  if (n < 0 || t <= 0 || t >= 256 || step == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    const long long groups = (n + 15) / 16;
+    const long long blocks = (groups + 255) / 256;
+    const unsigned grid = static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16);
+    dropout_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<float*>(y), n, make_drop(t, seed, site, step));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // K5: x [b, c, hw] -> y, stats [5, c] (mean, var, r, scale, shift); moves
 // running_mean / running_var (unless NULL). x and y 16-byte aligned where
-// the plan's vec is 4 or 16. act 0 elu, 1 relu.
+// the plan's vec is 4 or 16. act 0 elu, 1 relu. The mask's key is
+// mix_seed(seed, *step, site), step an int64 in device memory, read by the
+// kernel (needed where 0 < t < 256, else it may be NULL).
 extern "C" int lvae_segment_fwd(const SegPlan* plan, const void* x, const void* gamma,
                                 const void* beta, void* running_mean, void* running_var,
                                 void* y, void* stats, int t, int act, double eps,
                                 float momentum, float one_minus_momentum,
-                                unsigned long long seed, void* stream) {
-  if (bad_plan(*plan, false) || (act != kElu && act != kRelu)) {
+                                unsigned long long seed, unsigned long long site,
+                                const void* step, void* stream) {
+  if (bad_plan(*plan, false) || (act != kElu && act != kRelu) || bad_key(t, step)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   FwdArgs a{static_cast<const float*>(x), static_cast<const float*>(gamma),
             static_cast<const float*>(beta), static_cast<float*>(running_mean),
             static_cast<float*>(running_var), static_cast<float*>(y),
-            static_cast<float*>(stats), *plan, make_drop(t, seed), eps, momentum,
+            static_cast<float*>(stats), *plan, make_drop(t, seed, site, step), eps, momentum,
             one_minus_momentum};
   return launch(pick_fwd(*plan, act), *plan, a, static_cast<cudaStream_t>(stream));
 }
 
 // K5-bwd: g [b, c, hw] with the forward's x and stats -> dx and dgb [2, c]
-// (dgamma, dbeta); x, g and dx 16-byte aligned where vec is 4 or 16.
+// (dgamma, dbeta); x, g and dx 16-byte aligned where vec is 4 or 16. The
+// key as the forward's.
 extern "C" int lvae_segment_bwd(const SegPlan* plan, const void* x, const void* g,
                                 const void* gamma, const void* stats, void* dx, void* dgb,
-                                int t, int act, unsigned long long seed, void* stream) {
-  if (bad_plan(*plan, true) || (act != kElu && act != kRelu)) {
+                                int t, int act, unsigned long long seed,
+                                unsigned long long site, const void* step, void* stream) {
+  if (bad_plan(*plan, true) || (act != kElu && act != kRelu) || bad_key(t, step)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BwdArgs a{static_cast<const float*>(x), static_cast<const float*>(g),
             static_cast<const float*>(gamma), static_cast<const float*>(stats),
-            static_cast<float*>(dx), static_cast<float*>(dgb), *plan, make_drop(t, seed)};
+            static_cast<float*>(dx), static_cast<float*>(dgb), *plan,
+            make_drop(t, seed, site, step)};
   return launch(pick_bwd(*plan, act), *plan, a, static_cast<cudaStream_t>(stream));
 }
 

@@ -17,6 +17,7 @@ from lvae_tpu_torch.ops.philox import (
     STREAM_BINARIZE,
     STREAM_TRAIN_BINARIZE,
     STREAM_TRAIN_DEQUANTIZE,
+    Ints,
     keyed_uniform,
 )
 
@@ -49,14 +50,15 @@ def eval_preprocess_batch(batch_u8: torch.Tensor, mode: str,
 
 
 def preprocess_batch(batch_u8: torch.Tensor, mode: str, seed: int,
-                     index: torch.Tensor, step: int) -> torch.Tensor:
+                     index: torch.Tensor, step: Ints) -> torch.Tensor:
     """Training preprocessing: uint8 NHWC batch -> float32 model input.
 
     ``binarize`` draws image ``i`` from Bernoulli(u8 / 255) and
     ``dequantize`` adds uniform noise in (0, 1], both keyed by ``(seed,
     index[i], step)`` on their own Philox streams, so a step's input is a
     function of the step alone (``lvae_tpu`` keys them per step from its
-    train key)."""
+    train key). ``step`` is an int or a 0-d int64 tensor on the batch's
+    device, read there (a captured train step's)."""
     if mode == PREPROCESS_NONE:
         return batch_u8.to(torch.float32)
     index = index.to(batch_u8.device)

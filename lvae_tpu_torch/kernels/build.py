@@ -10,7 +10,10 @@ of the sources and flags, and loaded once per process. A missing
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES`, adding one
 where it launches the kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels. A CUDA graph of train steps
+(``train/state.py`` ``MultiStep``) takes back the counts of its capture,
+which records launches without running them, and adds the launches it
+holds at each replay.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ LAUNCHES = {
     "mix_log_prob_bwd": 0,           # K3-bwd
     "segment": 0,                    # K5
     "segment_bwd": 0,                # K5-bwd
+    "dropout": 0,                    # K5's bits8 dropout alone, forward and backward
 }
 
 _P = ctypes.c_void_p
@@ -82,13 +86,16 @@ _SIGNATURES = {
                                    _P),
     # plan (kernels/segment.py _CPlan), x, gamma, beta, running_mean,
     # running_var (or NULL), y, stats, t, act, eps, momentum, 1 - momentum,
-    # seed, stream
+    # train seed, dropout site, step (a device pointer; NULL without a
+    # mask), stream
     "lvae_segment_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _INT, _INT, ctypes.c_double,
-                         ctypes.c_float, ctypes.c_float, _U64, _P),
-    # plan, x, g, gamma, stats, dx, dgb, t, act, seed, stream
-    "lvae_segment_bwd": (_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _U64, _P),
+                         ctypes.c_float, ctypes.c_float, _U64, _U64, _P, _P),
+    # plan, x, g, gamma, stats, dx, dgb, t, act, seed, site, step, stream
+    "lvae_segment_bwd": (_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _U64, _U64, _P, _P),
     # plan, direction, act, out
     "lvae_segment_max_clusters": (_P, _INT, _INT, _P),
+    # x, y, n, t, train seed, dropout site, step (device pointer), stream
+    "lvae_dropout_bits8": (_P, _P, _I64, _INT, _U64, _U64, _P, _P),
 }
 
 

@@ -7,8 +7,11 @@ backward: the port of ``fused_dropout_bn_act``
 backward K5-bwd (``_segment_bwd_impl`` :318). Both take the model's NCHW
 map ``x [B, C, H, W]`` as it is, with any B, C, H and W; the dropout bytes
 are the keyed Philox bytes of
-:func:`lvae_tpu_torch.ops.philox.dropout_bytes`, generated in the kernel
-from ``seed``.
+:func:`lvae_tpu_torch.ops.philox.dropout_bytes` under ``mix_seed(seed,
+step, site)``, generated in the kernel: it takes the train seed and the
+site by value and reads the step from device memory (a 0-d int64
+tensor), deriving the key on chip, so a CUDA graph of a train step
+replays with the step it finds there.
 
 Each direction is one launch of ``csrc/segment.cu`` whose shape
 :func:`_plan` computes from the tensor's shape alone: a thread block
@@ -36,11 +39,12 @@ from torch.autograd.function import once_differentiable
 from lvae_tpu_torch.kernels import build
 from lvae_tpu_torch.ops.math import (
     SEGMENT_ACTS,
+    bits8_dropout_f32,
     bits8_keep_threshold,
     segment_backward,
     segment_forward,
 )
-from lvae_tpu_torch.ops.philox import dropout_bytes
+from lvae_tpu_torch.ops.philox import Ints, dropout_bytes, mix_seed
 
 SMS = 132                       # streaming multiprocessors of an H100 SXM
 SMEM_MAX = 232_448              # shared memory a CTA can have
@@ -198,9 +202,40 @@ def _checked(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, act: str)
                          f"{tuple(beta.shape)}")
 
 
-def _plain_bytes(x: torch.Tensor, t: int, seed: int) -> Optional[torch.Tensor]:
+class Key(NamedTuple):
+    """A segment's dropout key: the train seed, the step (a 0-d int64
+    tensor on the segment's device) and the dropout site. The mask's
+    Philox key is ``mix_seed(seed, step, site)``."""
+
+    seed: int
+    step: torch.Tensor
+    site: int
+
+
+def _key(x: torch.Tensor, seed: int, step: Ints, site: int) -> Key:
+    if isinstance(step, torch.Tensor):
+        if step.dim() != 0 or step.dtype != torch.int64 or step.device != x.device:
+            raise ValueError(f"step must be a 0-d int64 tensor on {x.device}, got "
+                             f"{step.dtype} {tuple(step.shape)} on {step.device}")
+    else:   # a host int: one copy to the device (not for a captured step)
+        step = torch.tensor(int(step), dtype=torch.int64, device=x.device)
+    return Key(int(seed), step, int(site))
+
+
+def _plain_bytes(x: torch.Tensor, t: int, key: Key) -> Optional[torch.Tensor]:
     """The plain path's keyed dropout bytes (None where no mask applies)."""
-    return dropout_bytes(x.shape, seed, x.device) if 0 < t < 256 else None
+    return dropout_bytes(x.shape, mix_seed(*key), x.device) if 0 < t < 256 else None
+
+
+_M64 = 2 ** 64 - 1
+
+
+def _c_key(t: int, key: Optional[Key]) -> tuple:
+    """The C entry points' (seed, site, step pointer): zeros and no
+    pointer where no mask applies (the kernels then read no step)."""
+    if key is None or not 0 < t < 256:
+        return 0, 0, None
+    return key.seed & _M64, key.site & _M64, key.step.data_ptr()
 
 
 def _aligned(v: torch.Tensor) -> torch.Tensor:
@@ -209,7 +244,7 @@ def _aligned(v: torch.Tensor) -> torch.Tensor:
     return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
-def _launch_fwd(x, gamma, beta, t, act, eps, seed, running_mean, running_var, momentum,
+def _launch_fwd(x, gamma, beta, t, act, eps, key, running_mean, running_var, momentum,
                 path=None):
     """K5 on a checked contiguous CUDA ``x``: ``(y, stats)``, stats the
     rows mean, var, r, scale, shift. ``path`` forces the plan's path."""
@@ -227,13 +262,13 @@ def _launch_fwd(x, gamma, beta, t, act, eps, seed, running_mean, running_var, mo
         None if running_mean is None else running_mean.data_ptr(),
         None if running_var is None else running_var.data_ptr(),
         y.data_ptr(), stats.data_ptr(), t, SEGMENT_ACTS.index(act), eps, momentum,
-        1.0 - momentum, seed & (2 ** 64 - 1), stream))
+        1.0 - momentum, *_c_key(t, key), stream))
     build.LAUNCHES["segment"] += 1
     build.check(status, "segment")
     return y, stats
 
 
-def _launch_bwd(x, g, gamma, stats, t, act, seed, path=None):
+def _launch_bwd(x, g, gamma, stats, t, act, key, path=None):
     """K5-bwd on checked contiguous CUDA tensors: ``(dx, dgamma, dbeta)``."""
     b, c, h, w = x.shape
     _, plan = _c_plan(b, c, h, w, "bwd", path)
@@ -242,28 +277,31 @@ def _launch_bwd(x, g, gamma, stats, t, act, seed, path=None):
     dgb = x.new_empty((2, c))                                    # dgamma, dbeta
     status = build.on_device(x, lambda stream: build.library().lvae_segment_bwd(
         plan, x.data_ptr(), g.data_ptr(), gamma.data_ptr(), stats.data_ptr(), dx.data_ptr(),
-        dgb.data_ptr(), t, SEGMENT_ACTS.index(act), seed & (2 ** 64 - 1), stream))
+        dgb.data_ptr(), t, SEGMENT_ACTS.index(act), *_c_key(t, key), stream))
     build.LAUNCHES["segment_bwd"] += 1
     build.check(status, "segment_bwd")
     return (dx, *dgb.unbind(0))
 
 
-def _backward(x, g, gamma, beta, stats, t, act, seed):
+def _backward(x, g, gamma, beta, stats, t, act, key):
     if not x.is_cuda:
         return segment_backward(x, g, gamma, beta, stats[0], stats[2], t, act,
-                                _plain_bytes(x, t, seed))
-    return _launch_bwd(x, g, gamma, stats, t, act, seed)
+                                _plain_bytes(x, t, key))
+    return _launch_bwd(x, g, gamma, stats, t, act, key)
 
 
 def dropout_bn_act_backward(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
                             beta: torch.Tensor, stats: torch.Tensor, t: int, act: str,
-                            seed: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                            seed: int = 0, step: Ints = 0, site: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5-bwd: ``(dx, dgamma, dbeta)`` from the cotangent ``g`` of ``y``,
-    given the forward's ``stats`` (rows mean, var, r, scale, shift)."""
+    given the forward's ``stats`` (rows mean, var, r, scale, shift) and its
+    key (``seed``, ``step``, ``site``)."""
     _checked(x, gamma, beta, act)
     if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
         raise ValueError(f"g must be {x.dtype} {tuple(x.shape)} on {x.device}")
-    return _backward(x, g.contiguous(), gamma, beta, stats, t, act, seed)
+    key = _key(x, seed, step, site) if 0 < t < 256 else None
+    return _backward(x, g.contiguous(), gamma, beta, stats, t, act, key)
 
 
 class _Segment(torch.autograd.Function):
@@ -272,17 +310,19 @@ class _Segment(torch.autograd.Function):
     (mean, var, r, scale, shift); only y carries a gradient."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, running_mean, running_var, t, act, eps, seed, momentum):
+    def forward(ctx, x, gamma, beta, running_mean, running_var, t, act, eps, key, momentum):
         if not x.is_cuda:
             y, mean, var, r = segment_forward(x, gamma, beta, t, act, eps,
-                                              _plain_bytes(x, t, seed), running_mean,
+                                              _plain_bytes(x, t, key), running_mean,
                                               running_var, momentum)
             scale = gamma * r
             stats = torch.stack([mean, var, r, scale, beta - mean * scale])
         else:
-            y, stats = _launch_fwd(x, gamma, beta, t, act, eps, seed, running_mean,
+            y, stats = _launch_fwd(x, gamma, beta, t, act, eps, key, running_mean,
                                    running_var, momentum)
-        ctx.t, ctx.act, ctx.seed = t, act, seed
+        # the key's step tensor is read again by the backward, before the
+        # train step moves it on
+        ctx.t, ctx.act, ctx.key = t, act, key
         ctx.save_for_backward(x, gamma, beta, stats)
         ctx.mark_non_differentiable(stats)
         return y, stats
@@ -293,13 +333,60 @@ class _Segment(torch.autograd.Function):
         # x, gamma, beta were checked in the forward; g has y's shape
         x, gamma, beta, stats = ctx.saved_tensors
         dx, dgamma, dbeta = _backward(x, g.contiguous(), gamma, beta, stats, ctx.t, ctx.act,
-                                      ctx.seed)
+                                      ctx.key)
         return dx, dgamma, dbeta, None, None, None, None, None, None, None
+
+
+def _launch_dropout(x: torch.Tensor, t: int, key: Key) -> torch.Tensor:
+    """The bits8 dropout kernel on a contiguous fp32 CUDA ``x``."""
+    y = torch.empty_like(x)
+    status = build.on_device(x, lambda stream: build.library().lvae_dropout_bits8(
+        x.data_ptr(), y.data_ptr(), x.numel(), t, *_c_key(t, key), stream))
+    build.LAUNCHES["dropout"] += 1
+    build.check(status, "dropout")
+    return y
+
+
+class _Dropout(torch.autograd.Function):
+    """The bits8 dropout kernel; linear in x, so its backward is the same
+    kernel on the cotangent, under the same key."""
+
+    @staticmethod
+    def forward(ctx, x, t, key):
+        ctx.t, ctx.key = t, key
+        return _launch_dropout(x, t, key)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _launch_dropout(g.contiguous(), ctx.t, ctx.key), None, None
+
+
+def dropout_bits8(x: torch.Tensor, rate: float, seed: int, step: Ints,
+                  site: int) -> torch.Tensor:
+    """bits8 dropout alone, under the segment's bytes: ``x`` where the
+    byte of ``dropout_bytes(x.shape, mix_seed(seed, step, site))`` is below
+    ``t = round(256 (1 - rate))``, scaled by ``256 / t`` in fp32, else 0
+    (``x`` itself for ``t >= 256``, zeros for ``t <= 0``); ``step`` a 0-d
+    int64 tensor on ``x``'s device, read there. A CUDA tensor launches the
+    kernel (``csrc/segment.cu`` ``dropout_kernel``, forward and backward)
+    on a contiguous copy of ``x``; a CPU tensor takes the plain version."""
+    t = bits8_keep_threshold(rate)
+    if t >= 256:      # rate below the 8-bit resolution: keep everything
+        return x
+    if t <= 0:        # rate ~ 1: drop everything
+        return torch.zeros_like(x)
+    key = _key(x, seed, step, site)
+    if not x.is_cuda:
+        return bits8_dropout_f32(x, _plain_bytes(x, t, key), t)
+    if x.dtype != torch.float32:
+        raise TypeError(f"the dropout kernel takes float32, got {x.dtype}")
+    return _Dropout.apply(x.contiguous(), t, key)
 
 
 def dropout_bn_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
                    rate: float = 0.0, act: str = "elu", eps: float = 1e-5, seed: int = 0,
-                   running_mean: Optional[torch.Tensor] = None,
+                   step: Ints = 0, site: int = 0, running_mean: Optional[torch.Tensor] = None,
                    running_var: Optional[torch.Tensor] = None, momentum: float = 0.9
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5: the train-mode segment ``y = act(BatchNorm(drop(x)))`` of the
@@ -310,12 +397,17 @@ def dropout_bn_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     ``rate`` takes bits8 dropout's semantics (keep iff the element's byte
     is below ``t = round(256 (1 - rate))``, survivors scaled by ``256 /
     t``; ``t >= 256`` is no mask, ``t <= 0`` drops everything, so ``y =
-    act(beta)`` with zero statistics). The bytes are keyed by ``seed``
-    (``mix_seed(train seed, step, site)``). A strided ``x`` (a cropped
-    transposed conv's output) is copied to a contiguous one first."""
+    act(beta)`` with zero statistics). The bytes are keyed by
+    ``mix_seed(seed, step, site)``: ``seed`` the train seed, ``step`` a 0-d
+    int64 tensor on ``x``'s device (the kernels read it there; an int is
+    copied to the device first), ``site`` the dropout site. A strided
+    ``x`` (a cropped transposed conv's output) is copied to a contiguous
+    one first."""
     x = x.contiguous()
     _checked(x, gamma, beta, act)
-    y, stats = _Segment.apply(x, gamma, beta, running_mean, running_var,
-                              bits8_keep_threshold(rate), act, eps, int(seed), momentum)
+    t = bits8_keep_threshold(rate)
+    key = _key(x, seed, step, site) if 0 < t < 256 else None
+    y, stats = _Segment.apply(x, gamma, beta, running_mean, running_var, t, act, eps, key,
+                              momentum)
     mean, var, *_ = stats.unbind(0)
     return y, mean, var

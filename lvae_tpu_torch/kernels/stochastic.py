@@ -56,7 +56,8 @@ from lvae_tpu_torch.ops.stochastic import split_params
 @dataclasses.dataclass(frozen=True)
 class Keyed:
     """Keyed noise: row ``i`` draws with counter ``(offset, index[i],
-    sample[i], stream)`` under ``seed`` (``sample`` an int or int64 [B])."""
+    sample[i], stream)`` under ``seed`` (``sample`` an int, int64 [B], or
+    a 0-d int64 tensor on the device: a train step, read there)."""
 
     index: torch.Tensor
     seed: int
@@ -357,6 +358,8 @@ def _row_words(v: torch.Tensor, b: int, device: torch.device,
 def _keyed_on(keyed: Keyed, b: int, device: torch.device) -> Keyed:
     sample = keyed.sample
     if isinstance(sample, torch.Tensor):
+        if sample.dim() == 0:   # one word for every row, on the device (a train step)
+            sample = sample.expand(b)
         sample = _row_words(sample, b, device, "sample")
     return Keyed(_row_words(keyed.index, b, device, "index"), int(keyed.seed),
                  sample, int(keyed.stream))

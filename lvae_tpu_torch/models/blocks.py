@@ -9,8 +9,8 @@ Every block takes ``train``, as ``lvae_tpu``'s do. Eval: BatchNorm
 normalises with its running statistics and dropout is the identity.
 Train: BatchNorm normalises with the batch mean and biased variance and
 moves its running statistics as flax does (momentum 0.9, biased
-variance); dropout draws its mask from a generator keyed by (train seed,
-step, dropout site) (:class:`DropoutKey`), so a step's masks are a
+variance); dropout draws its mask from the Philox stream keyed by (train
+seed, step, dropout site) (:class:`DropoutKey`), so a step's masks are a
 function of the step alone. ``bn_stat_samples > 0`` takes the training
 statistics from the batch's leading rows (``SubsampledBatchNorm``), and
 ``fused_segments`` runs each ``[d] b a`` run of a residual branch as one
@@ -26,9 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lvae_tpu_torch.kernels.segment import dropout_bn_act
-from lvae_tpu_torch.ops.math import SEGMENT_ACTS, bits8_dropout_f32, bits8_keep_threshold
-from lvae_tpu_torch.ops.philox import mix_seed
+from lvae_tpu_torch.kernels.segment import dropout_bits8, dropout_bn_act
+from lvae_tpu_torch.ops.math import SEGMENT_ACTS
+from lvae_tpu_torch.ops.philox import STREAM_FLOAT_DROPOUT, keyed_uniform, mix_seed
 
 NONLINEARITIES: dict[str, Callable] = {
     "relu": F.relu,
@@ -191,31 +191,33 @@ def subsampled_batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor, stat_sample
 
 class DropoutKey:
     """The dropout keys of one model: every :class:`Dropout` of the model
-    holds this one object and its own site number, and draws its bits from
-    a ``torch.Generator`` seeded with ``mix_seed(seed, step, site)``. The
-    model sets ``seed`` and ``step`` before a training forward."""
+    holds this one object and its own site number, and draws its mask
+    under the Philox key ``mix_seed(seed, step, site)``. The model sets
+    ``seed`` (the train seed, a host int) and ``step`` (a 0-d int64 tensor
+    on the device) before a training forward; the key is derived from the
+    step where it lies (in the kernels, for bits8), so no host int changes
+    from step to step: a CUDA graph of the forward replays with the step
+    it reads."""
 
     def __init__(self):
-        self.seed, self.step = 0, 0
-        self._generators: dict = {}
-
-    def seed_for(self, site: int) -> int:
-        """The key of dropout site ``site`` at this step."""
-        return mix_seed(self.seed, self.step, site)
-
-    def generator(self, device: torch.device, site: int) -> torch.Generator:
-        g = self._generators.get(device)
-        if g is None:
-            g = self._generators[device] = torch.Generator(device=device)
-        g.manual_seed(self.seed_for(site))
-        return g
+        self.seed = 0
+        self.step = torch.zeros((), dtype=torch.int64)
 
 
 class Dropout(nn.Module):
     """``lvae_tpu``'s dropout: ``bits8`` keeps an element iff its random
     byte is below ``t = round(256 (1 - rate))`` and scales survivors by
     ``256 / t`` in fp32 (``FastDropout``); ``float`` is plain dropout at
-    the exact rate (``nn.Dropout``). The identity outside training."""
+    the exact rate (``nn.Dropout``). The identity outside training.
+
+    The randomness is keyed by (train seed, step, site): ``bits8`` takes
+    the bytes that the fused segment K5 takes (``dropout_bytes``), so the
+    unfused and fused paths drop the same elements, through K5's dropout
+    kernel on CUDA (``kernels.segment.dropout_bits8``); ``float`` keeps an
+    element iff its keyed uniform in (0, 1] is at most ``1 - rate``
+    (``keyed_uniform`` on its own stream, row ``i`` of a ``[B, ...]``
+    input keyed by ``i``: plain PyTorch, ~270 small ops a call). Both
+    differ from ``lvae_tpu``'s threefry bits, as any generator would."""
 
     def __init__(self, rate: float, impl: str = "bits8"):
         super().__init__()
@@ -228,17 +230,14 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if not train or self.rate == 0.0:
             return x
-        g = self.key.generator(x.device, self.site)
-        if self.impl == "float":
-            keep = 1.0 - self.rate
-            u = torch.rand(x.shape, dtype=x.dtype, device=x.device, generator=g)
-            return torch.where(u < keep, x / keep, 0.0)
-        t = bits8_keep_threshold(self.rate)
-        if t >= 256:      # rate below the 8-bit resolution: keep everything
-            return x
-        if t <= 0:        # rate ~ 1: drop everything
-            return torch.zeros_like(x)
-        return bits8_dropout_f32(x, g, t)
+        step = self.key.step.to(x.device)
+        if self.impl == "bits8":
+            return dropout_bits8(x, self.rate, self.key.seed, step, self.site)
+        keep = 1.0 - self.rate
+        index = torch.arange(x.shape[0], device=x.device)
+        u = keyed_uniform(x.shape, mix_seed(self.key.seed, step, self.site), index, 0,
+                          STREAM_FLOAT_DROPOUT)
+        return torch.where(u <= keep, x / keep, 0.0)
 
 
 class FusedBNActSegment:
@@ -253,9 +252,9 @@ class FusedBNActSegment:
     0.9, biased variance), so ``state_dict()`` keys are the same under
     every ``--fused`` value and checkpoints interoperate. The mask is keyed
     by the absorbed ``Dropout_n``'s site, as that dropout keys its own, so
-    only the generator differs from the unfused ops (keyed Philox bytes,
-    not a ``torch.Generator``'s). As in ``lvae_tpu``, the segment computes
-    in fp32 whatever the input's dtype and casts ``y`` back."""
+    the fused and the unfused ops drop the same elements; the kernels read
+    the step from the key's device tensor. As in ``lvae_tpu``, the segment
+    computes in fp32 whatever the input's dtype and casts ``y`` back."""
 
     def __init__(self, bn: nn.BatchNorm2d, act: str, dropout: "Dropout | None" = None):
         self.bn, self.act, self.dropout = bn, act, dropout
@@ -263,10 +262,10 @@ class FusedBNActSegment:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         bn, drop = self.bn, self.dropout
         rate = drop.rate if drop is not None else 0.0
+        key = dict(seed=drop.key.seed, step=drop.key.step, site=drop.site) if rate > 0.0 else {}
         y, _, _ = dropout_bn_act(
             x.float(), bn.weight.float(), bn.bias.float(), rate=rate, act=self.act,
-            eps=bn.eps, seed=drop.key.seed_for(drop.site) if rate > 0.0 else 0,
-            running_mean=bn.running_mean, running_var=bn.running_var)
+            eps=bn.eps, running_mean=bn.running_mean, running_var=bn.running_var, **key)
         return y.to(x.dtype)
 
 

@@ -29,6 +29,7 @@ fp32 on the card: building the model turns TF32 off
 from __future__ import annotations
 
 import dataclasses
+import numbers
 from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
@@ -294,15 +295,22 @@ class LadderVAE(nn.Module):
     # ------------------------------------------------------------------
     def _set_dropout_step(self, noise: Optional[Noise]) -> None:
         """Key a training forward's dropout by ``(noise.seed, step)``; the
-        step is ``noise.sample``."""
+        step is ``noise.sample``, a 0-d int64 tensor on the device (the
+        train step's, read there: no host sync, and a CUDA graph of the
+        step replays with it) or an int, copied to the device."""
         if self.dropout_rate <= 0.0:
             return
-        if noise is None or isinstance(noise.sample, torch.Tensor):
+        step = None if noise is None else noise.sample
+        if isinstance(step, torch.Tensor) and step.dim() == 0:
+            step = step.to(dtype=torch.int64)
+        elif isinstance(step, numbers.Integral):
+            step = torch.tensor(int(step), dtype=torch.int64, device=self.device)
+        else:
             raise ValueError(
                 "a training forward with dropout needs noise=Noise(seed, "
-                "index, step) with the step as an int sample"
+                "index, step) with the step as an int or a 0-d tensor"
             )
-        self.dropout_key.seed, self.dropout_key.step = int(noise.seed), int(noise.sample)
+        self.dropout_key.seed, self.dropout_key.step = int(noise.seed), step
 
     def _bottomup(self, x: torch.Tensor, train: bool = False) -> list[torch.Tensor]:
         h = self.first_block(self.act(self.first_conv(x)), train)

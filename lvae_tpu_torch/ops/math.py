@@ -38,13 +38,21 @@ def crop_img_tensor(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     return x[:, dh // 2 : dh // 2 + th, dw // 2 : dw // 2 + tw, :]
 
 
-def linear_anneal(step: int, start_value: float, end_value: float,
-                  n_steps: int) -> float:
+def linear_anneal(step, start_value: float, end_value: float, n_steps: int):
     """Linear schedule from ``start_value`` to ``end_value`` over
     ``n_steps`` (the KL-warmup beta), rounded as ``lvae_tpu`` rounds it:
-    the fraction is an fp32 division clipped to [0, 1]."""
+    the fraction is an fp32 division clipped to [0, 1]. ``step`` an int
+    gives a float; a 0-d int64 tensor (the step on the device) gives a 0-d
+    fp32 tensor beside it, the same value, with no host sync (the divisor
+    is a tensor: PyTorch's CUDA division by a Python number multiplies by
+    its reciprocal, which can round otherwise)."""
     if n_steps <= 0:
         return float(np.float32(end_value))
+    if isinstance(step, torch.Tensor):
+        den = torch.full((), float(np.float32(n_steps)), dtype=torch.float32,
+                         device=step.device)
+        frac = torch.clamp(step.to(torch.float32) / den, 0.0, 1.0)
+        return float(np.float32(start_value)) + float(np.float32(end_value - start_value)) * frac
     frac = np.clip(np.float32(step) / np.float32(n_steps), np.float32(0), np.float32(1))
     return float(np.float32(start_value) + np.float32(end_value - start_value) * frac)
 
@@ -68,14 +76,11 @@ def bits8_keep_threshold(rate: float) -> int:
     return int(round((1.0 - rate) * 256.0))
 
 
-def bits8_dropout_f32(u: torch.Tensor, generator: torch.Generator,
-                      t: int) -> torch.Tensor:
-    """uint8-bits dropout at threshold ``t`` (0 < t < 256): bytes drawn
-    from ``generator`` on ``u``'s device, survivors scaled by the realised
-    keep probability's inverse ``256 / t`` in fp32."""
-    bits = torch.randint(0, 256, u.shape, dtype=torch.uint8, device=u.device,
-                         generator=generator)
-    return torch.where(bits < t, u * float(np.float32(256.0 / t)), 0.0)
+def bits8_dropout_f32(u: torch.Tensor, mask_bytes: torch.Tensor, t: int) -> torch.Tensor:
+    """uint8-bits dropout at threshold ``t`` (0 < t < 256): ``u`` where its
+    byte in ``mask_bytes`` is below ``t``, scaled by the realised keep
+    probability's inverse ``256 / t`` in fp32, else 0."""
+    return torch.where(mask_bytes < t, u * float(np.float32(256.0 / t)), 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -107,7 +112,7 @@ def _dropped(x: torch.Tensor, t: int, mask_bytes: Optional[torch.Tensor]) -> tor
         return x
     if t <= 0:
         return torch.zeros_like(x)
-    return torch.where(mask_bytes < t, x * float(np.float32(256.0 / t)), 0.0)
+    return bits8_dropout_f32(x, mask_bytes, t)
 
 
 def _channel(v: torch.Tensor) -> torch.Tensor:

@@ -42,22 +42,51 @@ STREAM_TRAIN_DEQUANTIZE = 0x80000002  # train dequantisation noise, per step
 STREAM_SAMPLE_SELECT = 0x80000003     # image sampling: the mixture component
 STREAM_SAMPLE_DRAW = 0x80000004       # image sampling: the per-pixel draw
 STREAM_SEGMENT_DROPOUT = 0x80000005   # the fused segment's dropout bytes
+STREAM_FLOAT_DROPOUT = 0x80000006     # the unfused 'float' dropout's uniforms
 
 Ints = Union[int, torch.Tensor]
 
 _M64 = (1 << 64) - 1
 
 
-def mix_seed(*words: int) -> int:
+def _signed64(v: int) -> int:
+    """A 64-bit word as the int64 that holds the same bits."""
+    return v - (1 << 64) if v >> 63 else v
+
+
+_MIX_INIT, _MIX_M1, _MIX_M2 = 0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB
+
+
+def _shr(h: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of the 64-bit words held in int64 (``>>`` is
+    arithmetic on a signed tensor: the sign copies are masked off)."""
+    return (h >> n) & ((1 << (64 - n)) - 1)
+
+
+def mix_seed(*words: Ints) -> Ints:
     """A 63-bit seed from a sequence of integers (splitmix64 over each
-    word in turn): the seed of a ``torch.Generator`` keyed by, e.g.,
-    ``(train seed, step, dropout site)``."""
-    h = 0x9E3779B97F4A7C15
+    word in turn): the key of the Philox stream of, e.g., ``(train seed,
+    step, dropout site)``. Where a word is a tensor (a 0-d int64 step on
+    the device), the result is a 0-d int64 tensor on its device, computed
+    there with no host sync: the same bits as the int version, int64
+    products wrapping as 64-bit ones do; csrc/segment.cu ``drop_key``
+    computes the same on chip."""
+    if not any(isinstance(w, torch.Tensor) for w in words):
+        h = _MIX_INIT
+        for w in words:
+            h = (h ^ (int(w) & _M64)) * _MIX_M1 & _M64
+            h = (h ^ (h >> 27)) * _MIX_M2 & _M64
+            h ^= h >> 31
+        return h >> 1
+    device = next(w.device for w in words if isinstance(w, torch.Tensor))
+    h = torch.full((), _signed64(_MIX_INIT), dtype=torch.int64, device=device)
     for w in words:
-        h = (h ^ (int(w) & _M64)) * 0xBF58476D1CE4E5B9 & _M64
-        h = (h ^ (h >> 27)) * 0x94D049BB133111EB & _M64
-        h ^= h >> 31
-    return h >> 1
+        w = (w.to(device=device, dtype=torch.int64) if isinstance(w, torch.Tensor)
+             else _signed64(int(w) & _M64))
+        h = (h ^ w) * _signed64(_MIX_M1)
+        h = (h ^ _shr(h, 27)) * _signed64(_MIX_M2)
+        h = h ^ _shr(h, 31)
+    return _shr(h, 1)
 
 
 def _mulhilo(m: int, b: torch.Tensor):
@@ -70,10 +99,11 @@ def _mulhilo(m: int, b: torch.Tensor):
     return (p_hi >> 16) + (t >> 32), t & _M32
 
 
-def philox4x32(c0: Ints, c1: Ints, c2: Ints, c3: Ints, k0: int, k1: int):
+def philox4x32(c0: Ints, c1: Ints, c2: Ints, c3: Ints, k0: Ints, k1: Ints):
     """Philox4x32-10 of the counter words ``(c0, c1, c2, c3)`` (int64
     tensors or ints holding uint32 values, broadcast together) under the
-    key ``(k0, k1)``. Returns four int64 tensors of uint32 values."""
+    key ``(k0, k1)`` (ints, or 0-d int64 tensors on the counters'
+    device). Returns four int64 tensors of uint32 values."""
     c = [torch.as_tensor(v, dtype=torch.int64) for v in (c0, c1, c2, c3)]
     k0, k1 = k0 & _M32, k1 & _M32
     for r in range(_ROUNDS):
@@ -86,8 +116,11 @@ def philox4x32(c0: Ints, c1: Ints, c2: Ints, c3: Ints, k0: int, k1: int):
     return c
 
 
-def seed_words(seed: int):
-    """The key words of a 64-bit seed (negative seeds wrap)."""
+def seed_words(seed: Ints):
+    """The key words of a 64-bit seed (negative seeds wrap); of a 0-d
+    int64 tensor, two 0-d tensors on its device."""
+    if isinstance(seed, torch.Tensor):
+        return seed & _M32, _shr(seed, 32)
     s = int(seed) % (1 << 64)
     return s & _M32, s >> 32
 
@@ -98,7 +131,7 @@ def uniform24(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 8).to(torch.float32) + 1.0) * (1.0 / 16777216.0)
 
 
-def keyed_words(shape: Sequence[int], seed: int, index: torch.Tensor,
+def keyed_words(shape: Sequence[int], seed: Ints, index: torch.Tensor,
                 sample: Ints, stream: int):
     """Philox output words for a ``[B, ...]`` tensor whose row ``i`` is
     keyed by ``(seed, index[i], sample[i], stream)``. Returns four int64
@@ -124,15 +157,18 @@ def keyed_words(shape: Sequence[int], seed: int, index: torch.Tensor,
     return [w.expand(b, n) for w in words]
 
 
-def dropout_bytes(shape: Sequence[int], seed: int,
+def dropout_bytes(shape: Sequence[int], seed: Ints,
                   device: torch.device | None = None) -> torch.Tensor:
     """The fused segment's dropout byte of every element of a tensor of
     ``shape`` (uint8, on ``device``): element ``e`` (its flat row-major
     index) takes byte ``j = e % 16`` of the Philox output at counter
     ``(e // 16 low word, high word, 0, STREAM_SEGMENT_DROPOUT)`` under the
     key of ``seed``, i.e. ``(word[j // 4] >> 8 (j % 4)) & 255``: one call
-    gives 16 bytes. ``seed`` is ``mix_seed(train seed, step, site)``;
-    ``csrc/segment.cu`` regenerates the same bytes in every pass."""
+    gives 16 bytes. ``seed`` is ``mix_seed(train seed, step, site)``, an
+    int or a 0-d int64 tensor on ``device`` (a step on the device gives
+    one); ``csrc/segment.cu`` regenerates the same bytes in every pass."""
+    if device is None and isinstance(seed, torch.Tensor):
+        device = seed.device
     n = 1
     for d in shape:
         n *= int(d)
@@ -145,7 +181,7 @@ def dropout_bytes(shape: Sequence[int], seed: int,
     return b.reshape(-1)[:n].to(torch.uint8).reshape(tuple(shape))
 
 
-def keyed_normal(shape: Sequence[int], seed: int, index: torch.Tensor,
+def keyed_normal(shape: Sequence[int], seed: Ints, index: torch.Tensor,
                  sample: Ints, stream: int) -> torch.Tensor:
     """Standard normals of ``shape`` (fp32, on ``index``'s device), row
     ``i`` keyed by ``(seed, index[i], sample[i], stream)``."""
@@ -156,9 +192,10 @@ def keyed_normal(shape: Sequence[int], seed: int, index: torch.Tensor,
     return eps.reshape(tuple(shape))
 
 
-def keyed_uniform(shape: Sequence[int], seed: int, index: torch.Tensor,
+def keyed_uniform(shape: Sequence[int], seed: Ints, index: torch.Tensor,
                   sample: Ints, stream: int) -> torch.Tensor:
     """Uniforms in (0, 1] of ``shape``, keyed like :func:`keyed_normal`
-    (output word 0)."""
+    (output word 0); ``seed`` or ``sample`` may be a tensor on the device
+    (a step), so no host int is read."""
     w = keyed_words(shape, seed, index, sample, stream)
     return uniform24(w[0]).reshape(tuple(shape))

@@ -2,13 +2,16 @@
 
 Training: :class:`TrainState` holds the step, the model, its Adamax
 optimiser, the metric EMA (on the device) and the noise seed;
-:func:`train_step` preprocesses a gathered uint8 batch, runs the forward
+:func:`train_body` preprocesses a gathered uint8 batch, runs the forward
 in train mode, takes ``lvae_tpu``'s loss (``-(mean ll - beta * sum of the
 free-bits-clamped per-layer KL)``), backpropagates, clips by optax's
-global-norm rule when asked, steps Adamax and moves the EMA. Every random
-draw of step ``s`` is keyed by ``(seed, dataset index, s, stream)`` or
-``(seed, s, dropout site)``, so a step depends on nothing but its number:
-a resumed run repeats an uninterrupted one.
+global-norm rule when asked, steps Adamax and moves the EMA, all on the
+device with no host sync; :func:`train_step` runs it once and
+:class:`MultiStep` ``k`` times a call (on CUDA, as one CUDA graph). Every
+random draw of step ``s`` is keyed by ``(seed, dataset index, s,
+stream)`` or ``(seed, s, dropout site)``, with ``s`` read from the
+device, so a step depends on nothing but its number: a resumed run
+repeats an uninterrupted one.
 
 Evaluation: ``lvae_tpu`` vmaps a B=1 forward so that image ``i`` draws from
 ``fold_in(key, index[i])``. The port runs the batch as one batch: eval
@@ -22,14 +25,16 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from lvae_tpu_torch.data.device import eval_preprocess_batch, preprocess_batch
+from lvae_tpu_torch.kernels import build
 from lvae_tpu_torch.models.stochastic import Noise
 from lvae_tpu_torch.ops.math import free_bits_kl, linear_anneal
+from lvae_tpu_torch.ops.philox import Ints
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,19 +50,94 @@ class LossConfig:
 class TrainState:
     """``lvae_tpu``'s ``TrainState``: the step, the model (parameters and
     BatchNorm statistics), the optimiser, the metric EMA and the seed of
-    the training noise (``lvae_tpu`` keys ``state.rng`` with seed + 1)."""
+    the training noise (``lvae_tpu`` keys ``state.rng`` with seed + 1).
+
+    ``step`` is the host's count of the steps enqueued; the step body
+    reads the step from :meth:`device_step`, its copy on the device."""
 
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     ema: dict
     seed: int
+    step_t: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+    step_t_at: Optional[int] = dataclasses.field(default=None, repr=False)
+
+    def device_step(self) -> torch.Tensor:
+        """The step as a 0-d int64 tensor on the model's device: one tensor
+        for the run, which every step reads (its keys, beta, the EMA's
+        first step) and moves on in place, so a CUDA graph of the steps
+        holds its address. ``step_t_at`` is the count it holds once the
+        enqueued work has run; where ``step`` moved without it (a restore),
+        it is written from ``step``."""
+        device = next(self.model.parameters()).device
+        if self.step_t is None or self.step_t.device != device:
+            self.step_t = torch.zeros((), dtype=torch.int64, device=device)
+            self.step_t_at = None
+        if self.step_t_at != self.step:
+            self.step_t.fill_(self.step)
+            self.step_t_at = self.step
+        return self.step_t
+
+    def advance(self, n: int) -> None:
+        """Count ``n`` enqueued steps, which move the device step too."""
+        self.step += n
+        self.step_t_at = self.step
+
+
+class Adamax(torch.optim.Optimizer):
+    """``optax.adamax`` (the reference's optimiser) with no host sync: each
+    parameter's step count is a tensor on its device, the bias correction
+    is computed there, and the update is ``_foreach`` ops, so the eager
+    step and a CUDA graph of it launch the same kernels. (``torch.optim.
+    Adamax`` reads the step on the host unless ``capturable=True``, which
+    it refuses on the CPU.) The update is torch's capturable form, ``p +=
+    exp_avg / (exp_inf (b1^t - 1) / lr)``. The state has torch's keys
+    (``step``, ``exp_avg``, ``exp_inf``), so checkpoints load across."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:       # the step beside its parameter
+            for p in group["params"]:
+                st = self.state.get(p)
+                if st and "step" in st:
+                    st["step"] = st["step"].to(device=p.device, dtype=torch.float32)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_inf"] = torch.zeros_like(p)
+            steps, avgs, infs = ([self.state[p][k] for p in params]
+                                 for k in ("step", "exp_avg", "exp_inf"))
+            grads = [p.grad for p in params]
+            b1, b2 = group["betas"]
+            torch._foreach_add_(steps, 1.0)
+            torch._foreach_lerp_(avgs, grads, 1.0 - b1)
+            torch._foreach_mul_(infs, b2)
+            norms = torch._foreach_abs(grads)
+            torch._foreach_add_(norms, group["eps"])
+            torch._foreach_maximum_(infs, norms)
+            corr = torch._foreach_pow(b1, steps)           # b1^t - 1, over lr
+            torch._foreach_sub_(corr, 1.0)
+            torch._foreach_div_(corr, group["lr"])
+            torch._foreach_addcdiv_(params, avgs, torch._foreach_mul(infs, corr))
 
 
 def make_optimizer(model: torch.nn.Module, lr: float) -> torch.optim.Optimizer:
     """Adamax with ``optax.adamax``'s settings (betas 0.9, 0.999; eps 1e-8),
     the reference's optimiser."""
-    return torch.optim.Adamax(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    return Adamax(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
 def init_ema(n_layers: int, device) -> dict:
@@ -67,21 +147,26 @@ def init_ema(n_layers: int, device) -> dict:
 
 @torch.no_grad()
 def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
-    """optax's ``clip_by_global_norm`` in place: when the global norm is
+    """optax's ``clip_by_global_norm`` in place: where the global norm is
     not below ``max_norm``, every gradient becomes ``(g / norm) * max_norm``
-    (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``). Returns the
-    norm."""
+    (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``), chosen on the
+    device (``torch.where``, optax's select), with no host sync. Returns
+    the norm."""
+    grads = list(grads)
     norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    if not bool(norm < max_norm):
-        torch._foreach_div_(list(grads), norm)
-        torch._foreach_mul_(list(grads), max_norm)
+    keep = norm < max_norm
+    clipped = torch._foreach_div(grads, norm)
+    torch._foreach_mul_(clipped, max_norm)
+    for g, c in zip(grads, clipped):
+        g.copy_(torch.where(keep, g, c))
     return norm
 
 
-def loss_terms(model, x: torch.Tensor, noise: Optional[Noise], beta: float,
+def loss_terms(model, x: torch.Tensor, noise: Optional[Noise], beta,
                free_bits: float, forced_eps=None):
     """``(loss, metrics)`` of ``lvae_tpu``'s train loss on a preprocessed
-    NHWC batch, the model in train mode."""
+    NHWC batch, the model in train mode (``beta`` a float or a 0-d
+    tensor)."""
     out = model(x, noise=noise, forced_eps=forced_eps, train=True)
     kl_fb = free_bits_kl(out["kl_sep"], free_bits)          # [L]
     ll_mean = out["ll"].mean()
@@ -97,12 +182,35 @@ def loss_terms(model, x: torch.Tensor, noise: Optional[Noise], beta: float,
     return loss, metrics
 
 
-def train_step(state: TrainState, batch_u8: torch.Tensor, index: torch.Tensor,
-               cfg: LossConfig, forced_eps=None) -> dict:
-    """One optimiser step on the uint8 NHWC batch of dataset rows
-    ``index``; returns the step's metrics (device tensors, no host sync).
-    ``forced_eps`` (per-layer NHWC) replaces the latent draw."""
-    model, step = state.model, state.step
+@torch.no_grad()
+def update_ema_(ema: dict, metrics: dict, step: Ints, decay: float) -> None:
+    """``ema = decay ema + (1 - decay) metric`` in place (the tensors keep
+    their addresses), initialised to the metrics at step 0 as in
+    ``lvae_tpu``: a host branch for an int step, ``torch.where`` for a
+    tensor."""
+    for k, m in metrics.items():
+        e = ema[k]
+        m = m.to(e.dtype)
+        moved = decay * e + (1.0 - decay) * m
+        if isinstance(step, torch.Tensor):
+            e.copy_(torch.where(step == 0, m, moved))
+        else:
+            e.copy_(m if step == 0 else moved)
+
+
+def train_body(state: TrainState, batch_u8: torch.Tensor, index: torch.Tensor,
+               cfg: LossConfig, step: Ints, forced_eps=None) -> dict:
+    """Train step number ``step`` on the uint8 NHWC batch of dataset rows
+    ``index``: preprocess, forward in train mode, backward, clip, Adamax,
+    EMA; returns its metrics (device tensors). ``step`` is an int or a 0-d
+    int64 tensor on the device; from a tensor every key (the
+    preprocessing's, the latents', the dropout masks') and beta are
+    computed on the device, so the body reads no host int that changes
+    with the step and makes no host sync: the eager step and a CUDA graph
+    of it run the same kernels. Moves neither ``step`` nor
+    ``state.step``. ``forced_eps`` (per-layer NHWC) replaces the latent
+    draw."""
+    model = state.model
     dtype = next(model.parameters()).dtype
     x = preprocess_batch(batch_u8, cfg.preprocess, state.seed, index, step).to(dtype)
     beta = linear_anneal(step, 0.0, 1.0, cfg.beta_anneal_steps)
@@ -115,12 +223,96 @@ def train_step(state: TrainState, batch_u8: torch.Tensor, index: torch.Tensor,
                              cfg.max_grad_norm)
     state.optimizer.step()
     metrics = {k: v.detach() for k, v in metrics.items()}
-    d = cfg.ema_decay
-    for k, m in metrics.items():     # initialised at step 0, as lvae_tpu
-        e = state.ema[k]
-        state.ema[k] = m.to(e.dtype).clone() if step == 0 else d * e + (1.0 - d) * m.to(e.dtype)
-    state.step = step + 1
+    update_ema_(state.ema, metrics, step, cfg.ema_decay)
     return metrics
+
+
+def train_step(state: TrainState, batch_u8: torch.Tensor, index: torch.Tensor,
+               cfg: LossConfig, forced_eps=None) -> dict:
+    """One optimiser step (:func:`train_body` at the state's device step,
+    which it then moves on); returns the step's metrics (device tensors,
+    no host sync)."""
+    step = state.device_step()
+    metrics = train_body(state, batch_u8, index, cfg, step, forced_eps)
+    step.add_(1)
+    state.advance(1)
+    return metrics
+
+
+class MultiStep:
+    """``k`` train steps per call, the port's ``make_multi_train_step``:
+    ``index`` a ``[k, B]`` stack of dataset rows for steps ``state.step``
+    to ``state.step + k - 1``; returns the last step's metrics (the EMA
+    sees every step).
+
+    On the CPU, :func:`train_step` ``k`` times. On CUDA the first call
+    runs its ``k`` steps eagerly on a side stream (the warm-up: it builds
+    the kernels, fills every cache a step consults and, where the run
+    starts at 0, initialises the EMA) and then captures ``k`` steps of
+    :func:`train_body` into one CUDA graph; each later call copies its
+    indices into the graph's static ``[k, B]`` buffer and replays the
+    graph. The graph reads the step from ``state.device_step()``, moves it
+    on in place, and computes every key from it, so a replay is the work
+    of ``k`` eager steps, kernel for kernel; the returned metrics are the
+    graph's outputs, written anew by each replay. A capture that fails
+    raises: nothing falls back to eager steps.
+
+    Build it after any restore: the graph holds the addresses of the
+    parameters, the optimiser's state and the EMA, which a restore
+    replaces. The kernel wrappers' launch counts (``build.LAUNCHES``) count
+    what runs: the capture's calls record launches without running them
+    and are taken back out, and each replay adds the launches the graph
+    holds (``self.launches``). The captured ``cudaGraph_t`` is kept, so
+    its kernel nodes can be read (``self.graph.raw_cuda_graph()``)."""
+
+    def __init__(self, state: TrainState, gather: Callable, cfg: LossConfig, k: int):
+        if k < 2:
+            raise ValueError(f"MultiStep takes k >= 2 steps a call, got {k}")
+        self.state, self.gather, self.cfg, self.k = state, gather, cfg, k
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.index: Optional[torch.Tensor] = None
+        self.metrics: Optional[dict] = None
+        self.launches: dict = {}
+
+    def __call__(self, index: torch.Tensor) -> dict:
+        if index.dim() != 2 or index.shape[0] != self.k:
+            raise ValueError(f"index must be [{self.k}, B], got {tuple(index.shape)}")
+        state = self.state
+        if state.device_step().device.type != "cuda":
+            return self._eager(index)
+        if self.graph is None:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                metrics = self._eager(index)
+            torch.cuda.current_stream().wait_stream(side)
+            self._capture(index)
+            return metrics
+        self.index.copy_(index)
+        self.graph.replay()
+        for name, n in self.launches.items():
+            build.LAUNCHES[name] += n
+        state.advance(self.k)
+        return self.metrics
+
+    def _eager(self, index: torch.Tensor) -> dict:
+        for row in index:
+            metrics = train_step(self.state, self.gather(row), row, self.cfg)
+        return metrics
+
+    def _capture(self, index: torch.Tensor) -> None:
+        step = self.state.device_step()
+        self.index = torch.empty_like(index)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = dict(build.LAUNCHES)
+        with torch.cuda.graph(graph):
+            for row in self.index:
+                metrics = train_body(self.state, self.gather(row), row, self.cfg, step)
+                step.add_(1)
+        self.launches = {k: n - before[k] for k, n in build.LAUNCHES.items() if n > before[k]}
+        build.LAUNCHES.update(before)
+        graph.instantiate()
+        self.graph, self.metrics = graph, metrics
 
 
 def per_image_forward(model, x: torch.Tensor, index: torch.Tensor, seed: int,

@@ -5,12 +5,15 @@
 on the device; :class:`Trainer` runs the loop: an epoch order drawn from
 ``np.random.default_rng((seed, epoch))`` as ``lvae_tpu`` draws it (so both
 see the same batches), one :func:`~lvae_tpu_torch.train.state.train_step`
-per batch, and the log, test and checkpoint hooks at their intervals.
+per batch (or ``--steps-per-call k`` steps a call, a CUDA graph of ``k``
+steps on the card), the log, test and checkpoint hooks where a call
+crosses their intervals, and a final checkpoint on SIGTERM.
 """
 
 from __future__ import annotations
 
 import os
+import signal
 import time
 from typing import Optional
 
@@ -27,6 +30,7 @@ from lvae_tpu_torch.train.init import data_dependent_init
 from lvae_tpu_torch.train.logging import MetricLogger
 from lvae_tpu_torch.train.state import (
     LossConfig,
+    MultiStep,
     TrainState,
     evaluate_elbo,
     init_ema,
@@ -160,8 +164,10 @@ class Experiment:
 
 
 class Trainer:
-    """The train loop (``lvae_tpu``'s ``Trainer``; SIGTERM handling is not
-    ported yet)."""
+    """The train loop (``lvae_tpu``'s ``Trainer``): ``--steps-per-call k``
+    runs the steps ``k`` at a time (:class:`~lvae_tpu_torch.train.state.
+    MultiStep`, one CUDA graph of ``k`` steps on the card), and SIGTERM
+    ends the run with a final checkpoint, as ``lvae_tpu``'s does."""
 
     def __init__(self, experiment: Experiment):
         self.exp = experiment
@@ -171,6 +177,30 @@ class Trainer:
         self.state: Optional[TrainState] = None
 
     def run(self) -> TrainState:
+        """Run training to ``max_steps``. SIGTERM (preemption, job
+        schedulers) is mapped to the KeyboardInterrupt path for the run,
+        as ``lvae_tpu/train/trainer.py:387-409`` maps it: the signal is
+        noted, the loop stops at the next k-step boundary (a step whose
+        updates are in place is never cut in two) and the final checkpoint
+        holds the state the device reached there, so ``--auto-resume``
+        continues it exactly."""
+        self._stop = False
+
+        def _note(signum, frame):
+            self._stop = True
+
+        try:
+            prev = signal.signal(signal.SIGTERM, _note)
+            installed = True
+        except ValueError:      # not the main thread: leave signals alone
+            installed = False
+        try:
+            return self._run()
+        finally:
+            if installed:
+                signal.signal(signal.SIGTERM, prev or signal.SIG_DFL)
+
+    def _run(self) -> TrainState:
         cfg, exp = self.cfg, self.exp
         run_dir = self.run_dir = os.path.join(cfg.output_dir, cfg.make_run_name())
         logger = self.logger = MetricLogger(run_dir, enable_tb=not cfg.dry_run)
@@ -193,6 +223,12 @@ class Trainer:
             if not cfg.dry_run:
                 save_config(run_dir, cfg)
 
+        k = cfg.steps_per_call
+        if k > 1 and cfg.max_steps % k:
+            # the loop checks max_steps only between k-step calls
+            print(f"warning: max_steps {cfg.max_steps} is not a multiple of "
+                  f"steps-per-call {k}; the run will stop at step "
+                  f"{-(-cfg.max_steps // k) * k}", flush=True)
         n_params = sum(p.numel() for p in state.model.parameters())
         print(f"run {os.path.basename(run_dir)}: {exp.train_data.n} train / "
               f"{exp.test_data.shape[0]} test images on {exp.device}, "
@@ -202,47 +238,80 @@ class Trainer:
                 f"batch_size {cfg.batch_size} exceeds the training set "
                 f"({exp.train_data.n} images): an epoch would yield no batch"
             )
-
-        steps_per_epoch = exp.train_data.n // cfg.batch_size
-
-        def index_stream(step):
-            """Endless [batch] device index vectors from the restored step
-            on; epoch e's shuffle is a function of (seed, e) alone."""
-            epoch, pos = divmod(step, steps_per_epoch)
-            while True:
-                erng = np.random.default_rng((cfg.seed, epoch))
-                for bi, idx in enumerate(exp.train_data.epoch_indices(erng, cfg.batch_size)):
-                    if bi >= pos:
-                        yield idx
-                pos = 0
-                epoch += 1
-
-        def crossed(step, interval):
-            return (step // interval) > ((step - 1) // interval)
+        # after any restore: a graph holds the addresses of what it replaces
+        multi = MultiStep(state, exp.train_data.gather, exp.loss_cfg, k) if k > 1 else None
 
         step = state.step
         t_last, since_log = time.perf_counter(), 0
+        in_step = False
         try:
-            for index in index_stream(step):
+            for index in index_stream(exp.train_data, cfg.batch_size, cfg.seed, step, k):
+                if self._stop:
+                    raise KeyboardInterrupt
                 if step >= cfg.max_steps:
                     break
-                train_step(state, exp.train_data.gather(index), index, exp.loss_cfg)
+                in_step = True
+                if multi is None:
+                    train_step(state, exp.train_data.gather(index), index, exp.loss_cfg)
+                else:
+                    multi(index)
+                in_step = False
                 step = state.step
-                since_log += 1
-                if crossed(step, cfg.log_interval):
-                    ema = {k: v.cpu() for k, v in state.ema.items()}   # waits for the step
+                since_log += k
+                if crossed(step, cfg.log_interval, k):
+                    ema = {k_: v.cpu() for k_, v in state.ema.items()}   # waits for the step
                     dt = time.perf_counter() - t_last
                     logger.log_train(step, ema, since_log * cfg.batch_size / dt)
                     t_last, since_log = time.perf_counter(), 0
-                if crossed(step, cfg.test_interval):
+                if crossed(step, cfg.test_interval, k):
                     logger.log_test(step, exp.evaluate(state))
                     t_last, since_log = time.perf_counter(), 0
-                if ckpt is not None and crossed(step, cfg.checkpoint_interval):
+                if ckpt is not None and crossed(step, cfg.checkpoint_interval, k):
                     ckpt.save(state)
         except KeyboardInterrupt:
-            print("interrupted: saving a final checkpoint", flush=True)
+            if in_step:     # cut inside a step: its updates are partly in place
+                print("interrupted inside a step: no final checkpoint (the last "
+                      "periodic one stands)", flush=True)
+                ckpt = None
+            else:
+                print("interrupted: saving a final checkpoint", flush=True)
+        if state.step_t is not None and state.step_t.is_cuda:
+            torch.cuda.synchronize(state.step_t.device)
         if ckpt is not None and ckpt.latest_step() != state.step:
             ckpt.save(state)
         logger.close()
         self.state = state
         return state
+
+
+def index_stream(data: DeviceDataset, batch_size: int, seed: int, step: int, k: int = 1):
+    """Endless device index batches from ``step`` on: ``[batch_size]``
+    vectors for ``k = 1``, ``[k, batch_size]`` stacks of ``k`` consecutive
+    batches otherwise, a stack straddling an epoch's end where it falls
+    there. Epoch e's shuffle is ``np.random.default_rng((seed, e))``'s, as
+    ``lvae_tpu`` draws it, and the stream starts at ``step``, so a resumed
+    run (at any step, a multiple of ``k`` or not) takes the batches that an
+    uninterrupted one takes (``lvae_tpu/train/trainer.py:570-593``)."""
+    steps_per_epoch = data.n // batch_size
+    epoch, pos = divmod(step, steps_per_epoch)
+    buf = []
+    while True:
+        erng = np.random.default_rng((seed, epoch))
+        for bi, idx in enumerate(data.epoch_indices(erng, batch_size)):
+            if bi < pos:
+                continue
+            if k == 1:
+                yield idx
+            else:
+                buf.append(idx)
+                if len(buf) == k:
+                    yield torch.stack(buf)
+                    buf = []
+        pos = 0
+        epoch += 1
+
+
+def crossed(step: int, interval: int, k: int = 1) -> bool:
+    """Whether a call that ended at ``step`` after ``k`` steps passed a
+    multiple of ``interval``."""
+    return (step // interval) > ((step - k) // interval)

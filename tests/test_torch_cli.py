@@ -148,7 +148,6 @@ class TestCLI:
         (["--remat"], "--remat"),
         (["--streaming"], "--streaming"),
         (["--num-data-shards", "2"], "--num-data-shards"),
-        (["--steps-per-call", "4"], "--steps-per-call"),
         (["--rng-impl", "rbg"], "--rng-impl"),
         (["--platform", "tpu"], "--platform"),
         (["--precision", "bf16"], "--precision"),
@@ -170,6 +169,22 @@ class TestCLI:
         assert all(b.fused_segments == ("--fused" in flags) for b in blocks)
         assert all(b.bn_stat_samples == (8 if "--bn-stat-samples" in flags else 0)
                    for b in blocks)
+        assert all(np.isfinite(float(v)) for v in tr.state.ema.values() if v.dim() == 0)
+
+    @pytest.mark.parametrize("k,max_steps,stop", [(2, 4, 4), (4, 4, 4), (3, 4, 6)],
+                             ids=["k2", "k4", "k3-overshoots"])
+    def test_trains_steps_per_call(self, tmp_path, capsys, k, max_steps, stop):
+        """--steps-per-call k, which the trainer rejected before it ran k
+        steps a call: the run trains to max_steps; a max_steps that is not
+        a multiple of k warns and stops at the next multiple, as
+        lvae_tpu's does."""
+        tr = _train(tmp_path, "--max-steps", str(max_steps), "--dry-run",
+                    "--steps-per-call", str(k))
+        text = capsys.readouterr().out
+        assert tr.state.step == stop
+        warned = (f"warning: max_steps {max_steps} is not a multiple of steps-per-call "
+                  f"{k}; the run will stop at step {stop}")
+        assert (warned in text) == (stop != max_steps)
         assert all(np.isfinite(float(v)) for v in tr.state.ema.values() if v.dim() == 0)
 
     def test_trains_the_gaussian_head(self, tmp_path):

@@ -157,7 +157,7 @@ class TestPlainVsPallas:
         y.backward(g)
         assert not any(build.LAUNCHES.values())
         t = bits8_keep_threshold(0.2)
-        bits = dropout_bytes(x.shape, 77)
+        bits = dropout_bytes(x.shape, mix_seed(77, 0, 0))      # step 0, site 0
         y2, mean2, var2, r2 = segment_forward(x, gamma, beta, t, "elu", mask_bytes=bits)
         assert torch.equal(y, y2) and torch.equal(mean, mean2) and torch.equal(var, var2)
         dx, _, _ = segment_backward(x, g, gamma, beta, mean2, r2, t, "elu", bits)
@@ -192,7 +192,7 @@ class TestPhiloxMask:
         t = bits8_keep_threshold(0.2)
         x = torch.ones(8, 16, 32, 32)
         y, _, _ = dropout_bn_act(x, torch.ones(16), torch.zeros(16), rate=0.2, act="relu",
-                                 seed=mix_seed(3, 1, 0))
+                                 seed=3, step=1, site=0)
         bits = dropout_bytes(x.shape, mix_seed(3, 1, 0))
         dropped = (bits >= t).double().mean().item()
         assert x.numel() >= 10 ** 5 and abs(dropped - (256 - t) / 256) < 0.01
@@ -205,11 +205,10 @@ class TestPhiloxMask:
         x = torch.rand(4, 8, 8, 8) + 0.5
         g = torch.rand(4, 8, 8, 8) + 0.5
         xr = x.clone().requires_grad_()
-        seed = mix_seed(11, 2, 5)
         y, _, _ = dropout_bn_act(xr, torch.ones(8), torch.full((8,), 0.1), rate=0.2,
-                                 act="elu", seed=seed)
+                                 act="elu", seed=11, step=torch.tensor(2), site=5)
         y.backward(g)
-        kept = dropout_bytes(x.shape, seed) < bits8_keep_threshold(0.2)
+        kept = dropout_bytes(x.shape, mix_seed(11, 2, 5)) < bits8_keep_threshold(0.2)
         assert torch.equal(xr.grad != 0, kept)
 
 
