@@ -15,7 +15,7 @@ learned top prior):
 - training, ``lvae_tpu_torch.main`` (phases 6-9): the sample+KL kernels'
   per-sample forward (K1) and both backward kernels held against their
   plain versions and timed at the flagship's and celeba64's training
-  shapes, 300 steps of the flagship at batch 64 with data-dependent
+  shapes, 100 steps of the flagship at batch 64 with data-dependent
   init on 50,000 synthetic train images, the kernel path against the plain
   path and the CPU on one step, and train images/s.
 
@@ -24,7 +24,7 @@ the discretized-logistic-mixture head; phases 10-13): the mixture
 log-prob kernel and its backward (K3, K3-bwd, on each of its two plans)
 against their plain versions; evaluation over 2,000 synthetic 64x64 RGB images read from
 ``celeba/celeba_64.npz`` with the k=100 IW log-likelihood over the first
-500; 200 training steps at batch 128 on 20,000 images; one step against
+500; 100 training steps at batch 128 on 20,000 images; one step against
 the plain path and the CPU, and train images/s.
 
 Then the train-mode dropout+BatchNorm+activation segments (phases 14-16):
@@ -36,13 +36,30 @@ under ``--fused all`` against the path without the segments (and, for
 celeba64, the CPU), and train images/s. Phase 14b holds the unfused bits8
 dropout's kernel to its plain version.
 
-Last, ``--steps-per-call 10`` (phase 17): for the flagship (``--fused
+Then ``--steps-per-call 10`` (phase 17): for the flagship (``--fused
 auto`` and ``all``) and celeba64 (``all``), 30 steps through one CUDA
 graph of 10 bit-equal to 30 eager steps, the graph's kernel nodes by
 kernel against the eager launches, train images/s, device time and idle
-share graphed against eager; and 200 flagship steps through
+share graphed against eager; and 100 flagship steps through
 ``lvae_tpu_torch.main --steps-per-call 10``, resumed from the middle
 checkpoint bit-equal.
+
+Last, ``--precision bf16`` (phase 18): the bf16 instantiations of K5,
+K5-bwd, the dropout kernel, K3 and K3-bwd against their plain bf16
+versions at the models' shapes (bf16 outputs bit-equal or within 1 ulp,
+the count printed; fp32 outputs at phases 10 and 14's tolerances), each
+timed against its fp32 instantiation in turns and its bound at bf16
+bytes; 200 flagship steps (``--fused auto``, as a CUDA graph of 10) and
+100 celeba64 steps each under ``auto`` (eager) and ``all`` (graphed)
+through ``lvae_tpu_torch.main --precision bf16`` with init, every bf16
+instantiation held to its launch count and the checkpoint scored in bf16
+by ``lvae_tpu_torch.evaluate``; one bf16 step on the kernel path against
+the plain path; 40 steps in bf16 against 40 in fp32 from the trained
+bf16 checkpoint (the mean loss of the last 20 within 2%); celeba64
+``all`` graphed in bf16 bit-equal to eager, its device time and idle
+share, and graphed fp32 and bf16 in turns; test ELBO and the k=100 IW-LL
+of both models' trained bf16 checkpoints scored in fp32 and in bf16, with
+the bpd delta and images/s.
 
 Each entry point's run checks that it launched every kernel of its path;
 the kernel path, the plain path and a CPU run are held to agree, and each
@@ -72,7 +89,10 @@ N_TEST = 10_000
 IW_SAMPLES = 100
 TRAIN_B = 64                                # flagship train batch
 N_TRAIN = 50_000
-TRAIN_STEPS = 300
+TRAIN_STEPS = 100                           # phase 8
+# each Trainer.run of the A/Bs of phases 9, 13 and 16: steps, and the rate
+# taken over the steps after AB_LOG
+AB_STEPS, AB_LOG = 40, 20
 ODD_SHAPE = (3, 7, 7)                       # F = 147: not a multiple of 128
 LONG_ROW = (32, 32, 32)                     # F = 32,768: 16 float4 units a K1 thread
 
@@ -952,16 +972,17 @@ def phase_train(card, train_u8, test_u8):
         t0 = time.perf_counter()
         trainer = train_main.main(FLAGSHIP_ARGS + [
             "--data-dir", data_dir, "--data-dep-init", "--max-steps", str(TRAIN_STEPS),
-            "--device", "cuda", "--log-interval", "30", "--test-interval", "150",
-            "--checkpoint-interval", "100", "--output-dir", os.path.join(tmp, "out"),
-            "--run-name", "flagship",
+            "--device", "cuda", "--log-interval", "20",
+            "--test-interval", str(TRAIN_STEPS // 2),
+            "--checkpoint-interval", str(TRAIN_STEPS // 2),
+            "--output-dir", os.path.join(tmp, "out"), "--run-name", "flagship",
         ])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
         print(f"  launches in the training run: {launches}")
         print(f"  run wall {wall:.1f} s (data parse, data-dependent init, "
-              f"{TRAIN_STEPS} steps, 2 test sweeps, 3 checkpoints)  ({card})")
+              f"{TRAIN_STEPS} steps, 2 test sweeps, 2 checkpoints)  ({card})")
         n = 3 * TRAIN_STEPS
         check(launches["sample_kl_per_sample"] == n + n_init,
               f"K1: 3 launches per step and the init's {n_init} "
@@ -979,11 +1000,12 @@ def phase_train(card, train_u8, test_u8):
                   for _, _, m in hist for v in m.values()),
               f"every logged metric finite ({len(hist)} lines)")
         train_lines = {step: m for kind, step, m in hist if kind == "train"}
-        first, last = float(train_lines[30]["loss"]), float(train_lines[TRAIN_STEPS]["loss"])
+        first, last = float(train_lines[20]["loss"]), float(train_lines[TRAIN_STEPS]["loss"])
         check(last < first, f"EMA loss {last:.2f} at step {TRAIN_STEPS} below "
-                            f"{first:.2f} at step 30")
+                            f"{first:.2f} at step 20")
         tests = [m for kind, _, m in hist if kind == "test"]
-        check(len(tests) == 2, "the test hook ran at steps 150 and 300")
+        check(len(tests) == 2, f"the test hook ran at steps {TRAIN_STEPS // 2} and "
+                               f"{TRAIN_STEPS}")
         ckpt = os.path.join(trainer.run_dir, "checkpoints", f"ckpt_{TRAIN_STEPS:08d}.pt")
         res = evaluate.main(["--load", trainer.run_dir, "--state-dict", ckpt,
                              "--device", "cuda"])
@@ -995,12 +1017,12 @@ def phase_train(card, train_u8, test_u8):
         out["launches"] = launches
         out["wall_s"] = wall
         out["log_rates"] = {step: float(m["images_per_sec"]) for step, m in train_lines.items()}
-        # the lines from step 120 on: 30-step windows over steps 91-300
-        late = [r for step, r in out["log_rates"].items() if step > 100]
-        out["log_rate_91_300"] = len(late) / sum(1.0 / r for r in late)
-        print(f"  logged train rate over steps 91-{TRAIN_STEPS} (a metric sync every "
-              f"30 steps, the checkpoints at 100 and 200 inside): "
-              f"{out['log_rate_91_300']:.1f} img/s  ({card})")
+        # the second half's 20-step windows
+        late = [r for step, r in out["log_rates"].items() if step > TRAIN_STEPS // 2]
+        out["log_rate_late"] = len(late) / sum(1.0 / r for r in late)
+        print(f"  logged train rate over steps {TRAIN_STEPS // 2 + 1}-{TRAIN_STEPS} (a metric "
+              f"sync every 20 steps, the middle checkpoint inside): "
+              f"{out['log_rate_late']:.1f} img/s  ({card})")
         out["test_elbo"] = [float(m["elbo"]) for m in tests]
         out["ema_loss"] = (first, last)
     return out
@@ -1180,7 +1202,7 @@ MIX_SHAPES = [(128, 3, 64, 64, K_MIX), (500, 3, 64, 64, K_MIX), (16, 1, 32, 32, 
               (32, 3, 64, 64, 24)]
 CELEBA_B, CELEBA_EVAL_B = 128, 500
 CELEBA_N_TRAIN, CELEBA_N_TEST = 20_000, 2_000
-CELEBA_STEPS = 200
+CELEBA_STEPS = 100                          # phase 12
 SEGMENT_STEPS = 100                         # phase 15
 CELEBA_LATENTS = [(16, 16, 32), (8, 8, 32), (4, 4, 32), (2, 2, 32)]   # NHWC per layer
 CELEBA = {
@@ -1232,8 +1254,8 @@ def write_celeba(data_dir, train_u8, test_u8):
 
 
 def mix_kernel_name(entry):
-    m = re.search(r"(mix_\w+?_kernel)ILi(\d)E", entry)
-    return f"{m[1]}<{m[2]}>" if m else entry
+    m = re.search(r"(mix_\w+?_kernel)ILi(\d)E(f|13__nv_bfloat16)E", entry)
+    return f"{m[1]}<{m[2]}, {'float' if m[3] == 'f' else 'bf16'}>" if m else entry
 
 
 def phase_mixture(card, build_log=""):
@@ -1490,9 +1512,9 @@ def phase_celeba_train(card, train_u8, test_u8):
         t0 = time.perf_counter()
         trainer = train_main.main(CELEBA_ARGS + [
             "--data-dir", data_dir, "--data-dep-init", "--max-steps", str(steps),
-            "--device", "cuda", "--log-interval", "20", "--test-interval", "100",
-            "--checkpoint-interval", "100", "--output-dir", os.path.join(tmp, "out"),
-            "--run-name", "celeba64",
+            "--device", "cuda", "--log-interval", "20",
+            "--test-interval", str(steps // 2), "--checkpoint-interval", str(steps // 2),
+            "--output-dir", os.path.join(tmp, "out"), "--run-name", "celeba64",
         ])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1522,7 +1544,7 @@ def phase_celeba_train(card, train_u8, test_u8):
         check(last < first, f"EMA loss {last:.2f} at step {steps} below {first:.2f} at "
                             f"step 20")
         tests = [m for kind, _, m in hist if kind == "test"]
-        check(len(tests) == n_sweeps, "the test hook ran at steps 100 and 200")
+        check(len(tests) == n_sweeps, f"the test hook ran at steps {steps // 2} and {steps}")
         ckpt = os.path.join(trainer.run_dir, "checkpoints", f"ckpt_{steps:08d}.pt")
         res = evaluate.main(["--load", trainer.run_dir, "--state-dict", ckpt,
                              "--device", "cuda"])
@@ -1534,10 +1556,10 @@ def phase_celeba_train(card, train_u8, test_u8):
         out["launches"] = launches
         out["wall_s"] = wall
         out["log_rates"] = {step: float(m["images_per_sec"]) for step, m in train_lines.items()}
-        late = [r for step, r in out["log_rates"].items() if step > 100]
-        out["log_rate_101_200"] = len(late) / sum(1.0 / r for r in late)
-        print(f"  logged train rate over steps 101-{steps} (a metric sync every 20 steps): "
-              f"{out['log_rate_101_200']:.1f} img/s  ({card})")
+        late = [r for step, r in out["log_rates"].items() if step > steps // 2]
+        out["log_rate_late"] = len(late) / sum(1.0 / r for r in late)
+        print(f"  logged train rate over steps {steps // 2 + 1}-{steps} (a metric sync every 20 "
+              f"steps): {out['log_rate_late']:.1f} img/s  ({card})")
         out["test_elbo"] = [float(m["elbo"]) for m in tests]
         out["ema_loss"] = (first, last)
         out["state_keys"] = list(trainer.state.model.state_dict())
@@ -1589,20 +1611,21 @@ def segments_per_step(model):
                if isinstance(m, ResidualBlock) and m.fused_segments)
 
 
-def segment_paths(shape):
+def segment_paths(shape, esize=4):
     """{label: (path argument, forward plan or None, backward plan or None)}:
-    "default", the plans that a caller gets at ``shape``, and each path it
-    can be forced to, with the direction's plan where that path is legal
-    and differs from the default."""
+    "default", the plans that a caller gets at ``shape`` with ``esize``
+    bytes an element (4: fp32, 2: bf16), and each path it can be forced
+    to, with the direction's plan where that path is legal and differs
+    from the default."""
     from lvae_tpu_torch.kernels import segment as seg
 
-    default = tuple(seg._plan(*shape, d) for d in ("fwd", "bwd"))
+    default = tuple(seg._plan(*shape, d, None, esize) for d in ("fwd", "bwd"))
     out = {"default": (None, *default)}
     for path in seg.PATHS:
         plans = []
         for direction, plan in zip(("fwd", "bwd"), default):
             try:
-                forced = seg._plan(*shape, direction, path)
+                forced = seg._plan(*shape, direction, path, esize)
             except ValueError:
                 forced = None
             plans.append(None if forced == plan else forced)
@@ -1695,8 +1718,9 @@ def phase_segment(card, per_step, timed, build_log=""):
     print("[14] segment kernels (K5, K5-bwd) vs their plain versions", flush=True)
     usage, ptxas = ptxas_usage(build_log, "segment_cu"), {}
     for entry, line in usage.items():
-        m = re.search(r"(fwd|bwd)_kernelILi(\d+)ELi(\d)E", entry)
-        name = f"{m[1]}_kernel<{m[2]}, {('elu', 'relu')[int(m[3])]}>" if m else entry
+        m = re.search(r"(fwd|bwd)_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", entry)
+        name = (f"{m[1]}_kernel<{'float' if m[2] == 'f' else 'bf16'}, {m[3]}, "
+                f"{('elu', 'relu')[int(m[4])]}>" if m else entry)
         print(f"  ptxas {name}: {line}")
         ptxas[name] = line
     if not usage:
@@ -2088,8 +2112,8 @@ def phase_celeba_segments(card, train_u8, test_u8, phase12):
 # ---------------------------------------------------------------------------
 
 GRAPH_K = 10
-GRAPH_CLI_STEPS = 200
-GRAPH_RATE_STEPS = 40                       # per timed Trainer.run, the first call untimed
+GRAPH_CLI_STEPS = 100
+GRAPH_RATE_STEPS = 30                       # per timed Trainer.run, the first call untimed
 # the kernels of a train step by the identifier in their symbol; K3-bwd
 # has two plans (kernels/mixture.py bwd_plan)
 GRAPH_KERNELS = {"dropout_kernel": "dropout",
@@ -2144,10 +2168,12 @@ def graph_kernel_names(raw_graph):
 def port_kernel(symbol):
     """The launch counter of the port's kernel whose mangled symbol this is
     (None for another kernel): its identifier with the length prefix the
-    mangling gives it, so not a longer identifier ending in it."""
+    mangling gives it, so not a longer identifier ending in it; a bf16
+    instantiation (``__nv_bfloat16`` among its template arguments) counts
+    under its ``[bf16]`` name."""
     for ident, counter in GRAPH_KERNELS.items():
         if f"{len(ident)}{ident}" in symbol:
-            return counter
+            return counter + "[bf16]" if "__nv_bfloat16" in symbol else counter
     return None
 
 
@@ -2201,23 +2227,58 @@ def device_union(fn, reps=1):
     return union / 1e3 / reps, total_us / 1e3 / reps, wall, len(spans)
 
 
+def rates_in_turns(card, name, args, data, variants):
+    """Train images/s through Trainer.run for the two ``variants`` of the
+    config ``args`` gives ({label: config overrides}), in turns (a, b, b,
+    a): GRAPH_RATE_STEPS steps a run, a log line every GRAPH_K, the rate
+    the harmonic mean of the lines past the first call's."""
+    import dataclasses
+
+    import torch
+
+    from lvae_tpu_torch.config import config_from_args
+    from lvae_tpu_torch.train.trainer import Experiment, Trainer
+
+    cfg, _ = config_from_args(args)
+    (a, over_a), (b, over_b) = variants.items()
+    runs = {a: [], b: []}
+    for label, over in ((a, over_a), (b, over_b), (b, over_b), (a, over_a)):
+        run_cfg = dataclasses.replace(
+            cfg, max_steps=GRAPH_RATE_STEPS, log_interval=GRAPH_K, test_interval=10 ** 9,
+            checkpoint_interval=10 ** 9, dry_run=True, **over)
+        tr = Trainer(Experiment(run_cfg, torch.device("cuda"), data))
+        tr.run()
+        rates = [float(m["images_per_sec"]) for kind, step, m in tr.logger.history
+                 if kind == "train" and step > GRAPH_K]
+        runs[label].append(len(rates) / sum(1.0 / r for r in rates))
+        del tr
+        torch.cuda.empty_cache()
+    out = {}
+    for label, r in runs.items():
+        rate = float(np.mean(r))
+        out[label] = {"images_per_sec": rate, "ms_per_step": 1e3 * cfg.batch_size / rate,
+                      "runs": r}
+        print(f"  {name} {label} ({variants[label]}): Trainer.run, steps {GRAPH_K + 1}-"
+              f"{GRAPH_RATE_STEPS}, batch {cfg.batch_size}: {rate:.1f} img/s, "
+              f"{1e3 * cfg.batch_size / rate:.2f} ms/step (runs {r}, in turns {a}, {b}, {b}, "
+              f"{a})  ({card})")
+    return out
+
+
 def graph_cell(card, name, args, data, weights):
     """One model and kernel policy under ``--steps-per-call GRAPH_K``: 3k
     steps through MultiStep (a warm-up call of k eager steps, which
     captures the graph, then two replays) against 3k eager train steps
     from the same state and batches, bit for bit (deterministic
     algorithms on, as phases 9 and 13); the graph's kernel nodes by
-    kernel against the eager steps' launches; then train images/s through
-    Trainer.run with k = 1 and k = GRAPH_K in turns (E, G, G, E), and each
-    path's device ms per step and idle share from a profile."""
-    import dataclasses
-
+    kernel against the eager steps' launches; and each path's device ms
+    per step and idle share from a profile."""
     import torch
 
     from lvae_tpu_torch.config import config_from_args
     from lvae_tpu_torch.kernels import build
     from lvae_tpu_torch.train.state import MultiStep, train_step
-    from lvae_tpu_torch.train.trainer import Experiment, Trainer, index_stream
+    from lvae_tpu_torch.train.trainer import Experiment, index_stream
 
     k = GRAPH_K
     cfg, _ = config_from_args(args)
@@ -2271,7 +2332,7 @@ def graph_cell(card, name, args, data, weights):
             print(f"    {v / k:7.1f} per step  {sym[:110]}")
         for sym in sorted(s for s in symbols if port_kernel(s)):
             print(f"    {symbols[sym] / k:7.1f} per step  {sym[:110]}")
-        want = {n for n in per_step if n in GRAPH_KERNELS.values()}
+        want = {n for n in per_step if n.removesuffix("[bf16]") in GRAPH_KERNELS.values()}
         check(want and {n: v / k for n, v in ours.items()} == {n: per_step[n] for n in want},
               f"{name}: the graph's kernel nodes name each kernel of the step "
               f"({sorted(want)}) at the eager per-step counts")
@@ -2284,30 +2345,6 @@ def graph_cell(card, name, args, data, weights):
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
     torch.cuda.empty_cache()
-
-    def trainer(steps_per_call, steps):
-        run_cfg = dataclasses.replace(
-            cfg, steps_per_call=steps_per_call, max_steps=steps, log_interval=k,
-            test_interval=10 ** 9, checkpoint_interval=10 ** 9, dry_run=True)
-        return Trainer(Experiment(run_cfg, torch.device("cuda"), data))
-
-    def rate(steps_per_call):
-        tr = trainer(steps_per_call, GRAPH_RATE_STEPS)
-        tr.run()
-        rates = [float(m["images_per_sec"]) for kind, step, m in tr.logger.history
-                 if kind == "train" and step > k]
-        return len(rates) / sum(1.0 / r for r in rates)
-
-    runs = {1: [], k: []}
-    for spc in (1, k, k, 1):
-        runs[spc].append(rate(spc))
-    b = cfg.batch_size
-    for spc, label in ((1, "eager"), (k, "graphed")):
-        r = float(np.mean(runs[spc]))
-        out[label] = {"images_per_sec": r, "ms_per_step": 1e3 * b / r, "runs": runs[spc]}
-        print(f"  {name} {label} (--steps-per-call {spc}): Trainer.run, steps "
-              f"{k + 1}-{GRAPH_RATE_STEPS}, batch {b}: {r:.1f} img/s, {1e3 * b / r:.2f} ms/step "
-              f"(runs {runs[spc]})  ({card})")
 
     # device time and idle share: a call of k steps, after a first call
     # (the graphed path's warm-up and capture) outside the profile
@@ -2323,7 +2360,7 @@ def graph_cell(card, name, args, data, weights):
             call = lambda: multi(next(stream))   # noqa: E731
         call()
         busy, kernel_sum, wall, n_events = device_union(call)
-        out[label].update(device_ms_per_step=busy / k, kernel_ms_per_step=kernel_sum / k,
+        out[label] = dict(device_ms_per_step=busy / k, kernel_ms_per_step=kernel_sum / k,
                           profiled_ms_per_step=wall / k, idle_share=1.0 - busy / wall,
                           kernel_events_per_step=n_events / k)
         print(f"  {name} {label}: profile of a call of {k} steps: device busy {busy / k:.2f} ms "
@@ -2416,10 +2453,618 @@ def phase_graph(card, train_u8, test_u8, flagship_weights, c_data, celeba_weight
              flagship_dataset(train_u8, test_u8), flagship_weights),
             ("celeba64 all", CELEBA_ARGS + ["--fused", "all"], c_data, celeba_weights)):
         out[name] = graph_cell(card, name, args, data, weights)
+        for label, r in rates_in_turns(card, name, args, data, {
+                "eager": {"steps_per_call": 1}, "graphed": {"steps_per_call": GRAPH_K}}).items():
+            out[name][label].update(r)
     out["cli"] = graph_cli(card, train_u8, test_u8)
     out["wall_s"] = time.perf_counter() - t0
     print(f"  phase 17 took {out['wall_s']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# --precision bf16 (phase 18): bf16 convs from fp32 parameters, the bf16
+# instantiations of K5, K5-bwd, the dropout kernel, K3 and K3-bwd
+# ---------------------------------------------------------------------------
+
+BF16_FLAGSHIP_STEPS = 200
+BF16_CELEBA_STEPS = 100
+BF16_GAP_STEPS = 40                 # per precision; the gap is over the last 20
+BF16_IW_BATCH = {"flagship": 250, "celeba64": 100}    # the IW-LL's images, one batch
+SEGMENT_RAGGED = (3, 8, 5, 7)       # H W = 35: units of one element
+# one step of the kernel path against the plain path, both bf16: a
+# kernel's fp32 result an ulp away from the plain version's flips a
+# downstream bf16 rounding, which the convs carry on, so the step agrees to
+# bf16's precision, not fp32's (phases 9 and 13: 1e-4)
+BF16_STEP_TOL = {"loss": 1e-4, "grad": 1e-1}
+
+
+def bf16_ulps(got, want):
+    """(largest distance in bf16 ulps, elements apart) of two bf16 tensors;
+    equal values (+0 and -0) are 0 apart."""
+    import torch
+
+    d = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+    d = torch.where(got == want, torch.zeros_like(d), d)
+    return int(d.max()), int((d > 0).sum())
+
+
+def bf16_held(got, want, what, within=None):
+    """A bf16 output bit-equal to its plain version's, or within 1 bf16
+    ulp with the count printed; ``within`` (a float tolerance, absolute)
+    also admits elements the fp32 check of the same output admits."""
+    import torch
+
+    check(got.dtype == want.dtype == torch.bfloat16, f"{what}: bf16")
+    m, n = bf16_ulps(got, want)
+    if m <= 1 or within is None:
+        check(m <= 1, f"{what}: bit-equal or within 1 bf16 ulp ({n} of {got.numel()} "
+                      f"elements 1 ulp apart)")
+        return n
+    far = (got.float() - want.float()).abs() > within
+    d = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+    check(not bool((far & (d > 1)).any()),
+          f"{what}: within 1 bf16 ulp ({n} of {got.numel()} elements apart), or within "
+          f"{within:.2e} where further (largest {m} ulps)")
+    return n
+
+
+def phase_bf16_kernels(card, per_step, timed, build_log=""):
+    """The bf16 instantiations against their plain bf16 versions: K5 and
+    K5-bwd at every segment shape of both models (each path the plan can be
+    forced to), a ragged and a misaligned shape; the dropout kernel at the
+    same shapes; K3 at every ``MIX_SHAPES`` entry and the bf16 IW-LL's
+    batch, K3-bwd (both plans) at celeba64's training batch. Each timed at
+    the ``timed`` shapes against its fp32 instantiation, in turns, and
+    against its bound at bf16 bytes."""
+    import torch
+
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.kernels import mixture as km
+    from lvae_tpu_torch.kernels import segment as seg
+    from lvae_tpu_torch.ops.math import (
+        bits8_dropout_f32,
+        bits8_keep_threshold,
+        segment_backward,
+        segment_forward,
+    )
+    from lvae_tpu_torch.ops.philox import dropout_bytes, mix_seed
+
+    print("[18a] the bf16 instantiations (K5, K5-bwd, the dropout kernel, K3, K3-bwd) vs "
+          "their plain bf16 versions", flush=True)
+    for entry, line in ptxas_usage(build_log, "__nv_bfloat16").items():
+        print(f"  ptxas {entry[:90]}: {line}")
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+    g_ = torch.Generator(device=dev).manual_seed(18)
+    key = seg.Key(42, torch.tensor(7, dtype=torch.int64, device=dev), 3)
+    seed = mix_seed(42, 7, 3)
+    err = {k: 0.0 for k in ("segment", "segment_bwd", "dropout", "mix", "mix_bwd")}
+    apart = {k: 0 for k in err}
+    shapes = [s for counts in per_step.values() for s in counts] + [SEGMENT_RAGGED,
+                                                                    "misaligned"]
+    for si, shape in enumerate(shapes):
+        if shape == "misaligned":       # a contiguous view 2 bytes past an aligned base
+            shape = (4, 8, 6, 6)
+            n = int(np.prod(shape))
+            base = (torch.randn(n + 1, generator=g_, device=dev) * 1.5 + 0.3).to(bf)
+            x = base[1:].view(shape)
+        else:
+            x = (torch.randn(shape, generator=g_, device=dev) * 1.5 + 0.3).to(bf)
+        c = shape[1]
+        g = torch.randn(shape, generator=g_, device=dev).to(bf)
+        gamma = torch.rand(c, generator=g_, device=dev) + 0.5
+        beta = torch.randn(c, generator=g_, device=dev) * 0.2
+        for rate in (0.0, 0.2):
+            t = bits8_keep_threshold(rate)
+            bytes_ = dropout_bytes(shape, seed, dev) if t < 256 else None
+            for act in ("elu", "relu") if si == 0 else ("elu",):
+                what = f"{list(shape)} rate {rate} {act}"
+                rm_p = torch.full((c,), 0.3, device=dev)
+                rv_p = torch.full((c,), 1.7, device=dev)
+                yp, mp, vp, rp = segment_forward(x, gamma, beta, t, act, mask_bytes=bytes_,
+                                                 running_mean=rm_p, running_var=rv_p)
+                dxp, dgp, dbp = segment_backward(x, g, gamma, beta, mp, rp, t, act, bytes_)
+                for label, (path, pf, pb) in segment_paths(shape, 2).items():
+                    k = f"{what} {label}"
+                    if pf is not None:
+                        rm = torch.full((c,), 0.3, device=dev)
+                        rv = torch.full((c,), 1.7, device=dev)
+                        y, stats = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, key, rm, rv,
+                                                   0.9, path)
+                        apart["segment"] += bf16_held(y, yp, f"K5 bf16 {k}: y")
+                        err["segment"] = max(err["segment"],
+                                             (y.float() - yp.float()).abs().max().item())
+                        e = max(rel_elem(stats[0], mp), rel_elem(stats[1], vp),
+                                rel_elem(rm, rm_p), rel_elem(rv, rv_p))
+                        check(stats.dtype == torch.float32 and e <= 1e-6,
+                              f"K5 bf16 {k}: fp32 mean, var and running stats within 1e-6 "
+                              f"relative ({e:.2e})")
+                        y2, stats2 = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, key, None,
+                                                     None, 0.9, path)
+                        check(torch.equal(y, y2) and torch.equal(stats, stats2),
+                              f"K5 bf16 {k}: a second launch is bit-equal")
+                        del y, y2
+                    else:
+                        _, stats = seg._launch_fwd(x, gamma, beta, t, act, 1e-5, key, None,
+                                                   None, 0.9)
+                    if pb is None:
+                        continue
+                    dx, dgamma, dbeta = seg._launch_bwd(x, g, gamma, stats, t, act, key, path)
+                    apart["segment_bwd"] += bf16_held(dx, dxp, f"K5-bwd bf16 {k}: dx")
+                    e = max(rel_max(dgamma, dgp), rel_max(dbeta, dbp))
+                    check(dgamma.dtype == torch.float32 and e <= 1e-5,
+                          f"K5-bwd bf16 {k}: fp32 dgamma, dbeta within 1e-5 of their max "
+                          f"({e:.2e})")
+                    err["segment_bwd"] = max(err["segment_bwd"],
+                                             (dx.float() - dxp.float()).abs().max().item(),
+                                             (dgamma - dgp).abs().max().item(),
+                                             (dbeta - dbp).abs().max().item())
+                    check(torch.equal(dx == 0, dxp == 0),
+                          f"K5-bwd bf16 {k}: dx is 0 exactly where the plain version's is")
+                    dx2 = seg._launch_bwd(x, g, gamma, stats, t, act, key, path)[0]
+                    check(torch.equal(dx, dx2), f"K5-bwd bf16 {k}: a second launch is bit-equal")
+                    del dx, dx2
+        xk = x.clone().requires_grad_()
+        build.reset_launches()
+        y, _, _ = seg.dropout_bn_act(xk, gamma, beta, rate=0.2, act="elu", **key._asdict())
+        y.backward(g)
+        check(build.LAUNCHES["segment[bf16]"] == 1 and build.LAUNCHES["segment_bwd[bf16]"] == 1
+              and build.LAUNCHES["segment"] == 0 and build.LAUNCHES["segment_bwd"] == 0
+              and y.dtype == xk.grad.dtype == bf,
+              f"{list(shape)}: the autograd.Function takes bf16 as it is: segment[bf16] and "
+              f"segment_bwd[bf16] once each, bf16 y and dx")
+        # the dropout kernel: bit-equal to the plain version (fp32 math, rounded)
+        bytes_ = dropout_bytes(shape, seed, dev)
+        for rate in (0.1, 0.2, 0.5):
+            t = bits8_keep_threshold(rate)
+            plain = bits8_dropout_f32(x.float(), bytes_, t).to(bf)
+            y = seg._launch_dropout(x, t, key)
+            err["dropout"] = max(err["dropout"], (y.float() - plain.float()).abs().max().item())
+            check(y.dtype == bf and torch.equal(y, plain)
+                  and torch.equal(seg._launch_dropout(x, t, key), y),
+                  f"dropout bf16 {list(shape)} rate {rate}: bit-equal to the plain version, "
+                  f"and a relaunch")
+        xr = x.clone().requires_grad_()
+        build.reset_launches()
+        seg.dropout_bits8(xr, 0.2, *key).backward(g)
+        t = bits8_keep_threshold(0.2)
+        check(build.LAUNCHES["dropout[bf16]"] == 2 and build.LAUNCHES["dropout"] == 0
+              and torch.equal(xr.grad, bits8_dropout_f32(g.float(), bytes_, t).to(bf)),
+              f"dropout bf16 {list(shape)}: dropout_bits8 launches dropout[bf16] forward and "
+              f"backward")
+        build.reset_launches()
+        del x, g, xk, xr, y
+    torch.cuda.empty_cache()
+
+    # K3 on a bf16 map, fp32 x, at every MIX_SHAPES entry (celeba64's
+    # training and evaluation batches among them) and the bf16 IW-LL's
+    # batch; K3-bwd, both plans, at the training batch, the one backward
+    # shape on the path
+    for b, c, h, w, k in MIX_SHAPES + [(BF16_IW_BATCH["celeba64"], 3, 64, 64, K_MIX)]:
+        q, lo = k * (1 + 3 * c), k + k * c
+        shape = f"[{b},{q},{h},{w}] C={c} K={k}"
+        u = torch.randint(0, 256, (b, c, h, w), generator=g_, device=dev)
+        u[:, :, 0], u[:, :, -1] = 0, 255
+        x_ = u.float() / 255.0
+        p_ = torch.randn(b, q, h, w, generator=g_, device=dev)
+        p_[:, lo:lo + 2] = -9.0 + torch.rand(b, 2, h, w, generator=g_, device=dev)
+        ll = km.mix_log_prob(x_, p_.to(bf), k)
+        ref = km._plain_mix_log_prob(x_, p_.to(bf), k, 256)
+        e = ((ll - ref).abs() - 1e-5 * ref.abs()).max().item()
+        err["mix"] = max(err["mix"], (ll - ref).abs().max().item())
+        check(ll.dtype == torch.float32 and e <= 1e-4,
+              f"K3 bf16 {shape}: fp32 ll within 1e-4 + 1e-5 |ll| of the plain version ({e:.2e})")
+        check(torch.equal(ll, km.mix_log_prob(x_, p_.to(bf), k)),
+              f"K3 bf16 {shape}: a relaunch is bit-equal")
+        if (b, c, h, w, k) == MIX_SHAPES[0]:
+            mb, mc, mh, mw, mk, mq, mlo, mix = b, c, h, w, k, q, lo, shape
+            xm, p32, pm = x_, p_, p_.to(bf)
+        del x_, p_, ll, ref
+    k = mk
+    gg = torch.randn(mb, mh, mw, generator=g_, device=dev)
+    dp_h, dx_h = km._plain_mix_log_prob_bwd(xm, pm.float(), gg, k, 256)
+    dp_h = dp_h.to(bf)
+    for plan in km.PLANS:
+        dpf, dxf = km.mix_log_prob_backward(xm, pm, gg, k, plan=plan)
+        scale = dp_h.float().abs().max().item()
+        apart["mix_bwd"] += bf16_held(dpf, dp_h, f"K3-bwd bf16 {mix} {plan}: dparams",
+                                      within=1e-4 * scale)
+        e = rel_max(dxf, dx_h)
+        check(dxf.dtype == torch.float32 and e <= 1e-4,
+              f"K3-bwd bf16 {mix} {plan}: fp32 dx within 1e-4 of its max ({e:.2e})")
+        check(bool((dpf[:, mlo:mlo + 2] == 0).all()),
+              f"K3-bwd bf16 {mix} {plan}: no gradient where the log-scale is below -7")
+        err["mix_bwd"] = max(err["mix_bwd"], (dpf.float() - dp_h.float()).abs().max().item())
+        dp2, _ = km.mix_log_prob_backward(xm, pm, gg, k, plan=plan)
+        check(torch.equal(dpf, dp2), f"K3-bwd bf16 {mix} {plan}: a relaunch is bit-equal")
+        del dpf, dxf, dp2
+    pk = pm.clone().requires_grad_()
+    build.reset_launches()
+    km.mix_log_prob(xm, pk, k).backward(gg)
+    check(build.LAUNCHES["mix_log_prob[bf16]"] == 1
+          and build.LAUNCHES["mix_log_prob_bwd[bf16]"] == 1
+          and build.LAUNCHES["mix_log_prob"] == 0 and pk.grad.dtype == bf,
+          f"{mix}: the autograd.Function launches K3 and K3-bwd's bf16 instantiations once "
+          f"each; bf16 dparams")
+    build.reset_launches()
+
+    # times: each bf16 instantiation in turns with its fp32 one (f, b, b, f)
+    times = {}
+
+    def timed_pair(name, k16, k32, plain, n_bytes, n_ops):
+        ct = [cuda_ms(k32, 20), cuda_ms(k16, 20), cuda_ms(k16, 20), cuda_ms(k32, 20)]
+        r = {"ms": (ct[1] + ct[2]) / 2, "fp32_ms": (ct[0] + ct[3]) / 2,
+             "plain_ms": cuda_ms(plain, 5), "device_ms": device_ms(k16, 10),
+             "fp32_device_ms": device_ms(k32, 10), "plain_device_ms": device_ms(plain, 3)}
+        r["bound_ms"], r["bound_by"] = bound(n_bytes, n_ops)
+        times[name] = r
+        print(f"  time {name} per call: bf16 {r['ms']:.4f} ms, fp32 {r['fp32_ms']:.4f} ms, "
+              f"plain bf16 {r['plain_ms']:.4f} ms; device: bf16 {fmt_ms(r['device_ms'])}, "
+              f"fp32 {fmt_ms(r['fp32_device_ms'])}, plain {fmt_ms(r['plain_device_ms'])}; "
+              f"bound at bf16 bytes {r['bound_ms']:.4f} ms ({r['bound_by']})  ({card})")
+        return r
+
+    t = bits8_keep_threshold(0.2)
+    for shape in timed:
+        c, n = shape[1], int(np.prod(shape))
+        x = (torch.randn(shape, generator=g_, device=dev) * 1.5 + 0.3).to(bf)
+        g = torch.randn(shape, generator=g_, device=dev).to(bf)
+        x32, g32 = x.float(), g.float()
+        gamma = torch.rand(c, generator=g_, device=dev) + 0.5
+        beta = torch.randn(c, generator=g_, device=dev) * 0.2
+        st16 = seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, key, None, None, 0.9)[1]
+        st32 = seg._launch_fwd(x32, gamma, beta, t, "elu", 1e-5, key, None, None, 0.9)[1]
+        mask = dropout_bytes(shape, seed, dev)
+        _, mp, _, rp = segment_forward(x, gamma, beta, t, "elu", mask_bytes=mask)
+        timed_pair(f"K5 {list(shape)}",
+                   lambda: seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, key, None, None, 0.9),
+                   lambda: seg._launch_fwd(x32, gamma, beta, t, "elu", 1e-5, key, None, None,
+                                           0.9),
+                   lambda: segment_forward(x, gamma, beta, t, "elu", mask_bytes=mask),
+                   4 * n, OPS_SEGMENT * n)
+        timed_pair(f"K5-bwd {list(shape)}",
+                   lambda: seg._launch_bwd(x, g, gamma, st16, t, "elu", key),
+                   lambda: seg._launch_bwd(x32, g32, gamma, st32, t, "elu", key),
+                   lambda: segment_backward(x, g, gamma, beta, mp, rp, t, "elu", mask),
+                   6 * n, 2 * OPS_SEGMENT * n)
+        timed_pair(f"dropout {list(shape)}", lambda: seg._launch_dropout(x, t, key),
+                   lambda: seg._launch_dropout(x32, t, key),
+                   lambda: bits8_dropout_f32(x.float(), dropout_bytes(shape, seed, dev),
+                                             t).to(bf),
+                   4 * n, OPS_SEGMENT * n)
+        del x, g, x32, g32
+        torch.cuda.empty_cache()
+    npix, q = mb * mh * mw, mq
+    # per pixel: params (100 bf16) and x (3 fp32) in, ll out; the backward
+    # reads g and writes dparams (bf16) too. Operations as phase 10 counts
+    # them: ~40 a bin, twice that backward
+    timed_pair(f"K3 {mix}", lambda: km.mix_log_prob(xm, pm, k),
+               lambda: km.mix_log_prob(xm, p32, k),
+               lambda: km._plain_mix_log_prob(xm, pm, k, 256),
+               npix * (2 * q + 4 * mc + 4), npix * k * mc * 40)
+    for plan in km.PLANS:
+        timed_pair(f"K3-bwd {mix} {plan}",
+                   lambda p=plan: km.mix_log_prob_backward(xm, pm, gg, k, need_dx=False, plan=p),
+                   lambda p=plan: km.mix_log_prob_backward(xm, p32, gg, k, need_dx=False,
+                                                           plan=p),
+                   lambda: km._plain_mix_log_prob_bwd(xm, pm.float(), gg, k, 256),
+                   npix * (4 * q + 4 * mc + 4), npix * k * mc * 80)
+    print(f"  bf16 outputs 1 ulp from the plain version's, elements over every check: "
+          f"{apart}")
+    build.reset_launches()
+    torch.cuda.empty_cache()
+    return err, times, apart
+
+
+def bf16_cli_run(card, name, args, data, write, steps, expect):
+    """``lvae_tpu_torch.main --precision bf16 ...``: ``steps`` steps with
+    data-dependent init, one test sweep and a checkpoint, which
+    ``lvae_tpu_torch.evaluate`` scores in bf16 (its stored precision).
+    ``expect(model, unfused dropout sites)`` gives {launch counter:
+    launches}, held to the run's counts less the init's; every fp32
+    instantiation of a bf16 kernel is held at 0. Returns the run's
+    record and the checkpoint's weights (the trained model's)."""
+    import torch
+
+    from lvae_tpu_torch import evaluate
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.kernels import build
+
+    init = init_launches(args, data)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        write(data_dir)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_main.main(args + [
+            "--data-dir", data_dir, "--data-dep-init", "--max-steps", str(steps),
+            "--device", "cuda", "--log-interval", "20", "--test-interval", str(steps),
+            "--checkpoint-interval", str(steps), "--output-dir", os.path.join(tmp, "out"),
+            "--run-name", name.replace(" ", "-")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        print(f"  {name}: {steps} steps with init in {wall:.1f} s; launches {launches}  "
+              f"({card})")
+        model = trainer.state.model
+        for counter, n in expect(model, unfused_dropouts(model)).items():
+            got = launches.get(counter, 0) - init.get(counter, 0)
+            check(n > 0 and got == n, f"{name}: {counter} {n} in the run, the init's "
+                                      f"{init.get(counter, 0)} besides ({launches.get(counter, 0)})")
+        fp32_twins = [c.removesuffix("[bf16]") for c in build.LAUNCHES if c.endswith("[bf16]")]
+        check(all(launches[c] == 0 for c in fp32_twins),
+              f"{name}: no fp32 instantiation of a bf16 kernel ran "
+              f"({ {c: launches[c] for c in fp32_twins} })")
+        convs = [m for m in model.modules() if hasattr(m, "compute_dtype")]
+        check(all(m.compute_dtype == torch.bfloat16 for m in convs)
+              and all(p.dtype == torch.float32 for p in model.parameters()),
+              f"{name}: {len(convs)} convs compute in bf16, the parameters are fp32")
+        hist = trainer.logger.history
+        check(all(np.isfinite(np.asarray(v, dtype=np.float64)).all()
+                  for _, _, m in hist for v in m.values()),
+              f"{name}: every logged metric finite ({len(hist)} lines)")
+        lines = {step: m for kind, step, m in hist if kind == "train"}
+        first, last = float(lines[20]["loss"]), float(lines[steps]["loss"])
+        check(last < first, f"{name}: EMA loss {last:.2f} at step {steps} below {first:.2f} "
+                            f"at step 20")
+        tests = [m for kind, _, m in hist if kind == "test"]
+        path = os.path.join(trainer.run_dir, "checkpoints", f"ckpt_{steps:08d}.pt")
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        floats = [t for t in ckpt["model"].values() if t.is_floating_point()]
+        floats += [v for st in ckpt["optimizer"]["state"].values() for v in st.values()]
+        check(all(t.dtype == torch.float32 for t in floats),
+              f"{name}: the checkpoint holds fp32 weights and Adamax state "
+              f"({len(floats)} tensors)")
+        with open(os.path.join(trainer.run_dir, "config.json")) as f:
+            check(json.load(f)["precision"] == "bf16", f"{name}: config.json records bf16")
+        build.reset_launches()
+        res = evaluate.main(["--load", trainer.run_dir, "--state-dict", path,
+                             "--device", "cuda"])
+        e = res["elbo"]
+        check(np.isfinite(e["elbo"]) and abs(e["elbo"] - tests[-1]["elbo"]) <= 1e-2,
+              f"{name}: evaluate scores the checkpoint in bf16: ELBO {e['elbo']:.3f}, the "
+              f"run's last test ELBO {tests[-1]['elbo']:.3f}")
+        out.update(launches=launches, wall_s=wall, ema_loss=(first, last),
+                   test_elbo=[float(m["elbo"]) for m in tests],
+                   log_rates={s: float(m["images_per_sec"]) for s, m in lines.items()})
+    build.reset_launches()
+    return out, ckpt["model"]
+
+
+def bf16_one_step(card, name, args, data, weights, kern, plain):
+    """One bf16 step from ``weights``: the kernel path ``--fused kern``
+    against the plain path ``--fused plain`` on the card (deterministic
+    algorithms on), at ``BF16_STEP_TOL``: the loss, and each gradient
+    against its own max (the BatchNorm-fed biases against the largest)."""
+    import dataclasses
+
+    import torch
+
+    from lvae_tpu_torch.config import config_from_args
+    from lvae_tpu_torch.data.device import preprocess_batch
+    from lvae_tpu_torch.models.stochastic import Noise
+    from lvae_tpu_torch.train.state import loss_terms
+    from lvae_tpu_torch.train.trainer import Experiment
+
+    cfg, _ = config_from_args(args)
+    order = np.random.default_rng((cfg.seed, 0)).permutation(data.train.shape[0])
+
+    def one(fused):
+        exp = Experiment(dataclasses.replace(cfg, fused=fused), torch.device("cuda"), data)
+        exp.model.load_state_dict(weights)
+        state = exp.init_state(data_dep_init=False)
+        index = torch.from_numpy(order[:cfg.batch_size]).cuda()
+        x = preprocess_batch(exp.train_data.gather(index), data.preprocess, state.seed, index,
+                             0)
+        loss, _ = loss_terms(exp.model, x, Noise(state.seed, index, 0), 1.0, cfg.freebits)
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().clone() for k, p in
+                             exp.model.named_parameters()}, bn_fed_biases(exp.model)
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        (lk, gk, zero), (lp, gp, _) = one(kern), one(plain)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    rel = abs(lk - lp) / abs(lp)
+    # the biases that only a BatchNorm reads have a zero gradient but for
+    # roundoff: against the largest gradient, as phases 9, 13 and 16 hold them
+    gmax = max(g.abs().max().item() for g in gp.values())
+    errs = sorted(((rel_max(gk[n], g, gmax if n in zero else 0.0), n) for n, g in gp.items()),
+                  reverse=True)
+    print(f"  {name}: loss {lk:.6f} vs {lp:.6f} (rel {rel:.2e}); worst gradients relative to "
+          f"their max: {[(f'{e:.2e}', n) for e, n in errs[:3]]}; median "
+          f"{errs[len(errs) // 2][0]:.2e}")
+    check(rel <= BF16_STEP_TOL["loss"], f"{name}: loss within {BF16_STEP_TOL['loss']:g} "
+                                        f"relative")
+    check(errs[0][0] <= BF16_STEP_TOL["grad"],
+          f"{name}: every gradient within {BF16_STEP_TOL['grad']:g} of its max")
+    return {"loss_rel": rel, "worst_grad": errs[0][0], "median_grad": errs[len(errs) // 2][0]}
+
+
+def bf16_loss_gap(card, name, args, data, weights):
+    """``BF16_GAP_STEPS`` eager steps in fp32 and in bf16 from the same
+    weights (a bf16 run's trained checkpoint) and batches: the mean loss
+    over the last 20 steps within 2% relative, and the bf16 losses not the
+    fp32 ones (the bf16 run computed in bf16)."""
+    import dataclasses
+
+    import torch
+
+    from lvae_tpu_torch.config import config_from_args
+    from lvae_tpu_torch.train.state import train_step
+    from lvae_tpu_torch.train.trainer import Experiment, index_stream
+
+    cfg, _ = config_from_args(args)
+    means, losses = {}, {}
+    for precision in ("fp32", "bf16"):
+        exp = Experiment(dataclasses.replace(cfg, precision=precision), torch.device("cuda"),
+                         data)
+        exp.model.load_state_dict(weights)
+        state = exp.init_state(data_dep_init=False)
+        stream = index_stream(exp.train_data, cfg.batch_size, cfg.seed, 0)
+        losses[precision] = torch.stack([
+            train_step(state, exp.train_data.gather(idx), idx, exp.loss_cfg)["loss"]
+            for idx, _ in zip(stream, range(BF16_GAP_STEPS))])
+        means[precision] = float(losses[precision][-20:].mean())
+        del exp, state
+        torch.cuda.empty_cache()
+    gap = abs(means["bf16"] - means["fp32"]) / abs(means["fp32"])
+    differ = int((losses["bf16"] != losses["fp32"]).sum())
+    check(gap <= 0.02, f"{name}: mean loss over steps {BF16_GAP_STEPS - 19}-{BF16_GAP_STEPS}: "
+                       f"bf16 {means['bf16']:.3f}, fp32 {means['fp32']:.3f}; gap {gap:.2e} "
+                       f"relative, within 0.02")
+    check(differ > 0, f"{name}: the bf16 losses are not the fp32 ones ({differ} of "
+                      f"{BF16_GAP_STEPS} steps differ)")
+    return {"mean_loss": means, "gap": gap, "steps_differ": differ}
+
+
+def bf16_eval(card, name, config, weights, write, n_test, iw_batch, want=()):
+    """Test ELBO over the test split and the k=100 IW-LL over its first
+    ``iw_batch`` images, through ``lvae_tpu_torch.evaluate.main`` from the
+    same weights (a bf16 run's trained checkpoint) at fp32 and at bf16;
+    then the ELBO sweep's images/s at fp32 and bf16 in turns (f, b, b, f).
+    Each precision's bpd and the bf16 - fp32 delta."""
+    import torch
+
+    from lvae_tpu_torch import evaluate
+    from lvae_tpu_torch.kernels import build
+
+    iw, turns, counts = {}, {"fp32": [], "bf16": []}, {}
+    with tempfile.TemporaryDirectory() as run_dir:
+        data_dir = os.path.join(run_dir, "data")
+        write(data_dir)
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            json.dump(dict(config, data_dir=data_dir), f)
+        path = os.path.join(run_dir, "weights.pt")
+        torch.save(weights, path)
+        base = ["--load", run_dir, "--state-dict", path, "--device", "cuda", "--precision"]
+        for precision in ("fp32", "bf16"):
+            build.reset_launches()
+            iw[precision] = evaluate.main(base + [
+                precision, "--ll", "--iw-samples", str(IW_SAMPLES), "--iw-max-batches", "1",
+                "--test-batch-size", str(iw_batch)])
+            counts[precision] = {k: v for k, v in build.LAUNCHES.items() if v}
+        for precision in ("fp32", "bf16", "bf16", "fp32"):
+            turns[precision].append(evaluate.main(base + [precision])["elbo"])
+    build.reset_launches()
+    bf16_kernels = [k for k in counts["bf16"] if k.endswith("[bf16]")]
+    check(all(not k.endswith("[bf16]") for k in counts["fp32"])
+          and all(k.removesuffix("[bf16]") not in counts["bf16"] for k in bf16_kernels),
+          f"{name} eval: the bf16 run launched the bf16 instantiations ({bf16_kernels}), "
+          f"the fp32 run the fp32 ones")
+    check(all(k in counts["bf16"] for k in want), f"{name} eval bf16: {list(want)} ran")
+    out = {}
+    for precision in ("fp32", "bf16"):
+        e, w = turns[precision][0], iw[precision]["iw"]
+        check(e["n_images"] == n_test and w["n_images"] == iw_batch
+              and np.isfinite(e["bpd"]) and np.isfinite(w["iw_bpd"]),
+              f"{name} eval {precision}: finite ELBO over {n_test} images, IW-LL over "
+              f"{iw_batch}")
+        rate = float(np.mean([r["images_per_sec"] for r in turns[precision]]))
+        out[precision] = {"bpd": e["bpd"], "elbo": e["elbo"], "iw_bpd": w["iw_bpd"],
+                          "elbo_images_per_sec": rate, "iw_images_per_sec": w["images_per_sec"],
+                          "launches": counts[precision]}
+        print(f"  {name} eval {precision}: ELBO bpd {e['bpd']:.5f} over {n_test} images, "
+              f"{rate:.1f} img/s (runs {[round(r['images_per_sec'], 1) for r in turns[precision]]}"
+              f"); IW-LL (k={IW_SAMPLES}) bpd {w['iw_bpd']:.5f} over {iw_batch} images at "
+              f"batch {iw_batch}, {w['images_per_sec']:.1f} img/s  ({card})")
+    out["bpd_delta"] = out["bf16"]["bpd"] - out["fp32"]["bpd"]
+    out["iw_bpd_delta"] = out["bf16"]["iw_bpd"] - out["fp32"]["iw_bpd"]
+    print(f"  {name} eval: bpd delta bf16 - fp32: ELBO {out['bpd_delta']:+.5f}, IW-LL "
+          f"{out['iw_bpd_delta']:+.5f}  ({card})")
+    return out
+
+
+def phase_bf16(card, per_step, timed, build_log, train_u8, test_u8, flagship_weights,
+               c_train, c_test, c_data, celeba_weights):
+    """Phase 18: --precision bf16 on both models."""
+    from lvae_tpu_torch.data.sources import make_synthetic
+
+    t0 = time.perf_counter()
+    err, times, apart = phase_bf16_kernels(card, per_step, timed, build_log)
+    print(f"  phase 18a took {time.perf_counter() - t0:.1f} s", flush=True)
+    out = {"kernel_times": {k: v for k, v in times.items()}, "ulps_apart": apart}
+    print("[18b] training in bf16 through lvae_tpu_torch.main", flush=True)
+    fdata = flagship_dataset(train_u8, test_u8)
+
+    def flagship_counts(model, sites):
+        n = BF16_FLAGSHIP_STEPS
+        return {"sample_kl_per_sample": 3 * n, "sample_kl_per_sample_bwd": 3 * n,
+                "dropout[bf16]": 2 * sites * n}
+
+    def celeba_counts(all_):
+        def counts(model, sites):
+            n, sweep = BF16_CELEBA_STEPS, CELEBA_N_TEST // CELEBA_EVAL_B
+            out = {"mix_log_prob[bf16]": n + sweep, "mix_log_prob_bwd[bf16]": n,
+                   "sample_kl_per_sample": 4 * n, "sample_kl_per_sample_bwd": 4 * n,
+                   "dropout[bf16]": 2 * sites * n}
+            if all_:
+                out["segment[bf16]"] = out["segment_bwd[bf16]"] = segments_per_step(model) * n
+            return out
+        return counts
+
+    runs, trained = {}, {}
+    # the flagship and celeba64 all as CUDA graphs of GRAPH_K steps (the
+    # replays count their launches), celeba64 auto eager
+    graphed = ["--steps-per-call", str(GRAPH_K)]
+    runs["flagship auto"], trained["flagship auto"] = bf16_cli_run(
+        card, "flagship bf16 auto graphed",
+        FLAGSHIP_ARGS + ["--precision", "bf16", "--fused", "auto"] + graphed, fdata,
+        lambda d: write_mnist(d, train_u8, test_u8), BF16_FLAGSHIP_STEPS, flagship_counts)
+    for fused, extra in (("auto", []), ("all", graphed)):
+        runs[f"celeba64 {fused}"], trained[f"celeba64 {fused}"] = bf16_cli_run(
+            card, f"celeba64 bf16 {fused}{' graphed' if extra else ''}",
+            CELEBA_ARGS + ["--precision", "bf16", "--fused", fused] + extra, c_data,
+            lambda d: write_celeba(d, c_train, c_test), BF16_CELEBA_STEPS,
+            celeba_counts(fused == "all"))
+    out["runs"] = runs
+    print("[18c] one bf16 step, the kernel path vs the plain path; bf16 vs fp32 losses",
+          flush=True)
+    out["step"] = {
+        "flagship auto": bf16_one_step(card, "flagship bf16 --fused auto vs none",
+                                       FLAGSHIP_ARGS + ["--precision", "bf16"], fdata,
+                                       flagship_weights, "auto", "none"),
+        "celeba64 all": bf16_one_step(card, "celeba64 bf16 --fused all vs none",
+                                      CELEBA_ARGS + ["--precision", "bf16"], c_data,
+                                      celeba_weights, "all", "none")}
+    # from the trained bf16 checkpoints: the seeded weights keep the
+    # likelihood head at its normal(1e-2) init, near 0 in either precision
+    out["loss_gap"] = {
+        "flagship auto": bf16_loss_gap(card, "flagship auto", FLAGSHIP_ARGS, fdata,
+                                       trained["flagship auto"]),
+        "celeba64 all": bf16_loss_gap(card, "celeba64 all", CELEBA_ARGS + ["--fused", "all"],
+                                      c_data, trained["celeba64 all"])}
+    print(f"[18d] --steps-per-call {GRAPH_K} in bf16", flush=True)
+    cell_args = CELEBA_ARGS + ["--fused", "all"]
+    out["graph"] = graph_cell(card, "celeba64 all bf16", cell_args + ["--precision", "bf16"],
+                              c_data, celeba_weights)
+    precisions = {p: {"precision": p, "steps_per_call": GRAPH_K} for p in ("fp32", "bf16")}
+    out["graph"]["turns"] = {
+        "celeba64 all": rates_in_turns(card, "celeba64 all graphed", cell_args, c_data,
+                                       precisions),
+        "flagship auto": rates_in_turns(card, "flagship auto graphed",
+                                        FLAGSHIP_ARGS + ["--fused", "auto"], fdata, precisions)}
+    print("[18e] evaluation in bf16 and fp32 from the same trained weights", flush=True)
+    _, f_test = make_synthetic(n_train=0, n_test=N_TEST, seed=5)
+
+    def write_flagship_test(d):
+        os.makedirs(os.path.join(d, "static_mnist"))
+        write_amat(os.path.join(d, "static_mnist", "binarized_mnist_test.amat"), f_test)
+
+    out["eval"] = {
+        "flagship": bf16_eval(card, "flagship", FLAGSHIP, trained["flagship auto"],
+                              write_flagship_test, N_TEST, BF16_IW_BATCH["flagship"]),
+        "celeba64": bf16_eval(card, "celeba64", CELEBA, trained["celeba64 all"],
+                              lambda d: write_celeba(d, c_train[:1], c_test), CELEBA_N_TEST,
+                              BF16_IW_BATCH["celeba64"], want=("mix_log_prob[bf16]",))}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 18 took {out['wall_s']:.1f} s", flush=True)
+    return err, times, out
 
 
 def main():
@@ -2447,6 +3092,10 @@ def main():
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"tf32 off", flush=True)
     t0 = time.perf_counter()
+
+    def lap(what):
+        print(f"  [{what} at {time.perf_counter() - t0:.1f} s]", flush=True)
+
     build_log = phase_build()
     res = {"card": card}
     k2_err, k2_t, k2_b = phase_sample_kl(card)
@@ -2472,19 +3121,22 @@ def main():
               plan=k4["plan"], shapes=f"[{IW_SAMPLES}, {B}] (celeba64: [{IW_SAMPLES}, "
               f"{CELEBA_EVAL_B}])", path="evaluate", **k4_more),
     ]
+    lap("phase 6")
     t6 = time.perf_counter()
     k1_err, k1_t, k1_host = phase_k1(card, build_log=build_log)
     bwd_err, bwd_t = phase_bwd(card)
     print(f"  phases 6-7 took {time.perf_counter() - t6:.1f} s")
     train_u8, test_u8 = train_data()
+    lap("phase 8")
     tr = phase_train(card, train_u8, test_u8)
-    res.update(train_run={k: tr[k] for k in ("wall_s", "log_rates", "log_rate_91_300",
+    res.update(train_run={k: tr[k] for k in ("wall_s", "log_rates", "log_rate_late",
                                             "test_elbo", "ema_loss")})
     flagship_weights = flagship_model(torch.device("cpu")).state_dict()
     res.update(phase_step(
         card, "[9] one step: the kernel path vs the plain path and the CPU; train "
         "images/s", FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8), flagship_weights,
-        TRAIN_B, 150, 50))
+        TRAIN_B, AB_STEPS, AB_LOG))
+    lap("phase 10")
     mix_err, mix_t, mix_more = phase_mixture(card, build_log)
     res["mixture"] = mix_more
     c_all = rgb_blobs(CELEBA_N_TRAIN + CELEBA_N_TEST, seed=12)
@@ -2496,10 +3148,10 @@ def main():
     celeba_weights = seeded_model(CELEBA, c_data, torch.device("cpu")).state_dict()
     cst = phase_step(
         card, "[13] one celeba64 step: the kernel path vs the plain path and the CPU; "
-        "train images/s", CELEBA_ARGS, c_data, celeba_weights, 16, 150, 50)
+        "train images/s", CELEBA_ARGS, c_data, celeba_weights, 16, AB_STEPS, AB_LOG)
     res["celeba64"] = {
         "images_per_sec": cev["rates"], "elbo_profile": cev["elbo_profile"],
-        "train_run": {k: ctr[k] for k in ("wall_s", "log_rates", "log_rate_101_200",
+        "train_run": {k: ctr[k] for k in ("wall_s", "log_rates", "log_rate_late",
                                          "test_elbo", "ema_loss")},
         **cst}
 
@@ -2511,6 +3163,7 @@ def main():
         print(f"  {model}'s segments per step by shape: "
               f"{ {str(list(k)): v for k, v in counts.items()} }")
     timed = tuple(next(iter(per_step[m])) for m in ("celeba64", "flagship"))
+    lap("phase 14")
     t14 = time.perf_counter()
     seg_err, seg_t, seg_steps, seg_more = phase_segment(card, per_step, timed, build_log)
     drop_err, drop_t = phase_dropout(card, [s for c in per_step.values() for s in c])
@@ -2519,19 +3172,25 @@ def main():
                             for (shape, path), row in seg_more["by_path"].items()}
     res["segment_host_ms"] = seg_more["host_ms"]
     res["segment_ptxas"] = seg_more["ptxas"]
+    lap("phase 15")
     csg = phase_celeba_segments(card, c_train, c_test, ctr)
     res["celeba64"]["segments_run"] = {k: csg[k] for k in ("wall_s", "log_rates", "test_elbo",
                                                            "ema_loss", "segments_per_step")}
     res["celeba64"]["segments_step"] = phase_step(
         card, "[16a] one celeba64 step: --fused all vs pallas on the card and vs the CPU; "
-        "train images/s", CELEBA_ARGS, c_data, celeba_weights, 16, 100, 50,
+        "train images/s", CELEBA_ARGS, c_data, celeba_weights, 16, AB_STEPS, AB_LOG,
         paths=("all", "pallas"), card_dropout=0.0, cpu=("all", 0.2))
     res["segments_step"] = phase_step(
         card, "[16b] one flagship step: --fused all vs stochastic on the card; train "
         "images/s", FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8), flagship_weights,
-        None, 150, 50, paths=("all", "stochastic"), card_dropout=0.0)
+        None, AB_STEPS, AB_LOG, paths=("all", "stochastic"), card_dropout=0.0)
+    lap("phase 17")
     res["steps_per_call"] = phase_graph(card, train_u8, test_u8, flagship_weights, c_data,
                                         celeba_weights)
+    lap("phase 18")
+    b16_err, b16_t, res["bf16"] = phase_bf16(card, per_step, timed, build_log, train_u8,
+                                             test_u8, flagship_weights, c_train, c_test,
+                                             c_data, celeba_weights)
 
     def times_and_bound(t):
         return [t[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")], \
@@ -2600,6 +3259,28 @@ def main():
         launches_celeba64_all=csg["launches"]["dropout"],
         shapes=f"{drop_t['shape']}, rate 0.2", path="the flagship and celeba64: "
         "lvae_tpu_torch.main (training), every bits8 dropout that no segment absorbs"))
+    b16_runs = res["bf16"]["runs"]
+    mix16 = f"[{CELEBA_B},100,64,64] C=3 K={K_MIX}"
+    for name, source, replaces, run, e, t in (
+        ("segment[bf16]", "segment.cu", "lvae_tpu/kernels/segment_pallas.py:291",
+         "celeba64 all", b16_err["segment"], b16_t[f"K5 {list(timed[0])}"]),
+        ("segment_bwd[bf16]", "segment.cu", "lvae_tpu/kernels/segment_pallas.py:318",
+         "celeba64 all", b16_err["segment_bwd"], b16_t[f"K5-bwd {list(timed[0])}"]),
+        ("dropout_bits8[bf16]", "segment.cu", "lvae_tpu/models/blocks.py:86 (FastDropout: "
+         "jax.random bits, no pl.pallas_call)", "flagship auto", b16_err["dropout"],
+         b16_t[f"dropout {list(timed[0])}"]),
+        ("mix_log_prob[bf16]", "mixture.cu", "lvae_tpu/kernels/mixture_pallas.py:323",
+         "celeba64 auto", b16_err["mix"], b16_t[f"K3 {mix16}"]),
+        ("mix_log_prob_bwd[bf16]", "mixture.cu", "lvae_tpu/kernels/mixture_pallas.py:338",
+         "celeba64 auto", b16_err["mix_bwd"], b16_t[f"K3-bwd {mix16} one_pass"]),
+    ):
+        counter = name.replace("dropout_bits8", "dropout")
+        kernels.append(entry(
+            name, source, replaces, b16_runs[run]["launches"][counter], e,
+            [t[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")],
+            (t["bound_ms"], t["bound_by"]), None, fp32_ms=t["fp32_ms"],
+            fp32_device_ms=t["fp32_device_ms"], storage="bf16",
+            path=f"lvae_tpu_torch.main --precision bf16 ({run})"))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, **res}))

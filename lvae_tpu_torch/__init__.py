@@ -8,7 +8,9 @@ forward per element (K2) and per sample (K1) with their backward
 (``kernels/stochastic.py``), the IW logsumexp (``kernels/logsumexp.py``),
 the mixture head's log-prob and its backward (``kernels/mixture.py``) and
 the train-mode dropout+BatchNorm+activation segment and its backward
-(``kernels/segment.py``).
+(``kernels/segment.py``). ``--precision bf16`` runs the convolutions in
+bf16 from fp32 parameters, as ``lvae_tpu``'s does, with bf16
+instantiations of the segment, dropout and mixture kernels.
 
 It imports torch and numpy, never jax or ``lvae_tpu``; ``lvae_tpu`` stays
 the reference it is tested against (``tests/test_torch_*.py``). Public
@@ -19,7 +21,8 @@ import torch
 
 
 def fp32_math() -> None:
-    """Run convolutions and matmuls in full fp32: this port is fp32-only,
-    and cuDNN's TF32 default would keep about three decimal digits."""
+    """Run fp32 convolutions and matmuls in full fp32: cuDNN's TF32 default
+    would keep about three decimal digits, and ``lvae_tpu`` has no TF32
+    switch (its reduced precision is ``--precision bf16``)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -18,10 +18,15 @@ import dataclasses
 import time
 from typing import Optional, Sequence, Tuple
 
+import torch
+
 # Values the port does not run yet; each names the flag it came from.
 _LATER = "a later PR of the port"
 # lvae_tpu/models/likelihoods.py:LIKELIHOODS, all four ported
 LIKELIHOODS = ("bernoulli", "gaussian", "discretized_logistic", "discretized_logistic_mix")
+# --precision -> the convolutions' compute dtype (lvae_tpu/train/trainer.py:115):
+# bf16 convs from fp32 parameters; everything else stays fp32
+PRECISIONS = {"fp32": None, "bf16": torch.bfloat16}
 
 
 @dataclasses.dataclass
@@ -92,12 +97,11 @@ class EvalConfig:
                 f"--likelihood {self.likelihood}: unknown head; choose from "
                 f"{LIKELIHOODS}"
             )
-        # what the port does not run, each rejected with its flag named
-        if self.precision != "fp32":
+        if self.precision not in PRECISIONS:
             raise ValueError(
-                f"--precision {self.precision} is not ported yet: this port "
-                f"is fp32-only; bf16 comes in {_LATER}"
+                f"--precision {self.precision}: choose from {tuple(PRECISIONS)}"
             )
+        # what the port does not run, each rejected with its flag named
         if self.spatial_shards > 1:
             raise ValueError(
                 f"--spatial-shards {self.spatial_shards} is not supported by "
@@ -291,7 +295,10 @@ def build_parser() -> argparse.ArgumentParser:
     add("--ema-decay", type=float, default=d.ema_decay)
     # infrastructure
     add("--rng-impl", default=d.rng_impl, choices=["rbg", "threefry"])
-    add("--precision", default=d.precision, choices=["fp32", "bf16"])
+    add("--precision", default=d.precision, choices=list(PRECISIONS),
+        help="the convolutions' compute dtype: bf16 convs from fp32 parameters, "
+             "with BatchNorm, the segments, the latents, the likelihood, the "
+             "loss and the optimiser in fp32")
     add("--fused", default=d.fused,
         choices=["auto", "none", "stochastic", "mixture", "pallas", "segments", "all"],
         help="kernel policy: 'auto' turns on, on CUDA, the sample+KL kernels "

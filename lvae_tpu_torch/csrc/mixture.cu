@@ -76,15 +76,45 @@
 // than two passes (~0.29 against ~0.23 ms per call at [32, 240, 64, 64]).
 // Determinism: every pixel is independent, with no atomics, so two
 // launches are bit-equal.
+//
+// Storage: params (and so dparams) are fp32 or bf16 (P); x, g, ll and dx
+// are fp32 whatever P is. Under --precision bf16 lvae_tpu hands its kernel
+// the raw bf16 conv output and the fp32 image, upcasts per block, computes
+// in fp32 and casts dparams back to bf16 (mixture_pallas.py:214,328,341-342,
+// 513). Here a thread converts each bf16 parameter to fp32 as it loads it,
+// all the math is the fp32 kernel's, and dparams is written as bf16
+// directly: the fp32 value rounded to nearest even is the cast's bits, at
+// half the bytes and with no second kernel. A bf16 map halves the
+// parameter bytes: at [128, 100, 64, 64] the forward moves 218 -> 113 MB,
+// the backward 435 -> 226 MB (with dx).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr float kLogScaleMin = -7.0f;
+
+using bf16 = __nv_bfloat16;
+
+// A parameter as fp32; bf16 -> fp32 is exact (the 16 bits are the fp32
+// value's top half). Read through the pointer here: converting a bf16
+// passed by value (p[i]) ran the forward at 2.2x this form's time on an
+// H100 (PERF.md), for reasons its opcode counts do not show.
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) {
+  return __uint_as_float(static_cast<unsigned>(__bfloat16_as_ushort(*p)) << 16);
+}
+
+template <typename P>
+__device__ __forceinline__ P down(float v) {
+  if constexpr (std::is_same_v<P, float>) return v;
+  else return __float2bfloat16_rn(v);     // round to nearest even, as PyTorch's cast
+}
 
 __device__ __forceinline__ float softplus(float v) {
   return fmaxf(v, 0.0f) + log1pf(expf(-fabsf(v)));
@@ -145,7 +175,7 @@ __device__ __forceinline__ Bin bin_logprob(float xs, float m, float ls, float hb
 
 // Component j of one pixel: its autoregressed means, floored log-scales,
 // tanh coefficients and bin terms. p points at the pixel's channel 0 of
-// params; channel q is p[q * hw].
+// params (fp32 or bf16, read as fp32); channel q is p[q * hw].
 template <int C, bool kGrad>
 struct Component {
   float t;            // sum_c lp + pi_j
@@ -154,25 +184,26 @@ struct Component {
   bool free_ls[C];    // ls_raw > floor: the log-scale gradient passes
   float dm[C], dls[C];
 
-  __device__ __forceinline__ Component(const float* p, long long hw, int k, int j,
+  template <typename P>
+  __device__ __forceinline__ Component(const P* p, long long hw, int k, int j,
                                        const float (&xs)[C], float hb) {
-    pi = p[j * hw];
-    const float* mean = p + (k + C * j) * hw;
-    const float* lsr = p + (k + k * C + C * j) * hw;
-    const float* cor = p + (k + 2 * k * C + C * j) * hw;
+    pi = ld(p + j * hw);
+    const P* mean = p + (k + C * j) * hw;
+    const P* lsr = p + (k + k * C + C * j) * hw;
+    const P* cor = p + (k + 2 * k * C + C * j) * hw;
     float m[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) m[c] = mean[c * hw];
+    for (int c = 0; c < C; ++c) m[c] = ld(mean + c * hw);
     if constexpr (C == 3) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) co[c] = tanhf(cor[c * hw]);
+      for (int c = 0; c < C; ++c) co[c] = tanhf(ld(cor + c * hw));
       m[1] = m[1] + co[0] * xs[0];
       m[2] = (m[2] + co[1] * xs[0]) + co[2] * xs[1];
     }
     float s = 0.0f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const float raw = lsr[c * hw];
+      const float raw = ld(lsr + c * hw);
       free_ls[c] = raw > kLogScaleMin;
       const Bin r = bin_logprob<kGrad>(xs[c], m[c], fmaxf(raw, kLogScaleMin), hb);
       s += r.lp;
@@ -193,8 +224,8 @@ __device__ __forceinline__ void load_xs(const float* x, long long b, long long h
 }
 
 // The two logsumexps of a pixel: over pi, and over t_j.
-template <int C>
-__device__ __forceinline__ void pixel_lse(const float* p, long long hw, int k,
+template <int C, typename P>
+__device__ __forceinline__ void pixel_lse(const P* p, long long hw, int k,
                                           const float (&xs)[C], float hb,
                                           float& lse_pi, float& lse_t) {
   float mp = -INFINITY, sp = 0.0f, mt = -INFINITY, st = 0.0f;
@@ -207,8 +238,8 @@ __device__ __forceinline__ void pixel_lse(const float* p, long long hw, int k,
   lse_t = mt + logf(st);
 }
 
-template <int C>
-__global__ void mix_fwd_kernel(const float* __restrict__ x, const float* __restrict__ params,
+template <int C, typename P>
+__global__ void mix_fwd_kernel(const float* __restrict__ x, const P* __restrict__ params,
                                float* __restrict__ out, long long npix, long long hw,
                                int k, float hb) {
   const long long q = static_cast<long long>(k) * (1 + 3 * C);
@@ -224,9 +255,9 @@ __global__ void mix_fwd_kernel(const float* __restrict__ x, const float* __restr
   }
 }
 
-template <int C>
-__global__ void mix_bwd_kernel(const float* __restrict__ x, const float* __restrict__ params,
-                               const float* __restrict__ g, float* __restrict__ dparams,
+template <int C, typename P>
+__global__ void mix_bwd_kernel(const float* __restrict__ x, const P* __restrict__ params,
+                               const float* __restrict__ g, P* __restrict__ dparams,
                                float* __restrict__ dx, long long npix, long long hw, int k,
                                float hb) {
   const long long q = static_cast<long long>(k) * (1 + 3 * C);
@@ -236,8 +267,8 @@ __global__ void mix_bwd_kernel(const float* __restrict__ x, const float* __restr
     const long long b = i / hw, p = i - b * hw;
     float xs[C];
     load_xs<C>(x, b, hw, p, xs);
-    const float* pp = params + b * q * hw + p;
-    float* dp = dparams + b * q * hw + p;
+    const P* pp = params + b * q * hw + p;
+    P* dp = dparams + b * q * hw + p;
     float lse_pi, lse_t;
     pixel_lse<C>(pp, hw, k, xs, hb, lse_pi, lse_t);
     const float gi = g[i];
@@ -248,26 +279,26 @@ __global__ void mix_bwd_kernel(const float* __restrict__ x, const float* __restr
       const Component<C, true> cj(pp, hw, k, j, xs, hb);
       const float w = expf(cj.t - lse_t);
       const float gw = gi * w;
-      dp[j * hw] = gi * (w - expf(cj.pi - lse_pi));
+      dp[j * hw] = down<P>(gi * (w - expf(cj.pi - lse_pi)));
       float dm[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         dm[c] = gw * cj.dm[c];
-        dp[(k + C * j + c) * hw] = dm[c];
-        dp[(k + k * C + C * j + c) * hw] = cj.free_ls[c] ? gw * cj.dls[c] : 0.0f;
+        dp[(k + C * j + c) * hw] = down<P>(dm[c]);
+        dp[(k + k * C + C * j + c) * hw] = down<P>(cj.free_ls[c] ? gw * cj.dls[c] : 0.0f);
       }
-      float* dco = dp + (k + 2 * k * C + C * j) * hw;
+      P* dco = dp + (k + 2 * k * C + C * j) * hw;
       if constexpr (C == 3) {
         const float* co = cj.co;
-        dco[0] = dm[1] * xs[0] * (1.0f - co[0] * co[0]);
-        dco[hw] = dm[2] * xs[0] * (1.0f - co[1] * co[1]);
-        dco[2 * hw] = dm[2] * xs[1] * (1.0f - co[2] * co[2]);
+        dco[0] = down<P>(dm[1] * xs[0] * (1.0f - co[0] * co[0]));
+        dco[hw] = down<P>(dm[2] * xs[0] * (1.0f - co[1] * co[1]));
+        dco[2 * hw] = down<P>(dm[2] * xs[1] * (1.0f - co[2] * co[2]));
         // the bin terms see xs_c - m_c; the autoregression adds couplings
         dxs[0] += (-dm[0] + dm[1] * co[0]) + dm[2] * co[1];
         dxs[1] += -dm[1] + dm[2] * co[2];
         dxs[2] += -dm[2];
       } else {
-        dco[0] = 0.0f;              // C = 1: the coefficients are unused
+        dco[0] = down<P>(0.0f);     // C = 1: the coefficients are unused
         dxs[0] += -dm[0];
       }
     }
@@ -338,15 +369,15 @@ constexpr int kStored = C == 3 ? 11 : 4;
 template <int C>
 constexpr int kRead = C == 3 ? 10 : 3;
 
-template <int C>
-__device__ __forceinline__ void load_component(const float* p, long long hw, int k, int j,
+template <int C, typename P>
+__device__ __forceinline__ void load_component(const P* p, long long hw, int k, int j,
                                                float (&v)[kRead<C>]) {
-  v[0] = p[j * hw];
+  v[0] = ld(p + j * hw);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    v[1 + c] = p[(k + C * j + c) * hw];
-    v[1 + C + c] = p[(k + k * C + C * j + c) * hw];
-    if constexpr (C == 3) v[1 + 2 * C + c] = p[(k + 2 * k * C + C * j + c) * hw];
+    v[1 + c] = ld(p + (k + C * j + c) * hw);
+    v[1 + C + c] = ld(p + (k + k * C + C * j + c) * hw);
+    if constexpr (C == 3) v[1 + 2 * C + c] = ld(p + (k + 2 * k * C + C * j + c) * hw);
   }
 }
 
@@ -357,10 +388,10 @@ __device__ __forceinline__ void load_component(const float* p, long long hw, int
 // stored values writes the 1 + 3C gradients per component with two
 // exponentials and products. Component j + 1's values load while j is
 // computed.
-template <int C>
+template <int C, typename P>
 __global__ void __launch_bounds__(kThreads, 4)
-mix_bwd_one_pass_kernel(const float* __restrict__ x, const float* __restrict__ params,
-                        const float* __restrict__ g, float* __restrict__ dparams,
+mix_bwd_one_pass_kernel(const float* __restrict__ x, const P* __restrict__ params,
+                        const float* __restrict__ g, P* __restrict__ dparams,
                         float* __restrict__ dx, long long npix, long long hw, int k,
                         float hb) {
   extern __shared__ float stash[];
@@ -374,8 +405,8 @@ mix_bwd_one_pass_kernel(const float* __restrict__ x, const float* __restrict__ p
     const float gi = g[i];
     float xs[C];
     load_xs<C>(x, b, hw, p, xs);
-    const float* pp = params + b * q * hw + p;
-    float* dp = dparams + b * q * hw + p;
+    const P* pp = params + b * q * hw + p;
+    P* dp = dparams + b * q * hw + p;
     float mp = -INFINITY, sp = 0.0f, mt = -INFINITY, st = 0.0f;
     float cur[kRead<C>];
     load_component<C>(pp, hw, k, 0, cur);
@@ -420,27 +451,27 @@ mix_bwd_one_pass_kernel(const float* __restrict__ x, const float* __restrict__ p
       const float* s = mine + j * V * kThreads;
       const float w = __expf(s[0] - lse_t);
       const float gw = gi * w;
-      dp[j * hw] = gi * (w - __expf(s[kThreads] - lse_pi));
+      dp[j * hw] = down<P>(gi * (w - __expf(s[kThreads] - lse_pi)));
       float dm[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         dm[c] = gw * s[(2 + c) * kThreads];
-        dp[(k + C * j + c) * hw] = dm[c];
-        dp[(k + k * C + C * j + c) * hw] = gw * s[(2 + C + c) * kThreads];
+        dp[(k + C * j + c) * hw] = down<P>(dm[c]);
+        dp[(k + k * C + C * j + c) * hw] = down<P>(gw * s[(2 + C + c) * kThreads]);
       }
-      float* dco = dp + (k + 2 * k * C + C * j) * hw;
+      P* dco = dp + (k + 2 * k * C + C * j) * hw;
       if constexpr (C == 3) {
         float co[C];
 #pragma unroll
         for (int c = 0; c < C; ++c) co[c] = s[(2 + 2 * C + c) * kThreads];
-        dco[0] = dm[1] * xs[0] * (1.0f - co[0] * co[0]);
-        dco[hw] = dm[2] * xs[0] * (1.0f - co[1] * co[1]);
-        dco[2 * hw] = dm[2] * xs[1] * (1.0f - co[2] * co[2]);
+        dco[0] = down<P>(dm[1] * xs[0] * (1.0f - co[0] * co[0]));
+        dco[hw] = down<P>(dm[2] * xs[0] * (1.0f - co[1] * co[1]));
+        dco[2 * hw] = down<P>(dm[2] * xs[1] * (1.0f - co[2] * co[2]));
         dxs[0] += (-dm[0] + dm[1] * co[0]) + dm[2] * co[1];
         dxs[1] += -dm[1] + dm[2] * co[2];
         dxs[2] += -dm[2];
       } else {
-        dco[0] = 0.0f;
+        dco[0] = down<P>(0.0f);
         dxs[0] += -dm[0];
       }
     }
@@ -473,7 +504,7 @@ long long one_pass_smem(int k, int c) {
 // Lift the one-pass kernel's dynamic shared memory limit to kSmemMax, once
 // per device. The limit is only a ceiling: each launch's own size sets its
 // occupancy.
-template <int C>
+template <int C, typename P>
 cudaError_t allow_one_pass_smem() {
   static std::atomic<bool> done[kMaxDevices];
   int dev = 0;
@@ -481,7 +512,7 @@ cudaError_t allow_one_pass_smem() {
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!done[dev].load()) {
-    e = cudaFuncSetAttribute(mix_bwd_one_pass_kernel<C>,
+    e = cudaFuncSetAttribute(mix_bwd_one_pass_kernel<C, P>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kSmemMax));
     if (e != cudaSuccess) return e;
@@ -490,62 +521,84 @@ cudaError_t allow_one_pass_smem() {
   return cudaSuccess;
 }
 
-template <int C>
-int launch_bwd(int plan, const float* x, const float* params, const float* g,
-               float* dparams, float* dx, long long npix, long long hw, int k, float hb,
-               cudaStream_t s) {
+template <int C, typename P>
+int launch_bwd(int plan, const float* x, const void* params, const float* g, void* dparams,
+               float* dx, long long npix, long long hw, int k, float hb, cudaStream_t s) {
+  const P* pp = static_cast<const P*>(params);
+  P* dpp = static_cast<P*>(dparams);
   if (plan == kTwoPass) {
-    mix_bwd_kernel<C><<<grid_for(npix), kThreads, 0, s>>>(x, params, g, dparams, dx, npix,
-                                                          hw, k, hb);
+    mix_bwd_kernel<C, P><<<grid_for(npix), kThreads, 0, s>>>(x, pp, g, dpp, dx, npix, hw, k,
+                                                             hb);
     return static_cast<int>(cudaGetLastError());
   }
   const long long smem = one_pass_smem(k, C);
   if (plan != kOnePass || smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = allow_one_pass_smem<C>();
+  const cudaError_t e = allow_one_pass_smem<C, P>();
   if (e != cudaSuccess) return static_cast<int>(e);
-  mix_bwd_one_pass_kernel<C><<<grid_for(npix), kThreads, smem, s>>>(
-      x, params, g, dparams, dx, npix, hw, k, hb);
+  mix_bwd_one_pass_kernel<C, P><<<grid_for(npix), kThreads, smem, s>>>(
+      x, pp, g, dpp, dx, npix, hw, k, hb);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// x [b, c, hw], params [b, k (1 + 3c), hw], out [b, hw]; c in {1, 3}.
-extern "C" int lvae_mix_log_prob(const void* x, const void* params, void* out, long long b,
-                                 long long hw, int k, int c, int n_bins, void* stream) {
-  const long long npix = b * hw;
-  if (npix == 0) return 0;
-  const float hb = 1.0f / static_cast<float>(n_bins - 1);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const float*>(x);
-  auto pp = static_cast<const float*>(params);
-  auto op = static_cast<float*>(out);
+template <typename P>
+int launch_fwd(const float* x, const void* params, float* out, long long npix, long long hw,
+               int k, int c, float hb, cudaStream_t s) {
+  const P* pp = static_cast<const P*>(params);
   if (c == 3) {
-    mix_fwd_kernel<3><<<grid_for(npix), kThreads, 0, s>>>(xp, pp, op, npix, hw, k, hb);
+    mix_fwd_kernel<3, P><<<grid_for(npix), kThreads, 0, s>>>(x, pp, out, npix, hw, k, hb);
   } else if (c == 1) {
-    mix_fwd_kernel<1><<<grid_for(npix), kThreads, 0, s>>>(xp, pp, op, npix, hw, k, hb);
+    mix_fwd_kernel<1, P><<<grid_for(npix), kThreads, 0, s>>>(x, pp, out, npix, hw, k, hb);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// g [b, hw] -> dparams [b, k (1 + 3c), hw] and, when dx is not NULL, dx
-// [b, c, hw], on the schedule plan (kOnePass or kTwoPass).
-extern "C" int lvae_mix_log_prob_bwd_plan(const void* x, const void* params, const void* g,
-                                          void* dparams, void* dx, long long b, long long hw,
-                                          int k, int c, int n_bins, int plan, void* stream) {
+}  // namespace
+
+// x [b, c, hw] fp32, params [b, k (1 + 3c), hw] fp32 (esize 4) or bf16
+// (esize 2), out [b, hw] fp32; c in {1, 3}.
+extern "C" int lvae_mix_log_prob(const void* x, const void* params, void* out, long long b,
+                                 long long hw, int k, int c, int n_bins, int esize,
+                                 void* stream) {
   const long long npix = b * hw;
+  if (esize != 4 && esize != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (npix == 0) return 0;
   const float hb = 1.0f / static_cast<float>(n_bins - 1);
   auto s = static_cast<cudaStream_t>(stream);
   auto xp = static_cast<const float*>(x);
-  auto pp = static_cast<const float*>(params);
+  auto op = static_cast<float*>(out);
+  return esize == 4 ? launch_fwd<float>(xp, params, op, npix, hw, k, c, hb, s)
+                    : launch_fwd<bf16>(xp, params, op, npix, hw, k, c, hb, s);
+}
+
+// g [b, hw] fp32 -> dparams [b, k (1 + 3c), hw] in params' storage (esize
+// 4: fp32, 2: bf16) and, when dx is not NULL, dx [b, c, hw] fp32, on the
+// schedule plan (kOnePass or kTwoPass).
+extern "C" int lvae_mix_log_prob_bwd_plan(const void* x, const void* params, const void* g,
+                                          void* dparams, void* dx, long long b, long long hw,
+                                          int k, int c, int n_bins, int plan, int esize,
+                                          void* stream) {
+  const long long npix = b * hw;
+  if (esize != 4 && esize != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (npix == 0) return 0;
+  const float hb = 1.0f / static_cast<float>(n_bins - 1);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto xp = static_cast<const float*>(x);
   auto gp = static_cast<const float*>(g);
-  auto dpp = static_cast<float*>(dparams);
   auto dxp = static_cast<float*>(dx);
-  if (c == 3) return launch_bwd<3>(plan, xp, pp, gp, dpp, dxp, npix, hw, k, hb, s);
-  if (c == 1) return launch_bwd<1>(plan, xp, pp, gp, dpp, dxp, npix, hw, k, hb, s);
+  if (c == 3) {
+    return esize == 4 ? launch_bwd<3, float>(plan, xp, params, gp, dparams, dxp, npix, hw, k,
+                                             hb, s)
+                      : launch_bwd<3, bf16>(plan, xp, params, gp, dparams, dxp, npix, hw, k,
+                                            hb, s);
+  }
+  if (c == 1) {
+    return esize == 4 ? launch_bwd<1, float>(plan, xp, params, gp, dparams, dxp, npix, hw, k,
+                                             hb, s)
+                      : launch_bwd<1, bf16>(plan, xp, params, gp, dparams, dxp, npix, hw, k,
+                                            hb, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -553,8 +606,8 @@ extern "C" int lvae_mix_log_prob_bwd_plan(const void* x, const void* params, con
 // port's wrapper calls lvae_mix_log_prob_bwd_plan with bwd_plan's choice).
 extern "C" int lvae_mix_log_prob_bwd(const void* x, const void* params, const void* g,
                                      void* dparams, void* dx, long long b, long long hw,
-                                     int k, int c, int n_bins, void* stream) {
+                                     int k, int c, int n_bins, int esize, void* stream) {
   const int plan = one_pass_smem(k, c) <= kSmemMax ? kOnePass : kTwoPass;
   return lvae_mix_log_prob_bwd_plan(x, params, g, dparams, dx, b, hw, k, c, n_bins, plan,
-                                    stream);
+                                    esize, stream);
 }

@@ -42,7 +42,7 @@
 // maps of the models.
 //
 // Design: one launch per direction, at every shape, with the launch's shape
-// from kernels/segment.py _plan (a function of the tensor's shape alone).
+// from kernels/segment.py _plan (a function of the tensor's shape and dtype).
 // - A thread block cluster reduces one channel. Each CTA takes a fixed
 //   contiguous share of the channel's units; its threads walk the share 16
 //   bytes at a time, neighbouring threads on neighbouring addresses. Each
@@ -80,10 +80,29 @@
 //   only 7 fit on an H100 at once (112 of its 132 SMs), and each channel's
 //   reduction and cluster barrier stall its SM between the reads and the
 //   writes: K5 runs at about twice its bound there.
+//
+// Storage: x, y, g and dx are fp32 or bf16 (lvae_tpu's segment reads and
+// writes x.dtype, segment_pallas.py:103,160,211,312,344; the model's bf16
+// activation stream under --precision bf16), each kernel instantiated for
+// both (T, the plan's esize). The arithmetic, the sums, the statistics,
+// gamma, beta, the running statistics, dgamma and dbeta are fp32 (fp64
+// sums) either way; a bf16 output is the fp32 result rounded to nearest
+// even, as PyTorch's cast rounds it, and the dropout bytes and the keep
+// rule do not depend on T, so bf16 and fp32 runs drop the same elements.
+// A device-memory access is 16 bytes, F = 16 / sizeof(T) elements (8 in
+// bf16; 4, 8 bytes, on a 2x2 map's units of 4). In bf16 the share kept on
+// chip is the raw bf16 input (2 B an element forward, 4 B backward): the
+// first sweep reads it and sums, the second turns it into u (or dz and
+// xhat) again, where fp32 keeps u (dz and xhat) in place of x (g and x).
+// So a bf16 share takes half the shared memory, and bf16 moves half the
+// bytes: 4 B an element forward, 6 B backward.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "philox.cuh"
 
@@ -109,6 +128,7 @@ struct SegPlan {
   int clusters;   // the grid; cluster i takes channels i, i + clusters, ...
   int chip;       // units of a CTA's share kept in shared memory (0: none)
   int smem;       // dynamic shared memory per CTA
+  int esize;      // bytes per element of x, y, g and dx: 4 (fp32) or 2 (bf16)
 };
 
 namespace {
@@ -195,42 +215,74 @@ __device__ __forceinline__ float dropped(const Drop& d, float v, bool keep) {
   return keep ? v * d.scale : 0.0f;
 }
 
-// F consecutive floats (F = 4: one 16-byte access). The device-memory
-// accesses that are a value's last (an output, the second sweep's reads)
-// stream (evict first), so that L2 keeps what the second sweep reads again.
-template <int F>
+using bf16 = __nv_bfloat16;
+
+// The raw word of N bytes: one access
+template <int N> struct Raw;
+template <> struct Raw<2> { using type = unsigned short; };
+template <> struct Raw<4> { using type = unsigned int; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+__device__ __forceinline__ float up(float v) { return v; }
+// bf16 -> fp32 is exact: the 16 bits are the fp32 value's top half
+__device__ __forceinline__ float up(bf16 v) {
+  return __uint_as_float(static_cast<unsigned>(__bfloat16_as_ushort(v)) << 16);
+}
+template <typename T>
+__device__ __forceinline__ T down(float v) {
+  if constexpr (std::is_same_v<T, float>) return v;
+  else return __float2bfloat16_rn(v);     // round to nearest even, as PyTorch's cast
+}
+
+// Elements of T per device-memory access for units of V: 16 bytes, or the
+// unit where it is shorter (V = 4 in bf16: 8 bytes), or 1 (V = 1)
+template <typename T, int V>
+__host__ __device__ constexpr int access_elems() {
+  return V == 1 ? 1 : (V < static_cast<int>(16 / sizeof(T)) ? V : static_cast<int>(16 / sizeof(T)));
+}
+
+// F consecutive elements of T, held as floats: one access of F sizeof(T)
+// bytes. The device-memory accesses that are a value's last (an output,
+// the second sweep's reads) stream (evict first), so that L2 keeps what
+// the second sweep reads again.
+template <typename T, int F>
 struct Vec {
+  using Word = typename Raw<F * static_cast<int>(sizeof(T))>::type;
   float v[F];
-  __device__ __forceinline__ void load(const float* __restrict__ p, bool last = false) {
-    if constexpr (F == 4) {
-      const float4* q4 = reinterpret_cast<const float4*>(p);
-      const float4 q = last ? __ldcs(q4) : *q4;
-      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-    } else {
-      v[0] = last ? __ldcs(p) : *p;
-    }
+  __device__ __forceinline__ void load(const T* __restrict__ p, bool last = false) {
+    const Word* q = reinterpret_cast<const Word*>(p);
+    alignas(16) T e[F];
+    *reinterpret_cast<Word*>(e) = last ? __ldcs(q) : *q;
+#pragma unroll
+    for (int j = 0; j < F; ++j) v[j] = up(e[j]);
   }
-  __device__ __forceinline__ void store(float* __restrict__ p) const {
-    if constexpr (F == 4) {
-      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-      *p = v[0];
-    }
+  __device__ __forceinline__ Word word() const {
+    alignas(16) T e[F];
+#pragma unroll
+    for (int j = 0; j < F; ++j) e[j] = down<T>(v[j]);
+    return *reinterpret_cast<const Word*>(e);
   }
-  __device__ __forceinline__ void stream(float* __restrict__ p) const {
-    if constexpr (F == 4) {
-      __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-    } else {
-      __stcs(p, v[0]);
-    }
+  __device__ __forceinline__ void store(T* __restrict__ p) const {
+    *reinterpret_cast<Word*>(p) = word();
+  }
+  __device__ __forceinline__ void stream(T* __restrict__ p) const {
+    __stcs(reinterpret_cast<Word*>(p), word());
   }
 };
 
-// 16 bytes from device to shared memory, asynchronously (cp.async; the
-// thread that waits with cp_async_wait_all() sees them)
-__device__ __forceinline__ void cp_async16(void* smem, const float* gmem) {
+// N bytes (16, or 8 for a bf16 2x2 unit) from device to shared memory,
+// asynchronously (cp.async; the thread that waits with cp_async_wait_all()
+// sees them)
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+  } else {
+    static_assert(N == 8, "cp.async of 16 or 8 bytes");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
+  }
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -410,13 +462,14 @@ __device__ __forceinline__ void sweep_rest(const Share& sh, int ch, const Drop& 
   }
 }
 
+template <typename T>
 struct FwdArgs {
-  const float* x;
+  const T* x;
   const float* gamma;
   const float* beta;
   float* running_mean;      // NULL: not moved
   float* running_var;
-  float* y;
+  T* y;
   float* stats;             // [5, c]: mean, var, r, scale, shift
   SegPlan p;
   Drop d;
@@ -426,13 +479,16 @@ struct FwdArgs {
 
 // K5: stats, then y, in one launch. The first p.chip units of a CTA's
 // share are staged in shared memory in element order (cp.async, all in
-// flight while their keep words are computed), turned into u in place and
-// read back for y, each slot then taking the CTA's next channel; the rest
-// of the share (none where it fits) is read twice from device memory. Shared memory: [chip V] floats of u, [chip]
-// keep words, [kChunk] keep words of the rest.
-template <int V, int kAct>
-__global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs a) {
-  constexpr int F = V == 1 ? 1 : 4;
+// flight while their keep words are computed) and read back for y, each
+// slot then taking the CTA's next channel; fp32 turns x into u in place,
+// bf16 keeps x and drops it again. The rest of the share (none where it
+// fits) is read twice from device memory. Shared memory: [chip V] of T,
+// [chip] keep words, [kChunk] keep words of the rest.
+template <typename T, int V, int kAct>
+__global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs<T> a) {
+  constexpr int F = access_elems<T, V>();
+  constexpr int kBytes = F * static_cast<int>(sizeof(T));
+  constexpr bool kInPlace = std::is_same_v<T, float>;
   constexpr int kUnroll = 4;
   extern __shared__ float4 smem4[];
   __shared__ double warp_sums[kMaxThreads / 32][2];
@@ -440,24 +496,24 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
   const Share sh = share_of(a.p, cluster.block_rank());
   const unsigned chip = static_cast<unsigned>(a.p.chip);
-  float* u_smem = reinterpret_cast<float*>(smem4);
-  uint32_t* keep_chip = reinterpret_cast<uint32_t*>(u_smem + static_cast<size_t>(V) * chip);
+  T* x_smem = reinterpret_cast<T*>(smem4);
+  uint32_t* keep_chip = reinterpret_cast<uint32_t*>(x_smem + static_cast<size_t>(V) * chip);
   uint32_t* keep_rest = keep_chip + chip;
   const Drop d = drop_key(a.d);
   const int c = a.p.c;
   const double n = static_cast<double>(a.p.b * a.p.hw);
-  const unsigned T = blockDim.x;
+  const unsigned T_ = blockDim.x;
   const unsigned n_chip = min(sh.n, chip), m_chip = n_chip * V / F;
-  auto drop = [&](Vec<F>& v, uint32_t bits) {
+  auto drop = [&](Vec<T, F>& v, uint32_t bits) {
 #pragma unroll
     for (int j = 0; j < F; ++j) v.v[j] = dropped(d, v.v[j], (bits >> j) & 1u);
   };
   const int ch_step = gridDim.x / a.p.cluster;
   // the chip units of channel ch into shared memory, asynchronously
   auto stage = [&](int ch) {
-    if constexpr (F == 4) {
-      for (unsigned i = threadIdx.x; i < m_chip; i += T) {
-        cp_async16(smem4 + i, a.x + sh.elem(i * F, ch));
+    if constexpr (V > 1) {
+      for (unsigned i = threadIdx.x; i < m_chip; i += T_) {
+        cp_async<kBytes>(x_smem + i * F, a.x + sh.elem(i * F, ch));
       }
     }
   };
@@ -474,7 +530,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs a) {
       rv = a.running_var[ch];
     }
     double s1 = 0.0, s2 = 0.0;
-    auto add = [&](const Vec<F>& v) {
+    auto add = [&](const Vec<T, F>& v) {
 #pragma unroll
       for (int j = 0; j < F; ++j) {
         const double u = v.v[j];
@@ -482,20 +538,22 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs a) {
         s2 = __fma_rn(u, u, s2);
       }
     };
-    Vec<F> buf[kUnroll];
+    Vec<T, F> buf[kUnroll];
     auto load = [&](int k, long long e, bool last) { buf[k].load(a.x + e, last); };
-    if constexpr (F == 4) {
+    if constexpr (V > 1) {
       // channel ch's copies were issued by stage() before the loop or
-      // during the previous channel's output
+      // during the previous channel's output (which, in bf16, has read
+      // keep_chip)
+      if constexpr (!kInPlace) __syncthreads();
       keep_words<V>(sh, ch, d, 0, n_chip, keep_chip);
       cp_async_wait_all();
       __syncthreads();
-      for (unsigned i = threadIdx.x; i < m_chip; i += T) {
-        Vec<F> v;
-        v.load(u_smem + i * F);
+      for (unsigned i = threadIdx.x; i < m_chip; i += T_) {
+        Vec<T, F> v;
+        v.load(x_smem + i * F);
         drop(v, keep_of<V>(d, keep_chip, 0, i * F));
         add(v);
-        v.store(u_smem + i * F);
+        if constexpr (kInPlace) v.store(x_smem + i * F);
       }
     }
     sweep_rest<V, F, kUnroll>(sh, ch, d, n_chip, false, keep_rest, load,
@@ -524,19 +582,20 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs a) {
         a.running_var[ch] = a.momentum * rv + a.one_minus_momentum * var;
       }
     }
-    auto emit = [&](Vec<F>& v, unsigned l) {
+    auto emit = [&](Vec<T, F>& v, unsigned l) {
 #pragma unroll
       for (int j = 0; j < F; ++j) v.v[j] = act<kAct>(v.v[j] * scale + shift);
       v.stream(a.y + sh.elem(l, ch));
     };
-    if constexpr (F == 4) {
+    if constexpr (V > 1) {
       // each slot, once read, takes the next channel's x (the thread
       // that reads a slot is the one that fills it)
-      for (unsigned i = threadIdx.x; i < m_chip; i += T) {
-        Vec<F> v;
-        v.load(u_smem + i * F);
+      for (unsigned i = threadIdx.x; i < m_chip; i += T_) {
+        Vec<T, F> v;
+        v.load(x_smem + i * F);
+        if constexpr (!kInPlace) drop(v, keep_of<V>(d, keep_chip, 0, i * F));
         emit(v, i * F);
-        if (next < c) cp_async16(smem4 + i, a.x + sh.elem(i * F, next));
+        if (next < c) cp_async<kBytes>(x_smem + i * F, a.x + sh.elem(i * F, next));
       }
     }
     sweep_rest<V, F, kUnroll>(sh, ch, d, n_chip, true, keep_rest, load,
@@ -548,24 +607,28 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs a) {
   if (multi) cluster_wait();   // no CTA exits while another may read its `red`
 }
 
+template <typename T>
 struct BwdArgs {
-  const float* x;
-  const float* g;
+  const T* x;
+  const T* g;
   const float* gamma;
   const float* stats;       // the forward's [5, c]
-  float* dx;
+  T* dx;
   float* dgb;               // [2, c]: dgamma, dbeta
   SegPlan p;
   Drop d;
 };
 
 // K5-bwd: sum(dz), sum(dz xhat), then dx, in one launch. As the forward:
-// the first p.chip units of the share of g and x are staged and turned
-// into dz and xhat in place, the rest read twice. Shared memory: [chip V]
-// floats of dz, [chip V] of xhat, [chip] keep words, [kChunk] keep words.
-template <int V, int kAct>
-__global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs a) {
-  constexpr int F = V == 1 ? 1 : 4;
+// the first p.chip units of the share of g and x are staged; fp32 turns
+// them into dz and xhat in place, bf16 keeps them and recomputes dz and
+// xhat for dx. The rest is read twice. Shared memory: [chip V] of T for
+// g (dz), [chip V] for x (xhat), [chip] keep words, [kChunk] keep words.
+template <typename T, int V, int kAct>
+__global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs<T> a) {
+  constexpr int F = access_elems<T, V>();
+  constexpr int kBytes = F * static_cast<int>(sizeof(T));
+  constexpr bool kInPlace = std::is_same_v<T, float>;
   constexpr int kUnroll = 2;
   extern __shared__ float4 smem4[];
   __shared__ double warp_sums[kMaxThreads / 32][2];
@@ -573,24 +636,26 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
   const Share sh = share_of(a.p, cluster.block_rank());
   const unsigned chip = static_cast<unsigned>(a.p.chip);
-  float* dz_smem = reinterpret_cast<float*>(smem4);
-  float* xhat_smem = dz_smem + static_cast<size_t>(V) * chip;
-  uint32_t* keep_chip = reinterpret_cast<uint32_t*>(xhat_smem + static_cast<size_t>(V) * chip);
+  T* g_smem = reinterpret_cast<T*>(smem4);
+  T* x_smem = g_smem + static_cast<size_t>(V) * chip;
+  uint32_t* keep_chip = reinterpret_cast<uint32_t*>(x_smem + static_cast<size_t>(V) * chip);
   uint32_t* keep_rest = keep_chip + chip;
   const Drop d = drop_key(a.d);
   const int c = a.p.c;
   const double n = static_cast<double>(a.p.b * a.p.hw);
-  const unsigned T = blockDim.x;
+  const unsigned T_ = blockDim.x;
   const unsigned n_chip = min(sh.n, chip), m_chip = n_chip * V / F;
   const int ch_step = gridDim.x / a.p.cluster;
   // the chip units of g and x of channel ch into shared memory
   auto stage_slot = [&](unsigned i, int ch) {
-    const long long e = sh.elem(i * F, ch);
-    cp_async16(reinterpret_cast<float4*>(dz_smem) + i, a.g + e);
-    cp_async16(reinterpret_cast<float4*>(xhat_smem) + i, a.x + e);
+    if constexpr (V > 1) {
+      const long long e = sh.elem(i * F, ch);
+      cp_async<kBytes>(g_smem + i * F, a.g + e);
+      cp_async<kBytes>(x_smem + i * F, a.x + e);
+    }
   };
-  if constexpr (F == 4) {
-    for (unsigned i = threadIdx.x; i < m_chip; i += T) stage_slot(i, blockIdx.x / a.p.cluster);
+  if constexpr (V > 1) {
+    for (unsigned i = threadIdx.x; i < m_chip; i += T_) stage_slot(i, blockIdx.x / a.p.cluster);
   }
   const bool multi = cluster.num_blocks() > 1;
   for (int ch = blockIdx.x / a.p.cluster; ch < c; ch += ch_step) {
@@ -600,7 +665,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs a) {
     const float scale = a.stats[3 * c + ch], shift = a.stats[4 * c + ch];
     const float gr = a.gamma[ch] * r;
     // g, x -> dz, xhat of F elements, in place
-    auto recompute = [&](Vec<F>& dz, Vec<F>& xhat, uint32_t bits) {
+    auto recompute = [&](Vec<T, F>& dz, Vec<T, F>& xhat, uint32_t bits) {
 #pragma unroll
       for (int j = 0; j < F; ++j) {
         const float u = dropped(d, xhat.v[j], (bits >> j) & 1u);
@@ -609,31 +674,33 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs a) {
       }
     };
     double s1 = 0.0, s2 = 0.0;
-    auto add = [&](const Vec<F>& dz, const Vec<F>& xhat) {
+    auto add = [&](const Vec<T, F>& dz, const Vec<T, F>& xhat) {
 #pragma unroll
       for (int j = 0; j < F; ++j) {
         s1 += static_cast<double>(dz.v[j]);
         s2 += static_cast<double>(dz.v[j] * xhat.v[j]);
       }
     };
-    Vec<F> gb[kUnroll], xb[kUnroll];
+    Vec<T, F> gb[kUnroll], xb[kUnroll];
     auto load = [&](int k, long long e, bool last) {
       gb[k].load(a.g + e, last);
       xb[k].load(a.x + e, last);
     };
-    if constexpr (F == 4) {
+    if constexpr (V > 1) {
       __syncthreads();     // the previous channel's output has read keep_chip
       keep_words<V>(sh, ch, d, 0, n_chip, keep_chip);
       cp_async_wait_all();
       __syncthreads();
-      for (unsigned i = threadIdx.x; i < m_chip; i += T) {
-        Vec<F> dz, xhat;
-        dz.load(dz_smem + i * F);
-        xhat.load(xhat_smem + i * F);
+      for (unsigned i = threadIdx.x; i < m_chip; i += T_) {
+        Vec<T, F> dz, xhat;
+        dz.load(g_smem + i * F);
+        xhat.load(x_smem + i * F);
         recompute(dz, xhat, keep_of<V>(d, keep_chip, 0, i * F));
         add(dz, xhat);
-        dz.store(dz_smem + i * F);
-        xhat.store(xhat_smem + i * F);
+        if constexpr (kInPlace) {
+          dz.store(g_smem + i * F);
+          xhat.store(x_smem + i * F);
+        }
       }
     }
     sweep_rest<V, F, kUnroll>(sh, ch, d, n_chip, false, keep_rest, load,
@@ -649,7 +716,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs a) {
       a.dgb[ch] = static_cast<float>(s2);
       a.dgb[c + ch] = static_cast<float>(s1);
     }
-    auto emit = [&](Vec<F>& dz, const Vec<F>& xhat, uint32_t bits, unsigned l) {
+    auto emit = [&](Vec<T, F>& dz, const Vec<T, F>& xhat, uint32_t bits, unsigned l) {
 #pragma unroll
       for (int j = 0; j < F; ++j) {
         const float du = gr * ((dz.v[j] - m1) - xhat.v[j] * m2);
@@ -657,12 +724,14 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs a) {
       }
       dz.stream(a.dx + sh.elem(l, ch));
     };
-    if constexpr (F == 4) {
-      for (unsigned i = threadIdx.x; i < m_chip; i += T) {
-        Vec<F> dz, xhat;
-        dz.load(dz_smem + i * F);
-        xhat.load(xhat_smem + i * F);
-        emit(dz, xhat, keep_of<V>(d, keep_chip, 0, i * F), i * F);
+    if constexpr (V > 1) {
+      for (unsigned i = threadIdx.x; i < m_chip; i += T_) {
+        Vec<T, F> dz, xhat;
+        dz.load(g_smem + i * F);
+        xhat.load(x_smem + i * F);
+        const uint32_t bits = keep_of<V>(d, keep_chip, 0, i * F);
+        if constexpr (!kInPlace) recompute(dz, xhat, bits);
+        emit(dz, xhat, bits, i * F);
         if (next < c) stage_slot(i, next);
       }
     }
@@ -691,18 +760,21 @@ Drop make_drop(int t, unsigned long long seed, unsigned long long site, const vo
 bool bad_key(int t, const void* step) { return t > 0 && t < 256 && step == nullptr; }
 
 // dynamic shared memory per CTA: the chip units' data (x forward; g and
-// x backward; 4 B per element each) and keep words, and the keep words of
-// a chunk of the units swept twice, where the share has more than chip
+// x backward; esize bytes per element each) and keep words, and the keep
+// words of a chunk of the units swept twice, where the share has more
+// than chip
 long long smem_of(const SegPlan& p, bool bwd) {
   const long long units = p.b * p.hw / p.vec;
   const long long stride = (units + p.cluster - 1) / p.cluster;
   const long long rest = stride - p.chip;
-  return p.chip * ((bwd ? 8LL : 4LL) * p.vec + 4) + 4LL * (rest < kChunk ? rest : kChunk);
+  return p.chip * ((bwd ? 2LL : 1LL) * p.esize * p.vec + 4) +
+         4LL * (rest < kChunk ? rest : kChunk);
 }
 
 // a plan the kernels take (kernels/segment.py _plan makes only these)
 bool bad_plan(const SegPlan& p, bool bwd) {
   if (p.b < 1 || p.c < 1 || p.hw < 1 || p.b * p.hw > 0x7FFFFFFFLL) return true;
+  if (p.esize != 4 && p.esize != 2) return true;
   if ((p.vec != 1 && p.vec != 4 && p.vec != 16) || p.hw % p.vec != 0) return true;
   if (p.cluster < 1 || p.cluster > 16 || p.threads < 32 || p.threads > kMaxThreads ||
       p.threads % 32 != 0 || p.clusters < 1 || p.clusters > p.c) return true;
@@ -714,16 +786,18 @@ bool bad_plan(const SegPlan& p, bool bwd) {
 template <typename Args>
 using Kernel = void (*)(Args);
 
-Kernel<FwdArgs> pick_fwd(const SegPlan& p, int act) {
-  if (p.vec == 16) return act == kElu ? fwd_kernel<16, kElu> : fwd_kernel<16, kRelu>;
-  if (p.vec == 4) return act == kElu ? fwd_kernel<4, kElu> : fwd_kernel<4, kRelu>;
-  return act == kElu ? fwd_kernel<1, kElu> : fwd_kernel<1, kRelu>;
+template <typename T>
+Kernel<FwdArgs<T>> pick_fwd(const SegPlan& p, int act) {
+  if (p.vec == 16) return act == kElu ? fwd_kernel<T, 16, kElu> : fwd_kernel<T, 16, kRelu>;
+  if (p.vec == 4) return act == kElu ? fwd_kernel<T, 4, kElu> : fwd_kernel<T, 4, kRelu>;
+  return act == kElu ? fwd_kernel<T, 1, kElu> : fwd_kernel<T, 1, kRelu>;
 }
 
-Kernel<BwdArgs> pick_bwd(const SegPlan& p, int act) {
-  if (p.vec == 16) return act == kElu ? bwd_kernel<16, kElu> : bwd_kernel<16, kRelu>;
-  if (p.vec == 4) return act == kElu ? bwd_kernel<4, kElu> : bwd_kernel<4, kRelu>;
-  return act == kElu ? bwd_kernel<1, kElu> : bwd_kernel<1, kRelu>;
+template <typename T>
+Kernel<BwdArgs<T>> pick_bwd(const SegPlan& p, int act) {
+  if (p.vec == 16) return act == kElu ? bwd_kernel<T, 16, kElu> : bwd_kernel<T, 16, kRelu>;
+  if (p.vec == 4) return act == kElu ? bwd_kernel<T, 4, kElu> : bwd_kernel<T, 4, kRelu>;
+  return act == kElu ? bwd_kernel<T, 1, kElu> : bwd_kernel<T, 1, kRelu>;
 }
 
 // The launch configuration of a plan. The first use of a kernel allows it
@@ -808,14 +882,18 @@ int launch(Kernel<Args> fn, const SegPlan& p, const Args& args, cudaStream_t s) 
 // The dropout alone, for a bits8 Dropout that no segment absorbs (the
 // trailing 'd' of a residual block, or every dropout without --fused
 // segments|all): y = u, the segment's dropped input, under the segment's
-// bytes and key. Linear in x, so the backward is the same kernel on the
-// cotangent. A thread takes 16 consecutive elements, one Philox call; its
-// bound is the bytes, x read and y written once (8 B an element). The
-// port's plain version (ops/philox.py dropout_bytes, ~270 PyTorch ops a
-// call) would put hundreds of launches a site into every train step.
-__global__ void __launch_bounds__(256) dropout_kernel(const float* __restrict__ x,
-                                                     float* __restrict__ y, long long n,
+// bytes and key, in x's storage type T (fp32 or bf16: u computed in fp32,
+// rounded to nearest even, as FastDropout casts it back). Linear in x, so
+// the backward is the same kernel on the cotangent. A thread takes 16
+// consecutive elements, one Philox call; its bound is the bytes, x read
+// and y written once (2 sizeof(T) B an element). The port's plain version
+// (ops/philox.py dropout_bytes, ~270 PyTorch ops a call) would put
+// hundreds of launches a site into every train step.
+template <typename T>
+__global__ void __launch_bounds__(256) dropout_kernel(const T* __restrict__ x,
+                                                     T* __restrict__ y, long long n,
                                                      const Drop a) {
+  constexpr int G = 16 / static_cast<int>(sizeof(T));   // elements per 16-byte access
   const Drop d = drop_key(a);
   const long long groups = (n + 15) / 16;
   const bool vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
@@ -825,49 +903,114 @@ __global__ void __launch_bounds__(256) dropout_kernel(const float* __restrict__ 
     const long long e0 = grp * 16;
     const uint32_t bits = keep_bits<16>(d, e0);
     if (vec && e0 + 16 <= n) {
+      if constexpr (std::is_same_v<T, float>) {
+        // float4 by float4, as before the bf16 instantiation: the generic
+        // path below measured 1.46x this one's time in fp32 (PERF.md)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float4 v = reinterpret_cast<const float4*>(x + e0)[q];
-        v.x = dropped(d, v.x, (bits >> (4 * q)) & 1u);
-        v.y = dropped(d, v.y, (bits >> (4 * q + 1)) & 1u);
-        v.z = dropped(d, v.z, (bits >> (4 * q + 2)) & 1u);
-        v.w = dropped(d, v.w, (bits >> (4 * q + 3)) & 1u);
-        reinterpret_cast<float4*>(y + e0)[q] = v;
+        for (int q = 0; q < 4; ++q) {
+          float4 v = reinterpret_cast<const float4*>(x + e0)[q];
+          v.x = dropped(d, v.x, (bits >> (4 * q)) & 1u);
+          v.y = dropped(d, v.y, (bits >> (4 * q + 1)) & 1u);
+          v.z = dropped(d, v.z, (bits >> (4 * q + 2)) & 1u);
+          v.w = dropped(d, v.w, (bits >> (4 * q + 3)) & 1u);
+          reinterpret_cast<float4*>(y + e0)[q] = v;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 16 / G; ++q) {
+          Vec<T, G> v;
+          v.load(x + e0 + q * G);
+#pragma unroll
+          for (int j = 0; j < G; ++j) v.v[j] = dropped(d, v.v[j], (bits >> (q * G + j)) & 1u);
+          v.store(y + e0 + q * G);
+        }
       }
     } else {
       for (int j = 0; j < 16 && e0 + j < n; ++j) {
-        y[e0 + j] = dropped(d, x[e0 + j], (bits >> j) & 1u);
+        y[e0 + j] = down<T>(dropped(d, up(x[e0 + j]), (bits >> j) & 1u));
       }
     }
   }
+}
+
+template <typename T>
+void launch_dropout(const void* x, void* y, long long n, const Drop& d, cudaStream_t s) {
+  const long long groups = (n + 15) / 16;
+  const long long blocks = (groups + 255) / 256;
+  const unsigned grid = static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16);
+  dropout_kernel<T><<<grid, 256, 0, s>>>(static_cast<const T*>(x), static_cast<T*>(y), n, d);
+}
+
+template <typename T>
+int segment_fwd(const SegPlan& p, const void* x, const void* gamma, const void* beta,
+                void* running_mean, void* running_var, void* y, void* stats, int act,
+                double eps, float momentum, float one_minus_momentum, const Drop& d,
+                cudaStream_t s) {
+  FwdArgs<T> a{static_cast<const T*>(x), static_cast<const float*>(gamma),
+               static_cast<const float*>(beta), static_cast<float*>(running_mean),
+               static_cast<float*>(running_var), static_cast<T*>(y),
+               static_cast<float*>(stats), p, d, eps, momentum, one_minus_momentum};
+  return launch(pick_fwd<T>(p, act), p, a, s);
+}
+
+template <typename T>
+int segment_bwd(const SegPlan& p, const void* x, const void* g, const void* gamma,
+                const void* stats, void* dx, void* dgb, int act, const Drop& d,
+                cudaStream_t s) {
+  BwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(g),
+               static_cast<const float*>(gamma), static_cast<const float*>(stats),
+               static_cast<T*>(dx), static_cast<float*>(dgb), p, d};
+  return launch(pick_bwd<T>(p, act), p, a, s);
+}
+
+template <typename T>
+cudaError_t max_clusters(const SegPlan& p, int direction, int act, int* out) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cudaError_t err;
+  if (direction == 0) {
+    const Kernel<FwdArgs<T>> fn = pick_fwd<T>(p, act);
+    err = config_of(fn, p, nullptr, attr, &cfg);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(out, fn, &cfg);
+  } else {
+    const Kernel<BwdArgs<T>> fn = pick_bwd<T>(p, act);
+    err = config_of(fn, p, nullptr, attr, &cfg);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(out, fn, &cfg);
+  }
+  return err;
 }
 
 }  // namespace
 
 // The bits8 dropout alone: y = x where its byte (the segment's, under
 // mix_seed(seed, *step, site)) is below t, scaled by 256 / t, else 0; for
-// 0 < t < 256 (the caller takes the other thresholds). x and y [n] fp32.
-extern "C" int lvae_dropout_bits8(const void* x, void* y, long long n, int t,
+// 0 < t < 256 (the caller takes the other thresholds). x and y [n], fp32
+// (esize 4) or bf16 (esize 2).
+extern "C" int lvae_dropout_bits8(const void* x, void* y, long long n, int esize, int t,
                                   unsigned long long seed, unsigned long long site,
                                   const void* step, void* stream) {
-  if (n < 0 || t <= 0 || t >= 256 || step == nullptr) {
+  if (n < 0 || t <= 0 || t >= 256 || step == nullptr || (esize != 4 && esize != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
-    const long long groups = (n + 15) / 16;
-    const long long blocks = (groups + 255) / 256;
-    const unsigned grid = static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16);
-    dropout_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), n, make_drop(t, seed, site, step));
+    const Drop d = make_drop(t, seed, site, step);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (esize == 4) {
+      launch_dropout<float>(x, y, n, d, s);
+    } else {
+      launch_dropout<bf16>(x, y, n, d, s);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // K5: x [b, c, hw] -> y, stats [5, c] (mean, var, r, scale, shift); moves
-// running_mean / running_var (unless NULL). x and y 16-byte aligned where
-// the plan's vec is 4 or 16. act 0 elu, 1 relu. The mask's key is
-// mix_seed(seed, *step, site), step an int64 in device memory, read by the
-// kernel (needed where 0 < t < 256, else it may be NULL).
+// running_mean / running_var (unless NULL). x and y of the plan's esize
+// (4: fp32, 2: bf16), 16-byte aligned where the plan's vec is 4 or 16;
+// gamma, beta, the running statistics and stats fp32. act 0 elu, 1 relu.
+// The mask's key is mix_seed(seed, *step, site), step an int64 in device
+// memory, read by the kernel (needed where 0 < t < 256, else it may be
+// NULL).
 extern "C" int lvae_segment_fwd(const SegPlan* plan, const void* x, const void* gamma,
                                 const void* beta, void* running_mean, void* running_var,
                                 void* y, void* stats, int t, int act, double eps,
@@ -877,17 +1020,18 @@ extern "C" int lvae_segment_fwd(const SegPlan* plan, const void* x, const void* 
   if (bad_plan(*plan, false) || (act != kElu && act != kRelu) || bad_key(t, step)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  FwdArgs a{static_cast<const float*>(x), static_cast<const float*>(gamma),
-            static_cast<const float*>(beta), static_cast<float*>(running_mean),
-            static_cast<float*>(running_var), static_cast<float*>(y),
-            static_cast<float*>(stats), *plan, make_drop(t, seed, site, step), eps, momentum,
-            one_minus_momentum};
-  return launch(pick_fwd(*plan, act), *plan, a, static_cast<cudaStream_t>(stream));
+  const Drop d = make_drop(t, seed, site, step);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return plan->esize == 4
+             ? segment_fwd<float>(*plan, x, gamma, beta, running_mean, running_var, y, stats,
+                                  act, eps, momentum, one_minus_momentum, d, s)
+             : segment_fwd<bf16>(*plan, x, gamma, beta, running_mean, running_var, y, stats,
+                                 act, eps, momentum, one_minus_momentum, d, s);
 }
 
 // K5-bwd: g [b, c, hw] with the forward's x and stats -> dx and dgb [2, c]
-// (dgamma, dbeta); x, g and dx 16-byte aligned where vec is 4 or 16. The
-// key as the forward's.
+// (dgamma, dbeta, fp32); x, g and dx of the plan's esize, 16-byte aligned
+// where vec is 4 or 16. The key as the forward's.
 extern "C" int lvae_segment_bwd(const SegPlan* plan, const void* x, const void* g,
                                 const void* gamma, const void* stats, void* dx, void* dgb,
                                 int t, int act, unsigned long long seed,
@@ -895,11 +1039,10 @@ extern "C" int lvae_segment_bwd(const SegPlan* plan, const void* x, const void* 
   if (bad_plan(*plan, true) || (act != kElu && act != kRelu) || bad_key(t, step)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  BwdArgs a{static_cast<const float*>(x), static_cast<const float*>(g),
-            static_cast<const float*>(gamma), static_cast<const float*>(stats),
-            static_cast<float*>(dx), static_cast<float*>(dgb), *plan,
-            make_drop(t, seed, site, step)};
-  return launch(pick_bwd(*plan, act), *plan, a, static_cast<cudaStream_t>(stream));
+  const Drop d = make_drop(t, seed, site, step);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return plan->esize == 4 ? segment_bwd<float>(*plan, x, g, gamma, stats, dx, dgb, act, d, s)
+                          : segment_bwd<bf16>(*plan, x, g, gamma, stats, dx, dgb, act, d, s);
 }
 
 // cudaOccupancyMaxActiveClusters of a plan's kernel (direction 0 forward,
@@ -909,17 +1052,6 @@ extern "C" int lvae_segment_max_clusters(const SegPlan* plan, int direction, int
   if (bad_plan(*plan, direction != 0) || (act != kElu && act != kRelu)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg;
-  cudaError_t err;
-  if (direction == 0) {
-    const Kernel<FwdArgs> fn = pick_fwd(*plan, act);
-    err = config_of(fn, *plan, nullptr, attr, &cfg);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(out, fn, &cfg);
-  } else {
-    const Kernel<BwdArgs> fn = pick_bwd(*plan, act);
-    err = config_of(fn, *plan, nullptr, attr, &cfg);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(out, fn, &cfg);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(plan->esize == 4 ? max_clusters<float>(*plan, direction, act, out)
+                                           : max_clusters<bf16>(*plan, direction, act, out));
 }

@@ -7,9 +7,11 @@ then optionally the k-sample importance-weighted log-likelihood.
 ``--load`` reads the run's ``config.json`` (an ``lvae_tpu`` run directory
 works); ``--state-dict`` is the weights, e.g. what
 ``tools/export_torch_checkpoint.py`` writes. ``--device cuda`` (the
-default) needs a CUDA device and never falls back to the CPU. The port
-scores in fp32: a run trained with ``--precision bf16`` is scored with
-``--precision fp32`` and raises without it. Image grids
+default) needs a CUDA device and never falls back to the CPU. A run is
+scored in the precision it was trained in (``config.json``'s
+``"precision"``), or in the one ``--precision`` gives, as ``lvae_tpu``'s
+``evaluate.py`` does: a bf16-trained run with ``--precision fp32`` is
+scored exactly as the same weights stored as ``"fp32"``. Image grids
 and the generation diagnostics of ``evaluate.py`` are not ported yet;
 ``lvae_tpu_torch.serving.generate`` takes their options.
 """
@@ -55,10 +57,8 @@ def parse_args(argv=None):
                         "kernel; 'stochastic', 'mixture' and 'pallas' (both) "
                         "turn them on on any device; 'none' is plain PyTorch")
     p.add_argument("--precision", default=None, choices=["fp32", "bf16"],
-                   help="override the run's compute dtype (checkpoints have the "
-                        "same layout whatever the precision); the port scores "
-                        "in fp32 only, so a run trained with --precision bf16 "
-                        "is scored with --precision fp32")
+                   help="override the run's conv compute dtype (checkpoints "
+                        "have the same layout whatever the precision)")
     p.add_argument("--data-dir", default=None, help="override the run's data dir")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the latent noise (binarisation is fixed)")
@@ -97,17 +97,6 @@ def main(argv=None) -> dict:
         d["fused"] = args.fused
     if args.precision is not None:
         d["precision"] = args.precision
-    precision = d.get("precision", "fp32")
-    if precision != "fp32":
-        # lvae_tpu would score such a run in its stored dtype: the port
-        # scores in fp32 only when asked to
-        what = (f"--precision {precision}" if args.precision else
-                f"the run was trained with --precision {precision}")
-        raise SystemExit(
-            f"{what}: the port scores in fp32 only (bf16 comes with ROADMAP "
-            f"Queue 1 item 4); pass --precision fp32 to score it in fp32 "
-            f"(checkpoints have the same layout whatever the precision)"
-        )
     stored_ds = int(d.get("num_data_shards") or 1)
     stored_ss = int(d.get("spatial_shards") or 1)
     if stored_ds * stored_ss > 1:
@@ -125,7 +114,8 @@ def main(argv=None) -> dict:
     data = load_test_set(cfg.dataset, cfg.data_dir)
     model = make_model(cfg, data, device)
     model.load_state_dict(load_state_dict_file(args.state_dict), strict=True)
-    print(f"restored {args.load} from {args.state_dict} on {device}", flush=True)
+    print(f"restored {args.load} from {args.state_dict} on {device} "
+          f"({cfg.precision})", flush=True)
 
     test = torch.from_numpy(data.test).to(device)
     bs = min(cfg.test_batch_size, test.shape[0])

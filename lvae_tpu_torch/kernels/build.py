@@ -10,7 +10,8 @@ of the sources and flags, and loaded once per process. A missing
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES`, adding one
 where it launches the kernel and nowhere else, so a run can show that its
-main path went through the kernels. A CUDA graph of train steps
+main path went through the kernels; a bf16 instantiation counts under its
+own name (:func:`launch_name`). A CUDA graph of train steps
 (``train/state.py`` ``MultiStep``) takes back the counts of its capture,
 which records launches without running them, and adds the launches it
 holds at each replay.
@@ -56,7 +57,27 @@ LAUNCHES = {
     "segment": 0,                    # K5
     "segment_bwd": 0,                # K5-bwd
     "dropout": 0,                    # K5's bits8 dropout alone, forward and backward
+    # the bf16 instantiations (--precision bf16), each counted apart
+    "mix_log_prob[bf16]": 0,         # K3, bf16 params
+    "mix_log_prob_bwd[bf16]": 0,     # K3-bwd, bf16 params and dparams
+    "segment[bf16]": 0,              # K5, bf16 x and y
+    "segment_bwd[bf16]": 0,          # K5-bwd, bf16 x, g and dx
+    "dropout[bf16]": 0,              # the bits8 dropout, bf16 x and y
 }
+
+
+def launch_name(name: str, dtype: torch.dtype) -> str:
+    """The :data:`LAUNCHES` key of kernel ``name``'s instantiation for
+    storage ``dtype``: the name itself for fp32, ``name[bf16]`` for bf16."""
+    return f"{name}[bf16]" if dtype == torch.bfloat16 else name
+
+
+def esize(dtype: torch.dtype) -> int:
+    """Bytes per element of a kernel's storage dtype, as the C entry points
+    take it (4: fp32, 2: bf16)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the kernels store float32 or bfloat16, got {dtype}")
+    return 4 if dtype == torch.float32 else 2
 
 _P = ctypes.c_void_p
 _I64, _U32, _U64, _INT = ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint64, ctypes.c_int
@@ -77,13 +98,13 @@ _SIGNATURES = {
                                       _INT, _P),
     # plan (kernels/logsumexp.py LsePlan), x, k, b, out, stream
     "lvae_logsumexp": (_P, _P, ctypes.c_int, ctypes.c_int64, _P, _P),
-    # x, params, out, b, hw, k, c, n_bins, stream
-    "lvae_mix_log_prob": (_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P),
-    # x, params, g, dparams, dx (or NULL), b, hw, k, c, n_bins, stream
-    "lvae_mix_log_prob_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P),
-    # the same, then the plan (kernels/mixture.py PLANS index), stream
+    # x, params, out, b, hw, k, c, n_bins, params' esize, stream
+    "lvae_mix_log_prob": (_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT, _P),
+    # x, params, g, dparams, dx (or NULL), b, hw, k, c, n_bins, esize, stream
+    "lvae_mix_log_prob_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT, _P),
+    # the same, with the plan (kernels/mixture.py PLANS index) before esize
     "lvae_mix_log_prob_bwd_plan": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT,
-                                   _P),
+                                   _INT, _P),
     # plan (kernels/segment.py _CPlan), x, gamma, beta, running_mean,
     # running_var (or NULL), y, stats, t, act, eps, momentum, 1 - momentum,
     # train seed, dropout site, step (a device pointer; NULL without a
@@ -94,8 +115,8 @@ _SIGNATURES = {
     "lvae_segment_bwd": (_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _U64, _U64, _P, _P),
     # plan, direction, act, out
     "lvae_segment_max_clusters": (_P, _INT, _INT, _P),
-    # x, y, n, t, train seed, dropout site, step (device pointer), stream
-    "lvae_dropout_bits8": (_P, _P, _I64, _INT, _U64, _U64, _P, _P),
+    # x, y, n, esize, t, train seed, dropout site, step (device pointer), stream
+    "lvae_dropout_bits8": (_P, _P, _I64, _INT, _INT, _U64, _U64, _P, _P),
 }
 
 

@@ -15,10 +15,17 @@ logsumexps in a first pass and recomputes every component in a second,
 and takes any K. The wrapper chooses from K and C alone: one pass where
 its CTA leaves room for a second on an SM.
 
+params are fp32 or bf16 (the model's raw conv output under ``--precision
+bf16``, as ``lvae_tpu`` feeds its kernel, ``mixture_pallas.py:533-542``); x,
+the cotangent, ll and dx are fp32 either way, and dparams comes back in
+params' dtype. A bf16 map launches the kernels' bf16 instantiation, which
+upcasts each parameter as it reads it and writes dparams as bf16.
+
 A CUDA tensor launches ``csrc/mixture.cu`` or raises; a CPU tensor takes
 the plain PyTorch versions beside it: the forward is
 ``ops.likelihoods.discretized_logistic_mix_log_prob`` (the oracle's
-math), the backward the hand-written :func:`_plain_mix_log_prob_bwd`.
+math), the backward the hand-written :func:`_plain_mix_log_prob_bwd`, both
+in fp32 on a bf16 map, dparams cast back to bf16.
 Unlike ``lvae_tpu``, which falls back to its oracle for C != 3, the kernel
 takes C = 1, so the wrapper never falls back.
 """
@@ -36,6 +43,7 @@ from lvae_tpu_torch.ops.likelihoods import (
     LOG_SCALE_MIN,
     discretized_logistic_mix_log_prob,
 )
+from lvae_tpu_torch.ops.math import math_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -44,7 +52,8 @@ from lvae_tpu_torch.ops.likelihoods import (
 
 def _plain_mix_log_prob(x: torch.Tensor, params: torch.Tensor, k: int,
                         n_bins: int) -> torch.Tensor:
-    return discretized_logistic_mix_log_prob(x, params, k, n_bins, dim=1)
+    return discretized_logistic_mix_log_prob(x, params.to(math_dtype(params.dtype)), k,
+                                             n_bins, dim=1)
 
 
 def _plain_mix_log_prob_bwd(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor,
@@ -162,12 +171,15 @@ def _checked(x: torch.Tensor, params: torch.Tensor, k: int, n_bins: int) -> None
         raise ValueError(f"the mixture kernels run on cpu or cuda, got {x.device}")
     if params.device != x.device:
         raise ValueError(f"params is on {params.device}, x on {x.device}")
-    # CUDA: the kernels' fp32; CPU: the plain versions also take fp64
-    # (gradcheck)
-    ok = (torch.float32,) if x.device.type == "cuda" else (torch.float32, torch.float64)
+    # CUDA: params fp32 or bf16, x fp32; CPU: the plain versions also take
+    # fp64 params and x (gradcheck)
+    ok = (torch.float32, torch.bfloat16) + ((torch.float64,) if x.device.type == "cpu" else ())
+    if params.dtype not in ok:
+        raise TypeError(f"params must be float32 or bfloat16, got {params.dtype}")
+    want = math_dtype(params.dtype)
+    if x.dtype != want:
+        raise TypeError(f"x must be {want} for {params.dtype} params, got {x.dtype}")
     for name, t in (("x", x), ("params", params)):
-        if t.dtype not in ok or t.dtype != params.dtype:
-            raise TypeError(f"{name} must be float32 (like params), got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous NCHW")
 
@@ -182,8 +194,8 @@ def _launch_fwd(x: torch.Tensor, params: torch.Tensor, k: int, n_bins: int) -> t
     with torch.cuda.device(x.device):
         status = build.library().lvae_mix_log_prob(
             x.data_ptr(), params.data_ptr(), out.data_ptr(), b, h * w, k, c, n_bins,
-            _stream(x))
-    build.LAUNCHES["mix_log_prob"] += 1
+            build.esize(params.dtype), _stream(x))
+    build.LAUNCHES[build.launch_name("mix_log_prob", params.dtype)] += 1
     build.check(status, "mix_log_prob")
     return out
 
@@ -193,8 +205,9 @@ def mix_log_prob_backward(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor
                           need_dx: bool = True, plan: Optional[str] = None
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K3-bwd: ``(dparams [B, Q, H, W], dx [B, C, H, W] or None)`` from the
-    cotangent ``g [B, H, W]`` of the per-pixel log-prob. ``plan`` forces a
-    schedule of :func:`bwd_plan` (the CPU's plain version ignores it)."""
+    cotangent ``g [B, H, W]`` of the per-pixel log-prob, dparams in params'
+    dtype and dx in x's. ``plan`` forces a schedule of :func:`bwd_plan` (the
+    CPU's plain version ignores it)."""
     _checked(x, params, n_components, n_bins)
     b, c, h, w = x.shape
     if tuple(g.shape) != (b, h, w) or g.device != x.device:
@@ -202,9 +215,9 @@ def mix_log_prob_backward(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor
                          f"{tuple(g.shape)} on {g.device}")
     chosen = bwd_plan(n_components, c, plan)
     if x.device.type == "cpu":
-        dparams, dx = _plain_mix_log_prob_bwd(x, params, g.to(params.dtype),
+        dparams, dx = _plain_mix_log_prob_bwd(x, params.to(x.dtype), g.to(x.dtype),
                                               n_components, n_bins)
-        return dparams, dx if need_dx else None
+        return dparams.to(params.dtype), dx if need_dx else None
     if g.dtype != torch.float32:
         raise TypeError(f"g must be float32, got {g.dtype}")
     g = g.contiguous()
@@ -214,8 +227,8 @@ def mix_log_prob_backward(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor
         status = build.library().lvae_mix_log_prob_bwd_plan(
             x.data_ptr(), params.data_ptr(), g.data_ptr(), dparams.data_ptr(),
             None if dx is None else dx.data_ptr(), b, h * w, n_components, c, n_bins,
-            PLANS.index(chosen.name), _stream(x))
-    build.LAUNCHES["mix_log_prob_bwd"] += 1
+            PLANS.index(chosen.name), build.esize(params.dtype), _stream(x))
+    build.LAUNCHES[build.launch_name("mix_log_prob_bwd", params.dtype)] += 1
     build.check(status, "mix_log_prob_bwd")
     return dparams, dx
 
@@ -245,7 +258,8 @@ class _MixLogProb(torch.autograd.Function):
 
 def mix_log_prob(x: torch.Tensor, params: torch.Tensor, n_components: int = 10,
                  n_bins: int = 256) -> torch.Tensor:
-    """K3: the per-pixel log-prob ``[B, H, W]`` of x ``[B, C, H, W]`` under
-    the mixture ``params [B, K(1 + 3C), H, W]``, differentiable in both."""
+    """K3: the per-pixel log-prob ``[B, H, W]`` (fp32) of x ``[B, C, H, W]``
+    (fp32) under the mixture ``params [B, K(1 + 3C), H, W]`` (fp32 or bf16),
+    differentiable in both."""
     _checked(x, params, n_components, n_bins)
     return _MixLogProb.apply(x, params, n_components, n_bins)

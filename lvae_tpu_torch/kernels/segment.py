@@ -14,10 +14,15 @@ tensor), deriving the key on chip, so a CUDA graph of a train step
 replays with the step it finds there.
 
 Each direction is one launch of ``csrc/segment.cu`` whose shape
-:func:`_plan` computes from the tensor's shape alone: a thread block
+:func:`_plan` computes from the tensor's shape and dtype alone: a thread block
 cluster per channel, and whether the second sweep reads shared memory
 ("on_chip", for as much of the channel as fits) or the inputs again
 ("two_sweep").
+
+x (and y, g, dx) is fp32 or bf16, each with its own instantiation of the
+kernels; gamma, beta, the statistics, the running buffers, dgamma and
+dbeta are fp32, and the arithmetic is fp32 either way
+(``segment_pallas.py:103-211,300-367``).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 versions, ``ops.math.segment_forward`` and the hand-written
@@ -41,6 +46,7 @@ from lvae_tpu_torch.ops.math import (
     SEGMENT_ACTS,
     bits8_dropout_f32,
     bits8_keep_threshold,
+    math_dtype,
     segment_backward,
     segment_forward,
 )
@@ -70,6 +76,7 @@ class Plan(NamedTuple):
     clusters: int       # the grid; cluster i takes channels i, i + clusters, ...
     chip: int           # units of a CTA's share kept in shared memory
     smem: int           # dynamic shared memory per CTA
+    esize: int = 4      # bytes per element of x, y, g and dx: 4 (fp32) or 2 (bf16)
 
     @property
     def path(self) -> str:
@@ -93,7 +100,7 @@ class Plan(NamedTuple):
 class _CPlan(ctypes.Structure):
     _fields_ = [("b", ctypes.c_int64), ("hw", ctypes.c_int64)] + [
         (k, ctypes.c_int) for k in ("c", "vec", "cluster", "threads", "clusters", "chip",
-                                    "smem")]
+                                    "smem", "esize")]
 
 
 def _pow2_at_least(n: int) -> int:
@@ -101,10 +108,12 @@ def _pow2_at_least(n: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(b: int, c: int, h: int, w: int, direction: str, path: Optional[str] = None) -> Plan:
+def _plan(b: int, c: int, h: int, w: int, direction: str, path: Optional[str] = None,
+          esize: int = 4) -> Plan:
     """The kernel's launch for ``[b, c, h, w]`` in ``direction`` ("fwd" or
-    "bwd"), a function of the shape alone (so the order of every sum, and
-    its bits, is too). ``path`` forces "on_chip" (which needs ``h w % 4 ==
+    "bwd") with ``esize`` bytes per element (4: fp32, 2: bf16), a function
+    of the shape and the dtype alone (so the order of every sum, and its
+    bits, is too). ``path`` forces "on_chip" (which needs ``h w % 4 ==
     0``) or "two_sweep"; by default on chip where it can be.
 
     A channel's ``b h w / vec`` units split into ``cluster`` contiguous
@@ -113,8 +122,10 @@ def _plan(b: int, c: int, h: int, w: int, direction: str, path: Optional[str] = 
     and on chip small enough that two CTAs fit on an SM (``PART_BUDGET``)
     where a cluster of 16 allows and the grid has more CTAs than SMs; one
     access per thread up to ``MAX_THREADS``, or 8 where the grid has four
-    CTAs per SM. On chip, a CTA keeps its share in shared memory: x (4 B
-    per element) forward, g and x (8 B) backward, and a keep word per unit,
+    CTAs per SM. An access is 16 bytes, ``16 / esize`` elements (8 in bf16;
+    a bf16 unit of 4 is one 8-byte access). On chip, a CTA keeps its share
+    in shared memory in its storage dtype: x (``esize`` B per element)
+    forward, g and x (``2 esize``) backward, and a keep word per unit,
     within ``SMEM_BUDGET``. The two-sweep path
     reads the share twice from device memory, all of it where forced,
     else what does not fit beside a second CTA (``PART_BUDGET``); it
@@ -127,11 +138,13 @@ def _plan(b: int, c: int, h: int, w: int, direction: str, path: Optional[str] = 
     if min(b, c, h, w) < 1 or b * h * w > 0x7FFFFFFF:
         raise ValueError(f"the segment kernels take [B, C, H, W] with B H W < 2^31, "
                          f"got {[b, c, h, w]}")
+    if esize not in (4, 2):
+        raise ValueError(f"esize must be 4 (fp32) or 2 (bf16), got {esize}")
     hw = h * w
     vec = 16 if hw % 16 == 0 else 4 if hw % 4 == 0 else 1
     units = b * hw // vec
-    per_unit = (4 if direction == "fwd" else 8) * vec + 4
-    per_f = 4 if vec > 1 else 1                # elements per access
+    per_unit = (1 if direction == "fwd" else 2) * esize * vec + 4
+    per_f = min(vec, 16 // esize)               # elements per access
     accesses = b * hw // per_f                  # per channel
     k = _pow2_at_least(-(-accesses // MAX_ACCESSES))
     if accesses > ONE_CTA:
@@ -154,17 +167,19 @@ def _plan(b: int, c: int, h: int, w: int, direction: str, path: Optional[str] = 
     else:
         chip = 0
     smem = chip * per_unit + 4 * min(stride - chip, KEEP_CHUNK)      # csrc smem_of
-    return Plan(b, hw, c, vec, k, threads, c, chip, smem)
+    return Plan(b, hw, c, vec, k, threads, c, chip, smem, esize)
 
 
 def _c_struct(p: Plan) -> _CPlan:
-    return _CPlan(p.b, p.hw, p.c, p.vec, p.cluster, p.threads, p.clusters, p.chip, p.smem)
+    return _CPlan(p.b, p.hw, p.c, p.vec, p.cluster, p.threads, p.clusters, p.chip, p.smem,
+                  p.esize)
 
 
 @functools.lru_cache(maxsize=None)
-def _c_plan(b: int, c: int, h: int, w: int, direction: str, path: Optional[str] = None):
+def _c_plan(b: int, c: int, h: int, w: int, direction: str, path: Optional[str] = None,
+            esize: int = 4):
     """(the plan as the C entry points take it, its address)."""
-    cp = _c_struct(_plan(b, c, h, w, direction, path))
+    cp = _c_struct(_plan(b, c, h, w, direction, path, esize))
     return cp, ctypes.addressof(cp)
 
 
@@ -188,11 +203,15 @@ def _checked(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, act: str)
     c = x.shape[1]
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the segment kernels run on cpu or cuda, got {x.device}")
-    # CUDA: the kernels' fp32; CPU: the plain versions also take fp64
-    ok = (torch.float32,) if x.device.type == "cuda" else (torch.float32, torch.float64)
+    # CUDA: x fp32 or bf16, gamma and beta fp32; CPU: the plain versions
+    # also take fp64 x, gamma and beta
+    ok = (torch.float32, torch.bfloat16) + ((torch.float64,) if x.device.type == "cpu" else ())
+    if x.dtype not in ok:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    want = math_dtype(x.dtype)
     for name, v in (("x", x), ("gamma", gamma), ("beta", beta)):
-        if v.dtype not in ok or v.dtype != x.dtype:
-            raise TypeError(f"{name} must be float32 (like x), got {v.dtype}")
+        if name != "x" and v.dtype != want:
+            raise TypeError(f"{name} must be {want} for {x.dtype} x, got {v.dtype}")
         if v.device != x.device:
             raise ValueError(f"{name} is on {v.device}, x on {x.device}")
         if not v.is_contiguous():
@@ -249,10 +268,10 @@ def _launch_fwd(x, gamma, beta, t, act, eps, key, running_mean, running_var, mom
     """K5 on a checked contiguous CUDA ``x``: ``(y, stats)``, stats the
     rows mean, var, r, scale, shift. ``path`` forces the plan's path."""
     b, c, h, w = x.shape
-    _, plan = _c_plan(b, c, h, w, "fwd", path)
+    _, plan = _c_plan(b, c, h, w, "fwd", path, build.esize(x.dtype))
     x = _aligned(x)
     y = torch.empty_like(x)
-    stats = x.new_empty((5, c))
+    stats = torch.empty((5, c), dtype=torch.float32, device=x.device)
     if running_mean is not None:
         for name, v in (("running_mean", running_mean), ("running_var", running_var)):
             if v.dtype != torch.float32 or v.shape != (c,) or v.get_device() != x.get_device():
@@ -263,7 +282,7 @@ def _launch_fwd(x, gamma, beta, t, act, eps, key, running_mean, running_var, mom
         None if running_var is None else running_var.data_ptr(),
         y.data_ptr(), stats.data_ptr(), t, SEGMENT_ACTS.index(act), eps, momentum,
         1.0 - momentum, *_c_key(t, key), stream))
-    build.LAUNCHES["segment"] += 1
+    build.LAUNCHES[build.launch_name("segment", x.dtype)] += 1
     build.check(status, "segment")
     return y, stats
 
@@ -271,14 +290,14 @@ def _launch_fwd(x, gamma, beta, t, act, eps, key, running_mean, running_var, mom
 def _launch_bwd(x, g, gamma, stats, t, act, key, path=None):
     """K5-bwd on checked contiguous CUDA tensors: ``(dx, dgamma, dbeta)``."""
     b, c, h, w = x.shape
-    _, plan = _c_plan(b, c, h, w, "bwd", path)
+    _, plan = _c_plan(b, c, h, w, "bwd", path, build.esize(x.dtype))
     x, g = _aligned(x), _aligned(g)
     dx = torch.empty_like(x)
-    dgb = x.new_empty((2, c))                                    # dgamma, dbeta
+    dgb = torch.empty((2, c), dtype=torch.float32, device=x.device)      # dgamma, dbeta
     status = build.on_device(x, lambda stream: build.library().lvae_segment_bwd(
         plan, x.data_ptr(), g.data_ptr(), gamma.data_ptr(), stats.data_ptr(), dx.data_ptr(),
         dgb.data_ptr(), t, SEGMENT_ACTS.index(act), *_c_key(t, key), stream))
-    build.LAUNCHES["segment_bwd"] += 1
+    build.LAUNCHES[build.launch_name("segment_bwd", x.dtype)] += 1
     build.check(status, "segment_bwd")
     return (dx, *dgb.unbind(0))
 
@@ -298,8 +317,10 @@ def dropout_bn_act_backward(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tenso
     given the forward's ``stats`` (rows mean, var, r, scale, shift) and its
     key (``seed``, ``step``, ``site``)."""
     _checked(x, gamma, beta, act)
-    if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
-        raise ValueError(f"g must be {x.dtype} {tuple(x.shape)} on {x.device}")
+    if g.dtype != x.dtype:
+        raise TypeError(f"g must be {x.dtype} (like x), got {g.dtype}")
+    if g.shape != x.shape or g.device != x.device:
+        raise ValueError(f"g must be {tuple(x.shape)} on {x.device}")
     key = _key(x, seed, step, site) if 0 < t < 256 else None
     return _backward(x, g.contiguous(), gamma, beta, stats, t, act, key)
 
@@ -338,11 +359,12 @@ class _Segment(torch.autograd.Function):
 
 
 def _launch_dropout(x: torch.Tensor, t: int, key: Key) -> torch.Tensor:
-    """The bits8 dropout kernel on a contiguous fp32 CUDA ``x``."""
+    """The bits8 dropout kernel on a contiguous fp32 or bf16 CUDA ``x``."""
     y = torch.empty_like(x)
     status = build.on_device(x, lambda stream: build.library().lvae_dropout_bits8(
-        x.data_ptr(), y.data_ptr(), x.numel(), t, *_c_key(t, key), stream))
-    build.LAUNCHES["dropout"] += 1
+        x.data_ptr(), y.data_ptr(), x.numel(), build.esize(x.dtype), t, *_c_key(t, key),
+        stream))
+    build.LAUNCHES[build.launch_name("dropout", x.dtype)] += 1
     build.check(status, "dropout")
     return y
 
@@ -366,11 +388,12 @@ def dropout_bits8(x: torch.Tensor, rate: float, seed: int, step: Ints,
                   site: int) -> torch.Tensor:
     """bits8 dropout alone, under the segment's bytes: ``x`` where the
     byte of ``dropout_bytes(x.shape, mix_seed(seed, step, site))`` is below
-    ``t = round(256 (1 - rate))``, scaled by ``256 / t`` in fp32, else 0
-    (``x`` itself for ``t >= 256``, zeros for ``t <= 0``); ``step`` a 0-d
-    int64 tensor on ``x``'s device, read there. A CUDA tensor launches the
-    kernel (``csrc/segment.cu`` ``dropout_kernel``, forward and backward)
-    on a contiguous copy of ``x``; a CPU tensor takes the plain version."""
+    ``t = round(256 (1 - rate))``, scaled by ``256 / t`` in fp32 and cast
+    back to ``x``'s dtype, else 0 (``x`` itself for ``t >= 256``, zeros for
+    ``t <= 0``); ``step`` a 0-d int64 tensor on ``x``'s device, read there.
+    A CUDA tensor (fp32 or bf16) launches the kernel (``csrc/segment.cu``
+    ``dropout_kernel``, forward and backward) on a contiguous copy of
+    ``x``; a CPU tensor takes the plain version."""
     t = bits8_keep_threshold(rate)
     if t >= 256:      # rate below the 8-bit resolution: keep everything
         return x
@@ -378,9 +401,10 @@ def dropout_bits8(x: torch.Tensor, rate: float, seed: int, step: Ints,
         return torch.zeros_like(x)
     key = _key(x, seed, step, site)
     if not x.is_cuda:
-        return bits8_dropout_f32(x, _plain_bytes(x, t, key), t)
-    if x.dtype != torch.float32:
-        raise TypeError(f"the dropout kernel takes float32, got {x.dtype}")
+        return bits8_dropout_f32(x.to(math_dtype(x.dtype)), _plain_bytes(x, t, key),
+                                 t).to(x.dtype)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the dropout kernel takes float32 or bfloat16, got {x.dtype}")
     return _Dropout.apply(x.contiguous(), t, key)
 
 

@@ -20,7 +20,7 @@ statistics from the batch's leading rows (``SubsampledBatchNorm``), and
 from __future__ import annotations
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,10 +70,42 @@ def conv_padding(conv_pad: str, k: int, stride: int = 1,
     return tuple(pads)
 
 
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` with ``lvae_tpu``'s padding conventions. Parameters
-    start at zero; :func:`init_parameters` draws them from an explicit
-    generator (``init_std`` overrides the lecun-normal scale)."""
+class _ComputeDtype:
+    """flax's ``nn.Conv(dtype=...)``: ``compute_dtype`` (None: the
+    parameters' own) is the dtype the convolution computes and returns in.
+    ``forward`` casts the input, the weight and the bias to it, so the
+    parameters stay fp32 and their gradients come back fp32 through the
+    casts; nothing is cached across calls, so an optimiser's in-place
+    update (and a CUDA graph of the step) always reads the current weight.
+    The bias is added after the convolution, in the compute dtype, as
+    flax adds it (``y = conv(x, w); y += b``): the convolution's output is
+    rounded once, then the sum. :func:`set_compute_dtype` sets it on every
+    conv of a model."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def _conv(self, conv: Callable, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        """``conv(x, weight, bias, *args)`` in the compute dtype."""
+        cd = self.compute_dtype or self.weight.dtype
+        if cd == self.weight.dtype:
+            return conv(x.to(cd), self.weight, self.bias, *args, **kwargs)
+        y = conv(x.to(cd), self.weight.to(cd), None, *args, **kwargs)
+        return y + self.bias.to(cd).view(1, -1, 1, 1)
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> None:
+    """Every conv of ``module`` computes in ``dtype`` (None: fp32, the
+    parameters' dtype)."""
+    for m in module.modules():
+        if isinstance(m, _ComputeDtype):
+            m.compute_dtype = dtype
+
+
+class Conv2d(_ComputeDtype, nn.Conv2d):
+    """``nn.Conv2d`` with ``lvae_tpu``'s padding conventions and a compute
+    dtype. Parameters start at zero; :func:`init_parameters` draws them
+    from an explicit generator (``init_std`` overrides the lecun-normal
+    scale)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  conv_pad: str = "same", init_std: float | None = None):
@@ -91,13 +123,13 @@ class Conv2d(nn.Conv2d):
             self.conv_pad, k, s, (x.shape[-2], x.shape[-1])
         )
         if top == bottom and left == right:
-            return F.conv2d(x, self.weight, self.bias, s, (top, left))
-        return F.conv2d(F.pad(x, (left, right, top, bottom)),
-                        self.weight, self.bias, s)
+            return self._conv(F.conv2d, x, s, (top, left))
+        return self._conv(F.conv2d, F.pad(x, (left, right, top, bottom)), s)
 
 
-class ConvTranspose2d(nn.ConvTranspose2d):
-    """2x upsampling transposed conv (weight ``[in, out, k, k]``).
+class ConvTranspose2d(_ComputeDtype, nn.ConvTranspose2d):
+    """2x upsampling transposed conv (weight ``[in, out, k, k]``), with a
+    compute dtype.
 
     ``'same'``: flax ``ConvTranspose(strides=2)`` SAME == the full
     transposed conv sliced to its top-left 2H x 2W (exact for k=3, s=2,
@@ -118,13 +150,16 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size[0], self.stride[0]
         if self.conv_pad == "torch":
-            return F.conv_transpose2d(x, self.weight, self.bias, s,
-                                      padding=k // 2, output_padding=s - 1)
+            return self.full(x, padding=k // 2, output_padding=s - 1)
         if self.conv_pad != "same":
             raise ValueError(f"unknown conv_pad {self.conv_pad!r}")
         h, w = x.shape[-2], x.shape[-1]
-        y = F.conv_transpose2d(x, self.weight, self.bias, s)
-        return y[:, :, : s * h, : s * w]
+        return self.full(x)[:, :, : s * h, : s * w]
+
+    def full(self, x: torch.Tensor, **pads) -> torch.Tensor:
+        """The transposed conv, uncropped (the 'torch' convention's
+        ``pads`` given), in the compute dtype."""
+        return self._conv(F.conv_transpose2d, x, self.stride[0], **pads)
 
 
 @torch.no_grad()
@@ -143,7 +178,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def batch_norm_eval(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """BatchNorm over the running statistics, whatever ``bn.training``."""
+    """BatchNorm over the running statistics, whatever ``bn.training``; a
+    bf16 ``x`` is normalised in fp32 and the result cast back, as flax's
+    ``_normalize`` does."""
     return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                         bn.bias, False, 0.0, bn.eps)
 
@@ -156,10 +193,13 @@ def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor,
     variance. ``nn.BatchNorm2d``'s own update would store the unbiased
     one, so its running buffers are only read here: the one BatchNorm
     kernel writes the batch statistics into fresh buffers (momentum 1),
-    and the running statistics are moved from those."""
+    and the running statistics are moved from those. The batch statistics
+    are in the running buffers' dtype (fp32 for a bf16 ``x``: flax reduces
+    in fp32, normalises in fp32 and casts ``y`` back to ``x``'s dtype, as
+    the mixed-dtype kernel does)."""
     c = x.shape[1]
-    mean = torch.zeros(c, dtype=x.dtype, device=x.device)
-    var = torch.ones(c, dtype=x.dtype, device=x.device)
+    mean = torch.zeros(c, dtype=bn.running_mean.dtype, device=x.device)
+    var = torch.ones(c, dtype=bn.running_var.dtype, device=x.device)
     y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, 1.0, bn.eps)
     n = x.numel() // c
     with torch.no_grad():
@@ -207,8 +247,9 @@ class DropoutKey:
 class Dropout(nn.Module):
     """``lvae_tpu``'s dropout: ``bits8`` keeps an element iff its random
     byte is below ``t = round(256 (1 - rate))`` and scales survivors by
-    ``256 / t`` in fp32 (``FastDropout``); ``float`` is plain dropout at
-    the exact rate (``nn.Dropout``). The identity outside training.
+    ``256 / t`` in fp32, cast back to ``x``'s dtype (``FastDropout``);
+    ``float`` is plain dropout at the exact rate in ``x``'s dtype
+    (``nn.Dropout``). The identity outside training.
 
     The randomness is keyed by (train seed, step, site): ``bits8`` takes
     the bytes that the fused segment K5 takes (``dropout_bytes``), so the
@@ -254,7 +295,9 @@ class FusedBNActSegment:
     by the absorbed ``Dropout_n``'s site, as that dropout keys its own, so
     the fused and the unfused ops drop the same elements; the kernels read
     the step from the key's device tensor. As in ``lvae_tpu``, the segment
-    computes in fp32 whatever the input's dtype and casts ``y`` back."""
+    computes in fp32 whatever the input's dtype and returns ``y`` in it: a
+    bf16 ``x`` goes to the kernels' bf16 instantiation as it is and comes
+    back bf16, with no copy either way."""
 
     def __init__(self, bn: nn.BatchNorm2d, act: str, dropout: "Dropout | None" = None):
         self.bn, self.act, self.dropout = bn, act, dropout
@@ -263,14 +306,18 @@ class FusedBNActSegment:
         bn, drop = self.bn, self.dropout
         rate = drop.rate if drop is not None else 0.0
         key = dict(seed=drop.key.seed, step=drop.key.step, site=drop.site) if rate > 0.0 else {}
+        # fp32 and bf16 storage go to the kernels as they are; fp64 (the CPU
+        # tests' parity runs) computes in fp32, as lvae_tpu's segment does
+        xs = x if x.dtype == torch.bfloat16 else x.float()
         y, _, _ = dropout_bn_act(
-            x.float(), bn.weight.float(), bn.bias.float(), rate=rate, act=self.act,
-            eps=bn.eps, running_mean=bn.running_mean, running_var=bn.running_var, **key)
+            xs, bn.weight.float(), bn.bias.float(), rate=rate, act=self.act, eps=bn.eps,
+            running_mean=bn.running_mean, running_var=bn.running_var, **key)
         return y.to(x.dtype)
 
 
 class GateLayer(nn.Module):
-    """a * sigmoid(b) from a 1x1 conv to 2x the channels."""
+    """a * sigmoid(b) from a 1x1 conv to 2x the channels, in the conv's
+    compute dtype."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -278,6 +325,12 @@ class GateLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a, b = torch.chunk(self.Conv_0(x), 2, dim=1)
+        if a.dtype == torch.bfloat16:
+            # lvae_tpu's sigmoid in bf16: jax.nn.sigmoid lowers to
+            # 1 / (1 + exp(-b)) with each op rounded to bf16, where
+            # torch.sigmoid rounds once; on a third of the elements the two
+            # differ by an ulp
+            return a * torch.reciprocal(1.0 + torch.exp(-b))
         return a * torch.sigmoid(b)
 
 
@@ -368,7 +421,7 @@ class ResidualBlock(nn.Module):
             i += 1
         if self.GateLayer_0 is not None:
             h = self.GateLayer_0(h)
-        return x + h
+        return x + h.to(x.dtype)
 
 
 class ResBlockWithResampling(nn.Module):

@@ -3,12 +3,15 @@ features -> output distribution.
 
 Each head maps the final top-down features ``[B, c_in, H, W]`` to its
 parameters with a 1x1 ``param_conv`` (the flax name, so ``params_from_flax``
-loads it strictly), in fp32 whatever the convs' dtype, and returns the
+loads it strictly) in the conv's compute dtype, casts them to fp32, and
+returns the
 per-element log-likelihood ``[B, C, H, W]`` of the target (NCHW) and a dict
 with ``params``, ``mean`` and ``mode``. The mixture head's per-pixel
 log-prob is spread evenly over the C channels, so every head returns the
 same shape. With ``fused``, the mixture head's log-prob is the CUDA kernel
-K3 (``kernels/mixture.py``), whose backward is K3-bwd.
+K3 (``kernels/mixture.py``), whose backward is K3-bwd; under bf16 it takes
+the conv's raw bf16 output and the fp32 image, as ``lvae_tpu`` hands its
+kernel the raw conv output (``lvae_tpu/models/likelihoods.py:126-131``).
 
 :func:`sample_from_likelihood` draws an image from a head's ``params``
 (channels last, as the model returns them), outside the model.
@@ -105,7 +108,8 @@ class DiscretizedLogisticMixLikelihood(nn.Module):
 
     def forward(self, h, x):
         k, c = self.n_components, self.color_ch
-        params = self.param_conv(h).float()
+        raw = self.param_conv(h)
+        params = raw.float()
         b, _, hh, ww = params.shape
         pi = torch.softmax(params[:, :k], dim=1).unsqueeze(2)          # [B, K, 1, H, W]
         means = params[:, k:k + k * c].reshape(b, k, c, hh, ww)
@@ -114,7 +118,10 @@ class DiscretizedLogisticMixLikelihood(nn.Module):
         if x is None:
             return None, data
         if self.fused:
-            ll_pixel = mix_log_prob(x.to(params.dtype).contiguous(), params, k, self.n_bins)
+            # bf16 storage goes to K3 as it is; x stays fp32: k/255 in 8 bits
+            # of mantissa would move the log-likelihood
+            kp = raw.contiguous() if raw.dtype == torch.bfloat16 else params
+            ll_pixel = mix_log_prob(x.float().contiguous(), kp, k, self.n_bins)
         else:
             ll_pixel = discretized_logistic_mix_log_prob(x, params, k, self.n_bins, dim=1)
         return (ll_pixel / c).unsqueeze(1).expand(-1, c, -1, -1), data

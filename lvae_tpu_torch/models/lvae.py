@@ -22,8 +22,15 @@ log-prob on the kernel K3 (and its gradient on K3-bwd); ``fused_segments``
 runs every ``[d] b a`` run of a residual branch in training as one
 dropout+BatchNorm+activation segment, K5 (and K5-bwd); ``bn_stat_samples >
 0`` takes training BatchNorm statistics from the batch's leading rows.
-fp32 on the card: building the model turns TF32 off
-(:func:`lvae_tpu_torch.fp32_math`).
+``dtype`` is flax's compute dtype (``lvae_tpu/models/lvae.py:243,280,300,364``):
+None (fp32) or ``torch.bfloat16``, under which every convolution (the
+first conv, the blocks', the merges', the latent heads' and the likelihood
+head's) computes in bf16 from fp32 parameters and the activation stream
+between blocks is bf16, while BatchNorm, the segments and dropout compute
+in fp32 and cast back, and the top prior, the latents, the KL, the
+likelihood and everything the trainer does with them stay fp32. Building
+the model turns TF32 off (:func:`lvae_tpu_torch.fp32_math`): fp32 convs
+are full fp32.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from lvae_tpu_torch.models.blocks import (
     ResidualBlock,
     get_nonlin,
     init_parameters,
+    set_compute_dtype,
 )
 from lvae_tpu_torch.models.likelihoods import make_likelihood
 from lvae_tpu_torch.models.stochastic import Noise, NormalStochasticBlock
@@ -160,7 +168,9 @@ class TopDownLayer(nn.Module):
 
 class LadderVAE(nn.Module):
     """Hierarchical Ladder VAE. ``generator`` draws the initial weights
-    (seed 0 when omitted); real weights come through ``load_state_dict``."""
+    (seed 0 when omitted); real weights come through ``load_state_dict``.
+    ``dtype`` is the convolutions' compute dtype (see the module's
+    docstring); the parameters are fp32 whatever it is."""
 
     def __init__(self, color_ch: int, z_dims: Sequence[int] = (32, 32, 32),
                  blocks_per_layer: int = 2, n_filters: int = 64,
@@ -177,8 +187,11 @@ class LadderVAE(nn.Module):
                  fused_segments: bool = False, bn_stat_samples: int = 0,
                  dropout_rate: float = 0.2,
                  dropout_impl: str = "bits8",
+                 dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be None, float32 or bfloat16, got {dtype}")
         if skip_merge_mode not in ("pre", "post"):
             raise ValueError(f"unknown skip_merge_mode {skip_merge_mode!r}")
         self.z_dims = tuple(z_dims)
@@ -250,6 +263,7 @@ class LadderVAE(nn.Module):
         for site, m in enumerate(m for m in self.modules() if isinstance(m, Dropout)):
             m.site, m.key = site, self.dropout_key
 
+        set_compute_dtype(self, dtype)
         fp32_math()
         if generator is None:
             generator = torch.Generator().manual_seed(0)

@@ -8,7 +8,9 @@ with ``train=True`` K1, which returns the KL summed per sample
 (``kl_sample [B]``) and no elementwise map, as ``lvae_tpu``'s training
 branch does; otherwise K2, the elementwise map. Without ``fused`` the
 plain PyTorch ops (``ops/``) run under autograd. All draw eps from the same
-keyed Philox stream, so they give the same z.
+keyed Philox stream, so they give the same z. The conv heads compute in
+their compute dtype (bf16 under ``--precision bf16``); the parameters,
+the sample and the KL are fp32, as in ``lvae_tpu``.
 
 ``p_row``, where given, is the one row ``[1, 2c, h, w]`` that ``p_in``
 broadcasts over B (the top layer's prior, ``p_in`` its stride-0 view):
@@ -83,8 +85,8 @@ class NormalStochasticBlock(nn.Module):
                     f"got {p_in.shape[1]}"
                 )
             p_params = p_in
-        # the latent math runs in fp32 whatever the convs' dtype, as in
-        # lvae_tpu (no-ops in the port's fp32)
+        # the latent math runs in fp32 whatever the convs' compute dtype,
+        # as in lvae_tpu (under bf16 the heads' outputs are cast up here)
         p_params = p_params.float()
         q_params = self.conv_in_q(q_in).float() if q_in is not None else None
         mu, log_var = split_params(q_params if q_params is not None else p_params)
@@ -125,7 +127,7 @@ class NormalStochasticBlock(nn.Module):
 
         return {
             "z": z,
-            "out": self.conv_out(z.to(self.conv_out.weight.dtype)),
+            "out": self.conv_out(z),      # cast to the conv's compute dtype there
             "kl_elementwise": kl,
             "kl_sample": kl_sample,   # [B] where K1 ran
             "q_params": q_params,

@@ -115,6 +115,13 @@ def _dropped(x: torch.Tensor, t: int, mask_bytes: Optional[torch.Tensor]) -> tor
     return bits8_dropout_f32(x, mask_bytes, t)
 
 
+def math_dtype(storage: torch.dtype) -> torch.dtype:
+    """The dtype a kernel's plain version computes in: fp32 for bf16
+    storage (as the kernels and ``lvae_tpu``'s Pallas kernels do), else
+    the storage's own (fp64 in the CPU tests' gradchecks)."""
+    return torch.float32 if storage == torch.bfloat16 else storage
+
+
 def _channel(v: torch.Tensor) -> torch.Tensor:
     return v.view(1, -1, 1, 1)
 
@@ -125,8 +132,9 @@ def segment_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, t:
                     running_mean: Optional[torch.Tensor] = None,
                     running_var: Optional[torch.Tensor] = None,
                     momentum: float = 0.9) -> Tuple[torch.Tensor, ...]:
-    """The train-mode segment over NCHW ``x`` in ``x``'s dtype
-    (``segment_pallas.py:291-315``): ``(y, mean, var, r)`` with the batch
+    """The train-mode segment over NCHW ``x``, computed in ``x``'s dtype
+    (fp32 for bf16 storage, ``y`` then cast back to bf16;
+    ``segment_pallas.py:291-315``): ``(y, mean, var, r)`` with the batch
     mean and biased variance of ``u``, the dropped input (``t`` is the
     bits8 keep threshold; ``mask_bytes`` the uint8 byte of each element,
     needed when ``0 < t < 256``), and ``r = 1 / sqrt(var + eps)``.
@@ -135,6 +143,8 @@ def segment_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, t:
     mean^2`` cancels in fp32 at 64x64 maps. Given the running buffers, it
     moves them as flax does: ``ra = m ra + (1 - m) stat``. Differentiable
     by autograd; the hand-written backward is :func:`segment_backward`."""
+    store = x.dtype
+    x = x.to(math_dtype(store))
     u = _dropped(x, t, mask_bytes)
     n = u.numel() // u.shape[1]
     ud = u.double()
@@ -144,7 +154,7 @@ def segment_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, t:
     mean, var, r = (v.to(x.dtype) for v in (mean_d, var_d, r_d))
     scale = gamma * r
     shift = beta - mean * scale
-    y = _segment_act(u * _channel(scale) + _channel(shift), act)
+    y = _segment_act(u * _channel(scale) + _channel(shift), act).to(store)
     if running_mean is not None:
         with torch.no_grad():
             running_mean.copy_(momentum * running_mean
@@ -163,7 +173,11 @@ def segment_backward(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
     cotangent ``g`` of ``y``, recomputing ``u``, ``z`` and ``act'(z)`` from
     ``x`` and the forward's ``mean`` and ``r``. It includes the
     batch-statistics terms ``m1 = mean(dz)``, ``m2 = mean(dz xhat)``; ``dx``
-    is exactly 0 where the mask dropped the element."""
+    is exactly 0 where the mask dropped the element. bf16 ``x`` and ``g``
+    are computed in fp32 and ``dx`` cast back to bf16; dgamma and dbeta stay
+    fp32."""
+    store = x.dtype
+    x, g = x.to(math_dtype(store)), g.to(math_dtype(store))
     u = _dropped(x, t, mask_bytes)
     n = u.numel() // u.shape[1]
     scale = gamma * r
@@ -180,4 +194,4 @@ def segment_backward(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
         dx = torch.zeros_like(du)
     else:
         dx = torch.where(mask_bytes < t, du * float(np.float32(256.0 / t)), 0.0)
-    return dx, dgamma, dbeta
+    return dx.to(store), dgamma, dbeta

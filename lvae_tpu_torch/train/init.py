@@ -13,12 +13,16 @@ in training, but the running statistics are put back after each pass, as
 ``lvae_tpu`` (whose pass never writes them back) leaves them. The latents
 take the training kernel (K1), as in ``lvae_tpu``. Each pass stops at the
 conv it measures.
+
+Under bf16 the forwards are the bf16 model's, and a conv's statistics are
+those ``lvae_tpu`` takes of its bf16 output: the mean and the standard
+deviation reduced in fp32 and returned in bf16, clamped and shifted by
+``eps`` in bf16; the weight and the bias are rescaled in fp32.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from lvae_tpu_torch.models.blocks import Conv2d, ConvTranspose2d
 from lvae_tpu_torch.models.stochastic import Noise
@@ -35,7 +39,7 @@ def _output(m, inputs, out):
     transposed conv is the full (VALID) transposed conv, cropped outside
     the module, so the statistics cover the full map."""
     if isinstance(m, ConvTranspose2d) and m.conv_pad == "torch":
-        return F.conv_transpose2d(inputs[0], m.weight, m.bias, m.stride)
+        return m.full(inputs[0])
     return out
 
 

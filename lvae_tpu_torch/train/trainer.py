@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lvae_tpu_torch.config import EvalConfig, TrainConfig
+from lvae_tpu_torch.config import PRECISIONS, EvalConfig, TrainConfig
 from lvae_tpu_torch.data.device import DeviceDataset, eval_preprocess_batch
 from lvae_tpu_torch.data.registry import Dataset, TestSet, load_dataset
 from lvae_tpu_torch.models.lvae import LadderVAE
@@ -91,7 +91,9 @@ def make_model(cfg: EvalConfig, data: TestSet, device: torch.device,
                train: bool = False) -> LadderVAE:
     """The configured model on ``device``; ``generator`` draws the
     initial weights. ``train`` (with a :class:`TrainConfig`) adds the
-    dropout and the kernel policy's training switches."""
+    dropout and the kernel policy's training switches. ``--precision
+    bf16`` makes the convs compute in bf16 (``lvae_tpu/train/trainer.py:115``);
+    the parameters are fp32 either way."""
     drop = dict(dropout_rate=cfg.dropout, dropout_impl=cfg.dropout_impl) if train else {}
     likelihood = cfg.likelihood or data.default_likelihood
     model = LadderVAE(
@@ -115,6 +117,7 @@ def make_model(cfg: EvalConfig, data: TestSet, device: torch.device,
         resample_mode=cfg.resample_mode,
         conv_pad=cfg.conv_pad,
         no_initial_downscaling=cfg.no_initial_downscaling,
+        dtype=PRECISIONS[cfg.precision],
         generator=generator,
         **drop,
         **resolve_fused(cfg.fused, device, train, likelihood),

@@ -150,11 +150,27 @@ class TestCLI:
         (["--num-data-shards", "2"], "--num-data-shards"),
         (["--rng-impl", "rbg"], "--rng-impl"),
         (["--platform", "tpu"], "--platform"),
-        (["--precision", "bf16"], "--precision"),
     ])
     def test_rejects_what_the_port_does_not_run(self, tmp_path, flags, name):
         with pytest.raises(ValueError, match=name):
             _train(tmp_path, "--max-steps", "1", "--dry-run", *flags)
+
+    @pytest.mark.parametrize("fused", ["auto", "all"])
+    def test_trains_at_precision_bf16(self, tmp_path, fused):
+        """--precision bf16 (refused before the port ran it): two finite
+        steps with every conv computing in bf16, the parameters, the
+        BatchNorm statistics and the optimiser's state fp32."""
+        tr = _train(tmp_path, "--max-steps", "2", "--dry-run", "--precision", "bf16",
+                    "--fused", fused)
+        model = tr.state.model
+        convs = [m for m in model.modules() if hasattr(m, "compute_dtype")]
+        assert tr.state.step == 2 and convs
+        assert all(m.compute_dtype == torch.bfloat16 for m in convs)
+        assert all(t.dtype == torch.float32 for t in model.state_dict().values()
+                   if t.is_floating_point())
+        assert all(v.dtype == torch.float32 for st in tr.state.optimizer.state.values()
+                   for v in st.values())
+        assert all(np.isfinite(float(v)) for v in tr.state.ema.values() if v.dim() == 0)
 
     @pytest.mark.parametrize("flags", [["--fused", "segments"], ["--fused", "all"],
                                        ["--bn-stat-samples", "8"]],

@@ -213,26 +213,27 @@ class TestEvaluateCLI:
 
     def test_bf16_trained_run_scored_with_precision_fp32(self, tmp_path, capsys):
         """A run whose config.json holds "precision": "bf16" is scored in
-        fp32 with --precision fp32, to the bit of the same weights under a
-        stored "fp32"; without the flag, or with --precision bf16, it
-        raises naming --precision fp32."""
+        bf16 without the flag (as lvae_tpu's evaluate.py scores it in its
+        stored dtype), and with --precision fp32 to the bit of the same
+        weights under a stored "fp32"."""
         from lvae_tpu_torch.evaluate import main
 
         args = _run_dir(tmp_path, precision="bf16") + ["--device", "cpu"]
-        for extra, what in (([], "the run was trained with --precision bf16"),
-                            (["--precision", "bf16"], "--precision bf16")):
-            with pytest.raises(SystemExit, match="pass --precision fp32") as e:
-                main(args + extra)
-            assert str(e.value).startswith(what) and "Queue 1 item 4" in str(e.value)
+        in_bf16 = main(args)["elbo"]
+        assert "(bf16)" in capsys.readouterr().out
+        assert main(args + ["--precision", "bf16"])["elbo"]["elbo"] == in_bf16["elbo"]
         scored = main(args + ["--precision", "fp32"])["elbo"]
         cfg = json.loads((tmp_path / "config.json").read_text())
         (tmp_path / "config.json").write_text(json.dumps({**cfg, "precision": "fp32"}))
         stored = main(args)["elbo"]
-        assert scored["n_images"] == stored["n_images"] == 128
-        assert np.isfinite(scored["elbo"])
+        assert scored["n_images"] == stored["n_images"] == in_bf16["n_images"] == 128
+        assert np.isfinite(scored["elbo"]) and np.isfinite(in_bf16["elbo"])
         for key in ("elbo", "ll", "kl", "bpd"):
             assert scored[key] == stored[key], key
         np.testing.assert_array_equal(scored["kl_layers"], stored["kl_layers"])
+        # bf16 convs move the ELBO, by much less than its size
+        assert in_bf16["elbo"] != stored["elbo"]
+        assert abs(in_bf16["elbo"] - stored["elbo"]) < 0.01 * abs(stored["elbo"])
         assert "test elbo" in capsys.readouterr().out
 
     def test_more_than_one_shard_rejected(self, tmp_path):

@@ -177,7 +177,7 @@ class TestConfig:
 
     @pytest.mark.parametrize("field,value,flag", [
         ("likelihood", "laplace", "--likelihood"),
-        ("precision", "bf16", "--precision"),
+        ("precision", "fp16", "--precision"),
         ("spatial_shards", 2, "--spatial-shards"),
         ("downsample", (1, 1), "--downsample"),
         ("blocks_per_layer", 0, "--blocks-per-layer"),
@@ -185,6 +185,13 @@ class TestConfig:
     def test_rejects_with_the_flag_named(self, field, value, flag):
         with pytest.raises(ValueError, match=flag):
             EvalConfig(**{field: value})
+
+    @pytest.mark.parametrize("precision", ["fp32", "bf16"])
+    def test_takes_both_precisions(self, precision):
+        """--precision bf16 is taken (refused before the port ran it), and
+        stored in the config a run directory records."""
+        cfg = config_from_dict({"zdims": [8, 8], "precision": precision})
+        assert cfg.precision == precision
 
     def test_eval_reads_bn_stat_samples_unvalidated(self):
         """A run trained with --bn-stat-samples 16 is scored: evaluation

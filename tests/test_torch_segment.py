@@ -236,7 +236,7 @@ def _assert_legal(plan, shape, direction):
     from lvae_tpu_torch.kernels import segment as seg
 
     b, c, h, w = shape
-    per_unit = (4 if direction == "fwd" else 8) * plan.vec + 4
+    per_unit = (1 if direction == "fwd" else 2) * plan.esize * plan.vec + 4
     assert (plan.b, plan.c, plan.hw) == (b, c, h * w)
     assert plan.vec in (1, 4, 16) and plan.hw % plan.vec == 0
     assert plan.vec == 16 or (plan.hw % 16 != 0 and (plan.vec == 4) == (plan.hw % 4 == 0))
@@ -265,9 +265,9 @@ def _assert_legal(plan, shape, direction):
 def _assert_every_element_once(plan):
     """Each element of the map falls to exactly one (channel, CTA, thread)
     access: channels walked by the clusters, shares by the ranks, floats by
-    the threads (F = 4 per access where vec > 1)."""
+    the threads (F = 16 / esize per access where vec > 1, at most vec)."""
     b, c, hw = plan.b, plan.c, plan.hw
-    f = 1 if plan.vec == 1 else 4
+    f = 1 if plan.vec == 1 else min(plan.vec, 16 // plan.esize)
     seen = np.zeros(b * c * hw, np.int64)
     for cid in range(plan.clusters):
         for ch in range(cid, c, plan.clusters):
@@ -313,14 +313,37 @@ class TestPlan:
                              ids=lambda s: "x".join(map(str, s)))
     def test_a_function_of_the_shape_alone(self, shape):
         """Equal on repeated calls (the cache cleared between them) and for
-        any data: the wrapper reads nothing but the shape."""
+        any data: the wrapper reads nothing but the shape and the element
+        size (bf16 storage has its own plans)."""
         from lvae_tpu_torch.kernels import segment as seg
 
-        first = [seg._plan(*shape, d, p) for d in DIRECTIONS for p in (None, "two_sweep")]
+        cases = [(d, p, e) for d in DIRECTIONS for p in (None, "two_sweep") for e in (4, 2)]
+        first = [seg._plan(*shape, *case) for case in cases]
         seg._plan.cache_clear()
-        assert first == [seg._plan(*shape, d, p) for d in DIRECTIONS for p in (None, "two_sweep")]
+        assert first == [seg._plan(*shape, *case) for case in cases]
         sig = inspect.signature(seg._plan.__wrapped__)
-        assert list(sig.parameters) == ["b", "c", "h", "w", "direction", "path"]
+        assert list(sig.parameters) == ["b", "c", "h", "w", "direction", "path", "esize"]
+
+    @pytest.mark.parametrize("shape", MODEL_SHAPES + ODD_SHAPES,
+                             ids=lambda s: "x".join(map(str, s)))
+    def test_bf16_plans_are_legal(self, shape):
+        """bf16 storage (``esize`` 2): a legal plan at every model and odd
+        shape, both directions, default and two-sweep; 16-byte accesses of
+        8 elements (a 2x2 unit of 4: one 8-byte access); every element
+        assigned once where the map is small enough to walk; and with the
+        share kept on chip at 2 B an element, celeba64's 64x64 backward
+        fits on chip too."""
+        from lvae_tpu_torch.kernels import segment as seg
+
+        for direction in DIRECTIONS:
+            for path in (None, "two_sweep"):
+                plan = seg._plan(*shape, direction, path, 2)
+                assert plan.esize == 2
+                _assert_legal(plan, shape, direction)
+                if np.prod(shape) <= 2 ** 19:
+                    _assert_every_element_once(plan)
+            if shape in MODEL_SHAPES:
+                assert seg._plan(*shape, direction, None, 2).path == "on_chip"
 
     @pytest.mark.parametrize("shape", ODD_SHAPES, ids=lambda s: "x".join(map(str, s)))
     def test_odd_shapes_get_a_legal_plan(self, shape):
