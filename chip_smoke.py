@@ -15,7 +15,7 @@ learned top prior):
 - training, ``lvae_tpu_torch.main`` (phases 6-9): the sample+KL kernels'
   per-sample forward (K1) and both backward kernels held against their
   plain versions and timed at the flagship's and celeba64's training
-  shapes, 100 steps of the flagship at batch 64 with data-dependent
+  shapes, 40 steps of the flagship at batch 64 with data-dependent
   init on 50,000 synthetic train images, the kernel path against the plain
   path and the CPU on one step, and train images/s.
 
@@ -24,13 +24,13 @@ the discretized-logistic-mixture head; phases 10-13): the mixture
 log-prob kernel and its backward (K3, K3-bwd, on each of its two plans)
 against their plain versions; evaluation over 2,000 synthetic 64x64 RGB images read from
 ``celeba/celeba_64.npz`` with the k=100 IW log-likelihood over the first
-500; 100 training steps at batch 128 on 20,000 images; one step against
+500; 40 training steps at batch 128 on 20,000 images; one step against
 the plain path and the CPU, and train images/s.
 
 Then the train-mode dropout+BatchNorm+activation segments (phases 14-16):
 the segment kernel and its backward (K5, K5-bwd) against their plain
 versions at every segment shape of both models, timed against their
-plain versions, the port's unfused chain and their bound; 100 celeba64
+plain versions, the port's unfused chain and their bound; 40 celeba64
 steps through ``lvae_tpu_torch.main --fused all``; one step of each model
 under ``--fused all`` against the path without the segments (and, for
 celeba64, the CPU), and train images/s. Phase 14b holds the unfused bits8
@@ -40,7 +40,7 @@ Then ``--steps-per-call 10`` (phase 17): for the flagship (``--fused
 auto`` and ``all``) and celeba64 (``all``), 30 steps through one CUDA
 graph of 10 bit-equal to 30 eager steps, the graph's kernel nodes by
 kernel against the eager launches, train images/s, device time and idle
-share graphed against eager; and 100 flagship steps through
+share graphed against eager; and 60 flagship steps through
 ``lvae_tpu_torch.main --steps-per-call 10``, resumed from the middle
 checkpoint bit-equal.
 
@@ -49,17 +49,32 @@ K5-bwd, the dropout kernel, K3 and K3-bwd against their plain bf16
 versions at the models' shapes (bf16 outputs bit-equal or within 1 ulp,
 the count printed; fp32 outputs at phases 10 and 14's tolerances), each
 timed against its fp32 instantiation in turns and its bound at bf16
-bytes; 200 flagship steps (``--fused auto``, as a CUDA graph of 10) and
-100 celeba64 steps each under ``auto`` (eager) and ``all`` (graphed)
+bytes; 60 flagship steps (``--fused auto``, as a CUDA graph of 10) and
+40 celeba64 steps each under ``auto`` (eager) and ``all`` (graphed)
 through ``lvae_tpu_torch.main --precision bf16`` with init, every bf16
 instantiation held to its launch count and the checkpoint scored in bf16
 by ``lvae_tpu_torch.evaluate``; one bf16 step on the kernel path against
-the plain path; 40 steps in bf16 against 40 in fp32 from the trained
+the plain path; 20 steps in bf16 against 20 in fp32 from the trained
 bf16 checkpoint (the mean loss of the last 20 within 2%); celeba64
 ``all`` graphed in bf16 bit-equal to eager, its device time and idle
 share, and graphed fp32 and bf16 in turns; test ELBO and the k=100 IW-LL
 of both models' trained bf16 checkpoints scored in fp32 and in bf16, with
 the bpd delta and images/s.
+
+Then cifar10-deep (phase 19; BASELINE config 4: 32x32 RGB, ten latent
+layers, 64 filters, 2 blocks per layer, the mixture head): every kernel of
+its path against its plain version at its shapes (K1, K1-bwd, K2 at the
+ten layers, K3 and K3-bwd in fp32 and bf16, K5, K5-bwd and the dropout
+kernel at every segment shape in fp32 and bf16, K5 without running
+buffers), each timed per step; 60 steps through ``lvae_tpu_torch.main
+--precision bf16 --fused all --remat --grad-accum 2 --steps-per-call 10``
+with init on 20,000 synthetic images in CIFAR-10's pickle layout, every
+launch counted (the remat recompute's among them) and the test hook's
+three grids; a ``--remat`` step bit-equal to a plain one, ten graphed
+``--grad-accum 2`` steps bit-equal to eager ones, the peak memory and
+graphed ms/step with and without ``--remat`` in turns; and
+``lvae_tpu_torch.evaluate --load <run name>`` from the run's own
+checkpoint: test ELBO, the k=100 IW-LL and a diagnostics grid.
 
 Each entry point's run checks that it launched every kernel of its path;
 the kernel path, the plain path and a CPU run are held to agree, and each
@@ -72,6 +87,7 @@ code is non-zero and no result line is printed. Exits non-zero at once
 when no CUDA device is visible.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -89,10 +105,10 @@ N_TEST = 10_000
 IW_SAMPLES = 100
 TRAIN_B = 64                                # flagship train batch
 N_TRAIN = 50_000
-TRAIN_STEPS = 100                           # phase 8
+TRAIN_STEPS = 40                            # phase 8
 # each Trainer.run of the A/Bs of phases 9, 13 and 16: steps, and the rate
 # taken over the steps after AB_LOG
-AB_STEPS, AB_LOG = 40, 20
+AB_STEPS, AB_LOG = 20, 10
 ODD_SHAPE = (3, 7, 7)                       # F = 147: not a multiple of 128
 LONG_ROW = (32, 32, 32)                     # F = 32,768: 16 float4 units a K1 thread
 
@@ -520,7 +536,9 @@ def phase_slice(card):
         launches = dict(build.LAUNCHES)
     n_batches = N_TEST // B
     print(f"  launches in the evaluate run: {launches}")
-    check(launches["sample_kl"] == 3 * (n_batches + IW_SAMPLES),
+    # the forwards: the ELBO sweep's, the IW-LL's and the reconstruction
+    # grid's (evaluate writes the grids after the metrics)
+    check(launches["sample_kl"] == 3 * (n_batches + IW_SAMPLES + 1),
           f"sample+KL kernel: 3 launches per forward ({launches['sample_kl']})")
     check(launches["logsumexp"] == 1, "logsumexp kernel: 1 launch per IW batch")
     m, iw = res["elbo"], res["iw"]
@@ -615,11 +633,14 @@ def training_latents():
             "celeba64": (CELEBA_B, [(c, h, w) for h, w, c in CELEBA_LATENTS])}
 
 
-def time_calls(fns):
+def time_calls(fns, reps=(50, 10, 20, 5)):
     """(ms per call, device ms per call) of the "kernel" and the "plain"
-    version in ``fns``."""
-    per_call = {"kernel": cuda_ms(fns["kernel"], 50), "plain": cuda_ms(fns["plain"], 10)}
-    device = {"kernel": device_ms(fns["kernel"], 20), "plain": device_ms(fns["plain"], 5)}
+    version in ``fns``; ``reps``: the calls timed per call (kernel,
+    plain) and profiled (kernel, plain)."""
+    per_call = {"kernel": cuda_ms(fns["kernel"], reps[0]),
+                "plain": cuda_ms(fns["plain"], reps[1])}
+    device = {"kernel": device_ms(fns["kernel"], reps[2]),
+              "plain": device_ms(fns["plain"], reps[3])}
     return per_call, device
 
 
@@ -923,25 +944,31 @@ def flagship_dataset(train_u8, test_u8):
                    train=train_u8)
 
 
-def init_launches(args, data):
-    """The kernel launches of the data-dependent init alone of the model
-    of the training CLI ``args`` on ``data`` (its train-mode statistics
-    passes sample the latents with K1, as ``lvae_tpu``'s do; a pass stops
-    at the conv it measures)."""
+@contextlib.contextmanager
+def init_counted():
+    """{launch counter: launches} of the data-dependent init of the one
+    training run inside the block (its train-mode statistics passes sample
+    the latents with K1, as ``lvae_tpu``'s do; a pass stops at the conv it
+    measures): ``Experiment.init_state`` wrapped to read the counts, reset
+    just before the run, as it returns, the card synchronised."""
     import torch
 
-    from lvae_tpu_torch.config import config_from_args
     from lvae_tpu_torch.kernels import build
     from lvae_tpu_torch.train.trainer import Experiment
 
-    cfg, _ = config_from_args(args + ["--data-dep-init"])
-    exp = Experiment(cfg, torch.device("cuda"), data)
-    build.reset_launches()
-    exp.init_state()
-    torch.cuda.synchronize()
-    n = dict(build.LAUNCHES)
-    build.reset_launches()
-    return n
+    counts, orig = {}, Experiment.init_state
+
+    def init_state(self, *args, **kwargs):
+        state = orig(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        counts.update(build.LAUNCHES)
+        return state
+
+    Experiment.init_state = init_state
+    try:
+        yield counts
+    finally:
+        Experiment.init_state = orig
 
 
 def write_mnist(data_dir, train_u8, test_u8):
@@ -960,24 +987,24 @@ def phase_train(card, train_u8, test_u8):
     from lvae_tpu_torch.kernels import build
 
     print("[8] the training slice through lvae_tpu_torch.main", flush=True)
-    init = init_launches(FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8))
-    n_init = init["sample_kl_per_sample"]
-    print(f"  data-dependent init alone launches K1 {n_init} times and the dropout kernel "
-          f"{init['dropout']}")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = os.path.join(tmp, "data")
         write_mnist(data_dir, train_u8, test_u8)
         build.reset_launches()
         t0 = time.perf_counter()
-        trainer = train_main.main(FLAGSHIP_ARGS + [
-            "--data-dir", data_dir, "--data-dep-init", "--max-steps", str(TRAIN_STEPS),
-            "--device", "cuda", "--log-interval", "20",
-            "--test-interval", str(TRAIN_STEPS // 2),
-            "--checkpoint-interval", str(TRAIN_STEPS // 2),
-            "--output-dir", os.path.join(tmp, "out"), "--run-name", "flagship",
-        ])
+        with init_counted() as init:
+            trainer = train_main.main(FLAGSHIP_ARGS + [
+                "--data-dir", data_dir, "--data-dep-init", "--max-steps", str(TRAIN_STEPS),
+                "--device", "cuda", "--log-interval", "20",
+                "--test-interval", str(TRAIN_STEPS // 2),
+                "--checkpoint-interval", str(TRAIN_STEPS // 2),
+                "--output-dir", os.path.join(tmp, "out"), "--run-name", "flagship",
+            ])
         torch.cuda.synchronize()
+        n_init = init["sample_kl_per_sample"]
+        print(f"  the data-dependent init launched K1 {n_init} times and the dropout kernel "
+              f"{init['dropout']}")
         wall = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
         print(f"  launches in the training run: {launches}")
@@ -1202,8 +1229,8 @@ MIX_SHAPES = [(128, 3, 64, 64, K_MIX), (500, 3, 64, 64, K_MIX), (16, 1, 32, 32, 
               (32, 3, 64, 64, 24)]
 CELEBA_B, CELEBA_EVAL_B = 128, 500
 CELEBA_N_TRAIN, CELEBA_N_TEST = 20_000, 2_000
-CELEBA_STEPS = 100                          # phase 12
-SEGMENT_STEPS = 100                         # phase 15
+CELEBA_STEPS = 40                           # phase 12
+SEGMENT_STEPS = 40                          # phase 15
 CELEBA_LATENTS = [(16, 16, 32), (8, 8, 32), (4, 4, 32), (2, 2, 32)]   # NHWC per layer
 CELEBA = {
     "dataset": "celeba", "zdims": [32] * 4, "downsample": [1] * 4,
@@ -1412,7 +1439,7 @@ def phase_celeba_eval(card, train_u8, test_u8):
                              "--iw-samples", str(IW_SAMPLES), "--iw-max-batches", "1",
                              "--device", "cuda"])
         launches = dict(build.LAUNCHES)
-    n_fwd = CELEBA_N_TEST // b + IW_SAMPLES
+    n_fwd = CELEBA_N_TEST // b + IW_SAMPLES + 1        # and the reconstruction grid's
     print(f"  launches in the evaluate run: {launches}")
     check(launches["mix_log_prob"] == n_fwd and launches["mix_log_prob_bwd"] == 0,
           f"K3: 1 launch per forward ({launches['mix_log_prob']}), no K3-bwd")
@@ -1500,9 +1527,6 @@ def phase_celeba_train(card, train_u8, test_u8):
     from lvae_tpu_torch.kernels import build
 
     print("[12] celeba64 training through lvae_tpu_torch.main --dataset celeba", flush=True)
-    init = init_launches(CELEBA_ARGS, celeba_dataset(train_u8, test_u8))
-    print(f"  data-dependent init alone launches K1 {init['sample_kl_per_sample']} and K3 "
-          f"{init['mix_log_prob']} times")
     steps, n_sweeps = CELEBA_STEPS, 2
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1510,23 +1534,27 @@ def phase_celeba_train(card, train_u8, test_u8):
         write_celeba(data_dir, train_u8, test_u8)
         build.reset_launches()
         t0 = time.perf_counter()
-        trainer = train_main.main(CELEBA_ARGS + [
-            "--data-dir", data_dir, "--data-dep-init", "--max-steps", str(steps),
-            "--device", "cuda", "--log-interval", "20",
-            "--test-interval", str(steps // 2), "--checkpoint-interval", str(steps // 2),
-            "--output-dir", os.path.join(tmp, "out"), "--run-name", "celeba64",
-        ])
+        with init_counted() as init:
+            trainer = train_main.main(CELEBA_ARGS + [
+                "--data-dir", data_dir, "--data-dep-init", "--max-steps", str(steps),
+                "--device", "cuda", "--log-interval", "20",
+                "--test-interval", str(steps // 2), "--checkpoint-interval", str(steps // 2),
+                "--output-dir", os.path.join(tmp, "out"), "--run-name", "celeba64",
+            ])
         torch.cuda.synchronize()
+        print(f"  the data-dependent init launched K1 {init['sample_kl_per_sample']} and K3 "
+              f"{init['mix_log_prob']} times")
         wall = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
         print(f"  launches in the training run: {launches}")
         print(f"  run wall {wall:.1f} s (data load, data-dependent init, {steps} steps, "
               f"{n_sweeps} test sweeps, 2 checkpoints)  ({card})")
-        sweep_batches = n_sweeps * (CELEBA_N_TEST // CELEBA_EVAL_B)
+        # each test hook: its sweep's batches and the reconstruction grid's forward
+        sweep_batches = n_sweeps * (CELEBA_N_TEST // CELEBA_EVAL_B + 1)
         check(launches["mix_log_prob_bwd"] == steps,
               f"K3-bwd: 1 launch per step ({launches['mix_log_prob_bwd']})")
         check(launches["mix_log_prob"] == steps + sweep_batches + init["mix_log_prob"],
-              f"K3: 1 launch per step, per test batch ({sweep_batches}) and the init's "
+              f"K3: 1 launch per step, per test-hook forward ({sweep_batches}) and the init's "
               f"{init['mix_log_prob']} ({launches['mix_log_prob']})")
         check(launches["sample_kl_per_sample"] == 4 * steps + init["sample_kl_per_sample"],
               f"K1: 4 launches per step and the init's {init['sample_kl_per_sample']} "
@@ -2035,12 +2063,9 @@ def phase_celeba_segments(card, train_u8, test_u8, phase12):
     print("[15] celeba64 training through lvae_tpu_torch.main --dataset celeba --fused all",
           flush=True)
     args = CELEBA_ARGS + ["--fused", "all"]
-    init = init_launches(args, celeba_dataset(train_u8, test_u8))
-    print(f"  data-dependent init alone launches K5 {init['segment']}, K1 "
-          f"{init['sample_kl_per_sample']} and K3 {init['mix_log_prob']} times")
     steps, n_sweeps = SEGMENT_STEPS, 1
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, init_counted() as init:
         data_dir = os.path.join(tmp, "data")
         write_celeba(data_dir, train_u8, test_u8)
         build.reset_launches()
@@ -2058,7 +2083,8 @@ def phase_celeba_segments(card, train_u8, test_u8, phase12):
         print(f"  launches in the training run: {launches}")
         print(f"  run wall {wall:.1f} s (data load, data-dependent init, {steps} steps, "
               f"{n_sweeps} test sweep, 1 checkpoint)  ({card})")
-        sweep_batches = n_sweeps * (CELEBA_N_TEST // CELEBA_EVAL_B)
+        # each test hook: its sweep's batches and the reconstruction grid's forward
+        sweep_batches = n_sweeps * (CELEBA_N_TEST // CELEBA_EVAL_B + 1)
         check(launches["segment"] == n_seg * steps + init["segment"],
               f"K5: {n_seg} segments per step and the init's {init['segment']} "
               f"({launches['segment']})")
@@ -2112,8 +2138,8 @@ def phase_celeba_segments(card, train_u8, test_u8, phase12):
 # ---------------------------------------------------------------------------
 
 GRAPH_K = 10
-GRAPH_CLI_STEPS = 100
-GRAPH_RATE_STEPS = 30                       # per timed Trainer.run, the first call untimed
+GRAPH_CLI_STEPS = 60
+GRAPH_RATE_STEPS = 20                       # per timed Trainer.run, the first call untimed
 # the kernels of a train step by the identifier in their symbol; K3-bwd
 # has two plans (kernels/mixture.py bwd_plan)
 GRAPH_KERNELS = {"dropout_kernel": "dropout",
@@ -2467,9 +2493,9 @@ def phase_graph(card, train_u8, test_u8, flagship_weights, c_data, celeba_weight
 # instantiations of K5, K5-bwd, the dropout kernel, K3 and K3-bwd
 # ---------------------------------------------------------------------------
 
-BF16_FLAGSHIP_STEPS = 200
-BF16_CELEBA_STEPS = 100
-BF16_GAP_STEPS = 40                 # per precision; the gap is over the last 20
+BF16_FLAGSHIP_STEPS = 60
+BF16_CELEBA_STEPS = 40
+BF16_GAP_STEPS = 20                 # per precision; the gap is over the last 20
 BF16_IW_BATCH = {"flagship": 250, "celeba64": 100}    # the IW-LL's images, one batch
 SEGMENT_RAGGED = (3, 8, 5, 7)       # H W = 35: units of one element
 # one step of the kernel path against the plain path, both bf16: a
@@ -2771,9 +2797,8 @@ def bf16_cli_run(card, name, args, data, write, steps, expect):
     from lvae_tpu_torch import main as train_main
     from lvae_tpu_torch.kernels import build
 
-    init = init_launches(args, data)
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, init_counted() as init:
         data_dir = os.path.join(tmp, "data")
         write(data_dir)
         build.reset_launches()
@@ -2999,7 +3024,8 @@ def phase_bf16(card, per_step, timed, build_log, train_u8, test_u8, flagship_wei
 
     def celeba_counts(all_):
         def counts(model, sites):
-            n, sweep = BF16_CELEBA_STEPS, CELEBA_N_TEST // CELEBA_EVAL_B
+            # the test hook's sweep and its reconstruction grid's forward
+            n, sweep = BF16_CELEBA_STEPS, CELEBA_N_TEST // CELEBA_EVAL_B + 1
             out = {"mix_log_prob[bf16]": n + sweep, "mix_log_prob_bwd[bf16]": n,
                    "sample_kl_per_sample": 4 * n, "sample_kl_per_sample_bwd": 4 * n,
                    "dropout[bf16]": 2 * sites * n}
@@ -3067,6 +3093,657 @@ def phase_bf16(card, per_step, timed, build_log, train_u8, test_u8, flagship_wei
     return err, times, out
 
 
+# --- phase 19: cifar10-deep (BASELINE config 4) -----------------------------
+CIFAR_B, CIFAR_EVAL_B = 128, 500
+CIFAR_N_TRAIN, CIFAR_N_TEST = 20_000, 1_000
+CIFAR_STEPS = 60                            # 19b, one test hook and checkpoint at the end
+CIFAR_ZDIMS = [32] * 10
+CIFAR_DOWNSAMPLE = [0, 0, 1, 0, 0, 1, 0, 0, 1, 0]
+# lvae_tpu's bench_preset("cifar10-deep") (lvae_tpu/data/registry.py:117-124)
+# at bench.py's widths (--n-filters 64, --blocks-per-layer 2)
+CIFAR = {
+    "dataset": "cifar10", "zdims": CIFAR_ZDIMS, "downsample": CIFAR_DOWNSAMPLE,
+    "blocks_per_layer": 2, "n_filters": 64, "gated": True, "skip": True,
+    "learn_top_prior": True, "nonlin": "elu", "dropout": 0.2, "freebits": 0.5,
+    "test_batch_size": CIFAR_EVAL_B, "fused": "all", "batch_size": CIFAR_B,
+    "precision": "bf16",
+}
+CIFAR_ARGS = [
+    "--dataset", "cifar10", "--zdims", *map(str, CIFAR_ZDIMS),
+    "--downsample", *map(str, CIFAR_DOWNSAMPLE), "--blocks-per-layer", "2",
+    "--n-filters", "64", "--skip", "--gated", "--learn-top-prior", "--freebits", "0.5",
+    "--dropout", "0.2", "--seed", "42", "--batch-size", str(CIFAR_B),
+    "--test-batch-size", str(CIFAR_EVAL_B), "--precision", "bf16", "--fused", "all",
+]
+# the path phase 19 trains: remat, accumulation, graphed
+CIFAR_RUN = ["--remat", "--grad-accum", "2", "--steps-per-call", str(GRAPH_K)]
+CIFAR_IMAGE = (32, 32, 3)
+CIFAR_REPS = (20, 3, 10, 2)                 # 19a's timing: time_calls' reps
+
+
+def cifar_dataset(train_u8, test_u8):
+    """The splits as the registry's cifar10 (32x32 RGB, dequantized, the
+    mixture head)."""
+    from lvae_tpu_torch.data.registry import Dataset
+
+    return Dataset("cifar10", test_u8, (32, 32), (32, 32), 3, "dequantize",
+                   "discretized_logistic_mix", train=train_u8)
+
+
+def write_cifar10(data_dir, train_u8, test_u8):
+    """The splits in CIFAR-10's python-pickle layout (five train batches
+    and ``test_batch``: rows of 3,072 channel-major bytes) under
+    ``cifar10/cifar-10-batches-py``."""
+    import pickle
+
+    d = os.path.join(data_dir, "cifar10", "cifar-10-batches-py")
+    os.makedirs(d)
+    parts = np.array_split(train_u8, 5)
+    for name, arr in [(f"data_batch_{i + 1}", p) for i, p in enumerate(parts)] + [
+            ("test_batch", test_u8)]:
+        rows = np.ascontiguousarray(arr.transpose(0, 3, 1, 2)).reshape(len(arr), 3072)
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({"data": rows, "labels": [0] * len(arr)}, f)
+
+
+def cifar_latents(data):
+    """[(c, h, w) of each latent layer], from a forward of the model (the
+    last reads the learned top prior with row stride 0)."""
+    import torch
+
+    from lvae_tpu_torch.models.stochastic import Noise
+
+    model = seeded_model(CIFAR, data, torch.device("cuda"))
+    with torch.no_grad():
+        zs = model(torch.rand(2, *CIFAR_IMAGE, device="cuda"),
+                   noise=Noise(0, torch.arange(2, device="cuda")))["z"]
+    del model
+    return [(z.shape[3], z.shape[1], z.shape[2]) for z in zs]
+
+
+def remat_counts(model):
+    """(fused segments, unfused bits8 dropout sites) inside the blocks that
+    ``--remat`` recomputes: each runs its forward a second time in the
+    backward (a gated block's last dropout feeds the gate's conv, which
+    saves its input, so the recompute runs the whole branch)."""
+    from lvae_tpu_torch.models.blocks import ResBlockWithResampling
+
+    segs = sites = 0
+    for m in model.modules():
+        if isinstance(m, ResBlockWithResampling) and m.remat:
+            segs += segments_per_step(m)
+            sites += unfused_dropouts(m)
+    return segs, sites
+
+
+def cifar_kernels(card, latents, seg_counts):
+    """19a: every kernel of the path at cifar10-deep's shapes against its
+    plain version, at phases 6-7, 10, 14 and 18a's tolerances, with a
+    bit-equal relaunch: K1 and K1-bwd keyed at the ten latent layers (the
+    top with its stride-0 prior) at B = 128; K3 (fp32, bf16) at the
+    training and evaluation batches, K3-bwd (fp32, bf16) at the training
+    batch; K5, K5-bwd and the dropout kernel (fp32, bf16) at every segment
+    shape, and K5 without running buffers, which leaves them as they are.
+    Each timed per training step of the model (device and per call)."""
+    import torch
+
+    from lvae_tpu_torch.kernels import mixture as km
+    from lvae_tpu_torch.kernels import segment as seg
+    from lvae_tpu_torch.kernels import stochastic as sk
+    from lvae_tpu_torch.ops.math import (
+        bits8_dropout_f32,
+        bits8_keep_threshold,
+        segment_backward,
+        segment_forward,
+    )
+    from lvae_tpu_torch.ops.philox import dropout_bytes, mix_seed
+
+    print("[19a] cifar10-deep: the path's kernels vs their plain versions at its shapes",
+          flush=True)
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator().manual_seed(19)
+    gd = torch.Generator(device=dev).manual_seed(19)
+    err, times = {}, {}
+
+    def keep(name, v):
+        err[name] = max(err.get(name, 0.0), v)
+
+    # K1, K1-bwd: the ten layers, keyed as the trainer calls them
+    b, layers = CIFAR_B, []
+    for layer, (c, h, w) in enumerate(latents):
+        top = layer == len(latents) - 1
+        shape = f"[{b},{2 * c},{h},{w}]" + (" stride-0 prior" if top else "")
+        q = (torch.randn(b, 2 * c, h, w, generator=g) * 0.7).to(dev)
+        p1 = (torch.randn(1 if top else b, 2 * c, h, w, generator=g) * 0.7).to(dev)
+        p = p1.expand(b, -1, -1, -1) if top else p1
+        index = torch.randperm(CIFAR_N_TRAIN, generator=g)[:b].to(dev)
+        gz = torch.randn(b, c, h, w, generator=g).to(dev)
+        gkl = torch.randn(b, generator=g).to(dev)
+        gkl[::3] = 0.0                       # rows a free-bits clamp zeroes
+        args = (index, 77, 5, layer)
+        z, kl = sk.sample_kl_per_sample(q, p, *args)
+        zr, klr = sk._plain_sample_kl_per_sample(q, p, *args)
+        e = (z - zr).abs().max().item()
+        keep("k1", max(e, (kl - klr).abs().max().item()))
+        check(e <= 1e-5 and rel_elem(kl, klr) <= 1e-5,
+              f"K1 {shape}: z within 1e-5 abs ({e:.2e}), kl_b within 1e-5 relative of the "
+              f"plain generator's")
+        z2, kl2 = sk.sample_kl_per_sample(q, p, *args)
+        check(torch.equal(z, z2) and torch.equal(kl, kl2), f"K1 {shape}: a relaunch is "
+                                                          f"bit-equal")
+        if top:
+            zf, klf = sk.sample_kl_per_sample(q, p.contiguous(), *args)
+            check(torch.equal(z, zf) and torch.equal(kl, klf),
+                  f"K1 {shape}: the row-stride-0 prior equals the materialised one")
+
+        def grads(fn):
+            qr, pr = q.clone().requires_grad_(), p1.clone().requires_grad_()
+            zz, kk = fn(qr, pr.expand(b, -1, -1, -1) if top else pr, *args)
+            torch.autograd.backward([zz, kk], [gz, gkl])
+            return qr.grad, pr.grad
+
+        a, r = grads(sk.sample_kl_per_sample), grads(sk._plain_sample_kl_per_sample)
+        e = max(rel_max(a[0], r[0]), rel_max(a[1], r[1]))
+        keep("k1_bwd", max((a[0] - r[0]).abs().max().item(), (a[1] - r[1]).abs().max().item()))
+        check(e <= 1e-5, f"K1-bwd {shape} keyed: dq, dp within 1e-5 of their max of autograd "
+                         f"of the plain forward ({e:.2e})")
+        a2 = grads(sk.sample_kl_per_sample)
+        check(torch.equal(a[0], a2[0]) and torch.equal(a[1], a2[1]),
+              f"K1-bwd {shape}: a relaunch is bit-equal")
+        n = b * c * h * w
+        keyed = sk.Keyed(index, 77, 5, layer)
+        layers.append(dict(
+            fwd=lambda q=q, p=p, args=args: sk.sample_kl_per_sample(q, p, *args),
+            fwd_plain=lambda q=q, p=p, args=args: sk._plain_sample_kl_per_sample(q, p, *args),
+            bwd=lambda q=q, p=p, gz=gz, gkl=gkl, k=keyed: sk.sample_kl_backward(
+                q, p, gz, gkl, keyed=k),
+            bwd_plain=lambda q=q, p=p, gz=gz, gkl=gkl, k=keyed: sk._plain_sample_kl_bwd(
+                q, p, sk._eps_of(k, q), gz, gkl),
+            fwd_bytes=n * 12 + (1 if top else b) * c * h * w * 8 + b * 12,
+            bwd_bytes=n * 20 + (1 if top else b) * c * h * w * 16 + b * 12,
+            n=n))
+    for name, kern, plain, ops in (("K1", "fwd", "fwd_plain", OPS_SAMPLE_KL),
+                                   ("K1-bwd", "bwd", "bwd_plain",
+                                    OPS_SAMPLE_KL_BWD + OPS_SAMPLE_KL)):
+        fns = {"kernel": lambda kern=kern: [ly[kern]() for ly in layers],
+               "plain": lambda plain=plain: [ly[plain]() for ly in layers]}
+        per_call, device = time_calls(fns, CIFAR_REPS)
+        times[name] = timing_row(per_call, device, bound(
+            sum(ly[f"{kern}_bytes"] for ly in layers), sum(ly["n"] for ly in layers) * ops))
+        print_times(name, f"cifar10-deep, {len(layers)} layers at B={b} (one step's calls)",
+                    times[name], card)
+    del layers
+    # K2 at the evaluation batch: the ten layers of one eval forward
+    b, layers, n_bytes, n_elem = CIFAR_EVAL_B, [], 0, 0
+    for layer, (c, h, w) in enumerate(latents):
+        top = layer == len(latents) - 1
+        shape = f"[{b},{2 * c},{h},{w}]" + (" stride-0 prior" if top else "")
+        q = (torch.randn(b, 2 * c, h, w, generator=g) * 0.7).to(dev)
+        p1 = (torch.randn(1 if top else b, 2 * c, h, w, generator=g) * 0.7).to(dev)
+        p = p1.expand(b, -1, -1, -1) if top else p1
+        index = torch.randperm(CIFAR_N_TEST, generator=g)[:b].to(dev)
+        args = (index, 1234, 3, layer)
+        z, kl = sk.sample_kl(q, p, *args)
+        zr, klr = sk._plain_sample_kl(q, p, *args)
+        e = max((z - zr).abs().max().item(), (kl - klr).abs().max().item())
+        keep("k2", e)
+        check(e <= 1e-5, f"K2 {shape}: z, kl within 1e-5 of the plain generator's ({e:.2e})")
+        z2, kl2 = sk.sample_kl(q, p, *args)
+        zf, klf = sk.sample_kl(q, p.contiguous(), *args)
+        check(torch.equal(z, z2) and torch.equal(kl, kl2) and torch.equal(z, zf)
+              and torch.equal(kl, klf), f"K2 {shape}: a relaunch, and the materialised "
+                                        f"prior, bit-equal")
+        layers.append((lambda q=q, p=p, args=args: sk.sample_kl(q, p, *args),
+                       lambda q=q, p=p, args=args: sk._plain_sample_kl(q, p, *args)))
+        n_bytes += b * c * h * w * 24 + b * 8
+        n_elem += b * c * h * w
+    per_call, device = time_calls({"kernel": lambda: [f() for f, _ in layers],
+                                   "plain": lambda: [f() for _, f in layers]}, CIFAR_REPS)
+    times["K2"] = timing_row(per_call, device, bound(n_bytes, n_elem * OPS_SAMPLE_KL))
+    print_times("K2", f"cifar10-deep, {len(layers)} layers at B={b} (one eval forward's calls)",
+                times["K2"], card)
+    del layers
+    torch.cuda.empty_cache()
+
+    # K3, K3-bwd at [B, 100, 32, 32], C = 3, K = 10; fp32 and bf16 params
+    k, c = K_MIX, 3
+    qch, lo = k * (1 + 3 * c), k + k * c
+    for bb in (CIFAR_B, CIFAR_EVAL_B):
+        u = torch.randint(0, 256, (bb, c, 32, 32), generator=gd, device=dev)
+        u[:, :, 0], u[:, :, -1] = 0, 255
+        x = u.float() / 255.0
+        p = torch.randn(bb, qch, 32, 32, generator=gd, device=dev)
+        p[:, lo:lo + 2] = -9.0 + torch.rand(bb, 2, 32, 32, generator=gd, device=dev)
+        shape = f"[{bb},{qch},32,32] C={c} K={k}"
+        for dt, label in ((torch.float32, "fp32"), (bf, "bf16")):
+            pp = p.to(dt)
+            ll = km.mix_log_prob(x, pp, k)
+            ref = km._plain_mix_log_prob(x, pp, k, 256)
+            e = ((ll - ref).abs() - 1e-5 * ref.abs()).max().item()
+            keep("mix", (ll - ref).abs().max().item())
+            check(ll.dtype == torch.float32 and e <= 1e-4,
+                  f"K3 {label} {shape}: ll within 1e-4 + 1e-5 |ll| of the plain version "
+                  f"({e:.2e})")
+            check(torch.equal(ll, km.mix_log_prob(x, pp, k)), f"K3 {label} {shape}: a relaunch "
+                                                               f"is bit-equal")
+            bnd = bound(bb * 32 * 32 * (qch * pp.element_size() + 3 * 4 + 4))
+            per_call, device = time_calls({"kernel": lambda: km.mix_log_prob(x, pp, k),
+                                           "plain": lambda: km._plain_mix_log_prob(x, pp, k,
+                                                                                   256)},
+                                          CIFAR_REPS)
+            times[f"K3 {label} B={bb}"] = timing_row(per_call, device, bnd)
+            print_times(f"K3 {label}", shape, times[f"K3 {label} B={bb}"], card)
+            if bb != CIFAR_B:
+                continue
+            gg = torch.randn(bb, 32, 32, generator=gd, device=dev)
+            dp_h, dx_h = km._plain_mix_log_prob_bwd(x, pp.float(), gg, k, 256)
+            dp, dx = km.mix_log_prob_backward(x, pp, gg, k)
+            if dt == bf:
+                bf16_held(dp, dp_h.to(bf), f"K3-bwd bf16 {shape}: dparams",
+                          within=1e-4 * dp_h.abs().max().item())
+                e = rel_max(dx, dx_h)
+            else:
+                e = max(rel_max(dp, dp_h), rel_max(dx, dx_h))
+            keep("mix_bwd", (dp.float() - dp_h).abs().max().item())
+            check(e <= 1e-4, f"K3-bwd {label} {shape}: within 1e-4 of their max of the plain "
+                             f"hand backward ({e:.2e})")
+            dp2, dx2 = km.mix_log_prob_backward(x, pp, gg, k)
+            check(torch.equal(dp, dp2) and torch.equal(dx, dx2),
+                  f"K3-bwd {label} {shape}: a relaunch is bit-equal")
+            bnd = bound(bb * 32 * 32 * (2 * qch * pp.element_size() + 2 * 3 * 4 + 4))
+            per_call, device = time_calls(
+                {"kernel": lambda: km.mix_log_prob_backward(x, pp, gg, k),
+                 "plain": lambda: km._plain_mix_log_prob_bwd(x, pp.float(), gg, k, 256)},
+                CIFAR_REPS)
+            times[f"K3-bwd {label}"] = timing_row(per_call, device, bnd)
+            print_times(f"K3-bwd {label}", shape, times[f"K3-bwd {label}"], card)
+        del x, p, u
+    torch.cuda.empty_cache()
+
+    # K5, K5-bwd, the dropout kernel at every segment shape, rate 0 and 0.2
+    # (the model's ba and dba segments), elu, fp32 and bf16 storage
+    key = seg.Key(42, torch.tensor(7, dtype=torch.int64, device=dev), 3)
+    seed = mix_seed(42, 7, 3)
+    calls = {f"{n} {lab}": [] for n in ("K5", "K5-bwd", "dropout") for lab in ("fp32", "bf16")}
+    for shape, per_step in seg_counts.items():
+        cc = shape[1]
+        x32 = torch.randn(shape, generator=gd, device=dev) * 1.5 + 0.3
+        g32 = torch.randn(shape, generator=gd, device=dev)
+        gamma = torch.rand(cc, generator=gd, device=dev) + 0.5
+        beta = torch.randn(cc, generator=gd, device=dev) * 0.2
+        for dt, label in ((torch.float32, "fp32"), (bf, "bf16")):
+            x, gr = x32.to(dt), g32.to(dt)
+            for rate in (0.0, 0.2):
+                t = bits8_keep_threshold(rate)
+                kk = key if t < 256 else None
+                bytes_ = dropout_bytes(shape, seed, dev) if t < 256 else None
+                what = f"{label} {list(shape)} rate {rate} elu"
+                rm_p, rv_p = torch.full((cc,), 0.3, device=dev), torch.full((cc,), 1.7, device=dev)
+                yp, mp, vp, rp = segment_forward(x, gamma, beta, t, "elu", mask_bytes=bytes_,
+                                                 running_mean=rm_p, running_var=rv_p)
+                dxp, dgp, dbp = segment_backward(x, gr, gamma, beta, mp, rp, t, "elu", bytes_)
+                rm = torch.full((cc,), 0.3, device=dev)
+                rv = torch.full((cc,), 1.7, device=dev)
+                y, stats = seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, kk, rm, rv, 0.9)
+                if dt == bf:
+                    bf16_held(y, yp, f"K5 {what}: y")
+                else:
+                    e = rel_max(y, yp)
+                    check(e <= 1e-5, f"K5 {what}: y within 1e-5 of max|y| ({e:.2e})")
+                keep("segment", (y.float() - yp.float()).abs().max().item())
+                e = max(rel_elem(stats[0], mp), rel_elem(stats[1], vp), rel_elem(rm, rm_p),
+                        rel_elem(rv, rv_p))
+                check(e <= 1e-6, f"K5 {what}: mean, var and the running stats within 1e-6 "
+                                 f"relative ({e:.2e})")
+                rm0, rv0 = rm.clone(), rv.clone()
+                y2, stats2 = seg._launch_fwd(x, gamma, beta, t, "elu", 1e-5, kk, None, None, 0.9)
+                check(torch.equal(y, y2) and torch.equal(stats, stats2)
+                      and torch.equal(rm, rm0) and torch.equal(rv, rv0),
+                      f"K5 {what}: a relaunch without running buffers (a --remat recompute's) "
+                      f"is bit-equal and leaves the buffers as they were")
+                dx, dgamma, dbeta = seg._launch_bwd(x, gr, gamma, stats, t, "elu", kk)
+                if dt == bf:
+                    bf16_held(dx, dxp, f"K5-bwd {what}: dx")
+                    e = max(rel_max(dgamma, dgp), rel_max(dbeta, dbp))
+                else:
+                    e = max(rel_max(a, r) for a, r in zip((dx, dgamma, dbeta), (dxp, dgp, dbp)))
+                keep("segment_bwd", (dx.float() - dxp.float()).abs().max().item())
+                check(e <= 1e-5, f"K5-bwd {what}: within 1e-5 of their max of the plain hand "
+                                 f"backward ({e:.2e})")
+                dx2 = seg._launch_bwd(x, gr, gamma, stats, t, "elu", kk)[0]
+                check(torch.equal(dx, dx2), f"K5-bwd {what}: a relaunch is bit-equal")
+                if rate:
+                    plain = bits8_dropout_f32(x.float(), bytes_, t).to(dt)
+                    yd = seg._launch_dropout(x, t, key)
+                    check(torch.equal(yd, plain) and torch.equal(seg._launch_dropout(x, t, key),
+                                                                 yd),
+                          f"dropout {what}: bit-equal to the plain version, and a relaunch")
+                    keep("dropout", (yd.float() - plain.float()).abs().max().item())
+                # a residual block's two segments, "ba" (rate 0) and "dba"
+                # (0.2), and its one unfused dropout
+                for _ in range(per_step // 2):
+                    calls[f"K5 {label}"].append(
+                        lambda x=x, t=t, kk=kk: seg._launch_fwd(
+                            x, gamma, beta, t, "elu", 1e-5, kk, None, None, 0.9))
+                    calls[f"K5-bwd {label}"].append(
+                        lambda x=x, gr=gr, stats=stats, t=t, kk=kk: seg._launch_bwd(
+                            x, gr, gamma, stats, t, "elu", kk))
+                    if rate:
+                        calls[f"dropout {label}"].append(
+                            lambda x=x, t=t: seg._launch_dropout(x, t, key))
+    # a step's segments and unfused dropouts, each kernel's calls in one go
+    n_seg = sum(int(np.prod(s)) * v for s, v in seg_counts.items())
+    for name, fns in calls.items():
+        es = 2 if name.endswith("bf16") else 4
+        kind = name.split()[0]
+        n_elem = n_seg // 2 if kind == "dropout" else n_seg
+        n_bytes = {"K5": 2 * es, "K5-bwd": 3 * es, "dropout": 2 * es}[kind] * n_elem
+        t0 = cuda_ms(lambda fns=fns: [f() for f in fns], 10)
+        dev_ms = device_ms(lambda fns=fns: [f() for f in fns], 3)
+        times[name] = {"ms": t0, "plain_ms": None, "device_ms": dev_ms, "plain_device_ms": None}
+        times[name]["bound_ms"], times[name]["bound_by"] = bound(n_bytes, OPS_SEGMENT * n_elem)
+        print(f"  time {name}, cifar10-deep's {len(fns)} calls of a step: per step "
+              f"{t0:.4f} ms, device {fmt_ms(dev_ms)}; bound {times[name]['bound_ms']:.4f} ms  "
+              f"({card})")
+    del calls
+    torch.cuda.empty_cache()
+    return err, times
+
+
+def cifar_counts(model, steps, sweeps):
+    """{launch counter: launches} of ``steps`` training steps of ``model``
+    (bf16, --fused all, --remat) and ``sweeps`` eval forwards: K1 and K1-bwd
+    per layer; K5 for every segment plus every segment of a rematerialised
+    block again (the recompute), K5-bwd for every segment; the dropout
+    kernel forward and backward at every unfused site, and forward again
+    at each one inside a rematerialised block; K3-bwd once a step, K3 once
+    a step and once an eval forward; K2 per layer of each eval forward."""
+    segs, sites = segments_per_step(model), unfused_dropouts(model)
+    r_segs, r_sites = remat_counts(model)
+    layers = model.n_layers
+    return {"sample_kl_per_sample": layers * steps, "sample_kl_per_sample_bwd": layers * steps,
+            "segment[bf16]": (segs + r_segs) * steps, "segment_bwd[bf16]": segs * steps,
+            "dropout[bf16]": (2 * sites + r_sites) * steps,
+            "mix_log_prob[bf16]": steps + sweeps, "mix_log_prob_bwd[bf16]": steps,
+            "sample_kl": layers * sweeps}
+
+
+def grid_size(n, h, w, ncol=None):
+    """make_grid's pixel size (H', W') of ``n`` tiles of h x w, pad 2."""
+    import math
+
+    ncol = ncol or int(math.ceil(math.sqrt(n)))
+    return int(math.ceil(n / ncol)) * (h + 2) + 2, ncol * (w + 2) + 2
+
+
+def cifar_train(card, data, train_u8, test_u8, tmp):
+    """19b: cifar10-deep through ``lvae_tpu_torch.main`` at full width,
+    bf16, ``--fused all --remat --grad-accum 2 --steps-per-call 10`` with
+    data-dependent init: CIFAR_STEPS steps, the test hook (ELBO sweep and
+    the three grids) and a checkpoint at the end; every kernel's launch
+    count, the remat recompute's among them."""
+    import torch
+    from PIL import Image
+
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.kernels import build
+
+    print("[19b] cifar10-deep training through lvae_tpu_torch.main --precision bf16 "
+          "--fused all --remat --grad-accum 2 --steps-per-call 10", flush=True)
+    args = CIFAR_ARGS + CIFAR_RUN
+    data_dir = os.path.join(tmp, "data")
+    write_cifar10(data_dir, train_u8, test_u8)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with init_counted() as init:
+        trainer = train_main.main(args + [
+            "--data-dir", data_dir, "--data-dep-init", "--max-steps", str(CIFAR_STEPS),
+            "--device", "cuda", "--log-interval", "20", "--test-interval", str(CIFAR_STEPS),
+            "--checkpoint-interval", str(CIFAR_STEPS), "--output-dir",
+            os.path.join(tmp, "out"), "--run-name", "cifar10-deep"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    build.reset_launches()
+    model = trainer.state.model
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {CIFAR_STEPS} steps with init, a test sweep and the grids in {wall:.1f} s; "
+          f"{n_params:,} parameters; launches {launches}; the init's {init}  ({card})")
+    # the test hook's sweep (CIFAR_N_TEST / CIFAR_EVAL_B batches) and its
+    # reconstruction forward
+    sweeps = -(-CIFAR_N_TEST // CIFAR_EVAL_B) + 1
+    want = cifar_counts(model, CIFAR_STEPS, sweeps)
+    r_segs, r_sites = remat_counts(model)
+    print(f"  per step: {segments_per_step(model)} segments ({r_segs} inside the "
+          f"rematerialised blocks), {unfused_dropouts(model)} unfused dropout sites "
+          f"({r_sites} inside them)")
+    for counter, n in want.items():
+        got = launches.get(counter, 0) - init.get(counter, 0)
+        check(n > 0 and got == n, f"cifar10-deep: {counter} {n} in the run, the init's "
+                                  f"{init.get(counter, 0)} besides ({launches.get(counter, 0)})")
+    fp32_twins = [c.removesuffix("[bf16]") for c in want if c.endswith("[bf16]")]
+    check(all(launches.get(c, 0) == 0 for c in fp32_twins + ["sample_kl_bwd"]),
+          f"cifar10-deep: no fp32 instantiation of a bf16 kernel and no K2-bwd ran")
+    hist = trainer.logger.history
+    check(all(np.isfinite(np.asarray(v, dtype=np.float64)).all()
+              for _, _, m in hist for v in m.values()),
+          f"cifar10-deep: every logged metric finite ({len(hist)} lines)")
+    lines = {s: m for kind, s, m in hist if kind == "train"}
+    first, last = float(lines[20]["loss"]), float(lines[CIFAR_STEPS]["loss"])
+    check(last < first, f"cifar10-deep: EMA loss {last:.1f} at step {CIFAR_STEPS} below "
+                        f"{first:.1f} at step 20")
+    acc = trainer.state.accum
+    check(acc is not None and acc.k == 2 and int(acc.mini_step) == 0,
+          "cifar10-deep: the accumulation ends on an update (micro-step 0 of 2)")
+    tests = [m for kind, _, m in hist if kind == "test"]
+    imgs = os.path.join(trainer.run_dir, "imgs")
+    h, w, _ = CIFAR_IMAGE
+    sizes = {f"sample_{CIFAR_STEPS}.png": (*grid_size(64, h, w), 3),
+             f"recon_{CIFAR_STEPS}.png": (*grid_size(64, h, w, 8), 3),
+             f"kl_spatial_{CIFAR_STEPS}.png": grid_size(10, 16, 16, 10)}
+    for name, size in sizes.items():
+        path = os.path.join(imgs, name)
+        got = np.asarray(Image.open(path)).shape if os.path.exists(path) else None
+        check(got == size, f"cifar10-deep: the test hook wrote {name} at {size} ({got})")
+    ckpt = os.path.join(trainer.run_dir, "checkpoints", f"ckpt_{CIFAR_STEPS:08d}.pt")
+    check(os.path.exists(ckpt), f"cifar10-deep: the run saved {os.path.basename(ckpt)}")
+    rates = {s: float(m["images_per_sec"]) for s, m in lines.items()}
+    out = {"launches": launches, "init_launches": init, "wall_s": wall, "log_rates": rates,
+           "ema_loss": (first, last), "test_elbo": [float(m["elbo"]) for m in tests],
+           "parameters": n_params, "run_dir": trainer.run_dir,
+           "weights": {k_: v.detach().clone() for k_, v in model.state_dict().items()}}
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def cifar_step(card, data, weights):
+    """19c: one bf16 step with --remat against the same step without it
+    (deterministic algorithms on, as phases 9, 13 and 17): the loss, every
+    gradient, every running buffer and the parameters after Adamax, bit for
+    bit; ten graphed --grad-accum 2 steps (the replay of a graph captured
+    from step 11, inside an accumulation) bit-equal to eager ones; the peak
+    memory of a step with and without --remat, and graphed ms/step of both
+    in turns."""
+    import dataclasses
+
+    import torch
+
+    from lvae_tpu_torch.config import config_from_args
+    from lvae_tpu_torch.data.device import preprocess_batch
+    from lvae_tpu_torch.models.stochastic import Noise
+    from lvae_tpu_torch.train.state import MultiStep, loss_terms, train_step
+    from lvae_tpu_torch.train.trainer import Experiment, index_stream
+
+    print("[19c] cifar10-deep: a --remat step vs a plain one; graphed --grad-accum 2 vs "
+          "eager; memory and ms/step", flush=True)
+    cfg, _ = config_from_args(CIFAR_ARGS + CIFAR_RUN)
+    order = np.random.default_rng((cfg.seed, 0)).permutation(data.train.shape[0])
+    out = {}
+
+    def setup(**over):
+        exp = Experiment(dataclasses.replace(cfg, **over), torch.device("cuda"), data)
+        exp.model.load_state_dict(weights)
+        return exp, exp.init_state(data_dep_init=False)
+
+    def one(remat):
+        exp, state = setup(remat=remat, grad_accum=1)
+        index = torch.from_numpy(order[:cfg.batch_size]).cuda()
+        x = preprocess_batch(exp.train_data.gather(index), data.preprocess, state.seed, index,
+                             0)
+        loss, _ = loss_terms(exp.model, x, Noise(state.seed, index, 0), 1.0, cfg.freebits)
+        loss.backward()
+        grads = {k: p.grad.detach().clone() for k, p in exp.model.named_parameters()}
+        state.optimizer.step()
+        after = {k: v.detach().clone() for k, v in exp.model.state_dict().items()}
+        del exp, state
+        return loss.item(), grads, after
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        (lp, gp, sp), (lr, gr, sr) = one(False), one(True)
+        bad = [k for k in gp if not torch.equal(gp[k], gr[k])]
+        bad += [k for k in sp if not torch.equal(sp[k], sr[k])]
+        moved = sum(1 for k in sp if "running" in k and not torch.equal(sp[k], weights[k]))
+        print(f"  one bf16 step: loss {lp:.6f} plain, {lr:.6f} remat; {len(gp)} gradients, "
+              f"{len(sp)} state tensors ({moved} running buffers moved); differ: {bad[:5]}")
+        check(lp == lr and not bad and moved > 0,
+              "a --remat step is bit-equal to a plain one: loss, every gradient, every "
+              "running buffer (moved once), the parameters after Adamax")
+        out["remat_step_bit_equal"] = True
+        del gp, sp, gr, sr
+
+        # ten graphed steps inside accumulations: one eager step, then two
+        # calls of k = 10 (the warm-up and capture, then a replay) against
+        # 21 eager steps
+        k = GRAPH_K
+        exp, eager = setup()
+        stream = index_stream(exp.train_data, cfg.batch_size, cfg.seed, 0, 1)
+        rows = [next(stream) for _ in range(2 * k + 1)]
+        for row in rows:
+            train_step(eager, exp.train_data.gather(row), row, exp.loss_cfg)
+        _, graphed = setup()
+        train_step(graphed, exp.train_data.gather(rows[0]), rows[0], exp.loss_cfg)
+        multi = MultiStep(graphed, exp.train_data.gather, exp.loss_cfg, k)
+        multi(torch.stack(rows[1:k + 1]))
+        multi(torch.stack(rows[k + 1:]))
+        torch.cuda.synchronize()
+        bad = state_equal(graphed, eager)
+        bad += [f"accum.{i}" for i, (a, b_) in enumerate(zip(graphed.accum.acc, eager.accum.acc))
+                if not torch.equal(a, b_)]
+        if not torch.equal(graphed.accum.mini_step, eager.accum.mini_step):
+            bad.append("mini_step")
+        check(not bad and int(eager.accum.mini_step) == 1,
+              f"--grad-accum 2 --remat: steps 12-21 replayed from a graph captured inside an "
+              f"accumulation bit-equal to eager steps: parameters, BatchNorm statistics, EMA, "
+              f"Adamax, the accumulator, its micro-step (differ: {bad[:5]})")
+        out["graph_accum_bit_equal"] = True
+        del exp, eager, graphed, multi, rows, stream
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    # peak memory of an eager step (after a first one), each variant alone
+    peaks = {}
+    for label, remat in (("plain", False), ("remat", True)):
+        exp, state = setup(remat=remat)
+        stream = index_stream(exp.train_data, cfg.batch_size, cfg.seed, 0, 1)
+        row = next(stream)
+        train_step(state, exp.train_data.gather(row), row, exp.loss_cfg)
+        torch.cuda.synchronize()
+        rest = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        row = next(stream)
+        train_step(state, exp.train_data.gather(row), row, exp.loss_cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        peaks[label] = {"peak_bytes": peak, "resting_bytes": rest, "step_bytes": peak - rest}
+        print(f"  peak memory of a bf16 step at batch {cfg.batch_size}, {label}: "
+              f"{peak / 2 ** 20:.1f} MiB ({(peak - rest) / 2 ** 20:.1f} MiB above the "
+              f"{rest / 2 ** 20:.1f} MiB resting)  ({card})")
+        del exp, state, stream
+        torch.cuda.empty_cache()
+    check(peaks["remat"]["step_bytes"] < peaks["plain"]["step_bytes"],
+          f"--remat lowers a step's peak above the resting memory "
+          f"({peaks['remat']['step_bytes'] / 2 ** 20:.1f} MiB against "
+          f"{peaks['plain']['step_bytes'] / 2 ** 20:.1f})")
+    out["memory"] = peaks
+    out["turns"] = rates_in_turns(card, "cifar10-deep bf16 all accum2 graphed",
+                                  CIFAR_ARGS + CIFAR_RUN, data,
+                                  {"plain": {"remat": False}, "remat": {"remat": True}})
+    return out
+
+
+def cifar_eval(card, run_dir):
+    """19d: ``lvae_tpu_torch.evaluate --load <run name>`` from the run's own
+    checkpoint (no --state-dict): test ELBO over the 1,000 test images, the
+    k=100 IW-LL over the first batch, the grids and a diagnostics grid; K2,
+    K3 and K4 launched."""
+    from PIL import Image
+
+    from lvae_tpu_torch import evaluate
+    from lvae_tpu_torch.kernels import build
+
+    print("[19d] cifar10-deep through lvae_tpu_torch.evaluate --load <run name>", flush=True)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = evaluate.main(["--load", os.path.basename(run_dir), "--output-dir",
+                         os.path.dirname(run_dir), "--device", "cuda", "--ll", "--iw-samples",
+                         str(IW_SAMPLES), "--iw-max-batches", "1", "--nimages", "64",
+                         "--mode-layers", "0", "1", "--temperature", "0.7"])
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    build.reset_launches()
+    e, iw = res["elbo"], res["iw"]
+    print(f"  evaluate: ELBO bpd {e['bpd']:.5f} over {e['n_images']} images "
+          f"({e['images_per_sec']:.1f} img/s), IW-LL (k={IW_SAMPLES}) bpd {iw['iw_bpd']:.5f} "
+          f"over {iw['n_images']} ({iw['images_per_sec']:.1f} img/s); {wall:.1f} s in all; "
+          f"launches {launches}  ({card})")
+    check(res["step"] == CIFAR_STEPS and e["n_images"] == CIFAR_N_TEST
+          and iw["n_images"] == CIFAR_EVAL_B and np.isfinite(e["bpd"])
+          and np.isfinite(iw["iw_bpd"]),
+          f"evaluate --load scores step {CIFAR_STEPS}'s checkpoint: finite ELBO over "
+          f"{CIFAR_N_TEST} images, IW-LL over {CIFAR_EVAL_B}")
+    check(all(launches.get(k, 0) > 0 for k in ("sample_kl", "mix_log_prob[bf16]", "logsumexp")),
+          "evaluate launched K2, K3 (bf16, the run's precision) and K4")
+    diag = os.path.join(run_dir, "imgs", f"diag_mode0-1_T0.7_{CIFAR_STEPS}.png")
+    check(os.path.exists(diag) and np.asarray(Image.open(diag)).shape
+          == (*grid_size(64, 32, 32), 3), f"evaluate wrote {os.path.basename(diag)}")
+    return {"bpd": e["bpd"], "iw_bpd": iw["iw_bpd"], "elbo_images_per_sec": e["images_per_sec"],
+            "iw_images_per_sec": iw["images_per_sec"], "wall_s": wall, "launches": launches}
+
+
+def phase_cifar(card):
+    """Phase 19: cifar10-deep (BASELINE config 4) at full width."""
+    import torch
+
+    t0 = time.perf_counter()
+    all_u8 = rgb_blobs(CIFAR_N_TRAIN + CIFAR_N_TEST, seed=19, img=32)
+    train_u8, test_u8 = all_u8[:CIFAR_N_TRAIN], all_u8[CIFAR_N_TRAIN:]
+    data = cifar_dataset(train_u8, test_u8)
+    latents = cifar_latents(data)
+    seg_counts = segment_shapes(CIFAR, data, CIFAR_B, CIFAR_IMAGE)
+    print(f"  cifar10-deep's latent layers (c, h, w): {latents}; segments per step by shape: "
+          f"{ {str(list(k)): v for k, v in seg_counts.items()} }", flush=True)
+    err, times = cifar_kernels(card, latents, seg_counts)
+    print(f"  phase 19a took {time.perf_counter() - t0:.1f} s", flush=True)
+    out = {"latents": latents, "kernel_times": times,
+           "segments": {str(list(k)): v for k, v in seg_counts.items()}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = cifar_train(card, data, train_u8, test_u8, tmp)
+        out["train"] = {k: v for k, v in tr.items() if k not in ("weights", "run_dir")}
+        print(f"  [19c at {time.perf_counter() - t0:.1f} s of phase 19]", flush=True)
+        out["step"] = cifar_step(card, data, tr["weights"])
+        print(f"  [19d at {time.perf_counter() - t0:.1f} s of phase 19]", flush=True)
+        out["eval"] = cifar_eval(card, tr["run_dir"])
+    out["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"  phase 19 took {out['wall_s']:.1f} s", flush=True)
+    return err, out
+
+
 def main():
     try:
         import torch
@@ -3132,6 +3809,7 @@ def main():
     res.update(train_run={k: tr[k] for k in ("wall_s", "log_rates", "log_rate_late",
                                             "test_elbo", "ema_loss")})
     flagship_weights = flagship_model(torch.device("cpu")).state_dict()
+    lap("phase 9")
     res.update(phase_step(
         card, "[9] one step: the kernel path vs the plain path and the CPU; train "
         "images/s", FLAGSHIP_ARGS, flagship_dataset(train_u8, test_u8), flagship_weights,
@@ -3143,9 +3821,11 @@ def main():
     c_train, c_test = c_all[:CELEBA_N_TRAIN], c_all[CELEBA_N_TRAIN:]
     c_data = celeba_dataset(c_train, c_test)
     cev = phase_celeba_eval(card, c_train, c_test)
+    lap("phase 12")
     kernels[1]["launches_celeba64"] = cev["launches"]["logsumexp"]
     ctr = phase_celeba_train(card, c_train, c_test)
     celeba_weights = seeded_model(CELEBA, c_data, torch.device("cpu")).state_dict()
+    lap("phase 13")
     cst = phase_step(
         card, "[13] one celeba64 step: the kernel path vs the plain path and the CPU; "
         "train images/s", CELEBA_ARGS, c_data, celeba_weights, 16, AB_STEPS, AB_LOG)
@@ -3176,6 +3856,7 @@ def main():
     csg = phase_celeba_segments(card, c_train, c_test, ctr)
     res["celeba64"]["segments_run"] = {k: csg[k] for k in ("wall_s", "log_rates", "test_elbo",
                                                            "ema_loss", "segments_per_step")}
+    lap("phase 16")
     res["celeba64"]["segments_step"] = phase_step(
         card, "[16a] one celeba64 step: --fused all vs pallas on the card and vs the CPU; "
         "train images/s", CELEBA_ARGS, c_data, celeba_weights, 16, AB_STEPS, AB_LOG,
@@ -3281,6 +3962,41 @@ def main():
             (t["bound_ms"], t["bound_by"]), None, fp32_ms=t["fp32_ms"],
             fp32_device_ms=t["fp32_device_ms"], storage="bf16",
             path=f"lvae_tpu_torch.main --precision bf16 ({run})"))
+    lap("phase 19")
+    c_err, cifar = phase_cifar(card)
+    res["cifar10_deep"] = cifar
+    # each kernel at cifar10-deep's shapes (19a), and its launches on the
+    # phase's two paths: the training run (19b, less the init's) and
+    # evaluate --load (19d)
+    train_l = {k: v - cifar["train"]["init_launches"].get(k, 0)
+               for k, v in cifar["train"]["launches"].items()}
+    eval_l = cifar["eval"]["launches"]
+    at_cifar = {"sample_kl": ("K2", "k2"), "sample_kl_per_sample": ("K1", "k1"),
+                "sample_kl_per_sample_bwd": ("K1-bwd", "k1_bwd"),
+                "mix_log_prob": ("K3 fp32 B=128", "mix"),
+                "mix_log_prob_bwd": ("K3-bwd fp32", "mix_bwd"),
+                "segment": ("K5 fp32", "segment"), "segment_bwd": ("K5-bwd fp32", "segment_bwd"),
+                "dropout_bits8": ("dropout fp32", "dropout"),
+                "segment[bf16]": ("K5 bf16", "segment"),
+                "segment_bwd[bf16]": ("K5-bwd bf16", "segment_bwd"),
+                "dropout_bits8[bf16]": ("dropout bf16", "dropout"),
+                "mix_log_prob[bf16]": ("K3 bf16 B=128", "mix"),
+                "mix_log_prob_bwd[bf16]": ("K3-bwd bf16", "mix_bwd")}
+    for kern in kernels:
+        counter = kern["name"].replace("dropout_bits8", "dropout")
+        row = {"launches_train": train_l.get(counter, 0),
+               "launches_evaluate": eval_l.get(counter, 0)}
+        if kern["name"] in at_cifar:
+            tkey, ekey = at_cifar[kern["name"]]
+            row.update(cifar["kernel_times"][tkey], max_abs_err=c_err.get(ekey))
+            if tkey.startswith("K3 "):
+                row["eval_batch"] = cifar["kernel_times"][tkey.replace("B=128",
+                                                                       f"B={CIFAR_EVAL_B}")]
+        else:
+            row["times"] = "not measured at cifar10-deep's shapes" + (
+                f"; phase 3's [{IW_SAMPLES}, {CELEBA_EVAL_B}] is its IW shape"
+                if kern["name"] == "logsumexp" else "")
+        kern["cifar10_deep"] = row
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, **res}))

@@ -150,14 +150,17 @@ class TrainConfig(EvalConfig):
     load: Optional[str] = None
     auto_resume: bool = False
     dry_run: bool = False
+    grad_accum: int = 1
+    remat: bool = False
+    steps_per_call: int = 1
+    profile: Optional[str] = None       # "A-B": a trace of steps A to B
+    debug_nans: bool = False
+    defer_metrics: bool = False
     # lvae_tpu options this port does not run: stored so a run directory
     # says what it ran, and rejected below at anything but the value the
     # port runs
-    grad_accum: int = 1
-    remat: bool = False
     streaming: bool = False
     num_data_shards: int = 1
-    steps_per_call: int = 1
     rng_impl: str = "threefry"
 
     def __post_init__(self):
@@ -194,10 +197,10 @@ class TrainConfig(EvalConfig):
         _positive("grad-accum", self.grad_accum)
         _positive("num-data-shards", self.num_data_shards)
         _positive("steps-per-call", self.steps_per_call)
+        if self.profile is not None:
+            self.profile_range()
         # what the port's trainer does not run, each rejected by its flag
         for flag, bad, why in (
-            ("--grad-accum", self.grad_accum > 1, "gradient accumulation"),
-            ("--remat", self.remat, "rematerialisation"),
             ("--streaming", self.streaming, "the host streaming pipeline"),
             ("--num-data-shards", self.num_data_shards > 1, "multi-GPU training"),
         ):
@@ -212,6 +215,17 @@ class TrainConfig(EvalConfig):
                 f"counter-based Philox (batch-invariant like threefry); "
                 f"rbg is not ported"
             )
+
+    def profile_range(self) -> Tuple[int, int]:
+        """``--profile A-B`` as ``(A, B)``."""
+        try:
+            a, b = (int(v) for v in self.profile.split("-"))
+        except ValueError:
+            raise ValueError(f"--profile takes A-B (two step numbers), got "
+                             f"{self.profile!r}") from None
+        if not 0 <= a < b:
+            raise ValueError(f"--profile {self.profile}: needs 0 <= A < B")
+        return a, b
 
     def describe(self) -> str:
         """The run directory's descriptive suffix, as ``lvae_tpu`` names it."""
@@ -290,7 +304,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--beta-anneal", type=int, default=d.beta_anneal, help="KL warmup steps (0 = off)")
     add("--lr", type=float, default=d.lr)
     add("--max-grad-norm", type=float, default=None)
-    add("--grad-accum", type=int, default=d.grad_accum)
+    add("--grad-accum", type=int, default=d.grad_accum,
+        help="average the gradients of k micro-steps before each clip and "
+             "Adamax update (optax.MultiSteps)")
     add("--max-steps", type=int, default=d.max_steps)
     add("--ema-decay", type=float, default=d.ema_decay)
     # infrastructure
@@ -308,7 +324,9 @@ def build_parser() -> argparse.ArgumentParser:
              "train-mode dropout+BatchNorm+activation segment kernel, 'all' "
              "the three; on any device (the CPU runs their plain versions); "
              "'none' is plain PyTorch")
-    add("--remat", action="store_true")
+    add("--remat", action="store_true",
+        help="recompute each resampling residual block's activations in the "
+             "backward (memory for FLOPs)")
     add("--steps-per-call", type=int, default=d.steps_per_call)
     add("--streaming", action="store_true")
     add("--num-data-shards", type=int, default=d.num_data_shards)
@@ -323,10 +341,14 @@ def build_parser() -> argparse.ArgumentParser:
     add("--auto-resume", action="store_true",
         help="restore this run's latest checkpoint if one exists")
     add("--dry-run", action="store_true", help="no checkpoints, no run directory")
-    # lvae_tpu flags the port rejects when set
-    add("--profile", default=None, metavar="A-B")
-    add("--debug-nans", action="store_true")
-    add("--defer-metrics", action="store_true")
+    add("--profile", default=None, metavar="A-B",
+        help="write a torch.profiler Chrome trace of steps A to B to <run>/trace")
+    add("--debug-nans", action="store_true",
+        help="stop with FloatingPointError at the first step whose loss, "
+             "gradients or updated parameters hold a NaN")
+    add("--defer-metrics", action="store_true",
+        help="no metric readback at log lines (a dispatch rate instead); "
+             "one train line at the end")
     # devices
     add("--device", default="cuda", choices=["cuda", "cpu"],
         help="cuda needs a visible card and never falls back to the CPU")
@@ -338,11 +360,6 @@ def build_parser() -> argparse.ArgumentParser:
 def config_from_args(argv: Optional[Sequence[str]] = None) -> Tuple[TrainConfig, str]:
     """``(config, device)`` from the command line."""
     args = build_parser().parse_args(argv)
-    for flag, bad in (("--profile", args.profile is not None),
-                      ("--debug-nans", args.debug_nans),
-                      ("--defer-metrics", args.defer_metrics)):
-        if bad:
-            raise ValueError(f"{flag} is not ported yet; it comes in {_LATER}")
     device = args.device
     if args.platform is not None:
         if args.platform not in ("cuda", "cpu"):

@@ -7,10 +7,12 @@
 
 The flags are ``lvae_tpu``'s, plus ``--device cuda|cpu``. ``--device
 cuda`` needs a visible card and never falls back to the CPU; ``--device
-cpu`` runs the kernels' plain PyTorch versions. A checkpoint under
-``<output dir>/<run>/checkpoints/`` is what ``python -m
-lvae_tpu_torch.evaluate --load <run dir> --state-dict <checkpoint>``
-scores.
+cpu`` runs the kernels' plain PyTorch versions. ``--grad-accum k``,
+``--remat``, ``--defer-metrics``, ``--debug-nans`` and ``--profile A-B``
+run as in ``lvae_tpu``. The run's checkpoints under ``<output
+dir>/<run>/checkpoints/`` are what ``python -m lvae_tpu_torch.evaluate
+--load <run>`` scores (the latest, or ``--step N``); the test hook writes
+the sample, reconstruction and spatial-KL grids under ``<run>/imgs``.
 """
 
 from __future__ import annotations

@@ -15,10 +15,15 @@ function of the step alone. ``bn_stat_samples > 0`` takes the training
 statistics from the batch's leading rows (``SubsampledBatchNorm``), and
 ``fused_segments`` runs each ``[d] b a`` run of a residual branch as one
 :class:`FusedBNActSegment` (the kernels K5 and K5-bwd) in training.
+``remat`` (``--remat``) runs a :class:`ResBlockWithResampling` under
+``torch.utils.checkpoint``: its activations are dropped after the forward
+and recomputed in the backward, which moves no running statistic a second
+time (:func:`recomputing`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Tuple
 
@@ -177,6 +182,37 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             w.copy_(torch.randn(w.shape, generator=generator) * std)
 
 
+class _Recompute:
+    """How many rematerialised blocks are being recomputed (``--remat``).
+    A plain counter, not a thread-local: autograd may run the recompute
+    on its own thread, while the forward's thread waits in ``backward``."""
+
+    depth = 0
+
+
+def recomputing() -> bool:
+    """Whether a rematerialised block's forward is being recomputed in
+    the backward: the running statistics were moved by the forward
+    already, once, as ``flax.linen.remat`` moves ``batch_stats`` once."""
+    return _Recompute.depth > 0
+
+
+@contextlib.contextmanager
+def _recompute(key: Optional["DropoutKey"], seed: int, step: Optional[torch.Tensor]):
+    """The recompute of a block: the dropout key set back to what the
+    forward read (the same step tensor), :func:`recomputing` true."""
+    _Recompute.depth += 1
+    saved = None if key is None else (key.seed, key.step)
+    if key is not None:
+        key.seed, key.step = seed, step
+    try:
+        yield
+    finally:
+        if key is not None:
+            key.seed, key.step = saved
+        _Recompute.depth -= 1
+
+
 def batch_norm_eval(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     """BatchNorm over the running statistics, whatever ``bn.training``; a
     bf16 ``x`` is normalised in fp32 and the result cast back, as flax's
@@ -201,6 +237,8 @@ def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor,
     mean = torch.zeros(c, dtype=bn.running_mean.dtype, device=x.device)
     var = torch.ones(c, dtype=bn.running_var.dtype, device=x.device)
     y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, 1.0, bn.eps)
+    if recomputing():
+        return y
     n = x.numel() // c
     with torch.no_grad():
         biased = var * ((n - 1) / n)       # the kernel stored n/(n-1) x it
@@ -222,8 +260,9 @@ def subsampled_batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor, stat_sample
     mean = xs.mean(dim=(0, 2, 3))
     var = torch.clamp_min((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
     with torch.no_grad():
-        bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
-        bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * var)
+        if not recomputing():
+            bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
+            bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * var)
     inv = torch.rsqrt(var + bn.eps) * bn.weight
     shift = bn.bias - mean * inv
     return (x.float() * inv.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype)
@@ -309,9 +348,13 @@ class FusedBNActSegment:
         # fp32 and bf16 storage go to the kernels as they are; fp64 (the CPU
         # tests' parity runs) computes in fp32, as lvae_tpu's segment does
         xs = x if x.dtype == torch.bfloat16 else x.float()
+        # a recompute (--remat) leaves the running buffers as the forward
+        # moved them: K5 without buffers writes none
+        running = {} if recomputing() else dict(running_mean=bn.running_mean,
+                                                 running_var=bn.running_var)
         y, _, _ = dropout_bn_act(
             xs, bn.weight.float(), bn.bias.float(), rate=rate, act=self.act, eps=bn.eps,
-            running_mean=bn.running_mean, running_var=bn.running_var, **key)
+            **running, **key)
         return y.to(x.dtype)
 
 
@@ -428,7 +471,16 @@ class ResBlockWithResampling(nn.Module):
     """Optional 2x resample, or a 1x1 channel projection, then a
     ResidualBlock. ``resample_mode='conv'``: a stride-2 conv bottom-up, a
     stride-2 transposed conv top-down; ``'interpolate'``: nearest 2x
-    resize then a 1x1 conv."""
+    resize then a 1x1 conv.
+
+    ``remat`` (set by the model, ``--remat``): a training forward with
+    gradients runs under ``torch.utils.checkpoint`` (non-reentrant), as
+    ``lvae_tpu`` wraps the block in ``nn.remat``. The recompute reads the
+    dropout key the forward read and moves no running statistic; K5's
+    saved statistics are dropped and recomputed, bit-equal because K5 is
+    deterministic (a fixed reduction tree, no atomics)."""
+
+    remat = False
 
     def __init__(self, mode: str, cin: int, channels: int,
                  resample: bool = False, resample_mode: str = "conv",
@@ -461,6 +513,23 @@ class ResBlockWithResampling(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.remat and train and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            key = next((m.key for m in self.modules() if isinstance(m, Dropout)), None)
+
+            def contexts():
+                snap = (None, 0, None) if key is None else (key, key.seed, key.step)
+                return contextlib.nullcontext(), _recompute(*snap)
+
+            # preserve_rng_state=False: no noise of the port reads torch's
+            # generator (every draw is keyed Philox), and saving and
+            # restoring that generator inside a CUDA graph capture is a hazard
+            return checkpoint(self._forward, x, train, use_reentrant=False,
+                              preserve_rng_state=False, context_fn=contexts)
+        return self._forward(x, train)
+
+    def _forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if self.resample and self.resample_mode == "interpolate":
             h, w = x.shape[-2], x.shape[-1]
             hw = (h // 2, w // 2) if self.mode == "bottom-up" else (2 * h, 2 * w)

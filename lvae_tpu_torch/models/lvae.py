@@ -22,7 +22,10 @@ log-prob on the kernel K3 (and its gradient on K3-bwd); ``fused_segments``
 runs every ``[d] b a`` run of a residual branch in training as one
 dropout+BatchNorm+activation segment, K5 (and K5-bwd); ``bn_stat_samples >
 0`` takes training BatchNorm statistics from the batch's leading rows.
-``dtype`` is flax's compute dtype (``lvae_tpu/models/lvae.py:243,280,300,364``):
+``remat`` (``--remat``) recomputes every ``ResBlockWithResampling`` in
+the backward (``torch.utils.checkpoint``), as ``lvae_tpu`` wraps them in
+``nn.remat``; the running statistics move once. ``dtype`` is flax's
+compute dtype (``lvae_tpu/models/lvae.py:243,280,300,364``):
 None (fp32) or ``torch.bfloat16``, under which every convolution (the
 first conv, the blocks', the merges', the latent heads' and the likelihood
 head's) computes in bf16 from fp32 parameters and the activation stream
@@ -188,6 +191,7 @@ class LadderVAE(nn.Module):
                  dropout_rate: float = 0.2,
                  dropout_impl: str = "bits8",
                  dtype: Optional[torch.dtype] = None,
+                 remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if dtype not in (None, torch.float32, torch.bfloat16):
@@ -263,6 +267,12 @@ class LadderVAE(nn.Module):
         for site, m in enumerate(m for m in self.modules() if isinstance(m, Dropout)):
             m.site, m.key = site, self.dropout_key
 
+        # --remat: every ResBlockWithResampling (the bottom-up layers', the
+        # top-down layers' and the first final block), as lvae_tpu wraps
+        # them in nn.remat (lvae_tpu/models/lvae.py:122-126,292-296)
+        for m in self.modules():
+            if isinstance(m, ResBlockWithResampling):
+                m.remat = remat
         set_compute_dtype(self, dtype)
         fp32_math()
         if generator is None:

@@ -3,9 +3,11 @@
 
 A checkpoint is one file, ``<run dir>/checkpoints/ckpt_<step>.pt``: a dict
 of the model's ``state_dict`` (``"model"``), the optimiser's, the step,
-the metric EMA and the noise seed. ``lvae_tpu_torch.evaluate
---state-dict`` loads it as it is (it takes the ``"model"`` entry), so a
-trained run can be evaluated at once; ``--load`` and ``--auto-resume``
+the metric EMA and the noise seed; under ``--grad-accum k`` also the
+accumulator and its micro-step (``"accum"``, :class:`~lvae_tpu_torch.
+train.state.GradAccum`), which a run without it does not hold.
+``lvae_tpu_torch.evaluate --load <run>`` restores the model from it (the
+latest, or ``--step``); ``--load`` and ``--auto-resume`` of the trainer
 restore all of it. Only tensors and plain containers are stored, so it
 loads with ``weights_only=True``.
 """
@@ -45,13 +47,16 @@ class CheckpointManager:
         os.makedirs(self.dir, exist_ok=True)
         path = self.path(state.step)
         tmp = path + ".tmp"
-        torch.save({
+        ckpt = {
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "step": state.step,
             "ema": {k: v.detach().cpu() for k, v in state.ema.items()},
             "seed": state.seed,
-        }, tmp)
+        }
+        if state.accum is not None:
+            ckpt["accum"] = state.accum.state_dict()
+        torch.save(ckpt, tmp)
         os.replace(tmp, path)       # never a half-written file under the name
         for old in self.steps()[:-self.keep]:
             os.unlink(self.path(old))
@@ -60,16 +65,32 @@ class CheckpointManager:
     def restore(self, state, step: Optional[int] = None):
         """``state`` with the checkpoint's contents (the latest by
         default) loaded into its model and optimiser."""
-        step = self.latest_step() if step is None else step
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint under {self.dir}")
-        ckpt = torch.load(self.path(step), map_location="cpu", weights_only=True)
+        ckpt = self.load(step)
         state.model.load_state_dict(ckpt["model"], strict=True)
         state.optimizer.load_state_dict(ckpt["optimizer"])
+        if ("accum" in ckpt) != (state.accum is not None):
+            raise ValueError(
+                f"checkpoint step {ckpt['step']} was "
+                f"{'' if 'accum' in ckpt else 'not '}saved under --grad-accum; "
+                f"resume it with the --grad-accum it was trained with")
+        if state.accum is not None:
+            state.accum.load_state_dict(ckpt["accum"])
         device = next(state.model.parameters()).device
         state.ema = {k: v.to(device) for k, v in ckpt["ema"].items()}
         state.step, state.seed = int(ckpt["step"]), int(ckpt["seed"])
         return state
+
+    def load(self, step: Optional[int] = None) -> dict:
+        """The checkpoint of ``step`` (the latest by default) as saved;
+        a step that has none raises, naming the steps that have one."""
+        steps = self.steps()
+        if not steps:
+            raise FileNotFoundError(f"no checkpoint under {self.dir}")
+        step = steps[-1] if step is None else step
+        if step not in steps:
+            raise FileNotFoundError(
+                f"no checkpoint of step {step} under {self.dir}; it holds steps {steps}")
+        return torch.load(self.path(step), map_location="cpu", weights_only=True)
 
 
 def save_config(run_dir: str, config: Any) -> None:

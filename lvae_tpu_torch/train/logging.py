@@ -1,7 +1,8 @@
 """Console (and optional TensorBoard) logging with ``lvae_tpu``'s lines and
 metric names (port of ``lvae_tpu/train/logging.py``): ``elbo/train``,
 ``recons/train``, ``kl/train``, ``loss/train``, ``kl/layer_i``,
-``perf/images_per_sec`` and ``<metric>/test``. TensorBoard event files are
+``perf/images_per_sec``, ``<metric>/test`` and the image grids
+(``samples``, ``reconstructions``, ``kl_spatial``). TensorBoard event files are
 written when ``tensorboardX`` imports, as in ``lvae_tpu``; nothing else
 depends on it. (``torch.utils.tensorboard`` would import TensorFlow where
 it is installed: seconds per process.)"""
@@ -51,6 +52,15 @@ class MetricLogger:
                 self._tb.add_scalar("perf/images_per_sec", images_per_sec, step)
         return line
 
+    def log_deferred(self, step: int, images_per_sec: float) -> None:
+        """``--defer-metrics``' progress line: no readback of the EMA, so
+        the rate is the host's dispatch rate, not the device's."""
+        print(
+            f"[train] step {step:>7d}  (metrics deferred)  "
+            f"{images_per_sec:>8.0f} img/s dispatched",
+            flush=True,
+        )
+
     def log_test(self, step: int, metrics: Mapping) -> str:
         line = (
             f"[test ] step {step:>7d}  elbo {metrics['elbo']:>10.2f}  "
@@ -65,6 +75,10 @@ class MetricLogger:
                 if np.ndim(v) == 0:
                     self._tb.add_scalar(f"{k}/test", float(v), step)
         return line
+
+    def log_images(self, tag: str, step: int, grid_hwc: np.ndarray) -> None:
+        if self._tb is not None:
+            self._tb.add_image(tag, grid_hwc, step, dataformats="HWC")
 
     def close(self) -> None:
         if self._tb is not None:

@@ -5,8 +5,9 @@ optimiser, the metric EMA (on the device) and the noise seed;
 :func:`train_body` preprocesses a gathered uint8 batch, runs the forward
 in train mode, takes ``lvae_tpu``'s loss (``-(mean ll - beta * sum of the
 free-bits-clamped per-layer KL)``), backpropagates, clips by optax's
-global-norm rule when asked, steps Adamax and moves the EMA, all on the
-device with no host sync; :func:`train_step` runs it once and
+global-norm rule when asked, steps Adamax (under ``--grad-accum k``, on
+the mean of k micro-steps' gradients, :class:`GradAccum`) and moves the
+EMA, all on the device with no host sync; :func:`train_step` runs it once and
 :class:`MultiStep` ``k`` times a call (on CUDA, as one CUDA graph). Every
 random draw of step ``s`` is keyed by ``(seed, dataset index, s,
 stream)`` or ``(seed, s, dropout site)``, with ``s`` read from the
@@ -60,6 +61,10 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     ema: dict
     seed: int
+    accum: Optional["GradAccum"] = None     # --grad-accum k > 1
+    # --debug-nans: the first step whose loss, gradients or updated
+    # parameters held a NaN (-1: none yet), written on the device
+    nan_step: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
     step_t: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
     step_t_at: Optional[int] = dataclasses.field(default=None, repr=False)
 
@@ -107,7 +112,14 @@ class Adamax(torch.optim.Optimizer):
                     st["step"] = st["step"].to(device=p.device, dtype=torch.float32)
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, emit: Optional[torch.Tensor] = None):
+        """One Adamax update of every parameter with a gradient. ``emit``
+        (a 0-d bool tensor, :class:`GradAccum`'s) makes it the inner
+        optimiser of ``optax.MultiSteps``: the update is computed from
+        the count plus one, as optax's, and applied as ``p + emit * u``;
+        the moments and the count take their new values only where
+        ``emit`` is set, selected on the device as ``(1 - emit) old +
+        emit new``."""
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
@@ -122,22 +134,96 @@ class Adamax(torch.optim.Optimizer):
                                  for k in ("step", "exp_avg", "exp_inf"))
             grads = [p.grad for p in params]
             b1, b2 = group["betas"]
-            torch._foreach_add_(steps, 1.0)
-            torch._foreach_lerp_(avgs, grads, 1.0 - b1)
-            torch._foreach_mul_(infs, b2)
+            if emit is None:
+                new_steps, new_avgs, new_infs = steps, avgs, infs
+                torch._foreach_add_(steps, 1.0)
+                torch._foreach_lerp_(avgs, grads, 1.0 - b1)
+                torch._foreach_mul_(infs, b2)
+            else:
+                new_steps = torch._foreach_add(steps, 1.0)
+                new_avgs = torch._foreach_lerp(avgs, grads, 1.0 - b1)
+                new_infs = torch._foreach_mul(infs, b2)
             norms = torch._foreach_abs(grads)
             torch._foreach_add_(norms, group["eps"])
-            torch._foreach_maximum_(infs, norms)
-            corr = torch._foreach_pow(b1, steps)           # b1^t - 1, over lr
+            torch._foreach_maximum_(new_infs, norms)
+            corr = torch._foreach_pow(b1, new_steps)       # b1^t - 1, over lr
             torch._foreach_sub_(corr, 1.0)
             torch._foreach_div_(corr, group["lr"])
-            torch._foreach_addcdiv_(params, avgs, torch._foreach_mul(infs, corr))
+            if emit is None:
+                torch._foreach_addcdiv_(params, avgs, torch._foreach_mul(infs, corr))
+                continue
+            e = emit.to(torch.float32)
+            upd = torch._foreach_div(new_avgs, torch._foreach_mul(new_infs, corr))
+            torch._foreach_mul_(upd, e)
+            torch._foreach_add_(params, upd)
+            keep = 1.0 - e
+            for old, new in ((steps, new_steps), (avgs, new_avgs), (infs, new_infs)):
+                torch._foreach_mul_(old, keep)
+                torch._foreach_mul_(new, e)
+                torch._foreach_add_(old, new)
 
 
 def make_optimizer(model: torch.nn.Module, lr: float) -> torch.optim.Optimizer:
     """Adamax with ``optax.adamax``'s settings (betas 0.9, 0.999; eps 1e-8),
     the reference's optimiser."""
     return Adamax(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+class GradAccum:
+    """``optax.MultiSteps(every_k_schedule=k)`` around the clip and Adamax
+    (``lvae_tpu/train/state.py:49-65``), with no host sync. Each
+    micro-step folds its gradients into the running mean ``acc + (g -
+    acc) / (n + 1)`` (``n`` the micro-step, a 0-d int64 tensor on the
+    device); the clip and Adamax then run on the mean (:meth:`inner`) and
+    take effect on the ``k``-th micro-step only (``emit``); the
+    accumulator is multiplied by ``1 - emit`` and ``n`` moves to ``(n +
+    1) % k``. The train step, its keys, beta and the EMA move on every
+    micro-step, as flax's ``TrainState.step`` does. The accumulator and
+    ``n`` are checkpointed (:meth:`state_dict`), so a resume inside an
+    accumulation is exact."""
+
+    def __init__(self, params: Sequence[torch.Tensor], k: int):
+        if k < 2:
+            raise ValueError(f"GradAccum accumulates k >= 2 micro-steps, got {k}")
+        self.k = k
+        self.params = list(params)
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        self.mini_step = torch.zeros((), dtype=torch.int64, device=self.params[0].device)
+
+    @torch.no_grad()
+    def inner(self, clone: bool) -> torch.Tensor:
+        """Fold this micro-step's gradients (a missing one as zeros, as
+        optax sees it) into the mean and hand the mean to the inner
+        optimiser as every parameter's ``.grad`` (a copy when ``clone``:
+        the clip rewrites it in place). Returns ``emit``."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        delta = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(delta, (self.mini_step + 1).to(self.acc[0].dtype))
+        torch._foreach_add_(self.acc, delta)
+        for p, a in zip(self.params, self.acc):
+            p.grad = a.clone() if clone else a
+        return self.mini_step == self.k - 1
+
+    @torch.no_grad()
+    def finish(self, emit: torch.Tensor) -> None:
+        """After the inner update: the accumulator to ``(1 - emit) acc``,
+        the micro-step on."""
+        torch._foreach_mul_(self.acc, 1.0 - emit.to(self.acc[0].dtype))
+        self.mini_step.copy_((self.mini_step + 1) % self.k)
+
+    def state_dict(self) -> dict:
+        return {"k": self.k, "mini_step": self.mini_step.detach().cpu(),
+                "acc": [a.detach().cpu() for a in self.acc]}
+
+    @torch.no_grad()
+    def load_state_dict(self, d: dict) -> None:
+        """In place, so the tensors keep their addresses."""
+        if int(d["k"]) != self.k:
+            raise ValueError(f"the checkpoint accumulates over --grad-accum {int(d['k'])}, "
+                             f"this run over {self.k}")
+        self.mini_step.copy_(d["mini_step"])
+        for a, v in zip(self.acc, d["acc"], strict=True):
+            a.copy_(v)
 
 
 def init_ema(n_layers: int, device) -> dict:
@@ -218,13 +304,35 @@ def train_body(state: TrainState, batch_u8: torch.Tensor, index: torch.Tensor,
                                cfg.free_bits, forced_eps)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    emit = None
+    if state.accum is not None:
+        emit = state.accum.inner(clone=cfg.max_grad_norm is not None)
     if cfg.max_grad_norm is not None:
         clip_by_global_norm_([p.grad for p in model.parameters() if p.grad is not None],
                              cfg.max_grad_norm)
-    state.optimizer.step()
+    state.optimizer.step(emit=emit)
+    if emit is not None:
+        state.accum.finish(emit)
     metrics = {k: v.detach() for k, v in metrics.items()}
+    if state.nan_step is not None:
+        _note_nan(state.nan_step, step, metrics["loss"], grads, list(model.parameters()))
     update_ema_(state.ema, metrics, step, cfg.ema_decay)
     return metrics
+
+
+@torch.no_grad()
+def _note_nan(nan_step: torch.Tensor, step: Ints, loss: torch.Tensor,
+              grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor]) -> None:
+    """``--debug-nans``: write ``step`` into ``nan_step`` where it holds
+    no step yet and the loss, a gradient of this (micro-)step or an
+    updated parameter holds a NaN (a NaN anywhere makes its tensor's norm
+    NaN), on the device."""
+    bad = torch.isnan(loss)
+    for ts in (grads, params):
+        if ts:
+            bad = bad | torch.isnan(torch.stack(torch._foreach_norm(ts)).sum())
+    nan_step.copy_(torch.where(bad & (nan_step < 0), step, nan_step))
 
 
 def train_step(state: TrainState, batch_u8: torch.Tensor, index: torch.Tensor,

@@ -7,7 +7,10 @@ on the device; :class:`Trainer` runs the loop: an epoch order drawn from
 see the same batches), one :func:`~lvae_tpu_torch.train.state.train_step`
 per batch (or ``--steps-per-call k`` steps a call, a CUDA graph of ``k``
 steps on the card), the log, test and checkpoint hooks where a call
-crosses their intervals, and a final checkpoint on SIGTERM.
+crosses their intervals (the test hook writes the sample, reconstruction
+and spatial-KL grids, :meth:`Experiment.dump_images`), and a final
+checkpoint on SIGTERM. ``--grad-accum``, ``--remat``, ``--defer-metrics``,
+``--debug-nans`` and ``--profile`` run as in ``lvae_tpu``.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import os
 import signal
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,12 +26,14 @@ import torch
 from lvae_tpu_torch.config import PRECISIONS, EvalConfig, TrainConfig
 from lvae_tpu_torch.data.device import DeviceDataset, eval_preprocess_batch
 from lvae_tpu_torch.data.registry import Dataset, TestSet, load_dataset
+from lvae_tpu_torch.eval.viz import save_image_grid
 from lvae_tpu_torch.models.lvae import LadderVAE
 from lvae_tpu_torch.models.stochastic import Noise
 from lvae_tpu_torch.train.checkpoint import CheckpointManager, save_config
 from lvae_tpu_torch.train.init import data_dependent_init
 from lvae_tpu_torch.train.logging import MetricLogger
 from lvae_tpu_torch.train.state import (
+    GradAccum,
     LossConfig,
     MultiStep,
     TrainState,
@@ -91,10 +96,11 @@ def make_model(cfg: EvalConfig, data: TestSet, device: torch.device,
                train: bool = False) -> LadderVAE:
     """The configured model on ``device``; ``generator`` draws the
     initial weights. ``train`` (with a :class:`TrainConfig`) adds the
-    dropout and the kernel policy's training switches. ``--precision
+    dropout, ``--remat`` and the kernel policy's training switches. ``--precision
     bf16`` makes the convs compute in bf16 (``lvae_tpu/train/trainer.py:115``);
     the parameters are fp32 either way."""
-    drop = dict(dropout_rate=cfg.dropout, dropout_impl=cfg.dropout_impl) if train else {}
+    drop = dict(dropout_rate=cfg.dropout, dropout_impl=cfg.dropout_impl,
+                remat=cfg.remat) if train else {}
     likelihood = cfg.likelihood or data.default_likelihood
     model = LadderVAE(
         color_ch=data.color_ch,
@@ -151,6 +157,10 @@ class Experiment:
         state = TrainState(step=0, model=self.model,
                            optimizer=make_optimizer(self.model, cfg.lr),
                            ema=init_ema(len(cfg.zdims), self.device), seed=cfg.seed + 1)
+        if cfg.grad_accum > 1:
+            state.accum = GradAccum(self.model.parameters(), cfg.grad_accum)
+        if cfg.debug_nans:
+            state.nan_step = torch.full((), -1, dtype=torch.int64, device=self.device)
         if cfg.data_dep_init if data_dep_init is None else data_dep_init:
             n = min(cfg.batch_size, self.train_data.n)
             index = torch.arange(n, device=self.device)
@@ -164,6 +174,67 @@ class Experiment:
         bs = min(self.cfg.test_batch_size, self.test_data.shape[0])
         return evaluate_elbo(state.model, self.test_data, self.data.preprocess, bs,
                              self.data.data_dims, max_batches=max_batches)
+
+    def dump_images(self, state: TrainState, run_dir: str, step: int,
+                    logger: Optional[MetricLogger] = None, n_samples: int = 64,
+                    forced_eps: Optional[Sequence[torch.Tensor]] = None) -> dict:
+        """:func:`dump_images` of the state's model on the test split."""
+        return dump_images(state.model, self.test_data, self.data.preprocess, run_dir, step,
+                           logger, n_samples, forced_eps)
+
+
+def dump_images(model: LadderVAE, test_u8: torch.Tensor, preprocess: str, run_dir: str,
+                step: int, logger: Optional[MetricLogger] = None, n_samples: int = 64,
+                forced_eps: Optional[Sequence[torch.Tensor]] = None) -> dict:
+    """The prior-sample, reconstruction and spatial-KL grids of
+    ``lvae_tpu``'s ``Experiment.dump_images``
+    (``lvae_tpu/train/trainer.py:292-356``) under ``<run_dir>/imgs``:
+    ``sample_<step>.png``, ``n_samples`` prior samples drawn with seed
+    ``step``; ``recon_<step>.png``, the first 32 images of the uint8 test
+    split ``test_u8`` each beside its reconstruction (eval mode, keyed as
+    the test sweep keys it, ``forced_eps`` replacing the draw), 8 a row;
+    ``kl_spatial_<step>.png``, per layer the batch-mean KL at each location
+    over its max (floor 1e-8), upsampled nearest to the largest map, a
+    tile per layer. Returns the three grids by TensorBoard tag."""
+    img_dir = os.path.join(run_dir, "imgs")
+    with torch.no_grad():
+        samples = model.sample_prior(n_samples, seed=step)["out_mean"]
+        n = min(32, test_u8.shape[0])
+        index = torch.arange(n, device=test_u8.device)
+        x = eval_preprocess_batch(test_u8[:n], preprocess, index)
+        out = model(x, noise=Noise(0, index, 0), forced_eps=forced_eps)
+    grids = {"samples": save_image_grid(
+        samples.float().cpu().numpy(), os.path.join(img_dir, f"sample_{step}.png"))}
+    orig, recon = x.float().cpu().numpy(), out["out_mean"].float().cpu().numpy()
+    pairs = np.stack([orig, recon], axis=1).reshape(-1, *orig.shape[1:])
+    grids["reconstructions"] = save_image_grid(
+        pairs, os.path.join(img_dir, f"recon_{step}.png"), ncol=8)
+    maps = kl_spatial_tiles(out["kl_spatial"])
+    grids["kl_spatial"] = save_image_grid(
+        maps, os.path.join(img_dir, f"kl_spatial_{step}.png"), ncol=len(maps), pad_value=1.0)
+    if logger is not None:
+        for tag, grid in grids.items():
+            logger.log_images(tag, step, grid)
+    return grids
+
+
+def kl_spatial_tiles(kl_spatial: Sequence[Optional[torch.Tensor]]) -> np.ndarray:
+    """``[L, H, W, 1]``: each layer's ``[B, h, w]`` KL map averaged over
+    the batch, divided by its max (floor 1e-8) and repeated nearest to the
+    largest map's ``H x W``. Every layer must have its map: an eval-mode
+    forward gives one for each."""
+    if any(k is None for k in kl_spatial):
+        raise ValueError("kl_spatial has no map for a layer: take it from an eval-mode "
+                         "forward, which gives one for every layer")
+    hmax = max(k.shape[1] for k in kl_spatial)
+    wmax = max(k.shape[2] for k in kl_spatial)
+    maps = []
+    for k in kl_spatial:
+        mm = k.float().cpu().numpy().mean(axis=0)
+        mm = mm / max(mm.max(), 1e-8)
+        mm = np.repeat(np.repeat(mm, hmax // mm.shape[0], 0), wmax // mm.shape[1], 1)
+        maps.append(mm[..., None])
+    return np.stack(maps)
 
 
 class Trainer:
@@ -247,12 +318,14 @@ class Trainer:
         step = state.step
         t_last, since_log = time.perf_counter(), 0
         in_step = False
+        profile = Profile(cfg, run_dir, exp.device)
         try:
             for index in index_stream(exp.train_data, cfg.batch_size, cfg.seed, step, k):
                 if self._stop:
                     raise KeyboardInterrupt
                 if step >= cfg.max_steps:
                     break
+                profile.before(step)
                 in_step = True
                 if multi is None:
                     train_step(state, exp.train_data.gather(index), index, exp.loss_cfg)
@@ -261,13 +334,25 @@ class Trainer:
                 in_step = False
                 step = state.step
                 since_log += k
+                if state.nan_step is not None and int(state.nan_step) >= 0:
+                    raise FloatingPointError(
+                        f"--debug-nans: a NaN in the loss, the gradients or the updated "
+                        f"parameters of step {int(state.nan_step)}; no checkpoint of this "
+                        f"state is saved")
+                profile.after(step)
                 if crossed(step, cfg.log_interval, k):
-                    ema = {k_: v.cpu() for k_, v in state.ema.items()}   # waits for the step
-                    dt = time.perf_counter() - t_last
-                    logger.log_train(step, ema, since_log * cfg.batch_size / dt)
+                    if cfg.defer_metrics:     # no readback: a dispatch rate
+                        dt = time.perf_counter() - t_last
+                        logger.log_deferred(step, since_log * cfg.batch_size / dt)
+                    else:
+                        ema = {k_: v.cpu() for k_, v in state.ema.items()}  # waits for the step
+                        dt = time.perf_counter() - t_last
+                        logger.log_train(step, ema, since_log * cfg.batch_size / dt)
                     t_last, since_log = time.perf_counter(), 0
                 if crossed(step, cfg.test_interval, k):
                     logger.log_test(step, exp.evaluate(state))
+                    if not cfg.dry_run:
+                        exp.dump_images(state, run_dir, step, logger)
                     t_last, since_log = time.perf_counter(), 0
                 if ckpt is not None and crossed(step, cfg.checkpoint_interval, k):
                     ckpt.save(state)
@@ -278,13 +363,62 @@ class Trainer:
                 ckpt = None
             else:
                 print("interrupted: saving a final checkpoint", flush=True)
+        finally:
+            profile.close()
         if state.step_t is not None and state.step_t.is_cuda:
             torch.cuda.synchronize(state.step_t.device)
+        if cfg.defer_metrics:
+            logger.log_train(state.step, {k_: v.cpu() for k_, v in state.ema.items()})
         if ckpt is not None and ckpt.latest_step() != state.step:
             ckpt.save(state)
         logger.close()
         self.state = state
         return state
+
+
+class Profile:
+    """``--profile A-B``: a ``torch.profiler`` trace (the host, and the
+    card where the run is on one) from the first call at or after step A
+    to the first call that reaches B, written as a Chrome trace under
+    ``<run>/trace``, as ``lvae_tpu`` writes its trace
+    (``lvae_tpu/train/trainer.py:626-644``). A no-op without the flag."""
+
+    def __init__(self, cfg: TrainConfig, run_dir: str, device: torch.device):
+        self.range = cfg.profile_range() if cfg.profile else None
+        self.dir = os.path.join(run_dir, "trace")
+        self.device = device
+        self.prof = None
+
+    def before(self, step: int) -> None:
+        if self.range is None or self.prof is not None or step < self.range[0]:
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=acts)
+        self.prof.__enter__()
+
+    def after(self, step: int) -> None:
+        if self.prof is None or step < self.range[1]:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.close()
+        a, b = self.range
+        print(f"profiler trace for steps {a}-{b} written to {self.dir}", flush=True)
+        self.range = None
+
+    def close(self) -> None:
+        """Stop a running trace and write it (also at a run's end or
+        interruption inside the range)."""
+        if self.prof is None:
+            return
+        prof, self.prof = self.prof, None
+        prof.__exit__(None, None, None)
+        os.makedirs(self.dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.dir, f"trace_{os.getpid()}.json"))
 
 
 def index_stream(data: DeviceDataset, batch_size: int, seed: int, step: int, k: int = 1):

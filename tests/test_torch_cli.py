@@ -144,9 +144,8 @@ class TestCLI:
         assert abs(res["elbo"]["elbo"] - test["elbo"]) < 1e-3
 
     @pytest.mark.parametrize("flags,name", [
-        (["--grad-accum", "2"], "--grad-accum"),
-        (["--remat"], "--remat"),
         (["--streaming"], "--streaming"),
+        (["--spatial-shards", "2"], "--spatial-shards"),
         (["--num-data-shards", "2"], "--num-data-shards"),
         (["--rng-impl", "rbg"], "--rng-impl"),
         (["--platform", "tpu"], "--platform"),
