@@ -76,6 +76,21 @@ graphed ms/step with and without ``--remat`` in turns; and
 ``lvae_tpu_torch.evaluate --load <run name>`` from the run's own
 checkpoint: test ELBO, the k=100 IW-LL and a diagnostics grid.
 
+Then the multi-object datasets and the serving artifacts (phase 20):
+multi-dSprites (64x64 RGB, binary, the Bernoulli head) at the flagship's
+widths on 10,000 synthetic scenes in the multiobject npz layout: one
+``--fused all`` step against the plain path, 20 steps through
+``lvae_tpu_torch.main --fused all --steps-per-call 10`` with init and
+every launch counted, ``lvae_tpu_torch.evaluate --load <run> --ll``;
+multi-MNIST (48x48, padded to 64) through 5 steps and the test ELBO;
+``python -m lvae_tpu_torch.export_serving --load <run> --check
+--platforms cuda cpu`` and phase 18b's celeba64 bf16 run's
+``reconstruct`` exported; every artifact served by a process that cannot
+import the port (B = 1, 7, 64 and a shuffled 7; ``generate``), its graphs
+aten-only, its answers held to the eager plain path (1e-6) and kernel
+path, and batch-invariant; export s, artifact MiB, load and first-call s,
+and ``reconstruct`` img/s of the artifact against the eager kernel path.
+
 Each entry point's run checks that it launched every kernel of its path;
 the kernel path, the plain path and a CPU run are held to agree, and each
 kernel is timed against its plain version.
@@ -2783,14 +2798,16 @@ def phase_bf16_kernels(card, per_step, timed, build_log=""):
     return err, times, apart
 
 
-def bf16_cli_run(card, name, args, data, write, steps, expect):
+def bf16_cli_run(card, name, args, data, write, steps, expect, keep=None):
     """``lvae_tpu_torch.main --precision bf16 ...``: ``steps`` steps with
     data-dependent init, one test sweep and a checkpoint, which
     ``lvae_tpu_torch.evaluate`` scores in bf16 (its stored precision).
     ``expect(model, unfused dropout sites)`` gives {launch counter:
     launches}, held to the run's counts less the init's; every fp32
     instantiation of a bf16 kernel is held at 0. Returns the run's
-    record and the checkpoint's weights (the trained model's)."""
+    record and the checkpoint's weights (the trained model's). With
+    ``keep`` (a directory), the run and its data stay there, and the
+    record names the run's directory."""
     import torch
 
     from lvae_tpu_torch import evaluate
@@ -2798,7 +2815,8 @@ def bf16_cli_run(card, name, args, data, write, steps, expect):
     from lvae_tpu_torch.kernels import build
 
     out = {}
-    with tempfile.TemporaryDirectory() as tmp, init_counted() as init:
+    where = contextlib.nullcontext(keep) if keep else tempfile.TemporaryDirectory()
+    with where as tmp, init_counted() as init:
         data_dir = os.path.join(tmp, "data")
         write(data_dir)
         build.reset_launches()
@@ -2854,15 +2872,18 @@ def bf16_cli_run(card, name, args, data, write, steps, expect):
         out.update(launches=launches, wall_s=wall, ema_loss=(first, last),
                    test_elbo=[float(m["elbo"]) for m in tests],
                    log_rates={s: float(m["images_per_sec"]) for s, m in lines.items()})
+        if keep:
+            out["run_dir"] = trainer.run_dir
     build.reset_launches()
     return out, ckpt["model"]
 
 
-def bf16_one_step(card, name, args, data, weights, kern, plain):
-    """One bf16 step from ``weights``: the kernel path ``--fused kern``
-    against the plain path ``--fused plain`` on the card (deterministic
-    algorithms on), at ``BF16_STEP_TOL``: the loss, and each gradient
-    against its own max (the BatchNorm-fed biases against the largest)."""
+def one_step_vs_plain(card, name, args, data, weights, kern, plain, tol=BF16_STEP_TOL):
+    """One step from ``weights`` (bf16 where ``args`` say so): the kernel
+    path ``--fused kern`` against the plain path ``--fused plain`` on the
+    card (deterministic algorithms on), at ``tol``: the loss, and each
+    gradient against its own max (the BatchNorm-fed biases against the
+    largest)."""
     import dataclasses
 
     import torch
@@ -2904,10 +2925,9 @@ def bf16_one_step(card, name, args, data, weights, kern, plain):
     print(f"  {name}: loss {lk:.6f} vs {lp:.6f} (rel {rel:.2e}); worst gradients relative to "
           f"their max: {[(f'{e:.2e}', n) for e, n in errs[:3]]}; median "
           f"{errs[len(errs) // 2][0]:.2e}")
-    check(rel <= BF16_STEP_TOL["loss"], f"{name}: loss within {BF16_STEP_TOL['loss']:g} "
-                                        f"relative")
-    check(errs[0][0] <= BF16_STEP_TOL["grad"],
-          f"{name}: every gradient within {BF16_STEP_TOL['grad']:g} of its max")
+    check(rel <= tol["loss"], f"{name}: loss within {tol['loss']:g} relative")
+    check(errs[0][0] <= tol["grad"], f"{name}: every gradient within {tol['grad']:g} of its "
+                                     f"max")
     return {"loss_rel": rel, "worst_grad": errs[0][0], "median_grad": errs[len(errs) // 2][0]}
 
 
@@ -3006,8 +3026,9 @@ def bf16_eval(card, name, config, weights, write, n_test, iw_batch, want=()):
 
 
 def phase_bf16(card, per_step, timed, build_log, train_u8, test_u8, flagship_weights,
-               c_train, c_test, c_data, celeba_weights):
-    """Phase 18: --precision bf16 on both models."""
+               c_train, c_test, c_data, celeba_weights, keep):
+    """Phase 18: --precision bf16 on both models; celeba64's ``all`` run
+    stays in the directory ``keep`` (phase 20 exports it)."""
     from lvae_tpu_torch.data.sources import make_synthetic
 
     t0 = time.perf_counter()
@@ -3047,17 +3068,17 @@ def phase_bf16(card, per_step, timed, build_log, train_u8, test_u8, flagship_wei
             card, f"celeba64 bf16 {fused}{' graphed' if extra else ''}",
             CELEBA_ARGS + ["--precision", "bf16", "--fused", fused] + extra, c_data,
             lambda d: write_celeba(d, c_train, c_test), BF16_CELEBA_STEPS,
-            celeba_counts(fused == "all"))
+            celeba_counts(fused == "all"), keep=keep if fused == "all" else None)
     out["runs"] = runs
     print("[18c] one bf16 step, the kernel path vs the plain path; bf16 vs fp32 losses",
           flush=True)
     out["step"] = {
-        "flagship auto": bf16_one_step(card, "flagship bf16 --fused auto vs none",
-                                       FLAGSHIP_ARGS + ["--precision", "bf16"], fdata,
-                                       flagship_weights, "auto", "none"),
-        "celeba64 all": bf16_one_step(card, "celeba64 bf16 --fused all vs none",
-                                      CELEBA_ARGS + ["--precision", "bf16"], c_data,
-                                      celeba_weights, "all", "none")}
+        "flagship auto": one_step_vs_plain(card, "flagship bf16 --fused auto vs none",
+                                           FLAGSHIP_ARGS + ["--precision", "bf16"], fdata,
+                                           flagship_weights, "auto", "none"),
+        "celeba64 all": one_step_vs_plain(card, "celeba64 bf16 --fused all vs none",
+                                          CELEBA_ARGS + ["--precision", "bf16"], c_data,
+                                          celeba_weights, "all", "none")}
     # from the trained bf16 checkpoints: the seeded weights keep the
     # likelihood head at its normal(1e-2) init, near 0 in either precision
     out["loss_gap"] = {
@@ -3744,6 +3765,469 @@ def phase_cifar(card):
     return err, out
 
 
+
+# --- phase 20: the multi-object datasets trained, scored and served ----------
+MO_N, MO_IMAGE = 10_000, (64, 64, 3)        # multi-dSprites: the last 10% the test split
+MO_STEPS = 20                               # 20a, two CUDA graphs of 10
+MO_EVAL_B = 500                             # 20b: the ELBO sweep's batch, the IW-LL's images
+MNIST_MO_N, MNIST_MO_IMAGE, MNIST_MO_STEPS = 2_000, (48, 48, 1), 5
+MO_NAMES = {"multi_dsprites_binary_rgb": ("dsprites", "multi_dsprites_color_012.npz"),
+            "multi_mnist_binary": ("binary_mnist", "multi_binary_mnist_012.npz")}
+# the flagship's architecture (FLAGSHIP_ARGS) over multi-dSprites
+MO_ARGS = [
+    "--dataset", "multi_dsprites_binary_rgb", "--zdims", "32", "32", "32", "--downsample",
+    "1", "1", "1", "--nonlin", "elu", "--skip", "--blocks-per-layer", "4", "--n-filters",
+    "64", "--gated", "--freebits", "0.5", "--learn-top-prior", "--seed", "42",
+    "--batch-size", str(TRAIN_B), "--dropout", "0.2", "--test-batch-size", str(MO_EVAL_B),
+]
+MO = dict(FLAGSHIP, dataset="multi_dsprites_binary_rgb", test_batch_size=MO_EVAL_B)
+FP32_STEP_TOL = {"loss": 1e-4, "grad": 1e-4}          # phases 9, 13 and 16's gate
+SERVE_B = (1, 7, 64)
+SERVE_RATE_B = (64, 500)
+# an artifact against the eager plain path (the same operations: 1e-6), and
+# against the eager kernel path (K2, and K3 for the mixture head) at phase
+# 11's kernel-vs-plain per-image ELBO tolerance
+SERVE_TOL = {"plain": 1e-6, "kernels": 1e-5}
+
+# what a process that cannot import lvae_tpu_torch answers (20c): each
+# artifact loaded with torch.export.load onto the card, timed, its graph's
+# operators listed, and called on each request
+SERVE_SCRIPT = r"""
+import sys
+sys.modules["lvae_tpu_torch"] = None
+import time
+import torch
+import torch.utils._pytree as pytree
+
+# full fp32 convolutions, as the manifest asks (a fresh process has TF32 on);
+# deterministic algorithms, as the eager reference in the parent runs them
+# (cuDNN's default choice is not bit-reproducible run to run)
+torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.use_deterministic_algorithms(True)
+path = sys.argv[1]
+req = torch.load(path + "/requests.pt")
+res = {}
+for key, (artifact, calls) in req.items():
+    t0 = time.perf_counter()
+    ep = torch.export.load(artifact)
+    t1 = time.perf_counter()
+    nodes = [n for n in ep.graph.nodes if n.op == "call_function"]
+    res[key, "nodes"] = len(nodes)
+    res[key, "ops"] = sorted({(getattr(n.target, "namespace", ""), n.target.__name__)
+                              for n in nodes})
+    fn = ep.module()
+    for i, (name, args) in enumerate(calls.items()):
+        out = fn(*[a.cuda() for a in args])
+        torch.cuda.synchronize()
+        if i == 0:
+            res[key, "load_s"], res[key, "first_call_s"] = t1 - t0, time.perf_counter() - t1
+        res[key, name] = pytree.tree_map(lambda t: t.cpu(), out)
+res["lvae_tpu_torch"] = any(m.startswith("lvae_tpu_torch") for m in sys.modules
+                            if sys.modules[m] is not None)
+torch.save(res, path + "/answers.pt")
+"""
+
+
+def multiobject_images(n, image, seed):
+    """``n`` binary images, uint8 {0, 255} ``[n, h, w, c]``, drawn on the
+    card: two candidate objects an image, each present with probability
+    1/2 (so 0-2 objects), a disc at a random centre and radius in a random
+    non-black colour (each channel on or off)."""
+    import torch
+
+    h, w, c = image
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    yy = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1, 1)
+    xx = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w, 1)
+    x = torch.zeros(n, h, w, c, dtype=torch.bool, device=dev)
+    for _ in range(2):
+        def draw(lo, hi):
+            return torch.rand(n, 1, 1, 1, generator=g, device=dev) * (hi - lo) + lo
+
+        cy, cx, r = draw(0.2, 0.8) * h, draw(0.2, 0.8) * w, draw(0.08, 0.2) * min(h, w)
+        colour = torch.rand(n, 1, 1, c, generator=g, device=dev) < 0.5
+        colour[..., 0] |= ~colour.any(dim=-1)
+        present = torch.rand(n, 1, 1, 1, generator=g, device=dev) < 0.5
+        x |= ((yy - cy) ** 2 + (xx - cx) ** 2 <= r ** 2) & colour & present
+    return (x.to(torch.uint8) * 255).cpu().numpy()
+
+
+def write_multiobject(data_dir, name, images):
+    """``images`` as the multiobject npz of dataset ``name`` under
+    ``data_dir`` (``x`` uint8, and a per-image field beside it, as the
+    package writes)."""
+    sub, fname = MO_NAMES[name]
+    d = os.path.join(data_dir, "multiobject", sub)
+    os.makedirs(d, exist_ok=True)
+    np.savez(os.path.join(d, fname), x=images, n_obj=np.zeros(len(images), np.int64))
+
+
+def mo_train(card, tmp, data):
+    """20a: one step of the kernel path against the plain path, then
+    multi-dSprites through ``lvae_tpu_torch.main --fused all
+    --steps-per-call 10`` with init, with every launch counted."""
+    import torch
+
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.kernels import build
+
+    print("[20a] multi-dSprites: one step, --fused all vs none; training through "
+          "lvae_tpu_torch.main --fused all --steps-per-call 10", flush=True)
+    weights = seeded_model(MO, data, torch.device("cpu")).state_dict()
+    step = one_step_vs_plain(card, "multi-dSprites fp32 --fused all vs none", MO_ARGS, data,
+                             weights, "all", "none", tol=FP32_STEP_TOL)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with init_counted() as init:
+        trainer = train_main.main(MO_ARGS + [
+            "--fused", "all", "--steps-per-call", str(GRAPH_K), "--data-dir",
+            os.path.join(tmp, "data"), "--data-dep-init", "--max-steps", str(MO_STEPS),
+            "--device", "cuda", "--log-interval", str(GRAPH_K), "--test-interval",
+            str(MO_STEPS), "--checkpoint-interval", str(MO_STEPS), "--output-dir",
+            os.path.join(tmp, "out"), "--run-name", "multi-dsprites"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v - init.get(k, 0) for k, v in build.LAUNCHES.items() if v}
+    build.reset_launches()
+    model = trainer.state.model
+    segs, sites = segments_per_step(model), unfused_dropouts(model)
+    # the test hook's sweep and its reconstruction grid's forward
+    sweeps = -(-MO_N // 10 // MO_EVAL_B) + 1
+    want = {"sample_kl_per_sample": 3 * MO_STEPS, "sample_kl_per_sample_bwd": 3 * MO_STEPS,
+            "segment": segs * MO_STEPS, "segment_bwd": segs * MO_STEPS,
+            "dropout": 2 * sites * MO_STEPS, "sample_kl": 3 * sweeps}
+    print(f"  {MO_STEPS} steps with init, a test sweep and the grids in {wall:.1f} s; "
+          f"{segs} segments and {sites} unfused dropout sites a step; "
+          f"launches less the init's {launches}; the init's {dict(init)}  ({card})")
+    for counter, n in want.items():
+        check(n > 0 and launches.get(counter, 0) == n,
+              f"multi-dSprites: {counter} {n} in the run ({launches.get(counter, 0)})")
+    check(model.img_size == (64, 64) and model.likelihood_head.__class__.__name__
+          == "BernoulliLikelihood", "multi-dSprites: a Bernoulli head over 64x64x3")
+    hist = trainer.logger.history
+    check(all(np.isfinite(np.asarray(v, dtype=np.float64)).all()
+              for _, _, m in hist for v in m.values()),
+          f"multi-dSprites: every logged metric finite ({len(hist)} lines)")
+    lines = {s: m for kind, s, m in hist if kind == "train"}
+    first, last = float(lines[GRAPH_K]["loss"]), float(lines[MO_STEPS]["loss"])
+    check(last < first, f"multi-dSprites: EMA loss {last:.1f} at step {MO_STEPS} below "
+                        f"{first:.1f} at step {GRAPH_K}")
+    tests = [float(m["elbo"]) for kind, _, m in hist if kind == "test"]
+    out = {"launches": launches, "init_launches": dict(init), "wall_s": wall, "step": step,
+           "ema_loss": (first, last), "test_elbo": tests, "run_dir": trainer.run_dir,
+           "log_rates": {s: float(m["images_per_sec"]) for s, m in lines.items()}}
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def mo_eval(card, run_dir, tmp):
+    """20b: ``lvae_tpu_torch.evaluate --load <run>`` with the k=100 IW-LL
+    over the first ``MO_EVAL_B`` test images (K2, K4); multi-MNIST
+    (48x48, padded to 64) through 5 training steps and the test ELBO."""
+    import torch
+
+    from lvae_tpu_torch import evaluate
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.kernels import build
+
+    print("[20b] multi-dSprites through lvae_tpu_torch.evaluate --load <run> --ll; "
+          "multi-MNIST 48x48 through 5 steps and the test ELBO", flush=True)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = evaluate.main(["--load", run_dir, "--device", "cuda", "--ll", "--iw-samples",
+                         str(IW_SAMPLES), "--iw-max-batches", "1"])
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    e, iw = res["elbo"], res["iw"]
+    n_test = MO_N // 10
+    print(f"  evaluate: ELBO bpd {e['bpd']:.5f} over {e['n_images']} images "
+          f"({e['images_per_sec']:.1f} img/s), IW-LL (k={IW_SAMPLES}) bpd {iw['iw_bpd']:.5f} "
+          f"over {iw['n_images']} ({iw['images_per_sec']:.1f} img/s); {wall:.1f} s in all; "
+          f"launches {launches}  ({card})")
+    check(res["step"] == MO_STEPS and e["n_images"] == n_test and iw["n_images"] == MO_EVAL_B
+          and np.isfinite(e["bpd"]) and np.isfinite(iw["iw_bpd"]),
+          f"evaluate scores step {MO_STEPS}: finite ELBO over {n_test} images, IW-LL over "
+          f"{MO_EVAL_B}")
+    check(abs(e["bpd"] + e["elbo"] / (64 * 64 * 3 * np.log(2))) < 1e-9, "bpd over 64x64x3")
+    # the ELBO sweep's forwards, the IW-LL's and the reconstruction grid's
+    n_fwd = -(-n_test // MO_EVAL_B) + IW_SAMPLES + 1
+    check(launches.get("sample_kl") == 3 * n_fwd and launches.get("logsumexp") == 1,
+          f"evaluate: K2 3 a forward ({3 * n_fwd}), K4 once")
+    out = {"bpd": e["bpd"], "iw_bpd": iw["iw_bpd"], "elbo_images_per_sec": e["images_per_sec"],
+           "iw_images_per_sec": iw["images_per_sec"], "wall_s": wall, "launches": launches}
+
+    name = "multi_mnist_binary"
+    write_multiobject(os.path.join(tmp, "data"), name,
+                      multiobject_images(MNIST_MO_N, MNIST_MO_IMAGE, seed=21)[..., 0])
+    n_test = MNIST_MO_N // 10
+    build.reset_launches()
+    t0 = time.perf_counter()
+    args = MO_ARGS[:]
+    args[args.index("multi_dsprites_binary_rgb")] = name
+    args[args.index("--test-batch-size") + 1] = str(n_test)
+    trainer = train_main.main(args + [
+        "--data-dir", os.path.join(tmp, "data"), "--max-steps", str(MNIST_MO_STEPS),
+        "--device", "cuda", "--log-interval", str(MNIST_MO_STEPS), "--test-interval",
+        str(MNIST_MO_STEPS), "--checkpoint-interval", str(MNIST_MO_STEPS), "--output-dir",
+        os.path.join(tmp, "out"), "--run-name", "multi-mnist"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    model = trainer.state.model
+    test = [m for kind, _, m in trainer.logger.history if kind == "test"]
+    elbo, bpd = float(test[-1]["elbo"]), float(test[-1]["bpd"])
+    print(f"  multi-MNIST: {MNIST_MO_STEPS} steps and the test ELBO over {n_test} images in "
+          f"{wall:.1f} s: ELBO {elbo:.2f}, bpd {bpd:.5f}; model {model.img_size}, data "
+          f"{model.data_size}; launches {({k: v for k, v in build.LAUNCHES.items() if v})}  "
+          f"({card})")
+    check(model.img_size == (64, 64) and model.data_size == (48, 48),
+          "multi-MNIST: 48x48 images padded to 64x64")
+    check(np.isfinite(elbo) and abs(bpd + elbo / (48 * 48 * np.log(2))) < 1e-6,
+          "multi-MNIST: a finite test ELBO, bpd over 48x48")
+    out["multi_mnist"] = {"elbo": elbo, "bpd": bpd, "wall_s": wall,
+                          "launches": {k: v for k, v in build.LAUNCHES.items() if v}}
+    build.reset_launches()
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def served_err(what, got, want):
+    """The worst gap of ``got`` (a tensor, or a dict or tuple of them) to
+    ``want``: per image relative to its magnitude (ll, kl, elbo, bpd:
+    1-d), otherwise (images, latents) relative to the largest value;
+    shapes, float32 and the structure checked."""
+    import torch
+
+    if isinstance(want, dict):
+        check(sorted(got) == sorted(want), f"{what}: outputs {sorted(want)}")
+        return max(served_err(f"{what} {k}", got[k], w) for k, w in want.items())
+    if isinstance(want, (tuple, list)):
+        check(len(got) == len(want), f"{what}: {len(want)} outputs")
+        return max(served_err(f"{what}[{i}]", g, w) for i, (g, w) in enumerate(zip(got, want)))
+    w, got = want.float().cpu(), got.cpu()
+    if got.shape != w.shape or got.dtype != torch.float32:
+        check(False, f"{what}: float32 {tuple(w.shape)} ({got.dtype} {tuple(got.shape)})")
+    if w.dim() == 1:
+        return ((got - w).abs() / w.abs().clamp_min(1e-30)).max().item()
+    return rel_max(got, w)
+
+
+def served_ok(what, got, want, tol):
+    e = served_err(what, got, want)
+    check(e <= tol, f"{what}: within {tol:g} ({e:.2e})")
+    return e
+
+
+def mo_serve(card, run_dir, celeba_run, tmp):
+    """20c and 20d: ``python -m lvae_tpu_torch.export_serving --load <run>
+    --check --platforms cuda cpu``; celeba64's bf16 run's reconstruct
+    exported alone; every artifact served by a process that cannot import
+    lvae_tpu_torch and held to the eager port; then the times."""
+    import torch
+
+    from lvae_tpu_torch import export_serving, serving
+    from lvae_tpu_torch.kernels import build
+
+    print("[20c] export_serving --load <run> --check --platforms cuda cpu; the artifacts "
+          "served by a process without the port", flush=True)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    arts = export_serving.main(["--load", run_dir, "--check", "--platforms", "cuda", "cpu"])
+    cli_s = time.perf_counter() - t0
+    c_arts = serving.export_run(celeba_run, what=("reconstruct",), device="cuda")
+    check(not any(build.LAUNCHES.values()), "the exports and --check launched no kernel of "
+                                           "the port")
+    exports = {"multi-dSprites": arts, "celeba64 bf16": c_arts}
+    sizes = {f"{run} {name}": os.path.getsize(p) / 2 ** 20 for run, a in exports.items()
+             for name, p in a.paths.items() if name != "manifest"}
+    export_s = {f"{run} {name}": s["export_s"] for run, a in exports.items()
+                for name, s in a.manifest["surfaces"].items()}
+    check(arts.manifest["surfaces"]["reconstruct"]["batch"] is None
+          and c_arts.manifest["precision"] == "bf16", "a symbolic batch; celeba64's in bf16")
+    print(f"  export_serving --check: {cli_s:.1f} s in all; trace and save s by surface "
+          f"{ {k: round(v, 2) for k, v in export_s.items()} }; artifact MiB "
+          f"{ {k: round(v, 2) for k, v in sizes.items()} }  ({card})")
+
+    # the requests: test images with their global indices
+    models, tests = {}, {}
+    for run, rdir in (("multi-dSprites", run_dir), ("celeba64 bf16", celeba_run)):
+        model, data, _, _ = serving._restore_for_export(rdir, None, torch.device("cuda"))
+        models[run], tests[run] = (model, data.preprocess), torch.from_numpy(data.test[:500])
+    perm = torch.from_numpy(np.random.default_rng(20).permutation(7))
+    seed = torch.tensor(5, dtype=torch.int32)
+
+    def keyed(x):
+        calls = {f"b{b}": (x[:b], seed, torch.arange(b, dtype=torch.int32)) for b in SERVE_B}
+        calls["perm7"] = (x[:7][perm], seed, perm.to(torch.int32))
+        return calls
+
+    x_mo, x_c = tests["multi-dSprites"], tests["celeba64 bf16"]
+    req = {"reconstruct": (arts.paths["reconstruct"], keyed(x_mo)),
+           "encode": (arts.paths["encode"], {k: v for k, v in keyed(x_mo).items()
+                                              if k != "perm7"}),
+           "generate": (arts.paths["generate"], {"seed5": (seed,)}),
+           "celeba64 reconstruct": (c_arts.paths["reconstruct"], keyed(x_c))}
+    serve_dir = os.path.join(tmp, "serve")
+    os.makedirs(serve_dir)
+    torch.save(req, os.path.join(serve_dir, "requests.pt"))
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", SERVE_SCRIPT, serve_dir], check=True,
+                   cwd=serve_dir, env=dict(os.environ, PYTHONPATH=""), timeout=900)
+    sub_s = time.perf_counter() - t0
+    ans = torch.load(os.path.join(serve_dir, "answers.pt"))
+    check(not ans["lvae_tpu_torch"], "the serving process imported nothing of the port")
+    for key in req:
+        ops = ans[key, "ops"]
+        other = [op for op in ops if op[0] != "aten" and op[1] != "getitem"]
+        check(not other and len(ops) > 10,
+              f"{key}: {ans[key, 'nodes']} call nodes of {len(ops)} distinct operators, "
+              f"every one aten or a getitem ({other})")
+    first = {k: (ans[k, "load_s"], ans[k, "first_call_s"]) for k in req}
+    print(f"  the serving process: {sub_s:.1f} s in all; load s, first call s by artifact "
+          f"{ {k: (round(a, 2), round(b, 3)) for k, (a, b) in first.items()} }  ({card})")
+
+    # the eager plain path against itself, cuDNN's default algorithms: why
+    # the comparisons below run deterministic ones
+    model, pre = models["multi-dSprites"]
+    set_kernels(model, False)
+    args = [a.cuda() for a in req["encode"][1]["b64"]]
+    self_gap = served_err("eager encode b64 twice", serving.encode(model, *args, pre),
+                          serving.encode(model, *args, pre))
+    print(f"  the eager plain path against itself (encode, B=64, cuDNN's default "
+          f"algorithms): {self_gap:.2e}")
+
+    # the eager port on the same runs: the plain path and the kernel path,
+    # deterministic algorithms on as in the serving process
+    worst = {"plain": 0.0, "kernels": 0.0}
+    eager_launches, eager_plain = {}, {}
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        for path in ("plain", "kernels"):
+            build.reset_launches()
+            for key, (_, calls) in req.items():
+                run = "celeba64 bf16" if key.startswith("celeba64") else "multi-dSprites"
+                model, pre = models[run]
+                set_kernels(model, path == "kernels")
+                surface = key.split()[-1]
+                for name, args in calls.items():
+                    if surface == "generate":
+                        want = serving.generate(model, arts.manifest["surfaces"]["generate"]
+                                                ["n_images"], args[0].cuda())
+                    else:
+                        fn = serving.reconstruct if surface == "reconstruct" else serving.encode
+                        want = fn(model, args[0].cuda(), args[1].cuda(), args[2].cuda(), pre)
+                    if path == "plain":
+                        eager_plain[key, name] = want
+                    worst[path] = max(worst[path], served_ok(
+                        f"{key} {name}: the artifact vs the eager {path} path", ans[key, name],
+                        want, SERVE_TOL[path]))
+            torch.cuda.synchronize()
+            eager_launches[path] = {k: v for k, v in build.LAUNCHES.items() if v}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    build.reset_launches()
+    check(not eager_launches["plain"], "the eager plain path launched no kernel")
+    check(all(eager_launches["kernels"].get(k, 0) > 0
+              for k in ("sample_kl", "mix_log_prob[bf16]")),
+          f"the eager kernel path launched K2 and K3 ({eager_launches['kernels']})")
+    print(f"  the artifacts vs the eager port: plain path worst {worst['plain']:.2e}, kernel "
+          f"path worst {worst['kernels']:.2e}; the kernel path's launches "
+          f"{eager_launches['kernels']}  ({card})")
+
+    # batch invariance: B = 1 and 7 are B = 64's first rows, the shuffled 7
+    # b7's rows. fp32 within 1e-6; a bf16 model's convolutions round by the
+    # algorithm each B picks, so its artifact is held to the eager plain
+    # path's own gap between the same batches
+    invariance = {}
+    for key in ("reconstruct", "celeba64 reconstruct"):
+        pairs = {"b1": ("b64", slice(0, 1)), "b7": ("b64", slice(0, 7)), "perm7": ("b7", perm)}
+        for name, (full, rows) in pairs.items():
+            gaps = [served_err(f"{key} {name} vs {full}'s rows", src[key, name],
+                               {k: v[rows] for k, v in src[key, full].items()})
+                    for src in (ans, eager_plain)]
+            tol = SERVE_TOL["plain"] if key == "reconstruct" else gaps[1] + SERVE_TOL["plain"]
+            check(gaps[0] <= tol, f"{key} {name} vs {full}'s rows: the artifact's gap "
+                                  f"{gaps[0]:.2e}, the eager plain path's {gaps[1]:.2e}; "
+                                  f"within {tol:.2e}")
+            invariance[f"{key} {name}"] = {"artifact": gaps[0], "eager": gaps[1]}
+
+    print("[20d] reconstruct images/s: the artifact vs the eager kernel path, in turns",
+          flush=True)
+    model, pre = models["multi-dSprites"]
+    set_kernels(model, True)
+    art = serving.load_artifact(arts.paths["reconstruct"], "cuda").module()
+    rates = {}
+    for b in SERVE_RATE_B:
+        x = x_mo[:b].cuda()
+        s, idx = torch.tensor(5, dtype=torch.int32, device="cuda"), torch.arange(
+            b, dtype=torch.int32, device="cuda")
+        calls = {"artifact": lambda: art(x, s, idx),
+                 "eager": lambda: serving.reconstruct(model, x, s, idx, pre)}
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+        reps = 20 if b == 64 else 5
+        turns = {"artifact": [], "eager": []}
+        for name in ("artifact", "eager", "eager", "artifact"):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                calls[name]()
+            torch.cuda.synchronize()
+            turns[name].append(reps * b / (time.perf_counter() - t0))
+        rates[b] = {k: float(np.mean(v)) for k, v in turns.items()}
+        rates[b]["turns"] = turns
+        print(f"  B={b}: artifact {rates[b]['artifact']:.1f} img/s, eager kernel path "
+              f"{rates[b]['eager']:.1f} img/s (turns {turns})  ({card})")
+    del art, models
+    torch.cuda.empty_cache()
+    return {"export_s": export_s, "artifact_mib": sizes, "cli_s": cli_s,
+            "graph_nodes": {k: ans[k, "nodes"] for k in req},
+            "serving_process_s": sub_s, "load_and_first_call_s": first,
+            "worst": worst, "eager_launches": eager_launches, "invariance": invariance,
+            "eager_self_gap": self_gap,
+            "reconstruct_images_per_sec": {str(b): r for b, r in rates.items()}}
+
+
+def phase_multiobject(card, celeba_run):
+    """Phase 20: multi-dSprites (64x64 RGB, binary, the Bernoulli head) at
+    the flagship's widths, trained (20a), scored (20b) and exported and
+    served (20c, 20d); multi-MNIST's 48 -> 64 padding; celeba64's bf16 run
+    (``celeba_run``, phase 18b's) exported."""
+    import torch
+
+    from lvae_tpu_torch.data.registry import load_dataset
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        name = "multi_dsprites_binary_rgb"
+        write_multiobject(os.path.join(tmp, "data"), name,
+                          multiobject_images(MO_N, MO_IMAGE, seed=20))
+        data = load_dataset(name, os.path.join(tmp, "data"))
+        check((data.img_size, data.padded_size, data.color_ch, data.preprocess,
+               data.default_likelihood, data.test.shape[0])
+              == ((64, 64), (64, 64), 3, "none", "bernoulli", MO_N // 10),
+              "multi-dSprites loads as lvae_tpu's row: 64x64x3, binary, Bernoulli, the last "
+              "10% the test split")
+        print(f"  multi-dSprites: {MO_N} images written and loaded in "
+              f"{time.perf_counter() - t0:.1f} s; mean on-pixel share "
+              f"{float(data.train.mean()):.4f}", flush=True)
+        tr = mo_train(card, tmp, data)
+        out = {"train": {k: v for k, v in tr.items() if k != "run_dir"}}
+        print(f"  [20b at {time.perf_counter() - t0:.1f} s of phase 20]", flush=True)
+        out["eval"] = mo_eval(card, tr["run_dir"], tmp)
+        print(f"  [20c at {time.perf_counter() - t0:.1f} s of phase 20]", flush=True)
+        out["serve"] = mo_serve(card, tr["run_dir"], celeba_run, tmp)
+    out["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"  phase 20 took {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     try:
         import torch
@@ -3869,9 +4353,11 @@ def main():
     res["steps_per_call"] = phase_graph(card, train_u8, test_u8, flagship_weights, c_data,
                                         celeba_weights)
     lap("phase 18")
+    # celeba64's bf16 run stays until phase 20 exports it
+    keep = tempfile.TemporaryDirectory()
     b16_err, b16_t, res["bf16"] = phase_bf16(card, per_step, timed, build_log, train_u8,
                                              test_u8, flagship_weights, c_train, c_test,
-                                             c_data, celeba_weights)
+                                             c_data, celeba_weights, keep.name)
 
     def times_and_bound(t):
         return [t[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")], \
@@ -3997,6 +4483,21 @@ def main():
                 f"; phase 3's [{IW_SAMPLES}, {CELEBA_EVAL_B}] is its IW shape"
                 if kern["name"] == "logsumexp" else "")
         kern["cifar10_deep"] = row
+    lap("phase 20")
+    with keep:
+        mo = phase_multiobject(card, res["bf16"]["runs"]["celeba64 all"].pop("run_dir"))
+    res["multiobject"] = mo
+    # each kernel's launches on phase 20's paths: the multi-dSprites
+    # training run (20a, less the init's), evaluate (20b), the eager
+    # serving path the artifacts were held to (20c); none inside the
+    # artifacts, which hold aten operators only
+    for kern in kernels:
+        counter = kern["name"].replace("dropout_bits8", "dropout")
+        kern.update(launches_multiobject_train=mo["train"]["launches"].get(counter, 0),
+                    launches_multiobject_evaluate=mo["eval"]["launches"].get(counter, 0),
+                    launches_multiobject_eager_serving=mo["serve"]["eager_launches"]
+                    ["kernels"].get(counter, 0),
+                    launches_in_artifacts=0)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, **res}))

@@ -1,11 +1,11 @@
-"""Dataset metadata and loading (port of ``lvae_tpu/data/registry.py``,
-without the multi-object npz sets). :func:`load_test_set` reads the test
-split alone (evaluation never parses a train split); :func:`load_dataset`
-both."""
+"""Dataset metadata and loading (port of ``lvae_tpu/data/registry.py``).
+:func:`load_test_set` reads the test split alone (evaluation never parses
+a train split); :func:`load_dataset` both."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,6 +38,21 @@ _FILES = {
     "celeba": (lambda root: sources.load_celeba_split(root, "test"),
                lambda root: sources.load_celeba_split(root, "train")),
 }
+
+# the multi-object npz sets (lvae_tpu/data/registry.py:159-173): their
+# shapes and channels come from the file, padded to the next power of two
+_MULTIOBJECT = {
+    "multi_dsprites_binary_rgb": ("dsprites", "multi_dsprites_color_012.npz"),
+    "multi_mnist_binary": ("binary_mnist", "multi_binary_mnist_012.npz"),
+}
+
+
+def _padded(hw: int) -> int:
+    """The smallest power of two >= hw (28 -> 32, 48 -> 64)."""
+    p = 1
+    while p < hw:
+        p *= 2
+    return p
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +90,8 @@ def load_test_set(name: str, data_dir: str = "./data") -> TestSet:
 
 def load_dataset(name: str, data_dir: str = "./data") -> Dataset:
     """Both splits: static_mnist's train is train + valid, mnist's the
-    idx train file, cifar10's the five pickle batches, ``synthetic[:N]``,
+    idx train file, cifar10's the five pickle batches, the multi-object
+    sets' the first 90% of their npz, ``synthetic[:N]``,
     ``synthetic_rgb[:N]`` and ``synthetic_celeba[:N]`` lvae_tpu's
     fixtures."""
     test, train, meta = _load(name, data_dir, with_train=True)
@@ -84,15 +100,20 @@ def load_dataset(name: str, data_dir: str = "./data") -> Dataset:
 
 def _load(name: str, data_dir: str, with_train: bool):
     base, _, size = name.partition(":")
+    if size and (base in _FILES or base in _MULTIOBJECT):
+        raise ValueError(f"{name!r}: only the synthetic fixtures take a ':N' size")
+    if base in _MULTIOBJECT:
+        train, test = sources.load_multiobject_npz(
+            os.path.join(data_dir, "multiobject", *_MULTIOBJECT[base]))
+        hw = train.shape[1]
+        meta = ((hw, hw), (_padded(hw),) * 2, train.shape[-1], PREPROCESS_NONE,
+                "bernoulli")
+        return test, train if with_train else None, meta
     if base not in _META:
-        raise NotImplementedError(
-            f"--dataset {name} is not ported: the port runs {sorted(_META)} "
-            f"(lvae_tpu's multi-object npz sets are not ported)"
-        )
+        raise ValueError(f"unknown dataset {name!r}; choose from "
+                         f"{sorted(_META) + sorted(_MULTIOBJECT)}")
     meta = _META[base]
     if base in _FILES:
-        if size:
-            raise ValueError(f"{name!r}: only the synthetic fixtures take a ':N' size")
         test_fn, train_fn = _FILES[base]
         return test_fn(data_dir), train_fn(data_dir) if with_train else None, meta
     # lvae_tpu's fixture rule: 'name:N' = N train images, test N//4

@@ -1,6 +1,6 @@
-"""Dataset parsers (port of ``lvae_tpu/data/sources.py``, without the
-multi-object npz sets), numpy only (scipy for SVHN's ``.mat``, PIL for
-the one-time CelebA JPEG conversion). All return uint8 NHWC; binary
+"""Dataset parsers (port of ``lvae_tpu/data/sources.py``), numpy only
+(scipy for SVHN's ``.mat``, PIL for the one-time CelebA JPEG
+conversion). All return uint8 NHWC; binary
 datasets hold {0, 1}. Each split has its own loader, so evaluation never
 parses a train split."""
 
@@ -178,6 +178,24 @@ def _convert_celeba(d: str, cache: str) -> None:
         (test if splits.get(name, 0) == 2 else train).append(arr)
     train = np.stack(train)
     np.savez_compressed(cache, train=train, test=np.stack(test) if test else train[:1])
+
+
+def load_multiobject_npz(path: str, test_fraction: float = 0.1):
+    """A ``multiobject`` package npz (``lvae_tpu/data/sources.py:193-210``):
+    the images under ``x`` (or ``images``), [N, H, W] or [N, H, W, C],
+    binary as {0, 1} or {0, 255} and returned as {0, 1}; the per-object
+    metadata beside them is not read. The last ``test_fraction`` of the
+    images is the test split (the file has none). Returns (train, test)."""
+    with np.load(_first_existing(path), allow_pickle=False) as z:
+        x = np.asarray(z["x"] if "x" in z.files else z["images"])
+    if x.ndim == 3:
+        x = x[..., None]
+    if x.dtype != np.uint8:
+        x = x.astype(np.uint8)
+    if x.max() > 1:
+        x = (x > 127).astype(np.uint8)
+    n_test = max(1, int(len(x) * test_fraction))
+    return x[:-n_test], x[-n_test:]
 
 
 def make_synthetic(n_train: int = 512, n_test: int = 128, img: int = 28,

@@ -92,9 +92,13 @@ class _ComputeDtype:
     def _conv(self, conv: Callable, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
         """``conv(x, weight, bias, *args)`` in the compute dtype."""
         cd = self.compute_dtype or self.weight.dtype
+        # no cast where there is nothing to cast: a traced graph
+        # (torch.export) keeps every cast, even one to the same dtype
+        if x.dtype != cd:
+            x = x.to(cd)
         if cd == self.weight.dtype:
-            return conv(x.to(cd), self.weight, self.bias, *args, **kwargs)
-        y = conv(x.to(cd), self.weight.to(cd), None, *args, **kwargs)
+            return conv(x, self.weight, self.bias, *args, **kwargs)
+        y = conv(x, self.weight.to(cd), None, *args, **kwargs)
         return y + self.bias.to(cd).view(1, -1, 1, 1)
 
 
@@ -464,7 +468,7 @@ class ResidualBlock(nn.Module):
             i += 1
         if self.GateLayer_0 is not None:
             h = self.GateLayer_0(h)
-        return x + h.to(x.dtype)
+        return x + (h if h.dtype == x.dtype else h.to(x.dtype))
 
 
 class ResBlockWithResampling(nn.Module):

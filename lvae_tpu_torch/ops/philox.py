@@ -17,12 +17,13 @@ port keeps that property with a counter-based generator:
 
 This module is the plain PyTorch version; ``csrc/stochastic_kl.cu``
 implements the same generator, so the kernel and this code give the same
-eps up to libm rounding, on any device. Everything is int64 arithmetic:
-each 32x32-bit product is split at 16 bits so nothing overflows.
+eps up to libm rounding, on any device. Everything is int64 arithmetic;
+a 32x32-bit product wraps to the unsigned product's 64 bits.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Union
 
 import torch
@@ -91,12 +92,11 @@ def mix_seed(*words: Ints) -> Ints:
 
 def _mulhilo(m: int, b: torch.Tensor):
     """(hi, lo) 32-bit words of the 64-bit product ``m * b`` of two uint32
-    values held in int64: ``m`` is split at 16 bits so every partial
-    product stays below 2^48."""
-    p_lo = (m & 0xFFFF) * b
-    p_hi = (m >> 16) * b
-    t = ((p_hi & 0xFFFF) << 16) + p_lo
-    return (p_hi >> 16) + (t >> 32), t & _M32
+    values held in int64: the int64 product wraps as a 64-bit one does
+    (as :func:`mix_seed`'s), so its bits are the unsigned product's, and
+    the arithmetic shift's sign copies are masked off."""
+    p = m * b
+    return (p >> 32) & _M32, p & _M32
 
 
 def philox4x32(c0: Ints, c1: Ints, c2: Ints, c3: Ints, k0: Ints, k1: Ints):
@@ -135,11 +135,10 @@ def keyed_words(shape: Sequence[int], seed: Ints, index: torch.Tensor,
                 sample: Ints, stream: int):
     """Philox output words for a ``[B, ...]`` tensor whose row ``i`` is
     keyed by ``(seed, index[i], sample[i], stream)``. Returns four int64
-    ``[B, prod(shape[1:])]`` tensors."""
-    b = int(shape[0])
-    n = 1
-    for d in shape[1:]:
-        n *= int(d)
+    ``[B, prod(shape[1:])]`` tensors. B stays as it comes, so a
+    ``torch.export`` trace keeps a symbolic batch."""
+    b = shape[0]
+    n = math.prod(shape[1:])
     index = torch.as_tensor(index, dtype=torch.int64)
     if index.shape != (b,):
         raise ValueError(f"index must be int64 [{b}], got {tuple(index.shape)}")

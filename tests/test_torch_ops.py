@@ -124,6 +124,27 @@ class TestPhilox:
                       keyed_normal((8, 64), 1, index, 0, 1)):     # layer
             assert (base - other).abs().max() > 0.5
 
+    def test_exports_with_a_symbolic_batch(self):
+        """keyed_normal under torch.export with B symbolic (the serving
+        artifacts' trace; the seed a 0-d tensor input): one program,
+        replayed at two batch sizes, equal to the eager draws bit for bit;
+        a wrong index shape still raises in eager mode."""
+
+        class Draw(torch.nn.Module):
+            def forward(self, like, seed, index):
+                return keyed_normal(like.shape, seed, index, 3, 1)
+
+        b = torch.export.Dim("b", min=1)
+        like, index = torch.zeros(4, 2, 3, 3), torch.arange(4)
+        ep = torch.export.export(Draw(), (like, torch.tensor(7), index),
+                                 dynamic_shapes=({0: b}, None, {0: b}))
+        for n in (3, 9):
+            index = torch.arange(20, 20 + n)
+            got = ep.module()(torch.zeros(n, 2, 3, 3), torch.tensor(7), index)
+            assert torch.equal(got, keyed_normal((n, 2, 3, 3), 7, index, 3, 1))
+        with pytest.raises(ValueError, match="index must be"):
+            keyed_normal((4, 2, 3, 3), 7, torch.arange(5), 3, 1)
+
     def test_normal_moments(self):
         eps = keyed_normal((256, 1024), 3, torch.arange(256), 0, 0).double()
         assert abs(eps.mean().item()) < 0.01
@@ -313,8 +334,10 @@ class TestRGBData:
             load_test_set("celeba", str(tmp_path))
         with pytest.raises(FileNotFoundError):
             load_test_set("cifar10", str(tmp_path))
-        with pytest.raises(NotImplementedError, match="multi_mnist_binary"):
+        with pytest.raises(FileNotFoundError, match="multi_binary_mnist_012.npz"):
             load_test_set("multi_mnist_binary", str(tmp_path))
+        with pytest.raises(ValueError, match="unknown dataset"):
+            load_test_set("multi_mnist", str(tmp_path))
         with pytest.raises(ValueError, match="size"):
             load_test_set("synthetic_celeba:0")
 
