@@ -91,6 +91,19 @@ aten-only, its answers held to the eager plain path (1e-6) and kernel
 path, and batch-invariant; export s, artifact MiB, load and first-call s,
 and ``reconstruct`` img/s of the artifact against the eager kernel path.
 
+Then ``--streaming`` (phase 21), the train split kept on the host and
+each stack copied to the card through two pinned buffers: the feed alone
+(gather, pinned and pageable copies, MB/s) at celeba64's and the
+flagship's ``[10, B, H, W, C]`` stacks; 40 celeba64 steps through
+``lvae_tpu_torch.main --streaming --fused all --precision bf16
+--steps-per-call 10`` with init, every kernel of the path counted, resumed
+from the middle checkpoint bit-equal; graphed streamed calls bit-equal to
+the device-resident ``MultiStep`` fed the loader's rows and to eager
+streamed steps, ms/step and idle share in turns against the resident
+path, and the card's memory without the split; 20 flagship eager fp32
+steps through ``main --streaming`` bit-equal to the resident path, timed
+the same way.
+
 Each entry point's run checks that it launched every kernel of its path;
 the kernel path, the plain path and a CPU run are held to agree, and each
 kernel is timed against its plain version.
@@ -4228,6 +4241,402 @@ def phase_multiobject(card, celeba_run):
     return out
 
 
+# --- phase 21: --streaming, the host-fed training path ----------------------
+STREAM_STEPS = 40                           # 21b: two checkpoints, resumed from the first
+STREAM_CALLS = 4                            # 21c: graphed calls of GRAPH_K (both buffers reused)
+STREAM_FLAGSHIP_STEPS = 20                  # 21d
+STREAM_FEED_REPS = 20                       # 21a: stacks a timing
+STREAM_CELEBA_ARGS = CELEBA_ARGS + ["--precision", "bf16", "--fused", "all",
+                                    "--steps-per-call", str(GRAPH_K)]
+STREAM_FLAGSHIP_ARGS = FLAGSHIP_ARGS + ["--fused", "auto"]
+
+
+def stream_feed(card, stacks):
+    """21a: the host feed alone, per ``[k, B, H, W, C]`` stack ({name:
+    (split, B)}): the gather into pinned memory, its copy to the card
+    (pinned, non-blocking, CUDA events) against a pageable copy, and the
+    whole ``HostFeed.put``; and six stacks fed back to back, each held to
+    the split's rows after one synchronise (a staging buffer written over
+    before its copy landed would show here)."""
+    import torch
+
+    from lvae_tpu_torch.data.streaming import ArrayLoader, HostFeed
+
+    out = {}
+    for name, (split, b) in stacks.items():
+        loader = ArrayLoader(split, b, seed=0, steps_per_call=GRAPH_K)
+        rows = loader.indices(0)
+        index = [next(rows) for _ in range(STREAM_FEED_REPS)]
+        feed = HostFeed(loader, torch.device("cuda"))
+        shape = (GRAPH_K, b) + split.shape[1:]
+        mb = int(np.prod(shape)) / 1e6
+        pinned = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+        pageable = torch.empty(shape, dtype=torch.uint8)
+        t0 = time.perf_counter()
+        for idx in index:
+            loader.gather(idx, out=pinned.numpy())
+        gather_ms = (time.perf_counter() - t0) * 1e3 / len(index)
+        h2d = {"pinned": cuda_ms(lambda: pinned.to("cuda", non_blocking=True),
+                                 reps=STREAM_FEED_REPS),
+               "pageable": cuda_ms(lambda: pageable.to("cuda"), reps=STREAM_FEED_REPS)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for idx in index:
+            feed.put(idx)
+        torch.cuda.synchronize()
+        put_ms = (time.perf_counter() - t0) * 1e3 / len(index)
+        kept = [feed.put(idx) for idx in index[:6]]
+        torch.cuda.synchronize()
+        check(all(torch.equal(i.cpu(), torch.from_numpy(idx))
+                  and np.array_equal(x.cpu().numpy(), split[idx]) for (i, x), idx in
+                  zip(kept, index)),
+              f"21a {name}: six stacks fed back to back through the two pinned buffers each "
+              f"hold their rows")
+        row = {"shape": list(shape), "mb_per_stack": mb, "gather_ms": gather_ms,
+               "h2d_pinned_ms": h2d["pinned"], "h2d_pageable_ms": h2d["pageable"],
+               "feed_put_ms": put_ms, "gather_mb_s": mb / gather_ms * 1e3,
+               "h2d_pinned_mb_s": mb / h2d["pinned"] * 1e3,
+               "h2d_pageable_mb_s": mb / h2d["pageable"] * 1e3,
+               "feed_mb_s": mb / put_ms * 1e3}
+        out[name] = row
+        print(f"  21a {name} stack {list(shape)} ({mb:.2f} MB): gather {gather_ms:.3f} ms "
+              f"({row['gather_mb_s']:.0f} MB/s); copy pinned {h2d['pinned']:.3f} ms "
+              f"({row['h2d_pinned_mb_s']:.0f} MB/s), pageable {h2d['pageable']:.3f} ms "
+              f"({row['h2d_pageable_mb_s']:.0f} MB/s); HostFeed.put {put_ms:.3f} ms "
+              f"({row['feed_mb_s']:.0f} MB/s)  ({card})", flush=True)
+    return out
+
+
+def stream_celeba_counts(model, steps, sweeps):
+    """{launch counter: launches} of ``steps`` celeba64 bf16 ``--fused
+    all`` steps and ``sweeps`` test hooks (each a sweep and the
+    reconstruction grid's forward), the init's left out."""
+    fwd = steps + sweeps * (CELEBA_N_TEST // CELEBA_EVAL_B + 1)
+    segs = segments_per_step(model) * steps
+    return {"sample_kl_per_sample": 4 * steps, "sample_kl_per_sample_bwd": 4 * steps,
+            "mix_log_prob[bf16]": fwd, "mix_log_prob_bwd[bf16]": steps,
+            "segment[bf16]": segs, "segment_bwd[bf16]": segs,
+            "dropout[bf16]": 2 * unfused_dropouts(model) * steps}
+
+
+def stream_cli(card, c_train, c_test):
+    """21b: celeba64 (BASELINE config 5) at full width through
+    ``lvae_tpu_torch.main --streaming --fused all --precision bf16
+    --steps-per-call 10``: STREAM_STEPS steps with init, test hooks and
+    checkpoints at the half and the end, every kernel of the path held to
+    its launch count; then an ``--auto-resume`` from the middle checkpoint,
+    bit-equal to the whole run (deterministic algorithms on in both)."""
+    import shutil
+
+    import torch
+
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.kernels import build
+
+    n, half = STREAM_STEPS, STREAM_STEPS // 2
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data_dir = os.path.join(tmp, "data")
+            write_celeba(data_dir, c_train, c_test)
+
+            def run(out_dir, *extra):
+                return train_main.main(STREAM_CELEBA_ARGS + [
+                    "--streaming", "--data-dir", data_dir, "--data-dep-init",
+                    "--max-steps", str(n), "--device", "cuda", "--log-interval", str(half),
+                    "--test-interval", str(half), "--checkpoint-interval", str(half),
+                    "--output-dir", out_dir, "--run-name", "streamed", *extra])
+
+            with init_counted() as init:
+                build.reset_launches()
+                t0 = time.perf_counter()
+                whole = run(os.path.join(tmp, "a"))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {c: v - init.get(c, 0) for c, v in build.LAUNCHES.items()}
+            print(f"  21b: {n} streamed steps with init, 2 test hooks, 2 checkpoints in "
+                  f"{wall:.1f} s; launches less the init's {launches}  ({card})", flush=True)
+            check(whole.exp.train_data is None,
+                  "21b: no device copy of the train split under --streaming")
+            model = whole.state.model
+            for counter, want in stream_celeba_counts(model, n, 2).items():
+                check(want > 0 and launches.get(counter, 0) == want,
+                      f"21b: {counter} {want} launches in the run ({launches.get(counter, 0)})")
+            fp32_twins = [c.removesuffix("[bf16]") for c in build.LAUNCHES if c.endswith("[bf16]")]
+            check(all(launches[c] == 0 for c in fp32_twins),
+                  "21b: no fp32 instantiation of a bf16 kernel ran")
+            hist = whole.logger.history
+            check(all(np.isfinite(np.asarray(v, dtype=np.float64)).all()
+                      for _, _, m in hist for v in m.values()),
+                  f"21b: every logged metric finite ({len(hist)} lines)")
+            lines = {s: m for kind, s, m in hist if kind == "train"}
+            first, last = float(lines[half]["loss"]), float(lines[n]["loss"])
+            check(last < first, f"21b: EMA loss {last:.2f} at step {n} below {first:.2f} at "
+                                f"step {half}")
+            second = os.path.join(tmp, "b", "streamed")
+            shutil.copytree(whole.run_dir, second)
+            os.unlink(os.path.join(second, "checkpoints", f"ckpt_{n:08d}.pt"))
+            t0 = time.perf_counter()
+            resumed = run(os.path.join(tmp, "b"), "--auto-resume")
+            print(f"  21b: resumed at step {half} and streamed to {n} in "
+                  f"{time.perf_counter() - t0:.1f} s  ({card})")
+            bad = state_equal(resumed.state, whole.state)
+            check(not bad, f"21b: the run resumed from its step-{half} checkpoint is bit-equal "
+                           f"to the whole run at step {n} (differ: {bad[:5]})")
+            out.update(wall_s=wall, launches=launches, ema_loss=(first, last),
+                       test_elbo=[float(m["elbo"]) for kind, _, m in hist if kind == "test"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    build.reset_launches()
+    return out
+
+
+def streamed_vs_resident(card, name, args, data, weights, calls):
+    """``calls`` graphed calls of ``GRAPH_K`` steps from ``weights``, each
+    fed a stack through the host feed, against the device-resident
+    ``MultiStep`` fed the loader's own rows and against ``calls *
+    GRAPH_K`` eager streamed steps; bit for bit (deterministic algorithms
+    on). Returns the streamed run's launches."""
+    import dataclasses
+
+    import torch
+
+    from lvae_tpu_torch.config import config_from_args
+    from lvae_tpu_torch.data.streaming import ArrayLoader, HostFeed
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.train.state import MultiStep, train_step
+    from lvae_tpu_torch.train.trainer import Experiment
+
+    cfg, _ = config_from_args(args)
+    k = GRAPH_K
+
+    def setup(streaming):
+        exp = Experiment(dataclasses.replace(cfg, streaming=streaming), torch.device("cuda"),
+                         data)
+        exp.model.load_state_dict(weights)
+        return exp, exp.init_state(data_dep_init=False)
+
+    def feed(exp, spc):
+        loader = ArrayLoader(data.train, cfg.batch_size, seed=cfg.seed, steps_per_call=spc)
+        return HostFeed(loader, exp.device).stream(0)
+
+    def run(state, exp, stacks):
+        multi = MultiStep(state, None if exp.train_data is None else exp.train_data.gather,
+                          exp.loss_cfg, k)
+        for index, batch in stacks:
+            multi(index, batch)
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        exp, streamed = setup(True)
+        stacks = [next(s) for s in [feed(exp, k)] for _ in range(calls)]
+        build.reset_launches()
+        run(streamed, exp, stacks)
+        torch.cuda.synchronize()
+        launches = {c: v for c, v in build.LAUNCHES.items() if v}
+        build.reset_launches()
+        rows = [index for index, _ in stacks]
+        exp_r, resident = setup(False)
+        run(resident, exp_r, [(index, None) for index in rows])
+        bad = state_equal(streamed, resident)
+        check(not bad, f"{name}: {calls} graphed calls of {k} streamed steps bit-equal to the "
+                       f"device-resident MultiStep fed the loader's rows (differ: {bad[:5]})")
+        del exp_r, resident
+        exp_e, eager = setup(True)
+        ones = feed(exp_e, 1)
+        for _ in range(calls * k):
+            index, batch = next(ones)
+            train_step(eager, batch, index, exp_e.loss_cfg)
+        bad = state_equal(streamed, eager)
+        check(not bad, f"{name}: {calls} graphed calls of {k} streamed steps bit-equal to "
+                       f"{calls * k} eager streamed steps (differ: {bad[:5]})")
+        del exp, streamed, stacks, exp_e, eager
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    build.reset_launches()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stream_timing(card, name, args, data, weights, k, calls):
+    """Resident against streamed, in turns (resident, streaming,
+    streaming, resident), each a fresh ``Experiment`` from ``weights``
+    after the device memory it takes is read: ms/step on the host clock
+    over ``calls`` calls of ``GRAPH_K`` steps (``MultiStep`` calls of
+    ``k``, or eager at ``k = 1``) between two synchronises, after one call
+    (a graph's warm-up and capture), so each stack's gather overlaps the
+    call before it as in a run; and in each path's first turn, as phase 17
+    takes it, device busy per step (the union of kernel intervals) and
+    idle share from a profile of one call after a synchronise, where
+    nothing hides the gather."""
+    import dataclasses
+
+    import torch
+
+    from lvae_tpu_torch.config import config_from_args
+    from lvae_tpu_torch.data.streaming import ArrayLoader, HostFeed
+    from lvae_tpu_torch.train.state import MultiStep, train_step
+    from lvae_tpu_torch.train.trainer import Experiment, index_stream
+
+    cfg, _ = config_from_args(args)
+    out = {"resident": {"runs": []}, "streaming": {"runs": []}}
+    for label in ("resident", "streaming", "streaming", "resident"):
+        streaming, row = label == "streaming", out[label]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        exp = Experiment(dataclasses.replace(cfg, streaming=streaming), torch.device("cuda"),
+                         data)
+        torch.cuda.synchronize()
+        row["experiment_bytes"] = torch.cuda.memory_allocated() - before
+        exp.model.load_state_dict(weights)
+        state = exp.init_state(data_dep_init=False)
+        if streaming:
+            stream = HostFeed(ArrayLoader(data.train, cfg.batch_size, seed=cfg.seed,
+                                          steps_per_call=k), exp.device).stream(0)
+        else:
+            stream = ((i, exp.train_data.gather(i) if k == 1 else None) for i in
+                      index_stream(exp.train_data, cfg.batch_size, cfg.seed, 0, k))
+        if k == 1:
+            def call():
+                for _ in range(GRAPH_K):
+                    index, batch = next(stream)
+                    train_step(state, batch, index, exp.loss_cfg)
+        else:
+            multi = MultiStep(state, None if streaming else exp.train_data.gather,
+                              exp.loss_cfg, k)
+
+            def call():
+                for _ in range(GRAPH_K // k):
+                    multi(*next(stream))
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        row["runs"].append((time.perf_counter() - t0) * 1e3 / (calls * GRAPH_K))
+        if "idle_share_one_call" not in row:
+            busy, _, wall, _ = device_union(call)
+            row.update(device_ms_per_step=busy / GRAPH_K, idle_share_one_call=1.0 - busy / wall)
+        print(f"  {name} {label}: {row['experiment_bytes'] / 1e6:.1f} MB on the card once the "
+              f"Experiment is built; {calls} calls of {GRAPH_K} steps {row['runs'][-1]:.2f} ms "
+              f"per step  ({card})", flush=True)
+        del exp, state, stream
+        torch.cuda.empty_cache()
+    for label, row in out.items():
+        row["ms_per_step"] = float(np.mean(row["runs"]))
+        row["idle_share"] = 1.0 - row["device_ms_per_step"] / row["ms_per_step"]
+        print(f"  {name} {label}, in turns: {row['ms_per_step']:.2f} ms per step (runs "
+              f"{[round(r, 2) for r in row['runs']]}); device busy "
+              f"{row['device_ms_per_step']:.2f} ms per step, idle share "
+              f"{row['idle_share']:.3f} against it ({row['idle_share_one_call']:.3f} in the "
+              f"profile of one call)  ({card})", flush=True)
+    return out
+
+
+def stream_flagship(card, data_dir, data):
+    """21d: STREAM_FLAGSHIP_STEPS eager fp32 flagship steps with init
+    through ``lvae_tpu_torch.main --streaming`` (its kernels counted)
+    against the device-resident path fed the loader's rows, bit for bit
+    (deterministic algorithms on). Returns the run's wall s and
+    launches, the init's left out."""
+    import torch
+
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.config import config_from_args
+    from lvae_tpu_torch.data.streaming import ArrayLoader
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.train.state import train_step
+    from lvae_tpu_torch.train.trainer import Experiment
+
+    n = STREAM_FLAGSHIP_STEPS
+    args = STREAM_FLAGSHIP_ARGS + ["--data-dir", data_dir, "--data-dep-init"]
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        with init_counted() as init:
+            build.reset_launches()
+            t0 = time.perf_counter()
+            tr = train_main.main(args + ["--streaming", "--max-steps", str(n), "--device",
+                                         "cuda", "--dry-run", "--log-interval", "10",
+                                         "--test-interval", str(10 ** 6)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {c: v - init.get(c, 0) for c, v in build.LAUNCHES.items()}
+        print(f"  21d flagship: {n} streamed eager steps with init through main in "
+              f"{wall:.1f} s; launches less the init's {launches}  ({card})", flush=True)
+        want = {"sample_kl_per_sample": 3 * n, "sample_kl_per_sample_bwd": 3 * n,
+                "dropout": 2 * unfused_dropouts(tr.state.model) * n}
+        for counter, v in want.items():
+            check(v > 0 and launches.get(counter, 0) == v,
+                  f"21d: {counter} {v} launches ({launches.get(counter, 0)})")
+        check(tr.exp.train_data is None, "21d: no device copy of the train split")
+        cfg, _ = config_from_args(args)
+        exp = Experiment(cfg, torch.device("cuda"), data)
+        state = exp.init_state()
+        rows = ArrayLoader(data.train, cfg.batch_size, seed=cfg.seed).indices(0)
+        for _ in range(n):
+            index = torch.from_numpy(next(rows)[0]).cuda()
+            train_step(state, exp.train_data.gather(index), index, exp.loss_cfg)
+        bad = state_equal(tr.state, state)
+        check(not bad, f"21d: {n} steps through main --streaming bit-equal to the resident "
+                       f"path fed the loader's rows, both with init (differ: {bad[:5]})")
+        del exp, state, tr
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    build.reset_launches()
+    return wall, launches
+
+
+def phase_streaming(card, train_u8, test_u8, c_train, c_test, c_data, celeba_weights,
+                    flagship_weights):
+    """Phase 21: ``--streaming``, the train split on the host and each
+    stack copied to the card through pinned buffers."""
+    import torch
+
+    from lvae_tpu_torch.data.registry import load_dataset
+
+    t0 = time.perf_counter()
+    print("[21] --streaming: the host-fed training path", flush=True)
+    out = {"feed": stream_feed(card, {"celeba64": (c_train, CELEBA_B),
+                                      "flagship": (train_u8, TRAIN_B)})}
+    out["cli"] = stream_cli(card, c_train, c_test)
+    print(f"  [21c at {time.perf_counter() - t0:.1f} s of phase 21]", flush=True)
+    c_launches = streamed_vs_resident(card, "21c celeba64 bf16 all", STREAM_CELEBA_ARGS,
+                                      c_data, celeba_weights, STREAM_CALLS)
+    print(f"  [21c timing at {time.perf_counter() - t0:.1f} s of phase 21]", flush=True)
+    out["celeba64"] = stream_timing(card, "21c celeba64 bf16 all graphed", STREAM_CELEBA_ARGS,
+                                    c_data, celeba_weights, GRAPH_K, STREAM_CALLS)
+    split = c_train.nbytes
+    saved = out["celeba64"]["resident"]["experiment_bytes"] - \
+        out["celeba64"]["streaming"]["experiment_bytes"]
+    check(abs(saved - split) < 2 ** 20,
+          f"21c: the streaming Experiment holds {saved / 1e6:.1f} MB less on the card than the "
+          f"resident one: the {split / 1e6:.1f} MB train split")
+    out["celeba64"]["launches_compared_run"] = c_launches
+    print(f"  [21d at {time.perf_counter() - t0:.1f} s of phase 21]", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        write_mnist(data_dir, train_u8, test_u8)
+        fdata = load_dataset("static_mnist", data_dir)
+        wall, f_launches = stream_flagship(card, data_dir, fdata)
+        print(f"  [21d timing at {time.perf_counter() - t0:.1f} s of phase 21]", flush=True)
+        out["flagship"] = stream_timing(card, "21d flagship auto eager", STREAM_FLAGSHIP_ARGS,
+                                        fdata, flagship_weights, 1, 1)
+        out["flagship"].update(wall_s=wall, launches=f_launches)
+    out["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"  phase 21 took {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     try:
         import torch
@@ -4498,6 +4907,16 @@ def main():
                     launches_multiobject_eager_serving=mo["serve"]["eager_launches"]
                     ["kernels"].get(counter, 0),
                     launches_in_artifacts=0)
+    lap("phase 21")
+    st = phase_streaming(card, train_u8, test_u8, c_train, c_test, c_data, celeba_weights,
+                         flagship_weights)
+    res["streaming"] = st
+    # each kernel's launches on phase 21's main paths: celeba64's streamed
+    # run through main (21b) and the flagship's (21d), the init's left out
+    for kern in kernels:
+        counter = kern["name"].replace("dropout_bits8", "dropout")
+        kern.update(launches_streaming_train=st["cli"]["launches"].get(counter, 0),
+                    launches_streaming_flagship=st["flagship"]["launches"].get(counter, 0))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, **res}))

@@ -27,6 +27,8 @@ LIKELIHOODS = ("bernoulli", "gaussian", "discretized_logistic", "discretized_log
 # --precision -> the convolutions' compute dtype (lvae_tpu/train/trainer.py:115):
 # bf16 convs from fp32 parameters; everything else stays fp32
 PRECISIONS = {"fp32": None, "bf16": torch.bfloat16}
+# --stream-impl: lvae_tpu/config.py:80-88
+STREAM_IMPLS = ("array", "grain")
 
 
 @dataclasses.dataclass
@@ -156,10 +158,13 @@ class TrainConfig(EvalConfig):
     profile: Optional[str] = None       # "A-B": a trace of steps A to B
     debug_nans: bool = False
     defer_metrics: bool = False
+    # --streaming: the train split stays on the host (data/streaming.py),
+    # through the --stream-impl loader; resume adopts the stored impl
+    streaming: bool = False
+    stream_impl: str = "array"
     # lvae_tpu options this port does not run: stored so a run directory
     # says what it ran, and rejected below at anything but the value the
     # port runs
-    streaming: bool = False
     num_data_shards: int = 1
     rng_impl: str = "threefry"
 
@@ -199,16 +204,14 @@ class TrainConfig(EvalConfig):
         _positive("steps-per-call", self.steps_per_call)
         if self.profile is not None:
             self.profile_range()
-        # what the port's trainer does not run, each rejected by its flag
-        for flag, bad, why in (
-            ("--streaming", self.streaming, "the host streaming pipeline"),
-            ("--num-data-shards", self.num_data_shards > 1, "multi-GPU training"),
-        ):
-            if bad:
-                raise ValueError(
-                    f"{flag} {getattr(self, flag[2:].replace('-', '_'))}: {why} "
-                    f"is not ported yet; it comes in {_LATER}"
-                )
+        if self.stream_impl not in STREAM_IMPLS:
+            raise ValueError(f"--stream-impl {self.stream_impl!r}: choose from {STREAM_IMPLS}")
+        # what the port's trainer does not run, rejected by its flag
+        if self.num_data_shards > 1:
+            raise ValueError(
+                f"--num-data-shards {self.num_data_shards}: multi-GPU training "
+                f"is not ported yet; it comes in {_LATER}"
+            )
         if self.rng_impl != "threefry":
             raise ValueError(
                 f"--rng-impl {self.rng_impl}: the port's noise is a keyed, "
@@ -254,11 +257,15 @@ class TrainConfig(EvalConfig):
 
 
 def train_config_from_dict(d: dict) -> TrainConfig:
-    """A :class:`TrainConfig` from a saved ``config.json`` (resume)."""
+    """A :class:`TrainConfig` from a saved ``config.json`` (resume). A
+    streaming run's config without ``stream_impl`` predates the array
+    loader and streamed through grain (``lvae_tpu/config.py:451-456``)."""
     names = {f.name for f in dataclasses.fields(TrainConfig)}
-    return TrainConfig(**{k: tuple(v) if isinstance(v, list) else
-                          (None if v == "None" else v)
-                          for k, v in d.items() if k in names})
+    kwargs = {k: tuple(v) if isinstance(v, list) else (None if v == "None" else v)
+              for k, v in d.items() if k in names}
+    if kwargs.get("streaming") and "stream_impl" not in d:
+        kwargs["stream_impl"] = "grain"
+    return TrainConfig(**kwargs)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -328,7 +335,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="recompute each resampling residual block's activations in the "
              "backward (memory for FLOPs)")
     add("--steps-per-call", type=int, default=d.steps_per_call)
-    add("--streaming", action="store_true")
+    add("--streaming", action="store_true",
+        help="keep the train split on the host and copy each step's batch to the device")
+    add("--stream-impl", default=d.stream_impl, choices=list(STREAM_IMPLS),
+        help="streaming loader: 'array' (a permutation and one batched gather a call) "
+             "or 'grain' (grain's shuffle and prefetch threads; needs grain)")
     add("--num-data-shards", type=int, default=d.num_data_shards)
     add("--spatial-shards", type=int, default=d.spatial_shards)
     add("--log-interval", type=int, default=d.log_interval)

@@ -1,2 +1,2 @@
-"""Dataset loading, preprocessing and the device-resident train split (a
-subset of ``lvae_tpu/data``: the flagship's Bernoulli datasets)."""
+"""Dataset loading, preprocessing, the device-resident train split and
+the host-fed ``--streaming`` loaders (the port of ``lvae_tpu/data``)."""

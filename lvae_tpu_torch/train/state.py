@@ -351,15 +351,19 @@ class MultiStep:
     """``k`` train steps per call, the port's ``make_multi_train_step``:
     ``index`` a ``[k, B]`` stack of dataset rows for steps ``state.step``
     to ``state.step + k - 1``; returns the last step's metrics (the EMA
-    sees every step).
+    sees every step). ``gather`` maps a row vector to its uint8 batch
+    (the device-resident split's); with ``gather=None`` the batches come
+    from the host (``--streaming``, ``make_multi_batch_train_step``): each
+    call also takes ``batch``, the ``[k, B, H, W, C]`` stack on the device.
 
     On the CPU, :func:`train_step` ``k`` times. On CUDA the first call
     runs its ``k`` steps eagerly on a side stream (the warm-up: it builds
     the kernels, fills every cache a step consults and, where the run
     starts at 0, initialises the EMA) and then captures ``k`` steps of
     :func:`train_body` into one CUDA graph; each later call copies its
-    indices into the graph's static ``[k, B]`` buffer and replays the
-    graph. The graph reads the step from ``state.device_step()``, moves it
+    indices (and a host-fed stack) into the graph's static ``[k, B]``
+    (and ``[k, B, H, W, C]``) buffers, in stream order, and replays the
+    graph: the host's copy to the device stays outside the graph. The graph reads the step from ``state.device_step()``, moves it
     on in place, and computes every key from it, so a replay is the work
     of ``k`` eager steps, kernel for kernel; the returned metrics are the
     graph's outputs, written anew by each replay. A capture that fails
@@ -373,49 +377,66 @@ class MultiStep:
     holds (``self.launches``). The captured ``cudaGraph_t`` is kept, so
     its kernel nodes can be read (``self.graph.raw_cuda_graph()``)."""
 
-    def __init__(self, state: TrainState, gather: Callable, cfg: LossConfig, k: int):
+    def __init__(self, state: TrainState, gather: Optional[Callable], cfg: LossConfig,
+                 k: int):
         if k < 2:
             raise ValueError(f"MultiStep takes k >= 2 steps a call, got {k}")
         self.state, self.gather, self.cfg, self.k = state, gather, cfg, k
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.index: Optional[torch.Tensor] = None
+        self.batch: Optional[torch.Tensor] = None
         self.metrics: Optional[dict] = None
         self.launches: dict = {}
 
-    def __call__(self, index: torch.Tensor) -> dict:
+    def __call__(self, index: torch.Tensor, batch: Optional[torch.Tensor] = None) -> dict:
         if index.dim() != 2 or index.shape[0] != self.k:
             raise ValueError(f"index must be [{self.k}, B], got {tuple(index.shape)}")
+        if (batch is None) != (self.gather is not None):
+            raise ValueError("a host-fed MultiStep (gather=None) takes each call's batch "
+                             "stack, a gathering one takes none")
+        if batch is not None and tuple(batch.shape[:2]) != tuple(index.shape):
+            raise ValueError(f"batch must be [{self.k}, {index.shape[1]}, ...], got "
+                             f"{tuple(batch.shape)}")
         state = self.state
         if state.device_step().device.type != "cuda":
-            return self._eager(index)
+            return self._eager(index, batch)
         if self.graph is None:
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
-                metrics = self._eager(index)
+                metrics = self._eager(index, batch)
             torch.cuda.current_stream().wait_stream(side)
-            self._capture(index)
+            self._capture(index, batch)
             return metrics
         self.index.copy_(index)
+        if batch is not None:
+            self.batch.copy_(batch)
         self.graph.replay()
         for name, n in self.launches.items():
             build.LAUNCHES[name] += n
         state.advance(self.k)
         return self.metrics
 
-    def _eager(self, index: torch.Tensor) -> dict:
-        for row in index:
-            metrics = train_step(self.state, self.gather(row), row, self.cfg)
+    def _rows(self, index: torch.Tensor, batch: Optional[torch.Tensor]):
+        """Each step's ``(uint8 batch, rows)``."""
+        for j, row in enumerate(index):
+            yield (self.gather(row) if batch is None else batch[j]), row
+
+    def _eager(self, index: torch.Tensor, batch: Optional[torch.Tensor]) -> dict:
+        for x, row in self._rows(index, batch):
+            metrics = train_step(self.state, x, row, self.cfg)
         return metrics
 
-    def _capture(self, index: torch.Tensor) -> None:
+    def _capture(self, index: torch.Tensor, batch: Optional[torch.Tensor]) -> None:
         step = self.state.device_step()
         self.index = torch.empty_like(index)
+        if batch is not None:
+            self.batch = torch.empty_like(batch)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = dict(build.LAUNCHES)
         with torch.cuda.graph(graph):
-            for row in self.index:
-                metrics = train_body(self.state, self.gather(row), row, self.cfg, step)
+            for x, row in self._rows(self.index, self.batch):
+                metrics = train_body(self.state, x, row, self.cfg, step)
                 step.add_(1)
         self.launches = {k: n - before[k] for k, n in build.LAUNCHES.items() if n > before[k]}
         build.LAUNCHES.update(before)

@@ -1,12 +1,17 @@
 """Kernel policy, the model factory, and the training loop (port of
-``lvae_tpu/train/trainer.py``, the device-resident loop).
+``lvae_tpu/train/trainer.py``).
 
 :class:`Experiment` owns the config, model, optimiser and the two splits
-on the device; :class:`Trainer` runs the loop: an epoch order drawn from
+on the device (under ``--streaming`` the train split stays on the host);
+:class:`Trainer` runs the loop over ``(index, batch)`` pairs from one
+source: the resident split's epoch order, drawn from
 ``np.random.default_rng((seed, epoch))`` as ``lvae_tpu`` draws it (so both
-see the same batches), one :func:`~lvae_tpu_torch.train.state.train_step`
-per batch (or ``--steps-per-call k`` steps a call, a CUDA graph of ``k``
-steps on the card), the log, test and checkpoint hooks where a call
+see the same batches), or under ``--streaming`` the ``--stream-impl``
+loader's stacks through the pinned host feed
+(:mod:`lvae_tpu_torch.data.streaming`); one
+:func:`~lvae_tpu_torch.train.state.train_step` per batch (or
+``--steps-per-call k`` steps a call, a CUDA graph of ``k`` steps on the
+card), the log, test and checkpoint hooks where a call
 crosses their intervals (the test hook writes the sample, reconstruction
 and spatial-KL grids, :meth:`Experiment.dump_images`), and a final
 checkpoint on SIGTERM. ``--grad-accum``, ``--remat``, ``--defer-metrics``,
@@ -15,6 +20,7 @@ checkpoint on SIGTERM. ``--grad-accum``, ``--remat``, ``--defer-metrics``,
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import signal
 import time
@@ -26,10 +32,11 @@ import torch
 from lvae_tpu_torch.config import PRECISIONS, EvalConfig, TrainConfig
 from lvae_tpu_torch.data.device import DeviceDataset, eval_preprocess_batch
 from lvae_tpu_torch.data.registry import Dataset, TestSet, load_dataset
+from lvae_tpu_torch.data.streaming import HostFeed, make_loader
 from lvae_tpu_torch.eval.viz import save_image_grid
 from lvae_tpu_torch.models.lvae import LadderVAE
 from lvae_tpu_torch.models.stochastic import Noise
-from lvae_tpu_torch.train.checkpoint import CheckpointManager, save_config
+from lvae_tpu_torch.train.checkpoint import CheckpointManager, load_config_dict, save_config
 from lvae_tpu_torch.train.init import data_dependent_init
 from lvae_tpu_torch.train.logging import MetricLogger
 from lvae_tpu_torch.train.state import (
@@ -146,7 +153,11 @@ class Experiment:
             preprocess=self.data.preprocess, ema_decay=cfg.ema_decay,
             max_grad_norm=cfg.max_grad_norm,
         )
-        self.train_data = DeviceDataset(self.data.train, self.device)
+        # --streaming keeps the train split on the host (a numpy array or
+        # a memmap); lvae_tpu copies it to the device all the same
+        self.train_data = None if cfg.streaming else DeviceDataset(self.data.train,
+                                                                    self.device)
+        self.n_train = len(self.data.train)
         self.test_data = torch.from_numpy(self.data.test).to(self.device)
 
     def init_state(self, data_dep_init: Optional[bool] = None) -> TrainState:
@@ -162,9 +173,11 @@ class Experiment:
         if cfg.debug_nans:
             state.nan_step = torch.full((), -1, dtype=torch.int64, device=self.device)
         if cfg.data_dep_init if data_dep_init is None else data_dep_init:
-            n = min(cfg.batch_size, self.train_data.n)
+            n = min(cfg.batch_size, self.n_train)
             index = torch.arange(n, device=self.device)
-            x = eval_preprocess_batch(self.train_data.array[:n], self.data.preprocess, index)
+            rows = (self.train_data.array[:n] if self.train_data is not None else
+                    torch.from_numpy(np.ascontiguousarray(self.data.train[:n])).to(self.device))
+            x = eval_preprocess_batch(rows, self.data.preprocess, index)
             data_dependent_init(self.model, x, Noise(cfg.seed + 2, index, 0))
         return state
 
@@ -288,9 +301,13 @@ class Trainer:
             if cfg.load:
                 load_dir = cfg.load if os.path.isdir(cfg.load) else os.path.join(
                     cfg.output_dir, cfg.load)
+                cfg = self._adopt_stored_stream_impl(load_dir)
                 state = CheckpointManager(load_dir).restore(state)
                 print(f"resumed from {load_dir} at step {state.step}", flush=True)
             elif resume:
+                # run_dir's config.json is still the stored one: it is
+                # written below, once the impl is reconciled
+                cfg = self._adopt_stored_stream_impl(run_dir)
                 state = ckpt.restore(state)
                 print(f"auto-resumed {run_dir} at step {state.step}", flush=True)
         finally:
@@ -304,23 +321,24 @@ class Trainer:
                   f"steps-per-call {k}; the run will stop at step "
                   f"{-(-cfg.max_steps // k) * k}", flush=True)
         n_params = sum(p.numel() for p in state.model.parameters())
-        print(f"run {os.path.basename(run_dir)}: {exp.train_data.n} train / "
+        print(f"run {os.path.basename(run_dir)}: {exp.n_train} train / "
               f"{exp.test_data.shape[0]} test images on {exp.device}, "
               f"{n_params:,} params", flush=True)
-        if cfg.batch_size > exp.train_data.n:
+        if cfg.batch_size > exp.n_train:
             raise ValueError(
                 f"batch_size {cfg.batch_size} exceeds the training set "
-                f"({exp.train_data.n} images): an epoch would yield no batch"
+                f"({exp.n_train} images): an epoch would yield no batch"
             )
         # after any restore: a graph holds the addresses of what it replaces
-        multi = MultiStep(state, exp.train_data.gather, exp.loss_cfg, k) if k > 1 else None
+        gather = None if cfg.streaming else exp.train_data.gather
+        multi = MultiStep(state, gather, exp.loss_cfg, k) if k > 1 else None
 
         step = state.step
         t_last, since_log = time.perf_counter(), 0
         in_step = False
         profile = Profile(cfg, run_dir, exp.device)
         try:
-            for index in index_stream(exp.train_data, cfg.batch_size, cfg.seed, step, k):
+            for index, batch in self._batches(step, k):
                 if self._stop:
                     raise KeyboardInterrupt
                 if step >= cfg.max_steps:
@@ -328,9 +346,9 @@ class Trainer:
                 profile.before(step)
                 in_step = True
                 if multi is None:
-                    train_step(state, exp.train_data.gather(index), index, exp.loss_cfg)
+                    train_step(state, batch, index, exp.loss_cfg)
                 else:
-                    multi(index)
+                    multi(index, batch)
                 in_step = False
                 step = state.step
                 since_log += k
@@ -374,6 +392,45 @@ class Trainer:
         logger.close()
         self.state = state
         return state
+
+    def _batches(self, step: int, k: int):
+        """The loop's ``(index, batch)`` pairs from ``step`` on, ``[k,
+        B]`` stacks for ``k > 1``: the resident split's rows (``batch``
+        is None where :class:`MultiStep` gathers it inside its step), or
+        under ``--streaming`` the loader's stacks copied from the host
+        (a start that is not a multiple of ``k`` raises there, as in
+        ``lvae_tpu``)."""
+        cfg, exp = self.cfg, self.exp
+        if cfg.streaming:
+            loader = make_loader(cfg.stream_impl, exp.data.train, cfg.batch_size, cfg.seed, k)
+            print(f"streaming pipeline ({cfg.stream_impl}), batch {cfg.batch_size}, {k} "
+                  f"steps/call, {cfg.num_data_shards} data shards", flush=True)
+            return HostFeed(loader, exp.device).stream(step)
+        stream = index_stream(exp.train_data, cfg.batch_size, cfg.seed, step, k)
+        return ((index, exp.train_data.gather(index) if k == 1 else None) for index in stream)
+
+    def _adopt_stored_stream_impl(self, stored_dir: str) -> TrainConfig:
+        """On a resume, the ``--stream-impl`` stored in the run's
+        ``config.json`` wins over this invocation's
+        (``lvae_tpu/train/trainer.py:411-441``): the two loaders shuffle
+        differently, so a switch mid-run would change the data order. A
+        streaming config without the key streamed through grain."""
+        cfg = self.cfg
+        if not cfg.streaming:
+            return cfg
+        try:
+            stored = load_config_dict(stored_dir)
+        except (OSError, ValueError):
+            return cfg
+        if not stored.get("streaming"):
+            return cfg
+        impl = stored.get("stream_impl", "grain")
+        if impl != cfg.stream_impl:
+            print(f"resume: adopting --stream-impl {impl} from the run's stored config "
+                  f"(this invocation had {cfg.stream_impl!r}); the loaders' orders differ, "
+                  f"so the stored one continues", flush=True)
+            cfg = self.cfg = dataclasses.replace(cfg, stream_impl=impl)
+        return cfg
 
 
 class Profile:

@@ -144,7 +144,7 @@ class TestCLI:
         assert abs(res["elbo"]["elbo"] - test["elbo"]) < 1e-3
 
     @pytest.mark.parametrize("flags,name", [
-        (["--streaming"], "--streaming"),
+        (["--streaming", "--num-data-shards", "2"], "--num-data-shards"),
         (["--spatial-shards", "2"], "--spatial-shards"),
         (["--num-data-shards", "2"], "--num-data-shards"),
         (["--rng-impl", "rbg"], "--rng-impl"),
@@ -153,6 +153,22 @@ class TestCLI:
     def test_rejects_what_the_port_does_not_run(self, tmp_path, flags, name):
         with pytest.raises(ValueError, match=name):
             _train(tmp_path, "--max-steps", "1", "--dry-run", *flags)
+
+    def test_streaming_train_and_evaluate(self, tmp_path, capsys):
+        """--streaming (refused before the port ran it): six steps fed from
+        the host with no train split on the device, then the checkpoint
+        scored by lvae_tpu_torch.evaluate as the run's last test sweep
+        scored it."""
+        from lvae_tpu_torch.evaluate import main as evaluate
+
+        tr = _train(tmp_path, "--run-name", "s", "--max-steps", "6", "--streaming",
+                    "--steps-per-call", "3")
+        assert "streaming pipeline (array), batch 32, 3 steps/call" in capsys.readouterr().out
+        assert tr.exp.train_data is None and tr.state.step == 6
+        res = evaluate(["--load", tr.run_dir, "--device", "cpu"])
+        test = [m for kind, _, m in tr.logger.history if kind == "test"][-1]
+        assert np.isfinite(res["elbo"]["elbo"]) and res["elbo"]["n_images"] == 128
+        assert abs(res["elbo"]["elbo"] - test["elbo"]) < 1e-3
 
     @pytest.mark.parametrize("fused", ["auto", "all"])
     def test_trains_at_precision_bf16(self, tmp_path, fused):
