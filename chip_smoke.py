@@ -104,12 +104,32 @@ path, and the card's memory without the split; 20 flagship eager fp32
 steps through ``main --streaming`` bit-equal to the resident path, timed
 the same way.
 
+Last, the measurement tools (phase 22): K1 and K1-bwd at every latent
+layer, and K3 and K3-bwd in fp32 and bf16, against their plain versions
+at the shapes the bench's default run of each preset gives them; then,
+each through its ``main(argv)``: ``lvae_tpu_torch.bench`` (the twin of
+``bench.py``) at mnist, celeba64 and
+cifar10-deep in bf16 and the first two in fp32, 4 timed calls of a CUDA
+graph of 8 steps each, every result line held to a finite rate, at most
+1.05x the precision's peak, the same FLOPs an image in both precisions and
+every kernel of the path launched once a layer and step, and mnist fp32
+graphed at ``--fused none``; ``lvae_tpu_torch.profile_step`` on celeba64
+bf16 graphed (each kernel's events against its nodes in the graph, the
+port's kernels at their launches a step, the table marked partial
+wherever a kernel is short);
+``lvae_tpu_torch.perf_probe`` at batch 256; ``lvae_tpu_torch.iwll_probe``
+at its defaults; and one batch of the IW-LL sweep (k=100, chunk 1) at
+phases 4 and 11's shapes in fp32 and bf16 with its device busy time and
+idle share. The helpers it times and profiles with are
+``lvae_tpu_torch.profiling``'s.
+
 Each entry point's run checks that it launched every kernel of its path;
 the kernel path, the plain path and a CPU run are held to agree, and each
 kernel is timed against its plain version.
 
 Prints the card (``nvidia-smi`` name and power limit), one JSON line with
-each kernel's launches, error, times, bound and library call, and last
+each kernel's launches (on each phase's path; ``launches_bench``: phase
+22's bench runs), error, times, bound and library call, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and no result line is printed. Exits non-zero at once
 when no CUDA device is visible.
@@ -126,12 +146,16 @@ import time
 
 import numpy as np
 
+from lvae_tpu_torch.iwll_probe import CELEBA, FLAGSHIP, celeba_dataset, rgb_blobs, seeded_model
+from lvae_tpu_torch.profiling import (by_name, card_line, device_spans, device_union,
+                                      graph_kernel_names, kernel_events, kernel_names)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
-B = 1000                                    # flagship eval batch
+B = FLAGSHIP["test_batch_size"]             # flagship eval batch
 LATENT_SHAPES = [(32, 8, 8), (32, 4, 4), (32, 2, 2)]   # (c, h, w) per layer
 N_TEST = 10_000
 IW_SAMPLES = 100
-TRAIN_B = 64                                # flagship train batch
+TRAIN_B = FLAGSHIP["batch_size"]            # flagship train batch
 N_TRAIN = 50_000
 TRAIN_STEPS = 40                            # phase 8
 # each Trainer.run of the A/Bs of phases 9, 13 and 16: steps, and the rate
@@ -149,14 +173,6 @@ def check(cond, what):
     if not cond:
         raise SmokeFailure(what)
     print(f"  ok: {what}", flush=True)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
 
 
 def cuda_ms(fn, reps=50, warmup=5):
@@ -193,23 +209,17 @@ def device_profile(fn, reps=1, host_top=None):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    # device-side events that are kernels (and copies), not the device
-    # spans of host annotations such as "Optimizer.step#Adamax.step",
-    # which also appear on the host under the same name
-    events = prof.key_averages()
-    host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
-    kernels = [e for e in events if e.device_type != DeviceType.CPU
-               and e.key not in host_keys and not getattr(e, "is_user_annotation", False)]
-    busy = sum(e.device_time_total for e in kernels) / 1e3 / reps
-    top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:8]
-    table = [(e.key[:70], e.device_time_total / 1e3 / reps, e.count // reps)
-             for e in top]
+    spans = device_spans(prof)
+    kernels = by_name(spans)
+    busy = sum(ns for _, ns in kernels.values()) / 1e6 / reps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    table = [(name[:70], ns / 1e6 / reps, n // reps) for name, (n, ns) in top]
     if host_top is not None:
-        ops = [e for e in events if e.device_type == DeviceType.CPU]
+        ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
         ops.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
         host_top += [(e.key[:70], e.self_cpu_time_total / 1e3 / reps, e.count // reps)
                      for e in ops[:12]]
-    return busy, wall, table, sum(e.count for e in kernels)
+    return busy, wall, table, len(spans)
 
 
 def device_ms(fn, reps=20, tries=3):
@@ -476,38 +486,6 @@ def phase_logsumexp(card, build_log=""):
     more["celeba64"] = rows[CELEBA_EVAL_B]
     more["ptxas"] = list(ptxas.values())
     return err, rows[B], more
-
-
-FLAGSHIP = {
-    "dataset": "static_mnist", "zdims": [32, 32, 32], "downsample": [1, 1, 1],
-    "blocks_per_layer": 4, "n_filters": 64, "gated": True, "skip": True,
-    "learn_top_prior": True, "nonlin": "elu", "dropout": 0.2,
-    "test_batch_size": B, "fused": "auto", "freebits": 0.5, "batch_size": 64,
-}
-
-
-def seeded_model(config, meta, device, seed=2024):
-    """The model of ``config`` (a run's config dict) over the dataset
-    metadata ``meta`` with seeded random weights: lecun-scale convs, the
-    Gaussian and likelihood heads at their normal(1e-2) init, small random
-    biases and top prior (so every layer's KL is well above 0), BatchNorm
-    running stats away from 0/1."""
-    import torch
-
-    from lvae_tpu_torch.config import config_from_dict
-    from lvae_tpu_torch.train.trainer import make_model
-
-    g = torch.Generator().manual_seed(seed)
-    model = make_model(config_from_dict(config), meta, device, generator=g)
-    with torch.no_grad():
-        for name, t in model.state_dict().items():
-            if name.endswith("running_mean"):
-                t.copy_(torch.randn(t.shape, generator=g) * 0.2)
-            elif name.endswith("running_var"):
-                t.copy_(torch.rand(t.shape, generator=g) + 0.5)
-            elif name.endswith("bias") or name.endswith("top_prior"):
-                t.copy_(torch.randn(t.shape, generator=g) * 0.05)
-    return model
 
 
 def flagship_model(device):
@@ -1255,51 +1233,17 @@ K_MIX = 10
 # two-pass plan by default; every model of the repo has K = 10)
 MIX_SHAPES = [(128, 3, 64, 64, K_MIX), (500, 3, 64, 64, K_MIX), (16, 1, 32, 32, K_MIX),
               (32, 3, 64, 64, 24)]
-CELEBA_B, CELEBA_EVAL_B = 128, 500
+CELEBA_B, CELEBA_EVAL_B = CELEBA["batch_size"], CELEBA["test_batch_size"]
 CELEBA_N_TRAIN, CELEBA_N_TEST = 20_000, 2_000
 CELEBA_STEPS = 40                           # phase 12
 SEGMENT_STEPS = 40                          # phase 15
 CELEBA_LATENTS = [(16, 16, 32), (8, 8, 32), (4, 4, 32), (2, 2, 32)]   # NHWC per layer
-CELEBA = {
-    "dataset": "celeba", "zdims": [32] * 4, "downsample": [1] * 4,
-    "blocks_per_layer": 2, "n_filters": 64, "gated": True, "skip": True,
-    "learn_top_prior": True, "nonlin": "elu", "dropout": 0.2, "freebits": 0.5,
-    "test_batch_size": CELEBA_EVAL_B, "fused": "auto", "batch_size": CELEBA_B,
-}
 CELEBA_ARGS = [
     "--dataset", "celeba", "--zdims", "32", "32", "32", "32", "--downsample", "1", "1",
     "1", "1", "--blocks-per-layer", "2", "--n-filters", "64", "--skip", "--gated",
     "--learn-top-prior", "--freebits", "0.5", "--dropout", "0.2", "--seed", "42",
     "--batch-size", str(CELEBA_B), "--test-batch-size", str(CELEBA_EVAL_B),
 ]
-
-
-def rgb_blobs(n, seed, img=64):
-    """``n`` synthetic RGB images, uint8 ``[n, img, img, 3]``: a Gaussian
-    blob per channel at a random centre and radius (the shape of
-    ``lvae_tpu``'s RGB fixture), drawn on the card."""
-    import torch
-
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed)
-    ax = torch.arange(img, device=dev, dtype=torch.float32)
-    yy, xx = ax.view(1, img, 1, 1), ax.view(1, 1, img, 1)
-
-    def draw(lo, hi):
-        return torch.rand(n, 1, 1, 3, generator=g, device=dev) * (hi - lo) * img + lo * img
-
-    cx, cy, r = draw(0.25, 0.75), draw(0.25, 0.75), draw(0.1, 0.3)
-    blob = torch.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * r ** 2))
-    return (blob * 255).clamp(0, 255).to(torch.uint8).cpu().numpy()
-
-
-def celeba_dataset(train_u8, test_u8):
-    """The splits as the registry's celeba (64x64 RGB, dequantized, the
-    mixture head)."""
-    from lvae_tpu_torch.data.registry import Dataset
-
-    return Dataset("celeba", test_u8, (64, 64), (64, 64), 3, "dequantize",
-                   "discretized_logistic_mix", train=train_u8)
 
 
 def write_celeba(data_dir, train_u8, test_u8):
@@ -1690,69 +1634,6 @@ def segment_paths(shape, esize=4):
     return out
 
 
-def kernel_events(fn, want):
-    """{kernel name: events} of the device kernels of one profiled call of
-    ``fn``: the first of up to five traces whose events add up to
-    ``want``, else the last. (The profiler was seen to drop some or all
-    events of the ctypes-launched kernels from a trace; it never adds
-    any, so a trace with more than ``want`` fails the check however many
-    were dropped elsewhere.)"""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    found = {}
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
-        found = {e.key: e.count for e in events if e.device_type != DeviceType.CPU
-                 and e.key not in host_keys and not getattr(e, "is_user_annotation", False)}
-        if sum(found.values()) >= want:
-            break
-    return found
-
-
-def graph_kernel_nodes(fn):
-    """Kernel nodes of a CUDA graph of one call of ``fn``, counted through
-    libcuda (``cuGraphGetNodes``, ``cuGraphNodeGetType``): the count of
-    kernels a call launches where the profiler drops their events."""
-    import ctypes
-
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        fn()
-    cu = ctypes.CDLL("libcuda.so.1")
-    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.POINTER(ctypes.c_size_t)]
-    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-    def ok(status, what):
-        if status != 0:
-            raise SmokeFailure(f"{what}: CUresult {status}")
-
-    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
-    ok(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * n.value)()
-    ok(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    kinds = []
-    for node in nodes[:n.value]:
-        kind = ctypes.c_int(-1)
-        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), "cuGraphNodeGetType")
-        kinds.append(kind.value)
-    return sum(k == 0 for k in kinds)          # CU_GRAPH_NODE_TYPE_KERNEL
-
-
 def phase_segment(card, per_step, timed, build_log=""):
     """K5 and K5-bwd against their plain versions at every segment shape of
     the models ``per_step`` ({model: {shape: segments per step}}), with the
@@ -1886,7 +1767,8 @@ def phase_segment(card, per_step, timed, build_log=""):
         for name, entry in (("K5", "fwd_kernel"), ("K5-bwd", "bwd_kernel")):
             want = sum(1 for k in calls if k[0] == name)
             if dropped:     # the profiler dropped the ctypes kernels' events
-                nodes = [graph_kernel_nodes(fn) for k, (_, fn) in calls.items() if k[0] == name]
+                nodes = [sum(graph_kernel_names(fn).values())
+                         for k, (_, fn) in calls.items() if k[0] == name]
                 check(nodes == [1] * want,
                       f"{name} {list(shape)}: one CUDA kernel per call of each of its {want} "
                       f"plans (the profiler dropped their events in 5 traces; kernel nodes "
@@ -2178,47 +2060,6 @@ GRAPH_KERNELS = {"dropout_kernel": "dropout",
                  "bwd_kernel": "segment_bwd"}
 
 
-def graph_kernel_names(raw_graph):
-    """{kernel symbol: kernel nodes} of a captured CUDA graph, through
-    libcuda: ``cuGraphGetNodes``, ``cuGraphNodeGetType``,
-    ``cuGraphKernelNodeGetParams`` (its ``func`` or ``kern`` field) and
-    ``cuFuncGetName`` / ``cuKernelGetName``."""
-    import collections
-    import ctypes
-
-    cu = ctypes.CDLL("libcuda.so.1")
-
-    def ok(status, what):
-        if status != 0:
-            raise SmokeFailure(f"{what}: CUresult {status}")
-
-    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2", None) or \
-        cu.cuGraphKernelNodeGetParams
-    handle, n = ctypes.c_void_p(raw_graph), ctypes.c_size_t(0)
-    ok(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * n.value)()
-    ok(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    names = collections.Counter()
-    for node in nodes[:n.value]:
-        kind = ctypes.c_int(-1)
-        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
-           "cuGraphNodeGetType")
-        if kind.value != 0:                     # CU_GRAPH_NODE_TYPE_KERNEL
-            continue
-        params = (ctypes.c_byte * 256)()        # CUDA_KERNEL_NODE_PARAMS_v2 and room
-        ok(get_params(ctypes.c_void_p(node), params), "cuGraphKernelNodeGetParams")
-        func = ctypes.c_void_p.from_buffer(params, 0).value
-        kern = ctypes.c_void_p.from_buffer(params, 56).value
-        name = ctypes.c_char_p()
-        if func:
-            ok(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)), "cuFuncGetName")
-        else:
-            ok(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(kern)),
-               "cuKernelGetName")
-        names[name.value.decode()] += 1
-    return names
-
-
 def port_kernel(symbol):
     """The launch counter of the port's kernel whose mangled symbol this is
     (None for another kernel): its identifier with the length prefix the
@@ -2245,40 +2086,6 @@ def state_equal(a, b):
     if a.step != b.step or int(a.step_t) != int(b.step_t):
         bad.append("step")
     return bad
-
-
-def device_union(fn, reps=1):
-    """(device ms per call as the union of the kernels' intervals, the sum
-    of their durations, wall ms per call, kernel events) of ``reps`` calls
-    of ``fn`` under torch.profiler (device activity only, which keeps the
-    trace of an eager call's ~10^5 host operators out), after one call
-    outside it. A graph replay may run independent kernels at once, so
-    the sum can exceed the wall time; the union is the time the device had
-    a kernel running."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    events = prof.events()
-    host_keys = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CPU}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type != DeviceType.CPU and e.name not in host_keys
-                   and not getattr(e, "is_user_annotation", False))
-    union, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            union += b - max(a, end)
-            end = b
-    total_us = sum(b - a for a, b in spans)
-    return union / 1e3 / reps, total_us / 1e3 / reps, wall, len(spans)
 
 
 def rates_in_turns(card, name, args, data, variants):
@@ -2372,7 +2179,7 @@ def graph_cell(card, name, args, data, weights):
         check(all(run_launches.get(n, 0) == 3 * k * v for n, v in per_step.items()),
               f"{name}: the launch counts of the graphed run (the warm-up's and 2 replays' "
               f"{run_launches}) are the eager run's")
-        symbols = graph_kernel_names(multi.graph.raw_cuda_graph())
+        symbols = kernel_names(multi.graph.raw_cuda_graph())
         nodes = sum(symbols.values())
         ours = {}
         for sym, v in symbols.items():
@@ -3210,6 +3017,112 @@ def remat_counts(model):
     return segs, sites
 
 
+def k1_checks(b, layer, chw, top, g, n_rows, keep):
+    """K1 and K1-bwd keyed, as the trainer calls them, at one latent layer
+    of ``b`` rows (the top with its row-stride-0 prior) against the plain
+    generator and autograd of the plain forward, at phases 6-7's
+    tolerances, each relaunch bit-equal; ``keep(name, err)`` takes the
+    largest errors. Returns the operands (q, p, index, gz, gkl, args)."""
+    import torch
+
+    from lvae_tpu_torch.kernels import stochastic as sk
+
+    dev = torch.device("cuda")
+    c, h, w = chw
+    shape = f"[{b},{2 * c},{h},{w}]" + (" stride-0 prior" if top else "")
+    q = (torch.randn(b, 2 * c, h, w, generator=g) * 0.7).to(dev)
+    p1 = (torch.randn(1 if top else b, 2 * c, h, w, generator=g) * 0.7).to(dev)
+    p = p1.expand(b, -1, -1, -1) if top else p1
+    index = torch.randperm(n_rows, generator=g)[:b].to(dev)
+    gz = torch.randn(b, c, h, w, generator=g).to(dev)
+    gkl = torch.randn(b, generator=g).to(dev)
+    gkl[::3] = 0.0                       # rows a free-bits clamp zeroes
+    args = (index, 77, 5, layer)
+    print(f"  {shape} {sk.k1_plan(b, c, h * w)}; {sk.k1_bwd_plan(b, c, h * w, top)}")
+    z, kl = sk.sample_kl_per_sample(q, p, *args)
+    zr, klr = sk._plain_sample_kl_per_sample(q, p, *args)
+    e = (z - zr).abs().max().item()
+    keep("k1", max(e, (kl - klr).abs().max().item()))
+    check(e <= 1e-5 and rel_elem(kl, klr) <= 1e-5,
+          f"K1 {shape}: z within 1e-5 abs ({e:.2e}), kl_b within 1e-5 relative of the "
+          f"plain generator's")
+    z2, kl2 = sk.sample_kl_per_sample(q, p, *args)
+    check(torch.equal(z, z2) and torch.equal(kl, kl2), f"K1 {shape}: a relaunch is "
+                                                      f"bit-equal")
+    if top:
+        zf, klf = sk.sample_kl_per_sample(q, p.contiguous(), *args)
+        check(torch.equal(z, zf) and torch.equal(kl, klf),
+              f"K1 {shape}: the row-stride-0 prior equals the materialised one")
+
+    def grads(fn):
+        qr, pr = q.clone().requires_grad_(), p1.clone().requires_grad_()
+        zz, kk = fn(qr, pr.expand(b, -1, -1, -1) if top else pr, *args)
+        torch.autograd.backward([zz, kk], [gz, gkl])
+        return qr.grad, pr.grad
+
+    a, r = grads(sk.sample_kl_per_sample), grads(sk._plain_sample_kl_per_sample)
+    e = max(rel_max(a[0], r[0]), rel_max(a[1], r[1]))
+    keep("k1_bwd", max((a[0] - r[0]).abs().max().item(), (a[1] - r[1]).abs().max().item()))
+    check(e <= 1e-5, f"K1-bwd {shape} keyed: dq, dp within 1e-5 of their max of autograd "
+                     f"of the plain forward ({e:.2e})")
+    a2 = grads(sk.sample_kl_per_sample)
+    check(torch.equal(a[0], a2[0]) and torch.equal(a[1], a2[1]),
+          f"K1-bwd {shape}: a relaunch is bit-equal")
+    return q, p, index, gz, gkl, args
+
+
+def mix_checks(x, pp, k, shape, keep, gg=None):
+    """K3 on ``pp`` (fp32 or bf16 params) against its plain version
+    (1e-4 + 1e-5 |ll|) and, given ``gg``, K3-bwd against the plain hand
+    backward (1e-4 of their max; bf16 dparams within 1 bf16 ulp, or 1e-4
+    of the max), each relaunch bit-equal; ``keep(name, err)`` takes the
+    largest errors."""
+    import torch
+
+    from lvae_tpu_torch.kernels import mixture as km
+
+    label = "bf16" if pp.dtype == torch.bfloat16 else "fp32"
+    ll = km.mix_log_prob(x, pp, k)
+    ref = km._plain_mix_log_prob(x, pp, k, 256)
+    e = ((ll - ref).abs() - 1e-5 * ref.abs()).max().item()
+    keep("mix", (ll - ref).abs().max().item())
+    check(ll.dtype == torch.float32 and e <= 1e-4,
+          f"K3 {label} {shape}: ll within 1e-4 + 1e-5 |ll| of the plain version ({e:.2e})")
+    check(torch.equal(ll, km.mix_log_prob(x, pp, k)), f"K3 {label} {shape}: a relaunch "
+                                                       f"is bit-equal")
+    if gg is None:
+        return
+    dp_h, dx_h = km._plain_mix_log_prob_bwd(x, pp.float(), gg, k, 256)
+    dp, dx = km.mix_log_prob_backward(x, pp, gg, k)
+    if label == "bf16":
+        bf16_held(dp, dp_h.to(pp.dtype), f"K3-bwd bf16 {shape}: dparams",
+                  within=1e-4 * dp_h.abs().max().item())
+        e = rel_max(dx, dx_h)
+    else:
+        e = max(rel_max(dp, dp_h), rel_max(dx, dx_h))
+    keep("mix_bwd", (dp.float() - dp_h).abs().max().item())
+    check(e <= 1e-4, f"K3-bwd {label} {shape}: within 1e-4 of their max of the plain "
+                     f"hand backward ({e:.2e})")
+    dp2, dx2 = km.mix_log_prob_backward(x, pp, gg, k)
+    check(torch.equal(dp, dp2) and torch.equal(dx, dx2),
+          f"K3-bwd {label} {shape}: a relaunch is bit-equal")
+
+
+def mix_operands(b, h, w, k, g):
+    """(x, params, gg) of a C = 3 mixture head at [b, k (1 + 3 C), h, w]:
+    exact 0 and 1 pixels in the first and last rows (the edge bins), two
+    log-scale channels below -7."""
+    import torch
+
+    dev, c = torch.device("cuda"), 3
+    qch, lo = k * (1 + 3 * c), k + k * c
+    u = torch.randint(0, 256, (b, c, h, w), generator=g, device=dev)
+    u[:, :, 0], u[:, :, -1] = 0, 255
+    p = torch.randn(b, qch, h, w, generator=g, device=dev)
+    p[:, lo:lo + 2] = -9.0 + torch.rand(b, 2, h, w, generator=g, device=dev)
+    return u.float() / 255.0, p, torch.randn(b, h, w, generator=g, device=dev)
+
+
 def cifar_kernels(card, latents, seg_counts):
     """19a: every kernel of the path at cifar10-deep's shapes against its
     plain version, at phases 6-7, 10, 14 and 18a's tolerances, with a
@@ -3246,44 +3159,8 @@ def cifar_kernels(card, latents, seg_counts):
     b, layers = CIFAR_B, []
     for layer, (c, h, w) in enumerate(latents):
         top = layer == len(latents) - 1
-        shape = f"[{b},{2 * c},{h},{w}]" + (" stride-0 prior" if top else "")
-        q = (torch.randn(b, 2 * c, h, w, generator=g) * 0.7).to(dev)
-        p1 = (torch.randn(1 if top else b, 2 * c, h, w, generator=g) * 0.7).to(dev)
-        p = p1.expand(b, -1, -1, -1) if top else p1
-        index = torch.randperm(CIFAR_N_TRAIN, generator=g)[:b].to(dev)
-        gz = torch.randn(b, c, h, w, generator=g).to(dev)
-        gkl = torch.randn(b, generator=g).to(dev)
-        gkl[::3] = 0.0                       # rows a free-bits clamp zeroes
-        args = (index, 77, 5, layer)
-        z, kl = sk.sample_kl_per_sample(q, p, *args)
-        zr, klr = sk._plain_sample_kl_per_sample(q, p, *args)
-        e = (z - zr).abs().max().item()
-        keep("k1", max(e, (kl - klr).abs().max().item()))
-        check(e <= 1e-5 and rel_elem(kl, klr) <= 1e-5,
-              f"K1 {shape}: z within 1e-5 abs ({e:.2e}), kl_b within 1e-5 relative of the "
-              f"plain generator's")
-        z2, kl2 = sk.sample_kl_per_sample(q, p, *args)
-        check(torch.equal(z, z2) and torch.equal(kl, kl2), f"K1 {shape}: a relaunch is "
-                                                          f"bit-equal")
-        if top:
-            zf, klf = sk.sample_kl_per_sample(q, p.contiguous(), *args)
-            check(torch.equal(z, zf) and torch.equal(kl, klf),
-                  f"K1 {shape}: the row-stride-0 prior equals the materialised one")
-
-        def grads(fn):
-            qr, pr = q.clone().requires_grad_(), p1.clone().requires_grad_()
-            zz, kk = fn(qr, pr.expand(b, -1, -1, -1) if top else pr, *args)
-            torch.autograd.backward([zz, kk], [gz, gkl])
-            return qr.grad, pr.grad
-
-        a, r = grads(sk.sample_kl_per_sample), grads(sk._plain_sample_kl_per_sample)
-        e = max(rel_max(a[0], r[0]), rel_max(a[1], r[1]))
-        keep("k1_bwd", max((a[0] - r[0]).abs().max().item(), (a[1] - r[1]).abs().max().item()))
-        check(e <= 1e-5, f"K1-bwd {shape} keyed: dq, dp within 1e-5 of their max of autograd "
-                         f"of the plain forward ({e:.2e})")
-        a2 = grads(sk.sample_kl_per_sample)
-        check(torch.equal(a[0], a2[0]) and torch.equal(a[1], a2[1]),
-              f"K1-bwd {shape}: a relaunch is bit-equal")
+        q, p, index, gz, gkl, args = k1_checks(b, layer, (c, h, w), top, g, CIFAR_N_TRAIN,
+                                               keep)
         n = b * c * h * w
         keyed = sk.Keyed(index, 77, 5, layer)
         layers.append(dict(
@@ -3341,25 +3218,13 @@ def cifar_kernels(card, latents, seg_counts):
 
     # K3, K3-bwd at [B, 100, 32, 32], C = 3, K = 10; fp32 and bf16 params
     k, c = K_MIX, 3
-    qch, lo = k * (1 + 3 * c), k + k * c
+    qch = k * (1 + 3 * c)
     for bb in (CIFAR_B, CIFAR_EVAL_B):
-        u = torch.randint(0, 256, (bb, c, 32, 32), generator=gd, device=dev)
-        u[:, :, 0], u[:, :, -1] = 0, 255
-        x = u.float() / 255.0
-        p = torch.randn(bb, qch, 32, 32, generator=gd, device=dev)
-        p[:, lo:lo + 2] = -9.0 + torch.rand(bb, 2, 32, 32, generator=gd, device=dev)
+        x, p, gg = mix_operands(bb, 32, 32, k, gd)
         shape = f"[{bb},{qch},32,32] C={c} K={k}"
         for dt, label in ((torch.float32, "fp32"), (bf, "bf16")):
             pp = p.to(dt)
-            ll = km.mix_log_prob(x, pp, k)
-            ref = km._plain_mix_log_prob(x, pp, k, 256)
-            e = ((ll - ref).abs() - 1e-5 * ref.abs()).max().item()
-            keep("mix", (ll - ref).abs().max().item())
-            check(ll.dtype == torch.float32 and e <= 1e-4,
-                  f"K3 {label} {shape}: ll within 1e-4 + 1e-5 |ll| of the plain version "
-                  f"({e:.2e})")
-            check(torch.equal(ll, km.mix_log_prob(x, pp, k)), f"K3 {label} {shape}: a relaunch "
-                                                               f"is bit-equal")
+            mix_checks(x, pp, k, shape, keep, gg if bb == CIFAR_B else None)
             bnd = bound(bb * 32 * 32 * (qch * pp.element_size() + 3 * 4 + 4))
             per_call, device = time_calls({"kernel": lambda: km.mix_log_prob(x, pp, k),
                                            "plain": lambda: km._plain_mix_log_prob(x, pp, k,
@@ -3369,21 +3234,6 @@ def cifar_kernels(card, latents, seg_counts):
             print_times(f"K3 {label}", shape, times[f"K3 {label} B={bb}"], card)
             if bb != CIFAR_B:
                 continue
-            gg = torch.randn(bb, 32, 32, generator=gd, device=dev)
-            dp_h, dx_h = km._plain_mix_log_prob_bwd(x, pp.float(), gg, k, 256)
-            dp, dx = km.mix_log_prob_backward(x, pp, gg, k)
-            if dt == bf:
-                bf16_held(dp, dp_h.to(bf), f"K3-bwd bf16 {shape}: dparams",
-                          within=1e-4 * dp_h.abs().max().item())
-                e = rel_max(dx, dx_h)
-            else:
-                e = max(rel_max(dp, dp_h), rel_max(dx, dx_h))
-            keep("mix_bwd", (dp.float() - dp_h).abs().max().item())
-            check(e <= 1e-4, f"K3-bwd {label} {shape}: within 1e-4 of their max of the plain "
-                             f"hand backward ({e:.2e})")
-            dp2, dx2 = km.mix_log_prob_backward(x, pp, gg, k)
-            check(torch.equal(dp, dp2) and torch.equal(dx, dx2),
-                  f"K3-bwd {label} {shape}: a relaunch is bit-equal")
             bnd = bound(bb * 32 * 32 * (2 * qch * pp.element_size() + 2 * 3 * 4 + 4))
             per_call, device = time_calls(
                 {"kernel": lambda: km.mix_log_prob_backward(x, pp, gg, k),
@@ -3391,7 +3241,7 @@ def cifar_kernels(card, latents, seg_counts):
                 CIFAR_REPS)
             times[f"K3-bwd {label}"] = timing_row(per_call, device, bnd)
             print_times(f"K3-bwd {label}", shape, times[f"K3-bwd {label}"], card)
-        del x, p, u
+        del x, p, gg
     torch.cuda.empty_cache()
 
     # K5, K5-bwd, the dropout kernel at every segment shape, rate 0 and 0.2
@@ -4637,6 +4487,268 @@ def phase_streaming(card, train_u8, test_u8, c_train, c_test, c_data, celeba_wei
     return out
 
 
+# --- phase 22: the bench and the measurement tools ----------------------------
+# (preset, precision) of 22a's bench runs; each 2 warm-up and 4 timed calls
+# of --steps-per-call 8 (32 timed steps, 48 counted)
+BENCH_RUNS = [("mnist", "bf16"), ("mnist", "fp32"), ("celeba64", "bf16"),
+              ("celeba64", "fp32"), ("cifar10-deep", "bf16")]
+BENCH_ARGS = ["--steps", "4", "--warmup", "2", "--steps-per-call", "8"]
+BENCH_STEPS = (2 + 4) * 8
+BENCH_LAYERS = {"mnist": 3, "celeba64": 4, "cifar10-deep": 10}
+PROFILE_ARGS = ["--preset", "celeba64", "--precision", "bf16", "--steps-per-call", "8",
+                "--steps", "8"]
+PERF_PROBE_B = 256
+# 22d's sweeps: one IW batch (k = IW_SAMPLES, chunk 1) at phase 4's and 11's shapes
+CHUNK_REL_TOL = {"fp32": 1e-5, "bf16": 1e-2}
+
+
+def bench_kernels(preset, precision):
+    """{launch counter: launches a step} of the bench's path (``--fused
+    auto``): K1 and K1-bwd at every latent layer; K3 and K3-bwd once, in
+    their bf16 instantiations at bf16, with the mixture head."""
+    from lvae_tpu_torch.kernels.build import launch_name
+
+    n = BENCH_LAYERS[preset]
+    out = {"sample_kl_per_sample": n, "sample_kl_per_sample_bwd": n}
+    if preset != "mnist":
+        import torch
+
+        dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+        out.update({launch_name("mix_log_prob", dtype): 1,
+                    launch_name("mix_log_prob_bwd", dtype): 1})
+    return out
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept back and returned:
+    ``(result, text)``."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def bench_kernel_checks():
+    """22a's first step: every kernel of the bench's path at the shapes
+    its default run of each preset gives it (the batch of
+    ``bench.parse_args``, the latent layers of a forward of the bench's
+    model): K1 and K1-bwd keyed at every latent layer, the top with its
+    stride-0 prior, and with the mixture head K3 and K3-bwd in fp32 and
+    bf16, each against its plain version at phases 6-7 and 19a's
+    tolerances (:func:`k1_checks`, :func:`mix_checks`)."""
+    import torch
+
+    from lvae_tpu_torch import bench
+    from lvae_tpu_torch.models.stochastic import Noise
+    from lvae_tpu_torch.train.trainer import make_model
+
+    print("[22a] the bench's kernels vs their plain versions at its shapes", flush=True)
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(22)
+    gd = torch.Generator(device=dev).manual_seed(22)
+    err = {}
+
+    def keep(name, v):
+        err[name] = max(err.get(name, 0.0), v)
+
+    for preset in ("mnist", "celeba64", "cifar10-deep"):
+        args = bench.parse_args(["--preset", preset])
+        cfg, data = bench.bench_config(args)
+        model = make_model(cfg, data, dev, generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            zs = model(torch.rand(2, *data.img_size, data.color_ch, device=dev),
+                       noise=Noise(0, torch.arange(2, device=dev)))["z"]
+        latents = [(z.shape[3], z.shape[1], z.shape[2]) for z in zs]
+        print(f"  {preset}, B={args.batch_size}: latent layers (c, h, w) {latents}")
+        for layer, chw in enumerate(latents):
+            k1_checks(args.batch_size, layer, chw, layer == len(latents) - 1, g,
+                      len(data.train), keep)
+        if data.default_likelihood == "discretized_logistic_mix":
+            h, w = data.padded_size
+            x, p, gg = mix_operands(args.batch_size, h, w, K_MIX, gd)
+            for dt in (torch.float32, torch.bfloat16):
+                mix_checks(x, p.to(dt), K_MIX, f"[{args.batch_size},{p.shape[1]},{h},{w}] C=3 "
+                           f"K={K_MIX}", keep, gg)
+            del x, p, gg
+        del model, zs
+        torch.cuda.empty_cache()
+    return err
+
+
+def phase_bench(card):
+    """22a: ``lvae_tpu_torch.bench`` through ``main(argv)`` for each of
+    BENCH_RUNS, each result line held to a finite positive rate, an MFU of
+    the precision's peak of at most 1.05, the same FLOPs an image in fp32
+    and bf16, and every kernel of the path launched once per layer and
+    step."""
+    import torch
+
+    from lvae_tpu_torch import bench
+    from lvae_tpu_torch.kernels import build
+
+    print(f"[22a] python -m lvae_tpu_torch.bench {' '.join(BENCH_ARGS)} at each preset "
+          "and precision", flush=True)
+    rows = {}
+    for preset, precision in BENCH_RUNS:
+        build.reset_launches()
+        r, text = quiet(bench.main, ["--preset", preset, "--precision", precision, *BENCH_ARGS])
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        print(f"  {text.strip()}")
+        label = f"{preset} {precision}"
+        print(f"  {label}: {r['value']:.1f} img/s, mfu {r['mfu']:.4f} of {r['peak_flops']:.3e}, "
+              f"{r['mfu_precision_peak']:.4f} of the {precision} peak, "
+              f"{r['flops_per_image']:.6e} FLOP/image, launches {launches}  ({card})")
+        check(np.isfinite(r["value"]) and r["value"] > 0, f"{label}: a finite positive rate")
+        check(r["mfu_precision_peak"] <= 1.05,
+              f"{label}: at most 1.05x the {precision} peak ({r['mfu_precision_peak']:.4f})")
+        check(r["device"] == torch.cuda.get_device_name(0)
+              and r["power_limit_w"] is not None, f"{label}: the card and its power limit")
+        for counter, per in bench_kernels(preset, precision).items():
+            check(launches.get(counter, 0) == per * BENCH_STEPS,
+                  f"{label}: {counter} {per} a step x {BENCH_STEPS} steps "
+                  f"({launches.get(counter, 0)})")
+        rows[label] = {k: r[k] for k in ("value", "mfu", "mfu_precision_peak", "flops_per_image",
+                                         "img32_equivalent_per_sec", "final_elbo")}
+        rows[label]["launches"] = launches
+    for preset in ("mnist", "celeba64"):
+        a, b = (rows[f"{preset} {p}"]["flops_per_image"] for p in ("fp32", "bf16"))
+        check(a == b, f"{preset}: the same FLOPs an image in fp32 and bf16 ({a:.6e}, {b:.6e})")
+    # the graph of 8 steps with the sample+KL kernels off: the plain latent
+    # draw built 2 pi from host data, which no CUDA graph captures
+    build.reset_launches()
+    r, _ = quiet(bench.main, ["--preset", "mnist", "--precision", "fp32", "--fused", "none",
+                              "--steps", "1", "--warmup", "1", "--steps-per-call", "8"])
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(np.isfinite(r["value"]) and r["value"] > 0 and r["flops_per_image"]
+          == rows["mnist fp32"]["flops_per_image"] and "sample_kl_per_sample" not in launches,
+          f"mnist fp32 --fused none captured as a graph of 8 steps: {r['value']:.1f} img/s, "
+          f"the same FLOPs an image as --fused auto, no sample+KL kernel ({launches})")
+    rows["mnist fp32 none"] = {k: r[k] for k in ("value", "mfu", "mfu_precision_peak",
+                                                 "flops_per_image")}
+    rows["mnist fp32 none"]["launches"] = launches
+    return rows
+
+
+def phase_tools(card):
+    """22b-c: ``profile_step`` on celeba64 bf16 graphed and ``perf_probe``
+    at batch PERF_PROBE_B, through their ``main(argv)``."""
+    from lvae_tpu_torch import perf_probe, profile_step
+    from lvae_tpu_torch.kernels import build
+
+    print(f"[22b] python -m lvae_tpu_torch.profile_step {' '.join(PROFILE_ARGS)}", flush=True)
+    build.reset_launches()
+    prof = profile_step.main(PROFILE_ARGS)
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(prof["kernel_events"] > 0 and 0 < prof["device_busy_ms_per_step"]
+          <= prof["wall_ms_per_step"] and prof["top"], "a profile of device kernels")
+    kernels = prof["kernels"]
+    short = {name for name, r in kernels.items() if r["events"] < r["nodes"]}
+    check(sum(r["nodes"] for r in kernels.values()) == prof["kernel_nodes"]
+          and set(prof["short"]) == short and prof["complete"] == (not short),
+          f"the table is printed as whole only if no kernel is short of its graph nodes "
+          f"({len(short)} of {len(kernels)} short; {prof['kernel_events']} kernel events, "
+          f"{prof['kernel_nodes']} kernel nodes; complete {prof['complete']})")
+    for counter, per in bench_kernels("celeba64", "bf16").items():
+        check(launches.get(counter, 0) > 0, f"profile_step ran {counter} ({launches})")
+        rows = [r for r in kernels.values() if port_kernel(r["symbol"]) == counter]
+        nodes, events = (sum(r[k] for r in rows) for k in ("nodes", "events"))
+        check(nodes == per * prof["steps"] and (events == nodes or short),
+              f"profile_step's table: {counter} {per} a step x {prof['steps']} steps in the "
+              f"graph ({nodes} nodes), with as many events ({events}) unless the table is "
+              f"partial")
+    print(f"  kernels short of their nodes: {sorted(prof['short'].items())[:8]}; with more "
+          f"events than nodes: {sorted(prof['extra'].items())[:8]}  ({card})")
+
+    print(f"[22c] python -m lvae_tpu_torch.perf_probe --batch-size {PERF_PROBE_B}", flush=True)
+    build.reset_launches()
+    legs = perf_probe.main(["--batch-size", str(PERF_PROBE_B)])
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    check(len(legs) == 10 and all(np.isfinite(v["ms"]) and v["ms"] > 0 for v in legs.values()),
+          "perf_probe: 10 legs timed")
+    check(all(v["tflops"] * 1e12 <= 1.05 * 989e12 for v in legs.values()),
+          "perf_probe: every leg under the bf16 peak")
+    check(launches.get("sample_kl_per_sample", 0) > 0, f"perf_probe ran K1 ({launches})")
+    print(f"  ({card})")
+    prof = {k: v for k, v in prof.items() if k not in ("card", "kernels")}
+    prof.update(short=len(prof["short"]), extra=sorted(prof["extra"].items())[:8])
+    return {"profile_step": prof,
+            "perf_probe": legs}
+
+
+def phase_iwll(card, c_train, c_test):
+    """22d: ``iwll_probe`` at its defaults, then one batch of the real IW
+    sweep (``evaluate_iwll``, k = IW_SAMPLES, chunk 1) at phase 4's and
+    phase 11's shapes in fp32 and bf16, each with its device busy time and
+    idle share, and every kernel of its path counted."""
+    import torch
+
+    from lvae_tpu_torch import iwll_probe
+    from lvae_tpu_torch.kernels import build
+
+    print("[22d] python -m lvae_tpu_torch.iwll_probe", flush=True)
+    build.reset_launches()
+    probe = iwll_probe.main([])
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    for precision, rows in probe.items():
+        check(all(np.isfinite(r["ms_per_call"]) and 0 < r["device_busy_ms"] <= r["wall_ms"]
+                  for leg, r in rows.items() if leg != "chunk_rel_diff"),
+              f"iwll_probe {precision}: 4 legs timed and profiled")
+        check(rows["chunk_rel_diff"] <= CHUNK_REL_TOL[precision],
+              f"iwll_probe {precision}: iwll_c1 and iwll_c4 within "
+              f"{CHUNK_REL_TOL[precision]:g} relative ({rows['chunk_rel_diff']:.2e})")
+        for r in rows.values():
+            if isinstance(r, dict):
+                r.pop("values", None)
+    check(launches.get("sample_kl", 0) > 0 and launches.get("logsumexp", 0) > 0,
+          f"iwll_probe ran K2 and K4 ({launches})")
+
+    dev = torch.device("cuda")
+    cells = iwll_probe.iw_cells(c_test)
+    sweeps, iw_launches = {}, {}
+    for name, (config, meta, test, pre, dims, batch) in cells.items():
+        test_dev = torch.from_numpy(test).to(dev)
+        for precision in ("fp32", "bf16"):
+            model = seeded_model(dict(config, precision=precision), meta, dev)
+            build.reset_launches()
+            r = iwll_probe.iw_sweep(model, test_dev, pre, dims, batch, IW_SAMPLES)
+            got = {k: v for k, v in build.LAUNCHES.items() if v}
+            label = f"{name} {precision}"
+            print(f"  IW sweep {label}, B={batch}, k={IW_SAMPLES}, chunk 1: wall "
+                  f"{r['wall_ms']:.1f} ms, device busy {r['device_busy_ms']:.1f} ms, idle share "
+                  f"{r['idle_share']:.3f}, {r['images_per_sec']:.1f} img/s, IW-LL "
+                  f"{r['iw_ll']:.3f}, launches {got}  ({card})")
+            n_layers = len(config["zdims"])
+            check(np.isfinite(r["iw_ll"]) and got.get("sample_kl") == n_layers * IW_SAMPLES
+                  and got.get("logsumexp") == 1,
+                  f"{label}: a finite IW-LL, K2 {n_layers} a forward, K4 once")
+            if name == "celeba64":
+                mix = "mix_log_prob[bf16]" if precision == "bf16" else "mix_log_prob"
+                check(got.get(mix) == IW_SAMPLES, f"{label}: {mix} once a forward")
+            sweeps[label] = r
+            for k, v in got.items():
+                iw_launches[k] = iw_launches.get(k, 0) + v
+            del model
+    return {"iwll_probe": probe, "iw_sweep": sweeps, "iw_launches": iw_launches,
+            "probe_launches": launches}
+
+
+def phase_measure(card, c_train, c_test):
+    """Phase 22: the bench's kernels at its shapes, the bench,
+    profile_step, perf_probe and iwll_probe, and the IW sweep's idle share (``phase_measure(card, c_train, c_test)``
+    alone, with celeba64's splits as ``main()`` makes them)."""
+    t22 = time.perf_counter()
+    out = {"bench_kernels_max_abs_err": bench_kernel_checks()}
+    out["bench"] = phase_bench(card)
+    print(f"  22a took {time.perf_counter() - t22:.1f} s")
+    out.update(phase_tools(card))
+    print(f"  22a-c took {time.perf_counter() - t22:.1f} s")
+    out.update(phase_iwll(card, c_train, c_test))
+    print(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -4917,6 +5029,15 @@ def main():
         counter = kern["name"].replace("dropout_bits8", "dropout")
         kern.update(launches_streaming_train=st["cli"]["launches"].get(counter, 0),
                     launches_streaming_flagship=st["flagship"]["launches"].get(counter, 0))
+    lap("phase 22")
+    ms = phase_measure(card, c_train, c_test)
+    res["measure"] = {k: v for k, v in ms.items() if k != "iw_launches"}
+    # each kernel's launches in 22a's five bench runs and 22d's four IW sweeps
+    for kern in kernels:
+        counter = kern["name"].replace("dropout_bits8", "dropout")
+        kern.update(launches_bench=sum(r["launches"].get(counter, 0)
+                                       for r in ms["bench"].values()),
+                    launches_iw_sweep=ms["iw_launches"].get(counter, 0))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, **res}))

@@ -11,6 +11,9 @@ the train-mode dropout+BatchNorm+activation segment and its backward
 (``kernels/segment.py``). ``--precision bf16`` runs the convolutions in
 bf16 from fp32 parameters, as ``lvae_tpu``'s does, with bf16
 instantiations of the segment, dropout and mixture kernels.
+``python -m lvae_tpu_torch.bench`` measures train images/s and MFU on the
+card, and ``profile_step``, ``perf_probe`` and ``iwll_probe`` take the
+step and the evaluation apart (``profiling`` holds their helpers).
 
 It imports torch and numpy, never jax or ``lvae_tpu``; ``lvae_tpu`` stays
 the reference it is tested against (``tests/test_torch_*.py``). Public

@@ -1,6 +1,7 @@
 """Dataset metadata and loading (port of ``lvae_tpu/data/registry.py``).
 :func:`load_test_set` reads the test split alone (evaluation never parses
-a train split); :func:`load_dataset` both."""
+a train split); :func:`load_dataset` both; :func:`bench_preset` makes the
+synthetic splits of the bench and the probes."""
 
 from __future__ import annotations
 
@@ -96,6 +97,41 @@ def load_dataset(name: str, data_dir: str = "./data") -> Dataset:
     fixtures."""
     test, train, meta = _load(name, data_dir, with_train=True)
     return Dataset(name, test, *meta, train=train)
+
+
+def bench_preset(preset: str, n_train: int) -> Tuple[Dataset, Tuple[int, ...],
+                                                   Tuple[int, ...]]:
+    """``(dataset, zdims, downsample)`` of a bench preset
+    (``lvae_tpu/data/registry.py:108-138``): the same
+    ``np.random.default_rng(0)`` draws, so the same uint8 train split byte
+    for byte, with ``test = train[:256]``. One source for the bench
+    (:mod:`lvae_tpu_torch.bench`) and the probes, so the profiled model is
+    the benchmarked one. ``mnist`` is the flagship 28x28 Bernoulli config;
+    ``celeba64`` BASELINE config 5 (64x64 RGB, 4 latent layers, the
+    logistic-mixture head); ``cifar10-deep`` BASELINE config 4 (32x32 RGB,
+    10 latent layers, the mixture head)."""
+    rng = np.random.default_rng(0)
+    if preset == "cifar10-deep":
+        train = rng.integers(0, 256, size=(n_train, 32, 32, 3), dtype=np.uint8)
+        meta = ((32, 32), (32, 32), 3, PREPROCESS_DEQUANTIZE, "discretized_logistic_mix")
+        # 10 latent layers. lvae_tpu's comment says three at 16x16; the
+        # model gives two (16, 16, then 8 x3, 4 x3, 2 x2): the first block
+        # of a downsampling layer resamples
+        zdims, downsample = (32,) * 10, (0, 0, 1, 0, 0, 1, 0, 0, 1, 0)
+    elif preset == "celeba64":
+        train = rng.integers(0, 256, size=(n_train, 64, 64, 3), dtype=np.uint8)
+        meta = ((64, 64), (64, 64), 3, PREPROCESS_DEQUANTIZE, "discretized_logistic_mix")
+        zdims, downsample = (32, 32, 32, 32), (1, 1, 1, 1)
+    elif preset == "mnist":
+        train = (rng.uniform(size=(n_train, 28, 28, 1)) < 0.5).astype(np.uint8)
+        meta = ((28, 28), (32, 32), 1, PREPROCESS_NONE, "bernoulli")
+        zdims, downsample = (32, 32, 32), (1, 1, 1)
+    else:
+        raise ValueError(f"unknown bench preset {preset!r}; choose from {BENCH_PRESETS}")
+    return Dataset("bench", train[:256], *meta, train=train), zdims, downsample
+
+
+BENCH_PRESETS = ("mnist", "celeba64", "cifar10-deep")
 
 
 def _load(name: str, data_dir: str, with_train: bool):

@@ -54,6 +54,10 @@ def parse_args(argv=None):
     p.add_argument("--ll", action="store_true",
                    help="compute the importance-weighted log-likelihood")
     p.add_argument("--iw-samples", type=int, default=100)
+    # PROVISIONAL default: on one H100 chunk 10 ran 1.04-2.1x chunk 1's
+    # images/s over one IW batch at k = 100 (most in bf16, whose chunk-1
+    # forwards leave the card idle half the time; tools/torch_policy_ab.py,
+    # PERF.md); the default waits for the benchmark's own cells
     p.add_argument("--iw-chunk", type=int, default=1,
                    help="IW samples stacked into one forward (the estimate "
                         "does not depend on it)")

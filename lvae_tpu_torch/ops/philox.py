@@ -143,7 +143,10 @@ def keyed_words(shape: Sequence[int], seed: Ints, index: torch.Tensor,
     if index.shape != (b,):
         raise ValueError(f"index must be int64 [{b}], got {tuple(index.shape)}")
     device = index.device
-    sample = torch.as_tensor(sample, dtype=torch.int64, device=device)
+    # an int sample as a fill on the device: a copy from the host would
+    # break a CUDA graph's capture
+    sample = (sample.to(device=device, dtype=torch.int64) if isinstance(sample, torch.Tensor)
+              else torch.full((), int(sample), dtype=torch.int64, device=device))
     offset = torch.arange(n, dtype=torch.int64, device=device).view(1, n)
     k0, k1 = seed_words(seed)
     words = philox4x32(
@@ -175,7 +178,7 @@ def dropout_bytes(shape: Sequence[int], seed: Ints,
     k0, k1 = seed_words(seed)
     words = torch.stack(philox4x32(grp & _M32, grp >> 32, 0, STREAM_SEGMENT_DROPOUT,
                                    k0, k1), dim=1)                    # [n/16, 4]
-    shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int64, device=device)
+    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=device)    # 0, 8, 16, 24
     b = (words.unsqueeze(-1) >> shifts) & 255                         # [n/16, 4, 4]
     return b.reshape(-1)[:n].to(torch.uint8).reshape(tuple(shape))
 
@@ -186,7 +189,9 @@ def keyed_normal(shape: Sequence[int], seed: Ints, index: torch.Tensor,
     ``i`` keyed by ``(seed, index[i], sample[i], stream)``."""
     w = keyed_words(shape, seed, index, sample, stream)
     u1, u2 = uniform24(w[0]), uniform24(w[1])
-    two_pi = torch.tensor(_TWO_PI, dtype=torch.float32, device=u2.device)
+    # a fill on the device, not a copy from the host: a CUDA graph of the
+    # train step cannot capture a copy from pageable host memory
+    two_pi = torch.full((), _TWO_PI, dtype=torch.float32, device=u2.device)
     eps = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(two_pi * u2)
     return eps.reshape(tuple(shape))
 

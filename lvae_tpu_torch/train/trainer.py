@@ -76,9 +76,12 @@ def resolve_fused(policy: str, device: torch.device, train: bool = False,
     ``lvae_tpu/train/trainer.py:87-97``. Evaluation runs BatchNorm on the
     running statistics whatever the policy, so ``fused_segments`` is set
     for training only. PROVISIONAL: ``auto``'s choices on CUDA (K2/K1 and
-    K3 on, K5 off) are taken before any A/B of the port on the H100
-    decided them (ROADMAP Queue 1); the TPU's measured policy is no
-    evidence for them.
+    K3 on, K5 off) were taken before any A/B of the port on the H100, and
+    the TPU's measured policy is no evidence for them. An A/B on one H100
+    (``tools/torch_policy_ab.py``, in turns, two runs a variant; PERF.md)
+    then measured the bench's graphed step at ``all`` 12.9-34.6% above
+    ``auto`` in train images/s at every preset and precision; the default
+    waits for the benchmark's own cells (ROADMAP Queue 1).
     """
     if policy not in FUSED_POLICIES:
         raise ValueError(f"unknown --fused {policy!r}; choose from {FUSED_POLICIES}")
@@ -94,7 +97,11 @@ def resolve_fused(policy: str, device: torch.device, train: bool = False,
 
 def default_logsumexp(device: torch.device) -> str:
     """``--logsumexp`` when not given: the CUDA kernel on CUDA, the
-    streaming accumulator elsewhere. PROVISIONAL, like ``resolve_fused``."""
+    streaming accumulator elsewhere. PROVISIONAL, like ``resolve_fused``:
+    on one H100 the two were within their runs' spread over one IW batch
+    at k = 100 (the flagship at B = 1,000, celeba64 at 500; fp32 and
+    bf16; ``tools/torch_policy_ab.py``, PERF.md), where the forwards take
+    the time."""
     return "kernel" if torch.device(device).type == "cuda" else "streaming"
 
 

@@ -265,6 +265,27 @@ class TestStepBody:
         _equal_states(a, b)
         assert max(norms) > LOSS.max_grad_norm > min(norms)
 
+    @pytest.mark.parametrize("fused,impl", [(False, "bits8"), (False, "float"),
+                                            (True, "bits8")],
+                             ids=["none-bits8", "none-float", "all-bits8"])
+    def test_body_makes_no_tensor_from_host_data_on_a_device(self, monkeypatch, fused, impl):
+        """On the card ``torch.tensor(data, device=d)`` copies from pageable
+        host memory, which a CUDA graph cannot capture: the body at a device
+        step builds no tensor from host data on a named device. (The plain
+        latent draw built 2 pi so, and ``--steps-per-call k`` with the
+        sample+KL kernels off, ``--fused none|segments|mixture``, failed at
+        the capture on the card.)"""
+        made = []
+        for name in ("tensor", "as_tensor"):
+            def spy(*args, _make=getattr(torch, name), _name=name, **kw):
+                if kw.get("device") is not None and not isinstance(args[0], torch.Tensor):
+                    made.append(_name)
+                return _make(*args, **kw)
+            monkeypatch.setattr(torch, name, spy)
+        s = _state(fused, impl)
+        train_body(s, _batches(1), torch.arange(8), LOSS, s.device_step())
+        assert made == []
+
     def test_masks_move_with_the_device_step(self):
         """The same body at two values of the device step draws other
         masks; at the same value the same."""
