@@ -21,8 +21,9 @@ learned top prior):
 
 And celeba64 (64x64 RGB, z 32-32-32-32, 2 blocks per layer, 64 filters,
 the discretized-logistic-mixture head; phases 10-13): the mixture
-log-prob kernel and its backward (K3, K3-bwd, on each of its two plans)
-against their plain versions; evaluation over 2,000 synthetic 64x64 RGB images read from
+log-prob kernel and its backward (K3 at each of its 1, 2 or 4 pixels a
+thread in fp32 and bf16, K3-bwd on each of its two plans) against their
+plain versions; evaluation over 2,000 synthetic 64x64 RGB images read from
 ``celeba/celeba_64.npz`` with the k=100 IW log-likelihood over the first
 500; 40 training steps at batch 128 on 20,000 images; one step against
 the plain path and the CPU, and train images/s.
@@ -1229,10 +1230,11 @@ def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log,
 
 K_MIX = 10
 # (B, C, H, W, K): celeba64's training and evaluation batches, a C = 1 case,
-# and a K whose one-pass terms leave no room for a second CTA on an SM (the
-# two-pass plan by default; every model of the repo has K = 10)
+# a K whose one-pass terms leave no room for a second CTA on an SM (the
+# two-pass plan by default; every model of the repo has K = 10), and a 7x7
+# map, whose 49 pixels no V > 1 of K3 divides
 MIX_SHAPES = [(128, 3, 64, 64, K_MIX), (500, 3, 64, 64, K_MIX), (16, 1, 32, 32, K_MIX),
-              (32, 3, 64, 64, 24)]
+              (32, 3, 64, 64, 24), (8, 3, 7, 7, K_MIX)]
 CELEBA_B, CELEBA_EVAL_B = CELEBA["batch_size"], CELEBA["test_batch_size"]
 CELEBA_N_TRAIN, CELEBA_N_TEST = 20_000, 2_000
 CELEBA_STEPS = 40                           # phase 12
@@ -1253,13 +1255,64 @@ def write_celeba(data_dir, train_u8, test_u8):
 
 
 def mix_kernel_name(entry):
-    m = re.search(r"(mix_\w+?_kernel)ILi(\d)E(f|13__nv_bfloat16)E", entry)
-    return f"{m[1]}<{m[2]}, {'float' if m[3] == 'f' else 'bf16'}>" if m else entry
+    """``mix_fwd_kernel<3, bf16, V 2>`` of a mangled symbol (the forward's
+    pixels a thread as its third template argument)."""
+    m = re.search(r"(mix_\w+?_kernel)ILi(\d)E(f|13__nv_bfloat16)(?:Li(\d)E)?E", entry)
+    if not m:
+        return entry
+    v = f", V {m[4]}" if m[4] else ""
+    return f"{m[1]}<{m[2]}, {'float' if m[3] == 'f' else 'bf16'}{v}>"
+
+
+def k3_plan_checks(x, p, k, shape):
+    """K3 at every V of ``kernels/mixture.py`` ``FWD_VECTORS``, fp32 and
+    bf16 params, against the plain version on the same params (1e-4 +
+    1e-5 |ll|), each relaunch bit-equal. Every V does the same arithmetic
+    per pixel, so their ll are bit-equal, and so is a map one element off
+    alignment, which the kernel reads one value at a time (V = 1); the
+    default launch is its V's."""
+    import torch
+
+    from lvae_tpu_torch.kernels import mixture as km
+
+    b, c, h, w = x.shape
+    default = km.fwd_plan(b, h * w)
+    for pp in (p, p.to(torch.bfloat16)):
+        label = "bf16" if pp.dtype == torch.bfloat16 else "fp32"
+        ref = km._plain_mix_log_prob(x, pp, k, 256)
+        # the same values one element past an aligned address
+        off = torch.empty(pp.numel() + 1, dtype=pp.dtype, device=pp.device)[1:].view_as(pp)
+        off.copy_(pp)
+        worst, first = {}, None
+        for v in km.FWD_VECTORS:
+            ll = km.mix_log_prob(x, pp, k, plan=v)
+            e = ((ll - ref).abs() - 1e-5 * ref.abs()).max().item()
+            worst[v] = (ll - ref).abs().max().item()
+            check(ll.dtype == torch.float32 and e <= 1e-4,
+                  f"K3 {label} {shape} V={v}: ll within 1e-4 + 1e-5 |ll| (max |d| - 1e-5 "
+                  f"|ll| = {e:.2e}; ll in [{ref.min().item():.1f}, {ref.max().item():.1f}])")
+            check(torch.equal(ll, km.mix_log_prob(x, pp, k, plan=v)),
+                  f"K3 {label} {shape} V={v}: a second launch is bit-equal")
+            check(torch.equal(ll, km.mix_log_prob(x, off, k, plan=v)),
+                  f"K3 {label} {shape} V={v}: the map one element off alignment gives the "
+                  f"same bits")
+            if first is None:
+                first = (v, ll)
+            else:
+                check(torch.equal(ll, first[1]), f"K3 {label} {shape} V={v}: bit-equal to "
+                                                 f"V={first[0]}")
+            if v == default:
+                check(torch.equal(ll, km.mix_log_prob(x, pp, k)),
+                      f"K3 {label} {shape}: the default launch is V={v}, bit for bit")
+        print(f"  K3 {label} {shape}: default V={default}; max |ll - plain| by V: "
+              + ", ".join(f"{v}: {e:.2e}" for v, e in worst.items()))
+        del ref, off, first
 
 
 def phase_mixture(card, build_log=""):
     """K3 and K3-bwd against their plain versions at every ``MIX_SHAPES``
-    entry, K3-bwd on each of its plans; both timed at celeba64's batches,
+    entry, K3 on each of its plans in fp32 and bf16, K3-bwd on each of its
+    plans; both timed at celeba64's batches,
     K3-bwd on each plan at the training batch and at the large K; the
     kernels' registers, spills and shared memory."""
     import torch
@@ -1295,10 +1348,13 @@ def phase_mixture(card, build_log=""):
                          f"= {e:.2e}; ll in [{ref.min().item():.1f}, {ref.max().item():.1f}])")
         check(torch.equal(ll, km.mix_log_prob(x, p, k)), f"K3 {shape}: a second launch "
                                                          f"is bit-equal")
+        del ll, ref
+        k3_plan_checks(x, p, k, shape)
 
         default = km.bwd_plan(k, c)
         plans = km.PLANS                    # one_pass fits a CTA at every K here
-        more["plans"][shape] = {"default": default.name, "smem": default.smem}
+        more["plans"][shape] = {"default": default.name, "smem": default.smem,
+                                "fwd_v": km.fwd_plan(b, h * w)}
         print(f"  K3-bwd {shape}: default plan {default.name} ({default.smem} B of shared "
               f"memory per CTA of {km.THREADS}); checked: {', '.join(plans)}")
         dp, dx = km.mix_log_prob_backward(x, p, gg, k)
@@ -1347,7 +1403,7 @@ def phase_mixture(card, build_log=""):
                                                              plan=plan), 10)
                 more["plans"][shape][f"{plan}_ms"] = t
                 print(f"  time K3-bwd {shape} {plan} per call: {t:.4f} ms  ({card})")
-        if c != 3 or k != K_MIX:
+        if c != 3 or k != K_MIX or h != 64:
             continue
         fwd = lambda: km.mix_log_prob(x, p, k)                          # noqa: E731
         fwd_plain = lambda: km._plain_mix_log_prob(x, p, k, 256)        # noqa: E731
@@ -4913,7 +4969,8 @@ def main():
     two_pass = mix_t[("K3-bwd two_pass", CELEBA_B)]
     for name, replaces, e, t, more in (
         ("mix_log_prob", "lvae_tpu/kernels/mixture_pallas.py:323", mix_err["fwd"],
-         mix_t[("K3", CELEBA_B)], {}),
+         mix_t[("K3", CELEBA_B)],
+         {"plan": f"V={mix_more['plans'][f'[{CELEBA_B},100,64,64] C=3 K={K_MIX}']['fwd_v']}"}),
         ("mix_log_prob_bwd", "lvae_tpu/kernels/mixture_pallas.py:338", mix_err["bwd"],
          mix_t[("K3-bwd", CELEBA_B)],
          {"plan": mix_more["plans"][f"[{CELEBA_B},100,64,64] C=3 K={K_MIX}"]["default"],

@@ -32,15 +32,38 @@
 // Layout: the model's own NCHW, read in place. params [B, K(1 + 3C), H, W]
 // with channel q the flax channel q: [pi (K)] ++ [means (KC)] ++
 // [log_scales (KC)] ++ [coeffs (KC)], component j channel c at slab entry
-// C j + c; x [B, C, H, W]; ll [B, H, W]. One thread per pixel (b, p = h W +
-// w) reads channel q at b Q HW + q HW + p, so at every q a warp reads 32
-// neighbouring floats: all loads and stores coalesce, with no transpose or
-// regroup around the call (the TPU kernel streams batch-minor tiles). The
-// backward writes dparams in the same layout, and dx only when given a
-// pointer. K is a runtime argument; C is 1 or 3 (a template argument).
+// C j + c; x [B, C, H, W]; ll [B, H, W]. A thread of the backward takes one
+// pixel (b, p = h W + w), a thread of the forward V neighbouring ones, and
+// reads channel q at b Q HW + q HW + p, so at every q a warp reads 32 (or
+// 32 V) neighbouring values: all loads and stores coalesce, with no
+// transpose or regroup around the call (the TPU kernel streams batch-minor
+// tiles). The backward writes dparams in the same layout, and dx only when
+// given a pointer. K is a runtime argument; C is 1 or 3 (a template
+// argument).
 //
-// The forward keeps two running (max, sum) pairs in registers, for
-// logsumexp(pi) and logsumexp(t), in place of the 100 values of its pixel.
+// The forward (mix_fwd_kernel<C, P, V>, redesigned for the H100; the
+// parent design, a grid-stride loop of one pixel a thread with accurate
+// special functions, had 881 SASS instructions in its component loop):
+//   - the grid is (pixel blocks, batch), so no thread divides by hw;
+//   - a thread takes V = 1, 2 or 4 neighbouring pixels and reads each
+//     channel with one load of V values (float4, or 4 bf16 as a 64-bit
+//     word), kernels/mixture.py fwd_plan choosing V from B and hw; rows
+//     that are not V-aligned run V = 1, which gives the same bits;
+//   - a bin costs four hardware exponentials (e^-ls, e^-|a|, e^-|a + d|,
+//     and e^-d where d >= 0.25) and no logarithm of its own: with the
+//     edges as -inf / +inf added to a and a + d,
+//       lp = min(a + d, -a, 0) + log(-expm1(-d)) - log((1 + e^-|a|)(1 + e^-|a + d|)),
+//     where log(-expm1(-d)) stays accurate for narrow bins as
+//     log(2 hb) - ls + log(series of (1 - e^-d) / d) below d = 0.25 and
+//     log(1 - e^-d) above, and the C channels' logarithms are taken once,
+//     of the products (two lg2 a component);
+//   - tanh(coeffs) is 1 - 2 / (1 + e^(2|v|)): one exponential and one
+//     reciprocal;
+//   - t_j and pi_j fold into running logsumexps without a branch: one
+//     exponential of -|v - m| each.
+// Per pixel and component, C = 3: ~200 SASS instructions (V = 4) and 22
+// MUFU. Holding every t_j and pi_j in registers (the loop unrolled, a max
+// then a sum) was measured and lost at every V (PERF.md, PR 15).
 // The backward has two schedules (kernels/mixture.py bwd_plan):
 //   one pass (the default where it fits, K (2 + 2C + 3[C = 3]) floats a
 //     thread, 56,320 B a CTA of 128 at K = 10, C = 3: four CTAs per SM):
@@ -58,11 +81,11 @@
 //
 // Bound: at celeba64's training shape [128, 100, 64, 64] the forward reads
 // 400 B of params, 12 B of x and writes 4 B per pixel: 218 MB, ~65 us at
-// 3.35 TB/s. The backward reads the same plus g (4 B) and writes 400 B of
-// dparams (and 12 B of dx when asked): ~420-435 MB, ~128 us. What bounds
-// the two-pass schedule on an H100 is instruction issue: ~30 accurate
-// special functions per bin per pass (expf, log1pf, expm1f, logf, two
-// divisions, tanhf), 2,696 SASS instructions (90 MUFU) for
+// 3.35 TB/s (bf16 params: 113 MB, ~34 us). The backward reads the same plus
+// g (4 B) and writes 400 B of dparams (and 12 B of dx when asked): ~420-435
+// MB, ~128 us. What bounds the two-pass schedule on an H100 is instruction
+// issue: ~30 accurate special functions per bin per pass (expf, log1pf,
+// expm1f, logf, two divisions, tanhf), 2,696 SASS instructions (90 MUFU) for
 // mix_bwd_kernel<3>, and a throwaway build with -use_fast_math ran it 20%
 // faster. The one pass builds each bin once, shares e^-|v| between
 // softplus and sigmoid, and uses the hardware's approximate exp, log and
@@ -70,10 +93,15 @@
 // fast math gains it only 6%, and prefetching the next component's ten
 // loads 2.4% (4.6% at C = 1). Measured by chip_smoke.py phase 10 on an
 // NVIDIA H100 80GB HBM3 at 700 W, dparams only (PERF.md section 6 has each
-// run's numbers): one pass ~0.19 ms, two passes ~0.36 ms of device time
-// (the forward ~0.13 ms), against ~3.5 ms for the plain PyTorch backward,
-// 1.5x the memory bound; a one-pass CTA alone on its SM (K = 24) is slower
-// than two passes (~0.29 against ~0.23 ms per call at [32, 240, 64, 64]).
+// run's numbers): one pass ~0.19 ms, two passes ~0.36 ms of device time,
+// against ~3.5 ms for the plain PyTorch backward, 1.5x the memory bound; a
+// one-pass CTA alone on its SM (K = 24) is slower than two passes (~0.29
+// against ~0.23 ms per call at [32, 240, 64, 64]). The forward at [128,
+// 100, 64, 64] (lvae_tpu_torch/mixture_ab.py, in turns with the parent
+// design): fp32 0.075 ms against 0.127 (87% of its byte bound), bf16 0.051
+// against 0.127 (66%), where the special-function unit (22 MUFU a pixel
+// and component, ~0.03 ms) and instruction issue (~0.035 ms) sit beside the
+// bytes.
 // Determinism: every pixel is independent, with no atomics, so two
 // launches are bit-equal.
 //
@@ -86,12 +114,19 @@
 // directly: the fp32 value rounded to nearest even is the cast's bits, at
 // half the bytes and with no second kernel. A bf16 map halves the
 // parameter bytes: at [128, 100, 64, 64] the forward moves 218 -> 113 MB,
-// the backward 435 -> 226 MB (with dx).
+// the backward 435 -> 226 MB (with dx). The forward loads bf16 values as
+// 16-, 32- or 64-bit words and moves each to an fp32's top half with a
+// shift or a mask. A first build of it chose between a vector and a scalar
+// load per channel with a branch; each conversion then sat in the branch
+// right after its load, so every load waited on the one before, and bf16 at
+// V = 2 ran at 2.4x its time with one branch-free load (PERF.md, PR 15).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <atomic>
+#include <cmath>
+#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -101,10 +136,10 @@ constexpr float kLogScaleMin = -7.0f;
 
 using bf16 = __nv_bfloat16;
 
-// A parameter as fp32; bf16 -> fp32 is exact (the 16 bits are the fp32
-// value's top half). Read through the pointer here: converting a bf16
-// passed by value (p[i]) ran the forward at 2.2x this form's time on an
-// H100 (PERF.md), for reasons its opcode counts do not show.
+// A parameter as fp32 (the backward's loads); bf16 -> fp32 is exact (the 16
+// bits are the fp32 value's top half). Read through the pointer here:
+// converting a bf16 passed by value (p[i]) ran the parent forward at 2.2x
+// this form's time on an H100 (PERF.md), with the same opcode counts.
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) {
   return __uint_as_float(static_cast<unsigned>(__bfloat16_as_ushort(*p)) << 16);
@@ -239,23 +274,6 @@ __device__ __forceinline__ void pixel_lse(const P* p, long long hw, int k,
 }
 
 template <int C, typename P>
-__global__ void mix_fwd_kernel(const float* __restrict__ x, const P* __restrict__ params,
-                               float* __restrict__ out, long long npix, long long hw,
-                               int k, float hb) {
-  const long long q = static_cast<long long>(k) * (1 + 3 * C);
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < npix; i += step) {
-    const long long b = i / hw, p = i - b * hw;
-    float xs[C];
-    load_xs<C>(x, b, hw, p, xs);
-    float lse_pi, lse_t;
-    pixel_lse<C>(params + b * q * hw + p, hw, k, xs, hb, lse_pi, lse_t);
-    out[i] = lse_t - lse_pi;
-  }
-}
-
-template <int C, typename P>
 __global__ void mix_bwd_kernel(const float* __restrict__ x, const P* __restrict__ params,
                                const float* __restrict__ g, P* __restrict__ dparams,
                                float* __restrict__ dx, long long npix, long long hw, int k,
@@ -317,8 +335,8 @@ __global__ void mix_bwd_kernel(const float* __restrict__ x, const P* __restrict_
 // exponentials, logarithms and reciprocals are the hardware's approximate
 // ones (__expf, __logf, __fdividef: a few ulp, which moves dparams by about
 // 1e-6 of their max); expm1f stays accurate, as 1/expm1(-d) needs its
-// relative accuracy at small d. The forward's bin_logprob<false> is left as
-// it is.
+// relative accuracy at small d. The two-pass schedule's bin_logprob is
+// left as it is.
 __device__ __forceinline__ Bin bin_terms(float xs, float m, float ls, float hb) {
   const float inv_s = __expf(-ls);
   const float a = inv_s * ((xs - m) - hb);
@@ -351,7 +369,8 @@ __device__ __forceinline__ Bin bin_terms(float xs, float m, float ls, float hb) 
 }
 
 // lse_push with the hardware's approximate exponential (the one-pass
-// backward's weights; lse_push, which the forward uses, stays as it is).
+// backward's weights; lse_push, which the two-pass schedule uses, stays as
+// it is).
 __device__ __forceinline__ void lse_push_approx(float& m, float& s, float v) {
   if (v > m) {
     s = s * __expf(m - v) + 1.0f;
@@ -482,6 +501,216 @@ mix_bwd_one_pass_kernel(const float* __restrict__ x, const P* __restrict__ param
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3, the forward (see the header): V pixels a thread, each channel read
+// with one vector load, the bin terms from four hardware exponentials and
+// the component's sum from two logarithms, and logsumexps without a branch.
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// below this d the bin's -expm1(-d) is d times a series, with log d taken
+// from the log-scale itself
+constexpr float kSeriesMax = 0.25f;
+
+// The hardware's approximations (a few ulp; subnormal results flush to 0).
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float lg2(float v) {
+  float r;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float rcp(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// tanh |v| = 1 - 2 / (1 + e^(2|v|)): one exponential and one reciprocal
+// (a few ulp of 1 off tanhf; chip_smoke.py phase 10 holds ll to the plain
+// version's tanhf at 1e-4 + 1e-5 |ll|).
+__device__ __forceinline__ float tanh_fast(float v) {
+  const float e = ex2(fabsf(v) * (2.0f * kLog2e));
+  return copysignf(fmaf(-2.0f, rcp(1.0f + e), 1.0f), v);
+}
+
+// (1 - e^-d) / d = 1 - d/2 + d^2/6 - ...: relative error 6e-8 at d = 0.25
+__device__ __forceinline__ float expm1_ratio(float d) {
+  float h = fmaf(d, -1.0f / 720.0f, 1.0f / 120.0f);
+  h = fmaf(d, h, -1.0f / 24.0f);
+  h = fmaf(d, h, 1.0f / 6.0f);
+  h = fmaf(d, h, -0.5f);
+  return fmaf(d, h, 1.0f);
+}
+
+__device__ __forceinline__ float lo_bf16(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_bf16(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
+
+// V neighbouring values from p (V-aligned) as fp32, with one vector load.
+template <int V>
+__device__ __forceinline__ void load_v(const float* p, float (&o)[V]) {
+  if constexpr (V == 4) {
+    const float4 r = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = r.x; o[1] = r.y; o[2] = r.z; o[3] = r.w;
+  } else if constexpr (V == 2) {
+    const float2 r = __ldg(reinterpret_cast<const float2*>(p));
+    o[0] = r.x; o[1] = r.y;
+  } else {
+    o[0] = __ldg(p);
+  }
+}
+
+// bf16: the words as loaded, each value's 16 bits moved to the top of an
+// fp32 (exact); no bf16 value is converted by value.
+template <int V>
+__device__ __forceinline__ void load_v(const bf16* p, float (&o)[V]) {
+  if constexpr (V == 4) {
+    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+    o[0] = lo_bf16(r.x); o[1] = hi_bf16(r.x); o[2] = lo_bf16(r.y); o[3] = hi_bf16(r.y);
+  } else if constexpr (V == 2) {
+    const unsigned r = __ldg(reinterpret_cast<const unsigned*>(p));
+    o[0] = lo_bf16(r); o[1] = hi_bf16(r);
+  } else {
+    o[0] = lo_bf16(__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float (&r)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+  } else {
+    p[0] = r[0];
+  }
+}
+
+// A pixel's data for every component: xs = 2x - 1 per channel, and the
+// bin's edge as two additive masks: -inf on a where xs is in the left edge
+// bin (xs < -1 + hb), +inf on a + d where it is in the right one.
+template <int C, int V>
+struct Pixels {
+  float xs[C][V], left[C][V], right[C][V];
+};
+
+// Component j's t_j = sum_c lp_jc + pi_j and pi_j for V pixels; img points
+// at the first pixel's channel 0. Per bin, with A = a + left, B = a + d +
+// right, D = d + right - left (+inf at either edge):
+//   lp = min(B, -A, 0) + log((1 - e^-D) or d h(d)) - log((1 + e^-|A|)(1 + e^-|B|))
+// which is the interior's a + d + log(-expm1(-d)) - softplus(a) -
+// softplus(a + d), the left edge's -softplus(-(a + d)) and the right
+// edge's -softplus(a). log d = log(2 hb) - ls exactly; the C channels'
+// logarithms are taken once, of the products.
+template <int C, int V, typename P>
+__device__ __forceinline__ void component(const P* img, long long hw, int k, int j,
+                                          const Pixels<C, V>& px, float hb, float log_2hb,
+                                          float (&pi)[V], float (&t)[V]) {
+  float m[C][V], ls[C][V];
+  load_v<V>(img + j * hw, pi);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    load_v<V>(img + (k + C * j + c) * hw, m[c]);
+    load_v<V>(img + (k + k * C + C * j + c) * hw, ls[c]);
+  }
+  if constexpr (C == 3) {
+    float co[C][V];
+#pragma unroll
+    for (int c = 0; c < C; ++c) load_v<V>(img + (k + 2 * k * C + C * j + c) * hw, co[c]);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float t0 = tanh_fast(co[0][v]), t1 = tanh_fast(co[1][v]), t2 = tanh_fast(co[2][v]);
+      m[1][v] = m[1][v] + t0 * px.xs[0][v];
+      m[2][v] = (m[2][v] + t1 * px.xs[0][v]) + t2 * px.xs[1][v];
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    float lin = 0.0f, num = 1.0f, den = 1.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float l = fmaxf(ls[c][v], kLogScaleMin);
+      const float inv_s = ex2(l * -kLog2e);
+      const float a = inv_s * ((px.xs[c][v] - m[c][v]) - hb);
+      const float d = (2.0f * hb) * inv_s;
+      const float A = a + px.left[c][v], B = (a + d) + px.right[c][v];
+      const float D = d + (px.right[c][v] - px.left[c][v]);
+      const bool series = D < kSeriesMax;
+      lin += fminf(fminf(B, -A), 0.0f) + (series ? log_2hb - l : 0.0f);
+      num *= series ? expm1_ratio(D) : 1.0f - ex2(D * -kLog2e);
+      den *= (1.0f + ex2(fabsf(A) * -kLog2e)) * (1.0f + ex2(fabsf(B) * -kLog2e));
+    }
+    t[v] = (lin + kLn2 * (lg2(num) - lg2(den))) + pi[v];
+  }
+}
+
+// Fold v into a running logsumexp (m, s) without a branch: one exponential
+// of -|v - m|, which is e^(v - m) or e^(m - v) as v or m is the larger. An
+// all -inf sequence gives (-inf, n), whose logsumexp is -inf; a NaN
+// propagates through s.
+__device__ __forceinline__ void lse_fold(float& m, float& s, float v) {
+  const float e = v == m ? 1.0f : ex2(fabsf(v - m) * -kLog2e);
+  const bool up = v > m;
+  s = up ? fmaf(s, e, 1.0f) : s + e;
+  m = up ? v : m;
+}
+
+// K3: ll [B, HW] for a [B, K(1 + 3C), HW] parameter map whose rows are
+// V-aligned (hw % V == 0, aligned pointers; the C entry launches V = 1
+// where they are not). Grid: x over the image's pixels, V to a thread; y
+// over the batch (a loop where B is above 65,535). Each thread folds its
+// pixels' t_j and pi_j into running logsumexps, component by component;
+// every V computes the same bits.
+template <int C, typename P, int V>
+__global__ void __launch_bounds__(kThreads, 4)
+mix_fwd_kernel(const float* __restrict__ x, const P* __restrict__ params,
+               float* __restrict__ out, long long nb, long long hw, int k, float hb,
+               float log_2hb) {
+  const long long p0 = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * V;
+  if (p0 >= hw) return;
+  const long long q = static_cast<long long>(k) * (1 + 3 * C);
+  for (long long b = blockIdx.y; b < nb; b += gridDim.y) {
+    Pixels<C, V> px;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      load_v<V>(x + (b * C + c) * hw + p0, px.xs[c]);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float xs = 2.0f * px.xs[c][v] - 1.0f;
+        const bool left = xs < -1.0f + hb;
+        px.xs[c][v] = xs;
+        px.left[c][v] = left ? -INFINITY : 0.0f;
+        px.right[c][v] = !left && xs > 1.0f - hb ? INFINITY : 0.0f;
+      }
+    }
+    const P* img = params + b * q * hw + p0;
+    float mt[V], st[V], mp[V], sp[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      mt[v] = mp[v] = -INFINITY;
+      st[v] = sp[v] = 0.0f;
+    }
+#pragma unroll 1
+    for (int j = 0; j < k; ++j) {
+      float pj[V], tj[V];
+      component<C, V>(img, hw, k, j, px, hb, log_2hb, pj, tj);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        lse_fold(mt[v], st[v], tj[v]);
+        lse_fold(mp[v], sp[v], pj[v]);
+      }
+    }
+    float ll[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      ll[v] = (mt[v] + kLn2 * lg2(st[v])) - (mp[v] + kLn2 * lg2(sp[v]));
+    store_v<V>(out + b * hw + p0, ll);
+  }
+}
+
 unsigned int grid_for(long long npix) {
   long long blocks = (npix + kThreads - 1) / kThreads;
   if (blocks > (1LL << 20)) blocks = 1LL << 20;
@@ -540,36 +769,59 @@ int launch_bwd(int plan, const float* x, const void* params, const float* g, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename P>
-int launch_fwd(const float* x, const void* params, float* out, long long npix, long long hw,
-               int k, int c, float hb, cudaStream_t s) {
-  const P* pp = static_cast<const P*>(params);
-  if (c == 3) {
-    mix_fwd_kernel<3, P><<<grid_for(npix), kThreads, 0, s>>>(x, pp, out, npix, hw, k, hb);
-  } else if (c == 1) {
-    mix_fwd_kernel<1, P><<<grid_for(npix), kThreads, 0, s>>>(x, pp, out, npix, hw, k, hb);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// K3's launch at V pixels a thread (kernels/mixture.py fwd_plan).
+struct FwdArgs {
+  const float* x;
+  const void* params;
+  float* out;
+  long long nb, hw;
+  int k;
+  float hb, log_2hb;
+  cudaStream_t s;
+};
+
+constexpr long long kMaxGridY = 65535;
+
+template <int C, typename P, int V>
+int launch_fwd(const FwdArgs& a) {
+  const dim3 grid(static_cast<unsigned>((a.hw + kThreads * V - 1) / (kThreads * V)),
+                  static_cast<unsigned>(a.nb < kMaxGridY ? a.nb : kMaxGridY));
+  mix_fwd_kernel<C, P, V><<<grid, kThreads, 0, a.s>>>(
+      a.x, static_cast<const P*>(a.params), a.out, a.nb, a.hw, a.k, a.hb, a.log_2hb);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int C, typename P>
+int launch_fwd(int v, const FwdArgs& a) {
+  if (v == 4) return launch_fwd<C, P, 4>(a);
+  if (v == 2) return launch_fwd<C, P, 2>(a);
+  return launch_fwd<C, P, 1>(a);
 }
 
 }  // namespace
 
 // x [b, c, hw] fp32, params [b, k (1 + 3c), hw] fp32 (esize 4) or bf16
-// (esize 2), out [b, hw] fp32; c in {1, 3}.
+// (esize 2), out [b, hw] fp32; c in {1, 3}; v pixels a thread (1, 2 or 4;
+// kernels/mixture.py fwd_plan). Rows that are not v-aligned (hw % v != 0,
+// or a pointer off a multiple of v elements) are read one value at a
+// time: the v = 1 kernel, the same bits.
 extern "C" int lvae_mix_log_prob(const void* x, const void* params, void* out, long long b,
-                                 long long hw, int k, int c, int n_bins, int esize,
+                                 long long hw, int k, int c, int n_bins, int v, int esize,
                                  void* stream) {
-  const long long npix = b * hw;
-  if (esize != 4 && esize != 2) return static_cast<int>(cudaErrorInvalidValue);
-  if (npix == 0) return 0;
+  if ((esize != 4 && esize != 2) || (c != 1 && c != 3) || (v != 1 && v != 2 && v != 4) ||
+      k < 1 || n_bins < 2 || b < 0 || hw < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0 || hw == 0) return 0;
+  const auto aligned = [v](const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % (static_cast<uintptr_t>(v) * bytes) == 0;
+  };
   const float hb = 1.0f / static_cast<float>(n_bins - 1);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const float*>(x);
-  auto op = static_cast<float*>(out);
-  return esize == 4 ? launch_fwd<float>(xp, params, op, npix, hw, k, c, hb, s)
-                    : launch_fwd<bf16>(xp, params, op, npix, hw, k, c, hb, s);
+  if (hw % v != 0 || !aligned(x, 4) || !aligned(out, 4) || !aligned(params, esize)) v = 1;
+  const FwdArgs a{static_cast<const float*>(x), params, static_cast<float*>(out), b, hw, k, hb,
+                  static_cast<float>(std::log(2.0 * static_cast<double>(hb))),
+                  static_cast<cudaStream_t>(stream)};
+  if (c == 3) return esize == 4 ? launch_fwd<3, float>(v, a) : launch_fwd<3, bf16>(v, a);
+  return esize == 4 ? launch_fwd<1, float>(v, a) : launch_fwd<1, bf16>(v, a);
 }
 
 // g [b, hw] fp32 -> dparams [b, k (1 + 3c), hw] in params' storage (esize

@@ -98,8 +98,9 @@ _SIGNATURES = {
                                       _INT, _P),
     # plan (kernels/logsumexp.py LsePlan), x, k, b, out, stream
     "lvae_logsumexp": (_P, _P, ctypes.c_int, ctypes.c_int64, _P, _P),
-    # x, params, out, b, hw, k, c, n_bins, params' esize, stream
-    "lvae_mix_log_prob": (_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT, _P),
+    # x, params, out, b, hw, k, c, n_bins, pixels a thread (kernels/mixture.py
+    # fwd_plan), params' esize, stream
+    "lvae_mix_log_prob": (_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT, _INT, _P),
     # x, params, g, dparams, dx (or NULL), b, hw, k, c, n_bins, esize, stream
     "lvae_mix_log_prob_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT, _P),
     # the same, with the plan (kernels/mixture.py PLANS index) before esize

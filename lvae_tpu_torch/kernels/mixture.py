@@ -8,7 +8,9 @@ gradient only when x needs one. Both take the model's NCHW layout as it
 is: x ``[B, C, H, W]`` in [0, 1], params ``[B, K(1 + 3C), H, W]`` (flax's
 channel order), ll ``[B, H, W]``; C is 1 or 3.
 
-K3-bwd has two schedules (:func:`bwd_plan`): "one_pass" builds each
+K3 takes a launch plan (:func:`fwd_plan`): how many neighbouring pixels
+a thread computes, each channel read with one vector load. K3-bwd has two
+schedules (:func:`bwd_plan`): "one_pass" builds each
 component's bin terms once and keeps them in shared memory until the
 logsumexps are known; "two_pass", the original kernel, finds the
 logsumexps in a first pass and recomputes every component in a second,
@@ -112,6 +114,30 @@ def _plain_mix_log_prob_bwd(x: torch.Tensor, params: torch.Tensor, g: torch.Tens
 
 
 # ---------------------------------------------------------------------------
+# the forward's launch plan
+# ---------------------------------------------------------------------------
+
+FWD_VECTORS = (4, 2, 1)   # pixels a thread: each channel one float4 / float2 (4 / 2 bf16)
+# The least threads a launch should keep: 512 CTAs of THREADS, about four
+# on each of an H100's 132 SMs, the occupancy of K3's 128-register kernels.
+# Below it a smaller V, more threads, ran faster (PERF.md, PR 15).
+MIN_THREADS = 65_536
+
+
+def fwd_plan(b: int, hw: int, plan: Optional[int] = None) -> int:
+    """K3's pixels a thread, V, for B maps of ``hw`` pixels: the largest of
+    ``FWD_VECTORS`` that divides ``hw`` (so every row starts V-aligned) and
+    leaves at least ``MIN_THREADS`` threads, else 1. ``plan`` forces a V of
+    ``FWD_VECTORS``; where it does not divide ``hw`` (or a pointer is off
+    V alignment) the C entry runs V = 1, which gives the same bits."""
+    if plan is not None:
+        if plan not in FWD_VECTORS:
+            raise ValueError(f"plan must be one of {FWD_VECTORS} pixels a thread, got {plan!r}")
+        return plan
+    return next((v for v in FWD_VECTORS if hw % v == 0 and b * hw // v >= MIN_THREADS), 1)
+
+
+# ---------------------------------------------------------------------------
 # the backward's schedule
 # ---------------------------------------------------------------------------
 
@@ -188,12 +214,13 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(x: torch.Tensor, params: torch.Tensor, k: int, n_bins: int) -> torch.Tensor:
+def _launch_fwd(x: torch.Tensor, params: torch.Tensor, k: int, n_bins: int,
+                v: int) -> torch.Tensor:
     b, c, h, w = x.shape
     out = torch.empty((b, h, w), device=x.device)
     with torch.cuda.device(x.device):
         status = build.library().lvae_mix_log_prob(
-            x.data_ptr(), params.data_ptr(), out.data_ptr(), b, h * w, k, c, n_bins,
+            x.data_ptr(), params.data_ptr(), out.data_ptr(), b, h * w, k, c, n_bins, v,
             build.esize(params.dtype), _stream(x))
     build.LAUNCHES[build.launch_name("mix_log_prob", params.dtype)] += 1
     build.check(status, "mix_log_prob")
@@ -238,11 +265,11 @@ class _MixLogProb(torch.autograd.Function):
     on CUDA, the plain versions on the CPU."""
 
     @staticmethod
-    def forward(ctx, x, params, k, n_bins):
+    def forward(ctx, x, params, k, n_bins, v):
         if x.device.type == "cpu":
             ll = _plain_mix_log_prob(x, params, k, n_bins)
         else:
-            ll = _launch_fwd(x, params, k, n_bins)
+            ll = _launch_fwd(x, params, k, n_bins, v)
         ctx.k, ctx.n_bins = k, n_bins
         ctx.save_for_backward(x, params)
         return ll
@@ -253,13 +280,16 @@ class _MixLogProb(torch.autograd.Function):
         x, params = ctx.saved_tensors
         dparams, dx = mix_log_prob_backward(x, params, g, ctx.k, ctx.n_bins,
                                             need_dx=ctx.needs_input_grad[0])
-        return dx, dparams, None, None
+        return dx, dparams, None, None, None
 
 
 def mix_log_prob(x: torch.Tensor, params: torch.Tensor, n_components: int = 10,
-                 n_bins: int = 256) -> torch.Tensor:
+                 n_bins: int = 256, plan: Optional[int] = None) -> torch.Tensor:
     """K3: the per-pixel log-prob ``[B, H, W]`` (fp32) of x ``[B, C, H, W]``
     (fp32) under the mixture ``params [B, K(1 + 3C), H, W]`` (fp32 or bf16),
-    differentiable in both."""
+    differentiable in both. ``plan`` forces K3's pixels a thread (see
+    :func:`fwd_plan`; the CPU's plain version ignores it)."""
     _checked(x, params, n_components, n_bins)
-    return _MixLogProb.apply(x, params, n_components, n_bins)
+    b, _, h, w = x.shape
+    v = fwd_plan(b, h * w, plan)
+    return _MixLogProb.apply(x, params, n_components, n_bins, v)

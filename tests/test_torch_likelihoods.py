@@ -191,6 +191,134 @@ HEADS = [("bernoulli", 1), ("gaussian", 3), ("discretized_logistic", 3),
          ("discretized_logistic_mix", 3), ("discretized_logistic_mix", 1)]
 
 
+def _online_lse(v):
+    """K3's logsumexp over axis 1 (``lse_fold``): a running (max, sum), one
+    exponential of -|v - m| a value, no branch."""
+    m, s = torch.full_like(v[:, 0], -np.inf), torch.zeros_like(v[:, 0])
+    for j in range(v.shape[1]):
+        vj = v[:, j]
+        e = torch.where(vj == m, 1.0, torch.exp(-(vj - m).abs()))
+        up = vj > m
+        s, m = torch.where(up, s * e + 1.0, s + e), torch.where(up, vj, m)
+    return m + torch.log(s)
+
+
+def _k3_arithmetic(x, p, k, n_bins):
+    """``csrc/mixture.cu`` ``mix_fwd_kernel``'s arithmetic in float64, with
+    exact exponentials and logarithms where the kernel takes the
+    hardware's: tanh as 1 - 2 / (1 + e^(2|v|)); per bin the edges as
+    -inf / +inf added to a, a + d and d; min(a + d, -a, 0), plus log d =
+    log(2 hb) - ls and the series of (1 - e^-d) / d below d = 0.25, else
+    1 - e^-d; the channels' logarithms taken of products; and the
+    logsumexps as the branch-free running fold."""
+    x, p = x.double(), p.double()
+    b, c, h, w = x.shape
+    hb, kc = 1.0 / (n_bins - 1), k * c
+    xs = (2.0 * x - 1.0).unsqueeze(1)                                   # [B, 1, C, H, W]
+    is_left = xs < -1.0 + hb
+    left = torch.where(is_left, -np.inf, 0.0)
+    right = torch.where(~is_left & (xs > 1.0 - hb), np.inf, 0.0)
+    pi = p[:, :k]
+    m = p[:, k:k + kc].reshape(b, k, c, h, w)
+    ls = p[:, k + kc:k + 2 * kc].reshape(b, k, c, h, w).clamp_min(km.LOG_SCALE_MIN)
+    if c == 3:
+        raw = p[:, k + 2 * kc:].reshape(b, k, c, h, w)
+        co = torch.sign(raw) * (1.0 - 2.0 / (1.0 + torch.exp(2.0 * raw.abs())))
+        m = torch.stack([m[:, :, 0], m[:, :, 1] + co[:, :, 0] * xs[:, :, 0],
+                         (m[:, :, 2] + co[:, :, 1] * xs[:, :, 0]) + co[:, :, 2] * xs[:, :, 1]],
+                        dim=2)
+    inv_s = torch.exp(-ls)
+    a = inv_s * ((xs - m) - hb)
+    d = (2.0 * hb) * inv_s
+    A, B, D = a + left, (a + d) + right, d + (right - left)
+    series = D < 0.25
+    ratio = 1.0 + D * (-0.5 + D * (1 / 6 + D * (-1 / 24 + D * (1 / 120 - D / 720))))
+    lin = torch.minimum(torch.minimum(B, -A), torch.zeros_like(B)) + torch.where(
+        series, np.log(2.0 * hb) - ls, 0.0)
+    num = torch.where(series, ratio, 1.0 - torch.exp(-D))
+    den = (1.0 + torch.exp(-A.abs())) * (1.0 + torch.exp(-B.abs()))
+    t = lin.sum(2) + torch.log(num.prod(2)) - torch.log(den.prod(2)) + pi    # [B, K, H, W]
+
+    return _online_lse(t) - _online_lse(pi)
+
+
+class TestFwdPlan:
+    """K3's launch plan (``kernels/mixture.py`` ``fwd_plan``: the pixels a
+    thread, V), which the wrapper passes to the C entry on every launch,
+    and the arithmetic of the kernel it launches (``_k3_arithmetic``); the
+    kernel itself runs on the card (``chip_smoke.py`` phase 10 holds every
+    V to the plain version)."""
+
+    @pytest.mark.parametrize("b,hw,v", [
+        (128, 64 * 64, 4),      # celeba64's training batch, in fp32 and bf16 alike
+        (500, 64 * 64, 4),      # celeba64's evaluation batch
+        (128, 32 * 32, 2),      # cifar10-deep (BASELINE config 4): V = 4 leaves 32,768 threads
+        (256, 32 * 32, 4),      # the bench's cifar10-deep batch
+        (16, 32 * 32, 1),       # chip_smoke.py's C = 1 shape: 16,384 pixels
+        (32, 64 * 64, 2),       # chip_smoke.py's K = 24 shape
+        (8, 7 * 7, 1),          # 49 pixels: no V > 1 divides them
+        (4096, 7 * 7, 1),
+        (4000, 7 * 6, 2),       # 42 pixels: 2 divides them, 4 does not
+        (64, 64 * 64, 4),       # 65,536 threads at V = 4: the least it keeps
+        (63, 64 * 64, 2),
+    ])
+    def test_default_plan(self, b, hw, v):
+        assert km.fwd_plan(b, hw) == v
+        assert hw % v == 0 and (v == 1 or b * hw // v >= km.MIN_THREADS)
+
+    def test_override_and_its_rejection(self, rng):
+        for v in km.FWD_VECTORS:          # any V at any map: unaligned rows run V = 1
+            assert km.fwd_plan(128, 64 * 64, v) == v
+            assert km.fwd_plan(8, 7 * 7, v) == v
+        for bad in [3, 8, 0, "4", (4,), 4.5]:
+            with pytest.raises(ValueError, match="plan"):
+                km.fwd_plan(128, 64 * 64, bad)
+        x, p = (_nchw(a) for a in _mix_data(rng, b=2, h=4, w=4))
+        with pytest.raises(ValueError, match="plan"):        # refused on the CPU too
+            km.mix_log_prob(x, p, plan=3)
+
+    @pytest.mark.parametrize("plan", [None, *km.FWD_VECTORS])
+    def test_cpu_plain_version_ignores_the_plan(self, rng, plan):
+        """On the CPU every plan is the plain version, bit for bit, and
+        launches nothing."""
+        x, p = (_nchw(a) for a in _mix_data(rng, b=2, h=5, w=5))
+        before = dict(build.LAUNCHES)
+        ll = km.mix_log_prob(x, p, plan=plan)
+        assert torch.equal(ll, km._plain_mix_log_prob(x, p, 10, 256))
+        assert build.LAUNCHES == before
+
+    @pytest.mark.parametrize("c,k,n_bins", [(3, 10, 256), (1, 10, 256), (3, 4, 16),
+                                            (1, 1, 256), (3, 24, 256), (3, 10, 2)])
+    def test_kernel_arithmetic_matches_the_plain_version(self, rng, c, k, n_bins):
+        """The kernel's rewrite of the bin terms and logsumexps, in float64,
+        against the plain version in float64: within the series' 6e-8
+        (relative, in the bin's probability), and against the oracle in
+        float32. Log-scales from -9 to 2 put d on both sides of the series'
+        0.25 and under the floor; the grid's exact 0s and 1s take both edge
+        bins."""
+        x, p = _mix_data(rng, b=2, h=6, w=6, c=c, k=k)
+        lo = k + k * c
+        p[..., lo:lo + k * c] = rng.uniform(-9.0, 2.0, size=p[..., lo:lo + k * c].shape)
+        x, p = _nchw(x), _nchw(p)
+        got = _k3_arithmetic(x, p, k, n_bins)
+        want = km._plain_mix_log_prob(x.double(), p.double(), k, n_bins)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-7)
+        oracle = np.asarray(jlik.discretized_logistic_mix_log_prob(
+            jnp.asarray(_nhwc(x)), jnp.asarray(_nhwc(p)), k, n_bins))
+        np.testing.assert_allclose(got.numpy(), oracle, **FWD_TOL)
+
+    def test_logsumexp_keeps_infinities_and_nan(self):
+        """The kernel's running logsumexp: a component at -inf drops out,
+        all at -inf give -inf, +inf gives +inf and a NaN propagates, as
+        ``torch.logsumexp`` (the parent kernel's ``lse_push`` did the
+        same)."""
+        t = torch.tensor([[0.5, -np.inf, -2.0], [-np.inf] * 3, [1.0, np.inf, 0.0],
+                          [np.nan, 1.0, 0.0], [1.0, np.nan, 0.0], [-30.0, 40.0, 39.5]],
+                         dtype=torch.float64)
+        np.testing.assert_allclose(_online_lse(t).numpy(), torch.logsumexp(t, dim=1).numpy(),
+                                   rtol=1e-12)
+
+
 class TestBwdPlan:
     """K3-bwd's schedule (``kernels/mixture.py`` ``bwd_plan``), which the
     wrapper passes to the C entry on every launch; the kernels themselves
