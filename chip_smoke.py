@@ -124,6 +124,27 @@ phases 4 and 11's shapes in fp32 and bf16 with its device busy time and
 idle share. The helpers it times and profiles with are
 ``lvae_tpu_torch.profiling``'s.
 
+Then data parallelism, ``--num-data-shards`` (phase 23): 23a the flagship
+at full width, fp32, ``--fused all``, two graphed calls of 8 steps on
+one rank of an NCCL group (the loss's and the gradients' all-reduces in
+the graph) bit-equal to the same run without a group, ms per step of the
+two graphs in turns; 23b ``graft_entry_torch.dryrun_multichip(2)``: two
+gloo ranks sharing the card, each on its half of the flagship's global
+batch of 64 under ``--fused all`` for 3 steps (held to one rank's run:
+losses 1e-5 relative, parameters 1e-4 but for a share of 2e-5), the
+sharded evaluate, the checkpoint round trip, K3 on each rank's rows; 23c
+the commands on two gloo ranks sharing the card: ``lvae_tpu_torch.main
+--num-data-shards 2 --fused all`` (its ranks started here as ``torchrun``
+starts them, each rank's launches counted: the split segments and no
+one-launch K5; one run directory and checkpoint), then on both ranks
+gloo's all-reduce of a CUDA tensor, each launch of the split segment
+(K5-split, K5-bwd-split) against its plain version at every segment shape
+of a rank, timed per call and on the device with its bound at the
+largest, and the gloo all-reduces of a step timed (two ranks on one card:
+not a multi-GPU rate); then the same command as typed, starting its own
+ranks, resumed two steps further, and ``evaluate --num-data-shards 2``
+against one rank's.
+
 Each entry point's run checks that it launched every kernel of its path;
 the kernel path, the plain path and a CPU run are held to agree, and each
 kernel is timed against its plain version.
@@ -4805,6 +4826,582 @@ def phase_measure(card, c_train, c_test):
     return out
 
 
+# ---------------------------------------------------------------------------
+# --num-data-shards: data parallelism over ranks (phase 23)
+# ---------------------------------------------------------------------------
+
+PARALLEL_K = 8                              # 23a: steps a graphed call
+PARALLEL_CALLS = 2                          # 23a: graphed calls a run
+PARALLEL_RANKS = 2                          # 23b, 23c
+PARALLEL_CLI_STEPS = 4                      # 23c: steps of the counted run (the resume: 2 more)
+PARALLEL_CLI_TRAIN, PARALLEL_CLI_TEST = 4096, 1007      # 23c: images
+SPLIT_NAMES = {"segment_split_stats": "K5-split stats",
+               "segment_split_apply": "K5-split apply",
+               "segment_split_bwd_reduce": "K5-bwd-split reduce",
+               "segment_split_bwd_apply": "K5-bwd-split apply"}
+
+
+@contextlib.contextmanager
+def counted_all_reduces(timed=False):
+    """{"calls": n, "s": seconds}: ``torch.distributed.all_reduce`` calls
+    inside the block (every all-reduce of the port goes through it); with
+    ``timed``, each call's host time with the card synchronised before and
+    after (gloo is blocking on the host)."""
+    import torch
+    import torch.distributed as dist
+
+    out, orig = {"calls": 0, "s": 0.0}, dist.all_reduce
+
+    def wrapped(*args, **kwargs):
+        out["calls"] += 1
+        if not timed:
+            return orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        out["s"] += time.perf_counter() - t0
+        return res
+
+    dist.all_reduce = wrapped
+    try:
+        yield out
+    finally:
+        dist.all_reduce = orig
+
+
+def parallel_one_rank(card, train_u8, test_u8, weights):
+    """23a: the flagship at full width (z 32-32-32, 64 filters, 4 blocks a
+    layer), fp32, ``--fused all``, PARALLEL_CALLS calls of PARALLEL_K steps
+    each through MultiStep (one CUDA graph), without a process group and
+    then on one rank of an NCCL group: the group's run, whose graph holds
+    the loss's and the gradients' all-reduces, bit-equal to the other
+    (deterministic algorithms on); ms per step of both graphs in turns."""
+    import torch
+
+    from lvae_tpu_torch.config import config_from_args
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.parallel import multihost
+    from lvae_tpu_torch.train.state import MultiStep
+    from lvae_tpu_torch.train.trainer import Experiment, index_stream
+
+    print("[23a] one rank under NCCL: graphed flagship steps vs the run without a group",
+          flush=True)
+    k = PARALLEL_K
+    cfg, _ = config_from_args(FLAGSHIP_ARGS + ["--fused", "all"])
+    data = flagship_dataset(train_u8, test_u8)
+
+    def run():
+        exp = Experiment(cfg, torch.device("cuda"), data)
+        exp.model.load_state_dict(weights)
+        state = exp.init_state(data_dep_init=False)
+        multi = MultiStep(state, exp.train_data.gather, exp.loss_cfg, k)
+        stream = index_stream(exp.train_data, cfg.batch_size, cfg.seed, 0, k)
+        for _ in range(PARALLEL_CALLS):
+            multi(next(stream))
+        torch.cuda.synchronize()
+        return state, multi, stream
+
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain, plain_multi, plain_stream = run()
+        layout = multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                                      device="cuda", backend="nccl")
+        try:
+            build.reset_launches()
+            with counted_all_reduces() as ar:
+                grouped, multi, stream = run()
+            launches = {n: v for n, v in build.LAUNCHES.items() if v}
+            check(all(launches.get(n, 0) > 0 for n in (
+                "sample_kl_per_sample", "sample_kl_per_sample_bwd", "segment", "segment_bwd",
+                "dropout")), f"the one-rank run launched K1, K1-bwd, K5, K5-bwd and the "
+                             f"dropout kernel ({launches})")
+            bad = state_equal(grouped, plain)
+            check(not bad, f"{PARALLEL_CALLS * k} graphed steps on one NCCL rank bit-equal to "
+                           f"the run without a group (differ: {bad[:5]})")
+            # the warm-up call's k eager steps and the capture's k each call
+            # the loss's and the gradients' all-reduce once a step
+            check(ar["calls"] >= 4 * k and multi.graph is not None,
+                  f"the all-reduces were called in the warm-up and in the capture "
+                  f"({ar['calls']} calls over 2 x {k} steps)")
+            symbols = kernel_names(multi.graph.raw_cuda_graph())
+            nccl = {s[:60]: v for s, v in symbols.items() if "nccl" in s.lower()}
+            print(f"  the group's graph: {sum(symbols.values())} kernel nodes, NCCL's "
+                  f"{nccl or 'none (a one-rank all-reduce may be a copy)'}")
+            calls = {"plain": lambda: plain_multi(next(plain_stream)),
+                     "nccl": lambda: multi(next(stream))}
+            ms = {"plain": [], "nccl": []}
+            for label in ("plain", "nccl", "nccl", "plain"):
+                ms[label].append(cuda_ms(calls[label], reps=3, warmup=1) / k)
+            out = {"bit_equal": True, "all_reduce_calls": ar["calls"], "launches": launches,
+                   "nccl_kernel_nodes": sum(nccl.values()),
+                   "ms_per_step": {lbl: float(np.mean(v)) for lbl, v in ms.items()},
+                   "ms_per_step_runs": ms, "backend": layout.backend}
+            print(f"  ms per step (graphs of {k}, in turns): no group "
+                  f"{out['ms_per_step']['plain']:.3f}, one NCCL rank "
+                  f"{out['ms_per_step']['nccl']:.3f} ({ms})  ({card})")
+        finally:
+            multihost.shutdown()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    del plain, plain_multi, grouped, multi
+    torch.cuda.empty_cache()
+    return out
+
+
+def split_operands(shape, seed=23):
+    import torch
+
+    dev = torch.device("cuda")
+    g_ = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[1]
+    x = torch.randn(shape, generator=g_, device=dev) * 1.5 + 0.3
+    g = torch.randn(shape, generator=g_, device=dev)
+    gamma = torch.rand(c, generator=g_, device=dev) + 0.5
+    beta = torch.randn(c, generator=g_, device=dev) * 0.2
+    return x, g, gamma, beta
+
+
+def split_rank_checks(layout):
+    """23c's kernel checks on each rank (:func:`parallel_rank`, after the
+    command's run): gloo's all-reduce of a CUDA tensor; each split launch
+    (K5-split stats and apply, K5-bwd-split reduce and apply) against its
+    plain version at every segment shape of this rank's part of a flagship
+    step at its global batch of 64 (``graft_entry_torch``'s dry-run
+    model), rate 0 and 0.2, elu, each relaunch bit-equal; each launch and
+    its plain version timed at the largest, with the bound, on rank 0 while
+    the others wait: per call with CUDA events around back-to-back calls
+    (the host's launch rate at these sizes) and on the device
+    (:func:`device_ms`: the profiler's kernel time, or a CUDA graph's
+    replay); the gloo all-reduce of the sums; then two flagship train steps
+    with every all-reduce timed."""
+    import torch
+    import torch.distributed as dist
+
+    import graft_entry_torch as ge
+    from lvae_tpu_torch.kernels import segment as seg
+    from lvae_tpu_torch.ops import math as om
+    from lvae_tpu_torch.ops.philox import dropout_bytes, mix_seed
+    from lvae_tpu_torch.parallel import mesh
+    from lvae_tpu_torch.train.state import train_step
+    from lvae_tpu_torch.train.trainer import Experiment
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": layout.rank}
+    t = torch.full((4,), float(layout.rank + 1), device=dev)
+    try:
+        dist.all_reduce(t, group=layout.group)
+    except Exception as e:      # noqa: BLE001  (reported, then raised)
+        raise SmokeFailure(f"gloo did not all-reduce a CUDA tensor: {e}") from e
+    want = layout.size * (layout.size + 1) / 2
+    check(bool((t == want).all()), f"gloo all-reduced a CUDA tensor on {dev} ({t.tolist()})")
+    out["gloo_cuda"] = True
+
+    cfg = ge._dryrun_config(layout.size, True, layout.size)
+    data, _, _ = ge._dryrun_data(cfg.batch_size)
+    per_rank = cfg.batch_size // layout.size
+    shapes = list(segment_shapes({**FLAGSHIP, "blocks_per_layer": cfg.blocks_per_layer},
+                                 data, per_rank, FLAGSHIP_IMAGE))
+    key = seg.Key(42, torch.tensor(7, dtype=torch.int64, device=dev), 3)
+    offset = lambda x: mesh.element_offset(x, layout)       # noqa: E731
+    err = {name: 0.0 for name in SPLIT_NAMES}
+    for shape in shapes:
+        x, g, gamma, beta = split_operands(shape)
+        n_global = int(np.prod(shape)) // shape[1] * layout.size
+        for rate in (0.0, 0.2):
+            t_ = om.bits8_keep_threshold(rate)
+            k_ = key if 0 < t_ < 256 else None
+            b = dropout_bytes(shape, mix_seed(*key), dev, offset(x)) if k_ else None
+            what = f"{list(shape)} rate {rate}"
+            part = seg.split_stats(x, t_, k_, offset(x))
+            plain = om.segment_split_stats(x, t_, b)
+            e = rel_elem(part.sum(dim=1), plain.sum(dim=1))
+            err["segment_split_stats"] = max(err["segment_split_stats"],
+                                             (part.sum(dim=1) - plain.sum(dim=1)).abs().max()
+                                             .item())
+            check(e <= 1e-9, f"K5-split stats {what}: the sums within 1e-9 relative ({e:.2e})")
+            check(torch.equal(part, seg.split_stats(x, t_, k_, offset(x))),
+                  f"K5-split stats {what}: a second launch is bit-equal")
+            glob = mesh.all_reduce_(part.clone(), layout)
+            rm, rv = torch.full_like(gamma, 0.3), torch.full_like(gamma, 1.7)
+            rm_p, rv_p = rm.clone(), rv.clone()
+            y, stats = seg.split_apply(x, gamma, beta, glob, n_global, t_, "elu", 1e-5, k_,
+                                       offset(x), rm, rv, 0.9)
+            yp, sp = om.segment_split_apply(x, gamma, beta, glob, n_global, t_, "elu", 1e-5, b,
+                                            rm_p, rv_p, 0.9)
+            e = rel_max(y, yp)
+            err["segment_split_apply"] = max(err["segment_split_apply"], (y - yp).abs().max()
+                                             .item())
+            check(e <= 1e-5, f"K5-split apply {what}: y within 1e-5 of max|y| ({e:.2e})")
+            e = max(rel_elem(stats[:2], sp[:2]), rel_elem(rm, rm_p), rel_elem(rv, rv_p))
+            check(e <= 1e-6, f"K5-split apply {what}: mean, var and the running statistics "
+                             f"within 1e-6 relative ({e:.2e})")
+            y2, s2 = seg.split_apply(x, gamma, beta, glob, n_global, t_, "elu", 1e-5, k_,
+                                     offset(x), None, None, 0.9)
+            check(torch.equal(y, y2) and torch.equal(stats, s2),
+                  f"K5-split apply {what}: a second launch is bit-equal")
+            local = seg.split_bwd_reduce(x, g, stats, t_, "elu", k_, offset(x))
+            lp = om.segment_split_bwd_reduce(x, g, stats, t_, "elu", b)
+            e = rel_max(local.sum(dim=1), lp.sum(dim=1))
+            err["segment_split_bwd_reduce"] = max(err["segment_split_bwd_reduce"],
+                                                  (local.sum(dim=1) - lp.sum(dim=1)).abs().max()
+                                                  .item())
+            check(e <= 1e-5, f"K5-bwd-split reduce {what}: the sums within 1e-5 of their max "
+                             f"({e:.2e})")
+            check(torch.equal(local, seg.split_bwd_reduce(x, g, stats, t_, "elu", k_,
+                                                          offset(x))),
+                  f"K5-bwd-split reduce {what}: a second launch is bit-equal")
+            gl = mesh.all_reduce_(local.clone(), layout)
+            got = seg.split_bwd_apply(x, g, gamma, stats, local, gl, n_global, t_, "elu", k_,
+                                      offset(x))
+            ref = om.segment_split_bwd_apply(x, g, gamma, stats, local, gl, n_global, t_,
+                                             "elu", b)
+            e = max(rel_max(a, r) for a, r in zip(got, ref))
+            err["segment_split_bwd_apply"] = max(err["segment_split_bwd_apply"], *(
+                (a - r).abs().max().item() for a, r in zip(got, ref)))
+            check(e <= 1e-5, f"K5-bwd-split apply {what}: dx, dgamma, dbeta within 1e-5 of "
+                             f"their max ({e:.2e})")
+            check(torch.equal(got[0] == 0, ref[0] == 0),
+                  f"K5-bwd-split apply {what}: dx is exactly 0 where the plain version's is")
+            again = seg.split_bwd_apply(x, g, gamma, stats, local, gl, n_global, t_, "elu",
+                                        k_, offset(x))
+            check(all(torch.equal(a, b2) for a, b2 in zip(got, again)),
+                  f"K5-bwd-split apply {what}: a second launch is bit-equal")
+    out["max_abs_err"] = err
+
+    # the bf16 instantiations (--precision bf16) at the largest shape, rate
+    # 0.2: the arithmetic is fp32 on both sides, so y and dx within one
+    # bf16 rounding (2^-8 of their max)
+    x, g, gamma, beta = split_operands(shapes[0])
+    xb, gb = x.bfloat16(), g.bfloat16()
+    n_global = xb.numel() // xb.shape[1] * layout.size
+    t_ = om.bits8_keep_threshold(0.2)
+    b = dropout_bytes(xb.shape, mix_seed(*key), dev, offset(xb))
+    part = mesh.all_reduce_(seg.split_stats(xb, t_, key, offset(xb)), layout)
+    plain = mesh.all_reduce_(om.segment_split_stats(xb, t_, b), layout)
+    check(rel_elem(part.sum(dim=1), plain.sum(dim=1)) <= 1e-9,
+          f"K5-split stats bf16 {list(xb.shape)}: the global sums within 1e-9 relative")
+    y, stats = seg.split_apply(xb, gamma, beta, part, n_global, t_, "elu", 1e-5, key,
+                               offset(xb), None, None, 0.9)
+    yp, _ = om.segment_split_apply(xb, gamma, beta, part, n_global, t_, "elu", 1e-5, b)
+    check(y.dtype == torch.bfloat16 and rel_max(y.float(), yp.float()) <= 2 ** -8,
+          f"K5-split apply bf16 {list(xb.shape)}: y bf16 within 2^-8 of max|y|")
+    local = seg.split_bwd_reduce(xb, gb, stats, t_, "elu", key, offset(xb))
+    gl = mesh.all_reduce_(local.clone(), layout)
+    got = seg.split_bwd_apply(xb, gb, gamma, stats, local, gl, n_global, t_, "elu", key,
+                              offset(xb))
+    ref = om.segment_split_bwd_apply(xb, gb, gamma, stats, local, gl, n_global, t_, "elu", b)
+    check(got[0].dtype == torch.bfloat16 and max(rel_max(a.float(), r.float())
+                                                 for a, r in zip(got, ref)) <= 2 ** -8,
+          f"K5-bwd-split bf16 {list(xb.shape)}: dx (bf16), dgamma, dbeta within 2^-8 of "
+          f"their max")
+
+    # each launch timed at the largest shape, rate 0.2, on rank 0 alone
+    shape = shapes[0]
+    x, g, gamma, beta = split_operands(shape)
+    n = int(np.prod(shape))
+    n_global = n // shape[1] * layout.size
+    t_ = om.bits8_keep_threshold(0.2)
+    b = dropout_bytes(shape, mix_seed(*key), dev, offset(x))
+    part = seg.split_stats(x, t_, key, offset(x))
+    glob = mesh.all_reduce_(part.clone(), layout)
+    y, stats = seg.split_apply(x, gamma, beta, glob, n_global, t_, "elu", 1e-5, key, offset(x),
+                               None, None, 0.9)
+    local = seg.split_bwd_reduce(x, g, stats, t_, "elu", key, offset(x))
+    sums = local.numel() * 8
+    calls = {
+        "segment_split_stats": (
+            lambda: seg.split_stats(x, t_, key, offset(x)),
+            lambda: om.segment_split_stats(x, t_, b), 4 * n + sums),
+        "segment_split_apply": (
+            lambda: seg.split_apply(x, gamma, beta, glob, n_global, t_, "elu", 1e-5, key,
+                                    offset(x), None, None, 0.9),
+            lambda: om.segment_split_apply(x, gamma, beta, glob, n_global, t_, "elu", 1e-5, b),
+            8 * n + sums),
+        "segment_split_bwd_reduce": (
+            lambda: seg.split_bwd_reduce(x, g, stats, t_, "elu", key, offset(x)),
+            lambda: om.segment_split_bwd_reduce(x, g, stats, t_, "elu", b), 8 * n + sums),
+        "segment_split_bwd_apply": (
+            lambda: seg.split_bwd_apply(x, g, gamma, stats, local, glob, n_global, t_, "elu",
+                                        key, offset(x)),
+            lambda: om.segment_split_bwd_apply(x, g, gamma, stats, local, glob, n_global, t_,
+                                               "elu", b), 12 * n + 2 * sums),
+    }
+    times = {}
+    if layout.primary:      # the other ranks wait: they share the card
+        for name, (kern, plain, n_bytes) in calls.items():
+            bnd = bound(n_bytes, OPS_SEGMENT * n)
+            times[name] = {"ms": cuda_ms(kern, 50), "plain_ms": cuda_ms(plain, 10),
+                           "device_ms": device_ms(kern, 20),
+                           "plain_device_ms": device_ms(plain, 5),
+                           "bound_ms": bnd[0], "bound_by": bnd[1], "shape": list(shape)}
+    dist.barrier(group=layout.group)
+    ar = []
+    for _ in range(3):          # the sums' all-reduce over gloo, CUDA tensors
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            mesh.all_reduce_(part.clone(), layout)
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t0) * 1e3 / 10)
+    out.update(times=times, sums_all_reduce_ms=float(np.median(ar)), shapes=[list(s)
+                                                                            for s in shapes])
+
+    # two of the dry run's flagship steps with every all-reduce timed
+    exp = Experiment(cfg, dev, data=data)
+    state = exp.init_state()
+    per_step = []
+    for i in range(3):
+        index = mesh.make_global_batch_indices(
+            torch.arange(cfg.batch_size, device=dev) + i * cfg.batch_size, layout)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counted_all_reduces(timed=True) as c:
+            train_step(state, exp.train_data.gather(index), index, exp.loss_cfg)
+            torch.cuda.synchronize()
+        per_step.append({"step_ms": (time.perf_counter() - t0) * 1e3, "all_reduces": c["calls"],
+                         "all_reduce_ms": c["s"] * 1e3})
+    out["steps"] = per_step[1:]         # the first builds the cuDNN plans
+    return out
+
+
+def parallel_rank(spec_path):
+    """One rank of 23c, started by :func:`parallel_cli` through
+    ``multihost.launch`` (which sets RANK, WORLD_SIZE, MASTER_ADDR and
+    MASTER_PORT): ``lvae_tpu_torch.main.main(argv)`` as under ``torchrun``
+    (it joins the launcher's group, trains and leaves it), every launch
+    count set to 0 just before and read just after; then
+    :func:`split_rank_checks` in a group of its own at the spec's port.
+    Writes ``rank<r>.pt`` beside the spec."""
+    import torch
+
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.parallel import multihost
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    build.reset_launches()
+    with counted_all_reduces() as ar:
+        trainer = train_main.main(spec["argv"])
+    torch.cuda.synchronize()
+    out = {"rank": rank, "launches": {k: v for k, v in build.LAUNCHES.items() if v},
+           "all_reduces": ar["calls"], "history": trainer.logger.history,
+           "backend": trainer.exp.layout.backend, "run_dir": trainer.run_dir}
+    layout = multihost.initialize(f"127.0.0.1:{spec['port']}", world, rank, device="cuda")
+    try:
+        out["split"] = split_rank_checks(layout)
+    finally:
+        multihost.shutdown()
+    torch.save(out, os.path.join(os.path.dirname(spec_path), f"rank{rank}.pt"))
+    return 0
+
+
+def run_command(argv, timeout_s):
+    """(exit code, output) of ``python argv`` started from the repository
+    in a session of its own, so that past ``timeout_s`` it and the ranks it
+    starts are all killed; the output's last lines are echoed."""
+    import signal
+
+    p = subprocess.Popen([sys.executable, *argv], cwd=REPO, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        text, _ = p.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise SmokeFailure(f"{' '.join(argv[:3])} ran past {timeout_s} s") from None
+    for line in text.splitlines()[-12:]:
+        print(f"    | {line}")
+    return p.returncode, text
+
+
+def printed(pattern, text):
+    """The numbers ``pattern``'s group matched in ``text``."""
+    return [float(v) for v in re.findall(pattern, text)]
+
+
+def parallel_cli(card, train_u8, test_u8):
+    """23c: the commands a user runs, at the flagship's full width under
+    ``--fused all`` over two gloo ranks sharing the card, on a static_mnist
+    of PARALLEL_CLI_TRAIN train and PARALLEL_CLI_TEST test images (the
+    test batch of 1000 does not divide them). (1) ``lvae_tpu_torch.main
+    --num-data-shards 2``, its ranks started here as ``torchrun`` starts
+    them (:func:`parallel_rank`): PARALLEL_CLI_STEPS steps with a test hook
+    and a checkpoint at the end, each rank's launches counted (the split
+    segments, none of the one-launch K5), the ranks' logged metrics equal,
+    one run directory and one checkpoint written; then the split kernels'
+    checks on both ranks. (2) The same command as a user types it (it
+    starts its own ranks) with ``--auto-resume``, two steps more. (3)
+    ``evaluate --num-data-shards 2`` (it starts its own ranks) against
+    ``evaluate`` on one rank: the test ELBO and the IW-LL of one batch."""
+    import torch
+
+    from lvae_tpu_torch import evaluate as eval_main
+    from lvae_tpu_torch.parallel import multihost
+    from lvae_tpu_torch.train.checkpoint import CheckpointManager
+
+    print(f"[23c] main and evaluate --num-data-shards {PARALLEL_RANKS} on the card", flush=True)
+    n, ranks_txt = PARALLEL_CLI_STEPS, f"x {PARALLEL_RANKS} ranks (gloo)"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir, runs = os.path.join(tmp, "data"), os.path.join(tmp, "runs")
+        write_mnist(data_dir, train_u8[:PARALLEL_CLI_TRAIN], test_u8[:PARALLEL_CLI_TEST])
+        argv = FLAGSHIP_ARGS + [
+            "--fused", "all", "--num-data-shards", str(PARALLEL_RANKS), "--device", "cuda",
+            "--data-dir", data_dir, "--output-dir", runs, "--run-name", "dp",
+            "--log-interval", "2", "--test-interval", str(n), "--checkpoint-interval", str(n)]
+        spec = os.path.join(tmp, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"argv": argv + ["--max-steps", str(n)], "port": multihost.free_port()}, f)
+        t0 = time.perf_counter()
+        try:
+            code = multihost.launch([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                                     spec], PARALLEL_RANKS, 300)
+        except TimeoutError as e:
+            raise SmokeFailure(f"23c: {e}") from e
+        check(code == 0, f"23c: the {PARALLEL_RANKS} ranks of main ended with code 0 ({code})")
+        out["wall_s"] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(PARALLEL_RANKS)]
+        for r in ranks:
+            got = r["launches"]
+            check(r["backend"] == "gloo" and all(got.get(c, 0) > 0 for c in (
+                *SPLIT_NAMES, "sample_kl_per_sample", "sample_kl_per_sample_bwd", "dropout"))
+                  and not any(got.get(c, 0) for c in ("segment", "segment_bwd")),
+                  f"23c rank {r['rank']}: main launched the split segments, K1, K1-bwd and "
+                  f"the dropout kernel, and no one-launch K5 ({got})")
+            check(got.get("segment_split_stats") == got.get("segment_split_apply")
+                  and got.get("segment_split_bwd_reduce") == got.get("segment_split_bwd_apply"),
+                  f"23c rank {r['rank']}: each split launch's pair launched as often")
+        train_path = (*SPLIT_NAMES, "sample_kl_per_sample", "sample_kl_per_sample_bwd",
+                      "dropout")
+        check(len({tuple(r["launches"].get(c, 0) for c in train_path) for r in ranks}) == 1,
+              "23c: both ranks launched each kernel of the train step as often (rank 0 "
+              "alone draws the test hook's grids)")
+        hist = [[(kind, step, {k: np.asarray(v, dtype=np.float64) for k, v in m.items()
+                               if k not in ("images_per_sec", "wall_s")})    # host clocks
+                 for kind, step, m in r["history"]] for r in ranks]
+        check([h[:2] for h in hist[0]] == [h[:2] for h in hist[1]]
+              and all(np.allclose(a[k], b[k], rtol=1e-6, atol=0) and np.isfinite(a[k]).all()
+                      for (_, _, a), (_, _, b) in zip(*hist) for k in a),
+              f"23c: the ranks' metrics are the global batch's, equal and finite "
+              f"({len(hist[0])} lines)")
+        run_dir = ranks[0]["run_dir"]
+        mngr = CheckpointManager(run_dir)
+        check(os.listdir(runs) == ["dp"] and mngr.steps() == [n]
+              and os.path.exists(os.path.join(run_dir, "config.json")),
+              f"23c: one run directory, its config and one checkpoint (step {n}) written "
+              f"({os.listdir(runs)}, {mngr.steps()})")
+
+        t1 = time.perf_counter()
+        code, text = run_command(["-m", "lvae_tpu_torch.main", *argv, "--max-steps",
+                                  str(n + 2), "--auto-resume"], 240)
+        out["resume_wall_s"] = time.perf_counter() - t1
+        check(code == 0 and ranks_txt in text
+              and len(re.findall(rf"\[train\] step +{n + 2} ", text)) == 1
+              and mngr.steps()[-1] == n + 2 and os.listdir(runs) == ["dp"],
+              f"23c: python -m lvae_tpu_torch.main --num-data-shards {PARALLEL_RANKS} "
+              f"--auto-resume started its ranks ({ranks_txt}), went on from step {n} to "
+              f"{n + 2}, rank 0 alone logged, one run directory (code {code}, checkpoints "
+              f"{mngr.steps()})")
+
+        ev = ["--load", run_dir, "--device", "cuda", "--ll", "--iw-samples", str(IW_SAMPLES),
+              "--iw-max-batches", "1", "--nimages", "16"]
+        one = eval_main.main(ev)
+        t1 = time.perf_counter()
+        code, text = run_command(["-m", "lvae_tpu_torch.evaluate", *ev, "--num-data-shards",
+                                  str(PARALLEL_RANKS)], 240)
+        out["evaluate_wall_s"] = time.perf_counter() - t1
+        elbo, iw = printed(r"test elbo (-?[\d.]+) ", text), printed(r": (-?[\d.]+) nats", text)
+        # printed to 2 decimals; the sums' order differs
+        check(code == 0 and ranks_txt in text and len(elbo) == len(iw) == 1
+              and abs(elbo[0] - one["elbo"]["elbo"]) <= 0.011
+              and abs(iw[0] - one["iw"]["iw_ll"]) <= 0.011
+              and f"[{PARALLEL_CLI_TEST} images" in text,
+              f"23c: evaluate --num-data-shards {PARALLEL_RANKS} printed one rank's test ELBO "
+              f"over {PARALLEL_CLI_TEST} images and IW-LL ({elbo} vs {one['elbo']['elbo']:.4f}, "
+              f"{iw} vs {one['iw']['iw_ll']:.4f})")
+    out.update(launches=[r["launches"] for r in ranks], all_reduces=ranks[0]["all_reduces"],
+               split=ranks[0]["split"],
+               loss=[float(m["loss"]) for kind, _, m in ranks[0]["history"] if kind == "train"],
+               test_elbo=float(one["elbo"]["elbo"]), iw_ll=float(one["iw"]["iw_ll"]))
+    print(f"  23c: {n} steps {out['wall_s']:.1f} s (rank start included), the resume "
+          f"{out['resume_wall_s']:.1f} s, evaluate {out['evaluate_wall_s']:.1f} s  ({card})")
+    return out
+
+
+def phase_parallel(card, train_u8, test_u8, flagship_weights):
+    """Phase 23, ``--num-data-shards``: (a) one NCCL rank, graphed, bit-equal
+    to no group; (b) ``graft_entry_torch.dryrun_multichip(2)`` with two
+    gloo ranks sharing this card, each on its half of the flagship's global
+    batch of 64 at full width (z 32-32-32, 64 filters, 2 blocks a layer,
+    dropout 0.2) under ``--fused all``: 3 steps held against one rank's,
+    the sharded evaluate, the checkpoint round trip, K3 on each rank's
+    rows; (c) :func:`parallel_cli`, the commands on two ranks, and the
+    split kernels' checks on both."""
+    import graft_entry_torch as ge
+
+    print("[23] data parallelism (--num-data-shards)", flush=True)
+    t0 = time.perf_counter()
+    out = {"one_rank_nccl": parallel_one_rank(card, train_u8, test_u8, flagship_weights)}
+    print(f"  23a took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[23b] dryrun_multichip({PARALLEL_RANKS}): gloo ranks sharing the card",
+          flush=True)
+    t1 = time.perf_counter()
+    try:
+        r = ge.dryrun_multichip(PARALLEL_RANKS, device="cuda", flagship=True, timeout_s=240)
+    except RuntimeError as e:
+        raise SmokeFailure(f"dryrun_multichip({PARALLEL_RANKS}) on the card failed ({e}); "
+                           f"its ranks' output is above") from e
+    check(r["backend"] == "gloo", "the dry run's group is gloo (two ranks, one card)")
+    launches = r["launches"]
+    path = (*SPLIT_NAMES, "sample_kl_per_sample", "sample_kl_per_sample_bwd", "dropout")
+    check(all(launches.get(n, 0) > 0 for n in path),
+          f"rank 0's 3 steps launched every kernel of the path: the split segments, K1, "
+          f"K1-bwd and the dropout kernel ({launches})")
+    check(not any(launches.get(n, 0) for n in ("segment", "segment_bwd")),
+          "rank 0's steps launched no one-launch K5 (the split path at R > 1)")
+    check(r["one_rank"]["launches"].get("segment", 0) > 0
+          and not any(r["one_rank"]["launches"].get(n, 0) for n in SPLIT_NAMES),
+          "the one-rank run took the one-launch K5 and no split launch")
+    # dryrun_multichip held rank 0's losses (1e-5 relative) and parameters
+    # (2 lr a step, all but FAR_SHARE of the elements 1e-4) to the one rank's
+    print(f"  rank 0 after 3 steps vs one rank: parameters within "
+          f"{r['param_max_diff']:.2e}, {r['param_share_beyond_1e4']:.2e} of the elements "
+          f"beyond 1e-4 (at most {ge.FAR_SHARE:g}); losses {r['losses']} vs "
+          f"{r['one_rank']['losses']}")
+    print(f"  23b took {time.perf_counter() - t1:.1f} s (wall of the ranks "
+          f"{r['wall_s']:.1f} s)", flush=True)
+    out["dryrun"] = r
+    t1 = time.perf_counter()
+    cli = parallel_cli(card, train_u8, test_u8)
+    split = cli.pop("split")
+    check(split["gloo_cuda"], "gloo all-reduced CUDA tensors on the ranks")
+    steps = split["steps"]
+    ar_ms = float(np.mean([s["all_reduce_ms"] for s in steps]))
+    step_ms = float(np.mean([s["step_ms"] for s in steps]))
+    print(f"  rank 0: a flagship step (global batch 64) {step_ms:.1f} ms of which {ar_ms:.1f} "
+          f"ms in {steps[0]['all_reduces']} gloo all-reduces of CUDA tensors (host clock, card "
+          f"synchronised around each; two ranks sharing one card, not a multi-GPU rate); the "
+          f"sums' all-reduce {split['sums_all_reduce_ms']:.3f} ms  ({card})")
+    for name, row in split["times"].items():
+        print(f"  time {SPLIT_NAMES[name]} {row['shape']}: per call kernel {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms; device: kernel {fmt_ms(row['device_ms'])}, "
+              f"plain {fmt_ms(row['plain_device_ms'])}; bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})  ({card})")
+    print(f"  23c took {time.perf_counter() - t1:.1f} s", flush=True)
+    out.update(cli=cli, split=split, gloo_step={"step_ms": step_ms, "all_reduce_ms": ar_ms,
+                                                "all_reduces_per_step": steps[0]["all_reduces"]})
+    return out
+
+
 def main():
     try:
         import torch
@@ -5095,6 +5692,37 @@ def main():
         kern.update(launches_bench=sum(r["launches"].get(counter, 0)
                                        for r in ms["bench"].values()),
                     launches_iw_sweep=ms["iw_launches"].get(counter, 0))
+    lap("phase 23")
+    par = phase_parallel(card, train_u8, test_u8, flagship_weights)
+    res["parallel"] = {k: v for k, v in par.items() if k != "split"}
+    res["parallel"]["split_shapes"] = par["split"]["shapes"]
+    # each kernel's launches on 23c's main run (each rank), in rank 0's 3
+    # dry-run steps (23b) and in 23a's one-rank NCCL run (its warm-up call:
+    # a replay counts what it holds)
+    main_ranks = par["cli"]["launches"]
+    rank0 = par["dryrun"]["launches"]
+    for kern in kernels:
+        counter = kern["name"].replace("dropout_bits8", "dropout")
+        kern.update(launches_parallel_main=[r.get(counter, 0) for r in main_ranks],
+                    launches_parallel_rank0=rank0.get(counter, 0),
+                    launches_one_rank_nccl=par["one_rank_nccl"]["launches"].get(counter, 0))
+    split = par["split"]
+    for counter, label in SPLIT_NAMES.items():
+        t = split["times"][counter]
+        kernels.append(entry(
+            label, "segment.cu",
+            "lvae_tpu/kernels/segment_pallas.py:" + ("291" if "bwd" not in counter else "318")
+            + " over a batch sharded on the data mesh (the cross-shard reduction XLA's "
+              "partitioner adds)",
+            main_ranks[0].get(counter, 0), split["max_abs_err"][counter],
+            [t[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")],
+            (t["bound_ms"], t["bound_by"]), None,
+            launches_parallel_main=[r.get(counter, 0) for r in main_ranks],
+            launches_parallel_rank0=rank0.get(counter, 0),
+            shapes=f"rank 0's {t['shape']}, rate 0.2, elu, 2 ranks (the flagship's global "
+                   f"batch of 64)",
+            path=f"lvae_tpu_torch.main --num-data-shards {PARALLEL_RANKS} --fused all (23c, "
+                 f"rank 0: launches) and graft_entry_torch.dryrun_multichip(2)"))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, **res}))
@@ -5105,4 +5733,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":      # a rank of 23c
+        sys.exit(parallel_rank(sys.argv[2]))
     sys.exit(main())

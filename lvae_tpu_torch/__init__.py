@@ -14,6 +14,9 @@ instantiations of the segment, dropout and mixture kernels.
 ``python -m lvae_tpu_torch.bench`` measures train images/s and MFU on the
 card, and ``profile_step``, ``perf_probe`` and ``iwll_probe`` take the
 step and the evaluation apart (``profiling`` holds their helpers).
+``--num-data-shards R`` trains and evaluates over R ranks, one process
+each (``parallel/``), with the segment split around the all-reduce of its
+statistics at R > 1.
 
 It imports torch and numpy, never jax or ``lvae_tpu``; ``lvae_tpu`` stays
 the reference it is tested against (``tests/test_torch_*.py``). Public

@@ -20,8 +20,6 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-# Values the port does not run yet; each names the flag it came from.
-_LATER = "a later PR of the port"
 # lvae_tpu/models/likelihoods.py:LIKELIHOODS, all four ported
 LIKELIHOODS = ("bernoulli", "gaussian", "discretized_logistic", "discretized_logistic_mix")
 # --precision -> the convolutions' compute dtype (lvae_tpu/train/trainer.py:115):
@@ -106,8 +104,9 @@ class EvalConfig:
         # what the port does not run, each rejected with its flag named
         if self.spatial_shards > 1:
             raise ValueError(
-                f"--spatial-shards {self.spatial_shards} is not supported by "
-                f"the port (single-GPU eval only)"
+                f"--spatial-shards {self.spatial_shards}: the height-sharded "
+                f"layout (lvae_tpu's 'space' mesh axis) has no port yet; "
+                f"--num-data-shards runs data parallelism"
             )
 
 
@@ -162,10 +161,11 @@ class TrainConfig(EvalConfig):
     # through the --stream-impl loader; resume adopts the stored impl
     streaming: bool = False
     stream_impl: str = "array"
-    # lvae_tpu options this port does not run: stored so a run directory
-    # says what it ran, and rejected below at anything but the value the
-    # port runs
+    # --num-data-shards R: data parallelism over R ranks (lvae_tpu_torch/
+    # parallel/), one process each
     num_data_shards: int = 1
+    # lvae_tpu's option this port does not run: stored so a run directory
+    # says what it ran, and rejected below at anything but threefry
     rng_impl: str = "threefry"
 
     def __post_init__(self):
@@ -206,12 +206,12 @@ class TrainConfig(EvalConfig):
             self.profile_range()
         if self.stream_impl not in STREAM_IMPLS:
             raise ValueError(f"--stream-impl {self.stream_impl!r}: choose from {STREAM_IMPLS}")
-        # what the port's trainer does not run, rejected by its flag
-        if self.num_data_shards > 1:
+        if self.batch_size % self.num_data_shards:
             raise ValueError(
-                f"--num-data-shards {self.num_data_shards}: multi-GPU training "
-                f"is not ported yet; it comes in {_LATER}"
+                f"--batch-size {self.batch_size} is not divisible by "
+                f"--num-data-shards {self.num_data_shards}"
             )
+        # what the port's trainer does not run, rejected by its flag
         if self.rng_impl != "threefry":
             raise ValueError(
                 f"--rng-impl {self.rng_impl}: the port's noise is a keyed, "
@@ -340,7 +340,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--stream-impl", default=d.stream_impl, choices=list(STREAM_IMPLS),
         help="streaming loader: 'array' (a permutation and one batched gather a call) "
              "or 'grain' (grain's shuffle and prefetch threads; needs grain)")
-    add("--num-data-shards", type=int, default=d.num_data_shards)
+    add("--num-data-shards", type=int, default=d.num_data_shards,
+        help="data-parallel ranks: without torchrun the command starts them itself "
+             "(NCCL, one a card, where there are enough cards; else gloo)")
     add("--spatial-shards", type=int, default=d.spatial_shards)
     add("--log-interval", type=int, default=d.log_interval)
     add("--test-interval", type=int, default=d.test_interval)

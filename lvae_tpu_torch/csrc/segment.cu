@@ -140,6 +140,8 @@ struct Drop {
   unsigned long long seed, site;   // the train seed and the dropout site
   const long long* step;           // the step in device memory (NULL: no bytes drawn)
   uint32_t k0, k1;                 // the Philox key, set on chip by drop_key
+  long long offset;                // the global index of this rank's element 0
+                                   // (0 but on the split path and the dropout alone)
 };
 
 // one word of ops/philox.py mix_seed (splitmix64)
@@ -206,6 +208,25 @@ __device__ __forceinline__ uint32_t keep_bits(const Drop& d, long long e) {
       bits |= static_cast<uint32_t>(byte < d.t) << j;
     }
   }
+  return bits;
+}
+
+// whether the global element g is kept (its byte alone: one Philox call)
+__device__ __forceinline__ bool keep_at(const Drop& d, long long g) {
+  if (!d.on) return true;
+  const unsigned long long grp = static_cast<unsigned long long>(g) >> 4;
+  const uint4 w = lvae::philox4x32_10(
+      make_uint4(static_cast<uint32_t>(grp), static_cast<uint32_t>(grp >> 32), 0u, kStream),
+      d.k0, d.k1);
+  const int j = static_cast<int>(g & 15);
+  return static_cast<int>((word_of(w, j >> 2) >> (8 * (j & 3))) & 255u) < d.t;
+}
+
+// keep_bits<16> of 16 global elements from any g0, element by element
+__device__ __forceinline__ uint32_t keep_bits_at(const Drop& d, long long g0) {
+  if (!d.on) return 0xFFFFFFFFu;
+  uint32_t bits = 0;
+  for (int j = 0; j < 16; ++j) bits |= static_cast<uint32_t>(keep_at(d, g0 + j)) << j;
   return bits;
 }
 
@@ -754,6 +775,7 @@ Drop make_drop(int t, unsigned long long seed, unsigned long long site, const vo
   d.site = site;
   d.step = t > 0 && t < 256 ? static_cast<const long long*>(step) : nullptr;
   d.k0 = d.k1 = 0;
+  d.offset = 0;
   return d;
 }
 
@@ -901,7 +923,11 @@ __global__ void __launch_bounds__(256) dropout_kernel(const T* __restrict__ x,
   for (long long grp = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        grp < groups; grp += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long e0 = grp * 16;
-    const uint32_t bits = keep_bits<16>(d, e0);
+    // the bytes of the global elements e0 + offset on: one Philox call
+    // where they start a group of 16, else one per element (a rank's
+    // part of a batch whose per-rank size is not a multiple of 16)
+    const long long g0 = e0 + d.offset;
+    const uint32_t bits = (g0 & 15) == 0 ? keep_bits<16>(d, g0) : keep_bits_at(d, g0);
     if (vec && e0 + 16 <= n) {
       if constexpr (std::is_same_v<T, float>) {
         // float4 by float4, as before the bf16 instantiation: the generic
@@ -980,20 +1006,292 @@ cudaError_t max_clusters(const SegPlan& p, int direction, int act, int* out) {
   return err;
 }
 
+
+// ---------------------------------------------------------------------------
+// K5-split and K5-bwd-split: the segment over R > 1 ranks (--num-data-shards)
+//
+// Replaces nothing of lvae_tpu by itself: on lvae_tpu's `data` mesh the
+// segment's statistics are reductions over the global batch, which XLA's
+// SPMD partitioner makes cross-shard (segment_pallas.py _segment_fwd_impl
+// :291 and _segment_bwd_impl :318 over a sharded batch). One launch cannot
+// hold an all-reduce, so at R > 1 each direction is two launches with the
+// reduction over the ranks between them (kernels/segment.py _SplitSegment):
+//   forward:  split_stats     x -> part [2, S, C] fp64: per channel and
+//                             slice, sum(u) and sum(u^2) of this rank's rows;
+//             all_reduce(part) over the ranks;
+//             split_apply     the S slices summed in order; mean, var, r,
+//                             scale and shift from the global sums and
+//                             n = R B H W, as K5 computes them; y; the
+//                             [5, C] statistics; the running statistics;
+//   backward: split_bwd_reduce  x, g, stats -> part: sum(dz), sum(dz xhat);
+//             all_reduce(a copy of part);
+//             split_bwd_apply   dx from the global m1 = sum(dz) / n and
+//                               m2 = sum(dz xhat) / n; dbeta and dgamma the
+//                               rank's own sums (the train step sums the
+//                               gradients over the ranks).
+// The order is flax's BatchNorm and _segment_fwd_impl's: one sweep of
+// sum(u) and sum(u^2) (the "fast variance"), var = E[u^2] - E[u]^2. The
+// sums are fp64, as K5's (E[u^2] - mean^2 cancels in fp32), summed in a
+// fixed tree within a block, in slice order across blocks, and by the
+// collective across the ranks. Dropout bytes are those of the global
+// element: this rank's element e takes global element e + offset's byte
+// (offset = rank x the rank's element count), so R ranks drop what one
+// rank drops. Each thread makes one Philox call per element.
+//
+// What bounds it: each launch reads its inputs once (8 B an element
+// forward, stats and apply together 12 B with y; backward 20 B) and the
+// split costs a second read of x (and g). A simple design: a block per
+// (slice, channel), threads on consecutive elements of a strip, scalar
+// accesses, no shared-memory staging.
+constexpr int kSplitThreads = 256;
+
+template <typename T>
+struct SplitArgs {
+  const T* x;
+  const T* g;               // backward: the cotangent of y
+  const float* gamma;
+  const float* beta;
+  const double* part;       // [2, S, C]: the forward's or the backward's global sums
+  const double* local;      // backward: this rank's sums
+  double* out_part;         // the reduce launches' output
+  float* running_mean;      // NULL: not moved
+  float* running_var;
+  float* stats;             // [5, C]: written forward, read backward
+  T* y;                     // forward y, backward dx
+  float* dgb;               // backward: dgamma, dbeta [2, C]
+  long long b, hw;
+  int c, slices;
+  double n_global;          // elements per channel over every rank
+  double eps;
+  float momentum, one_minus_momentum;
+  Drop d;
+};
+
+// the flat NCHW index of channel ch's element ce (channel-local)
+template <typename T>
+__device__ __forceinline__ long long split_at(const SplitArgs<T>& a, long long ce, int ch) {
+  const long long row = ce / a.hw;
+  return (row * a.c + ch) * a.hw + (ce - row * a.hw);
+}
+
+// the block's (s1, s2) in a fixed tree, in thread 0
+__device__ __forceinline__ void block_sums(double& s1, double& s2) {
+  __shared__ double ws[kSplitThreads / 32][2];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_down_sync(0xFFFFFFFFu, s1, o);
+    s2 += __shfl_down_sync(0xFFFFFFFFu, s2, o);
+  }
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) {
+    ws[w][0] = s1;
+    ws[w][1] = s2;
+  }
+  __syncthreads();
+  if (w == 0) {
+    const int nw = static_cast<int>(blockDim.x >> 5);
+    s1 = lane < nw ? ws[lane][0] : 0.0;
+    s2 = lane < nw ? ws[lane][1] : 0.0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s1 += __shfl_down_sync(0xFFFFFFFFu, s1, o);
+      s2 += __shfl_down_sync(0xFFFFFFFFu, s2, o);
+    }
+  }
+}
+
+// channel ch's two sums of part over its S slices, in slice order
+__device__ __forceinline__ void slice_sums(const double* part, int slices, int c, int ch,
+                                           double& s1, double& s2) {
+  s1 = 0.0;
+  s2 = 0.0;
+  for (int k = 0; k < slices; ++k) {
+    s1 += part[k * c + ch];
+    s2 += part[(slices + k) * c + ch];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSplitThreads) split_stats_kernel(const SplitArgs<T> a) {
+  const int s = blockIdx.x, ch = blockIdx.y;
+  const Drop d = drop_key(a.d);
+  const long long n = a.b * a.hw;
+  const long long lo = n * s / a.slices, hi = n * (s + 1) / a.slices;
+  double s1 = 0.0, s2 = 0.0;
+  for (long long ce = lo + threadIdx.x; ce < hi; ce += blockDim.x) {
+    const long long e = split_at(a, ce, ch);
+    const double u = dropped(d, up(a.x[e]), keep_at(d, e + d.offset));
+    s1 += u;
+    s2 = __fma_rn(u, u, s2);
+  }
+  block_sums(s1, s2);
+  if (threadIdx.x == 0) {
+    a.out_part[s * a.c + ch] = s1;
+    a.out_part[(a.slices + s) * a.c + ch] = s2;
+  }
+}
+
+template <typename T, int kAct>
+__global__ void __launch_bounds__(kSplitThreads) split_apply_kernel(const SplitArgs<T> a) {
+  const int s = blockIdx.x, ch = blockIdx.y;
+  const Drop d = drop_key(a.d);
+  double s1, s2;
+  slice_sums(a.part, a.slices, a.c, ch, s1, s2);
+  const double mean_d = s1 / a.n_global;
+  const double var_d = s2 / a.n_global - mean_d * mean_d;
+  const float mean = static_cast<float>(mean_d);
+  const float var = static_cast<float>(var_d);
+  const float r = static_cast<float>(1.0 / sqrt(var_d + a.eps));
+  const float scale = a.gamma[ch] * r;
+  const float shift = a.beta[ch] - mean * scale;
+  if (s == 0 && threadIdx.x == 0) {
+    a.stats[ch] = mean;
+    a.stats[a.c + ch] = var;
+    a.stats[2 * a.c + ch] = r;
+    a.stats[3 * a.c + ch] = scale;
+    a.stats[4 * a.c + ch] = shift;
+    if (a.running_mean != nullptr) {
+      a.running_mean[ch] = a.momentum * a.running_mean[ch] + a.one_minus_momentum * mean;
+      a.running_var[ch] = a.momentum * a.running_var[ch] + a.one_minus_momentum * var;
+    }
+  }
+  const long long n = a.b * a.hw;
+  const long long lo = n * s / a.slices, hi = n * (s + 1) / a.slices;
+  for (long long ce = lo + threadIdx.x; ce < hi; ce += blockDim.x) {
+    const long long e = split_at(a, ce, ch);
+    const float u = dropped(d, up(a.x[e]), keep_at(d, e + d.offset));
+    a.y[e] = down<T>(act<kAct>(u * scale + shift));
+  }
+}
+
+// dz and xhat of element e (the forward's statistics recomputed into)
+template <typename T, int kAct>
+__device__ __forceinline__ void split_dz(const SplitArgs<T>& a, const Drop& d, long long e,
+                                         float mean, float r, float scale, float shift,
+                                         float& dz, float& xhat, bool& keep) {
+  keep = keep_at(d, e + d.offset);
+  const float u = dropped(d, up(a.x[e]), keep);
+  dz = up(a.g[e]) * act_grad<kAct>(u * scale + shift);
+  xhat = (u - mean) * r;
+}
+
+template <typename T, int kAct>
+__global__ void __launch_bounds__(kSplitThreads) split_bwd_reduce_kernel(const SplitArgs<T> a) {
+  const int s = blockIdx.x, ch = blockIdx.y;
+  const Drop d = drop_key(a.d);
+  const float mean = a.stats[ch], r = a.stats[2 * a.c + ch];
+  const float scale = a.stats[3 * a.c + ch], shift = a.stats[4 * a.c + ch];
+  const long long n = a.b * a.hw;
+  const long long lo = n * s / a.slices, hi = n * (s + 1) / a.slices;
+  double s1 = 0.0, s2 = 0.0;
+  for (long long ce = lo + threadIdx.x; ce < hi; ce += blockDim.x) {
+    float dz, xhat;
+    bool keep;
+    split_dz<T, kAct>(a, d, split_at(a, ce, ch), mean, r, scale, shift, dz, xhat, keep);
+    s1 += static_cast<double>(dz);
+    s2 += static_cast<double>(dz * xhat);
+  }
+  block_sums(s1, s2);
+  if (threadIdx.x == 0) {
+    a.out_part[s * a.c + ch] = s1;
+    a.out_part[(a.slices + s) * a.c + ch] = s2;
+  }
+}
+
+template <typename T, int kAct>
+__global__ void __launch_bounds__(kSplitThreads) split_bwd_apply_kernel(const SplitArgs<T> a) {
+  const int s = blockIdx.x, ch = blockIdx.y;
+  const Drop d = drop_key(a.d);
+  const float mean = a.stats[ch], r = a.stats[2 * a.c + ch];
+  const float scale = a.stats[3 * a.c + ch], shift = a.stats[4 * a.c + ch];
+  const float gr = a.gamma[ch] * r;
+  double s1, s2;
+  slice_sums(a.part, a.slices, a.c, ch, s1, s2);
+  const float m1 = static_cast<float>(s1 / a.n_global), m2 = static_cast<float>(s2 / a.n_global);
+  if (s == 0 && threadIdx.x == 0) {
+    double l1, l2;
+    slice_sums(a.local, a.slices, a.c, ch, l1, l2);
+    a.dgb[ch] = static_cast<float>(l2);
+    a.dgb[a.c + ch] = static_cast<float>(l1);
+  }
+  const long long n = a.b * a.hw;
+  const long long lo = n * s / a.slices, hi = n * (s + 1) / a.slices;
+  for (long long ce = lo + threadIdx.x; ce < hi; ce += blockDim.x) {
+    const long long e = split_at(a, ce, ch);
+    float dz, xhat;
+    bool keep;
+    split_dz<T, kAct>(a, d, e, mean, r, scale, shift, dz, xhat, keep);
+    const float du = gr * ((dz - m1) - xhat * m2);
+    a.y[e] = down<T>(d.on ? (keep ? du * d.scale : 0.0f) : du);
+  }
+}
+
+enum SplitLaunch { kSplitStats = 0, kSplitApply = 1, kSplitBwdReduce = 2, kSplitBwdApply = 3 };
+
+template <typename T, int kAct>
+cudaError_t split_launch_act(int which, const SplitArgs<T>& a, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(a.slices), static_cast<unsigned>(a.c));
+  switch (which) {
+    case kSplitStats: split_stats_kernel<T><<<grid, kSplitThreads, 0, s>>>(a); break;
+    case kSplitApply: split_apply_kernel<T, kAct><<<grid, kSplitThreads, 0, s>>>(a); break;
+    case kSplitBwdReduce:
+      split_bwd_reduce_kernel<T, kAct><<<grid, kSplitThreads, 0, s>>>(a);
+      break;
+    default: split_bwd_apply_kernel<T, kAct><<<grid, kSplitThreads, 0, s>>>(a); break;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t split_launch(int which, int act, const SplitArgs<T>& a, cudaStream_t s) {
+  return act == kElu ? split_launch_act<T, kElu>(which, a, s)
+                     : split_launch_act<T, kRelu>(which, a, s);
+}
+
+// the arguments of every split launch, the pointers not a launch reads NULL
+struct SplitCall {
+  const void *x, *g, *gamma, *beta;
+  const double *part, *local;
+  double* out_part;
+  void *running_mean, *running_var, *stats, *y, *dgb;
+  long long b, hw, offset;
+  int c, slices, esize, t, act;
+  double n_global, eps;
+  float momentum, one_minus_momentum;
+  unsigned long long seed, site;
+  const void* step;
+};
+
+template <typename T>
+cudaError_t split_run(int which, const SplitCall& k, cudaStream_t s) {
+  SplitArgs<T> a{static_cast<const T*>(k.x), static_cast<const T*>(k.g),
+                 static_cast<const float*>(k.gamma), static_cast<const float*>(k.beta),
+                 k.part, k.local, k.out_part,
+                 static_cast<float*>(k.running_mean), static_cast<float*>(k.running_var),
+                 static_cast<float*>(k.stats), static_cast<T*>(k.y),
+                 static_cast<float*>(k.dgb), k.b, k.hw, k.c, k.slices, k.n_global, k.eps,
+                 k.momentum, k.one_minus_momentum, make_drop(k.t, k.seed, k.site, k.step)};
+  a.d.offset = k.offset;
+  return split_launch<T>(which, k.act, a, s);
+}
+
 }  // namespace
 
 // The bits8 dropout alone: y = x where its byte (the segment's, under
 // mix_seed(seed, *step, site)) is below t, scaled by 256 / t, else 0; for
 // 0 < t < 256 (the caller takes the other thresholds). x and y [n], fp32
-// (esize 4) or bf16 (esize 2).
+// (esize 4) or bf16 (esize 2); element e takes the byte of global element
+// e + offset (a rank's part of the global batch; 0 on one rank).
 extern "C" int lvae_dropout_bits8(const void* x, void* y, long long n, int esize, int t,
                                   unsigned long long seed, unsigned long long site,
-                                  const void* step, void* stream) {
-  if (n < 0 || t <= 0 || t >= 256 || step == nullptr || (esize != 4 && esize != 2)) {
+                                  const void* step, long long offset, void* stream) {
+  if (n < 0 || t <= 0 || t >= 256 || step == nullptr || (esize != 4 && esize != 2) ||
+      offset < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
-    const Drop d = make_drop(t, seed, site, step);
+    Drop d = make_drop(t, seed, site, step);
+    d.offset = offset;
     const auto s = static_cast<cudaStream_t>(stream);
     if (esize == 4) {
       launch_dropout<float>(x, y, n, d, s);
@@ -1054,4 +1352,34 @@ extern "C" int lvae_segment_max_clusters(const SegPlan* plan, int direction, int
   }
   return static_cast<int>(plan->esize == 4 ? max_clusters<float>(*plan, direction, act, out)
                                            : max_clusters<bf16>(*plan, direction, act, out));
+}
+
+// K5-split / K5-bwd-split, the four launches of the segment over R > 1
+// ranks (the comment above split_stats_kernel): `which` 0 split_stats, 1
+// split_apply, 2 split_bwd_reduce, 3 split_bwd_apply. x [b, c, hw] (and g,
+// y / dx) of esize 4 (fp32) or 2 (bf16); part, local and out_part [2,
+// slices, c] fp64; gamma, beta, stats [5, c], the running statistics and
+// dgb [2, c] fp32; n_global the elements per channel over every rank;
+// the dropout key as K5's, element e taking global element e + offset's
+// byte. Returns the CUDA status.
+extern "C" int lvae_segment_split(int which, const void* x, const void* g, const void* gamma,
+                                  const void* beta, const double* part, const double* local,
+                                  double* out_part, void* running_mean, void* running_var,
+                                  void* stats, void* y, void* dgb, long long b, int c,
+                                  long long hw, int slices, int esize, int t, int act,
+                                  double n_global, double eps, float momentum,
+                                  float one_minus_momentum, unsigned long long seed,
+                                  unsigned long long site, const void* step, long long offset,
+                                  void* stream) {
+  if (which < kSplitStats || which > kSplitBwdApply || b < 1 || c < 1 || c > 65535 ||
+      hw < 1 || slices < 1 || slices > 65535 || (esize != 4 && esize != 2) ||
+      (act != kElu && act != kRelu) || bad_key(t, step) || offset < 0 || n_global < 1.0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const SplitCall k{x, g, gamma, beta, part, local, out_part, running_mean, running_var,
+                    stats, y, dgb, b, hw, offset, c, slices, esize, t, act, n_global, eps,
+                    momentum, one_minus_momentum, seed, site, step};
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(esize == 4 ? split_run<float>(which, k, s)
+                                     : split_run<bf16>(which, k, s));
 }

@@ -31,7 +31,12 @@ not a multiple of ``steps_per_call`` raises, as in ``lvae_tpu``.
 with one ``np.take`` into one of two pinned staging buffers and copies it
 to the device on the current stream without blocking; a buffer is written
 again only once an event shows its last copy done, so the host gathers
-stack n+1 while the device runs call n.
+stack n+1 while the device runs call n. Over R ranks (the port of
+``make_sharded_streaming_step``, ``lvae_tpu/data/streaming.py:239-285``)
+every rank runs the same loader, so each draws the global batches that
+one rank draws, and its feed loads and puts only its contiguous rows of
+each (:func:`lvae_tpu_torch.parallel.mesh.make_global_batch_indices`):
+the ``B / R`` rows of the ``data`` mesh's shard, with no copy of the rest.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from lvae_tpu_torch.parallel import mesh
 
 
 class _Loader:
@@ -181,11 +188,15 @@ class HostFeed:
     recorded after the copy must have completed before that buffer is
     written again. The copy lands in a fresh device tensor, so a caller
     may keep what it was handed. On the CPU each stack is gathered into
-    a fresh array."""
+    a fresh array. Over the ranks of ``layout`` each stack is this rank's
+    columns of the loader's ``[k, B]`` one, ``B / R`` rows a step."""
 
-    def __init__(self, loader: _Loader, device: torch.device):
+    def __init__(self, loader: _Loader, device: torch.device,
+                 layout: Optional[mesh.Layout] = None):
         self.loader, self.device = loader, torch.device(device)
-        kb = (loader.steps_per_call, loader.batch_size)
+        self.layout = layout or mesh.Layout()
+        self.cols = self.layout.rows(loader.batch_size)
+        kb = (loader.steps_per_call, self.cols.stop - self.cols.start)
         self.slots = []
         if self.device.type == "cuda":
             self.slots = [(torch.empty(kb, dtype=torch.int64, pin_memory=True),
@@ -197,7 +208,7 @@ class HostFeed:
     def stream(self, start_step: int = 0) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
         k = self.loader.steps_per_call
         for index in self.loader.indices(start_step):
-            index_t, batch_t = self.put(index)
+            index_t, batch_t = self.put(np.ascontiguousarray(index[:, self.cols]))
             yield (index_t[0], batch_t[0]) if k == 1 else (index_t, batch_t)
 
     def put(self, index: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:

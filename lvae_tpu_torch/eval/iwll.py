@@ -7,7 +7,10 @@ the estimate does not depend on ``--test-batch-size``, sweep order or
 B`` rows). ``logsumexp_impl``: ``'kernel'`` writes each chunk's ELBO
 rows into one ``[k, B]`` matrix and reduces it with the CUDA logsumexp
 (``kernels/logsumexp.py``); ``'streaming'`` folds each chunk into an
-online (max, sum-exp) accumulator and never holds the matrix.
+online (max, sum-exp) accumulator and never holds the matrix. Over R
+ranks each rank scores its rows of every test batch (the last padded with
+its final index and masked) and the masked sums are all-reduced at the
+end, so every rank returns the global estimate.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import torch
 
 from lvae_tpu_torch.data.device import eval_preprocess_batch
 from lvae_tpu_torch.kernels.logsumexp import logsumexp
-from lvae_tpu_torch.train.state import per_image_forward, test_batches
+from lvae_tpu_torch.parallel import mesh
+from lvae_tpu_torch.train.state import per_image_forward, sweep
 
 LOGSUMEXP_IMPLS = ("kernel", "streaming")
 
@@ -80,15 +84,26 @@ def evaluate_iwll(model, test_u8: torch.Tensor, preprocess: str,
                   seed: int = 0, logsumexp_impl: str = "kernel",
                   chunk: int = 1, max_batches: Optional[int] = None) -> dict:
     """IW-LL sweep over the device-resident uint8 test split: mean LL
-    (nats/image), bpd, and the synchronised wall time."""
-    total = torch.zeros((), dtype=torch.float64, device=test_u8.device)
+    (nats/image), bpd, and the synchronised wall time; over R ranks
+    (:func:`lvae_tpu_torch.parallel.mesh.current`) the global estimate on
+    every rank."""
+    layout = mesh.current()
+    device = test_u8.device
+    total = torch.zeros((), dtype=torch.float64, device=device)
+    valid_n = torch.zeros((), dtype=torch.float64, device=device)
     count = 0
     t0 = time.perf_counter()
-    for index, batch in test_batches(test_u8, batch_size, max_batches):
+    for index, batch, valid in sweep(test_u8, batch_size, layout, max_batches):
         x = eval_preprocess_batch(batch, preprocess, index)
         ll = iwll_batch(model, x, index, seed, n_samples, logsumexp_impl, chunk)
+        if valid is not None:
+            ll = torch.where(valid, ll, 0.0)
+            valid_n += valid.sum()
         total += ll.sum(dtype=torch.float64)
         count += ll.shape[0]
+    if layout.sharded:
+        total, valid_n = mesh.all_reduce_(torch.stack([total, valid_n]), layout).unbind(0)
+        count = int(valid_n)
     mean_ll = float(total) / max(count, 1)  # reads back: waits for the device
     wall = time.perf_counter() - t0
     return {

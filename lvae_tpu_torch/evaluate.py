@@ -26,6 +26,15 @@ prior samples), ``recon_<step>.png`` and ``kl_spatial_<step>.png``
 those layers), ``--constant-layers`` (one draw for the whole batch there)
 and ``--temperature`` (one value, or one per layer), also
 ``diag_<tag>_<step>.png``, named as ``lvae_tpu`` names it.
+
+``--num-data-shards R`` scores over R ranks, as ``lvae_tpu``'s
+``evaluate.py`` accepts it: each rank takes its rows of every test batch
+(the last padded with its final index and masked) and the sums are
+all-reduced, so the metrics are the one-rank ones up to the order of the
+sums; rank 0 prints and writes the grids. Without ``torchrun`` the command
+starts its R ranks itself, as ``lvae_tpu_torch.main`` does. A run trained
+over several ranks is scored on one where the flag is not given (the
+metrics do not depend on it).
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 from typing import Optional, Sequence
 
 import torch
@@ -70,7 +80,7 @@ def parse_args(argv=None):
                         "(default: kernel on CUDA, streaming elsewhere)")
     p.add_argument("--test-batch-size", type=int, default=None)
     p.add_argument("--num-data-shards", type=int, default=None,
-                   help="only 1: the port evaluates on one device")
+                   help="score over this many ranks (default: one)")
     p.add_argument("--fused", default=None, choices=FUSED_POLICIES,
                    help="override the run's kernel policy: 'auto' turns on, on "
                         "CUDA, the sample+KL kernel and, for the "
@@ -132,7 +142,14 @@ def _weights(args, run_dir: str):
     return load_state_dict_file(args.state_dict), step, args.state_dict
 
 
-def main(argv=None) -> dict:
+def main(argv=None) -> Optional[dict]:
+    """Score the run; returns the metrics and the grids' paths (on every
+    rank), or, where this call started the ranks of ``--num-data-shards R
+    > 1``, None once every rank has ended (a failing rank raises
+    SystemExit)."""
+    from lvae_tpu_torch.parallel import multihost
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -141,13 +158,16 @@ def main(argv=None) -> dict:
             "(torch.cuda.is_available() is False); the port does not fall "
             "back to the CPU"
         )
-    if args.num_data_shards is not None and args.num_data_shards != 1:
-        raise SystemExit(
-            f"--num-data-shards {args.num_data_shards}: the port evaluates on "
-            f"one device (multi-GPU evaluation comes in a later PR)"
-        )
+    shards = 1 if args.num_data_shards is None else args.num_data_shards
+    if shards < 1:
+        raise SystemExit(f"--num-data-shards must be >= 1, got {shards}")
     if args.iw_chunk < 1:
         raise SystemExit(f"--iw-chunk must be >= 1, got {args.iw_chunk}")
+    return multihost.run_ranks("lvae_tpu_torch.evaluate", argv, shards, args.device,
+                               lambda layout: _evaluate(args, device, layout))
+
+
+def _evaluate(args, device: torch.device, layout) -> dict:
     from lvae_tpu_torch.config import config_from_dict
     from lvae_tpu_torch.data.registry import load_test_set
     from lvae_tpu_torch.eval.iwll import evaluate_iwll
@@ -167,49 +187,61 @@ def main(argv=None) -> dict:
         d["fused"] = args.fused
     if args.precision is not None:
         d["precision"] = args.precision
+    say = print if layout.primary else (lambda *a, **k: None)
     stored_ds = int(d.get("num_data_shards") or 1)
     stored_ss = int(d.get("spatial_shards") or 1)
-    if stored_ds * stored_ss > 1:
+    if stored_ds * stored_ss > 1 and args.num_data_shards is None:
         # evaluation is keyed per image, so the device count changes no
         # metric: evaluate a mesh-trained run on this one device
-        print(
+        say(
             f"note: run was trained on a {stored_ds}x{stored_ss} (data x "
             f"space) mesh, only 1 device here — evaluating on 1 (same "
             f"metrics)", flush=True,
         )
-        d["num_data_shards"] = 1
-        d["spatial_shards"] = 1
+    d["spatial_shards"] = 1
     cfg = config_from_dict(d)
 
     weights, step, source = _weights(args, run_dir)
     data = load_test_set(cfg.dataset, cfg.data_dir)
     model = make_model(cfg, data, device)
     model.load_state_dict(weights, strict=True)
-    print(f"restored {run_dir} from {source} on {device} ({cfg.precision})", flush=True)
+    ranks = f" x {layout.size} ranks ({layout.backend})" if layout.sharded else ""
+    say(f"restored {run_dir} from {source} on {device}{ranks} ({cfg.precision})",
+        flush=True)
 
     test = torch.from_numpy(data.test).to(device)
     bs = min(cfg.test_batch_size, test.shape[0])
     metrics = evaluate_elbo(model, test, data.preprocess, bs, data.data_dims,
                             seed=args.seed)
-    print(
+    say(
         f"test elbo {metrics['elbo']:.2f}  recons {metrics['ll']:.2f}  "
         f"kl {metrics['kl']:.2f}  bpd {metrics['bpd']:.4f}", flush=True,
     )
     for i, v in enumerate(metrics["kl_layers"]):
-        print(f"  kl/layer_{i}: {v:.2f}")
-    print(f"  [{metrics['n_images']} images, {metrics['wall_s']:.2f}s, "
-          f"{metrics['images_per_sec']:.1f} img/s]", flush=True)
+        say(f"  kl/layer_{i}: {v:.2f}")
+    say(f"  [{metrics['n_images']} images, {metrics['wall_s']:.2f}s, "
+        f"{metrics['images_per_sec']:.1f} img/s]", flush=True)
 
     iw = None
     if args.ll:
         impl = args.logsumexp or default_logsumexp(device)
-        iw = evaluate_iwll(
-            model, test, data.preprocess, data.data_dims,
-            n_samples=args.iw_samples, batch_size=bs, seed=args.seed,
-            logsumexp_impl=impl, chunk=args.iw_chunk,
-            max_batches=args.iw_max_batches,
-        )
-        print(
+        try:
+            iw = evaluate_iwll(
+                model, test, data.preprocess, data.data_dims,
+                n_samples=args.iw_samples, batch_size=bs, seed=args.seed,
+                logsumexp_impl=impl, chunk=args.iw_chunk,
+                max_batches=args.iw_max_batches,
+            )
+        except torch.cuda.OutOfMemoryError as e:
+            if args.iw_chunk == 1:
+                raise
+            # name the flags instead of the allocator's trace
+            # (lvae_tpu/evaluate.py:169-185)
+            raise SystemExit(
+                f"IW eval ran out of device memory at --iw-chunk {args.iw_chunk}: the "
+                f"forward holds chunk x batch activations. Lower --iw-chunk or "
+                f"--test-batch-size.\n\n{e}") from None
+        say(
             f"IW log-likelihood ({iw['n_samples']} samples, "
             f"{iw['n_images']} images, chunk {args.iw_chunk}, {impl}): "
             f"{iw['iw_ll']:.2f} nats  bpd {iw['iw_bpd']:.4f}  "
@@ -219,11 +251,12 @@ def main(argv=None) -> dict:
 
     images = [os.path.join(run_dir, "imgs", f"{kind}_{step}.png")
               for kind in ("sample", "recon", "kl_spatial")]
-    dump_images(model, test, data.preprocess, run_dir, step, n_samples=args.nimages)
-    print(f"wrote sample/recon grids to {os.path.join(run_dir, 'imgs')}")
+    if layout.primary:
+        dump_images(model, test, data.preprocess, run_dir, step, n_samples=args.nimages)
+        print(f"wrote sample/recon grids to {os.path.join(run_dir, 'imgs')}")
 
-    if (args.mode_layers is not None or args.constant_layers is not None
-            or args.temperature is not None):
+    if layout.primary and (args.mode_layers is not None or args.constant_layers is not None
+                           or args.temperature is not None):
         temps = args.temperature
         temperature = 1.0 if temps is None else temps[0] if len(temps) == 1 else tuple(temps)
         with torch.no_grad():

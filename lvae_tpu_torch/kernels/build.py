@@ -57,12 +57,22 @@ LAUNCHES = {
     "segment": 0,                    # K5
     "segment_bwd": 0,                # K5-bwd
     "dropout": 0,                    # K5's bits8 dropout alone, forward and backward
+    # K5 and K5-bwd over R > 1 ranks (--num-data-shards): two launches a
+    # direction around the all-reduce of the statistics
+    "segment_split_stats": 0,        # K5-split, this rank's sums
+    "segment_split_apply": 0,        # K5-split, y from the global sums
+    "segment_split_bwd_reduce": 0,   # K5-bwd-split, this rank's sums
+    "segment_split_bwd_apply": 0,    # K5-bwd-split, dx from the global sums
     # the bf16 instantiations (--precision bf16), each counted apart
     "mix_log_prob[bf16]": 0,         # K3, bf16 params
     "mix_log_prob_bwd[bf16]": 0,     # K3-bwd, bf16 params and dparams
     "segment[bf16]": 0,              # K5, bf16 x and y
     "segment_bwd[bf16]": 0,          # K5-bwd, bf16 x, g and dx
     "dropout[bf16]": 0,              # the bits8 dropout, bf16 x and y
+    "segment_split_stats[bf16]": 0,
+    "segment_split_apply[bf16]": 0,
+    "segment_split_bwd_reduce[bf16]": 0,
+    "segment_split_bwd_apply[bf16]": 0,
 }
 
 
@@ -116,8 +126,15 @@ _SIGNATURES = {
     "lvae_segment_bwd": (_P, _P, _P, _P, _P, _P, _P, _INT, _INT, _U64, _U64, _P, _P),
     # plan, direction, act, out
     "lvae_segment_max_clusters": (_P, _INT, _INT, _P),
-    # x, y, n, esize, t, train seed, dropout site, step (device pointer), stream
-    "lvae_dropout_bits8": (_P, _P, _I64, _INT, _INT, _U64, _U64, _P, _P),
+    # x, y, n, esize, t, train seed, dropout site, step (device pointer),
+    # element offset, stream
+    "lvae_dropout_bits8": (_P, _P, _I64, _INT, _INT, _U64, _U64, _P, _I64, _P),
+    # which, x, g, gamma, beta, part, local, out_part, running_mean,
+    # running_var, stats, y, dgb, b, c, hw, slices, esize, t, act, n_global,
+    # eps, momentum, 1 - momentum, seed, site, step, offset, stream
+    "lvae_segment_split": (_INT, *(_P,) * 12, _I64, _INT, _I64, _INT, _INT, _INT, _INT,
+                           ctypes.c_double, ctypes.c_double, ctypes.c_float, ctypes.c_float,
+                           _U64, _U64, _P, _I64, _P),
 }
 
 

@@ -24,6 +24,13 @@ kernels; gamma, beta, the statistics, the running buffers, dgamma and
 dbeta are fp32, and the arithmetic is fp32 either way
 (``segment_pallas.py:103-211,300-367``).
 
+Over R > 1 ranks (``--num-data-shards``) the statistics are the global
+batch's, and no all-reduce fits inside one launch: :class:`_SplitSegment`
+runs each direction as two launches of ``csrc/segment.cu`` around an
+all-reduce of fp64 sums, K5-split (``split_stats``, ``split_apply``) and
+K5-bwd-split (``split_bwd_reduce``, ``split_bwd_apply``), each with its
+plain version in ``ops/math.py`` and its launch counter.
+
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 versions, ``ops.math.segment_forward`` and the hand-written
 ``ops.math.segment_backward``. Unlike ``lvae_tpu``, which falls back to
@@ -49,8 +56,13 @@ from lvae_tpu_torch.ops.math import (
     math_dtype,
     segment_backward,
     segment_forward,
+    segment_split_apply,
+    segment_split_bwd_apply,
+    segment_split_bwd_reduce,
+    segment_split_stats,
 )
 from lvae_tpu_torch.ops.philox import Ints, dropout_bytes, mix_seed
+from lvae_tpu_torch.parallel import mesh
 
 SMS = 132                       # streaming multiprocessors of an H100 SXM
 SMEM_MAX = 232_448              # shared memory a CTA can have
@@ -241,9 +253,13 @@ def _key(x: torch.Tensor, seed: int, step: Ints, site: int) -> Key:
     return Key(int(seed), step, int(site))
 
 
-def _plain_bytes(x: torch.Tensor, t: int, key: Key) -> Optional[torch.Tensor]:
-    """The plain path's keyed dropout bytes (None where no mask applies)."""
-    return dropout_bytes(x.shape, mix_seed(*key), x.device) if 0 < t < 256 else None
+def _plain_bytes(x: torch.Tensor, t: int, key: Key, offset: int = 0
+                 ) -> Optional[torch.Tensor]:
+    """The plain path's keyed dropout bytes (None where no mask applies),
+    element ``e`` taking global element ``e + offset``'s."""
+    if not 0 < t < 256:
+        return None
+    return dropout_bytes(x.shape, mix_seed(*key), x.device, offset)
 
 
 _M64 = 2 ** 64 - 1
@@ -358,12 +374,13 @@ class _Segment(torch.autograd.Function):
         return dx, dgamma, dbeta, None, None, None, None, None, None, None
 
 
-def _launch_dropout(x: torch.Tensor, t: int, key: Key) -> torch.Tensor:
-    """The bits8 dropout kernel on a contiguous fp32 or bf16 CUDA ``x``."""
+def _launch_dropout(x: torch.Tensor, t: int, key: Key, offset: int = 0) -> torch.Tensor:
+    """The bits8 dropout kernel on a contiguous fp32 or bf16 CUDA ``x``,
+    element ``e`` taking global element ``e + offset``'s byte."""
     y = torch.empty_like(x)
     status = build.on_device(x, lambda stream: build.library().lvae_dropout_bits8(
         x.data_ptr(), y.data_ptr(), x.numel(), build.esize(x.dtype), t, *_c_key(t, key),
-        stream))
+        offset, stream))
     build.LAUNCHES[build.launch_name("dropout", x.dtype)] += 1
     build.check(status, "dropout")
     return y
@@ -374,18 +391,18 @@ class _Dropout(torch.autograd.Function):
     kernel on the cotangent, under the same key."""
 
     @staticmethod
-    def forward(ctx, x, t, key):
-        ctx.t, ctx.key = t, key
-        return _launch_dropout(x, t, key)
+    def forward(ctx, x, t, key, offset):
+        ctx.t, ctx.key, ctx.offset = t, key, offset
+        return _launch_dropout(x, t, key, offset)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        return _launch_dropout(g.contiguous(), ctx.t, ctx.key), None, None
+        return _launch_dropout(g.contiguous(), ctx.t, ctx.key, ctx.offset), None, None, None
 
 
 def dropout_bits8(x: torch.Tensor, rate: float, seed: int, step: Ints,
-                  site: int) -> torch.Tensor:
+                  site: int, offset: int = 0) -> torch.Tensor:
     """bits8 dropout alone, under the segment's bytes: ``x`` where the
     byte of ``dropout_bytes(x.shape, mix_seed(seed, step, site))`` is below
     ``t = round(256 (1 - rate))``, scaled by ``256 / t`` in fp32 and cast
@@ -393,7 +410,10 @@ def dropout_bits8(x: torch.Tensor, rate: float, seed: int, step: Ints,
     ``t <= 0``); ``step`` a 0-d int64 tensor on ``x``'s device, read there.
     A CUDA tensor (fp32 or bf16) launches the kernel (``csrc/segment.cu``
     ``dropout_kernel``, forward and backward) on a contiguous copy of
-    ``x``; a CPU tensor takes the plain version."""
+    ``x``; a CPU tensor takes the plain version. ``offset`` is the global
+    index of ``x``'s first element (a rank's part of the global batch,
+    :func:`lvae_tpu_torch.parallel.mesh.element_offset`): element ``e``
+    takes the byte of global element ``e + offset``."""
     t = bits8_keep_threshold(rate)
     if t >= 256:      # rate below the 8-bit resolution: keep everything
         return x
@@ -401,11 +421,11 @@ def dropout_bits8(x: torch.Tensor, rate: float, seed: int, step: Ints,
         return torch.zeros_like(x)
     key = _key(x, seed, step, site)
     if not x.is_cuda:
-        return bits8_dropout_f32(x.to(math_dtype(x.dtype)), _plain_bytes(x, t, key),
+        return bits8_dropout_f32(x.to(math_dtype(x.dtype)), _plain_bytes(x, t, key, offset),
                                  t).to(x.dtype)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the dropout kernel takes float32 or bfloat16, got {x.dtype}")
-    return _Dropout.apply(x.contiguous(), t, key)
+    return _Dropout.apply(x.contiguous(), t, key, offset)
 
 
 def dropout_bn_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
@@ -426,12 +446,154 @@ def dropout_bn_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     int64 tensor on ``x``'s device (the kernels read it there; an int is
     copied to the device first), ``site`` the dropout site. A strided
     ``x`` (a cropped transposed conv's output) is copied to a contiguous
-    one first."""
+    one first.
+
+    ``x`` is this rank's part of the global batch: where the layout
+    (:func:`lvae_tpu_torch.parallel.mesh.current`) has more than one rank,
+    the statistics are the global batch's and the segment runs split,
+    K5-split and K5-bwd-split (:class:`_SplitSegment`); on one rank K5 and
+    K5-bwd, one launch a direction."""
     x = x.contiguous()
     _checked(x, gamma, beta, act)
     t = bits8_keep_threshold(rate)
     key = _key(x, seed, step, site) if 0 < t < 256 else None
-    y, stats = _Segment.apply(x, gamma, beta, running_mean, running_var, t, act, eps, key,
-                              momentum)
+    layout = mesh.current()
+    if layout.sharded:
+        y, stats = _SplitSegment.apply(x, gamma, beta, running_mean, running_var, t, act, eps,
+                                       key, momentum, layout)
+    else:
+        y, stats = _Segment.apply(x, gamma, beta, running_mean, running_var, t, act, eps,
+                                  key, momentum)
     mean, var, *_ = stats.unbind(0)
     return y, mean, var
+
+
+# ---------------------------------------------------------------------------
+# the segment over R > 1 ranks: K5-split and K5-bwd-split
+# ---------------------------------------------------------------------------
+
+SPLIT_THREADS = 256             # csrc/segment.cu kSplitThreads
+SPLIT_PER_THREAD = 8            # elements a thread of a slice aims at
+SPLIT_MAX_SLICES = 64
+SPLIT_LAUNCHES = ("segment_split_stats", "segment_split_apply", "segment_split_bwd_reduce",
+                  "segment_split_bwd_apply")
+
+
+def split_slices(b: int, h: int, w: int) -> int:
+    """The blocks (slices) a channel's ``b h w`` elements take in each
+    split launch: ``SPLIT_PER_THREAD`` elements a thread, at most
+    ``SPLIT_MAX_SLICES``."""
+    return max(1, min(SPLIT_MAX_SLICES, -(-b * h * w // (SPLIT_THREADS * SPLIT_PER_THREAD))))
+
+
+def _launch_split(which: int, x: torch.Tensor, t: int, act: str, key: Optional[Key],
+                  offset: int, slices: int, *, g=None, gamma=None, beta=None, part=None,
+                  local=None, out_part=None, running_mean=None, running_var=None,
+                  stats=None, y=None, dgb=None, n_global: int = 1, eps: float = 1e-5,
+                  momentum: float = 0.9) -> None:
+    """One launch of ``csrc/segment.cu`` ``lvae_segment_split`` (``which``:
+    0 stats, 1 apply, 2 bwd_reduce, 3 bwd_apply) on checked contiguous
+    CUDA tensors; NULL for what it does not read or write."""
+    b, c, h, w = x.shape
+    ptr = lambda v: None if v is None else v.data_ptr()    # noqa: E731
+    status = build.on_device(x, lambda stream: build.library().lvae_segment_split(
+        which, x.data_ptr(), ptr(g), ptr(gamma), ptr(beta), ptr(part), ptr(local),
+        ptr(out_part), ptr(running_mean), ptr(running_var), ptr(stats), ptr(y), ptr(dgb),
+        b, c, h * w, slices, build.esize(x.dtype), t, SEGMENT_ACTS.index(act),
+        float(n_global), eps, momentum, 1.0 - momentum, *_c_key(t, key), offset, stream))
+    name = SPLIT_LAUNCHES[which]
+    build.LAUNCHES[build.launch_name(name, x.dtype)] += 1
+    build.check(status, name)
+
+
+def split_stats(x: torch.Tensor, t: int, key: Optional[Key], offset: int) -> torch.Tensor:
+    """K5-split's first launch: this rank's ``[2, S, C]`` fp64 sums of
+    ``u`` and ``u^2`` (the plain version's ``S`` is 1)."""
+    if not x.is_cuda:
+        return segment_split_stats(x, t, _plain_bytes(x, t, key, offset))
+    b, c, h, w = x.shape
+    slices = split_slices(b, h, w)
+    part = torch.empty((2, slices, c), dtype=torch.float64, device=x.device)
+    _launch_split(0, x, t, "elu", key, offset, slices, out_part=part)
+    return part
+
+
+def split_apply(x, gamma, beta, part, n_global, t, act, eps, key, offset, running_mean,
+                running_var, momentum) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5-split's second launch: ``(y, stats)`` from the global sums."""
+    if not x.is_cuda:
+        return segment_split_apply(x, gamma, beta, part, n_global, t, act, eps,
+                                   _plain_bytes(x, t, key, offset), running_mean, running_var,
+                                   momentum)
+    if running_mean is not None:
+        c = x.shape[1]
+        for name, v in (("running_mean", running_mean), ("running_var", running_var)):
+            if v.dtype != torch.float32 or v.shape != (c,) or v.get_device() != x.get_device():
+                raise ValueError(f"{name} must be float32 [{c}] on {x.device}")
+    y = torch.empty_like(x)
+    stats = torch.empty((5, x.shape[1]), dtype=torch.float32, device=x.device)
+    _launch_split(1, x, t, act, key, offset, part.shape[1], gamma=gamma, beta=beta,
+                  part=part, running_mean=running_mean, running_var=running_var, stats=stats,
+                  y=y, n_global=n_global, eps=eps, momentum=momentum)
+    return y, stats
+
+
+def split_bwd_reduce(x, g, stats, t, act, key, offset) -> torch.Tensor:
+    """K5-bwd-split's first launch: this rank's ``[2, S, C]`` fp64 sums of
+    ``dz`` and ``dz xhat``."""
+    if not x.is_cuda:
+        return segment_split_bwd_reduce(x, g, stats, t, act, _plain_bytes(x, t, key, offset))
+    b, c, h, w = x.shape
+    slices = split_slices(b, h, w)
+    part = torch.empty((2, slices, c), dtype=torch.float64, device=x.device)
+    _launch_split(2, x, t, act, key, offset, slices, g=g, stats=stats, out_part=part)
+    return part
+
+
+def split_bwd_apply(x, g, gamma, stats, local, part, n_global, t, act, key, offset
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5-bwd-split's second launch: ``(dx, dgamma, dbeta)``, dx from the
+    global sums ``part``, dgamma and dbeta this rank's sums ``local``."""
+    if not x.is_cuda:
+        return segment_split_bwd_apply(x, g, gamma, stats, local, part, n_global, t, act,
+                                       _plain_bytes(x, t, key, offset))
+    dx = torch.empty_like(x)
+    dgb = torch.empty((2, x.shape[1]), dtype=torch.float32, device=x.device)
+    _launch_split(3, x, t, act, key, offset, part.shape[1], g=g, gamma=gamma, part=part,
+                  local=local, stats=stats, y=dx, dgb=dgb, n_global=n_global)
+    return (dx, *dgb.unbind(0))
+
+
+class _SplitSegment(torch.autograd.Function):
+    """The segment over ``layout.size`` ranks, ``x`` this rank's rows:
+    forward K5-split (this rank's sums, their all-reduce, y from the global
+    ones), backward K5-bwd-split (the same for ``dz`` and ``dz xhat``),
+    with the global batch's statistics, the dropout bytes of the global
+    elements, and dgamma and dbeta this rank's part (the train step sums
+    the gradients over the ranks). The plain versions on the CPU, where the
+    all-reduce runs over gloo."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, running_mean, running_var, t, act, eps, key, momentum,
+                layout):
+        offset = mesh.element_offset(x, layout)
+        n_global = x.numel() // x.shape[1] * layout.size
+        part = mesh.all_reduce_(split_stats(x, t, key, offset), layout)
+        y, stats = split_apply(x, gamma, beta, part, n_global, t, act, eps, key, offset,
+                               running_mean, running_var, momentum)
+        ctx.t, ctx.act, ctx.key, ctx.offset, ctx.n_global = t, act, key, offset, n_global
+        ctx.layout = layout
+        ctx.save_for_backward(x, gamma, stats)
+        ctx.mark_non_differentiable(stats)
+        return y, stats
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, _gstats):
+        x, gamma, stats = ctx.saved_tensors
+        g = g.contiguous()
+        local = split_bwd_reduce(x, g, stats, ctx.t, ctx.act, ctx.key, ctx.offset)
+        part = mesh.all_reduce_(local.clone(), ctx.layout)
+        dx, dgamma, dbeta = split_bwd_apply(x, g, gamma, stats, local, part, ctx.n_global,
+                                            ctx.t, ctx.act, ctx.key, ctx.offset)
+        return dx, dgamma, dbeta, None, None, None, None, None, None, None, None

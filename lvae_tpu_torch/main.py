@@ -13,19 +13,32 @@ run as in ``lvae_tpu``. The run's checkpoints under ``<output
 dir>/<run>/checkpoints/`` are what ``python -m lvae_tpu_torch.evaluate
 --load <run>`` scores (the latest, or ``--step N``); the test hook writes
 the sample, reconstruction and spatial-KL grids under ``<run>/imgs``.
+
+``--num-data-shards R`` trains over R ranks, each on its rows of the
+global batch (``lvae_tpu_torch/parallel/``). Without ``torchrun`` the
+command starts its R ranks itself (NCCL, one a card, where R cards are
+visible; else gloo: the CPU, or ranks sharing a card), passes SIGTERM on
+to them and exits with the first failing rank's code; under ``torchrun
+--nproc-per-node R`` each rank joins the group, whose size must be R.
 """
 
 from __future__ import annotations
+
+import sys
 
 import torch
 
 
 def main(argv=None):
     """Train; returns the :class:`~lvae_tpu_torch.train.trainer.Trainer`
-    after its run (its ``logger.history`` holds every logged line)."""
+    after its run (its ``logger.history`` holds every logged line), or,
+    where this call started the ranks of ``--num-data-shards R > 1``,
+    None once every rank has ended (a failing rank raises SystemExit)."""
     from lvae_tpu_torch.config import config_from_args
+    from lvae_tpu_torch.parallel import multihost
     from lvae_tpu_torch.train.trainer import Experiment, Trainer
 
+    argv = list(sys.argv[1:] if argv is None else argv)
     cfg, device = config_from_args(argv)
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
@@ -33,9 +46,14 @@ def main(argv=None):
             "(torch.cuda.is_available() is False); the port does not fall "
             "back to the CPU"
         )
-    trainer = Trainer(Experiment(cfg, torch.device(device)))
-    trainer.run()
-    return trainer
+
+    def train(layout):
+        trainer = Trainer(Experiment(cfg, torch.device(device)))
+        trainer.run()
+        return trainer
+
+    return multihost.run_ranks("lvae_tpu_torch.main", argv, cfg.num_data_shards, device,
+                               train)
 
 
 if __name__ == "__main__":

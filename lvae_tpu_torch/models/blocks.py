@@ -19,6 +19,15 @@ statistics from the batch's leading rows (``SubsampledBatchNorm``), and
 ``torch.utils.checkpoint``: its activations are dropped after the forward
 and recomputed in the backward, which moves no running statistic a second
 time (:func:`recomputing`).
+
+Over R > 1 ranks (``--num-data-shards``, :func:`lvae_tpu_torch.parallel.
+mesh.current`) a block holds its rank's rows of the global batch, and
+training reads the global batch as ``lvae_tpu``'s ``data`` mesh does:
+BatchNorm normalises with the global batch's statistics (summed over the
+ranks by a differentiable all-reduce, whose backward sums the statistics'
+cotangents the same way), ``bn_stat_samples`` takes the leading rows of
+the global batch, the segments run split (``kernels/segment.py``), and
+dropout draws the mask of the global elements.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from torch import nn
 from lvae_tpu_torch.kernels.segment import dropout_bits8, dropout_bn_act
 from lvae_tpu_torch.ops.math import SEGMENT_ACTS
 from lvae_tpu_torch.ops.philox import STREAM_FLOAT_DROPOUT, keyed_uniform, mix_seed
+from lvae_tpu_torch.parallel import mesh
 
 NONLINEARITIES: dict[str, Callable] = {
     "relu": F.relu,
@@ -225,6 +235,39 @@ def batch_norm_eval(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
                         bn.bias, False, 0.0, bn.eps)
 
 
+@torch.no_grad()
+def _move_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor,
+                  momentum: float) -> None:
+    """``ra = m ra + (1 - m) batch`` (flax's rule), but in a recompute
+    (``--remat``), which the forward already moved them for."""
+    if not recomputing():
+        bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * var)
+
+
+def global_batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor, layout: mesh.Layout,
+                            momentum: float = 0.9) -> torch.Tensor:
+    """:func:`batch_norm_train` over ``layout.size`` ranks, ``x`` this
+    rank's rows: each channel's ``sum(x)`` and ``sum(x^2)`` in fp64,
+    summed over the ranks (a differentiable all-reduce), then the mean and
+    the biased variance ``E[x^2] - E[x]^2`` of the global batch (flax's
+    order), in the running buffers' dtype; ``x`` normalised with them in
+    that dtype and cast back (flax's ``_normalize``), and the running
+    statistics moved as on one rank."""
+    c = x.shape[1]
+    n = x.numel() // c * layout.size
+    xd = x.double()
+    sums = mesh.all_reduce_sum(torch.stack([xd.sum(dim=(0, 2, 3)),
+                                            (xd * xd).sum(dim=(0, 2, 3))]), layout)
+    mean_d = sums[0] / n
+    dtype = bn.running_mean.dtype
+    mean, var = mean_d.to(dtype), (sums[1] / n - mean_d * mean_d).to(dtype)
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    shift = bn.bias - mean * inv
+    _move_running(bn, mean.detach(), var.detach(), momentum)
+    return (x.to(dtype) * inv.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype)
+
+
 def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor,
                      momentum: float = 0.9) -> torch.Tensor:
     """flax's ``nn.BatchNorm(use_running_average=False, momentum=0.9)``:
@@ -236,7 +279,11 @@ def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor,
     and the running statistics are moved from those. The batch statistics
     are in the running buffers' dtype (fp32 for a bf16 ``x``: flax reduces
     in fp32, normalises in fp32 and casts ``y`` back to ``x``'s dtype, as
-    the mixed-dtype kernel does)."""
+    the mixed-dtype kernel does). Over R > 1 ranks:
+    :func:`global_batch_norm_train`."""
+    layout = mesh.current()
+    if layout.sharded:
+        return global_batch_norm_train(bn, x, layout, momentum)
     c = x.shape[1]
     mean = torch.zeros(c, dtype=bn.running_mean.dtype, device=x.device)
     var = torch.ones(c, dtype=bn.running_var.dtype, device=x.device)
@@ -244,10 +291,8 @@ def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor,
     if recomputing():
         return y
     n = x.numel() // c
-    with torch.no_grad():
-        biased = var * ((n - 1) / n)       # the kernel stored n/(n-1) x it
-        bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
-        bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * biased)
+    # the kernel stored n/(n-1) x the biased variance
+    _move_running(bn, mean, var * ((n - 1) / n), momentum)
     return y
 
 
@@ -258,15 +303,31 @@ def subsampled_batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor, stat_sample
     of the contiguous leading ``n = min(stat_samples, B)`` rows, in fp32,
     the variance clamped at 0; the whole batch normalised with them (the
     gradient reaches the statistics through those rows only); the running
-    statistics moved as flax moves them."""
-    n = max(1, min(stat_samples, x.shape[0]))
-    xs = x[:n].float()
-    mean = xs.mean(dim=(0, 2, 3))
-    var = torch.clamp_min((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
-    with torch.no_grad():
-        if not recomputing():
-            bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
-            bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * var)
+    statistics moved as flax moves them.
+
+    Over R > 1 ranks the rows are the global batch's leading ``n``
+    (``lvae_tpu/models/blocks.py:273-276``, a slice of the global batch on
+    the mesh): rank ``r`` holds global rows ``[r b, (r + 1) b)``, so the
+    rows lie on rank 0, or on the first ranks where ``n`` exceeds ``b``.
+    Each rank sums its part of them (none on the later ranks) and the sums
+    are all-reduced, so the gradient reaches the statistics through those
+    rows only."""
+    layout = mesh.current()
+    if layout.sharded:
+        b = x.shape[0]
+        n = max(1, min(stat_samples, b * layout.size))
+        xs = x[:max(0, min(b, n - layout.rank * b))].float()
+        count = n * x.shape[2] * x.shape[3]
+        sums = mesh.all_reduce_sum(torch.stack([xs.sum(dim=(0, 2, 3)),
+                                                (xs * xs).sum(dim=(0, 2, 3))]), layout)
+        mean = sums[0] / count
+        var = torch.clamp_min(sums[1] / count - mean * mean, 0.0)
+    else:
+        n = max(1, min(stat_samples, x.shape[0]))
+        xs = x[:n].float()
+        mean = xs.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+    _move_running(bn, mean.detach(), var.detach(), momentum)
     inv = torch.rsqrt(var + bn.eps) * bn.weight
     shift = bn.bias - mean * inv
     return (x.float() * inv.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)).to(x.dtype)
@@ -316,9 +377,13 @@ class Dropout(nn.Module):
             return x
         step = self.key.step.to(x.device)
         if self.impl == "bits8":
-            return dropout_bits8(x, self.rate, self.key.seed, step, self.site)
+            return dropout_bits8(x, self.rate, self.key.seed, step, self.site,
+                                 mesh.element_offset(x))
         keep = 1.0 - self.rate
+        layout = mesh.current()
         index = torch.arange(x.shape[0], device=x.device)
+        if layout.sharded:      # the rows of the global batch
+            index = index + layout.rank * x.shape[0]
         u = keyed_uniform(x.shape, mix_seed(self.key.seed, step, self.site), index, 0,
                           STREAM_FLOAT_DROPOUT)
         return torch.where(u <= keep, x / keep, 0.0)

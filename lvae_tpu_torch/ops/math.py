@@ -57,14 +57,15 @@ def linear_anneal(step, start_value: float, end_value: float, n_steps: int):
     return float(np.float32(start_value) + np.float32(end_value - start_value) * frac)
 
 
-def free_bits_kl(kl_per_layer: torch.Tensor, free_bits: float) -> torch.Tensor:
-    """Free-bits clamp on the *batch mean* of each layer's KL: ``[L, B]``
-    -> ``[L]``, each layer's mean clamped below at ``free_bits`` nats (a
-    clamped layer passes no gradient)."""
-    mean_per_layer = kl_per_layer.mean(dim=1)
+def free_bits_clamp(kl_mean_per_layer: torch.Tensor, free_bits: float) -> torch.Tensor:
+    """Free-bits clamp on the *batch mean* of each layer's KL
+    (``lvae_tpu``'s ``free_bits_kl`` after its mean over the batch): ``[L]``,
+    each layer's mean clamped below at ``free_bits`` nats (a clamped layer
+    passes no gradient). The mean is the global batch's: over R ranks, the
+    all-reduced one (``train/state.py``)."""
     if free_bits <= 0.0:
-        return mean_per_layer
-    return torch.clamp_min(mean_per_layer, free_bits)
+        return kl_mean_per_layer
+    return torch.clamp_min(kl_mean_per_layer, free_bits)
 
 
 def bits8_keep_threshold(rate: float) -> int:
@@ -195,3 +196,100 @@ def segment_backward(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
     else:
         dx = torch.where(mask_bytes < t, du * float(np.float32(256.0 / t)), 0.0)
     return dx.to(store), dgamma, dbeta
+
+
+# ---------------------------------------------------------------------------
+# the segment over R > 1 ranks: the plain versions of the split launches
+# (csrc/segment.cu split_*), each a function of this rank's tensors; the
+# caller all-reduces the [2, S, C] sums between them
+# ---------------------------------------------------------------------------
+
+
+def segment_split_stats(x: torch.Tensor, t: int,
+                        mask_bytes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[2, 1, C]`` fp64: per channel, ``sum(u)`` and ``sum(u^2)`` of this
+    rank's dropped input ``u`` (the kernel's ``[2, S, C]`` with one
+    slice)."""
+    u = _dropped(x.to(math_dtype(x.dtype)), t, mask_bytes).double()
+    return torch.stack([u.sum(dim=(0, 2, 3)), (u * u).sum(dim=(0, 2, 3))]).unsqueeze(1)
+
+
+def _global_stats(part: torch.Tensor, n_global: int, eps: float, dtype: torch.dtype):
+    """mean, var (biased) and r from the global ``[2, S, C]`` sums, as K5
+    computes them from its fp64 sums."""
+    s1, s2 = part.sum(dim=1).unbind(0)
+    mean_d = s1 / n_global
+    var_d = s2 / n_global - mean_d * mean_d
+    r_d = 1.0 / torch.sqrt(var_d + eps)
+    return tuple(v.to(dtype) for v in (mean_d, var_d, r_d))
+
+
+def segment_split_apply(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                        part: torch.Tensor, n_global: int, t: int, act: str,
+                        eps: float = 1e-5, mask_bytes: Optional[torch.Tensor] = None,
+                        running_mean: Optional[torch.Tensor] = None,
+                        running_var: Optional[torch.Tensor] = None,
+                        momentum: float = 0.9) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(y, stats)``: the segment of this rank's ``x`` normalised with the
+    global sums ``part`` over ``n_global`` elements per channel; ``stats``
+    the ``[5, C]`` rows mean, var, r, scale, shift. Moves the running
+    buffers where given (flax's rule)."""
+    store = x.dtype
+    x = x.to(math_dtype(store))
+    u = _dropped(x, t, mask_bytes)
+    mean, var, r = _global_stats(part, n_global, eps, x.dtype)
+    scale = gamma * r
+    shift = beta - mean * scale
+    y = _segment_act(u * _channel(scale) + _channel(shift), act).to(store)
+    if running_mean is not None:
+        with torch.no_grad():
+            running_mean.copy_(momentum * running_mean
+                               + (1.0 - momentum) * mean.to(running_mean.dtype))
+            running_var.copy_(momentum * running_var
+                              + (1.0 - momentum) * var.to(running_var.dtype))
+    return y, torch.stack([mean, var, r, scale, shift])
+
+
+def _split_dz(x, g, stats, t, act, mask_bytes):
+    """dz and xhat of this rank's elements from the forward's statistics."""
+    u = _dropped(x, t, mask_bytes)
+    mean, _, r, scale, shift = stats.unbind(0)
+    dz = g * _segment_act_grad(u * _channel(scale) + _channel(shift), act)
+    return dz, (u - _channel(mean)) * _channel(r)
+
+
+def segment_split_bwd_reduce(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor, t: int,
+                             act: str, mask_bytes: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """``[2, 1, C]`` fp64: ``sum(dz)`` and ``sum(dz xhat)`` of this rank's
+    elements."""
+    x, g = x.to(math_dtype(x.dtype)), g.to(math_dtype(x.dtype))
+    dz, xhat = _split_dz(x, g, stats.to(x.dtype), t, act, mask_bytes)
+    return torch.stack([dz.double().sum(dim=(0, 2, 3)),
+                        (dz * xhat).double().sum(dim=(0, 2, 3))]).unsqueeze(1)
+
+
+def segment_split_bwd_apply(x: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor,
+                            stats: torch.Tensor, local: torch.Tensor, part: torch.Tensor,
+                            n_global: int, t: int, act: str,
+                            mask_bytes: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dx, dgamma, dbeta)``: dx from the global sums ``part`` (``m1 =
+    sum(dz) / n``, ``m2 = sum(dz xhat) / n``), dgamma and dbeta this rank's
+    own sums ``local`` (the train step sums the gradients over the
+    ranks)."""
+    store = x.dtype
+    x, g = x.to(math_dtype(store)), g.to(math_dtype(store))
+    stats = stats.to(x.dtype)
+    dz, xhat = _split_dz(x, g, stats, t, act, mask_bytes)
+    s1, s2 = part.sum(dim=1).unbind(0)
+    m1, m2 = (v.to(x.dtype) for v in (s1 / n_global, s2 / n_global))
+    l1, l2 = local.sum(dim=1).unbind(0)
+    du = _channel(gamma * stats[2]) * ((dz - _channel(m1)) - xhat * _channel(m2))
+    if t >= 256:
+        dx = du
+    elif t <= 0:
+        dx = torch.zeros_like(du)
+    else:
+        dx = torch.where(mask_bytes < t, du * float(np.float32(256.0 / t)), 0.0)
+    return dx.to(store), l2.to(x.dtype), l1.to(x.dtype)

@@ -160,7 +160,7 @@ def keyed_words(shape: Sequence[int], seed: Ints, index: torch.Tensor,
 
 
 def dropout_bytes(shape: Sequence[int], seed: Ints,
-                  device: torch.device | None = None) -> torch.Tensor:
+                  device: torch.device | None = None, offset: int = 0) -> torch.Tensor:
     """The fused segment's dropout byte of every element of a tensor of
     ``shape`` (uint8, on ``device``): element ``e`` (its flat row-major
     index) takes byte ``j = e % 16`` of the Philox output at counter
@@ -168,14 +168,24 @@ def dropout_bytes(shape: Sequence[int], seed: Ints,
     key of ``seed``, i.e. ``(word[j // 4] >> 8 (j % 4)) & 255``: one call
     gives 16 bytes. ``seed`` is ``mix_seed(train seed, step, site)``, an
     int or a 0-d int64 tensor on ``device`` (a step on the device gives
-    one); ``csrc/segment.cu`` regenerates the same bytes in every pass."""
+    one); ``csrc/segment.cu`` regenerates the same bytes in every pass.
+    ``offset`` shifts ``e`` to ``e + offset``: a rank's part of the global
+    batch takes the bytes of its global elements."""
     if device is None and isinstance(seed, torch.Tensor):
         device = seed.device
     n = 1
     for d in shape:
         n *= int(d)
-    grp = torch.arange((n + 15) // 16, dtype=torch.int64, device=device)
     k0, k1 = seed_words(seed)
+    if offset:
+        e = torch.arange(n, dtype=torch.int64, device=device) + int(offset)
+        grp = e >> 4
+        words = torch.stack(philox4x32(grp & _M32, grp >> 32, 0, STREAM_SEGMENT_DROPOUT,
+                                       k0, k1), dim=1)                # [n, 4]
+        j = e & 15
+        w = words.gather(1, (j >> 2).view(-1, 1)).view(-1)
+        return ((w >> ((j & 3) * 8)) & 255).to(torch.uint8).reshape(tuple(shape))
+    grp = torch.arange((n + 15) // 16, dtype=torch.int64, device=device)
     words = torch.stack(philox4x32(grp & _M32, grp >> 32, 0, STREAM_SEGMENT_DROPOUT,
                                    k0, k1), dim=1)                    # [n/16, 4]
     shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=device)    # 0, 8, 16, 24

@@ -20,11 +20,16 @@ def _host(v) -> np.ndarray:
 
 
 class MetricLogger:
-    def __init__(self, run_dir: str, enable_tb: bool = True):
+    """``primary`` False (every rank but rank 0 of a data-parallel run)
+    keeps the history and prints and writes nothing, as ``lvae_tpu``'s
+    logger on a process other than 0."""
+
+    def __init__(self, run_dir: str, enable_tb: bool = True, primary: bool = True):
         self.run_dir = run_dir
         self.history: list = []       # (kind, step, host metrics) per line
+        self.primary = primary
         self._tb = None
-        if enable_tb:
+        if enable_tb and primary:
             try:
                 from tensorboardX import SummaryWriter
 
@@ -41,7 +46,7 @@ class MetricLogger:
         if images_per_sec is not None:
             line += f"  {images_per_sec:>8.0f} img/s"
             m["images_per_sec"] = images_per_sec
-        print(line, flush=True)
+        self._print(line)
         self.history.append(("train", step, m))
         if self._tb is not None:
             for k, name in (("elbo", "elbo"), ("ll", "recons"), ("kl", "kl"), ("loss", "loss")):
@@ -55,11 +60,8 @@ class MetricLogger:
     def log_deferred(self, step: int, images_per_sec: float) -> None:
         """``--defer-metrics``' progress line: no readback of the EMA, so
         the rate is the host's dispatch rate, not the device's."""
-        print(
-            f"[train] step {step:>7d}  (metrics deferred)  "
-            f"{images_per_sec:>8.0f} img/s dispatched",
-            flush=True,
-        )
+        self._print(f"[train] step {step:>7d}  (metrics deferred)  "
+                    f"{images_per_sec:>8.0f} img/s dispatched")
 
     def log_test(self, step: int, metrics: Mapping) -> str:
         line = (
@@ -68,13 +70,17 @@ class MetricLogger:
         )
         if "bpd" in metrics:
             line += f"  bpd {metrics['bpd']:.4f}"
-        print(line, flush=True)
+        self._print(line)
         self.history.append(("test", step, dict(metrics)))
         if self._tb is not None:
             for k, v in metrics.items():
                 if np.ndim(v) == 0:
                     self._tb.add_scalar(f"{k}/test", float(v), step)
         return line
+
+    def _print(self, line: str) -> None:
+        if self.primary:
+            print(line, flush=True)
 
     def log_images(self, tag: str, step: int, grid_hwc: np.ndarray) -> None:
         if self._tb is not None:

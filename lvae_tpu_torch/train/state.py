@@ -14,12 +14,26 @@ stream)`` or ``(seed, s, dropout site)``, with ``s`` read from the
 device, so a step depends on nothing but its number: a resumed run
 repeats an uninterrupted one.
 
+Over R ranks (``--num-data-shards``, :func:`lvae_tpu_torch.parallel.mesh.
+current`), each rank runs the step on its rows of the global batch and
+every rank's gradient is the global loss's: the loss's batch means (the
+log-likelihood, each layer's KL before the free-bits clamp, the metrics)
+are all-reduced before they are used, each rank backpropagates its
+``1 / R`` share of the global loss through those all-reduces (whose
+backward sums the cotangents over the ranks), and the gradients are then
+summed over the ranks, before the clip, the accumulation and Adamax. The
+model's BatchNorm statistics are the global batch's (``models/blocks.py``).
+The metrics and their EMA are therefore global, the same on every rank.
+
 Evaluation: ``lvae_tpu`` vmaps a B=1 forward so that image ``i`` draws from
 ``fold_in(key, index[i])``. The port runs the batch as one batch: eval
 BatchNorm uses running statistics, so rows do not interact, and the
 noise of row ``i`` depends only on ``(seed, index[i], sample, layer)``
 (``models/stochastic.py``). Test ELBO is therefore the same for any
-``--test-batch-size`` and sweep order.
+``--test-batch-size`` and sweep order, and over R ranks, which each take
+their rows of every test batch (the last padded with its final index and
+masked, ``parallel.mesh.eval_batch_stream``) and all-reduce the masked
+sums once, at the end.
 """
 
 from __future__ import annotations
@@ -34,8 +48,9 @@ import torch
 from lvae_tpu_torch.data.device import eval_preprocess_batch, preprocess_batch
 from lvae_tpu_torch.kernels import build
 from lvae_tpu_torch.models.stochastic import Noise
-from lvae_tpu_torch.ops.math import free_bits_kl, linear_anneal
+from lvae_tpu_torch.ops.math import free_bits_clamp, linear_anneal
 from lvae_tpu_torch.ops.philox import Ints
+from lvae_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,18 +267,33 @@ def loss_terms(model, x: torch.Tensor, noise: Optional[Noise], beta,
                free_bits: float, forced_eps=None):
     """``(loss, metrics)`` of ``lvae_tpu``'s train loss on a preprocessed
     NHWC batch, the model in train mode (``beta`` a float or a 0-d
-    tensor)."""
+    tensor).
+
+    Over R ranks ``x`` is this rank's rows; the batch means (the
+    log-likelihood, each layer's KL, the total KL) are the global batch's,
+    the mean of the ranks' means through one differentiable all-reduce,
+    and the free-bits clamp takes each layer's global mean
+    (``lvae_tpu/ops/math.py:70-82``): a per-rank clamp would change the
+    gradient wherever a rank's mean and the global one fall on different
+    sides of ``free_bits``. ``loss`` is the global loss on every rank."""
     out = model(x, noise=noise, forced_eps=forced_eps, train=True)
-    kl_fb = free_bits_kl(out["kl_sep"], free_bits)          # [L]
+    kl_sep = out["kl_sep"]
     ll_mean = out["ll"].mean()
+    kl_layers = kl_sep.mean(dim=1)                          # [L]
+    kl_mean = kl_sep.sum(dim=0).mean()
+    layout = mesh.current()
+    if layout.distributed:
+        flat = mesh.all_reduce_sum(torch.cat([ll_mean.view(1), kl_layers, kl_mean.view(1)]),
+                                   layout) / layout.size
+        ll_mean, kl_layers, kl_mean = flat[0], flat[1:-1], flat[-1]
+    kl_fb = free_bits_clamp(kl_layers, free_bits)
     loss = -(ll_mean - beta * kl_fb.sum())
-    kl_mean = out["kl_sep"].sum(dim=0).mean()
     metrics = {
         "elbo": ll_mean - kl_mean,
         "ll": ll_mean,
         "kl": kl_mean,
         "loss": loss,
-        "kl_layers": out["kl_sep"].mean(dim=1),
+        "kl_layers": kl_layers,
     }
     return loss, metrics
 
@@ -303,7 +333,14 @@ def train_body(state: TrainState, batch_u8: torch.Tensor, index: torch.Tensor,
     loss, metrics = loss_terms(model, x, Noise(state.seed, index, step), beta,
                                cfg.free_bits, forced_eps)
     state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    layout = mesh.current()
+    if layout.distributed:
+        # each rank's share of the global loss; the all-reduces' backward
+        # and the gradients' sum make every rank's gradient the global one
+        (loss / layout.size).backward()
+        mesh.reduce_gradients_(model.parameters(), layout)
+    else:
+        loss.backward()
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     emit = None
     if state.accum is not None:
@@ -465,26 +502,54 @@ def test_batches(test_u8: torch.Tensor, batch_size: int,
         yield index, test_u8[start:stop]
 
 
+def sweep(test_u8: torch.Tensor, batch_size: int, layout: mesh.Layout,
+          max_batches: Optional[int] = None):
+    """``(index, batch, valid)`` of a test sweep: over R ranks this rank's
+    rows of each padded batch and their mask (``mesh.eval_batch_stream``),
+    on one rank :func:`test_batches` with no mask (``valid`` None)."""
+    if layout.sharded:
+        return mesh.eval_batch_stream(test_u8, batch_size, layout, max_batches)
+    return ((index, batch, None)
+            for index, batch in test_batches(test_u8, batch_size, max_batches))
+
+
 class EvalAccumulator:
     """On-device sums of ll / kl / elbo / per-layer kl and the image count
     (the carry of ``lvae_tpu``'s ``make_eval_accum_step``); the host reads
-    them once, in :meth:`result`."""
+    them once, in :meth:`result`. A ``valid`` mask (a sharded sweep's
+    padding) leaves rows out of the sums; over R ranks :meth:`result` sums
+    them over the ranks first, in one all-reduce."""
 
-    def __init__(self, n_layers: int, device):
+    def __init__(self, n_layers: int, device, layout: Optional[mesh.Layout] = None):
         z = lambda *s: torch.zeros(s, dtype=torch.float64, device=device)  # noqa: E731
         self.ll, self.kl, self.elbo = z(), z(), z()
         self.kl_layers = z(n_layers)
         self.count = 0
+        self.layout = layout or mesh.Layout()
+        self.valid = z() if self.layout.sharded else None    # the masked count
 
-    def add(self, ll: torch.Tensor, kl_sep: torch.Tensor) -> None:
+    def add(self, ll: torch.Tensor, kl_sep: torch.Tensor,
+            valid: Optional[torch.Tensor] = None) -> None:
         kl = kl_sep.sum(dim=0)
+        elbo = ll - kl
+        if valid is not None:
+            w = valid.to(torch.float64)
+            ll, kl, elbo = ll * w, kl * w, elbo * w
+            kl_sep = kl_sep * w
+            self.valid += w.sum()
         self.ll += ll.sum(dtype=torch.float64)
         self.kl += kl.sum(dtype=torch.float64)
-        self.elbo += (ll - kl).sum(dtype=torch.float64)
+        self.elbo += elbo.sum(dtype=torch.float64)
         self.kl_layers += kl_sep.sum(dim=1, dtype=torch.float64)
         self.count += ll.shape[0]
 
     def result(self, data_dims: int) -> dict:
+        if self.layout.sharded:
+            flat, shapes = mesh.pack([self.ll, self.kl, self.elbo, self.kl_layers,
+                                      self.valid])
+            self.ll, self.kl, self.elbo, self.kl_layers, valid = mesh.unpack(
+                mesh.all_reduce_(flat, self.layout), shapes)
+            self.count = int(valid)
         count = max(self.count, 1)
         m = {k: float(getattr(self, k)) / count for k in ("ll", "kl", "elbo")}
         m["kl_layers"] = self.kl_layers.cpu().numpy() / count
@@ -498,13 +563,17 @@ def evaluate_elbo(model, test_u8: torch.Tensor, preprocess: str,
                   batch_size: int, data_dims: int, seed: int = 0,
                   max_batches: Optional[int] = None) -> dict:
     """Test-set ELBO over the device-resident uint8 split ``test_u8``
-    (NHWC), with the wall time of the sweep (synchronised)."""
+    (NHWC), with the wall time of the sweep (synchronised). Over R ranks
+    (:func:`lvae_tpu_torch.parallel.mesh.current`) each rank takes its rows
+    of every batch (``mesh.eval_batch_stream``) and the sums are
+    all-reduced: every rank returns the global metrics."""
     device = test_u8.device
-    acc = EvalAccumulator(model.n_layers, device)
+    layout = mesh.current()
+    acc = EvalAccumulator(model.n_layers, device, layout)
     t0 = time.perf_counter()
-    for index, batch in test_batches(test_u8, batch_size, max_batches):
+    for index, batch, valid in sweep(test_u8, batch_size, layout, max_batches):
         x = eval_preprocess_batch(batch, preprocess, index)
-        acc.add(*per_image_forward(model, x, index, seed))
+        acc.add(*per_image_forward(model, x, index, seed), valid)
     m = acc.result(data_dims)       # reads the sums back: waits for the device
     wall = time.perf_counter() - t0
     m["wall_s"] = wall

@@ -16,6 +16,15 @@ crosses their intervals (the test hook writes the sample, reconstruction
 and spatial-KL grids, :meth:`Experiment.dump_images`), and a final
 checkpoint on SIGTERM. ``--grad-accum``, ``--remat``, ``--defer-metrics``,
 ``--debug-nans`` and ``--profile`` run as in ``lvae_tpu``.
+
+Over R ranks (``--num-data-shards``, :mod:`lvae_tpu_torch.parallel`) every
+rank holds the whole split and draws the global batches as one rank
+does, then takes its contiguous rows of each (``--streaming``: loads only
+those); rank 0 alone writes the run directory's ``config.json``,
+checkpoints, logs and images, and the others wait for each checkpoint at
+a barrier. A checkpoint holds the global state, so a run written at R
+ranks resumes at any rank count. SIGTERM to any rank stops every rank at
+the same k-step boundary: the ranks all-reduce a stop flag there.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from lvae_tpu_torch.data.streaming import HostFeed, make_loader
 from lvae_tpu_torch.eval.viz import save_image_grid
 from lvae_tpu_torch.models.lvae import LadderVAE
 from lvae_tpu_torch.models.stochastic import Noise
+from lvae_tpu_torch.parallel import mesh, multihost
 from lvae_tpu_torch.train.checkpoint import CheckpointManager, load_config_dict, save_config
 from lvae_tpu_torch.train.init import data_dependent_init
 from lvae_tpu_torch.train.logging import MetricLogger
@@ -151,6 +161,7 @@ class Experiment:
     def __init__(self, cfg: TrainConfig, device: torch.device,
                  data: Optional[Dataset] = None):
         self.cfg, self.device = cfg, torch.device(device)
+        self.layout = mesh.make_mesh(cfg.num_data_shards)
         self.data = data if data is not None else load_dataset(cfg.dataset, cfg.data_dir)
         self.model = make_model(cfg, self.data, self.device,
                                 generator=torch.Generator().manual_seed(cfg.seed),
@@ -170,7 +181,10 @@ class Experiment:
     def init_state(self, data_dep_init: Optional[bool] = None) -> TrainState:
         """A fresh train state; ``data_dep_init`` (default: the config's)
         rescales the convs from the first ``batch_size`` train images,
-        their noise and dropout keyed by seed + 2 as in ``lvae_tpu``."""
+        their noise and dropout keyed by seed + 2 as in ``lvae_tpu``. Over
+        R ranks every rank runs that init on the whole batch, with no
+        collective, and then takes rank 0's parameters and statistics (a
+        broadcast), so all ranks start from one state."""
         cfg = self.cfg
         state = TrainState(step=0, model=self.model,
                            optimizer=make_optimizer(self.model, cfg.lr),
@@ -185,12 +199,14 @@ class Experiment:
             rows = (self.train_data.array[:n] if self.train_data is not None else
                     torch.from_numpy(np.ascontiguousarray(self.data.train[:n])).to(self.device))
             x = eval_preprocess_batch(rows, self.data.preprocess, index)
-            data_dependent_init(self.model, x, Noise(cfg.seed + 2, index, 0))
+            with mesh.use(mesh.Layout()):
+                data_dependent_init(self.model, x, Noise(cfg.seed + 2, index, 0))
+        mesh.replicate_to_mesh(self.model, self.layout)
         return state
 
     def evaluate(self, state: TrainState, max_batches: Optional[int] = None) -> dict:
         """Test-set ELBO (eval mode, keyed per image: the same for any
-        batch size)."""
+        batch size; over R ranks, each takes its rows of every batch)."""
         bs = min(self.cfg.test_batch_size, self.test_data.shape[0])
         return evaluate_elbo(state.model, self.test_data, self.data.preprocess, bs,
                              self.data.data_dims, max_batches=max_batches)
@@ -296,11 +312,23 @@ class Trainer:
 
     def _run(self) -> TrainState:
         cfg, exp = self.cfg, self.exp
-        run_dir = self.run_dir = os.path.join(cfg.output_dir, cfg.make_run_name())
-        logger = self.logger = MetricLogger(run_dir, enable_tb=not cfg.dry_run)
+        layout = exp.layout
+        if cfg.steps_per_call > 1 and layout.distributed and layout.backend != "nccl":
+            raise ValueError(
+                f"--steps-per-call {cfg.steps_per_call}: a CUDA graph of k steps holds the "
+                f"gradient all-reduces only under NCCL; this {layout.size}-rank group is "
+                f"{layout.backend} (the CPU, or ranks sharing a card): use --steps-per-call 1")
+        primary = layout.primary
+        # rank 0's name: a timestamped one differs from rank to rank
+        run_dir = self.run_dir = os.path.join(
+            cfg.output_dir, multihost.broadcast_object(cfg.make_run_name(), layout))
+        logger = self.logger = MetricLogger(run_dir, enable_tb=not cfg.dry_run,
+                                            primary=primary)
+        say = self._say
         ckpt = None
         if not cfg.dry_run:
-            os.makedirs(run_dir, exist_ok=True)
+            if primary:
+                os.makedirs(run_dir, exist_ok=True)
             ckpt = CheckpointManager(run_dir, keep=cfg.keep_checkpoints)
         resume = ckpt is not None and cfg.auto_resume and ckpt.latest_step() is not None
         state = exp.init_state(data_dep_init=False if (cfg.load or resume) else None)
@@ -310,27 +338,29 @@ class Trainer:
                     cfg.output_dir, cfg.load)
                 cfg = self._adopt_stored_stream_impl(load_dir)
                 state = CheckpointManager(load_dir).restore(state)
-                print(f"resumed from {load_dir} at step {state.step}", flush=True)
+                say(f"resumed from {load_dir} at step {state.step}")
             elif resume:
                 # run_dir's config.json is still the stored one: it is
                 # written below, once the impl is reconciled
                 cfg = self._adopt_stored_stream_impl(run_dir)
                 state = ckpt.restore(state)
-                print(f"auto-resumed {run_dir} at step {state.step}", flush=True)
+                say(f"auto-resumed {run_dir} at step {state.step}")
         finally:
-            if not cfg.dry_run:
+            if not cfg.dry_run and primary:
                 save_config(run_dir, cfg)
+        multihost.barrier(layout)
 
         k = cfg.steps_per_call
         if k > 1 and cfg.max_steps % k:
             # the loop checks max_steps only between k-step calls
-            print(f"warning: max_steps {cfg.max_steps} is not a multiple of "
-                  f"steps-per-call {k}; the run will stop at step "
-                  f"{-(-cfg.max_steps // k) * k}", flush=True)
+            say(f"warning: max_steps {cfg.max_steps} is not a multiple of "
+                f"steps-per-call {k}; the run will stop at step "
+                f"{-(-cfg.max_steps // k) * k}")
         n_params = sum(p.numel() for p in state.model.parameters())
-        print(f"run {os.path.basename(run_dir)}: {exp.n_train} train / "
-              f"{exp.test_data.shape[0]} test images on {exp.device}, "
-              f"{n_params:,} params", flush=True)
+        ranks = f" x {layout.size} ranks ({layout.backend})" if layout.sharded else ""
+        say(f"run {os.path.basename(run_dir)}: {exp.n_train} train / "
+            f"{exp.test_data.shape[0]} test images on {exp.device}{ranks}, "
+            f"{n_params:,} params")
         if cfg.batch_size > exp.n_train:
             raise ValueError(
                 f"batch_size {cfg.batch_size} exceeds the training set "
@@ -346,7 +376,9 @@ class Trainer:
         profile = Profile(cfg, run_dir, exp.device)
         try:
             for index, batch in self._batches(step, k):
-                if self._stop:
+                # every rank stops at the boundary where any rank's signal
+                # is first seen
+                if multihost.agree(self._stop, layout):
                     raise KeyboardInterrupt
                 if step >= cfg.max_steps:
                     break
@@ -376,18 +408,18 @@ class Trainer:
                     t_last, since_log = time.perf_counter(), 0
                 if crossed(step, cfg.test_interval, k):
                     logger.log_test(step, exp.evaluate(state))
-                    if not cfg.dry_run:
+                    if not cfg.dry_run and primary:
                         exp.dump_images(state, run_dir, step, logger)
                     t_last, since_log = time.perf_counter(), 0
                 if ckpt is not None and crossed(step, cfg.checkpoint_interval, k):
-                    ckpt.save(state)
+                    self._save(ckpt, state)
         except KeyboardInterrupt:
             if in_step:     # cut inside a step: its updates are partly in place
-                print("interrupted inside a step: no final checkpoint (the last "
-                      "periodic one stands)", flush=True)
+                say("interrupted inside a step: no final checkpoint (the last "
+                    "periodic one stands)")
                 ckpt = None
             else:
-                print("interrupted: saving a final checkpoint", flush=True)
+                say(f"interrupted: saving a final checkpoint at step {state.step}")
         finally:
             profile.close()
         if state.step_t is not None and state.step_t.is_cuda:
@@ -395,10 +427,21 @@ class Trainer:
         if cfg.defer_metrics:
             logger.log_train(state.step, {k_: v.cpu() for k_, v in state.ema.items()})
         if ckpt is not None and ckpt.latest_step() != state.step:
-            ckpt.save(state)
+            self._save(ckpt, state)
         logger.close()
         self.state = state
         return state
+
+    def _say(self, line: str) -> None:
+        """Print ``line`` on rank 0 only."""
+        if self.exp.layout.primary:
+            print(line, flush=True)
+
+    def _save(self, ckpt: CheckpointManager, state: TrainState) -> None:
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if self.exp.layout.primary:
+            ckpt.save(state)
+        multihost.barrier(self.exp.layout)
 
     def _batches(self, step: int, k: int):
         """The loop's ``(index, batch)`` pairs from ``step`` on, ``[k,
@@ -406,15 +449,17 @@ class Trainer:
         is None where :class:`MultiStep` gathers it inside its step), or
         under ``--streaming`` the loader's stacks copied from the host
         (a start that is not a multiple of ``k`` raises there, as in
-        ``lvae_tpu``)."""
+        ``lvae_tpu``). Over R ranks each pair is this rank's contiguous rows
+        of the global batch (``mesh.make_global_batch_indices``)."""
         cfg, exp = self.cfg, self.exp
         if cfg.streaming:
             loader = make_loader(cfg.stream_impl, exp.data.train, cfg.batch_size, cfg.seed, k)
-            print(f"streaming pipeline ({cfg.stream_impl}), batch {cfg.batch_size}, {k} "
-                  f"steps/call, {cfg.num_data_shards} data shards", flush=True)
-            return HostFeed(loader, exp.device).stream(step)
+            self._say(f"streaming pipeline ({cfg.stream_impl}), batch {cfg.batch_size}, "
+                      f"{k} steps/call, {cfg.num_data_shards} data shards")
+            return HostFeed(loader, exp.device, exp.layout).stream(step)
         stream = index_stream(exp.train_data, cfg.batch_size, cfg.seed, step, k)
-        return ((index, exp.train_data.gather(index) if k == 1 else None) for index in stream)
+        rows = (mesh.make_global_batch_indices(index, exp.layout) for index in stream)
+        return ((index, exp.train_data.gather(index) if k == 1 else None) for index in rows)
 
     def _adopt_stored_stream_impl(self, stored_dir: str) -> TrainConfig:
         """On a resume, the ``--stream-impl`` stored in the run's
@@ -433,9 +478,9 @@ class Trainer:
             return cfg
         impl = stored.get("stream_impl", "grain")
         if impl != cfg.stream_impl:
-            print(f"resume: adopting --stream-impl {impl} from the run's stored config "
-                  f"(this invocation had {cfg.stream_impl!r}); the loaders' orders differ, "
-                  f"so the stored one continues", flush=True)
+            self._say(f"resume: adopting --stream-impl {impl} from the run's stored config "
+                      f"(this invocation had {cfg.stream_impl!r}); the loaders' orders "
+                      f"differ, so the stored one continues")
             cfg = self.cfg = dataclasses.replace(cfg, stream_impl=impl)
         return cfg
 

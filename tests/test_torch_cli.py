@@ -144,9 +144,11 @@ class TestCLI:
         assert abs(res["elbo"]["elbo"] - test["elbo"]) < 1e-3
 
     @pytest.mark.parametrize("flags,name", [
-        (["--streaming", "--num-data-shards", "2"], "--num-data-shards"),
+        # --num-data-shards runs (tests/test_torch_parallel_cli.py); a rank
+        # count that does not divide the batch of 32 is refused
+        (["--streaming", "--num-data-shards", "3"], "--num-data-shards"),
         (["--spatial-shards", "2"], "--spatial-shards"),
-        (["--num-data-shards", "2"], "--num-data-shards"),
+        (["--num-data-shards", "5"], "--num-data-shards"),
         (["--rng-impl", "rbg"], "--rng-impl"),
         (["--platform", "tpu"], "--platform"),
     ])

@@ -236,9 +236,13 @@ class TestEvaluateCLI:
         assert abs(in_bf16["elbo"] - stored["elbo"]) < 0.01 * abs(stored["elbo"])
         assert "test elbo" in capsys.readouterr().out
 
-    def test_more_than_one_shard_rejected(self, tmp_path):
+    def test_more_than_one_shard_rejected(self, tmp_path, monkeypatch):
+        """More than one shard runs (tests/test_torch_parallel_cli.py), but
+        not where the launcher's group has another size: the rank stops,
+        naming the flag, before it joins a group whose ranks never come."""
         from lvae_tpu_torch.evaluate import main
 
+        monkeypatch.setenv("WORLD_SIZE", "3")
         with pytest.raises(SystemExit, match="--num-data-shards"):
             main(_run_dir(tmp_path) + ["--device", "cpu", "--num-data-shards", "2"])
 
