@@ -4,8 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``lvae_tpu_torch/csrc`` and checks each
-against its plain PyTorch version at the shapes of the models that run it,
-then drives two models through their two entry points. The flagship
+against its plain PyTorch version at the shapes of the models that run it
+(phase 2 also runs the 24 hardware checks of ``lvae_tpu_torch.hw_tests``,
+the twin of ``tools/tpu_hw_tests.py``, the eps statistics over 33.5M
+draws of the kernel among them, with a KS test), then drives two models
+through their two entry points. The flagship
 (static_mnist, z 32-32-32, 4 blocks per layer, 64 filters, gated, skip,
 learned top prior):
 
@@ -144,6 +147,15 @@ largest, and the gloo all-reduces of a step timed (two ranks on one card:
 not a multi-GPU rate); then the same command as typed, starting its own
 ranks, resumed two steps further, and ``evaluate --num-data-shards 2``
 against one rank's.
+
+Last, the checkpoint pair (phase 24): phase 8's flagship run exported by
+``python -m lvae_tpu_torch.convert_checkpoint export`` and imported into a
+new run directory by ``convert_checkpoint import``; both runs scored by
+``lvae_tpu_torch.evaluate --load`` (test ELBO, the k=100 IW-LL over 1,000
+images) bit-equal, and ``lvae_tpu_torch.main --load <imported>`` trained
+2 steps under ``--rng-impl rbg`` bit-equal to threefry (cuDNN's
+deterministic algorithms on in every run compared: its default ones sum
+in another order run to run), each entry point's launches counted.
 
 Each entry point's run checks that it launched every kernel of its path;
 the kernel path, the plain path and a CPU run are held to agree, and each
@@ -356,10 +368,11 @@ def phase_sample_kl(card):
     import torch
     from scipy import stats
 
+    from lvae_tpu_torch import hw_tests
     from lvae_tpu_torch.kernels import stochastic as sk
     from lvae_tpu_torch.ops.philox import keyed_normal
 
-    print("[2] sample+KL kernel vs its plain version", flush=True)
+    print("[2] sample+KL kernel vs its plain version; the hardware checks", flush=True)
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     err, times, n_bytes, n_ops = 0.0, [], 0, 0
@@ -405,29 +418,30 @@ def phase_sample_kl(card):
               f"plain {times[-1][1]:.4f} ms; device busy: kernel {fmt_ms(dk)}, "
               f"plain {fmt_ms(dp)}  ({card})")
 
-    # noise statistics: with mu = log-var = 0, z is eps itself
-    c, h, w = LATENT_SHAPES[0]
-    zeros = torch.zeros(B, 2 * c, h, w, device=dev)
-    draws = []
-    for seed in (7, 8):
-        z, _ = sk.sample_kl(zeros, zeros, torch.arange(B, device=dev), seed, 0, 0)
-        ref = keyed_normal(z.shape, seed, torch.arange(B, device=dev), 0, 0)
-        e = (z - ref).abs().max().item()
-        check(e <= 1e-5, f"kernel eps equals the plain generator's (max abs {e:.2e})")
-        draws.append(z.flatten().double().cpu().numpy())
+    # the hardware checks of lvae_tpu_torch.hw_tests (the twin of
+    # tools/tpu_hw_tests.py), the eps statistics among them: the kernel's z
+    # at mu = log-var = 0, four keys of [1024, 8, 32, 32]
+    print(f"  lvae_tpu_torch.hw_tests on the card  ({card})", flush=True)
+    t_hw = time.perf_counter()
+    rows, draws = hw_tests.run_checks(dev)
+    failed = [name for name, ok, _ in rows if not ok]
+    check(not failed, f"hw_tests: {len(rows) - len(failed)} of {len(rows)} checks pass "
+                      f"(failed: {failed})")
+    b_eps = hw_tests.EPS_SHAPE[0]
+    ref = keyed_normal(hw_tests.EPS_SHAPE, hw_tests.EPS_KEYS[0],
+                       torch.arange(b_eps, device=dev), 0, 0)
+    e = float(np.abs(draws[0] - ref.flatten().double().cpu().numpy()).max())
+    check(e <= 1e-5, f"kernel eps equals the plain generator's (max abs {e:.2e})")
     x = np.concatenate(draws)
-    n = x.size
-    se = 1.0 / np.sqrt(n)
-    check(n >= 1_000_000, f"{n} draws")
-    check(abs(x.mean()) < 6 * se, f"eps mean {x.mean():+.2e} within 6 se")
-    check(abs(x.var() - 1) < 6 * np.sqrt(2) * se, f"eps var {x.var():.6f} within 6 se")
-    p1 = np.mean(np.abs(x) < 1.0)
-    check(abs(p1 - 0.682689) < 1e-3, f"eps |x|<1 mass {p1:.4f}")
     ks = stats.kstest(x, "norm")
-    check(ks.pvalue > 1e-3, f"KS vs N(0,1): D={ks.statistic:.2e} p={ks.pvalue:.3f}")
-    lag = float(np.corrcoef(draws[0][:-1], draws[0][1:])[0, 1])
-    check(abs(lag) < 6 / np.sqrt(draws[0].size), f"lag-1 autocorr {lag:+.2e}")
-    return err, [total([t[i] for t in times]) for i in range(4)], bound(n_bytes, n_ops)
+    check(ks.pvalue > 1e-3, f"KS vs N(0,1) over {x.size} draws: D={ks.statistic:.2e} "
+                            f"p={ks.pvalue:.3f}")
+    hw = {"checks": [{"name": name, "ok": ok, "detail": detail}
+                     for name, ok, detail in rows],
+          "ks": {"n": int(x.size), "D": float(ks.statistic), "p": float(ks.pvalue)},
+          "eps_vs_plain_max_abs": e, "seconds": time.perf_counter() - t_hw}
+    print(f"  hw_tests, the plain eps and the KS test took {hw['seconds']:.1f} s")
+    return err, [total([t[i] for t in times]) for i in range(4)], bound(n_bytes, n_ops), hw
 
 
 def phase_logsumexp(card, build_log=""):
@@ -1007,7 +1021,9 @@ def write_mnist(data_dir, train_u8, test_u8):
                    arr)
 
 
-def phase_train(card, train_u8, test_u8):
+def phase_train(card, train_u8, test_u8, tmp):
+    """Phase 8 in ``tmp``, which keeps the data and the run for phase 24:
+    ``out["run_dir"]``, ``out["data_dir"]``."""
     import torch
 
     from lvae_tpu_torch import evaluate
@@ -1016,70 +1032,70 @@ def phase_train(card, train_u8, test_u8):
 
     print("[8] the training slice through lvae_tpu_torch.main", flush=True)
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        data_dir = os.path.join(tmp, "data")
-        write_mnist(data_dir, train_u8, test_u8)
-        build.reset_launches()
-        t0 = time.perf_counter()
-        with init_counted() as init:
-            trainer = train_main.main(FLAGSHIP_ARGS + [
-                "--data-dir", data_dir, "--data-dep-init", "--max-steps", str(TRAIN_STEPS),
-                "--device", "cuda", "--log-interval", "20",
-                "--test-interval", str(TRAIN_STEPS // 2),
-                "--checkpoint-interval", str(TRAIN_STEPS // 2),
-                "--output-dir", os.path.join(tmp, "out"), "--run-name", "flagship",
-            ])
-        torch.cuda.synchronize()
-        n_init = init["sample_kl_per_sample"]
-        print(f"  the data-dependent init launched K1 {n_init} times and the dropout kernel "
-              f"{init['dropout']}")
-        wall = time.perf_counter() - t0
-        launches = dict(build.LAUNCHES)
-        print(f"  launches in the training run: {launches}")
-        print(f"  run wall {wall:.1f} s (data parse, data-dependent init, "
-              f"{TRAIN_STEPS} steps, 2 test sweeps, 2 checkpoints)  ({card})")
-        n = 3 * TRAIN_STEPS
-        check(launches["sample_kl_per_sample"] == n + n_init,
-              f"K1: 3 launches per step and the init's {n_init} "
-              f"({launches['sample_kl_per_sample']})")
-        check(launches["sample_kl_per_sample_bwd"] == n,
-              f"K1-bwd: 3 launches per step ({launches['sample_kl_per_sample_bwd']})")
-        sites = unfused_dropouts(trainer.state.model)
-        check(sites > 0 and launches["dropout"] == 2 * sites * TRAIN_STEPS + init["dropout"],
-              f"the dropout kernel: forward and backward at each of the {sites} dropout "
-              f"sites per step, and the init's {init['dropout']} ({launches['dropout']})")
-        check(launches["sample_kl"] > 0 and launches["sample_kl_bwd"] == 0,
-              f"the test hook ran K2 forward only ({launches['sample_kl']} launches)")
-        hist = trainer.logger.history
-        check(all(np.isfinite(np.asarray(v, dtype=np.float64)).all()
-                  for _, _, m in hist for v in m.values()),
-              f"every logged metric finite ({len(hist)} lines)")
-        train_lines = {step: m for kind, step, m in hist if kind == "train"}
-        first, last = float(train_lines[20]["loss"]), float(train_lines[TRAIN_STEPS]["loss"])
-        check(last < first, f"EMA loss {last:.2f} at step {TRAIN_STEPS} below "
-                            f"{first:.2f} at step 20")
-        tests = [m for kind, _, m in hist if kind == "test"]
-        check(len(tests) == 2, f"the test hook ran at steps {TRAIN_STEPS // 2} and "
-                               f"{TRAIN_STEPS}")
-        ckpt = os.path.join(trainer.run_dir, "checkpoints", f"ckpt_{TRAIN_STEPS:08d}.pt")
-        res = evaluate.main(["--load", trainer.run_dir, "--state-dict", ckpt,
-                             "--device", "cuda"])
-        e = res["elbo"]
-        d = abs(e["elbo"] - tests[-1]["elbo"])
-        check(np.isfinite(e["elbo"]) and d <= 1e-2,
-              f"evaluate scores the checkpoint: ELBO {e['elbo']:.3f}, the run's "
-              f"last test ELBO {tests[-1]['elbo']:.3f}")
-        out["launches"] = launches
-        out["wall_s"] = wall
-        out["log_rates"] = {step: float(m["images_per_sec"]) for step, m in train_lines.items()}
-        # the second half's 20-step windows
-        late = [r for step, r in out["log_rates"].items() if step > TRAIN_STEPS // 2]
-        out["log_rate_late"] = len(late) / sum(1.0 / r for r in late)
-        print(f"  logged train rate over steps {TRAIN_STEPS // 2 + 1}-{TRAIN_STEPS} (a metric "
-              f"sync every 20 steps, the middle checkpoint inside): "
-              f"{out['log_rate_late']:.1f} img/s  ({card})")
-        out["test_elbo"] = [float(m["elbo"]) for m in tests]
-        out["ema_loss"] = (first, last)
+    data_dir = os.path.join(tmp, "data")
+    write_mnist(data_dir, train_u8, test_u8)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with init_counted() as init:
+        trainer = train_main.main(FLAGSHIP_ARGS + [
+            "--data-dir", data_dir, "--data-dep-init", "--max-steps", str(TRAIN_STEPS),
+            "--device", "cuda", "--log-interval", "20",
+            "--test-interval", str(TRAIN_STEPS // 2),
+            "--checkpoint-interval", str(TRAIN_STEPS // 2),
+            "--output-dir", os.path.join(tmp, "out"), "--run-name", "flagship",
+        ])
+    torch.cuda.synchronize()
+    n_init = init["sample_kl_per_sample"]
+    print(f"  the data-dependent init launched K1 {n_init} times and the dropout kernel "
+          f"{init['dropout']}")
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    print(f"  launches in the training run: {launches}")
+    print(f"  run wall {wall:.1f} s (data parse, data-dependent init, "
+          f"{TRAIN_STEPS} steps, 2 test sweeps, 2 checkpoints)  ({card})")
+    n = 3 * TRAIN_STEPS
+    check(launches["sample_kl_per_sample"] == n + n_init,
+          f"K1: 3 launches per step and the init's {n_init} "
+          f"({launches['sample_kl_per_sample']})")
+    check(launches["sample_kl_per_sample_bwd"] == n,
+          f"K1-bwd: 3 launches per step ({launches['sample_kl_per_sample_bwd']})")
+    sites = unfused_dropouts(trainer.state.model)
+    check(sites > 0 and launches["dropout"] == 2 * sites * TRAIN_STEPS + init["dropout"],
+          f"the dropout kernel: forward and backward at each of the {sites} dropout "
+          f"sites per step, and the init's {init['dropout']} ({launches['dropout']})")
+    check(launches["sample_kl"] > 0 and launches["sample_kl_bwd"] == 0,
+          f"the test hook ran K2 forward only ({launches['sample_kl']} launches)")
+    hist = trainer.logger.history
+    check(all(np.isfinite(np.asarray(v, dtype=np.float64)).all()
+              for _, _, m in hist for v in m.values()),
+          f"every logged metric finite ({len(hist)} lines)")
+    train_lines = {step: m for kind, step, m in hist if kind == "train"}
+    first, last = float(train_lines[20]["loss"]), float(train_lines[TRAIN_STEPS]["loss"])
+    check(last < first, f"EMA loss {last:.2f} at step {TRAIN_STEPS} below "
+                        f"{first:.2f} at step 20")
+    tests = [m for kind, _, m in hist if kind == "test"]
+    check(len(tests) == 2, f"the test hook ran at steps {TRAIN_STEPS // 2} and "
+                           f"{TRAIN_STEPS}")
+    ckpt = os.path.join(trainer.run_dir, "checkpoints", f"ckpt_{TRAIN_STEPS:08d}.pt")
+    res = evaluate.main(["--load", trainer.run_dir, "--state-dict", ckpt,
+                         "--device", "cuda"])
+    e = res["elbo"]
+    d = abs(e["elbo"] - tests[-1]["elbo"])
+    check(np.isfinite(e["elbo"]) and d <= 1e-2,
+          f"evaluate scores the checkpoint: ELBO {e['elbo']:.3f}, the run's "
+          f"last test ELBO {tests[-1]['elbo']:.3f}")
+    out["launches"] = launches
+    out["wall_s"] = wall
+    out["log_rates"] = {step: float(m["images_per_sec"]) for step, m in train_lines.items()}
+    # the second half's 20-step windows
+    late = [r for step, r in out["log_rates"].items() if step > TRAIN_STEPS // 2]
+    out["log_rate_late"] = len(late) / sum(1.0 / r for r in late)
+    print(f"  logged train rate over steps {TRAIN_STEPS // 2 + 1}-{TRAIN_STEPS} (a metric "
+          f"sync every 20 steps, the middle checkpoint inside): "
+          f"{out['log_rate_late']:.1f} img/s  ({card})")
+    out["test_elbo"] = [float(m["elbo"]) for m in tests]
+    out["ema_loss"] = (first, last)
+    out["run_dir"], out["data_dir"] = trainer.run_dir, data_dir
     return out
 
 
@@ -2117,6 +2133,7 @@ def phase_celeba_segments(card, train_u8, test_u8, phase12):
         out["log_rates"] = {step: float(m["images_per_sec"]) for step, m in train_lines.items()}
         out["test_elbo"] = [float(m["elbo"]) for m in tests]
         out["ema_loss"] = (first, last)
+        out["run_dir"], out["data_dir"] = trainer.run_dir, data_dir
     return out
 
 
@@ -5402,6 +5419,121 @@ def phase_parallel(card, train_u8, test_u8, flagship_weights):
     return out
 
 
+CKPT_STEPS = 2                              # 24c: steps of main --load from the import
+
+
+def phase_checkpoint(card, run_dir, data_dir):
+    """[24] the checkpoint pair on the card: phase 8's flagship run exported
+    (``convert_checkpoint export``) and imported into a new run directory
+    (``convert_checkpoint import --device cuda``); both runs scored by
+    ``evaluate --load`` (test ELBO, k=100 IW-LL over one batch of 1,000),
+    bit-equal; then ``main --load <imported>`` trains ``CKPT_STEPS`` steps
+    under ``--rng-impl rbg`` and under threefry, bit-equal (deterministic
+    cuDNN in both). Each entry point's launches are counted around it."""
+    import torch
+
+    from lvae_tpu_torch import convert_checkpoint, evaluate
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.train.checkpoint import CheckpointManager
+
+    print("[24] the checkpoint pair: export, import, evaluate --load, main --load "
+          "(--rng-impl rbg and threefry)", flush=True)
+    t0 = time.perf_counter()
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        pt = os.path.join(tmp, "flagship.pt")
+        build.reset_launches()
+        convert_checkpoint.main(["export", "--load", run_dir, "--out", pt])
+        exported = torch.load(pt, weights_only=True)
+        ckpt = CheckpointManager(run_dir).load()
+        check(sorted(exported) == sorted(ckpt["model"])
+              and all(torch.equal(exported[k], v.cpu()) for k, v in ckpt["model"].items()),
+              f"export wrote step {ckpt['step']}'s {len(exported)} tensors as they are")
+        imported = os.path.join(tmp, "imported")
+        convert_checkpoint.main(["import", "--state-dict", pt, "--run-dir", imported,
+                                 "--device", "cuda", "--", *FLAGSHIP_ARGS,
+                                 "--data-dir", data_dir])
+        check(sum(build.LAUNCHES.values()) == 0, "export and import launch no kernel")
+        t_convert = time.perf_counter() - t0
+
+        # cuDNN's deterministic algorithms in every run compared: its
+        # default convolution algorithms may sum in another order run to run
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True)
+        try:
+            scores = {}
+            for name, d in (("original", run_dir), ("imported", imported)):
+                build.reset_launches()
+                t = time.perf_counter()
+                r = evaluate.main(["--load", d, "--ll", "--iw-max-batches", "1",
+                                   "--device", "cuda"])
+                torch.cuda.synchronize()
+                out["launches"][f"evaluate_{name}"] = dict(build.LAUNCHES)
+                scores[name] = r
+                out[f"evaluate_{name}_s"] = time.perf_counter() - t
+            a, b = scores["original"], scores["imported"]
+            keys = ("elbo", "ll", "kl", "bpd")
+            same = (all(a["elbo"][k] == b["elbo"][k] for k in keys)
+                    and list(a["elbo"]["kl_layers"]) == list(b["elbo"]["kl_layers"])
+                    and a["iw"]["iw_ll"] == b["iw"]["iw_ll"])
+            check(same and np.isfinite(b["elbo"]["elbo"]) and np.isfinite(b["iw"]["iw_ll"]),
+                  f"the imported run scores bit-equal to the original: test ELBO "
+                  f"{b['elbo']['elbo']!r} / {a['elbo']['elbo']!r}, IW-LL {b['iw']['iw_ll']!r} / "
+                  f"{a['iw']['iw_ll']!r}")
+            check(b["step"] == 0 and a["step"] == TRAIN_STEPS,
+                  f"the import is step 0 of the original's step {TRAIN_STEPS}")
+            ev = out["launches"]["evaluate_imported"]
+            check(ev["sample_kl"] > 0 and ev["logsumexp"] > 0,
+                  f"evaluate --load <imported> ran K2 and K4 ({ev['sample_kl']}, "
+                  f"{ev['logsumexp']} launches)")
+            out.update(test_elbo=b["elbo"]["elbo"], iw_ll=b["iw"]["iw_ll"])
+
+            runs = {}
+            for impl in ("rbg", "threefry"):
+                build.reset_launches()
+                t = time.perf_counter()
+                tr = train_main.main(FLAGSHIP_ARGS + [
+                    "--data-dir", data_dir, "--load", imported, "--max-steps", str(CKPT_STEPS),
+                    "--rng-impl", impl, "--device", "cuda", "--log-interval", "1",
+                    "--output-dir", os.path.join(tmp, "out"), "--run-name", impl])
+                torch.cuda.synchronize()
+                out["launches"][f"main_{impl}"] = dict(build.LAUNCHES)
+                out[f"main_{impl}_s"] = time.perf_counter() - t
+                runs[impl] = tr
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+        ra, rb = runs["rbg"].state, runs["threefry"].state
+        check(ra.step == rb.step == CKPT_STEPS, f"main --load trained {CKPT_STEPS} steps "
+                                                f"from the import")
+        c_rbg, c_tf = (CheckpointManager(r.run_dir).load(CKPT_STEPS) for r in runs.values())
+        same = (all(torch.equal(c_rbg["model"][k], c_tf["model"][k]) for k in c_rbg["model"])
+                and all(torch.equal(c_rbg["ema"][k], c_tf["ema"][k]) for k in c_rbg["ema"]))
+        sa, sb = (c["optimizer"]["state"] for c in (c_rbg, c_tf))
+        same = same and all(torch.equal(sa[i][n], sb[i][n]) for i in sa for n in sa[i])
+        losses = [[float(m["loss"]) for kind, _, m in r.logger.history if kind == "train"]
+                  for r in runs.values()]
+        check(same and losses[0] == losses[1] and all(np.isfinite(losses[0])),
+              f"--rng-impl rbg is bit-equal to threefry over {CKPT_STEPS} steps: weights, "
+              f"Adamax state, EMA (losses {losses[0]})")
+        n = 3 * CKPT_STEPS
+        tl = out["launches"]["main_rbg"]
+        sites = unfused_dropouts(ra.model)
+        check(tl["sample_kl_per_sample"] == n and tl["sample_kl_per_sample_bwd"] == n
+              and tl["dropout"] == 2 * sites * CKPT_STEPS,
+              f"main --load ran K1 and K1-bwd 3 times a step and the dropout kernel at "
+              f"{sites} sites each way ({tl['sample_kl_per_sample']}, "
+              f"{tl['sample_kl_per_sample_bwd']}, {tl['dropout']})")
+        out["losses"] = losses[0]
+    out["convert_s"] = t_convert
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 24 took {out['seconds']:.1f} s (export + import {t_convert:.1f}, "
+          f"evaluate {out['evaluate_original_s']:.1f} / {out['evaluate_imported_s']:.1f}, "
+          f"main --load {out['main_rbg_s']:.1f} / {out['main_threefry_s']:.1f})  ({card})")
+    return out
+
+
 def main():
     try:
         import torch
@@ -5433,7 +5565,9 @@ def main():
 
     build_log = phase_build()
     res = {"card": card}
-    k2_err, k2_t, k2_b = phase_sample_kl(card)
+    lap("phase 2")
+    k2_err, k2_t, k2_b, res["hw_tests"] = phase_sample_kl(card)
+    lap("phase 3")
     k4_err, k4, k4_more = phase_logsumexp(card, build_log)
     ev = phase_slice(card)
     res.update(images_per_sec=ev["rates"], elbo_profile=ev["elbo_profile"])
@@ -5463,7 +5597,9 @@ def main():
     print(f"  phases 6-7 took {time.perf_counter() - t6:.1f} s")
     train_u8, test_u8 = train_data()
     lap("phase 8")
-    tr = phase_train(card, train_u8, test_u8)
+    # phase 8's data and run stay until phase 24 exports the run
+    keep8 = tempfile.TemporaryDirectory()
+    tr = phase_train(card, train_u8, test_u8, keep8.name)
     res.update(train_run={k: tr[k] for k in ("wall_s", "log_rates", "log_rate_late",
                                             "test_elbo", "ema_loss")})
     flagship_weights = flagship_model(torch.device("cpu")).state_dict()
@@ -5723,6 +5859,17 @@ def main():
                    f"batch of 64)",
             path=f"lvae_tpu_torch.main --num-data-shards {PARALLEL_RANKS} --fused all (23c, "
                  f"rank 0: launches) and graft_entry_torch.dryrun_multichip(2)"))
+    lap("phase 24")
+    with keep8:
+        ck = phase_checkpoint(card, tr["run_dir"], tr["data_dir"])
+    res["checkpoint"] = {k: v for k, v in ck.items() if k != "launches"}
+    # each kernel's launches on phase 24's two main paths: evaluate --load
+    # <imported> and main --load <imported> --rng-impl rbg
+    for kern in kernels:
+        counter = kern["name"].replace("dropout_bits8", "dropout")
+        kern.update(
+            launches_checkpoint_evaluate=ck["launches"]["evaluate_imported"].get(counter, 0),
+            launches_checkpoint_train=ck["launches"]["main_rbg"].get(counter, 0))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, **res}))

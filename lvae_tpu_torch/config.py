@@ -27,6 +27,9 @@ LIKELIHOODS = ("bernoulli", "gaussian", "discretized_logistic", "discretized_log
 PRECISIONS = {"fp32": None, "bf16": torch.bfloat16}
 # --stream-impl: lvae_tpu/config.py:80-88
 STREAM_IMPLS = ("array", "grain")
+# --rng-impl: lvae_tpu's two generators; both name the port's one keyed
+# Philox4x32-10 stream (ops/philox.py)
+RNG_IMPLS = ("threefry", "rbg")
 
 
 @dataclasses.dataclass
@@ -164,8 +167,9 @@ class TrainConfig(EvalConfig):
     # --num-data-shards R: data parallelism over R ranks (lvae_tpu_torch/
     # parallel/), one process each
     num_data_shards: int = 1
-    # lvae_tpu's option this port does not run: stored so a run directory
-    # says what it ran, and rejected below at anything but threefry
+    # lvae_tpu's generator switch. The port has one generator, the keyed
+    # Philox of ops/philox.py, and runs the same stream under either value;
+    # the value is stored so a run directory says what it was given
     rng_impl: str = "threefry"
 
     def __post_init__(self):
@@ -211,13 +215,8 @@ class TrainConfig(EvalConfig):
                 f"--batch-size {self.batch_size} is not divisible by "
                 f"--num-data-shards {self.num_data_shards}"
             )
-        # what the port's trainer does not run, rejected by its flag
-        if self.rng_impl != "threefry":
-            raise ValueError(
-                f"--rng-impl {self.rng_impl}: the port's noise is a keyed, "
-                f"counter-based Philox (batch-invariant like threefry); "
-                f"rbg is not ported"
-            )
+        if self.rng_impl not in RNG_IMPLS:
+            raise ValueError(f"--rng-impl {self.rng_impl!r}: choose from {RNG_IMPLS}")
 
     def profile_range(self) -> Tuple[int, int]:
         """``--profile A-B`` as ``(A, B)``."""
@@ -317,7 +316,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--max-steps", type=int, default=d.max_steps)
     add("--ema-decay", type=float, default=d.ema_decay)
     # infrastructure
-    add("--rng-impl", default=d.rng_impl, choices=["rbg", "threefry"])
+    add("--rng-impl", default=d.rng_impl, choices=list(RNG_IMPLS),
+        help="lvae_tpu's generator switch: both values run the port's one keyed "
+             "Philox4x32-10 stream")
     add("--precision", default=d.precision, choices=list(PRECISIONS),
         help="the convolutions' compute dtype: bf16 convs from fp32 parameters, "
              "with BatchNorm, the segments, the latents, the likelihood, the "

@@ -1,7 +1,8 @@
 """Dataset metadata and loading (port of ``lvae_tpu/data/registry.py``).
 :func:`load_test_set` reads the test split alone (evaluation never parses
 a train split); :func:`load_dataset` both; :func:`bench_preset` makes the
-synthetic splits of the bench and the probes."""
+synthetic splits of the bench and the probes; :func:`stub_bundle` makes a
+dataset's metadata with tiny random splits, reading nothing."""
 
 from __future__ import annotations
 
@@ -132,6 +133,23 @@ def bench_preset(preset: str, n_train: int) -> Tuple[Dataset, Tuple[int, ...],
 
 
 BENCH_PRESETS = ("mnist", "celeba64", "cifar10-deep")
+
+
+def stub_bundle(name: str, n: int = 8) -> Dataset:
+    """A dataset's metadata with ``n`` seeded random uint8 images as both
+    splits, and no disk access (``lvae_tpu/data/registry.py:90-105``): for
+    what needs only the shapes, the preprocessing and the head, such as
+    the template model of a checkpoint import. A synthetic fixture's
+    ``:N`` suffix sets only its split size, so it is ignored here."""
+    base = name.partition(":")[0]
+    if base not in _META:
+        raise ValueError(
+            f"no static metadata for {name!r} (multiobject shapes come from "
+            f"their npz files); choose from {sorted(_META)}"
+        )
+    img, padded, ch, pre, lik = _META[base]
+    arr = np.random.default_rng(0).integers(0, 256, size=(n, *img, ch), dtype=np.uint8)
+    return Dataset(name, arr, img, padded, ch, pre, lik, train=arr)
 
 
 def _load(name: str, data_dir: str, with_train: bool):

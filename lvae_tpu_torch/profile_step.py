@@ -29,6 +29,8 @@ import time
 
 import torch
 
+from lvae_tpu_torch.config import RNG_IMPLS
+
 TRIES = 3
 
 
@@ -44,8 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "none", "stochastic", "mixture", "pallas", "segments",
                             "all"])
     p.add_argument("--precision", default="bf16", choices=["fp32", "bf16"])
-    p.add_argument("--rng-impl", default="threefry", choices=["threefry", "rbg"],
-                   help="threefry only: the port's noise is keyed Philox; rbg is refused")
+    p.add_argument("--rng-impl", default="threefry", choices=list(RNG_IMPLS),
+                   help="both values run the port's one keyed Philox stream")
     p.add_argument("--dropout", type=float, default=0.2)
     p.add_argument("--n-filters", type=int, default=64)
     p.add_argument("--blocks-per-layer", type=int, default=2)
@@ -91,7 +93,6 @@ def main(argv=None) -> dict:
         "--steps-per-call", str(args.steps_per_call),
         *(["--batch-size", str(args.batch_size)] if args.batch_size else [])])
     cfg, data = bench.bench_config(b_args)
-    # TrainConfig refuses --rng-impl rbg by name
     cfg = dataclasses.replace(cfg, dropout=args.dropout, rng_impl=args.rng_impl)
     if not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible; the profile is the "

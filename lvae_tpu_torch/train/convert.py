@@ -75,7 +75,11 @@ def params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
 
 def load_state_dict_file(path: str, map_location="cpu") -> dict[str, torch.Tensor]:
     """A ``torch.save``d state dict of tensors, or the ``"model"`` entry of
-    a checkpoint the port's trainer wrote (loaded with ``weights_only``:
-    no pickled code runs)."""
+    a checkpoint the port's trainer wrote, or a ``"state_dict"`` entry as
+    ``tools/convert_torch_checkpoint.py:55-57`` unwraps it (loaded with
+    ``weights_only``: no pickled code runs)."""
     d = torch.load(path, map_location=map_location, weights_only=True)
-    return d["model"] if isinstance(d.get("model"), dict) else d
+    for key in ("model", "state_dict"):
+        if isinstance(d.get(key), dict):
+            return d[key]
+    return d

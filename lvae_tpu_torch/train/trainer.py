@@ -361,6 +361,8 @@ class Trainer:
         say(f"run {os.path.basename(run_dir)}: {exp.n_train} train / "
             f"{exp.test_data.shape[0]} test images on {exp.device}{ranks}, "
             f"{n_params:,} params")
+        say(f"noise: the keyed Philox4x32-10 generator (--rng-impl {cfg.rng_impl}; "
+            f"threefry and rbg run the same stream)")
         if cfg.batch_size > exp.n_train:
             raise ValueError(
                 f"batch_size {cfg.batch_size} exceeds the training set "

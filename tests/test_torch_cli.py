@@ -149,12 +149,41 @@ class TestCLI:
         (["--streaming", "--num-data-shards", "3"], "--num-data-shards"),
         (["--spatial-shards", "2"], "--spatial-shards"),
         (["--num-data-shards", "5"], "--num-data-shards"),
-        (["--rng-impl", "rbg"], "--rng-impl"),
         (["--platform", "tpu"], "--platform"),
     ])
     def test_rejects_what_the_port_does_not_run(self, tmp_path, flags, name):
         with pytest.raises(ValueError, match=name):
             _train(tmp_path, "--max-steps", "1", "--dry-run", *flags)
+
+    def test_rng_impl_rbg_runs_the_threefry_stream(self, tmp_path, capsys):
+        """--rng-impl rbg (lvae_tpu's default) names the same keyed Philox
+        stream as threefry: two steps bit-equal in the
+        weights, the optimiser, the metrics and the checkpoint, the value
+        given recorded in config.json and named in one printed line."""
+        import json
+
+        runs = {impl: _train(tmp_path / impl, "--run-name", "r", "--max-steps", "2",
+                             "--rng-impl", impl) for impl in ("threefry", "rbg")}
+        text = capsys.readouterr().out
+        for impl, run in runs.items():
+            with open(os.path.join(run.run_dir, "config.json")) as f:
+                assert json.load(f)["rng_impl"] == impl
+            assert (f"noise: the keyed Philox4x32-10 generator (--rng-impl {impl}; "
+                    f"threefry and rbg run the same stream)") in text
+        a, b = runs["threefry"].state, runs["rbg"].state
+        assert a.step == b.step == 2
+        for k, t in a.model.state_dict().items():
+            assert torch.equal(t, b.model.state_dict()[k]), k
+        sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+        assert all(torch.equal(sa[i][n], sb[i][n]) for i in sa for n in sa[i])
+        assert all(torch.equal(a.ema[k], b.ema[k]) for k in a.ema)
+        ha, hb = ([m for kind, _, m in r.logger.history if kind == "train"]
+                  for r in runs.values())
+        assert len(ha) == len(hb) == 1
+        assert all(np.array_equal(ha[0][k], hb[0][k]) for k in ha[0] if k != "images_per_sec")
+        ca, cb = (torch.load(os.path.join(r.run_dir, "checkpoints", "ckpt_00000002.pt"),
+                             weights_only=True) for r in runs.values())
+        assert all(torch.equal(ca["model"][k], cb["model"][k]) for k in ca["model"])
 
     def test_streaming_train_and_evaluate(self, tmp_path, capsys):
         """--streaming (refused before the port ran it): six steps fed from

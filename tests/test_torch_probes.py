@@ -6,8 +6,8 @@ helpers of ``lvae_tpu_torch.profiling``.
 Each probe's ``main`` runs at a tiny size with ``--device cpu`` and
 prints its legs; the IW-LL legs at chunk 1 and 4 agree, as the sweep's
 chunk invariance says; each tool refuses ``--device cuda`` without a card,
-and ``profile_step`` refuses ``--rng-impl rbg`` by name. The card's runs
-are ``chip_smoke.py`` phase 22.
+and ``profile_step`` takes ``--rng-impl rbg`` as it takes threefry. The
+card's runs are ``chip_smoke.py`` phase 22.
 """
 
 import re
@@ -72,9 +72,13 @@ def test_refuses_cuda_without_a_card(tool, monkeypatch):
                    "--blocks-per-layer", "1"])
 
 
-def test_profile_step_refuses_rbg_by_name():
-    with pytest.raises(ValueError, match="--rng-impl rbg"):
-        profile_step.main(["--rng-impl", "rbg", "--n-filters", "8", "--blocks-per-layer", "1"])
+@pytest.mark.parametrize("impl", ["rbg", "threefry"])
+def test_profile_step_takes_either_rng_impl(impl, monkeypatch):
+    """Either ``--rng-impl`` passes the config and stops at the tool's own
+    exit without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device is visible"):
+        profile_step.main(["--rng-impl", impl, "--n-filters", "8", "--blocks-per-layer", "1"])
 
 
 def test_timed_reads_a_value_back_after_the_warmup_and_the_last_call():
