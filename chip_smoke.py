@@ -131,15 +131,11 @@ Then data parallelism, ``--num-data-shards`` (phase 23): 23a the flagship
 at full width, fp32, ``--fused all``, two graphed calls of 8 steps on
 one rank of an NCCL group (the loss's and the gradients' all-reduces in
 the graph) bit-equal to the same run without a group, ms per step of the
-two graphs in turns; 23b ``graft_entry_torch.dryrun_multichip(2)``: two
-gloo ranks sharing the card, each on its half of the flagship's global
-batch of 64 under ``--fused all`` for 3 steps (held to one rank's run:
-losses 1e-5 relative, parameters 1e-4 but for a share of 2e-5), the
-sharded evaluate, the checkpoint round trip, K3 on each rank's rows; 23c
+two graphs in turns (the dry run runs at 2 x 2 in phase 25a); 23c
 the commands on two gloo ranks sharing the card: ``lvae_tpu_torch.main
 --num-data-shards 2 --fused all`` (its ranks started here as ``torchrun``
-starts them, each rank's launches counted: the split segments and no
-one-launch K5; one run directory and checkpoint), then on both ranks
+starts them, 2 steps, each rank's launches counted: the split segments
+and no one-launch K5; one run directory and checkpoint), then on both ranks
 gloo's all-reduce of a CUDA tensor, each launch of the split segment
 (K5-split, K5-bwd-split) against its plain version at every segment shape
 of a rank, timed per call and on the device with its bound at the
@@ -148,7 +144,7 @@ not a multi-GPU rate); then the same command as typed, starting its own
 ranks, resumed two steps further, and ``evaluate --num-data-shards 2``
 against one rank's.
 
-Last, the checkpoint pair (phase 24): phase 8's flagship run exported by
+Then the checkpoint pair (phase 24): phase 8's flagship run exported by
 ``python -m lvae_tpu_torch.convert_checkpoint export`` and imported into a
 new run directory by ``convert_checkpoint import``; both runs scored by
 ``lvae_tpu_torch.evaluate --load`` (test ELBO, the k=100 IW-LL over 1,000
@@ -156,6 +152,27 @@ images) bit-equal, and ``lvae_tpu_torch.main --load <imported>`` trained
 2 steps under ``--rng-impl rbg`` bit-equal to threefry (cuDNN's
 deterministic algorithms on in every run compared: its default ones sum
 in another order run to run), each entry point's launches counted.
+
+Last, height sharding, ``--spatial-shards`` (phase 25): 25a the README's
+flagship at full width and depth (4 blocks a layer), fp32, ``--fused
+all``, 3 steps against one rank at 2 x 2
+through ``graft_entry_torch.dryrun_multichip(4)`` (its default layout for
+an even count; held to one rank's run: losses 1e-5 relative, parameters
+1e-4 but for a share of 2e-5; the sharded evaluate, the checkpoint round
+trip, K3 on each rank's rows) and at 1 x 4 through
+``lvae_tpu_torch.main --num-data-shards 1 --spatial-shards 4`` (four gloo
+ranks sharing the card, started here as ``torchrun`` starts them; two
+hold an empty band of the 2-row top), each rank's layout and launches
+checked (K1, K1-bwd, the dropout kernel and the split segments on its
+bands, no one-launch K5), its halo exchanges counted and timed, the
+logged metrics within 1e-5 and the checkpoint within Adamax's bound of
+``main`` on one rank; 25b the banded index map of K1, K1-bwd, K2, the
+dropout kernel and the split segments at every band shape of the
+flagship over 2 and 4 ranks (a 1-row and an empty band among them)
+against their plain versions (the bands' eps and dropped outputs
+concatenated bit-equal to the whole map's), each timed at the widest
+band of the 2 x 2 layout with its bound; 25c celeba64 at 1
+x 2 for 2 steps the same way, K3 and K3-bwd on each rank's band.
 
 Each entry point's run checks that it launched every kernel of its path;
 the kernel path, the plain path and a CPU run are held to agree, and each
@@ -173,6 +190,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -194,7 +212,7 @@ N_TRAIN = 50_000
 TRAIN_STEPS = 40                            # phase 8
 # each Trainer.run of the A/Bs of phases 9, 13 and 16: steps, and the rate
 # taken over the steps after AB_LOG
-AB_STEPS, AB_LOG = 20, 10
+AB_STEPS, AB_LOG = 10, 5
 ODD_SHAPE = (3, 7, 7)                       # F = 147: not a multiple of 128
 LONG_ROW = (32, 32, 32)                     # F = 32,768: 16 float4 units a K1 thread
 
@@ -4849,8 +4867,8 @@ def phase_measure(card, c_train, c_test):
 
 PARALLEL_K = 8                              # 23a: steps a graphed call
 PARALLEL_CALLS = 2                          # 23a: graphed calls a run
-PARALLEL_RANKS = 2                          # 23b, 23c
-PARALLEL_CLI_STEPS = 4                      # 23c: steps of the counted run (the resume: 2 more)
+PARALLEL_RANKS = 2                          # 23c
+PARALLEL_CLI_STEPS = 2                      # 23c: steps of the counted run (the resume: 2 more)
 PARALLEL_CLI_TRAIN, PARALLEL_CLI_TEST = 4096, 1007      # 23c: images
 SPLIT_NAMES = {"segment_split_stats": "K5-split stats",
                "segment_split_apply": "K5-split apply",
@@ -5023,7 +5041,7 @@ def split_rank_checks(layout):
     shapes = list(segment_shapes({**FLAGSHIP, "blocks_per_layer": cfg.blocks_per_layer},
                                  data, per_rank, FLAGSHIP_IMAGE))
     key = seg.Key(42, torch.tensor(7, dtype=torch.int64, device=dev), 3)
-    offset = lambda x: mesh.element_offset(x, layout)       # noqa: E731
+    offset = lambda x: mesh.element_map(x, layout)          # noqa: E731
     err = {name: 0.0 for name in SPLIT_NAMES}
     for shape in shapes:
         x, g, gamma, beta = split_operands(shape)
@@ -5224,10 +5242,25 @@ def run_command(argv, timeout_s):
     """(exit code, output) of ``python argv`` started from the repository
     in a session of its own, so that past ``timeout_s`` it and the ranks it
     starts are all killed; the output's last lines are echoed."""
-    import signal
+    return finish_command(start_command(argv), timeout_s)
 
+
+def start_command(argv):
+    """``python argv`` started from the repository in a session of its own
+    (:func:`finish_command` waits for it)."""
     p = subprocess.Popen([sys.executable, *argv], cwd=REPO, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    p.argv = argv
+    return p
+
+
+def finish_command(p, timeout_s):
+    """(exit code, output) of a :func:`start_command` process; past
+    ``timeout_s`` it and the ranks it starts are all killed; the output's
+    last lines are echoed."""
+    import signal
+
+    argv = p.argv
     try:
         text, _ = p.communicate(timeout=timeout_s)
     except subprocess.TimeoutExpired:
@@ -5254,10 +5287,11 @@ def parallel_cli(card, train_u8, test_u8):
     and a checkpoint at the end, each rank's launches counted (the split
     segments, none of the one-launch K5), the ranks' logged metrics equal,
     one run directory and one checkpoint written; then the split kernels'
-    checks on both ranks. (2) The same command as a user types it (it
-    starts its own ranks) with ``--auto-resume``, two steps more. (3)
-    ``evaluate --num-data-shards 2`` (it starts its own ranks) against
-    ``evaluate`` on one rank: the test ELBO and the IW-LL of one batch."""
+    checks on both ranks. Then side by side: (2) the same command as a user
+    types it (it starts its own ranks) with ``--auto-resume``, two steps
+    more, and (3) ``evaluate --num-data-shards 2`` (it starts its own
+    ranks) of a copy of (1)'s run against ``evaluate`` on one rank of
+    another copy: the test ELBO and the IW-LL of one batch."""
     import torch
 
     from lvae_tpu_torch import evaluate as eval_main
@@ -5317,9 +5351,21 @@ def parallel_cli(card, train_u8, test_u8):
               f"23c: one run directory, its config and one checkpoint (step {n}) written "
               f"({os.listdir(runs)}, {mngr.steps()})")
 
+        # side by side: the command as typed, resumed two steps further, and
+        # evaluate --num-data-shards 2 of a copy of the counted run (step n),
+        # one rank's evaluate of another copy in this process meanwhile
+        copies = [os.path.join(tmp, f"dp_{c}") for c in ("ranks", "one")]
+        for c in copies:
+            shutil.copytree(run_dir, c, ignore=shutil.ignore_patterns("imgs", "trace"))
+        ev = ["--device", "cuda", "--ll", "--iw-samples", str(IW_SAMPLES), "--iw-max-batches",
+              "1", "--nimages", "16"]
         t1 = time.perf_counter()
-        code, text = run_command(["-m", "lvae_tpu_torch.main", *argv, "--max-steps",
-                                  str(n + 2), "--auto-resume"], 240)
+        resume = start_command(["-m", "lvae_tpu_torch.main", *argv, "--max-steps", str(n + 2),
+                                "--auto-resume"])
+        evaluate = start_command(["-m", "lvae_tpu_torch.evaluate", "--load", copies[0], *ev,
+                                  "--num-data-shards", str(PARALLEL_RANKS)])
+        one = eval_main.main(["--load", copies[1], *ev])
+        code, text = finish_command(resume, 240)
         out["resume_wall_s"] = time.perf_counter() - t1
         check(code == 0 and ranks_txt in text
               and len(re.findall(rf"\[train\] step +{n + 2} ", text)) == 1
@@ -5328,13 +5374,7 @@ def parallel_cli(card, train_u8, test_u8):
               f"--auto-resume started its ranks ({ranks_txt}), went on from step {n} to "
               f"{n + 2}, rank 0 alone logged, one run directory (code {code}, checkpoints "
               f"{mngr.steps()})")
-
-        ev = ["--load", run_dir, "--device", "cuda", "--ll", "--iw-samples", str(IW_SAMPLES),
-              "--iw-max-batches", "1", "--nimages", "16"]
-        one = eval_main.main(ev)
-        t1 = time.perf_counter()
-        code, text = run_command(["-m", "lvae_tpu_torch.evaluate", *ev, "--num-data-shards",
-                                  str(PARALLEL_RANKS)], 240)
+        code, text = finish_command(evaluate, 240)
         out["evaluate_wall_s"] = time.perf_counter() - t1
         elbo, iw = printed(r"test elbo (-?[\d.]+) ", text), printed(r": (-?[\d.]+) nats", text)
         # printed to 2 decimals; the sums' order differs
@@ -5356,47 +5396,13 @@ def parallel_cli(card, train_u8, test_u8):
 
 def phase_parallel(card, train_u8, test_u8, flagship_weights):
     """Phase 23, ``--num-data-shards``: (a) one NCCL rank, graphed, bit-equal
-    to no group; (b) ``graft_entry_torch.dryrun_multichip(2)`` with two
-    gloo ranks sharing this card, each on its half of the flagship's global
-    batch of 64 at full width (z 32-32-32, 64 filters, 2 blocks a layer,
-    dropout 0.2) under ``--fused all``: 3 steps held against one rank's,
-    the sharded evaluate, the checkpoint round trip, K3 on each rank's
-    rows; (c) :func:`parallel_cli`, the commands on two ranks, and the
-    split kernels' checks on both."""
-    import graft_entry_torch as ge
-
+    to no group; (c) :func:`parallel_cli`, the commands on two ranks, and
+    the split kernels' checks on both. (The dry run runs in phase 25 at
+    its default layout for four ranks, 2 x 2.)"""
     print("[23] data parallelism (--num-data-shards)", flush=True)
     t0 = time.perf_counter()
     out = {"one_rank_nccl": parallel_one_rank(card, train_u8, test_u8, flagship_weights)}
     print(f"  23a took {time.perf_counter() - t0:.1f} s", flush=True)
-    print(f"[23b] dryrun_multichip({PARALLEL_RANKS}): gloo ranks sharing the card",
-          flush=True)
-    t1 = time.perf_counter()
-    try:
-        r = ge.dryrun_multichip(PARALLEL_RANKS, device="cuda", flagship=True, timeout_s=240)
-    except RuntimeError as e:
-        raise SmokeFailure(f"dryrun_multichip({PARALLEL_RANKS}) on the card failed ({e}); "
-                           f"its ranks' output is above") from e
-    check(r["backend"] == "gloo", "the dry run's group is gloo (two ranks, one card)")
-    launches = r["launches"]
-    path = (*SPLIT_NAMES, "sample_kl_per_sample", "sample_kl_per_sample_bwd", "dropout")
-    check(all(launches.get(n, 0) > 0 for n in path),
-          f"rank 0's 3 steps launched every kernel of the path: the split segments, K1, "
-          f"K1-bwd and the dropout kernel ({launches})")
-    check(not any(launches.get(n, 0) for n in ("segment", "segment_bwd")),
-          "rank 0's steps launched no one-launch K5 (the split path at R > 1)")
-    check(r["one_rank"]["launches"].get("segment", 0) > 0
-          and not any(r["one_rank"]["launches"].get(n, 0) for n in SPLIT_NAMES),
-          "the one-rank run took the one-launch K5 and no split launch")
-    # dryrun_multichip held rank 0's losses (1e-5 relative) and parameters
-    # (2 lr a step, all but FAR_SHARE of the elements 1e-4) to the one rank's
-    print(f"  rank 0 after 3 steps vs one rank: parameters within "
-          f"{r['param_max_diff']:.2e}, {r['param_share_beyond_1e4']:.2e} of the elements "
-          f"beyond 1e-4 (at most {ge.FAR_SHARE:g}); losses {r['losses']} vs "
-          f"{r['one_rank']['losses']}")
-    print(f"  23b took {time.perf_counter() - t1:.1f} s (wall of the ranks "
-          f"{r['wall_s']:.1f} s)", flush=True)
-    out["dryrun"] = r
     t1 = time.perf_counter()
     cli = parallel_cli(card, train_u8, test_u8)
     split = cli.pop("split")
@@ -5531,6 +5537,515 @@ def phase_checkpoint(card, run_dir, data_dir):
     print(f"  phase 24 took {out['seconds']:.1f} s (export + import {t_convert:.1f}, "
           f"evaluate {out['evaluate_original_s']:.1f} / {out['evaluate_imported_s']:.1f}, "
           f"main --load {out['main_rbg_s']:.1f} / {out['main_threefry_s']:.1f})  ({card})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 25: height sharding (--spatial-shards)
+# ---------------------------------------------------------------------------
+
+SPATIAL_STEPS, SPATIAL_CELEBA_STEPS = 3, 2  # 25a, 25c: steps a run
+SPATIAL_TRAIN, SPATIAL_TEST = 1024, 256     # the splits of 25a's static_mnist and 25c's celeba
+# the kernels whose launches a banded step makes (the split segments under
+# --fused all, the dropout kernel for the trailing dropouts)
+SPATIAL_PATH = ("sample_kl_per_sample", "sample_kl_per_sample_bwd", "dropout", *SPLIT_NAMES)
+
+
+def banded_k1_checks(check_band, dev, g, err, n_space, b, layer, h, w):
+    """K2's eps, K1 and K1-bwd (the top layer's with its prior read with
+    row stride 0) on every band of an ``[b, 32, h, w]`` latent map over
+    ``n_space`` ranks: each against its plain version on the band, the
+    bands' eps concatenated bit-equal to the whole map's, an empty band
+    launching nothing."""
+    import torch
+
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.kernels import stochastic as sk
+    from lvae_tpu_torch.ops.philox import Band, keyed_normal
+    from lvae_tpu_torch.parallel.mesh import band
+
+    c, seed = 32, 1234
+    q = (torch.randn(b, 2 * c, h, w, generator=g) * 0.7).to(dev)
+    p = (torch.randn((1 if layer == 2 else b), 2 * c, h, w, generator=g) * 0.7).to(dev)
+    gz = torch.randn(b, c, h, w, generator=g).to(dev)
+    gkl = torch.randn(b, generator=g).to(dev)
+    index = torch.randperm(50_000, generator=g)[:b].to(dev)
+    step = torch.tensor(11, dtype=torch.int64, device=dev)
+    zero = torch.zeros(b, 2 * c, h, w, device=dev)
+    whole_eps, _ = sk.sample_kl(zero, zero, index, seed, step, layer)    # z = eps at 0, 0
+    eps_bands = []
+    for s in range(n_space):
+        h0, h1 = band(h, n_space, s)
+        bd = Band(h, h0)
+        what = f"S={n_space} band {s} [{b},{c},{h1 - h0},{w}] of {h} rows"
+        qs, ps, gzs = (t[:, :, h0:h1].contiguous() for t in (q, p, gz))
+        before = dict(build.LAUNCHES)
+        zs = zero[:, :, h0:h1].contiguous()
+        eps_s, _ = sk.sample_kl(zs, zs, index, seed, step, layer, bd)
+        eps_bands.append(eps_s)
+        z, kl = sk.sample_kl_per_sample(qs, ps, index, seed, step, layer, bd)
+        zr, klr = sk._plain_sample_kl_per_sample(qs, ps, index, seed, step, layer, bd)
+        dq, dp = sk.sample_kl_backward(qs, ps, gzs, gkl,
+                                       keyed=sk.Keyed(index, seed, step, layer, bd))
+        eps_r = keyed_normal(gzs.shape, seed, index, step, layer, bd)
+        dqr, dpr = sk._plain_sample_kl_bwd(qs, ps, eps_r, gzs, gkl)
+        if h1 == h0:
+            check_band(all(build.LAUNCHES[k] == before[k] for k in (
+                "sample_kl", "sample_kl_per_sample", "sample_kl_per_sample_bwd"))
+                and tuple(z.shape) == (b, c, 0, w) and bool((kl == 0).all())
+                and dq.numel() == 0, f"{what}: an empty band launches nothing, sums 0")
+            continue
+        e = max((eps_s - eps_r).abs().max().item(), (z - zr).abs().max().item(),
+                (kl - klr).abs().max().item())
+        err["sample_kl"] = max(err["sample_kl"], (eps_s - eps_r).abs().max().item())
+        err["sample_kl_per_sample"] = max(err["sample_kl_per_sample"], e)
+        check_band(e <= 1e-5, f"{what}: K2's eps, K1's z and per-sample KL match the plain "
+                              f"banded generator (max abs {e:.2e})")
+        e = max(rel_max(dq, dqr), rel_max(dp, dpr))
+        err["sample_kl_per_sample_bwd"] = max(err["sample_kl_per_sample_bwd"], e)
+        check_band(e <= 1e-5 and tuple(dp.shape) == tuple(ps.shape),
+                   f"{what}: K1-bwd's dq, dp within 1e-5 of their max ({e:.2e})"
+                   + (", the prior's dp summed over the rows" if ps.shape[0] == 1 else ""))
+    check_band(torch.equal(torch.cat(eps_bands, dim=2), whole_eps),
+               f"S={n_space} [{b},{c},{h},{w}]: the bands' eps concatenated bit-equal to the "
+               f"whole map's")
+
+
+def banded_segment_checks(check_band, dev, g, err, n_space, d, b, shape):
+    """The dropout kernel and the four split launches on every band of
+    data index ``d``'s rows ``[b, C, H, W]`` of a global batch: each
+    against its plain version with the same element map (the masks
+    bit-equal), the bands' dropped outputs concatenated bit-equal to the
+    whole rows' (whose map is one run); this rank's sums standing for the
+    global ones."""
+    import torch
+
+    from lvae_tpu_torch.kernels import segment as seg
+    from lvae_tpu_torch.ops import math as om
+    from lvae_tpu_torch.ops.philox import ElementMap, dropout_bytes, mix_seed
+    from lvae_tpu_torch.parallel.mesh import band
+
+    _, c, h, w = shape
+    key = seg.Key(42, torch.tensor(7, dtype=torch.int64, device=dev), 3)
+    t_ = om.bits8_keep_threshold(0.2)
+    x = torch.randn(b, c, h, w, generator=g).to(dev) * 1.5 + 0.3
+    gg = torch.randn(b, c, h, w, generator=g).to(dev)
+    gamma = (torch.rand(c, generator=g) + 0.5).to(dev)
+    beta = (torch.randn(c, generator=g) * 0.2).to(dev)
+    row0 = d * b * c * h * w
+    whole = seg._launch_dropout(x, t_, key, ElementMap(base=row0))
+    slices = seg.split_slices(b, -(-h // n_space), w)
+    n_global = b * (d + 1) * h * w
+    outs = []
+    for s in range(n_space):
+        h0, h1 = band(h, n_space, s)
+        what = f"S={n_space} band {s} [{b},{c},{h1 - h0},{w}] of {h} rows (data index {d})"
+        xs, gs = x[:, :, h0:h1].contiguous(), gg[:, :, h0:h1].contiguous()
+        emap = ElementMap((h1 - h0) * w, h * w, row0 + h0 * w)
+        mask = dropout_bytes(xs.shape, mix_seed(*key), dev, emap)
+        y = seg._launch_dropout(xs, t_, key, emap)
+        outs.append(y)
+        check_band(torch.equal(y, om.bits8_dropout_f32(xs, mask, t_)),
+                   f"{what}: the dropout kernel bit-equal to the plain banded mask")
+        part = seg.split_stats(xs, t_, key, emap, slices)
+        plain = om.segment_split_stats(xs, t_, mask)
+        e = rel_elem(part.sum(dim=1), plain.sum(dim=1)) if h1 > h0 else float(
+            part.abs().max())
+        err["segment_split_stats"] = max(err["segment_split_stats"], (
+            part.sum(dim=1) - plain.sum(dim=1)).abs().max().item())
+        check_band(e <= 1e-9 and part.shape[1] == slices,
+                   f"{what}: K5-split stats' sums within 1e-9 relative ({e:.2e}), "
+                   f"{slices} slices")
+        glob = part + 1.0        # stands for the other ranks' sums
+        y2, stats = seg.split_apply(xs, gamma, beta, glob, n_global, t_, "elu", 1e-5, key,
+                                    emap, None, None, 0.9)
+        yp, sp = om.segment_split_apply(xs, gamma, beta, glob, n_global, t_, "elu", 1e-5, mask)
+        local = seg.split_bwd_reduce(xs, gs, stats, t_, "elu", key, emap, slices)
+        lp = om.segment_split_bwd_reduce(xs, gs, stats, t_, "elu", mask)
+        got = seg.split_bwd_apply(xs, gs, gamma, stats, local, local + 1.0, n_global, t_,
+                                  "elu", key, emap)
+        ref = om.segment_split_bwd_apply(xs, gs, gamma, stats, local, local + 1.0, n_global,
+                                         t_, "elu", mask)
+        if h1 > h0:
+            e = rel_max(y2, yp)
+            err["segment_split_apply"] = max(err["segment_split_apply"],
+                                             (y2 - yp).abs().max().item())
+            check_band(e <= 1e-5 and rel_elem(stats[:2], sp[:2]) <= 1e-6,
+                       f"{what}: K5-split apply's y within 1e-5 of max|y| ({e:.2e})")
+            e = rel_max(local.sum(dim=1), lp.sum(dim=1))
+            err["segment_split_bwd_reduce"] = max(err["segment_split_bwd_reduce"], (
+                local.sum(dim=1) - lp.sum(dim=1)).abs().max().item())
+            check_band(e <= 1e-5, f"{what}: K5-bwd-split reduce's sums within 1e-5 ({e:.2e})")
+            e = max(rel_max(a, r) for a, r in zip(got, ref))
+            err["segment_split_bwd_apply"] = max(err["segment_split_bwd_apply"], *(
+                (a - r).abs().max().item() for a, r in zip(got, ref)))
+            check_band(e <= 1e-5 and torch.equal(got[0] == 0, ref[0] == 0),
+                       f"{what}: K5-bwd-split apply's dx, dgamma, dbeta within 1e-5, dx 0 "
+                       f"where the plain version's is ({e:.2e})")
+        else:
+            check_band(float(local.abs().max()) == 0.0 and got[0].numel() == 0
+                       and rel_elem(stats[:2], sp[:2]) <= 1e-6,
+                       f"{what}: the split launches of an empty band give zero sums and "
+                       f"the global statistics")
+    check_band(torch.equal(torch.cat(outs, dim=2), whole),
+               f"S={n_space} [{b},{c},{h},{w}]: the bands' dropped outputs concatenated "
+               f"bit-equal to the whole rows'")
+
+
+def spatial_kernel_checks(card):
+    """25b: the banded index map of K1, K1-bwd, K2, the dropout kernel and
+    the split segments at every band shape of the flagship over 2 and 4
+    ranks (the latents' 8, 4 and 2 rows, the segments' 32, 16, 8, 4 and 2;
+    a 1-row and an empty band among them), against their plain versions;
+    then K1, K1-bwd, the dropout kernel and the split launches timed at
+    the widest band of the flagship's 2 x 2 layout, per call and on the
+    device, beside the bound and the plain versions."""
+    import torch
+
+    from lvae_tpu_torch.kernels import segment as seg
+    from lvae_tpu_torch.kernels import stochastic as sk
+    from lvae_tpu_torch.ops import math as om
+    from lvae_tpu_torch.ops.philox import Band, ElementMap, dropout_bytes, keyed_normal, mix_seed
+
+    print("[25b] the banded kernels against their plain versions", flush=True)
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(25)
+    err = {k: 0.0 for k in ("sample_kl", "sample_kl_per_sample", "sample_kl_per_sample_bwd",
+                            "dropout", *SPLIT_NAMES)}
+    n_checks = [0]
+
+    def check_band(cond, what):
+        check(cond, what)
+        n_checks[0] += 1
+
+    for n_space, b in ((2, 32), (4, 64)):       # a rank's rows at 2 x 2 and 1 x 4
+        for layer, (h, w) in enumerate(((8, 8), (4, 4), (2, 2))):
+            banded_k1_checks(check_band, dev, g, err, n_space, b, layer, h, w)
+        for h in (32, 16, 8, 4, 2):
+            banded_segment_checks(check_band, dev, g, err, n_space, 1, b, (b, 64, h, h))
+    print(f"  {n_checks[0]} checks of the banded kernels pass  ({card})", flush=True)
+
+    # timed at band 0 of the flagship at 2 x 2 (data index 1): its bottom
+    # latent [32, 32, 4, 8] and its widest segment [32, 64, 16, 32]
+    b, c, h, w = 32, 32, 8, 8
+    bd = Band(h, 0)
+    q = (torch.randn(b, 2 * c, h // 2, w, generator=g) * 0.7).to(dev)
+    p = (torch.randn(b, 2 * c, h // 2, w, generator=g) * 0.7).to(dev)
+    gz = torch.randn(b, c, h // 2, w, generator=g).to(dev)
+    gkl = torch.randn(b, generator=g).to(dev)
+    index = torch.randperm(50_000, generator=g)[:b].to(dev)
+    keyed = sk.Keyed(index, 1234, 0, 0, bd)
+    n = b * c * (h // 2) * w
+    shape = (32, 64, 16, 32)
+    x = torch.randn(shape, generator=g).to(dev)
+    gx = torch.randn(shape, generator=g).to(dev)
+    gamma = (torch.rand(64, generator=g) + 0.5).to(dev)
+    beta = (torch.randn(64, generator=g) * 0.2).to(dev)
+    key = seg.Key(42, torch.tensor(7, dtype=torch.int64, device=dev), 3)
+    t_ = om.bits8_keep_threshold(0.2)
+    emap = ElementMap(16 * 32, 32 * 32, 32 * 64 * 32 * 32)
+    mask = dropout_bytes(shape, mix_seed(*key), dev, emap)
+    m = int(np.prod(shape))
+    slices = seg.split_slices(32, 16, 32)
+    part = seg.split_stats(x, t_, key, emap, slices)
+    n_global = 2 * 32 * 32 * 32
+    _, stats = seg.split_apply(x, gamma, beta, part, n_global, t_, "elu", 1e-5, key, emap,
+                               None, None, 0.9)
+    local = seg.split_bwd_reduce(x, gx, stats, t_, "elu", key, emap, slices)
+    sums = local.numel() * 8
+    calls = {
+        "sample_kl_per_sample": (
+            lambda: sk.sample_kl_per_sample(q, p, index, 1234, 0, 0, bd),
+            lambda: sk._plain_sample_kl_per_sample(q, p, index, 1234, 0, 0, bd),
+            bound(20 * n + 12 * b, OPS_SAMPLE_KL * n), [b, 2 * c, h // 2, w]),
+        "sample_kl_per_sample_bwd": (
+            lambda: sk.sample_kl_backward(q, p, gz, gkl, keyed=keyed),
+            lambda: sk._plain_sample_kl_bwd(q, p, keyed_normal(gz.shape, 1234, index, 0, 0,
+                                                               bd), gz, gkl),
+            bound(36 * n + 12 * b, (OPS_SAMPLE_KL_BWD + OPS_SAMPLE_KL) * n),
+            [b, 2 * c, h // 2, w]),
+        "dropout": (lambda: seg._launch_dropout(x, t_, key, emap),
+                    lambda: om.bits8_dropout_f32(x, dropout_bytes(shape, mix_seed(*key), dev,
+                                                                  emap), t_),
+                    bound(8 * m, OPS_SEGMENT * m), list(shape)),
+        "segment_split_stats": (
+            lambda: seg.split_stats(x, t_, key, emap, slices),
+            lambda: om.segment_split_stats(x, t_, mask), bound(4 * m + sums, OPS_SEGMENT * m),
+            list(shape)),
+        "segment_split_apply": (
+            lambda: seg.split_apply(x, gamma, beta, part, n_global, t_, "elu", 1e-5, key,
+                                    emap, None, None, 0.9),
+            lambda: om.segment_split_apply(x, gamma, beta, part, n_global, t_, "elu", 1e-5,
+                                           mask),
+            bound(8 * m + sums, OPS_SEGMENT * m), list(shape)),
+        "segment_split_bwd_reduce": (
+            lambda: seg.split_bwd_reduce(x, gx, stats, t_, "elu", key, emap, slices),
+            lambda: om.segment_split_bwd_reduce(x, gx, stats, t_, "elu", mask),
+            bound(8 * m + sums, OPS_SEGMENT * m), list(shape)),
+        "segment_split_bwd_apply": (
+            lambda: seg.split_bwd_apply(x, gx, gamma, stats, local, part, n_global, t_, "elu",
+                                        key, emap),
+            lambda: om.segment_split_bwd_apply(x, gx, gamma, stats, local, part, n_global, t_,
+                                               "elu", mask),
+            bound(12 * m + 2 * sums, OPS_SEGMENT * m), list(shape)),
+    }
+    times = {}
+    for name, (kern, plain, bnd, shp) in calls.items():
+        times[name] = {"ms": cuda_ms(kern, 50), "plain_ms": cuda_ms(plain, 10),
+                       "device_ms": device_ms(kern, 20), "plain_device_ms": device_ms(plain, 5),
+                       "bound_ms": bnd[0], "bound_by": bnd[1], "shape": shp,
+                       "max_abs_err": err[name]}
+        r = times[name]
+        print(f"  time banded {name} {shp}: per call kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms; device: kernel {fmt_ms(r['device_ms'])}, plain "
+              f"{fmt_ms(r['plain_device_ms'])}; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  ({card})", flush=True)
+    return {"checks": n_checks[0], "max_abs_err": err, "times": times}
+
+
+def spatial_rank(spec_path):
+    """One rank of 25a or 25c, started by :func:`spatial_cli` through
+    ``multihost.launch``: ``lvae_tpu_torch.main.main(argv)`` as under
+    ``torchrun`` (it joins the launcher's group with its space axis,
+    trains and leaves it), every launch count set to 0 just before and read
+    just after; the halo exchanges (``mesh._exchange``, the one
+    all-reduce of each exchange, forward and backward) counted and, where
+    the spec says ``timed``, timed on the host with the card synchronised
+    around each. Writes ``rank<r>.pt`` beside the spec."""
+    import torch
+
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.kernels import build
+    from lvae_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    halo = {"calls": 0, "s": 0.0, "bytes": 0}
+    orig = mesh._exchange
+
+    def timed(t, group):
+        if spec["timed"]:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(t, group)
+        if spec["timed"]:
+            torch.cuda.synchronize()
+            halo["s"] += time.perf_counter() - t0
+        halo["calls"] += 1
+        halo["bytes"] += t.numel() * t.element_size()
+        return out
+
+    mesh._exchange = timed
+    build.reset_launches()
+    try:
+        with counted_all_reduces() as ar:
+            trainer = train_main.main(spec["argv"])
+        torch.cuda.synchronize()
+    finally:
+        mesh._exchange = orig
+    layout = trainer.exp.layout
+    out = {"rank": rank, "launches": {k: v for k, v in build.LAUNCHES.items() if v},
+           "all_reduces": ar["calls"], "halo": halo, "history": trainer.logger.history,
+           "backend": layout.backend, "run_dir": trainer.run_dir,
+           "layout": [layout.n_data, layout.n_space, layout.data, layout.space]}
+    torch.save(out, os.path.join(os.path.dirname(spec_path), f"rank{rank}.pt"))
+    return 0
+
+
+def spatial_cli(card, tag, args, data_dir, n_data, n_space, steps, tmp, expect=(),
+                beside=None):
+    """One banded run through the command a user types, its ranks started
+    here as ``torchrun`` starts them (:func:`spatial_rank`): ``main ...
+    --num-data-shards n_data --spatial-shards n_space`` for ``steps``
+    steps with a log line a step and, at the end, the test sweep and a
+    checkpoint; against ``main`` on one rank in this process with the same
+    flags. Checks each rank's layout and launches (every kernel of
+    ``SPATIAL_PATH`` and ``expect``, no one-launch K5), the ranks' logged
+    metrics equal to each other and, within 1e-5 relative, to the one
+    rank's, and the checkpoint's parameters and statistics within Adamax's
+    bound of the one rank's (``graft_entry_torch.dryrun_multichip``'s
+    rule). ``beside`` (a callable) runs in this process while the ranks
+    run, its result returned beside the run's; the halo exchanges are then
+    counted but not timed. Returns ``(run, beside's result)``."""
+    import threading
+
+    import torch
+
+    import graft_entry_torch as ge
+    from lvae_tpu_torch import main as train_main
+    from lvae_tpu_torch.parallel import multihost
+    from lvae_tpu_torch.train.checkpoint import CheckpointManager
+
+    world = n_data * n_space
+    runs = os.path.join(tmp, f"runs_{tag}")
+    base = args + ["--fused", "all", "--device", "cuda", "--data-dir", data_dir,
+                   "--output-dir", runs, "--log-interval", "1", "--test-interval", str(steps),
+                   "--checkpoint-interval", str(steps), "--max-steps", str(steps)]
+    argv = base + ["--run-name", "sp", "--num-data-shards", str(n_data), "--spatial-shards",
+                   str(n_space)]
+    spec = os.path.join(tmp, f"spec_{tag}.json")
+    with open(spec, "w") as f:
+        json.dump({"argv": argv, "timed": beside is None}, f)
+    box = {}
+
+    def launch_ranks():
+        t0 = time.perf_counter()
+        try:
+            box["code"] = multihost.launch([sys.executable, os.path.abspath(__file__),
+                                            "--spatial-rank", spec], world, 300)
+        except TimeoutError as e:
+            box["error"] = e
+        box["wall"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=launch_ranks)
+    thread.start()
+    try:
+        beside_out = beside() if beside is not None else None
+    finally:
+        thread.join()
+    if "error" in box:
+        raise SmokeFailure(f"25 {tag}: {box['error']}") from box["error"]
+    code, wall = box["code"], box["wall"]
+    check(code == 0, f"25 {tag}: the {world} ranks of main ended with code 0 ({code})")
+    t0 = time.perf_counter()
+    one = train_main.main(base + ["--run-name", "one"])
+    one_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    for r in ranks:
+        got = r["launches"]
+        check(r["layout"] == [n_data, n_space, r["rank"] // n_space, r["rank"] % n_space]
+              and r["backend"] == "gloo",
+              f"25 {tag} rank {r['rank']}: data index {r['rank'] // n_space} of {n_data}, "
+              f"space index {r['rank'] % n_space} of {n_space}, gloo ({r['layout']})")
+        check(all(got.get(k, 0) > 0 for k in (*SPATIAL_PATH, *expect))
+              and not any(got.get(k, 0) for k in ("segment", "segment_bwd")),
+              f"25 {tag} rank {r['rank']}: main launched the banded kernels "
+              f"({', '.join((*SPATIAL_PATH, *expect))}) and no one-launch K5 ({got})")
+        check(r["halo"]["calls"] > 0, f"25 {tag} rank {r['rank']}: halo exchanges ran "
+                                      f"({r['halo']['calls']})")
+
+    def metrics(hist):
+        return [(kind, step, {k: float(np.asarray(v, dtype=np.float64).sum())
+                              for k, v in m.items() if k not in ("images_per_sec", "wall_s")})
+                for kind, step, m in hist]
+
+    mine, ref = metrics(ranks[0]["history"]), metrics(one.logger.history)
+    check(all(metrics(r["history"]) == mine for r in ranks[1:]),
+          f"25 {tag}: every rank logged the same metrics")
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                for (_, _, a), (_, _, b) in zip(mine, ref) for k in b)
+    check([m[:2] for m in mine] == [m[:2] for m in ref] and worst <= 1e-5,
+          f"25 {tag}: the logged train and test metrics within 1e-5 relative of one rank's "
+          f"({len(mine)} lines, worst {worst:.2e})")
+    got = CheckpointManager(ranks[0]["run_dir"]).load(steps)["model"]
+    want = CheckpointManager(one.run_dir).load(steps)["model"]
+    diff = torch.cat([(got[k].double() - v.double()).abs().reshape(-1) for k, v in
+                      want.items() if v.is_floating_point()])
+    lr = 3e-4
+    far = float((diff > 1e-4).double().mean())
+    check(float(diff.max()) <= 2 * lr * steps and far <= ge.FAR_SHARE,
+          f"25 {tag}: the checkpoint's parameters and statistics within 2 lr a step of one "
+          f"rank's, {far:.2e} of them beyond 1e-4 (at most {ge.FAR_SHARE:g}; max "
+          f"{float(diff.max()):.2e})")
+    halo = ranks[0]["halo"]
+    out = {"wall_s": wall, "one_rank_s": one_s, "launches": [r["launches"] for r in ranks],
+           "all_reduces": ranks[0]["all_reduces"],
+           "halo_per_step": halo["calls"] / steps,
+           "halo_ms_per_step": halo["s"] * 1e3 / steps if beside is None else None,
+           "halo_mb_per_step": halo["bytes"] / 1e6 / steps, "metrics_worst_rel": worst,
+           "param_max_diff": float(diff.max()), "param_share_beyond_1e4": far,
+           "loss": [m["loss"] for kind, _, m in mine if kind == "train"],
+           "loss_one_rank": [m["loss"] for kind, _, m in ref if kind == "train"]}
+    timing = ("not timed (run beside another phase)" if beside is not None else
+              f"{out['halo_ms_per_step']:.1f} ms a step (gloo, the ranks sharing one card; "
+              f"host clock, card synchronised around each)")
+    print(f"  25 {tag}: {world} ranks {wall:.1f} s (start included; one rank {one_s:.1f} s); "
+          f"rank 0: {out['halo_per_step']:.0f} halo exchanges a step, "
+          f"{out['halo_mb_per_step']:.2f} MB a step, {timing}; losses {out['loss']} vs one "
+          f"rank {out['loss_one_rank']}  ({card})", flush=True)
+    return out, beside_out
+
+
+def spatial_dryrun(card):
+    """25a's 2 x 2 half: ``graft_entry_torch.dryrun_multichip(4)`` at its
+    default layout for an even count, ``(data, space)`` = 2 x 2 (as
+    ``__graft_entry__.py:112-140``), four gloo ranks sharing this card,
+    each on its band of its half of the flagship's global batch of 64 at
+    full width and depth (z 32-32-32, 64 filters, 4 blocks a layer,
+    dropout 0.2) under ``--fused all``: 3 steps held against one rank's (losses 1e-5
+    relative; parameters within 2 lr a step, all but FAR_SHARE of them
+    1e-4), the sharded evaluate, the checkpoint round trip, K3 on each
+    rank's rows; rank 0's launches checked."""
+    import graft_entry_torch as ge
+
+    print("[25a] dryrun_multichip(4): 2 x 2, gloo ranks sharing the card", flush=True)
+    t0 = time.perf_counter()
+    try:
+        r = ge.dryrun_multichip(4, device="cuda", flagship=True, timeout_s=240)
+    except RuntimeError as e:
+        raise SmokeFailure(f"dryrun_multichip(4) on the card failed ({e}); its ranks' output "
+                           f"is above") from e
+    check(r["backend"] == "gloo" and r["spatial"] == 2 and r["size"] == 4,
+          f"the dry run's group: gloo, 4 ranks, a space axis of 2 ({r['backend']}, "
+          f"{r['size']}, {r['spatial']})")
+    launches = r["launches"]
+    check(all(launches.get(n, 0) > 0 for n in SPATIAL_PATH)
+          and not any(launches.get(n, 0) for n in ("segment", "segment_bwd")),
+          f"rank 0's 3 steps launched the banded kernels (the split segments, K1, K1-bwd and "
+          f"the dropout kernel) and no one-launch K5 ({launches})")
+    check(r["one_rank"]["launches"].get("segment", 0) > 0
+          and not any(r["one_rank"]["launches"].get(n, 0) for n in SPLIT_NAMES),
+          "the one-rank run took the one-launch K5 and no split launch")
+    print(f"  rank 0 after 3 steps vs one rank: parameters within {r['param_max_diff']:.2e}, "
+          f"{r['param_share_beyond_1e4']:.2e} of the elements beyond 1e-4 (at most "
+          f"{ge.FAR_SHARE:g}); losses {r['losses']} vs {r['one_rank']['losses']}; "
+          f"{time.perf_counter() - t0:.1f} s (the ranks' wall {r['wall_s']:.1f} s)  ({card})",
+          flush=True)
+    return {"launches": [launches], "wall_s": r["wall_s"], "loss": r["losses"],
+            "loss_one_rank": r["one_rank"]["losses"], "param_max_diff": r["param_max_diff"],
+            "param_share_beyond_1e4": r["param_share_beyond_1e4"], "eval": r["eval"],
+            "entry": "graft_entry_torch.dryrun_multichip(4)"}
+
+
+def phase_spatial(card, train_u8, test_u8, c_train, c_test):
+    """Phase 25, ``--spatial-shards``: (a) the README's flagship at full
+    width and depth (64 filters, 4 blocks a layer, batch 64, dropout 0.2),
+    fp32, ``--fused all``, 3 steps against one rank at 2 x 2 through
+    ``graft_entry_torch.dryrun_multichip(4)`` (:func:`spatial_dryrun`) and
+    at 1 x 4 through ``main`` (the 2-row top leaves two ranks empty
+    bands), gloo ranks sharing the card; (b)
+    :func:`spatial_kernel_checks`; (c) celeba64 at 1 x 2 for
+    SPATIAL_CELEBA_STEPS steps through ``main``, so that K3 and K3-bwd run
+    on bands, its ranks running while this process runs the 2 x 2 dry run
+    (so only the 1 x 4 run's halo exchanges are timed)."""
+    print("[25] height sharding (--spatial-shards)", flush=True)
+    out = {"runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        celeba_dir = os.path.join(tmp, "celeba")
+        write_celeba(celeba_dir, c_train[:SPATIAL_TRAIN], c_test[:SPATIAL_TEST])
+        print("[25c] celeba64 1x2: K3 and K3-bwd on bands, its ranks beside 25a's 2 x 2 dry "
+              "run", flush=True)
+        out["runs"]["celeba64 1x2"], out["runs"]["flagship 2x2"] = spatial_cli(
+            card, "celeba64 1x2", CELEBA_ARGS, celeba_dir, 1, 2, SPATIAL_CELEBA_STEPS, tmp,
+            expect=("mix_log_prob", "mix_log_prob_bwd"), beside=lambda: spatial_dryrun(card))
+        print(f"  25c with the 2 x 2 dry run beside it took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t1 = time.perf_counter()
+        flagship_dir = os.path.join(tmp, "mnist")
+        write_mnist(flagship_dir, train_u8[:SPATIAL_TRAIN], test_u8[:SPATIAL_TEST])
+        print("[25a] flagship 1x4: main --num-data-shards 1 --spatial-shards 4", flush=True)
+        out["runs"]["flagship 1x4"], _ = spatial_cli(
+            card, "flagship 1x4", FLAGSHIP_ARGS, flagship_dir, 1, 4, SPATIAL_STEPS, tmp)
+        print(f"  25a's 1 x 4 took {time.perf_counter() - t1:.1f} s", flush=True)
+        t1 = time.perf_counter()
+        out["kernels"] = spatial_kernel_checks(card)
+        print(f"  25b took {time.perf_counter() - t1:.1f} s; phase 25 "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -5832,15 +6347,12 @@ def main():
     par = phase_parallel(card, train_u8, test_u8, flagship_weights)
     res["parallel"] = {k: v for k, v in par.items() if k != "split"}
     res["parallel"]["split_shapes"] = par["split"]["shapes"]
-    # each kernel's launches on 23c's main run (each rank), in rank 0's 3
-    # dry-run steps (23b) and in 23a's one-rank NCCL run (its warm-up call:
-    # a replay counts what it holds)
+    # each kernel's launches on 23c's main run (each rank) and in 23a's
+    # one-rank NCCL run (its warm-up call: a replay counts what it holds)
     main_ranks = par["cli"]["launches"]
-    rank0 = par["dryrun"]["launches"]
     for kern in kernels:
         counter = kern["name"].replace("dropout_bits8", "dropout")
         kern.update(launches_parallel_main=[r.get(counter, 0) for r in main_ranks],
-                    launches_parallel_rank0=rank0.get(counter, 0),
                     launches_one_rank_nccl=par["one_rank_nccl"]["launches"].get(counter, 0))
     split = par["split"]
     for counter, label in SPLIT_NAMES.items():
@@ -5854,11 +6366,10 @@ def main():
             [t[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")],
             (t["bound_ms"], t["bound_by"]), None,
             launches_parallel_main=[r.get(counter, 0) for r in main_ranks],
-            launches_parallel_rank0=rank0.get(counter, 0),
             shapes=f"rank 0's {t['shape']}, rate 0.2, elu, 2 ranks (the flagship's global "
                    f"batch of 64)",
             path=f"lvae_tpu_torch.main --num-data-shards {PARALLEL_RANKS} --fused all (23c, "
-                 f"rank 0: launches) and graft_entry_torch.dryrun_multichip(2)"))
+                 f"rank 0: launches); every --spatial-shards run of phase 25"))
     lap("phase 24")
     with keep8:
         ck = phase_checkpoint(card, tr["run_dir"], tr["data_dir"])
@@ -5870,6 +6381,25 @@ def main():
         kern.update(
             launches_checkpoint_evaluate=ck["launches"]["evaluate_imported"].get(counter, 0),
             launches_checkpoint_train=ck["launches"]["main_rbg"].get(counter, 0))
+    lap("phase 25")
+    sp = phase_spatial(card, train_u8, test_u8, c_train, c_test)
+    res["spatial"] = {"runs": {tag: {k: v for k, v in run.items() if k != "launches"}
+                               for tag, run in sp["runs"].items()},
+                      "kernel_checks": sp["kernels"]["checks"]}
+    # each kernel's launches on phase 25's main paths (each rank of 25a's
+    # flagship runs and of 25c's celeba64 run), and the banded launches
+    # checked and timed in 25b
+    counters = {label: counter for counter, label in SPLIT_NAMES.items()}
+    banded = sp["kernels"]["times"]
+    for kern in kernels:
+        counter = counters.get(kern["name"], kern["name"].replace("dropout_bits8", "dropout"))
+        kern["launches_spatial"] = {tag: [r.get(counter, 0) for r in run["launches"]]
+                                    for tag, run in sp["runs"].items()}
+        if counter in banded:
+            kern["banded"] = {**banded[counter], "path": "25b: band 0 of the flagship at 2 x 2"}
+        elif counter == "sample_kl":
+            kern["banded"] = {"max_abs_err": sp["kernels"]["max_abs_err"]["sample_kl"],
+                              "ms": "not measured (checked in 25b: the bands' eps)"}
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, **res}))
@@ -5882,4 +6412,6 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":      # a rank of 23c
         sys.exit(parallel_rank(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--spatial-rank":       # a rank of 25a, 25c
+        sys.exit(spatial_rank(sys.argv[2]))
     sys.exit(main())

@@ -1,14 +1,15 @@
 """The port's entry points for a quick check (the twin of
 ``__graft_entry__.py``): the flagship's eval forward on one card, and a
-data-parallel dry run over several ranks.
+dry run of training over several ranks.
 
     python graft_entry_torch.py [cpu]                 # entry() on the card (or CPU)
     python -c "import graft_entry_torch as g; g.dryrun_multichip(2, device='cpu')"
 
-``lvae_tpu``'s dry run builds a 2-D ``(data, space)`` mesh for an even
-device count; the port has no ``space`` axis yet (``--spatial-shards``
-stays refused), so :func:`dryrun_multichip` lays every rank on the data
-axis. It imports torch and ``lvae_tpu_torch``, never jax or ``lvae_tpu``.
+As ``lvae_tpu``'s, :func:`dryrun_multichip` builds a 2-D ``(data, space)``
+layout with a space axis of 2 for an even rank count (``--spatial-shards
+2``: each data shard's two ranks hold a band of rows of every activation),
+and a data axis alone for an odd one. It imports torch and
+``lvae_tpu_torch``, never jax or ``lvae_tpu``.
 """
 
 from __future__ import annotations
@@ -77,22 +78,24 @@ def entry(device: Optional[str] = None) -> Tuple[Callable, tuple]:
 # the data-parallel dry run
 # ---------------------------------------------------------------------------
 
-def _dryrun_config(n_devices: int, flagship: bool, shards: int):
+def _dryrun_config(n_devices: int, flagship: bool, shards: int, spatial: int = 1):
     """The dry run's config under ``--fused all`` (the segments run split
-    over the ranks): ``__graft_entry__``'s tiny one (z 8-8-8, 8 filters,
-    one block, global batch 2n), or the flagship at full width (z 32-32-32,
-    64 filters, two blocks, dropout 0.2, global batch 64)."""
+    over the ranks) on ``shards x spatial`` ranks: ``__graft_entry__``'s
+    tiny one (z 8-8-8, 8 filters, one block, global batch 2n), or the
+    README's flagship at full width and depth (z 32-32-32, 64 filters,
+    four blocks a layer, dropout 0.2, global batch 64)."""
     from lvae_tpu_torch.config import TrainConfig
 
     if flagship:
-        kw = dict(zdims=(32, 32, 32), blocks_per_layer=2, n_filters=64, dropout=0.2,
+        kw = dict(zdims=(32, 32, 32), blocks_per_layer=4, n_filters=64, dropout=0.2,
                   batch_size=64)
     else:
         kw = dict(zdims=(8, 8, 8), blocks_per_layer=1, n_filters=8, dropout=0.1,
                   batch_size=2 * n_devices)
     return TrainConfig(dataset="dryrun", downsample=(1, 1, 1), skip=True, gated=True,
                        learn_top_prior=True, test_batch_size=kw["batch_size"], seed=0,
-                       dry_run=True, fused="all", num_data_shards=shards, **kw)
+                       dry_run=True, fused="all", num_data_shards=shards,
+                       spatial_shards=spatial, **kw)
 
 
 def _dryrun_data(batch: int):
@@ -128,7 +131,7 @@ def _dryrun_body(spec: dict, layout, out_dir: str) -> dict:
     device = torch.device(spec["device"])
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
-    cfg = _dryrun_config(spec["n_devices"], spec["flagship"], layout.size)
+    cfg = _dryrun_config(spec["n_devices"], spec["flagship"], layout.n_data, layout.n_space)
     batch = cfg.batch_size
     data, xk, pk = _dryrun_data(batch)
     exp = Experiment(cfg, device, data=data)
@@ -177,6 +180,7 @@ def _dryrun_body(spec: dict, layout, out_dir: str) -> dict:
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
     return {"rank": layout.rank, "size": layout.size, "backend": layout.backend,
+            "spatial": layout.n_space,
             "elbos": elbos, "losses": losses, "steps_s": steps_s, "launches": launches,
             "eval": {k: float(ev[k]) for k in ("elbo", "ll", "kl", "bpd")},
             "eval_images": int(ev["n_images"]), "elbo_after_restore": float(m4["elbo"]),
@@ -189,7 +193,7 @@ def _dryrun_rank(spec_path: str) -> None:
     from lvae_tpu_torch.parallel import multihost
 
     spec = json.loads(Path(spec_path).read_text())
-    layout = multihost.initialize(device=spec["device"])
+    layout = multihost.initialize(device=spec["device"], spatial=spec["spatial"])
     try:
         result = _dryrun_body(spec, layout, spec["dir"])
         if layout.primary:
@@ -202,9 +206,12 @@ def _dryrun_rank(spec_path: str) -> None:
 def dryrun_multichip(n_devices: int, device: Optional[str] = None, flagship: bool = False,
                      timeout_s: float = 600.0) -> dict:
     """``__graft_entry__.dryrun_multichip`` over ``n_devices`` ranks of a
-    data-only layout: ``n_devices`` processes (NCCL, one a card, where that
+    ``(data, space)`` layout with, as ``__graft_entry__.py:112-140``, a
+    space axis of 2 where ``n_devices`` is even, else none (data only):
+    ``n_devices`` processes (NCCL, one a card, where that
     many cards are visible; else gloo, on the CPU or sharing a card) each
-    run 3 training steps under ``--fused all`` at a finite ELBO, the sharded
+    run 3 training steps under ``--fused all`` at a finite ELBO (each rank
+    on its data shard's rows, and on its band of them), the sharded
     ``Experiment.evaluate``, a checkpoint round trip with bit-equal
     parameters and a step after the restore, and the mixture log-prob on
     their rows (K3 on the card) against the plain version on the whole
@@ -223,8 +230,10 @@ def dryrun_multichip(n_devices: int, device: Optional[str] = None, flagship: boo
     from lvae_tpu_torch.parallel import Layout, multihost
 
     device = str(_device(device))
+    spatial = 2 if n_devices % 2 == 0 else 1
     with tempfile.TemporaryDirectory() as tmp:
-        spec = {"n_devices": n_devices, "device": device, "flagship": flagship, "dir": tmp}
+        spec = {"n_devices": n_devices, "device": device, "flagship": flagship, "dir": tmp,
+                "spatial": spatial}
         spec_path = os.path.join(tmp, "spec.json")
         Path(spec_path).write_text(json.dumps(spec))
         t0 = time.perf_counter()
@@ -254,7 +263,8 @@ def dryrun_multichip(n_devices: int, device: Optional[str] = None, flagship: boo
                   param_max_diff=float(diff.max()), param_share_beyond_1e4=far,
                   wall_s=wall_s)
     result.pop("params")
-    print(f"dryrun_multichip: {n_devices} ranks ({result['backend']}, data only) OK on "
+    axes = (f"{n_devices // spatial} data x {spatial} space" if spatial > 1 else "data only")
+    print(f"dryrun_multichip: {n_devices} ranks ({result['backend']}, {axes}) OK on "
           f"{device} — 3 steps elbo {result['elbos'][0]:.2f} -> {result['elbos'][-1]:.2f} "
           f"(one rank {one['elbos'][-1]:.2f}), eval elbo {result['eval']['elbo']:.2f} "
           f"(bpd {result['eval']['bpd']:.3f}), checkpoint roundtrip bitwise + "

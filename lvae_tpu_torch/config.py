@@ -104,13 +104,6 @@ class EvalConfig:
             raise ValueError(
                 f"--precision {self.precision}: choose from {tuple(PRECISIONS)}"
             )
-        # what the port does not run, each rejected with its flag named
-        if self.spatial_shards > 1:
-            raise ValueError(
-                f"--spatial-shards {self.spatial_shards}: the height-sharded "
-                f"layout (lvae_tpu's 'space' mesh axis) has no port yet; "
-                f"--num-data-shards runs data parallelism"
-            )
 
 
 def config_from_dict(d: dict) -> EvalConfig:
@@ -248,6 +241,8 @@ class TrainConfig(EvalConfig):
             parts.append(f"sm-{self.skip_merge}")
         if self.bn_stat_samples:
             parts.append(f"bnss{self.bn_stat_samples}")
+        if self.spatial_shards > 1:
+            parts.append(f"sp{self.spatial_shards}")
         parts.append(f"seed{self.seed}")
         return ",".join(parts)
 
@@ -344,7 +339,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--num-data-shards", type=int, default=d.num_data_shards,
         help="data-parallel ranks: without torchrun the command starts them itself "
              "(NCCL, one a card, where there are enough cards; else gloo)")
-    add("--spatial-shards", type=int, default=d.spatial_shards)
+    add("--spatial-shards", type=int, default=d.spatial_shards,
+        help="shard training activations along image height over this many ranks a "
+             "data shard (ranks = num-data-shards x spatial-shards)")
     add("--log-interval", type=int, default=d.log_interval)
     add("--test-interval", type=int, default=d.test_interval)
     add("--checkpoint-interval", type=int, default=d.checkpoint_interval)

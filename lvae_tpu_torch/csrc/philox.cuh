@@ -25,4 +25,19 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
   return c;
 }
 
+// Where a rank's elements lie in the global tensor (ops/philox.py
+// ElementMap): local element e is global element e + base where plane is 0
+// (a contiguous run: a rank's rows of the global batch), else
+// (e / plane) gplane + e % plane + base (a band of rows of every image:
+// plane its rows' elements of one channel, gplane the whole map's).
+struct ElementMap {
+  long long plane, gplane, base;
+};
+
+__device__ __forceinline__ long long global_element(const ElementMap& m, long long e) {
+  if (m.plane == 0) return e + m.base;
+  const long long q = e / m.plane;
+  return q * m.gplane + (e - q * m.plane) + m.base;
+}
+
 }  // namespace lvae

@@ -140,9 +140,16 @@ struct Drop {
   unsigned long long seed, site;   // the train seed and the dropout site
   const long long* step;           // the step in device memory (NULL: no bytes drawn)
   uint32_t k0, k1;                 // the Philox key, set on chip by drop_key
-  long long offset;                // the global index of this rank's element 0
-                                   // (0 but on the split path and the dropout alone)
+  lvae::ElementMap at;             // local element e is global element
+                                   // global_element(at, e): this rank's rows of the
+                                   // global batch, or its band of them (the identity
+                                   // but on the split path and the dropout alone)
 };
+
+// the global element of this rank's element e
+__device__ __forceinline__ long long global_at(const Drop& d, long long e) {
+  return lvae::global_element(d.at, e);
+}
 
 // one word of ops/philox.py mix_seed (splitmix64)
 __device__ __forceinline__ unsigned long long mix_word(unsigned long long h,
@@ -227,6 +234,17 @@ __device__ __forceinline__ uint32_t keep_bits_at(const Drop& d, long long g0) {
   if (!d.on) return 0xFFFFFFFFu;
   uint32_t bits = 0;
   for (int j = 0; j < 16; ++j) bits |= static_cast<uint32_t>(keep_at(d, g0 + j)) << j;
+  return bits;
+}
+
+// keep_bits<16> of 16 local elements from e0, each mapped to its global
+// element (a band's elements across the end of a channel's rows)
+__device__ __forceinline__ uint32_t keep_bits_mapped(const Drop& d, long long e0) {
+  if (!d.on) return 0xFFFFFFFFu;
+  uint32_t bits = 0;
+  for (int j = 0; j < 16; ++j) {
+    bits |= static_cast<uint32_t>(keep_at(d, lvae::global_element(d.at, e0 + j))) << j;
+  }
   return bits;
 }
 
@@ -775,7 +793,7 @@ Drop make_drop(int t, unsigned long long seed, unsigned long long site, const vo
   d.site = site;
   d.step = t > 0 && t < 256 ? static_cast<const long long*>(step) : nullptr;
   d.k0 = d.k1 = 0;
-  d.offset = 0;
+  d.at = lvae::ElementMap{0, 0, 0};
   return d;
 }
 
@@ -923,11 +941,14 @@ __global__ void __launch_bounds__(256) dropout_kernel(const T* __restrict__ x,
   for (long long grp = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        grp < groups; grp += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long e0 = grp * 16;
-    // the bytes of the global elements e0 + offset on: one Philox call
-    // where they start a group of 16, else one per element (a rank's
-    // part of a batch whose per-rank size is not a multiple of 16)
-    const long long g0 = e0 + d.offset;
-    const uint32_t bits = (g0 & 15) == 0 ? keep_bits<16>(d, g0) : keep_bits_at(d, g0);
+    // the bytes of the global elements of e0 on: one Philox call where
+    // they are one run that starts a group of 16, else one per element (a
+    // rank's part of a batch whose per-rank size is not a multiple of 16,
+    // or a band whose rows of a channel are not)
+    const long long g0 = global_at(d, e0);
+    const bool run = d.at.plane == 0 || (e0 % d.at.plane) + 16 <= d.at.plane;
+    const uint32_t bits = run && (g0 & 15) == 0 ? keep_bits<16>(d, g0)
+                          : run ? keep_bits_at(d, g0) : keep_bits_mapped(d, e0);
     if (vec && e0 + 16 <= n) {
       if constexpr (std::is_same_v<T, float>) {
         // float4 by float4, as before the bf16 instantiation: the generic
@@ -1034,9 +1055,11 @@ cudaError_t max_clusters(const SegPlan& p, int direction, int act, int* out) {
 // sums are fp64, as K5's (E[u^2] - mean^2 cancels in fp32), summed in a
 // fixed tree within a block, in slice order across blocks, and by the
 // collective across the ranks. Dropout bytes are those of the global
-// element: this rank's element e takes global element e + offset's byte
-// (offset = rank x the rank's element count), so R ranks drop what one
-// rank drops. Each thread makes one Philox call per element.
+// element: this rank's element e takes global element global_element(at,
+// e)'s byte (its rows of the global batch: e + rank x the rank's element
+// count; its band of them under --spatial-shards: the band map), so R
+// ranks drop what one rank drops. Each thread makes one Philox call per
+// element. A rank whose band is empty (b hw = 0) writes zero sums.
 //
 // What bounds it: each launch reads its inputs once (8 B an element
 // forward, stats and apply together 12 B with y; backward 20 B) and the
@@ -1120,7 +1143,7 @@ __global__ void __launch_bounds__(kSplitThreads) split_stats_kernel(const SplitA
   double s1 = 0.0, s2 = 0.0;
   for (long long ce = lo + threadIdx.x; ce < hi; ce += blockDim.x) {
     const long long e = split_at(a, ce, ch);
-    const double u = dropped(d, up(a.x[e]), keep_at(d, e + d.offset));
+    const double u = dropped(d, up(a.x[e]), keep_at(d, global_at(d, e)));
     s1 += u;
     s2 = __fma_rn(u, u, s2);
   }
@@ -1159,7 +1182,7 @@ __global__ void __launch_bounds__(kSplitThreads) split_apply_kernel(const SplitA
   const long long lo = n * s / a.slices, hi = n * (s + 1) / a.slices;
   for (long long ce = lo + threadIdx.x; ce < hi; ce += blockDim.x) {
     const long long e = split_at(a, ce, ch);
-    const float u = dropped(d, up(a.x[e]), keep_at(d, e + d.offset));
+    const float u = dropped(d, up(a.x[e]), keep_at(d, global_at(d, e)));
     a.y[e] = down<T>(act<kAct>(u * scale + shift));
   }
 }
@@ -1169,7 +1192,7 @@ template <typename T, int kAct>
 __device__ __forceinline__ void split_dz(const SplitArgs<T>& a, const Drop& d, long long e,
                                          float mean, float r, float scale, float shift,
                                          float& dz, float& xhat, bool& keep) {
-  keep = keep_at(d, e + d.offset);
+  keep = keep_at(d, global_at(d, e));
   const float u = dropped(d, up(a.x[e]), keep);
   dz = up(a.g[e]) * act_grad<kAct>(u * scale + shift);
   xhat = (u - mean) * r;
@@ -1254,7 +1277,8 @@ struct SplitCall {
   const double *part, *local;
   double* out_part;
   void *running_mean, *running_var, *stats, *y, *dgb;
-  long long b, hw, offset;
+  long long b, hw;
+  lvae::ElementMap at;
   int c, slices, esize, t, act;
   double n_global, eps;
   float momentum, one_minus_momentum;
@@ -1271,27 +1295,35 @@ cudaError_t split_run(int which, const SplitCall& k, cudaStream_t s) {
                  static_cast<float*>(k.stats), static_cast<T*>(k.y),
                  static_cast<float*>(k.dgb), k.b, k.hw, k.c, k.slices, k.n_global, k.eps,
                  k.momentum, k.one_minus_momentum, make_drop(k.t, k.seed, k.site, k.step)};
-  a.d.offset = k.offset;
+  a.d.at = k.at;
   return split_launch<T>(which, k.act, a, s);
 }
 
 }  // namespace
 
+// a band map (plane, gplane, base) as the entry points take it: plane 0
+// (a contiguous run from base) or a band of a taller map
+bool bad_map(long long plane, long long gplane, long long base) {
+  return plane < 0 || base < 0 || (plane > 0 && gplane < plane);
+}
+
 // The bits8 dropout alone: y = x where its byte (the segment's, under
 // mix_seed(seed, *step, site)) is below t, scaled by 256 / t, else 0; for
 // 0 < t < 256 (the caller takes the other thresholds). x and y [n], fp32
 // (esize 4) or bf16 (esize 2); element e takes the byte of global element
-// e + offset (a rank's part of the global batch; 0 on one rank).
+// global_element({plane, gplane, base}, e) (a rank's part of the global
+// batch, or its band of it; 0, 0, 0 on one rank).
 extern "C" int lvae_dropout_bits8(const void* x, void* y, long long n, int esize, int t,
                                   unsigned long long seed, unsigned long long site,
-                                  const void* step, long long offset, void* stream) {
+                                  const void* step, long long plane, long long gplane,
+                                  long long base, void* stream) {
   if (n < 0 || t <= 0 || t >= 256 || step == nullptr || (esize != 4 && esize != 2) ||
-      offset < 0) {
+      bad_map(plane, gplane, base)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
     Drop d = make_drop(t, seed, site, step);
-    d.offset = offset;
+    d.at = lvae::ElementMap{plane, gplane, base};
     const auto s = static_cast<cudaStream_t>(stream);
     if (esize == 4) {
       launch_dropout<float>(x, y, n, d, s);
@@ -1360,8 +1392,10 @@ extern "C" int lvae_segment_max_clusters(const SegPlan* plan, int direction, int
 // y / dx) of esize 4 (fp32) or 2 (bf16); part, local and out_part [2,
 // slices, c] fp64; gamma, beta, stats [5, c], the running statistics and
 // dgb [2, c] fp32; n_global the elements per channel over every rank;
-// the dropout key as K5's, element e taking global element e + offset's
-// byte. Returns the CUDA status.
+// the dropout key as K5's, element e taking global element
+// global_element({plane, gplane, base}, e)'s byte. hw may be 0 (a rank's
+// empty band: zero sums, nothing written but the statistics). Returns the
+// CUDA status.
 extern "C" int lvae_segment_split(int which, const void* x, const void* g, const void* gamma,
                                   const void* beta, const double* part, const double* local,
                                   double* out_part, void* running_mean, void* running_var,
@@ -1369,16 +1403,18 @@ extern "C" int lvae_segment_split(int which, const void* x, const void* g, const
                                   long long hw, int slices, int esize, int t, int act,
                                   double n_global, double eps, float momentum,
                                   float one_minus_momentum, unsigned long long seed,
-                                  unsigned long long site, const void* step, long long offset,
-                                  void* stream) {
+                                  unsigned long long site, const void* step, long long plane,
+                                  long long gplane, long long base, void* stream) {
   if (which < kSplitStats || which > kSplitBwdApply || b < 1 || c < 1 || c > 65535 ||
-      hw < 1 || slices < 1 || slices > 65535 || (esize != 4 && esize != 2) ||
-      (act != kElu && act != kRelu) || bad_key(t, step) || offset < 0 || n_global < 1.0) {
+      hw < 0 || slices < 1 || slices > 65535 || (esize != 4 && esize != 2) ||
+      (act != kElu && act != kRelu) || bad_key(t, step) || bad_map(plane, gplane, base) ||
+      n_global < 1.0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const SplitCall k{x, g, gamma, beta, part, local, out_part, running_mean, running_var,
-                    stats, y, dgb, b, hw, offset, c, slices, esize, t, act, n_global, eps,
-                    momentum, one_minus_momentum, seed, site, step};
+                    stats, y, dgb, b, hw, lvae::ElementMap{plane, gplane, base}, c, slices,
+                    esize, t, act, n_global, eps, momentum, one_minus_momentum, seed, site,
+                    step};
   const auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(esize == 4 ? split_run<float>(which, k, s)
                                      : split_run<bf16>(which, k, s));

@@ -29,7 +29,11 @@
 // Noise: counter (offset in the image's [c, h, w] map, index[row],
 // sample[row], stream word), key = the two words of the 64-bit seed, the
 // uniforms are the top 24 bits + 1 over 2^24. lvae_tpu_torch/ops/philox.py
-// is the same generator in plain PyTorch, so both give the same eps.
+// is the same generator in plain PyTorch, so both give the same eps. A
+// rank's band of rows of the maps (--spatial-shards) takes the offsets of
+// its elements in the whole map (the band map, lvae::ElementMap: local
+// offset r is (r / (hb w)) h w + r % (hb w) + h0 w), so the bands draw
+// what the whole map draws; the per-row KL is then the band's part.
 //
 // eps in the backward: REGENERATED from the Philox counter, not recovered
 // from z as lvae_tpu's VJP does (stochastic_pallas.py:382, :435): the
@@ -85,6 +89,8 @@
 
 namespace {
 
+using lvae::ElementMap;
+using lvae::global_element;
 using lvae::philox4x32_10;
 
 constexpr float kTwoPi = 6.283185307179586f;
@@ -104,6 +110,7 @@ struct Noise {
   const long long* index;      // [rows]
   const long long* sample;     // [rows], or null for sample_word
   uint32_t sample_word, k0, k1, stream_word;
+  ElementMap band;             // a row's offsets in the whole map (plane 0: the row's own)
 
   // the row's two counter words, read once per row
   __device__ __forceinline__ uint2 row(long long b) const {
@@ -113,7 +120,9 @@ struct Noise {
 
   __device__ __forceinline__ float draw(uint2 words, long long r) const {
     const uint4 w = philox4x32_10(
-        make_uint4(static_cast<uint32_t>(r), words.x, words.y, stream_word), k0, k1);
+        make_uint4(static_cast<uint32_t>(global_element(band, r)), words.x, words.y,
+                   stream_word),
+        k0, k1);
     const float u1 = uniform24(w.x), u2 = uniform24(w.y);
     return sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
   }
@@ -397,15 +406,23 @@ unsigned int grid_for(long long n) {
 }
 
 Noise keyed(const void* index, const void* sample, unsigned int sample_word,
-            unsigned long long seed, unsigned int stream_word, const void* eps) {
+            unsigned long long seed, unsigned int stream_word, const void* eps,
+            const ElementMap& band) {
   return Noise{static_cast<const float*>(eps), static_cast<const long long*>(index),
                static_cast<const long long*>(sample), sample_word,
                static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32),
-               stream_word};
+               stream_word, band};
 }
 
 Noise given(const void* eps) {
-  return Noise{static_cast<const float*>(eps), nullptr, nullptr, 0u, 0u, 0u, 0u};
+  return Noise{static_cast<const float*>(eps), nullptr, nullptr, 0u, 0u, 0u, 0u,
+               ElementMap{0, 0, 0}};
+}
+
+// the band map of the C entry points' (plane, gplane, base): a band of a
+// map must not start before its row, nor a plane be negative
+bool bad_band(long long plane, long long gplane, long long base) {
+  return plane < 0 || base < 0 || (plane > 0 && gplane < plane);
 }
 
 bool misaligned(const void* ptr) {
@@ -456,18 +473,26 @@ int launch(void (*fn)(Args), dim3 grid, int threads, const Args& args, cudaStrea
 
 // sample: int64 [rows] per-row sample words, or null to give every row
 // sample_word
+// band_plane, band_gplane, band_base: the band map of a rank's band of the
+// maps (ops/philox.py band_map; 0, 0, 0 for whole maps)
 extern "C" int lvae_sample_kl(const void* q, const void* p, long long p_row_stride,
                               const void* index, const void* sample,
                               unsigned int sample_word,
                               unsigned long long seed, unsigned int stream_word,
+                              long long band_plane, long long band_gplane,
+                              long long band_base,
                               void* z, void* kl, long long rows, int c, int hw,
                               void* stream) {
   const long long per_row = static_cast<long long>(c) * hw;
   const long long n = rows * per_row;
+  if (bad_band(band_plane, band_gplane, band_base)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n == 0) return 0;
   sample_kl_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(p), p_row_stride,
-      keyed(index, sample, sample_word, seed, stream_word, nullptr),
+      keyed(index, sample, sample_word, seed, stream_word, nullptr,
+            ElementMap{band_plane, band_gplane, band_base}),
       static_cast<float*>(z), static_cast<float*>(kl), rows, per_row);
   return static_cast<int>(cudaGetLastError());
 }
@@ -491,9 +516,13 @@ extern "C" int lvae_sample_kl_per_sample(const void* plan, const void* q, const 
                                          long long p_row_stride, const void* index,
                                          const void* sample, unsigned int sample_word,
                                          unsigned long long seed,
-                                         unsigned int stream_word, const void* eps,
-                                         void* z, void* kl_rows, long long rows, int c,
-                                         int hw, void* stream) {
+                                         unsigned int stream_word, long long band_plane,
+                                         long long band_gplane, long long band_base,
+                                         const void* eps, void* z, void* kl_rows,
+                                         long long rows, int c, int hw, void* stream) {
+  if (bad_band(band_plane, band_gplane, band_base)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (rows == 0) return 0;
   const K1Plan& pl = *static_cast<const K1Plan*>(plan);
   if (bad_k1_plan(pl, rows, static_cast<long long>(c) * hw)) {
@@ -503,7 +532,8 @@ extern "C" int lvae_sample_kl_per_sample(const void* plan, const void* q, const 
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   const K1Args a{static_cast<const float*>(q), static_cast<const float*>(p), p_row_stride,
-                 keyed(index, sample, sample_word, seed, stream_word, eps),
+                 keyed(index, sample, sample_word, seed, stream_word, eps,
+                       ElementMap{band_plane, band_gplane, band_base}),
                  static_cast<float*>(z), static_cast<float*>(kl_rows), pl};
   auto fn = pl.vec == 4 ? sample_kl_rows_kernel<4> : sample_kl_rows_kernel<1>;
   return launch(fn, dim3(static_cast<unsigned>(rows)), pl.threads, a,
@@ -517,9 +547,12 @@ extern "C" int lvae_sample_kl_per_sample(const void* plan, const void* q, const 
 static int launch_bwd(bool per_row_gkl, const void* plan, const void* q, const void* p,
                       long long p_row_stride, const void* index, const void* sample,
                       unsigned int sample_word, unsigned long long seed,
-                      unsigned int stream_word, const void* eps, const void* gz,
-                      const void* gkl, void* dq, void* dp, long long rows, int c, int hw,
-                      void* stream) {
+                      unsigned int stream_word, const ElementMap& band, const void* eps,
+                      const void* gz, const void* gkl, void* dq, void* dp, long long rows,
+                      int c, int hw, void* stream) {
+  if (bad_band(band.plane, band.gplane, band.base)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (rows == 0) return 0;
   const BwdPlan& pl = *static_cast<const BwdPlan*>(plan);
   const bool sum = p_row_stride == 0;
@@ -531,7 +564,7 @@ static int launch_bwd(bool per_row_gkl, const void* plan, const void* q, const v
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   const BwdArgs a{static_cast<const float*>(q), static_cast<const float*>(p), p_row_stride,
-                  keyed(index, sample, sample_word, seed, stream_word, eps),
+                  keyed(index, sample, sample_word, seed, stream_word, eps, band),
                   static_cast<const float*>(gz), static_cast<const float*>(gkl),
                   static_cast<float*>(dq), static_cast<float*>(dp), pl};
   const long long units = pl.per_row / pl.vec;
@@ -552,21 +585,25 @@ static int launch_bwd(bool per_row_gkl, const void* plan, const void* q, const v
 extern "C" int lvae_sample_kl_bwd(const void* plan, const void* q, const void* p,
                                   long long p_row_stride, const void* index, const void* sample,
                                   unsigned int sample_word, unsigned long long seed,
-                                  unsigned int stream_word, const void* eps,
+                                  unsigned int stream_word, long long band_plane,
+                                  long long band_gplane, long long band_base, const void* eps,
                                   const void* gz, const void* gkl, void* dq, void* dp,
                                   long long rows, int c, int hw, void* stream) {
   return launch_bwd(false, plan, q, p, p_row_stride, index, sample, sample_word, seed,
-                    stream_word, eps, gz, gkl, dq, dp, rows, c, hw, stream);
+                    stream_word, ElementMap{band_plane, band_gplane, band_base}, eps, gz, gkl,
+                    dq, dp, rows, c, hw, stream);
 }
 
 extern "C" int lvae_sample_kl_per_sample_bwd(const void* plan, const void* q, const void* p,
                                              long long p_row_stride, const void* index,
                                              const void* sample, unsigned int sample_word,
                                              unsigned long long seed,
-                                             unsigned int stream_word, const void* eps,
-                                             const void* gz, const void* gkl_rows,
-                                             void* dq, void* dp, long long rows, int c,
-                                             int hw, void* stream) {
+                                             unsigned int stream_word, long long band_plane,
+                                             long long band_gplane, long long band_base,
+                                             const void* eps, const void* gz,
+                                             const void* gkl_rows, void* dq, void* dp,
+                                             long long rows, int c, int hw, void* stream) {
   return launch_bwd(true, plan, q, p, p_row_stride, index, sample, sample_word, seed,
-                    stream_word, eps, gz, gkl_rows, dq, dp, rows, c, hw, stream);
+                    stream_word, ElementMap{band_plane, band_gplane, band_base}, eps, gz,
+                    gkl_rows, dq, dp, rows, c, hw, stream);
 }

@@ -91,8 +91,9 @@ def esize(dtype: torch.dtype) -> int:
 
 _P = ctypes.c_void_p
 _I64, _U32, _U64, _INT = ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint64, ctypes.c_int
-# q, p, p_row_stride, index, sample (or NULL), sample_word, seed, stream_word
-_KEYED = (_P, _P, _I64, _P, _P, _U32, _U64, _U32)
+# q, p, p_row_stride, index, sample (or NULL), sample_word, seed, stream_word,
+# the band map's plane, gplane and base (ops/philox.py band_map)
+_KEYED = (_P, _P, _I64, _P, _P, _U32, _U64, _U32, _I64, _I64, _I64)
 _SIGNATURES = {
     # keyed, z, kl, rows, c, hw, stream
     "lvae_sample_kl": (*_KEYED, _P, _P, _I64, _INT, _INT, _P),
@@ -127,14 +128,14 @@ _SIGNATURES = {
     # plan, direction, act, out
     "lvae_segment_max_clusters": (_P, _INT, _INT, _P),
     # x, y, n, esize, t, train seed, dropout site, step (device pointer),
-    # element offset, stream
-    "lvae_dropout_bits8": (_P, _P, _I64, _INT, _INT, _U64, _U64, _P, _I64, _P),
+    # the element map's plane, gplane and base (ops/philox.py ElementMap), stream
+    "lvae_dropout_bits8": (_P, _P, _I64, _INT, _INT, _U64, _U64, _P, _I64, _I64, _I64, _P),
     # which, x, g, gamma, beta, part, local, out_part, running_mean,
     # running_var, stats, y, dgb, b, c, hw, slices, esize, t, act, n_global,
-    # eps, momentum, 1 - momentum, seed, site, step, offset, stream
+    # eps, momentum, 1 - momentum, seed, site, step, the element map, stream
     "lvae_segment_split": (_INT, *(_P,) * 12, _I64, _INT, _I64, _INT, _INT, _INT, _INT,
                            ctypes.c_double, ctypes.c_double, ctypes.c_float, ctypes.c_float,
-                           _U64, _U64, _P, _I64, _P),
+                           _U64, _U64, _P, _I64, _I64, _I64, _P),
 }
 
 

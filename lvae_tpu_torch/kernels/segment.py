@@ -61,7 +61,7 @@ from lvae_tpu_torch.ops.math import (
     segment_split_bwd_reduce,
     segment_split_stats,
 )
-from lvae_tpu_torch.ops.philox import Ints, dropout_bytes, mix_seed
+from lvae_tpu_torch.ops.philox import ElementMap, Ints, dropout_bytes, mix_seed
 from lvae_tpu_torch.parallel import mesh
 
 SMS = 132                       # streaming multiprocessors of an H100 SXM
@@ -253,13 +253,14 @@ def _key(x: torch.Tensor, seed: int, step: Ints, site: int) -> Key:
     return Key(int(seed), step, int(site))
 
 
-def _plain_bytes(x: torch.Tensor, t: int, key: Key, offset: int = 0
+def _plain_bytes(x: torch.Tensor, t: int, key: Key, emap: ElementMap = ElementMap()
                  ) -> Optional[torch.Tensor]:
     """The plain path's keyed dropout bytes (None where no mask applies),
-    element ``e`` taking global element ``e + offset``'s."""
+    element ``e`` taking the byte of its global element under ``emap``
+    (:class:`~lvae_tpu_torch.ops.philox.ElementMap`)."""
     if not 0 < t < 256:
         return None
-    return dropout_bytes(x.shape, mix_seed(*key), x.device, offset)
+    return dropout_bytes(x.shape, mix_seed(*key), x.device, emap)
 
 
 _M64 = 2 ** 64 - 1
@@ -374,13 +375,16 @@ class _Segment(torch.autograd.Function):
         return dx, dgamma, dbeta, None, None, None, None, None, None, None
 
 
-def _launch_dropout(x: torch.Tensor, t: int, key: Key, offset: int = 0) -> torch.Tensor:
+def _launch_dropout(x: torch.Tensor, t: int, key: Key, emap: ElementMap = ElementMap()
+                    ) -> torch.Tensor:
     """The bits8 dropout kernel on a contiguous fp32 or bf16 CUDA ``x``,
-    element ``e`` taking global element ``e + offset``'s byte."""
+    element ``e`` taking the byte of its global element under ``emap``."""
     y = torch.empty_like(x)
+    if x.numel() == 0:      # a rank's empty band: nothing to launch
+        return y
     status = build.on_device(x, lambda stream: build.library().lvae_dropout_bits8(
         x.data_ptr(), y.data_ptr(), x.numel(), build.esize(x.dtype), t, *_c_key(t, key),
-        offset, stream))
+        *emap, stream))
     build.LAUNCHES[build.launch_name("dropout", x.dtype)] += 1
     build.check(status, "dropout")
     return y
@@ -391,18 +395,18 @@ class _Dropout(torch.autograd.Function):
     kernel on the cotangent, under the same key."""
 
     @staticmethod
-    def forward(ctx, x, t, key, offset):
-        ctx.t, ctx.key, ctx.offset = t, key, offset
-        return _launch_dropout(x, t, key, offset)
+    def forward(ctx, x, t, key, emap):
+        ctx.t, ctx.key, ctx.emap = t, key, emap
+        return _launch_dropout(x, t, key, emap)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        return _launch_dropout(g.contiguous(), ctx.t, ctx.key, ctx.offset), None, None, None
+        return _launch_dropout(g.contiguous(), ctx.t, ctx.key, ctx.emap), None, None, None
 
 
 def dropout_bits8(x: torch.Tensor, rate: float, seed: int, step: Ints,
-                  site: int, offset: int = 0) -> torch.Tensor:
+                  site: int, emap: ElementMap = ElementMap()) -> torch.Tensor:
     """bits8 dropout alone, under the segment's bytes: ``x`` where the
     byte of ``dropout_bytes(x.shape, mix_seed(seed, step, site))`` is below
     ``t = round(256 (1 - rate))``, scaled by ``256 / t`` in fp32 and cast
@@ -410,10 +414,10 @@ def dropout_bits8(x: torch.Tensor, rate: float, seed: int, step: Ints,
     ``t <= 0``); ``step`` a 0-d int64 tensor on ``x``'s device, read there.
     A CUDA tensor (fp32 or bf16) launches the kernel (``csrc/segment.cu``
     ``dropout_kernel``, forward and backward) on a contiguous copy of
-    ``x``; a CPU tensor takes the plain version. ``offset`` is the global
-    index of ``x``'s first element (a rank's part of the global batch,
-    :func:`lvae_tpu_torch.parallel.mesh.element_offset`): element ``e``
-    takes the byte of global element ``e + offset``."""
+    ``x``; a CPU tensor takes the plain version. Element ``e`` takes the
+    byte of its global element under ``emap`` (a rank's rows of the global
+    batch, or its band of them: :func:`lvae_tpu_torch.parallel.mesh.
+    element_map`)."""
     t = bits8_keep_threshold(rate)
     if t >= 256:      # rate below the 8-bit resolution: keep everything
         return x
@@ -421,11 +425,11 @@ def dropout_bits8(x: torch.Tensor, rate: float, seed: int, step: Ints,
         return torch.zeros_like(x)
     key = _key(x, seed, step, site)
     if not x.is_cuda:
-        return bits8_dropout_f32(x.to(math_dtype(x.dtype)), _plain_bytes(x, t, key, offset),
+        return bits8_dropout_f32(x.to(math_dtype(x.dtype)), _plain_bytes(x, t, key, emap),
                                  t).to(x.dtype)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the dropout kernel takes float32 or bfloat16, got {x.dtype}")
-    return _Dropout.apply(x.contiguous(), t, key, offset)
+    return _Dropout.apply(x.contiguous(), t, key, emap)
 
 
 def dropout_bn_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
@@ -487,7 +491,7 @@ def split_slices(b: int, h: int, w: int) -> int:
 
 
 def _launch_split(which: int, x: torch.Tensor, t: int, act: str, key: Optional[Key],
-                  offset: int, slices: int, *, g=None, gamma=None, beta=None, part=None,
+                  emap: ElementMap, slices: int, *, g=None, gamma=None, beta=None, part=None,
                   local=None, out_part=None, running_mean=None, running_var=None,
                   stats=None, y=None, dgb=None, n_global: int = 1, eps: float = 1e-5,
                   momentum: float = 0.9) -> None:
@@ -500,30 +504,34 @@ def _launch_split(which: int, x: torch.Tensor, t: int, act: str, key: Optional[K
         which, x.data_ptr(), ptr(g), ptr(gamma), ptr(beta), ptr(part), ptr(local),
         ptr(out_part), ptr(running_mean), ptr(running_var), ptr(stats), ptr(y), ptr(dgb),
         b, c, h * w, slices, build.esize(x.dtype), t, SEGMENT_ACTS.index(act),
-        float(n_global), eps, momentum, 1.0 - momentum, *_c_key(t, key), offset, stream))
+        float(n_global), eps, momentum, 1.0 - momentum, *_c_key(t, key), *emap,
+        stream))
     name = SPLIT_LAUNCHES[which]
     build.LAUNCHES[build.launch_name(name, x.dtype)] += 1
     build.check(status, name)
 
 
-def split_stats(x: torch.Tensor, t: int, key: Optional[Key], offset: int) -> torch.Tensor:
+def split_stats(x: torch.Tensor, t: int, key: Optional[Key], emap: ElementMap,
+                slices: Optional[int] = None) -> torch.Tensor:
     """K5-split's first launch: this rank's ``[2, S, C]`` fp64 sums of
-    ``u`` and ``u^2`` (the plain version's ``S`` is 1)."""
+    ``u`` and ``u^2`` (the plain version's ``S`` is 1). ``slices`` (by
+    default :func:`split_slices` of ``x``'s shape) must be every rank's
+    alike: their sums are all-reduced."""
     if not x.is_cuda:
-        return segment_split_stats(x, t, _plain_bytes(x, t, key, offset))
+        return segment_split_stats(x, t, _plain_bytes(x, t, key, emap))
     b, c, h, w = x.shape
-    slices = split_slices(b, h, w)
+    slices = slices or split_slices(b, h, w)
     part = torch.empty((2, slices, c), dtype=torch.float64, device=x.device)
-    _launch_split(0, x, t, "elu", key, offset, slices, out_part=part)
+    _launch_split(0, x, t, "elu", key, emap, slices, out_part=part)
     return part
 
 
-def split_apply(x, gamma, beta, part, n_global, t, act, eps, key, offset, running_mean,
+def split_apply(x, gamma, beta, part, n_global, t, act, eps, key, emap, running_mean,
                 running_var, momentum) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5-split's second launch: ``(y, stats)`` from the global sums."""
     if not x.is_cuda:
         return segment_split_apply(x, gamma, beta, part, n_global, t, act, eps,
-                                   _plain_bytes(x, t, key, offset), running_mean, running_var,
+                                   _plain_bytes(x, t, key, emap), running_mean, running_var,
                                    momentum)
     if running_mean is not None:
         c = x.shape[1]
@@ -532,57 +540,64 @@ def split_apply(x, gamma, beta, part, n_global, t, act, eps, key, offset, runnin
                 raise ValueError(f"{name} must be float32 [{c}] on {x.device}")
     y = torch.empty_like(x)
     stats = torch.empty((5, x.shape[1]), dtype=torch.float32, device=x.device)
-    _launch_split(1, x, t, act, key, offset, part.shape[1], gamma=gamma, beta=beta,
+    _launch_split(1, x, t, act, key, emap, part.shape[1], gamma=gamma, beta=beta,
                   part=part, running_mean=running_mean, running_var=running_var, stats=stats,
                   y=y, n_global=n_global, eps=eps, momentum=momentum)
     return y, stats
 
 
-def split_bwd_reduce(x, g, stats, t, act, key, offset) -> torch.Tensor:
+def split_bwd_reduce(x, g, stats, t, act, key, emap, slices: Optional[int] = None
+                     ) -> torch.Tensor:
     """K5-bwd-split's first launch: this rank's ``[2, S, C]`` fp64 sums of
-    ``dz`` and ``dz xhat``."""
+    ``dz`` and ``dz xhat`` (``slices`` as :func:`split_stats`')."""
     if not x.is_cuda:
-        return segment_split_bwd_reduce(x, g, stats, t, act, _plain_bytes(x, t, key, offset))
+        return segment_split_bwd_reduce(x, g, stats, t, act, _plain_bytes(x, t, key, emap))
     b, c, h, w = x.shape
-    slices = split_slices(b, h, w)
+    slices = slices or split_slices(b, h, w)
     part = torch.empty((2, slices, c), dtype=torch.float64, device=x.device)
-    _launch_split(2, x, t, act, key, offset, slices, g=g, stats=stats, out_part=part)
+    _launch_split(2, x, t, act, key, emap, slices, g=g, stats=stats, out_part=part)
     return part
 
 
-def split_bwd_apply(x, g, gamma, stats, local, part, n_global, t, act, key, offset
+def split_bwd_apply(x, g, gamma, stats, local, part, n_global, t, act, key, emap
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5-bwd-split's second launch: ``(dx, dgamma, dbeta)``, dx from the
     global sums ``part``, dgamma and dbeta this rank's sums ``local``."""
     if not x.is_cuda:
         return segment_split_bwd_apply(x, g, gamma, stats, local, part, n_global, t, act,
-                                       _plain_bytes(x, t, key, offset))
+                                       _plain_bytes(x, t, key, emap))
     dx = torch.empty_like(x)
     dgb = torch.empty((2, x.shape[1]), dtype=torch.float32, device=x.device)
-    _launch_split(3, x, t, act, key, offset, part.shape[1], g=g, gamma=gamma, part=part,
+    _launch_split(3, x, t, act, key, emap, part.shape[1], g=g, gamma=gamma, part=part,
                   local=local, stats=stats, y=dx, dgb=dgb, n_global=n_global)
     return (dx, *dgb.unbind(0))
 
 
 class _SplitSegment(torch.autograd.Function):
-    """The segment over ``layout.size`` ranks, ``x`` this rank's rows:
-    forward K5-split (this rank's sums, their all-reduce, y from the global
-    ones), backward K5-bwd-split (the same for ``dz`` and ``dz xhat``),
-    with the global batch's statistics, the dropout bytes of the global
-    elements, and dgamma and dbeta this rank's part (the train step sums
-    the gradients over the ranks). The plain versions on the CPU, where the
-    all-reduce runs over gloo."""
+    """The segment over ``layout.size`` ranks, ``x`` this rank's rows (and,
+    under ``--spatial-shards``, its band of them): forward K5-split (this
+    rank's sums, their all-reduce, y from the global ones), backward
+    K5-bwd-split (the same for ``dz`` and ``dz xhat``), with the global
+    batch's statistics, the dropout bytes of the global elements, and
+    dgamma and dbeta this rank's part (the train step sums the gradients
+    over the ranks). Every rank takes the slices of the longest band, so
+    the sums all-reduce at one shape; an empty band adds zeros. The plain
+    versions on the CPU, where the all-reduce runs over gloo."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, running_mean, running_var, t, act, eps, key, momentum,
                 layout):
-        offset = mesh.element_offset(x, layout)
-        n_global = x.numel() // x.shape[1] * layout.size
-        part = mesh.all_reduce_(split_stats(x, t, key, offset), layout)
-        y, stats = split_apply(x, gamma, beta, part, n_global, t, act, eps, key, offset,
+        b, _, hb, w = x.shape
+        emap = mesh.element_map(x, layout)
+        bands = mesh.current_bands()
+        h = bands.height(x) if bands is not None else hb
+        slices = split_slices(b, -(-h // bands.count) if bands is not None else hb, w)
+        n_global = b * layout.n_data * h * w
+        part = mesh.all_reduce_(split_stats(x, t, key, emap, slices), layout)
+        y, stats = split_apply(x, gamma, beta, part, n_global, t, act, eps, key, emap,
                                running_mean, running_var, momentum)
-        ctx.t, ctx.act, ctx.key, ctx.offset, ctx.n_global = t, act, key, offset, n_global
-        ctx.layout = layout
+        ctx.t, ctx.act, ctx.key, ctx.emap, ctx.n_global = t, act, key, emap, n_global
+        ctx.slices, ctx.layout = slices, layout
         ctx.save_for_backward(x, gamma, stats)
         ctx.mark_non_differentiable(stats)
         return y, stats
@@ -592,8 +607,8 @@ class _SplitSegment(torch.autograd.Function):
     def backward(ctx, g, _gstats):
         x, gamma, stats = ctx.saved_tensors
         g = g.contiguous()
-        local = split_bwd_reduce(x, g, stats, ctx.t, ctx.act, ctx.key, ctx.offset)
+        local = split_bwd_reduce(x, g, stats, ctx.t, ctx.act, ctx.key, ctx.emap, ctx.slices)
         part = mesh.all_reduce_(local.clone(), ctx.layout)
         dx, dgamma, dbeta = split_bwd_apply(x, g, gamma, stats, local, part, ctx.n_global,
-                                            ctx.t, ctx.act, ctx.key, ctx.offset)
+                                            ctx.t, ctx.act, ctx.key, ctx.emap)
         return dx, dgamma, dbeta, None, None, None, None, None, None, None, None

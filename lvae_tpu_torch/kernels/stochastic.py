@@ -49,7 +49,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from lvae_tpu_torch.kernels import build
-from lvae_tpu_torch.ops.philox import Ints, keyed_normal, seed_words
+from lvae_tpu_torch.ops.philox import Band, Ints, band_map, keyed_normal, seed_words
 from lvae_tpu_torch.ops.stochastic import split_params
 
 
@@ -57,12 +57,16 @@ from lvae_tpu_torch.ops.stochastic import split_params
 class Keyed:
     """Keyed noise: row ``i`` draws with counter ``(offset, index[i],
     sample[i], stream)`` under ``seed`` (``sample`` an int, int64 [B], or
-    a 0-d int64 tensor on the device: a train step, read there)."""
+    a 0-d int64 tensor on the device: a train step, read there). With
+    ``band`` the maps are rows ``[h0, h0 + h)`` of height-``band.h`` maps,
+    and ``offset`` is each element's in the whole map
+    (``ops/philox.py`` ``keyed_words``)."""
 
     index: torch.Tensor
     seed: int
     sample: Ints
     stream: int
+    band: Optional[Band] = None
 
 
 # ---------------------------------------------------------------------------
@@ -86,11 +90,11 @@ def _plain_sample_kl_eps(q_params: torch.Tensor, p_params: torch.Tensor,
 def _eps_of(keyed: Keyed, q_params: torch.Tensor) -> torch.Tensor:
     b, c2, h, w = q_params.shape
     return keyed_normal((b, c2 // 2, h, w), keyed.seed, keyed.index,
-                        keyed.sample, keyed.stream)
+                        keyed.sample, keyed.stream, keyed.band)
 
 
-def _plain_sample_kl(q_params, p_params, index, seed, sample, stream):
-    eps = _eps_of(Keyed(index, seed, sample, stream), q_params)
+def _plain_sample_kl(q_params, p_params, index, seed, sample, stream, band=None):
+    eps = _eps_of(Keyed(index, seed, sample, stream, band), q_params)
     return _plain_sample_kl_eps(q_params, p_params, eps)
 
 
@@ -104,8 +108,8 @@ def _plain_sample_kl_per_sample_eps(q_params, p_params, eps):
     return z, _row_sums(kl)
 
 
-def _plain_sample_kl_per_sample(q_params, p_params, index, seed, sample, stream):
-    z, kl = _plain_sample_kl(q_params, p_params, index, seed, sample, stream)
+def _plain_sample_kl_per_sample(q_params, p_params, index, seed, sample, stream, band=None):
+    z, kl = _plain_sample_kl(q_params, p_params, index, seed, sample, stream, band)
     return z, _row_sums(kl)
 
 
@@ -213,6 +217,8 @@ def _pow2_at_least(n: int) -> int:
 
 
 def _per_row(rows: int, c: int, hw: int) -> int:
+    """A launch's row length (a rank's empty band launches nothing and asks
+    for no plan)."""
     per_row = c * hw
     if rows < 1 or not 1 <= per_row <= MAX_PER_ROW:
         raise ValueError(f"the sample+KL kernels take rows >= 1 of 1 to {MAX_PER_ROW} "
@@ -362,21 +368,22 @@ def _keyed_on(keyed: Keyed, b: int, device: torch.device) -> Keyed:
             sample = sample.expand(b)
         sample = _row_words(sample, b, device, "sample")
     return Keyed(_row_words(keyed.index, b, device, "index"), int(keyed.seed),
-                 sample, int(keyed.stream))
+                 sample, int(keyed.stream), keyed.band)
 
 
-def _c_noise(keyed: Optional[Keyed]) -> tuple:
+def _c_noise(keyed: Optional[Keyed], shape) -> tuple:
     """The C interface's (index, sample or NULL, sample_word, seed,
-    stream_word); zeros for given eps."""
+    stream_word, and the band map's plane, gplane, base) for z's NCHW
+    ``shape``; zeros for given eps."""
     if keyed is None:
-        return None, None, 0, 0, 0
+        return None, None, 0, 0, 0, 0, 0, 0
     k0, k1 = seed_words(keyed.seed)
     if isinstance(keyed.sample, torch.Tensor):
         sample_ptr, sample_word = keyed.sample.data_ptr(), 0
     else:  # one sample word for every row: no per-row operand
         sample_ptr, sample_word = None, int(keyed.sample) & 0xFFFFFFFF
     return (keyed.index.data_ptr(), sample_ptr, sample_word, k0 | (k1 << 32),
-            keyed.stream & 0xFFFFFFFF)
+            keyed.stream & 0xFFFFFFFF, *band_map(shape, keyed.band))
 
 
 def _launch_fwd(q_params, p, p_stride, eps, keyed, per_sample, b, c, hw):
@@ -385,18 +392,20 @@ def _launch_fwd(q_params, p, p_stride, eps, keyed, per_sample, b, c, hw):
     dev = q_params.device
     z = torch.empty((b, c, *q_params.shape[2:]), device=dev)
     kl = torch.empty((b,), device=dev) if per_sample else torch.empty_like(z)
+    if hw == 0:     # an empty band: nothing to draw, a zero sum per row
+        return z, kl.zero_()
     lib = build.library()
     eps_ptr = None if eps is None else eps.data_ptr()
     if per_sample:
         name = "sample_kl_per_sample" if eps is None else "sample_kl_per_sample_eps"
         _, plan = _c_k1_plan(b, c, hw, _aligned(q_params, p, eps))
         status = build.on_device(q_params, lambda stream: lib.lvae_sample_kl_per_sample(
-            plan, q_params.data_ptr(), p.data_ptr(), p_stride, *_c_noise(keyed), eps_ptr,
-            z.data_ptr(), kl.data_ptr(), b, c, hw, stream))
+            plan, q_params.data_ptr(), p.data_ptr(), p_stride, *_c_noise(keyed, z.shape),
+            eps_ptr, z.data_ptr(), kl.data_ptr(), b, c, hw, stream))
     elif eps is None:
         name = "sample_kl"
         status = build.on_device(q_params, lambda stream: lib.lvae_sample_kl(
-            q_params.data_ptr(), p.data_ptr(), p_stride, *_c_noise(keyed),
+            q_params.data_ptr(), p.data_ptr(), p_stride, *_c_noise(keyed, z.shape),
             z.data_ptr(), kl.data_ptr(), b, c, hw, stream))
     else:
         name = "sample_kl_eps"
@@ -418,12 +427,14 @@ def _backward(q_params, p, p_stride, gz, gkl, eps, keyed, b, c, hw):
     per_row = gkl.dim() == 1
     dq = torch.empty_like(q_params)
     dp = torch.empty_like(p)
+    if hw == 0:     # an empty band: empty gradients, no launch
+        return dq, dp
     _, plan = _c_bwd_plan(b, c, hw, p_stride == 0,
                           _aligned(q_params, p, gz, None if per_row else gkl, eps))
     name = "sample_kl_per_sample_bwd" if per_row else "sample_kl_bwd"
     fn = getattr(build.library(), "lvae_" + name)
     status = build.on_device(q_params, lambda stream: fn(
-        plan, q_params.data_ptr(), p.data_ptr(), p_stride, *_c_noise(keyed),
+        plan, q_params.data_ptr(), p.data_ptr(), p_stride, *_c_noise(keyed, gz.shape),
         None if eps is None else eps.data_ptr(), gz.data_ptr(), gkl.data_ptr(),
         dq.data_ptr(), dp.data_ptr(), b, c, hw, stream))
     build.LAUNCHES[name] += 1
@@ -499,11 +510,12 @@ def _apply(q_params, p_params, eps, keyed, per_sample):
 
 def sample_kl(q_params: torch.Tensor, p_params: torch.Tensor,
               index: torch.Tensor, seed: int, sample: Ints, stream: int,
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              band: Optional[Band] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: (z, kl) ``[B, c, h, w]`` with row ``i``'s noise keyed by
     ``(seed, index[i], sample[i], stream)``. ``sample`` is an int or an
-    int64 ``[B]`` tensor."""
-    return _apply(q_params, p_params, None, Keyed(index, seed, sample, stream), False)
+    int64 ``[B]`` tensor. ``band``: the maps are a band of rows of taller
+    ones (:class:`Keyed`)."""
+    return _apply(q_params, p_params, None, Keyed(index, seed, sample, stream, band), False)
 
 
 def sample_kl_eps(q_params: torch.Tensor, p_params: torch.Tensor,
@@ -514,11 +526,13 @@ def sample_kl_eps(q_params: torch.Tensor, p_params: torch.Tensor,
 
 def sample_kl_per_sample(q_params: torch.Tensor, p_params: torch.Tensor,
                          index: torch.Tensor, seed: int, sample: Ints,
-                         stream: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                         stream: int, band: Optional[Band] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: (z ``[B, c, h, w]``, kl ``[B]``), the KL summed over each row
     in the kernel (deterministically); noise keyed as in
-    :func:`sample_kl`."""
-    return _apply(q_params, p_params, None, Keyed(index, seed, sample, stream), True)
+    :func:`sample_kl`. On a ``band`` of rows the sums are the band's part
+    of each row's (an empty band launches nothing: zero sums)."""
+    return _apply(q_params, p_params, None, Keyed(index, seed, sample, stream, band), True)
 
 
 def sample_kl_per_sample_eps(q_params: torch.Tensor, p_params: torch.Tensor,

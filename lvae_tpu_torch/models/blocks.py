@@ -28,6 +28,16 @@ ranks by a differentiable all-reduce, whose backward sums the statistics'
 cotangents the same way), ``bn_stat_samples`` takes the leading rows of
 the global batch, the segments run split (``kernels/segment.py``), and
 dropout draws the mask of the global elements.
+
+Under ``--spatial-shards`` a training forward holds one band of rows of
+every activation (:func:`lvae_tpu_torch.parallel.mesh.current_bands`): a
+convolution takes the rows its output band reads from the neighbouring
+bands (:func:`lvae_tpu_torch.parallel.mesh.gather_rows`, the halo XLA
+inserts), works out from its own padding rule which rows those are, and
+pads only the width; the transposed convolution and the nearest resize
+take the input rows their output band reads, which at a short band may
+lie two bands away. BatchNorm counts the global elements, and dropout
+draws the mask of its band's global elements.
 """
 
 from __future__ import annotations
@@ -120,11 +130,42 @@ def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> None:
             m.compute_dtype = dtype
 
 
+def conv_rows(band_out: Tuple[int, int], stride: int, top: int, k: int) -> Tuple[int, int]:
+    """The input rows ``[o0 s - top, (o1 - 1) s - top + k)`` that output rows
+    ``[o0, o1)`` of a ``k``-tap, stride-``s`` convolution with ``top`` rows
+    of padding above read (none for an empty band)."""
+    o0, o1 = band_out
+    if o1 <= o0:
+        return o0 * stride - top, o0 * stride - top
+    return o0 * stride - top, (o1 - 1) * stride - top + k
+
+
+def transposed_rows(band_out: Tuple[int, int], stride: int, k: int,
+                    offset: int) -> Tuple[int, int]:
+    """The input rows that output rows ``[o0, o1)`` of a transposed
+    convolution read, where output row ``i`` is row ``i + offset`` of the
+    full (unpadded) one: full row ``f`` reads input rows ``j`` with ``0 <=
+    f - s j < k``, so ``[ceil((o0 + offset - k + 1) / s), floor((o1 - 1 +
+    offset) / s) + 1)`` (none for an empty band)."""
+    o0, o1 = band_out
+    lo = -(-(o0 + offset - k + 1) // stride)
+    if o1 <= o0:
+        return lo, lo
+    return lo, (o1 - 1 + offset) // stride + 1
+
+
+def _band_output(bands: mesh.Bands, h_out: int) -> Tuple[Tuple[int, int], list]:
+    """This rank's band of a height-``h_out`` output and every rank's."""
+    every = [mesh.band(h_out, bands.count, t) for t in range(bands.count)]
+    return every[bands.index], every
+
+
 class Conv2d(_ComputeDtype, nn.Conv2d):
     """``nn.Conv2d`` with ``lvae_tpu``'s padding conventions and a compute
     dtype. Parameters start at zero; :func:`init_parameters` draws them
     from an explicit generator (``init_std`` overrides the lecun-normal
-    scale)."""
+    scale). Inside :func:`~lvae_tpu_torch.parallel.mesh.banded` it takes
+    its input's band and returns its output's (:meth:`banded`)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  conv_pad: str = "same", init_std: float | None = None):
@@ -138,12 +179,36 @@ class Conv2d(_ComputeDtype, nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size[0], self.stride[0]
+        bands = mesh.current_bands()
+        if bands is not None and ((k, s) != (1, 1) or x.shape[-2] == 0):
+            return self.banded(x, bands)
         top, bottom, left, right = conv_padding(
             self.conv_pad, k, s, (x.shape[-2], x.shape[-1])
         )
         if top == bottom and left == right:
             return self._conv(F.conv2d, x, s, (top, left))
         return self._conv(F.conv2d, F.pad(x, (left, right, top, bottom)), s)
+
+    def banded(self, x: torch.Tensor, bands: mesh.Bands) -> torch.Tensor:
+        """The convolution of a band ``x`` of its global input: the height's
+        padding (from ``conv_padding`` of the global height, asymmetric
+        where the rule is) becomes the rows the output band reads, taken
+        from the other bands with zeros beyond the map; only the width is
+        padded here. An empty output band convolves ``k`` zero rows and
+        keeps none of the result, so every rank runs the same graph."""
+        k, s = self.kernel_size[0], self.stride[0]
+        h = bands.height(x)
+        top, bottom, left, right = conv_padding(self.conv_pad, k, s, (h, x.shape[-1]))
+        mine, every = _band_output(bands, (h + top + bottom - k) // s + 1)
+        if (k, s) == (1, 1):    # pointwise: the band itself, padded where empty
+            rows = x
+        elif s == 1 and top + bottom == k - 1:     # output band = input band: its halo
+            rows = mesh.halo(x, top, bottom, h, bands)
+        else:
+            rows = mesh.gather_rows(x, [conv_rows(o, s, top, k) for o in every], bands)
+        extra = k if mine[1] <= mine[0] else 0
+        y = self._conv(F.conv2d, F.pad(rows, (left, right, 0, extra)), s)
+        return y[:, :, :mine[1] - mine[0]]
 
 
 class ConvTranspose2d(_ComputeDtype, nn.ConvTranspose2d):
@@ -168,17 +233,71 @@ class ConvTranspose2d(_ComputeDtype, nn.ConvTranspose2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size[0], self.stride[0]
+        if self.conv_pad not in ("torch", "same"):
+            raise ValueError(f"unknown conv_pad {self.conv_pad!r}")
+        bands = mesh.current_bands()
+        if bands is not None:
+            return self.banded(x, bands)
         if self.conv_pad == "torch":
             return self.full(x, padding=k // 2, output_padding=s - 1)
-        if self.conv_pad != "same":
-            raise ValueError(f"unknown conv_pad {self.conv_pad!r}")
         h, w = x.shape[-2], x.shape[-1]
         return self.full(x)[:, :, : s * h, : s * w]
+
+    def banded(self, x: torch.Tensor, bands: mesh.Bands) -> torch.Tensor:
+        """The transposed convolution of a band ``x``: output rows ``[o0,
+        o1)`` are rows ``[o0 + off, o1 + off)`` of the full one (``off`` 0
+        under ``same``, ``k // 2`` under ``torch``), computed from the
+        input rows they read (:func:`transposed_rows`, one row above the
+        band under ``same``, one below under ``torch``) and cut to the
+        band; the width as on one rank. An empty output band convolves one
+        zero row and keeps none of it."""
+        k, s = self.kernel_size[0], self.stride[0]
+        off = k // 2 if self.conv_pad == "torch" else 0
+        mine, every = _band_output(bands, s * bands.height(x))
+        want = [transposed_rows(o, s, k, off) for o in every]
+        rows = mesh.gather_rows(x, want, bands)
+        if mine[1] <= mine[0]:
+            rows = F.pad(rows, (0, 0, 0, 1))
+        if self.conv_pad == "torch":
+            y = self.full(rows, padding=(0, k // 2), output_padding=(0, s - 1))
+        else:
+            y = self.full(rows)[..., : s * x.shape[-1]]
+        first = mine[0] + off - s * want[bands.index][0]
+        return y[:, :, first:first + mine[1] - mine[0]]
 
     def full(self, x: torch.Tensor, **pads) -> torch.Tensor:
         """The transposed conv, uncropped (the 'torch' convention's
         ``pads`` given), in the compute dtype."""
         return self._conv(F.conv_transpose2d, x, self.stride[0], **pads)
+
+
+def _nearest_source(i: int, n_in: int, n_out: int) -> int:
+    """The input index that output index ``i`` of a ``'nearest-exact'``
+    resize from ``n_in`` to ``n_out`` reads: ``floor((i + 1/2) n_in /
+    n_out)``, at most ``n_in - 1``."""
+    return min((2 * i + 1) * n_in // (2 * n_out), n_in - 1)
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """``F.interpolate(x, size, mode='nearest-exact')`` (pixel centres, as
+    ``jax.image.resize``). Inside :func:`~lvae_tpu_torch.parallel.mesh.
+    banded` ``size`` is the global output's and ``x`` a band: the output
+    band's rows come from the input rows they read (in this band where
+    the two resolutions' bands line up, else from the others), a copy
+    row by row and column by column."""
+    bands = mesh.current_bands()
+    if bands is None:
+        return F.interpolate(x, size=size, mode="nearest-exact")
+    h, w = bands.height(x), x.shape[-1]
+    ho, wo = size
+    mine, every = _band_output(bands, ho)
+    want = [(_nearest_source(o0, h, ho), _nearest_source(o1 - 1, h, ho) + 1) if o1 > o0
+            else (0, 0) for o0, o1 in every]
+    rows = mesh.gather_rows(x, want, bands)
+    lo = want[bands.index][0]
+    ri = mesh.row_index(tuple(_nearest_source(i, h, ho) - lo for i in range(*mine)), x.device)
+    ci = mesh.row_index(tuple(_nearest_source(j, w, wo) for j in range(wo)), x.device)
+    return rows.index_select(2, ri).index_select(3, ci)
 
 
 @torch.no_grad()
@@ -212,15 +331,19 @@ def recomputing() -> bool:
 
 
 @contextlib.contextmanager
-def _recompute(key: Optional["DropoutKey"], seed: int, step: Optional[torch.Tensor]):
+def _recompute(key: Optional["DropoutKey"], seed: int, step: Optional[torch.Tensor],
+               bands: Optional[mesh.Bands] = None):
     """The recompute of a block: the dropout key set back to what the
-    forward read (the same step tensor), :func:`recomputing` true."""
+    forward read (the same step tensor) and the forward's bands in force
+    (the recompute runs in the backward, outside the model's forward, and
+    repeats its halo exchanges), :func:`recomputing` true."""
     _Recompute.depth += 1
     saved = None if key is None else (key.seed, key.step)
     if key is not None:
         key.seed, key.step = seed, step
     try:
-        yield
+        with mesh.banded(bands):
+            yield
     finally:
         if key is not None:
             key.seed, key.step = saved
@@ -253,9 +376,10 @@ def global_batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor, layout: mesh.La
     the biased variance ``E[x^2] - E[x]^2`` of the global batch (flax's
     order), in the running buffers' dtype; ``x`` normalised with them in
     that dtype and cast back (flax's ``_normalize``), and the running
-    statistics moved as on one rank."""
+    statistics moved as on one rank. ``n`` counts the global batch's
+    elements per channel (a band's share of them varies)."""
     c = x.shape[1]
-    n = x.numel() // c * layout.size
+    n = x.shape[0] * layout.n_data * mesh.global_height(x) * x.shape[-1]
     xd = x.double()
     sums = mesh.all_reduce_sum(torch.stack([xd.sum(dim=(0, 2, 3)),
                                             (xd * xd).sum(dim=(0, 2, 3))]), layout)
@@ -311,13 +435,15 @@ def subsampled_batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor, stat_sample
     rows lie on rank 0, or on the first ranks where ``n`` exceeds ``b``.
     Each rank sums its part of them (none on the later ranks) and the sums
     are all-reduced, so the gradient reaches the statistics through those
-    rows only."""
+    rows only. Under ``--spatial-shards`` a rank holds its band of its data
+    index's rows: the leading rows' bands lie on the first data indices'
+    space groups."""
     layout = mesh.current()
     if layout.sharded:
         b = x.shape[0]
-        n = max(1, min(stat_samples, b * layout.size))
-        xs = x[:max(0, min(b, n - layout.rank * b))].float()
-        count = n * x.shape[2] * x.shape[3]
+        n = max(1, min(stat_samples, b * layout.n_data))
+        xs = x[:max(0, min(b, n - layout.data * b))].float()
+        count = n * mesh.global_height(x) * x.shape[3]
         sums = mesh.all_reduce_sum(torch.stack([xs.sum(dim=(0, 2, 3)),
                                                 (xs * xs).sum(dim=(0, 2, 3))]), layout)
         mean = sums[0] / count
@@ -378,14 +504,15 @@ class Dropout(nn.Module):
         step = self.key.step.to(x.device)
         if self.impl == "bits8":
             return dropout_bits8(x, self.rate, self.key.seed, step, self.site,
-                                 mesh.element_offset(x))
+                                 mesh.element_map(x))
         keep = 1.0 - self.rate
         layout = mesh.current()
+        bands = mesh.current_bands()
         index = torch.arange(x.shape[0], device=x.device)
-        if layout.sharded:      # the rows of the global batch
-            index = index + layout.rank * x.shape[0]
+        if layout.n_data > 1:      # the rows of the global batch
+            index = index + layout.data * x.shape[0]
         u = keyed_uniform(x.shape, mix_seed(self.key.seed, step, self.site), index, 0,
-                          STREAM_FLOAT_DROPOUT)
+                          STREAM_FLOAT_DROPOUT, None if bands is None else bands.band_of(x))
         return torch.where(u <= keep, x / keep, 0.0)
 
 
@@ -545,7 +672,9 @@ class ResBlockWithResampling(nn.Module):
     ``remat`` (set by the model, ``--remat``): a training forward with
     gradients runs under ``torch.utils.checkpoint`` (non-reentrant), as
     ``lvae_tpu`` wraps the block in ``nn.remat``. The recompute reads the
-    dropout key the forward read and moves no running statistic; K5's
+    dropout key and the bands the forward read (repeating its halo
+    exchanges, on every rank in the same order) and moves no running
+    statistic; K5's
     saved statistics are dropped and recomputed, bit-equal because K5 is
     deterministic (a fixed reduction tree, no atomics)."""
 
@@ -589,7 +718,7 @@ class ResBlockWithResampling(nn.Module):
 
             def contexts():
                 snap = (None, 0, None) if key is None else (key, key.seed, key.step)
-                return contextlib.nullcontext(), _recompute(*snap)
+                return contextlib.nullcontext(), _recompute(*snap, mesh.current_bands())
 
             # preserve_rng_state=False: no noise of the port reads torch's
             # generator (every draw is keyed Philox), and saving and
@@ -600,10 +729,9 @@ class ResBlockWithResampling(nn.Module):
 
     def _forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if self.resample and self.resample_mode == "interpolate":
-            h, w = x.shape[-2], x.shape[-1]
+            h, w = mesh.global_height(x), x.shape[-1]
             hw = (h // 2, w // 2) if self.mode == "bottom-up" else (2 * h, 2 * w)
-            # 'nearest-exact' samples at pixel centres, as jax.image.resize
-            x = F.interpolate(x, size=hw, mode="nearest-exact")
+            x = resize_nearest(x, hw)
         if self.ConvTranspose_0 is not None:
             x = self.ConvTranspose_0(x)
         elif self.Conv_0 is not None:

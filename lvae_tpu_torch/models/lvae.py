@@ -43,7 +43,6 @@ import numbers
 from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from lvae_tpu_torch import fp32_math
@@ -56,11 +55,13 @@ from lvae_tpu_torch.models.blocks import (
     ResidualBlock,
     get_nonlin,
     init_parameters,
+    resize_nearest,
     set_compute_dtype,
 )
 from lvae_tpu_torch.models.likelihoods import make_likelihood
 from lvae_tpu_torch.models.stochastic import Noise, NormalStochasticBlock
 from lvae_tpu_torch.ops.math import crop_img_tensor, pad_img_tensor
+from lvae_tpu_torch.parallel import mesh
 
 
 def _nchw(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -122,10 +123,19 @@ class TopDownLayer(nn.Module):
             self.det_blocks.append(blk)
 
     def _top_prior_row(self, device: torch.device) -> torch.Tensor:
-        """The top prior's params as one row ``[1, 2z, h, w]``."""
+        """The top prior's params as one row ``[1, 2z, h, w]``; under
+        ``--spatial-shards`` this rank's band of its rows (a copy, so that
+        the kernels read it contiguous; the gradient reaches the band's
+        rows of the parameter through it)."""
         if self.top_prior is not None:
-            return self.top_prior
-        return torch.zeros(1, 2 * self.z_dim, *self.top_prior_hw, device=device)
+            row = self.top_prior
+        else:
+            row = torch.zeros(1, 2 * self.z_dim, *self.top_prior_hw, device=device)
+        bands = mesh.current_bands()
+        if bands is None:
+            return row
+        h0, h1 = bands.rows(self.top_prior_hw[0])
+        return row[:, :, h0:h1].contiguous()
 
     def forward(self, td_in, bu_value, *, stream: int, n_img_prior=None,
                 noise=None, use_mode=False, forced_latent=None,
@@ -163,8 +173,9 @@ class TopDownLayer(nn.Module):
             h = blk(h, train)
         if do_skip and self.skip_merge_mode == "post":
             skip = td_in
-            if skip.shape[-2:] != h.shape[-2:]:
-                skip = F.interpolate(skip, size=h.shape[-2:], mode="nearest-exact")
+            size = (mesh.global_height(h), h.shape[-1])
+            if (mesh.global_height(skip), skip.shape[-1]) != size:
+                skip = resize_nearest(skip, size)
             h = self.skip_merge(h, skip, train)
         return h, s
 
@@ -418,19 +429,42 @@ class LadderVAE(nn.Module):
         """Inference pass on an NHWC batch in [0, 1] (already binarised).
         Sampled latents need ``noise`` (in training ``Noise(seed, index,
         step)``); ``forced_eps`` / ``forced_latent`` (per-layer NHWC lists)
-        replace the draw."""
+        replace the draw.
+
+        A training forward over a layout with a space axis
+        (``--spatial-shards``, :func:`lvae_tpu_torch.parallel.mesh.current`)
+        runs banded: ``x`` is this rank's rows, whole; it is padded and cut
+        to this rank's band of rows, and every activation after it is a
+        band (:func:`lvae_tpu_torch.parallel.mesh.banded`). The crop to the
+        data size keeps the band's rows inside the crop (at 32 -> 28 over 4
+        ranks: 6, 8, 8 and 6), the likelihood takes the matching rows of
+        ``x``, and ``ll`` and ``kl_sep`` are the bands' sums, summed over
+        the space group (:func:`lvae_tpu_torch.parallel.mesh.space_sum`).
+        The returned maps are the band's."""
         noise = self._noise_here(noise)
         if train:
             self._set_dropout_step(noise)
+        bands = mesh.bands_for(mesh.current(), self.img_size) if train else None
+        with mesh.banded(bands):
+            return self._forward(x, noise, forced_eps, forced_latent, train, bands)
+
+    def _forward(self, x, noise, forced_eps, forced_latent, train, bands):
         x_pad = pad_img_tensor(x, self.img_size)
+        if bands is not None:
+            h0, h1 = bands.rows(self.img_size[0])
+            x_pad = x_pad[:, h0:h1]
         bu = self._bottomup(_nchw(x_pad).contiguous(), train)
         td, layer_data = self._topdown(
             bu, n_img_prior=None, noise=noise,
             forced_latent=forced_latent, forced_eps=forced_eps,
             mode_layers=(), constant_layers=(), temperature=1.0, train=train,
         )
-        td = _nchw(crop_img_tensor(_nhwc(td), self.data_size))
-        ll, lik = self.likelihood_head(td, _nchw(x))
+        if bands is None:
+            td = _nchw(crop_img_tensor(_nhwc(td), self.data_size))
+            target = x
+        else:
+            td, target = self._crop_band(td, x, bands)
+        ll, lik = self.likelihood_head(td, _nchw(target))
         kls = [d["kl_elementwise"] for d in layer_data]
         # the K1 branch summed each layer's KL per sample in the kernel
         # (lvae_tpu/models/lvae.py:454-463); elementwise maps elsewhere
@@ -438,8 +472,12 @@ class LadderVAE(nn.Module):
             d["kl_sample"] if d["kl_sample"] is not None else k.sum(dim=(1, 2, 3))
             for d, k in zip(layer_data, kls)
         ])                                                              # [L, B]
+        ll = ll.sum(dim=(1, 2, 3))
+        if bands is not None:     # one all-reduce; each part keeps its dtype
+            sums = mesh.space_sum(torch.cat([ll.view(1, -1), kl_sep]))
+            ll, kl_sep = sums[0].to(ll.dtype), sums[1:].to(kl_sep.dtype)
         return {
-            "ll": ll.sum(dim=(1, 2, 3)),
+            "ll": ll,
             "kl_sep": kl_sep,
             "kl_spatial": [None if k is None else k.sum(dim=1) for k in kls],  # [B, h, w]
             "z": [_nhwc(d["z"]) for d in layer_data],
@@ -449,6 +487,18 @@ class LadderVAE(nn.Module):
             "out_mode": _nhwc(lik["mode"]),
             "out_params": _nhwc(lik["params"]),
         }
+
+    def _crop_band(self, td: torch.Tensor, x: torch.Tensor, bands: mesh.Bands):
+        """The centre crop of the padded map's band ``td`` (NCHW) to the
+        data size: the band's rows that lie inside the crop (possibly
+        none), and the rows of the NHWC batch ``x`` they stand for."""
+        (hp, wp), (hd, wd) = self.img_size, self.data_size
+        top, left = (hp - hd) // 2, (wp - wd) // 2
+        h0, h1 = bands.rows(hp)
+        r0 = min(max(h0, top), top + hd)
+        r1 = max(min(h1, top + hd), r0)
+        td = td[:, :, r0 - h0:r1 - h0, left:left + wd]
+        return td, x[:, r0 - top:r1 - top]
 
     def sample_prior(self, n_img: int, *, seed: int,
                      mode_layers: Sequence[int] = (),

@@ -19,7 +19,11 @@ the fused kernels take it as it is and read it with row stride 0.
 Noise is keyed, not drawn from a global generator: ``noise`` is a
 :class:`Noise` ``(seed, index [B], sample)`` and ``stream`` the layer
 number, and row ``i`` draws with counter ``(offset, index[i], sample[i],
-stream)`` (``ops/philox.py``).
+stream)`` (``ops/philox.py``). Under ``--spatial-shards``
+(:func:`lvae_tpu_torch.parallel.mesh.current_bands`) the heads hold a band
+of rows: ``offset`` is each element's in the whole map, so the bands draw
+what one rank draws, the per-sample KL is the band's part, and a given
+``forced_eps`` / ``forced_latent`` (whole maps) is cut to the band.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from torch import nn
 from lvae_tpu_torch.models.blocks import Conv2d
 from lvae_tpu_torch.ops.philox import Ints
 from lvae_tpu_torch.ops.stochastic import gaussian_kl, normal_rsample, split_params
+from lvae_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +95,13 @@ class NormalStochasticBlock(nn.Module):
         p_params = p_params.float()
         q_params = self.conv_in_q(q_in).float() if q_in is not None else None
         mu, log_var = split_params(q_params if q_params is not None else p_params)
+        bands = mesh.current_bands()
+        band = None
+        if bands is not None:
+            band = bands.band_of(mu)
+            h1 = band.h0 + mu.shape[-2]
+            forced_latent = None if forced_latent is None else forced_latent[:, :, band.h0:h1]
+            forced_eps = None if forced_eps is None else forced_eps[:, :, band.h0:h1]
 
         kl = kl_sample = None
         # branch order of lvae_tpu/models/stochastic.py:95-137
@@ -108,7 +120,7 @@ class NormalStochasticBlock(nn.Module):
             # in as that row, so its gradient comes back summed over B
             p = p_row.float() if p_row is not None else p_params.contiguous()
             fn = sk.sample_kl_per_sample if train else sk.sample_kl
-            z, kl_out = fn(q_params.contiguous(), p, n.index, n.seed, n.sample, stream)
+            z, kl_out = fn(q_params.contiguous(), p, n.index, n.seed, n.sample, stream, band)
             if train:
                 kl_sample = kl_out
             else:
@@ -116,7 +128,7 @@ class NormalStochasticBlock(nn.Module):
         else:
             n = _need(noise)
             z = normal_rsample(mu, log_var, n.seed, n.index, n.sample, stream,
-                               temperature)
+                               temperature, band)
 
         if q_params is not None and kl is None and kl_sample is None:
             p_mu, p_lv = split_params(p_params)

@@ -7,7 +7,9 @@ port keeps that property with a counter-based generator:
 - key: the two 32-bit words of the 64-bit ``seed``;
 - counter: ``(offset, index[i], sample[i], stream)`` where ``offset`` is
   the element's position within its image's map (row-major in the
-  tensor's own layout), ``index[i]`` the image's global dataset index,
+  tensor's own layout; for a band of rows of a taller map, its position
+  in the whole map, :class:`Band`), ``index[i]`` the image's global
+  dataset index,
   ``sample[i]`` the importance sample (in training: the step), and
   ``stream`` the latent layer (or a stream id above every layer, such as
   :data:`STREAM_BINARIZE`);
@@ -24,7 +26,7 @@ a 32x32-bit product wraps to the unsigned product's 64 bits.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -46,6 +48,44 @@ STREAM_SEGMENT_DROPOUT = 0x80000005   # the fused segment's dropout bytes
 STREAM_FLOAT_DROPOUT = 0x80000006     # the unfused 'float' dropout's uniforms
 
 Ints = Union[int, torch.Tensor]
+
+
+class Band(NamedTuple):
+    """A band of rows of an NCHW map: the map's global height ``h`` and
+    the band's first row ``h0`` (a rank's part under ``--spatial-shards``)."""
+
+    h: int
+    h0: int
+
+
+class ElementMap(NamedTuple):
+    """Where a rank's elements lie in the global tensor: local flat
+    element ``e`` is global element ``e + base`` where ``plane`` is 0 (a
+    contiguous run: ``ElementMap()`` the whole tensor, ``ElementMap(base=
+    o)`` a run from ``o``), else ``(e // plane) gplane + e % plane + base``
+    (a band: ``plane`` its rows' elements of one channel, ``gplane`` the
+    whole map's, ``base`` the global index of its first element).
+    ``csrc/philox.cuh`` ``global_element`` is the same map."""
+
+    plane: int = 0
+    gplane: int = 0
+    base: int = 0
+
+    def at(self, e: torch.Tensor) -> torch.Tensor:
+        if self.plane == 0:
+            return e + self.base
+        return (e // self.plane) * self.gplane + e % self.plane + self.base
+
+
+def band_map(shape: Sequence[int], band: Optional[Band], base: int = 0) -> ElementMap:
+    """The :class:`ElementMap` of the in-row offsets of ``[B, C, hb, W]``
+    maps that are rows ``[h0, h0 + hb)`` of ``band.h`` (``base`` added; the
+    identity without a band)."""
+    if band is None:
+        return ElementMap(base=base)
+    hb, w = int(shape[-2]), int(shape[-1])
+    return ElementMap(hb * w, band.h * w, base + band.h0 * w)
+
 
 _M64 = (1 << 64) - 1
 
@@ -132,11 +172,14 @@ def uniform24(bits: torch.Tensor) -> torch.Tensor:
 
 
 def keyed_words(shape: Sequence[int], seed: Ints, index: torch.Tensor,
-                sample: Ints, stream: int):
+                sample: Ints, stream: int, band: Optional[Band] = None):
     """Philox output words for a ``[B, ...]`` tensor whose row ``i`` is
     keyed by ``(seed, index[i], sample[i], stream)``. Returns four int64
     ``[B, prod(shape[1:])]`` tensors. B stays as it comes, so a
-    ``torch.export`` trace keeps a symbolic batch."""
+    ``torch.export`` trace keeps a symbolic batch. With ``band`` the tensor
+    is ``[B, C, hb, W]``, rows ``[h0, h0 + hb)`` of height-``h`` maps, and
+    element ``(c, y, x)`` takes the counter of ``(c, h0 + y, x)`` in the
+    whole map: the bands concatenated draw what the whole map draws."""
     b = shape[0]
     n = math.prod(shape[1:])
     index = torch.as_tensor(index, dtype=torch.int64)
@@ -148,6 +191,8 @@ def keyed_words(shape: Sequence[int], seed: Ints, index: torch.Tensor,
     sample = (sample.to(device=device, dtype=torch.int64) if isinstance(sample, torch.Tensor)
               else torch.full((), int(sample), dtype=torch.int64, device=device))
     offset = torch.arange(n, dtype=torch.int64, device=device).view(1, n)
+    if band is not None:
+        offset = band_map(shape, band).at(offset)
     k0, k1 = seed_words(seed)
     words = philox4x32(
         offset,
@@ -160,7 +205,8 @@ def keyed_words(shape: Sequence[int], seed: Ints, index: torch.Tensor,
 
 
 def dropout_bytes(shape: Sequence[int], seed: Ints,
-                  device: torch.device | None = None, offset: int = 0) -> torch.Tensor:
+                  device: torch.device | None = None,
+                  emap: ElementMap = ElementMap()) -> torch.Tensor:
     """The fused segment's dropout byte of every element of a tensor of
     ``shape`` (uint8, on ``device``): element ``e`` (its flat row-major
     index) takes byte ``j = e % 16`` of the Philox output at counter
@@ -169,16 +215,17 @@ def dropout_bytes(shape: Sequence[int], seed: Ints,
     gives 16 bytes. ``seed`` is ``mix_seed(train seed, step, site)``, an
     int or a 0-d int64 tensor on ``device`` (a step on the device gives
     one); ``csrc/segment.cu`` regenerates the same bytes in every pass.
-    ``offset`` shifts ``e`` to ``e + offset``: a rank's part of the global
-    batch takes the bytes of its global elements."""
+    ``emap`` maps ``e`` to its global element (:class:`ElementMap`): a
+    rank's part of the global batch (its rows, or its band of them) takes
+    the bytes of its global elements."""
     if device is None and isinstance(seed, torch.Tensor):
         device = seed.device
     n = 1
     for d in shape:
         n *= int(d)
     k0, k1 = seed_words(seed)
-    if offset:
-        e = torch.arange(n, dtype=torch.int64, device=device) + int(offset)
+    if emap != ElementMap():
+        e = emap.at(torch.arange(n, dtype=torch.int64, device=device))
         grp = e >> 4
         words = torch.stack(philox4x32(grp & _M32, grp >> 32, 0, STREAM_SEGMENT_DROPOUT,
                                        k0, k1), dim=1)                # [n, 4]
@@ -194,10 +241,11 @@ def dropout_bytes(shape: Sequence[int], seed: Ints,
 
 
 def keyed_normal(shape: Sequence[int], seed: Ints, index: torch.Tensor,
-                 sample: Ints, stream: int) -> torch.Tensor:
+                 sample: Ints, stream: int, band: Optional[Band] = None) -> torch.Tensor:
     """Standard normals of ``shape`` (fp32, on ``index``'s device), row
-    ``i`` keyed by ``(seed, index[i], sample[i], stream)``."""
-    w = keyed_words(shape, seed, index, sample, stream)
+    ``i`` keyed by ``(seed, index[i], sample[i], stream)``; a ``band`` of
+    rows draws its part of the whole map's (:func:`keyed_words`)."""
+    w = keyed_words(shape, seed, index, sample, stream, band)
     u1, u2 = uniform24(w[0]), uniform24(w[1])
     # a fill on the device, not a copy from the host: a CUDA graph of the
     # train step cannot capture a copy from pageable host memory
@@ -207,9 +255,9 @@ def keyed_normal(shape: Sequence[int], seed: Ints, index: torch.Tensor,
 
 
 def keyed_uniform(shape: Sequence[int], seed: Ints, index: torch.Tensor,
-                  sample: Ints, stream: int) -> torch.Tensor:
+                  sample: Ints, stream: int, band: Optional[Band] = None) -> torch.Tensor:
     """Uniforms in (0, 1] of ``shape``, keyed like :func:`keyed_normal`
     (output word 0); ``seed`` or ``sample`` may be a tensor on the device
     (a step), so no host int is read."""
-    w = keyed_words(shape, seed, index, sample, stream)
+    w = keyed_words(shape, seed, index, sample, stream, band)
     return uniform24(w[0]).reshape(tuple(shape))

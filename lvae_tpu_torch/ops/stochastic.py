@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from lvae_tpu_torch.ops.philox import Ints, keyed_normal, keyed_uniform
+from lvae_tpu_torch.ops.philox import Band, Ints, keyed_normal, keyed_uniform
 
 
 def split_params(params: torch.Tensor, dim: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -24,10 +24,11 @@ def split_params(params: torch.Tensor, dim: int = 1) -> Tuple[torch.Tensor, torc
 
 def normal_rsample(mu: torch.Tensor, log_var: torch.Tensor, seed: int,
                    index: torch.Tensor, sample: Ints, stream: int,
-                   temperature: float = 1.0) -> torch.Tensor:
+                   temperature: float = 1.0, band: Optional[Band] = None) -> torch.Tensor:
     """z = mu + T * sigma * eps, with eps from the keyed Philox generator
-    (row ``i`` keyed by ``(seed, index[i], sample[i], stream)``)."""
-    eps = keyed_normal(mu.shape, seed, index, sample, stream)
+    (row ``i`` keyed by ``(seed, index[i], sample[i], stream)``; ``band``:
+    the maps are a band of rows of taller ones, ``ops/philox.py``)."""
+    eps = keyed_normal(mu.shape, seed, index, sample, stream, band)
     return mu + temperature * torch.exp(0.5 * log_var) * eps
 
 

@@ -47,15 +47,16 @@ def launched() -> bool:
     return "WORLD_SIZE" in os.environ
 
 
-def check_world(num_data_shards: int) -> None:
-    """Under a launcher, raise unless its group has ``num_data_shards``
-    ranks (before joining it: a wrong count would wait for ranks that never
-    come)."""
-    if launched() and int(os.environ["WORLD_SIZE"]) != num_data_shards:
+def check_world(num_data_shards: int, spatial_shards: int = 1) -> None:
+    """Under a launcher, raise unless its group has ``num_data_shards x
+    spatial_shards`` ranks (before joining it: a wrong count would wait for
+    ranks that never come)."""
+    if launched() and int(os.environ["WORLD_SIZE"]) != num_data_shards * spatial_shards:
+        flags = f"--num-data-shards {num_data_shards}" + (
+            f" --spatial-shards {spatial_shards}" if spatial_shards > 1 else "")
         raise SystemExit(
-            f"--num-data-shards {num_data_shards}: this process is one of "
-            f"{os.environ['WORLD_SIZE']} launched ranks (WORLD_SIZE); give the rank count "
-            f"as --num-data-shards")
+            f"{flags}: this process is one of {os.environ['WORLD_SIZE']} launched ranks "
+            f"(WORLD_SIZE); give the rank count as --num-data-shards x --spatial-shards")
 
 
 def pick_backend(device: str, world_size: int) -> str:
@@ -70,12 +71,15 @@ def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
                device: str = "cuda", backend: Optional[str] = None,
-               timeout_s: float = 600.0) -> Layout:
+               timeout_s: float = 600.0, spatial: int = 1) -> Layout:
     """Join the process group and make its layout :func:`current`; return
     it. ``coordinator_address`` is ``host:port``; without it the
     ``torchrun`` variables are read, and without those this is a no-op
     that returns the one-rank layout. On CUDA each rank takes card
-    ``LOCAL_RANK`` (else its rank) modulo the visible cards."""
+    ``LOCAL_RANK`` (else its rank) modulo the visible cards. ``spatial``
+    is the space axis' size S: every rank then makes each space group
+    (ranks ``d S`` to ``d S + S - 1``) and each data group (ranks ``s, s +
+    S, ...``), in that order, and keeps its own two."""
     import torch.distributed as dist
 
     if coordinator_address is None and num_processes is None and not launched():
@@ -108,7 +112,20 @@ def initialize(coordinator_address: Optional[str] = None,
                             timeout=timedelta(seconds=timeout_s), **kw)
     group = dist.group.WORLD
     control = dist.new_group(backend="gloo") if backend == "nccl" else group
-    layout = Layout(rank=rank, size=world, group=group, control=control, backend=backend)
+    space_group = data_group = None
+    if spatial > 1:
+        if world % spatial:
+            raise ValueError(f"--spatial-shards {spatial} does not divide the {world} ranks")
+        for d in range(world // spatial):
+            g = dist.new_group(list(range(d * spatial, (d + 1) * spatial)))
+            if rank // spatial == d:
+                space_group = g
+        for s_ in range(spatial):
+            g = dist.new_group(list(range(s_, world, spatial)))
+            if rank % spatial == s_:
+                data_group = g
+    layout = Layout(rank=rank, size=world, group=group, control=control, backend=backend,
+                    n_space=spatial, space_group=space_group, data_group=data_group)
     set_layout(layout)
     return layout
 
@@ -218,20 +235,25 @@ def launch(command: Sequence[str], world: int, timeout_s: Optional[float] = None
             signal.signal(sig, h)
 
 
-def run_ranks(module: str, argv: Sequence[str], shards: int, device: str, body):
-    """A command's ``--num-data-shards`` handling: with more than one shard
-    and no launcher, start the ranks of ``python -m module argv``
-    (:func:`launch`) and return None once all have ended (a failing rank
-    raises SystemExit naming the flag); else join the group (a no-op for
-    one process, :func:`initialize`) and return ``body(layout)``, leaving
-    the group after it."""
-    if shards > 1 and not launched():
-        code = launch([sys.executable, "-m", module, *argv], shards)
+def run_ranks(module: str, argv: Sequence[str], shards: int, device: str, body,
+              spatial: int = 1):
+    """A command's ``--num-data-shards`` (and ``--spatial-shards``)
+    handling: with more than one rank and no launcher, start the ``shards
+    x spatial`` ranks of ``python -m module argv`` (:func:`launch`) and
+    return None once all have ended (a failing rank raises SystemExit
+    naming the flags); else join the group (a no-op for one process,
+    :func:`initialize`) and return ``body(layout)``, leaving the group
+    after it."""
+    world = shards * spatial
+    if world > 1 and not launched():
+        code = launch([sys.executable, "-m", module, *argv], world)
         if code:
-            raise SystemExit(f"--num-data-shards {shards}: a rank exited with code {code}")
+            flags = f"--num-data-shards {shards}" + (
+                f" --spatial-shards {spatial}" if spatial > 1 else "")
+            raise SystemExit(f"{flags}: a rank exited with code {code}")
         return None
-    check_world(shards)
-    layout = initialize(device=device)
+    check_world(shards, spatial)
+    layout = initialize(device=device, spatial=spatial)
     try:
         return body(layout)
     finally:

@@ -24,6 +24,12 @@ backward sums the cotangents over the ranks), and the gradients are then
 summed over the ranks, before the clip, the accumulation and Adamax. The
 model's BatchNorm statistics are the global batch's (``models/blocks.py``).
 The metrics and their EMA are therefore global, the same on every rank.
+Under ``--spatial-shards S`` the ``D x S`` ranks of a ``(data, space)``
+layout each hold a band of their data index's rows: the model sums each
+sample's terms over the bands (counting the loss once), the batch means
+reduce over the data group, each rank backpropagates ``1 / D`` of the
+loss through its band, and the gradients are summed over all ``D x S``
+ranks.
 
 Evaluation: ``lvae_tpu`` vmaps a B=1 forward so that image ``i`` draws from
 ``fold_in(key, index[i])``. The port runs the batch as one batch: eval
@@ -271,7 +277,9 @@ def loss_terms(model, x: torch.Tensor, noise: Optional[Noise], beta,
 
     Over R ranks ``x`` is this rank's rows; the batch means (the
     log-likelihood, each layer's KL, the total KL) are the global batch's,
-    the mean of the ranks' means through one differentiable all-reduce,
+    the mean of the data indices' means through one differentiable
+    all-reduce over the data group (under ``--spatial-shards`` the model
+    has summed each sample's terms over its bands already),
     and the free-bits clamp takes each layer's global mean
     (``lvae_tpu/ops/math.py:70-82``): a per-rank clamp would change the
     gradient wherever a rank's mean and the global one fall on different
@@ -283,8 +291,10 @@ def loss_terms(model, x: torch.Tensor, noise: Optional[Noise], beta,
     kl_mean = kl_sep.sum(dim=0).mean()
     layout = mesh.current()
     if layout.distributed:
+        # over the data group: the ranks of a space group hold the same
+        # rows and the same per-sample sums
         flat = mesh.all_reduce_sum(torch.cat([ll_mean.view(1), kl_layers, kl_mean.view(1)]),
-                                   layout) / layout.size
+                                   layout, layout.batch_group) / layout.n_data
         ll_mean, kl_layers, kl_mean = flat[0], flat[1:-1], flat[-1]
     kl_fb = free_bits_clamp(kl_layers, free_bits)
     loss = -(ll_mean - beta * kl_fb.sum())
@@ -335,9 +345,11 @@ def train_body(state: TrainState, batch_u8: torch.Tensor, index: torch.Tensor,
     state.optimizer.zero_grad(set_to_none=True)
     layout = mesh.current()
     if layout.distributed:
-        # each rank's share of the global loss; the all-reduces' backward
-        # and the gradients' sum make every rank's gradient the global one
-        (loss / layout.size).backward()
+        # each data index's share of the global loss (every rank of a space
+        # group backpropagates it through its band); the all-reduces'
+        # backward and the gradients' sum over every rank make every rank's
+        # gradient the global one
+        (loss / layout.n_data).backward()
         mesh.reduce_gradients_(model.parameters(), layout)
     else:
         loss.backward()

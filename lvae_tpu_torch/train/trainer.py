@@ -20,7 +20,9 @@ checkpoint on SIGTERM. ``--grad-accum``, ``--remat``, ``--defer-metrics``,
 Over R ranks (``--num-data-shards``, :mod:`lvae_tpu_torch.parallel`) every
 rank holds the whole split and draws the global batches as one rank
 does, then takes its contiguous rows of each (``--streaming``: loads only
-those); rank 0 alone writes the run directory's ``config.json``,
+those); with ``--spatial-shards S`` the ``D x S`` ranks take their data
+index's rows and the model runs each on its band of them. Rank 0 alone
+writes the run directory's ``config.json``,
 checkpoints, logs and images, and the others wait for each checkpoint at
 a barrier. A checkpoint holds the global state, so a run written at R
 ranks resumes at any rank count. SIGTERM to any rank stops every rank at
@@ -155,14 +157,26 @@ def make_model(cfg: EvalConfig, data: TestSet, device: torch.device,
     return model.to(device)
 
 
+def check_height(img_size: Sequence[int], spatial_shards: int) -> None:
+    """Raise unless the data's height tiles over ``--spatial-shards``:
+    ``lvae_tpu`` constrains the pre-pad batch to the space axis
+    (``lvae_tpu/train/trainer.py:373-382``), and the port takes the same
+    configurations."""
+    h = int(img_size[0])
+    if h % spatial_shards:
+        raise ValueError(f"image height {h} not divisible by --spatial-shards "
+                         f"{spatial_shards}")
+
+
 class Experiment:
     """Config, model, optimiser and data (``lvae_tpu``'s ``Experiment``)."""
 
     def __init__(self, cfg: TrainConfig, device: torch.device,
                  data: Optional[Dataset] = None):
         self.cfg, self.device = cfg, torch.device(device)
-        self.layout = mesh.make_mesh(cfg.num_data_shards)
         self.data = data if data is not None else load_dataset(cfg.dataset, cfg.data_dir)
+        check_height(self.data.img_size, cfg.spatial_shards)
+        self.layout = mesh.make_mesh(cfg.num_data_shards, cfg.spatial_shards)
         self.model = make_model(cfg, self.data, self.device,
                                 generator=torch.Generator().manual_seed(cfg.seed),
                                 train=True)
@@ -206,17 +220,22 @@ class Experiment:
 
     def evaluate(self, state: TrainState, max_batches: Optional[int] = None) -> dict:
         """Test-set ELBO (eval mode, keyed per image: the same for any
-        batch size; over R ranks, each takes its rows of every batch)."""
+        batch size; over R ranks, each takes its rows of every batch; a
+        ``(data, space)`` layout sweeps as ``D x S`` batch shards, since
+        evaluation never shards on space)."""
         bs = min(self.cfg.test_batch_size, self.test_data.shape[0])
-        return evaluate_elbo(state.model, self.test_data, self.data.preprocess, bs,
-                             self.data.data_dims, max_batches=max_batches)
+        with mesh.use(self.layout.flat()):
+            return evaluate_elbo(state.model, self.test_data, self.data.preprocess, bs,
+                                 self.data.data_dims, max_batches=max_batches)
 
     def dump_images(self, state: TrainState, run_dir: str, step: int,
                     logger: Optional[MetricLogger] = None, n_samples: int = 64,
                     forced_eps: Optional[Sequence[torch.Tensor]] = None) -> dict:
-        """:func:`dump_images` of the state's model on the test split."""
-        return dump_images(state.model, self.test_data, self.data.preprocess, run_dir, step,
-                           logger, n_samples, forced_eps)
+        """:func:`dump_images` of the state's model on the test split
+        (rank 0's, with the one-rank layout)."""
+        with mesh.use(mesh.Layout()):
+            return dump_images(state.model, self.test_data, self.data.preprocess, run_dir,
+                               step, logger, n_samples, forced_eps)
 
 
 def dump_images(model: LadderVAE, test_u8: torch.Tensor, preprocess: str, run_dir: str,
@@ -358,6 +377,8 @@ class Trainer:
                 f"{-(-cfg.max_steps // k) * k}")
         n_params = sum(p.numel() for p in state.model.parameters())
         ranks = f" x {layout.size} ranks ({layout.backend})" if layout.sharded else ""
+        if layout.n_space > 1:
+            ranks += f" ({layout.n_data} data x {layout.n_space} space)"
         say(f"run {os.path.basename(run_dir)}: {exp.n_train} train / "
             f"{exp.test_data.shape[0]} test images on {exp.device}{ranks}, "
             f"{n_params:,} params")

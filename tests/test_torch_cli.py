@@ -145,9 +145,11 @@ class TestCLI:
 
     @pytest.mark.parametrize("flags,name", [
         # --num-data-shards runs (tests/test_torch_parallel_cli.py); a rank
-        # count that does not divide the batch of 32 is refused
+        # count that does not divide the batch of 32 is refused; so is a
+        # --spatial-shards that does not divide the data height of 28
+        # (tests/test_torch_spatial_cli.py runs one that does)
         (["--streaming", "--num-data-shards", "3"], "--num-data-shards"),
-        (["--spatial-shards", "2"], "--spatial-shards"),
+        (["--spatial-shards", "5"], "--spatial-shards 5"),
         (["--num-data-shards", "5"], "--num-data-shards"),
         (["--platform", "tpu"], "--platform"),
     ])

@@ -199,7 +199,7 @@ class TestConfig:
     @pytest.mark.parametrize("field,value,flag", [
         ("likelihood", "laplace", "--likelihood"),
         ("precision", "fp16", "--precision"),
-        ("spatial_shards", 2, "--spatial-shards"),
+        ("spatial_shards", 0, "--spatial-shards"),
         ("downsample", (1, 1), "--downsample"),
         ("blocks_per_layer", 0, "--blocks-per-layer"),
     ])

@@ -38,6 +38,7 @@ from lvae_tpu.train.state import TrainState as JTrainState
 from lvae_tpu.train.state import make_batch_train_step, make_optimizer as j_make_optimizer
 from lvae_tpu_torch.config import TrainConfig
 from lvae_tpu_torch.models.lvae import LadderVAE
+from lvae_tpu_torch.ops.philox import ElementMap
 from lvae_tpu_torch.parallel import Layout, mesh
 from lvae_tpu_torch.train.convert import params_from_flax, torch_key_for
 from lvae_tpu_torch.train.state import evaluate_elbo
@@ -341,7 +342,8 @@ class TestLayout:
         lay = Layout(rank=1, size=2)
         assert lay.rows(8) == slice(4, 8)
         x = torch.zeros(4, 3, 2, 2)
-        assert mesh.element_offset(x, lay) == 48 and mesh.element_offset(x, Layout()) == 0
+        assert mesh.element_map(x, lay) == ElementMap(base=48)
+        assert mesh.element_map(x, Layout()) == ElementMap()
         stack = torch.arange(12).view(2, 6)
         assert mesh.make_global_batch_indices(stack, Layout(rank=2, size=3)).tolist() == [
             [4, 5], [10, 11]]
@@ -350,13 +352,13 @@ class TestLayout:
 
     def test_dropout_bytes_at_an_offset(self):
         """A rank's dropout bytes are the global tensor's rows: the bytes
-        of elements ``offset ..`` equal the global bytes there, at an
-        offset that is not a multiple of 16 too."""
+        of elements ``offset ..`` (a run's ``ElementMap``) equal the global
+        bytes there, at an offset that is not a multiple of 16 too."""
         from lvae_tpu_torch.ops.philox import dropout_bytes
 
         whole = dropout_bytes((6, 5, 3, 3), 1234)
         for rank in range(3):
-            part = dropout_bytes((2, 5, 3, 3), 1234, offset=rank * 90)
+            part = dropout_bytes((2, 5, 3, 3), 1234, emap=ElementMap(base=rank * 90))
             assert torch.equal(part, whole[2 * rank:2 * rank + 2])
 
 
@@ -366,8 +368,15 @@ class TestConfigRefusals:
             TrainConfig(batch_size=7, num_data_shards=2)
 
     def test_spatial_shards_refused(self):
-        with pytest.raises(ValueError, match="--spatial-shards 2: .* no port yet"):
-            TrainConfig(spatial_shards=2)
+        """--spatial-shards runs (tests/test_torch_spatial.py); a value below
+        1, and one that does not divide the data height (28 rows over 5),
+        are refused with the flag named."""
+        from lvae_tpu_torch.train.trainer import Experiment
+
+        with pytest.raises(ValueError, match="--spatial-shards must be >= 1"):
+            TrainConfig(spatial_shards=0)
+        with pytest.raises(ValueError, match="height 28 not divisible by --spatial-shards 5"):
+            Experiment(TrainConfig(dataset="synthetic", spatial_shards=5), "cpu")
 
     def test_launched_world_must_match(self, monkeypatch, tmp_path):
         """Under a launcher whose group has another size than
@@ -418,14 +427,27 @@ class TestGraftEntry:
         np.testing.assert_allclose(got, want, rtol=2e-4)
 
     def test_dryrun_multichip_two_ranks(self):
-        """``dryrun_multichip(2)`` on the CPU: two gloo ranks, 3 steps with
-        dropout and the split segments (``--fused all``), the sharded
-        evaluate, the checkpoint round trip, the sharded mixture log-prob,
-        and rank 0's losses and parameters against one rank's."""
+        """``dryrun_multichip(2)`` on the CPU: two gloo ranks on a space
+        axis of 2 (1 x 2, as ``__graft_entry__`` lays out an even count),
+        3 steps with dropout and the split segments (``--fused all``), the
+        sharded evaluate, the checkpoint round trip, the sharded mixture
+        log-prob, and rank 0's losses and parameters against one rank's."""
         import graft_entry_torch as tg
 
         r = tg.dryrun_multichip(2, device="cpu", timeout_s=SPAWN_TIMEOUT_S)
-        assert r["size"] == 2 and r["backend"] == "gloo"
+        assert r["size"] == 2 and r["backend"] == "gloo" and r["spatial"] == 2
         assert r["eval_images"] == 4 and np.isfinite(r["elbo_after_restore"])
+        assert r["param_max_diff"] < 1e-4
+        assert r["mix_max_abs_err"] < 1e-3
+
+    def test_dryrun_multichip_three_ranks(self):
+        """``dryrun_multichip(3)``: an odd count runs on the data axis
+        alone (3 x 1), three gloo ranks each on two rows of the batch of
+        6, against one rank as above."""
+        import graft_entry_torch as tg
+
+        r = tg.dryrun_multichip(3, device="cpu", timeout_s=SPAWN_TIMEOUT_S)
+        assert r["size"] == 3 and r["backend"] == "gloo" and r["spatial"] == 1
+        assert r["eval_images"] == 6 and np.isfinite(r["elbo_after_restore"])
         assert r["param_max_diff"] < 1e-4
         assert r["mix_max_abs_err"] < 1e-3
