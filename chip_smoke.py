@@ -43,8 +43,9 @@ dropout's kernel to its plain version.
 Then ``--steps-per-call 10`` (phase 17): for the flagship (``--fused
 auto`` and ``all``) and celeba64 (``all``), 30 steps through one CUDA
 graph of 10 bit-equal to 30 eager steps, the graph's kernel nodes by
-kernel against the eager launches, train images/s, device time and idle
-share graphed against eager; and 60 flagship steps through
+kernel against the eager launches, the graphed device time and idle
+share (the eager ones are phases 9, 13 and 16's); and 60 flagship steps
+through
 ``lvae_tpu_torch.main --steps-per-call 10``, resumed from the middle
 checkpoint bit-equal.
 
@@ -61,7 +62,7 @@ by ``lvae_tpu_torch.evaluate``; one bf16 step on the kernel path against
 the plain path; 20 steps in bf16 against 20 in fp32 from the trained
 bf16 checkpoint (the mean loss of the last 20 within 2%); celeba64
 ``all`` graphed in bf16 bit-equal to eager, its device time and idle
-share, and graphed fp32 and bf16 in turns; test ELBO and the k=100 IW-LL
+share (phase 17's fp32 cell beside it); test ELBO and the k=100 IW-LL
 of both models' trained bf16 checkpoints scored in fp32 and in bf16, with
 the bpd delta and images/s.
 
@@ -75,8 +76,8 @@ buffers), each timed per step; 60 steps through ``lvae_tpu_torch.main
 with init on 20,000 synthetic images in CIFAR-10's pickle layout, every
 launch counted (the remat recompute's among them) and the test hook's
 three grids; a ``--remat`` step bit-equal to a plain one, ten graphed
-``--grad-accum 2`` steps bit-equal to eager ones, the peak memory and
-graphed ms/step with and without ``--remat`` in turns; and
+``--grad-accum 2`` steps bit-equal to eager ones, the peak memory with
+and without ``--remat``; and
 ``lvae_tpu_torch.evaluate --load <run name>`` from the run's own
 checkpoint: test ELBO, the k=100 IW-LL and a diagnostics grid.
 
@@ -87,10 +88,9 @@ widths on 10,000 synthetic scenes in the multiobject npz layout: one
 ``lvae_tpu_torch.main --fused all --steps-per-call 10`` with init and
 every launch counted, ``lvae_tpu_torch.evaluate --load <run> --ll``;
 multi-MNIST (48x48, padded to 64) through 5 steps and the test ELBO;
-``python -m lvae_tpu_torch.export_serving --load <run> --check
---platforms cuda cpu`` and phase 18b's celeba64 bf16 run's
-``reconstruct`` exported; every artifact served by a process that cannot
-import the port (B = 1, 7, 64 and a shuffled 7; ``generate``), its graphs
+``python -m lvae_tpu_torch.export_serving --load <run> --what reconstruct
+--check --platforms cuda cpu``; the artifact served by a process that
+cannot import the port (B = 1, 7, 64 and a shuffled 7), its graph
 aten-only, its answers held to the eager plain path (1e-6) and kernel
 path, and batch-invariant; export s, artifact MiB, load and first-call s,
 and ``reconstruct`` img/s of the artifact against the eager kernel path.
@@ -103,18 +103,17 @@ flagship's ``[10, B, H, W, C]`` stacks; 40 celeba64 steps through
 --steps-per-call 10`` with init, every kernel of the path counted, resumed
 from the middle checkpoint bit-equal; graphed streamed calls bit-equal to
 the device-resident ``MultiStep`` fed the loader's rows and to eager
-streamed steps, ms/step and idle share in turns against the resident
+streamed steps, ms/step and idle share against the resident
 path, and the card's memory without the split; 20 flagship eager fp32
-steps through ``main --streaming`` bit-equal to the resident path, timed
-the same way.
+steps through ``main --streaming`` bit-equal to the resident path.
 
 Last, the measurement tools (phase 22): K1 and K1-bwd at every latent
 layer, and K3 and K3-bwd in fp32 and bf16, against their plain versions
 at the shapes the bench's default run of each preset gives them; then,
 each through its ``main(argv)``: ``lvae_tpu_torch.bench`` (the twin of
 ``bench.py``) at mnist, celeba64 and
-cifar10-deep in bf16 and the first two in fp32, 4 timed calls of a CUDA
-graph of 8 steps each, every result line held to a finite rate, at most
+cifar10-deep in bf16 and mnist in fp32, 2 timed calls of a CUDA graph of
+8 steps each after a warm-up call, every result line held to a finite rate, at most
 1.05x the precision's peak, the same FLOPs an image in both precisions and
 every kernel of the path launched once a layer and step, and mnist fp32
 graphed at ``--fused none``; ``lvae_tpu_torch.profile_step`` on celeba64
@@ -123,7 +122,7 @@ port's kernels at their launches a step, the table marked partial
 wherever a kernel is short);
 ``lvae_tpu_torch.perf_probe`` at batch 256; ``lvae_tpu_torch.iwll_probe``
 at its defaults; and one batch of the IW-LL sweep (k=100, chunk 1) at
-phases 4 and 11's shapes in fp32 and bf16 with its device busy time and
+phases 4 and 11's shapes in bf16 with its device busy time and
 idle share. The helpers it times and profiles with are
 ``lvae_tpu_torch.profiling``'s.
 
@@ -144,7 +143,8 @@ not a multi-GPU rate); then the same command as typed, starting its own
 ranks, resumed two steps further, and ``evaluate --num-data-shards 2``
 against one rank's.
 
-Then the checkpoint pair (phase 24): phase 8's flagship run exported by
+Then the checkpoint pair (phase 24, run while 23c's resumed command and
+its evaluate run as subprocesses): phase 8's flagship run exported by
 ``python -m lvae_tpu_torch.convert_checkpoint export`` and imported into a
 new run directory by ``convert_checkpoint import``; both runs scored by
 ``lvae_tpu_torch.evaluate --load`` (test ELBO, the k=100 IW-LL over 1,000
@@ -164,7 +164,8 @@ trip, K3 on each rank's rows) and at 1 x 4 through
 ranks sharing the card, started here as ``torchrun`` starts them; two
 hold an empty band of the 2-row top), each rank's layout and launches
 checked (K1, K1-bwd, the dropout kernel and the split segments on its
-bands, no one-launch K5), its halo exchanges counted and timed, the
+bands, no one-launch K5), its halo exchanges counted (not timed: 25c
+and the 2 x 2 dry run go on beside it), the
 logged metrics within 1e-5 and the checkpoint within Adamax's bound of
 ``main`` on one rank; 25b the banded index map of K1, K1-bwd, K2, the
 dropout kernel and the split segments at every band shape of the
@@ -1142,9 +1143,9 @@ def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log,
     the config's when None) and against the CPU's path ``cpu[0]`` at
     ``cpu_batch`` images with dropout ``cpu[1]`` (no CPU step when
     ``cpu_batch`` is None; every dropout mask is keyed Philox bytes, the
-    same on both); then train images/s through ``Trainer.run``, the two
-    paths alternating (K, P, P, K, ``ab_steps`` steps each, the rate over
-    the steps after ``ab_log``), and a 5-step profile of ``paths[0]``."""
+    same on both); then train images/s through ``Trainer.run``, one run of
+    each path (K, then P, ``ab_steps`` steps each, the rate over the steps
+    after ``ab_log``), and a 5-step profile of ``paths[0]``."""
     import dataclasses
 
     import torch
@@ -1246,7 +1247,7 @@ def phase_step(card, title, args, data, weights, cpu_batch, ab_steps, ab_log,
         return len(rates) / sum(1.0 / r for r in rates)
 
     rates = {True: [], False: []}
-    for fused in (True, False, False, True):
+    for fused in (True, False):
         rates[fused].append(train_rate(kern if fused else plain))
     out = {"train_images_per_sec": {"kernels": float(np.mean(rates[True])),
                                      "plain": float(np.mean(rates[False])),
@@ -2161,7 +2162,6 @@ def phase_celeba_segments(card, train_u8, test_u8, phase12):
 
 GRAPH_K = 10
 GRAPH_CLI_STEPS = 60
-GRAPH_RATE_STEPS = 20                       # per timed Trainer.run, the first call untimed
 # the kernels of a train step by the identifier in their symbol; K3-bwd
 # has two plans (kernels/mixture.py bwd_plan)
 GRAPH_KERNELS = {"dropout_kernel": "dropout",
@@ -2200,52 +2200,15 @@ def state_equal(a, b):
     return bad
 
 
-def rates_in_turns(card, name, args, data, variants):
-    """Train images/s through Trainer.run for the two ``variants`` of the
-    config ``args`` gives ({label: config overrides}), in turns (a, b, b,
-    a): GRAPH_RATE_STEPS steps a run, a log line every GRAPH_K, the rate
-    the harmonic mean of the lines past the first call's."""
-    import dataclasses
-
-    import torch
-
-    from lvae_tpu_torch.config import config_from_args
-    from lvae_tpu_torch.train.trainer import Experiment, Trainer
-
-    cfg, _ = config_from_args(args)
-    (a, over_a), (b, over_b) = variants.items()
-    runs = {a: [], b: []}
-    for label, over in ((a, over_a), (b, over_b), (b, over_b), (a, over_a)):
-        run_cfg = dataclasses.replace(
-            cfg, max_steps=GRAPH_RATE_STEPS, log_interval=GRAPH_K, test_interval=10 ** 9,
-            checkpoint_interval=10 ** 9, dry_run=True, **over)
-        tr = Trainer(Experiment(run_cfg, torch.device("cuda"), data))
-        tr.run()
-        rates = [float(m["images_per_sec"]) for kind, step, m in tr.logger.history
-                 if kind == "train" and step > GRAPH_K]
-        runs[label].append(len(rates) / sum(1.0 / r for r in rates))
-        del tr
-        torch.cuda.empty_cache()
-    out = {}
-    for label, r in runs.items():
-        rate = float(np.mean(r))
-        out[label] = {"images_per_sec": rate, "ms_per_step": 1e3 * cfg.batch_size / rate,
-                      "runs": r}
-        print(f"  {name} {label} ({variants[label]}): Trainer.run, steps {GRAPH_K + 1}-"
-              f"{GRAPH_RATE_STEPS}, batch {cfg.batch_size}: {rate:.1f} img/s, "
-              f"{1e3 * cfg.batch_size / rate:.2f} ms/step (runs {r}, in turns {a}, {b}, {b}, "
-              f"{a})  ({card})")
-    return out
-
-
 def graph_cell(card, name, args, data, weights):
     """One model and kernel policy under ``--steps-per-call GRAPH_K``: 3k
     steps through MultiStep (a warm-up call of k eager steps, which
     captures the graph, then two replays) against 3k eager train steps
     from the same state and batches, bit for bit (deterministic
     algorithms on, as phases 9 and 13); the graph's kernel nodes by
-    kernel against the eager steps' launches; and each path's device ms
-    per step and idle share from a profile."""
+    kernel against the eager steps' launches; and the graphed path's device
+    ms per step and idle share from a profile (the eager path's ms a step
+    and profile are phases 9, 13 and 16's, through Trainer.run)."""
     import torch
 
     from lvae_tpu_torch.config import config_from_args
@@ -2319,29 +2282,22 @@ def graph_cell(card, name, args, data, weights):
         torch.backends.cudnn.deterministic = False
     torch.cuda.empty_cache()
 
-    # device time and idle share: a call of k steps, after a first call
-    # (the graphed path's warm-up and capture) outside the profile
-    for spc, label in ((1, "eager"), (k, "graphed")):
-        exp, state = setup()
-        stream = index_stream(exp.train_data, cfg.batch_size, cfg.seed, 0, k)
-        if spc == 1:
-            def call():
-                for row in next(stream):
-                    train_step(state, exp.train_data.gather(row), row, exp.loss_cfg)
-        else:
-            multi = MultiStep(state, exp.train_data.gather, exp.loss_cfg, k)
-            call = lambda: multi(next(stream))   # noqa: E731
-        call()
-        busy, kernel_sum, wall, n_events = device_union(call)
-        out[label] = dict(device_ms_per_step=busy / k, kernel_ms_per_step=kernel_sum / k,
+    # device time and idle share: a graphed call of k steps, after a first
+    # call (the warm-up and capture) outside the profile
+    exp, state = setup()
+    stream = index_stream(exp.train_data, cfg.batch_size, cfg.seed, 0, k)
+    multi = MultiStep(state, exp.train_data.gather, exp.loss_cfg, k)
+    multi(next(stream))
+    busy, kernel_sum, wall, n_events = device_union(lambda: multi(next(stream)))
+    out["graphed"] = dict(device_ms_per_step=busy / k, kernel_ms_per_step=kernel_sum / k,
                           profiled_ms_per_step=wall / k, idle_share=1.0 - busy / wall,
                           kernel_events_per_step=n_events / k)
-        print(f"  {name} {label}: profile of a call of {k} steps: device busy {busy / k:.2f} ms "
-              f"per step (the union of kernel intervals; their sum {kernel_sum / k:.2f}), wall "
-              f"{wall / k:.2f} ms per step, idle share {1.0 - busy / wall:.3f}, "
-              f"{n_events / k:.0f} kernel events per step  ({card})")
-        del exp, state, stream
-        torch.cuda.empty_cache()
+    print(f"  {name} graphed: profile of a call of {k} steps: device busy {busy / k:.2f} ms "
+          f"per step (the union of kernel intervals; their sum {kernel_sum / k:.2f}), wall "
+          f"{wall / k:.2f} ms per step, idle share {1.0 - busy / wall:.3f}, "
+          f"{n_events / k:.0f} kernel events per step  ({card})")
+    del exp, state, stream, multi
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2426,9 +2382,8 @@ def phase_graph(card, train_u8, test_u8, flagship_weights, c_data, celeba_weight
              flagship_dataset(train_u8, test_u8), flagship_weights),
             ("celeba64 all", CELEBA_ARGS + ["--fused", "all"], c_data, celeba_weights)):
         out[name] = graph_cell(card, name, args, data, weights)
-        for label, r in rates_in_turns(card, name, args, data, {
-                "eager": {"steps_per_call": 1}, "graphed": {"steps_per_call": GRAPH_K}}).items():
-            out[name][label].update(r)
+        print(f"  [{name} at {time.perf_counter() - t0:.1f} s of phase 17]", flush=True)
+    print(f"  [the CLI at {time.perf_counter() - t0:.1f} s of phase 17]", flush=True)
     out["cli"] = graph_cli(card, train_u8, test_u8)
     out["wall_s"] = time.perf_counter() - t0
     print(f"  phase 17 took {out['wall_s']:.1f} s")
@@ -2730,16 +2685,14 @@ def phase_bf16_kernels(card, per_step, timed, build_log=""):
     return err, times, apart
 
 
-def bf16_cli_run(card, name, args, data, write, steps, expect, keep=None):
+def bf16_cli_run(card, name, args, data, write, steps, expect):
     """``lvae_tpu_torch.main --precision bf16 ...``: ``steps`` steps with
     data-dependent init, one test sweep and a checkpoint, which
     ``lvae_tpu_torch.evaluate`` scores in bf16 (its stored precision).
     ``expect(model, unfused dropout sites)`` gives {launch counter:
     launches}, held to the run's counts less the init's; every fp32
     instantiation of a bf16 kernel is held at 0. Returns the run's
-    record and the checkpoint's weights (the trained model's). With
-    ``keep`` (a directory), the run and its data stay there, and the
-    record names the run's directory."""
+    record and the checkpoint's weights (the trained model's)."""
     import torch
 
     from lvae_tpu_torch import evaluate
@@ -2747,8 +2700,7 @@ def bf16_cli_run(card, name, args, data, write, steps, expect, keep=None):
     from lvae_tpu_torch.kernels import build
 
     out = {}
-    where = contextlib.nullcontext(keep) if keep else tempfile.TemporaryDirectory()
-    with where as tmp, init_counted() as init:
+    with tempfile.TemporaryDirectory() as tmp, init_counted() as init:
         data_dir = os.path.join(tmp, "data")
         write(data_dir)
         build.reset_launches()
@@ -2804,8 +2756,6 @@ def bf16_cli_run(card, name, args, data, write, steps, expect, keep=None):
         out.update(launches=launches, wall_s=wall, ema_loss=(first, last),
                    test_elbo=[float(m["elbo"]) for m in tests],
                    log_rates={s: float(m["images_per_sec"]) for s, m in lines.items()})
-        if keep:
-            out["run_dir"] = trainer.run_dir
     build.reset_launches()
     return out, ckpt["model"]
 
@@ -2904,7 +2854,7 @@ def bf16_eval(card, name, config, weights, write, n_test, iw_batch, want=()):
     """Test ELBO over the test split and the k=100 IW-LL over its first
     ``iw_batch`` images, through ``lvae_tpu_torch.evaluate.main`` from the
     same weights (a bf16 run's trained checkpoint) at fp32 and at bf16;
-    then the ELBO sweep's images/s at fp32 and bf16 in turns (f, b, b, f).
+    then the ELBO sweep's images/s at fp32, then bf16.
     Each precision's bpd and the bf16 - fp32 delta."""
     import torch
 
@@ -2926,7 +2876,7 @@ def bf16_eval(card, name, config, weights, write, n_test, iw_batch, want=()):
                 precision, "--ll", "--iw-samples", str(IW_SAMPLES), "--iw-max-batches", "1",
                 "--test-batch-size", str(iw_batch)])
             counts[precision] = {k: v for k, v in build.LAUNCHES.items() if v}
-        for precision in ("fp32", "bf16", "bf16", "fp32"):
+        for precision in ("fp32", "bf16"):
             turns[precision].append(evaluate.main(base + [precision])["elbo"])
     build.reset_launches()
     bf16_kernels = [k for k in counts["bf16"] if k.endswith("[bf16]")]
@@ -2958,9 +2908,8 @@ def bf16_eval(card, name, config, weights, write, n_test, iw_batch, want=()):
 
 
 def phase_bf16(card, per_step, timed, build_log, train_u8, test_u8, flagship_weights,
-               c_train, c_test, c_data, celeba_weights, keep):
-    """Phase 18: --precision bf16 on both models; celeba64's ``all`` run
-    stays in the directory ``keep`` (phase 20 exports it)."""
+               c_train, c_test, c_data, celeba_weights):
+    """Phase 18: --precision bf16 on both models."""
     from lvae_tpu_torch.data.sources import make_synthetic
 
     t0 = time.perf_counter()
@@ -3000,8 +2949,9 @@ def phase_bf16(card, per_step, timed, build_log, train_u8, test_u8, flagship_wei
             card, f"celeba64 bf16 {fused}{' graphed' if extra else ''}",
             CELEBA_ARGS + ["--precision", "bf16", "--fused", fused] + extra, c_data,
             lambda d: write_celeba(d, c_train, c_test), BF16_CELEBA_STEPS,
-            celeba_counts(fused == "all"), keep=keep if fused == "all" else None)
+            celeba_counts(fused == "all"))
     out["runs"] = runs
+    print(f"  [18c at {time.perf_counter() - t0:.1f} s of phase 18]", flush=True)
     print("[18c] one bf16 step, the kernel path vs the plain path; bf16 vs fp32 losses",
           flush=True)
     out["step"] = {
@@ -3018,16 +2968,12 @@ def phase_bf16(card, per_step, timed, build_log, train_u8, test_u8, flagship_wei
                                        trained["flagship auto"]),
         "celeba64 all": bf16_loss_gap(card, "celeba64 all", CELEBA_ARGS + ["--fused", "all"],
                                       c_data, trained["celeba64 all"])}
+    print(f"  [18d at {time.perf_counter() - t0:.1f} s of phase 18]", flush=True)
     print(f"[18d] --steps-per-call {GRAPH_K} in bf16", flush=True)
     cell_args = CELEBA_ARGS + ["--fused", "all"]
     out["graph"] = graph_cell(card, "celeba64 all bf16", cell_args + ["--precision", "bf16"],
                               c_data, celeba_weights)
-    precisions = {p: {"precision": p, "steps_per_call": GRAPH_K} for p in ("fp32", "bf16")}
-    out["graph"]["turns"] = {
-        "celeba64 all": rates_in_turns(card, "celeba64 all graphed", cell_args, c_data,
-                                       precisions),
-        "flagship auto": rates_in_turns(card, "flagship auto graphed",
-                                        FLAGSHIP_ARGS + ["--fused", "auto"], fdata, precisions)}
+    print(f"  [18e at {time.perf_counter() - t0:.1f} s of phase 18]", flush=True)
     print("[18e] evaluation in bf16 and fp32 from the same trained weights", flush=True)
     _, f_test = make_synthetic(n_train=0, n_test=N_TEST, seed=5)
 
@@ -3559,8 +3505,7 @@ def cifar_step(card, data, weights):
     gradient, every running buffer and the parameters after Adamax, bit for
     bit; ten graphed --grad-accum 2 steps (the replay of a graph captured
     from step 11, inside an accumulation) bit-equal to eager ones; the peak
-    memory of a step with and without --remat, and graphed ms/step of both
-    in turns."""
+    memory of a step with and without --remat."""
     import dataclasses
 
     import torch
@@ -3666,9 +3611,6 @@ def cifar_step(card, data, weights):
           f"({peaks['remat']['step_bytes'] / 2 ** 20:.1f} MiB against "
           f"{peaks['plain']['step_bytes'] / 2 ** 20:.1f})")
     out["memory"] = peaks
-    out["turns"] = rates_in_turns(card, "cifar10-deep bf16 all accum2 graphed",
-                                  CIFAR_ARGS + CIFAR_RUN, data,
-                                  {"plain": {"remat": False}, "remat": {"remat": True}})
     return out
 
 
@@ -3996,41 +3938,39 @@ def served_ok(what, got, want, tol):
     return e
 
 
-def mo_serve(card, run_dir, celeba_run, tmp):
+def mo_serve(card, run_dir, tmp):
     """20c and 20d: ``python -m lvae_tpu_torch.export_serving --load <run>
-    --check --platforms cuda cpu``; celeba64's bf16 run's reconstruct
-    exported alone; every artifact served by a process that cannot import
-    lvae_tpu_torch and held to the eager port; then the times."""
+    --what reconstruct --check --platforms cuda cpu`` (the CPU tests export
+    and serve generate and encode too); the artifact served by a process
+    that cannot import lvae_tpu_torch and held to the eager port; then the
+    times."""
     import torch
 
     from lvae_tpu_torch import export_serving, serving
     from lvae_tpu_torch.kernels import build
 
-    print("[20c] export_serving --load <run> --check --platforms cuda cpu; the artifacts "
-          "served by a process without the port", flush=True)
+    print("[20c] export_serving --load <run> --what reconstruct --check --platforms cuda cpu; "
+          "the artifact served by a process without the port", flush=True)
     build.reset_launches()
     t0 = time.perf_counter()
-    arts = export_serving.main(["--load", run_dir, "--check", "--platforms", "cuda", "cpu"])
+    arts = export_serving.main(["--load", run_dir, "--what", "reconstruct", "--check",
+                                "--platforms", "cuda", "cpu"])
     cli_s = time.perf_counter() - t0
-    c_arts = serving.export_run(celeba_run, what=("reconstruct",), device="cuda")
     check(not any(build.LAUNCHES.values()), "the exports and --check launched no kernel of "
                                            "the port")
-    exports = {"multi-dSprites": arts, "celeba64 bf16": c_arts}
+    exports = {"multi-dSprites": arts}
     sizes = {f"{run} {name}": os.path.getsize(p) / 2 ** 20 for run, a in exports.items()
              for name, p in a.paths.items() if name != "manifest"}
     export_s = {f"{run} {name}": s["export_s"] for run, a in exports.items()
                 for name, s in a.manifest["surfaces"].items()}
-    check(arts.manifest["surfaces"]["reconstruct"]["batch"] is None
-          and c_arts.manifest["precision"] == "bf16", "a symbolic batch; celeba64's in bf16")
+    check(arts.manifest["surfaces"]["reconstruct"]["batch"] is None, "a symbolic batch")
     print(f"  export_serving --check: {cli_s:.1f} s in all; trace and save s by surface "
           f"{ {k: round(v, 2) for k, v in export_s.items()} }; artifact MiB "
           f"{ {k: round(v, 2) for k, v in sizes.items()} }  ({card})")
 
     # the requests: test images with their global indices
-    models, tests = {}, {}
-    for run, rdir in (("multi-dSprites", run_dir), ("celeba64 bf16", celeba_run)):
-        model, data, _, _ = serving._restore_for_export(rdir, None, torch.device("cuda"))
-        models[run], tests[run] = (model, data.preprocess), torch.from_numpy(data.test[:500])
+    model, data, _, _ = serving._restore_for_export(run_dir, None, torch.device("cuda"))
+    pre, x_mo = data.preprocess, torch.from_numpy(data.test[:500])
     perm = torch.from_numpy(np.random.default_rng(20).permutation(7))
     seed = torch.tensor(5, dtype=torch.int32)
 
@@ -4039,12 +3979,7 @@ def mo_serve(card, run_dir, celeba_run, tmp):
         calls["perm7"] = (x[:7][perm], seed, perm.to(torch.int32))
         return calls
 
-    x_mo, x_c = tests["multi-dSprites"], tests["celeba64 bf16"]
-    req = {"reconstruct": (arts.paths["reconstruct"], keyed(x_mo)),
-           "encode": (arts.paths["encode"], {k: v for k, v in keyed(x_mo).items()
-                                              if k != "perm7"}),
-           "generate": (arts.paths["generate"], {"seed5": (seed,)}),
-           "celeba64 reconstruct": (c_arts.paths["reconstruct"], keyed(x_c))}
+    req = {"reconstruct": (arts.paths["reconstruct"], keyed(x_mo))}
     serve_dir = os.path.join(tmp, "serve")
     os.makedirs(serve_dir)
     torch.save(req, os.path.join(serve_dir, "requests.pt"))
@@ -4066,12 +4001,12 @@ def mo_serve(card, run_dir, celeba_run, tmp):
 
     # the eager plain path against itself, cuDNN's default algorithms: why
     # the comparisons below run deterministic ones
-    model, pre = models["multi-dSprites"]
     set_kernels(model, False)
-    args = [a.cuda() for a in req["encode"][1]["b64"]]
-    self_gap = served_err("eager encode b64 twice", serving.encode(model, *args, pre),
-                          serving.encode(model, *args, pre))
-    print(f"  the eager plain path against itself (encode, B=64, cuDNN's default "
+    args = [a.cuda() for a in req["reconstruct"][1]["b64"]]
+    self_gap = served_err("eager reconstruct b64 twice",
+                          serving.reconstruct(model, *args, pre),
+                          serving.reconstruct(model, *args, pre))
+    print(f"  the eager plain path against itself (reconstruct, B=64, cuDNN's default "
           f"algorithms): {self_gap:.2e}")
 
     # the eager port on the same runs: the plain path and the kernel path,
@@ -4083,23 +4018,16 @@ def mo_serve(card, run_dir, celeba_run, tmp):
     try:
         for path in ("plain", "kernels"):
             build.reset_launches()
-            for key, (_, calls) in req.items():
-                run = "celeba64 bf16" if key.startswith("celeba64") else "multi-dSprites"
-                model, pre = models[run]
-                set_kernels(model, path == "kernels")
-                surface = key.split()[-1]
+            set_kernels(model, path == "kernels")
+            for surface, (_, calls) in req.items():
                 for name, args in calls.items():
-                    if surface == "generate":
-                        want = serving.generate(model, arts.manifest["surfaces"]["generate"]
-                                                ["n_images"], args[0].cuda())
-                    else:
-                        fn = serving.reconstruct if surface == "reconstruct" else serving.encode
-                        want = fn(model, args[0].cuda(), args[1].cuda(), args[2].cuda(), pre)
+                    want = serving.reconstruct(model, args[0].cuda(), args[1].cuda(),
+                                               args[2].cuda(), pre)
                     if path == "plain":
-                        eager_plain[key, name] = want
+                        eager_plain[surface, name] = want
                     worst[path] = max(worst[path], served_ok(
-                        f"{key} {name}: the artifact vs the eager {path} path", ans[key, name],
-                        want, SERVE_TOL[path]))
+                        f"{surface} {name}: the artifact vs the eager {path} path",
+                        ans[surface, name], want, SERVE_TOL[path]))
             torch.cuda.synchronize()
             eager_launches[path] = {k: v for k, v in build.LAUNCHES.items() if v}
     finally:
@@ -4107,33 +4035,29 @@ def mo_serve(card, run_dir, celeba_run, tmp):
         torch.backends.cudnn.deterministic = False
     build.reset_launches()
     check(not eager_launches["plain"], "the eager plain path launched no kernel")
-    check(all(eager_launches["kernels"].get(k, 0) > 0
-              for k in ("sample_kl", "mix_log_prob[bf16]")),
-          f"the eager kernel path launched K2 and K3 ({eager_launches['kernels']})")
+    check(eager_launches["kernels"].get("sample_kl", 0) > 0,
+          f"the eager kernel path launched K2 ({eager_launches['kernels']})")
     print(f"  the artifacts vs the eager port: plain path worst {worst['plain']:.2e}, kernel "
           f"path worst {worst['kernels']:.2e}; the kernel path's launches "
           f"{eager_launches['kernels']}  ({card})")
 
     # batch invariance: B = 1 and 7 are B = 64's first rows, the shuffled 7
-    # b7's rows. fp32 within 1e-6; a bf16 model's convolutions round by the
-    # algorithm each B picks, so its artifact is held to the eager plain
-    # path's own gap between the same batches
+    # b7's rows, within 1e-6
     invariance = {}
-    for key in ("reconstruct", "celeba64 reconstruct"):
-        pairs = {"b1": ("b64", slice(0, 1)), "b7": ("b64", slice(0, 7)), "perm7": ("b7", perm)}
-        for name, (full, rows) in pairs.items():
-            gaps = [served_err(f"{key} {name} vs {full}'s rows", src[key, name],
-                               {k: v[rows] for k, v in src[key, full].items()})
-                    for src in (ans, eager_plain)]
-            tol = SERVE_TOL["plain"] if key == "reconstruct" else gaps[1] + SERVE_TOL["plain"]
-            check(gaps[0] <= tol, f"{key} {name} vs {full}'s rows: the artifact's gap "
-                                  f"{gaps[0]:.2e}, the eager plain path's {gaps[1]:.2e}; "
-                                  f"within {tol:.2e}")
-            invariance[f"{key} {name}"] = {"artifact": gaps[0], "eager": gaps[1]}
+    key = "reconstruct"
+    pairs = {"b1": ("b64", slice(0, 1)), "b7": ("b64", slice(0, 7)), "perm7": ("b7", perm)}
+    for name, (full, rows) in pairs.items():
+        gaps = [served_err(f"{key} {name} vs {full}'s rows", src[key, name],
+                           {k: v[rows] for k, v in src[key, full].items()})
+                for src in (ans, eager_plain)]
+        tol = SERVE_TOL["plain"]
+        check(gaps[0] <= tol, f"{key} {name} vs {full}'s rows: the artifact's gap "
+                              f"{gaps[0]:.2e}, the eager plain path's {gaps[1]:.2e}; "
+                              f"within {tol:.2e}")
+        invariance[f"{key} {name}"] = {"artifact": gaps[0], "eager": gaps[1]}
 
     print("[20d] reconstruct images/s: the artifact vs the eager kernel path, in turns",
           flush=True)
-    model, pre = models["multi-dSprites"]
     set_kernels(model, True)
     art = serving.load_artifact(arts.paths["reconstruct"], "cuda").module()
     rates = {}
@@ -4158,7 +4082,7 @@ def mo_serve(card, run_dir, celeba_run, tmp):
         rates[b]["turns"] = turns
         print(f"  B={b}: artifact {rates[b]['artifact']:.1f} img/s, eager kernel path "
               f"{rates[b]['eager']:.1f} img/s (turns {turns})  ({card})")
-    del art, models
+    del art, model
     torch.cuda.empty_cache()
     return {"export_s": export_s, "artifact_mib": sizes, "cli_s": cli_s,
             "graph_nodes": {k: ans[k, "nodes"] for k in req},
@@ -4168,11 +4092,10 @@ def mo_serve(card, run_dir, celeba_run, tmp):
             "reconstruct_images_per_sec": {str(b): r for b, r in rates.items()}}
 
 
-def phase_multiobject(card, celeba_run):
+def phase_multiobject(card):
     """Phase 20: multi-dSprites (64x64 RGB, binary, the Bernoulli head) at
     the flagship's widths, trained (20a), scored (20b) and exported and
-    served (20c, 20d); multi-MNIST's 48 -> 64 padding; celeba64's bf16 run
-    (``celeba_run``, phase 18b's) exported."""
+    served (20c, 20d); multi-MNIST's 48 -> 64 padding."""
     import torch
 
     from lvae_tpu_torch.data.registry import load_dataset
@@ -4196,7 +4119,7 @@ def phase_multiobject(card, celeba_run):
         print(f"  [20b at {time.perf_counter() - t0:.1f} s of phase 20]", flush=True)
         out["eval"] = mo_eval(card, tr["run_dir"], tmp)
         print(f"  [20c at {time.perf_counter() - t0:.1f} s of phase 20]", flush=True)
-        out["serve"] = mo_serve(card, tr["run_dir"], celeba_run, tmp)
+        out["serve"] = mo_serve(card, tr["run_dir"], tmp)
     out["wall_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     print(f"  phase 20 took {out['wall_s']:.1f} s", flush=True)
@@ -4425,29 +4348,29 @@ def streamed_vs_resident(card, name, args, data, weights, calls):
     return launches
 
 
-def stream_timing(card, name, args, data, weights, k, calls):
-    """Resident against streamed, in turns (resident, streaming,
-    streaming, resident), each a fresh ``Experiment`` from ``weights``
+def stream_timing(card, name, args, data, weights, calls):
+    """Resident against streamed, one run of each (resident, then
+    streaming), each a fresh ``Experiment`` from ``weights``
     after the device memory it takes is read: ms/step on the host clock
-    over ``calls`` calls of ``GRAPH_K`` steps (``MultiStep`` calls of
-    ``k``, or eager at ``k = 1``) between two synchronises, after one call
-    (a graph's warm-up and capture), so each stack's gather overlaps the
-    call before it as in a run; and in each path's first turn, as phase 17
-    takes it, device busy per step (the union of kernel intervals) and
-    idle share from a profile of one call after a synchronise, where
-    nothing hides the gather."""
+    over ``calls`` graphed calls of ``GRAPH_K`` steps between two
+    synchronises, after one call (the graph's warm-up and capture), so
+    each stack's gather overlaps the call before it as in a run; and, as
+    phase 17 takes it, device busy per step (the union of kernel
+    intervals) and idle share from a profile of one call after a
+    synchronise, where nothing hides the gather."""
     import dataclasses
 
     import torch
 
     from lvae_tpu_torch.config import config_from_args
     from lvae_tpu_torch.data.streaming import ArrayLoader, HostFeed
-    from lvae_tpu_torch.train.state import MultiStep, train_step
+    from lvae_tpu_torch.train.state import MultiStep
     from lvae_tpu_torch.train.trainer import Experiment, index_stream
 
     cfg, _ = config_from_args(args)
+    k = GRAPH_K
     out = {"resident": {"runs": []}, "streaming": {"runs": []}}
-    for label in ("resident", "streaming", "streaming", "resident"):
+    for label in ("resident", "streaming"):
         streaming, row = label == "streaming", out[label]
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -4462,20 +4385,13 @@ def stream_timing(card, name, args, data, weights, k, calls):
             stream = HostFeed(ArrayLoader(data.train, cfg.batch_size, seed=cfg.seed,
                                           steps_per_call=k), exp.device).stream(0)
         else:
-            stream = ((i, exp.train_data.gather(i) if k == 1 else None) for i in
+            stream = ((i, None) for i in
                       index_stream(exp.train_data, cfg.batch_size, cfg.seed, 0, k))
-        if k == 1:
-            def call():
-                for _ in range(GRAPH_K):
-                    index, batch = next(stream)
-                    train_step(state, batch, index, exp.loss_cfg)
-        else:
-            multi = MultiStep(state, None if streaming else exp.train_data.gather,
-                              exp.loss_cfg, k)
+        multi = MultiStep(state, None if streaming else exp.train_data.gather,
+                          exp.loss_cfg, k)
 
-            def call():
-                for _ in range(GRAPH_K // k):
-                    multi(*next(stream))
+        def call():
+            multi(*next(stream))
         call()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4483,18 +4399,17 @@ def stream_timing(card, name, args, data, weights, k, calls):
             call()
         torch.cuda.synchronize()
         row["runs"].append((time.perf_counter() - t0) * 1e3 / (calls * GRAPH_K))
-        if "idle_share_one_call" not in row:
-            busy, _, wall, _ = device_union(call)
-            row.update(device_ms_per_step=busy / GRAPH_K, idle_share_one_call=1.0 - busy / wall)
+        busy, _, wall, _ = device_union(call)
+        row.update(device_ms_per_step=busy / GRAPH_K, idle_share_one_call=1.0 - busy / wall)
         print(f"  {name} {label}: {row['experiment_bytes'] / 1e6:.1f} MB on the card once the "
               f"Experiment is built; {calls} calls of {GRAPH_K} steps {row['runs'][-1]:.2f} ms "
               f"per step  ({card})", flush=True)
-        del exp, state, stream
+        del exp, state, stream, multi
         torch.cuda.empty_cache()
     for label, row in out.items():
         row["ms_per_step"] = float(np.mean(row["runs"]))
         row["idle_share"] = 1.0 - row["device_ms_per_step"] / row["ms_per_step"]
-        print(f"  {name} {label}, in turns: {row['ms_per_step']:.2f} ms per step (runs "
+        print(f"  {name} {label}: {row['ms_per_step']:.2f} ms per step (runs "
               f"{[round(r, 2) for r in row['runs']]}); device busy "
               f"{row['device_ms_per_step']:.2f} ms per step, idle share "
               f"{row['idle_share']:.3f} against it ({row['idle_share_one_call']:.3f} in the "
@@ -4557,8 +4472,7 @@ def stream_flagship(card, data_dir, data):
     return wall, launches
 
 
-def phase_streaming(card, train_u8, test_u8, c_train, c_test, c_data, celeba_weights,
-                    flagship_weights):
+def phase_streaming(card, train_u8, test_u8, c_train, c_test, c_data, celeba_weights):
     """Phase 21: ``--streaming``, the train split on the host and each
     stack copied to the card through pinned buffers."""
     import torch
@@ -4575,7 +4489,7 @@ def phase_streaming(card, train_u8, test_u8, c_train, c_test, c_data, celeba_wei
                                       c_data, celeba_weights, STREAM_CALLS)
     print(f"  [21c timing at {time.perf_counter() - t0:.1f} s of phase 21]", flush=True)
     out["celeba64"] = stream_timing(card, "21c celeba64 bf16 all graphed", STREAM_CELEBA_ARGS,
-                                    c_data, celeba_weights, GRAPH_K, STREAM_CALLS)
+                                    c_data, celeba_weights, STREAM_CALLS)
     split = c_train.nbytes
     saved = out["celeba64"]["resident"]["experiment_bytes"] - \
         out["celeba64"]["streaming"]["experiment_bytes"]
@@ -4589,10 +4503,7 @@ def phase_streaming(card, train_u8, test_u8, c_train, c_test, c_data, celeba_wei
         write_mnist(data_dir, train_u8, test_u8)
         fdata = load_dataset("static_mnist", data_dir)
         wall, f_launches = stream_flagship(card, data_dir, fdata)
-        print(f"  [21d timing at {time.perf_counter() - t0:.1f} s of phase 21]", flush=True)
-        out["flagship"] = stream_timing(card, "21d flagship auto eager", STREAM_FLAGSHIP_ARGS,
-                                        fdata, flagship_weights, 1, 1)
-        out["flagship"].update(wall_s=wall, launches=f_launches)
+        out["flagship"] = {"wall_s": wall, "launches": f_launches}
     out["wall_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     print(f"  phase 21 took {out['wall_s']:.1f} s", flush=True)
@@ -4600,12 +4511,13 @@ def phase_streaming(card, train_u8, test_u8, c_train, c_test, c_data, celeba_wei
 
 
 # --- phase 22: the bench and the measurement tools ----------------------------
-# (preset, precision) of 22a's bench runs; each 2 warm-up and 4 timed calls
-# of --steps-per-call 8 (32 timed steps, 48 counted)
+# (preset, precision) of 22a's bench runs; each a warm-up call (eager steps
+# and the capture) and 2 timed calls of --steps-per-call 8 (16 timed steps,
+# 24 counted)
 BENCH_RUNS = [("mnist", "bf16"), ("mnist", "fp32"), ("celeba64", "bf16"),
-              ("celeba64", "fp32"), ("cifar10-deep", "bf16")]
-BENCH_ARGS = ["--steps", "4", "--warmup", "2", "--steps-per-call", "8"]
-BENCH_STEPS = (2 + 4) * 8
+              ("cifar10-deep", "bf16")]
+BENCH_ARGS = ["--steps", "2", "--warmup", "1", "--steps-per-call", "8"]
+BENCH_STEPS = (1 + 2) * 8
 BENCH_LAYERS = {"mnist": 3, "celeba64": 4, "cifar10-deep": 10}
 PROFILE_ARGS = ["--preset", "celeba64", "--precision", "bf16", "--steps-per-call", "8",
                 "--steps", "8"]
@@ -4724,9 +4636,8 @@ def phase_bench(card):
         rows[label] = {k: r[k] for k in ("value", "mfu", "mfu_precision_peak", "flops_per_image",
                                          "img32_equivalent_per_sec", "final_elbo")}
         rows[label]["launches"] = launches
-    for preset in ("mnist", "celeba64"):
-        a, b = (rows[f"{preset} {p}"]["flops_per_image"] for p in ("fp32", "bf16"))
-        check(a == b, f"{preset}: the same FLOPs an image in fp32 and bf16 ({a:.6e}, {b:.6e})")
+    a, b = (rows[f"mnist {p}"]["flops_per_image"] for p in ("fp32", "bf16"))
+    check(a == b, f"mnist: the same FLOPs an image in fp32 and bf16 ({a:.6e}, {b:.6e})")
     # the graph of 8 steps with the sample+KL kernels off: the plain latent
     # draw built 2 pi from host data, which no CUDA graph captures
     build.reset_launches()
@@ -4792,8 +4703,9 @@ def phase_tools(card):
 def phase_iwll(card, c_train, c_test):
     """22d: ``iwll_probe`` at its defaults, then one batch of the real IW
     sweep (``evaluate_iwll``, k = IW_SAMPLES, chunk 1) at phase 4's and
-    phase 11's shapes in fp32 and bf16, each with its device busy time and
-    idle share, and every kernel of its path counted."""
+    phase 11's shapes in bf16 (phases 5 and 11 time the fp32 sweep), each
+    with its device busy time and idle share, and every kernel of its path
+    counted."""
     import torch
 
     from lvae_tpu_torch import iwll_probe
@@ -4821,7 +4733,7 @@ def phase_iwll(card, c_train, c_test):
     sweeps, iw_launches = {}, {}
     for name, (config, meta, test, pre, dims, batch) in cells.items():
         test_dev = torch.from_numpy(test).to(dev)
-        for precision in ("fp32", "bf16"):
+        for precision in ("bf16",):
             model = seeded_model(dict(config, precision=precision), meta, dev)
             build.reset_launches()
             r = iwll_probe.iw_sweep(model, test_dev, pre, dims, batch, IW_SAMPLES)
@@ -5107,32 +5019,44 @@ def split_rank_checks(layout):
                   f"K5-bwd-split apply {what}: a second launch is bit-equal")
     out["max_abs_err"] = err
 
-    # the bf16 instantiations (--precision bf16) at the largest shape, rate
-    # 0.2: the arithmetic is fp32 on both sides, so y and dx within one
-    # bf16 rounding (2^-8 of their max)
-    x, g, gamma, beta = split_operands(shapes[0])
-    xb, gb = x.bfloat16(), g.bfloat16()
-    n_global = xb.numel() // xb.shape[1] * layout.size
+    # the bf16 instantiations (--precision bf16) at the largest and the
+    # smallest shape (units of 16 and of 4), rate 0.2: the arithmetic is
+    # fp32 on both sides, so y and dx within one bf16 rounding (2^-8 of
+    # their max)
     t_ = om.bits8_keep_threshold(0.2)
-    b = dropout_bytes(xb.shape, mix_seed(*key), dev, offset(xb))
-    part = mesh.all_reduce_(seg.split_stats(xb, t_, key, offset(xb)), layout)
-    plain = mesh.all_reduce_(om.segment_split_stats(xb, t_, b), layout)
-    check(rel_elem(part.sum(dim=1), plain.sum(dim=1)) <= 1e-9,
-          f"K5-split stats bf16 {list(xb.shape)}: the global sums within 1e-9 relative")
-    y, stats = seg.split_apply(xb, gamma, beta, part, n_global, t_, "elu", 1e-5, key,
-                               offset(xb), None, None, 0.9)
-    yp, _ = om.segment_split_apply(xb, gamma, beta, part, n_global, t_, "elu", 1e-5, b)
-    check(y.dtype == torch.bfloat16 and rel_max(y.float(), yp.float()) <= 2 ** -8,
-          f"K5-split apply bf16 {list(xb.shape)}: y bf16 within 2^-8 of max|y|")
-    local = seg.split_bwd_reduce(xb, gb, stats, t_, "elu", key, offset(xb))
-    gl = mesh.all_reduce_(local.clone(), layout)
-    got = seg.split_bwd_apply(xb, gb, gamma, stats, local, gl, n_global, t_, "elu", key,
-                              offset(xb))
-    ref = om.segment_split_bwd_apply(xb, gb, gamma, stats, local, gl, n_global, t_, "elu", b)
-    check(got[0].dtype == torch.bfloat16 and max(rel_max(a.float(), r.float())
-                                                 for a, r in zip(got, ref)) <= 2 ** -8,
-          f"K5-bwd-split bf16 {list(xb.shape)}: dx (bf16), dgamma, dbeta within 2^-8 of "
-          f"their max")
+    for shape in (shapes[0], shapes[-1]):
+        x, g, gamma, beta = split_operands(shape)
+        xb, gb = x.bfloat16(), g.bfloat16()
+        n_global = xb.numel() // xb.shape[1] * layout.size
+        b = dropout_bytes(xb.shape, mix_seed(*key), dev, offset(xb))
+        part = mesh.all_reduce_(seg.split_stats(xb, t_, key, offset(xb)), layout)
+        plain = mesh.all_reduce_(om.segment_split_stats(xb, t_, b), layout)
+        check(rel_elem(part.sum(dim=1), plain.sum(dim=1)) <= 1e-9,
+              f"K5-split stats bf16 {list(xb.shape)}: the global sums within 1e-9 relative")
+        y, stats = seg.split_apply(xb, gamma, beta, part, n_global, t_, "elu", 1e-5, key,
+                                   offset(xb), None, None, 0.9)
+        yp, _ = om.segment_split_apply(xb, gamma, beta, part, n_global, t_, "elu", 1e-5, b)
+        check(y.dtype == torch.bfloat16 and rel_max(y.float(), yp.float()) <= 2 ** -8,
+              f"K5-split apply bf16 {list(xb.shape)}: y bf16 within 2^-8 of max|y|")
+        local = seg.split_bwd_reduce(xb, gb, stats, t_, "elu", key, offset(xb))
+        gl = mesh.all_reduce_(local.clone(), layout)
+        got = seg.split_bwd_apply(xb, gb, gamma, stats, local, gl, n_global, t_, "elu", key,
+                                  offset(xb))
+        ref = om.segment_split_bwd_apply(xb, gb, gamma, stats, local, gl, n_global, t_, "elu",
+                                         b)
+        check(got[0].dtype == torch.bfloat16 and max(rel_max(a.float(), r.float())
+                                                     for a, r in zip(got, ref)) <= 2 ** -8,
+              f"K5-bwd-split bf16 {list(xb.shape)}: dx (bf16), dgamma, dbeta within 2^-8 of "
+              f"their max")
+        check(torch.equal(seg.split_stats(xb, t_, key, offset(xb)),
+                          seg.split_stats(xb, t_, key, offset(xb)))
+              and torch.equal(seg.split_apply(xb, gamma, beta, part, n_global, t_, "elu", 1e-5,
+                                              key, offset(xb), None, None, 0.9)[0], y)
+              and torch.equal(seg.split_bwd_reduce(xb, gb, stats, t_, "elu", key, offset(xb)),
+                              local)
+              and torch.equal(seg.split_bwd_apply(xb, gb, gamma, stats, local, gl, n_global, t_,
+                                                  "elu", key, offset(xb))[0], got[0]),
+              f"K5-split and K5-bwd-split bf16 {list(xb.shape)}: each relaunch bit-equal")
 
     # each launch timed at the largest shape, rate 0.2, on rank 0 alone
     shape = shapes[0]
@@ -5277,7 +5201,7 @@ def printed(pattern, text):
     return [float(v) for v in re.findall(pattern, text)]
 
 
-def parallel_cli(card, train_u8, test_u8):
+def parallel_cli(card, train_u8, test_u8, beside=None):
     """23c: the commands a user runs, at the flagship's full width under
     ``--fused all`` over two gloo ranks sharing the card, on a static_mnist
     of PARALLEL_CLI_TRAIN train and PARALLEL_CLI_TEST test images (the
@@ -5291,7 +5215,9 @@ def parallel_cli(card, train_u8, test_u8):
     types it (it starts its own ranks) with ``--auto-resume``, two steps
     more, and (3) ``evaluate --num-data-shards 2`` (it starts its own
     ranks) of a copy of (1)'s run against ``evaluate`` on one rank of
-    another copy: the test ELBO and the IW-LL of one batch."""
+    another copy: the test ELBO and the IW-LL of one batch; ``beside`` (a
+    callable) runs in this process while (2) and (3) run, its result in
+    the returned record's ``beside``."""
     import torch
 
     from lvae_tpu_torch import evaluate as eval_main
@@ -5365,6 +5291,7 @@ def parallel_cli(card, train_u8, test_u8):
         evaluate = start_command(["-m", "lvae_tpu_torch.evaluate", "--load", copies[0], *ev,
                                   "--num-data-shards", str(PARALLEL_RANKS)])
         one = eval_main.main(["--load", copies[1], *ev])
+        out["beside"] = beside() if beside is not None else None
         code, text = finish_command(resume, 240)
         out["resume_wall_s"] = time.perf_counter() - t1
         check(code == 0 and ranks_txt in text
@@ -5394,17 +5321,19 @@ def parallel_cli(card, train_u8, test_u8):
     return out
 
 
-def phase_parallel(card, train_u8, test_u8, flagship_weights):
+def phase_parallel(card, train_u8, test_u8, flagship_weights, beside=None):
     """Phase 23, ``--num-data-shards``: (a) one NCCL rank, graphed, bit-equal
-    to no group; (c) :func:`parallel_cli`, the commands on two ranks, and
-    the split kernels' checks on both. (The dry run runs in phase 25 at
-    its default layout for four ranks, 2 x 2.)"""
+    to no group; (c) :func:`parallel_cli`, the commands on two ranks (with
+    ``beside`` run in this process while its last two do, its result under
+    ``beside``), and the split kernels' checks on both. (The dry run runs
+    in phase 25 at its default layout for four ranks, 2 x 2.)"""
     print("[23] data parallelism (--num-data-shards)", flush=True)
     t0 = time.perf_counter()
     out = {"one_rank_nccl": parallel_one_rank(card, train_u8, test_u8, flagship_weights)}
     print(f"  23a took {time.perf_counter() - t0:.1f} s", flush=True)
     t1 = time.perf_counter()
-    cli = parallel_cli(card, train_u8, test_u8)
+    cli = parallel_cli(card, train_u8, test_u8, beside)
+    out["beside"] = cli.pop("beside")
     split = cli.pop("split")
     check(split["gloo_cuda"], "gloo all-reduced CUDA tensors on the ranks")
     steps = split["steps"]
@@ -5634,7 +5563,7 @@ def banded_segment_checks(check_band, dev, g, err, n_space, d, b, shape):
     beta = (torch.randn(c, generator=g) * 0.2).to(dev)
     row0 = d * b * c * h * w
     whole = seg._launch_dropout(x, t_, key, ElementMap(base=row0))
-    slices = seg.split_slices(b, -(-h // n_space), w)
+    plan = seg.split_plan(b, c, -(-h // n_space), w)
     n_global = b * (d + 1) * h * w
     outs = []
     for s in range(n_space):
@@ -5647,25 +5576,34 @@ def banded_segment_checks(check_band, dev, g, err, n_space, d, b, shape):
         outs.append(y)
         check_band(torch.equal(y, om.bits8_dropout_f32(xs, mask, t_)),
                    f"{what}: the dropout kernel bit-equal to the plain banded mask")
-        part = seg.split_stats(xs, t_, key, emap, slices)
+        part = seg.split_stats(xs, t_, key, emap, plan)
         plain = om.segment_split_stats(xs, t_, mask)
         e = rel_elem(part.sum(dim=1), plain.sum(dim=1)) if h1 > h0 else float(
             part.abs().max())
         err["segment_split_stats"] = max(err["segment_split_stats"], (
             part.sum(dim=1) - plain.sum(dim=1)).abs().max().item())
-        check_band(e <= 1e-9 and part.shape[1] == slices,
+        check_band(e <= 1e-9 and part.shape[1] == plan.slices,
                    f"{what}: K5-split stats' sums within 1e-9 relative ({e:.2e}), "
-                   f"{slices} slices")
+                   f"{plan.slices} slices")
         glob = part + 1.0        # stands for the other ranks' sums
         y2, stats = seg.split_apply(xs, gamma, beta, glob, n_global, t_, "elu", 1e-5, key,
                                     emap, None, None, 0.9)
         yp, sp = om.segment_split_apply(xs, gamma, beta, glob, n_global, t_, "elu", 1e-5, mask)
-        local = seg.split_bwd_reduce(xs, gs, stats, t_, "elu", key, emap, slices)
+        local = seg.split_bwd_reduce(xs, gs, stats, t_, "elu", key, emap, plan)
         lp = om.segment_split_bwd_reduce(xs, gs, stats, t_, "elu", mask)
         got = seg.split_bwd_apply(xs, gs, gamma, stats, local, local + 1.0, n_global, t_,
                                   "elu", key, emap)
         ref = om.segment_split_bwd_apply(xs, gs, gamma, stats, local, local + 1.0, n_global,
                                          t_, "elu", mask)
+        again = (seg.split_stats(xs, t_, key, emap, plan),
+                 *seg.split_apply(xs, gamma, beta, glob, n_global, t_, "elu", 1e-5, key, emap,
+                                  None, None, 0.9),
+                 seg.split_bwd_reduce(xs, gs, stats, t_, "elu", key, emap, plan),
+                 *seg.split_bwd_apply(xs, gs, gamma, stats, local, local + 1.0, n_global, t_,
+                                      "elu", key, emap))
+        check_band(all(torch.equal(a, b2) for a, b2 in zip((part, y2, stats, local, *got),
+                                                            again)),
+                   f"{what}: each split launch's relaunch bit-equal")
         if h1 > h0:
             e = rel_max(y2, yp)
             err["segment_split_apply"] = max(err["segment_split_apply"],
@@ -5692,14 +5630,103 @@ def banded_segment_checks(check_band, dev, g, err, n_space, d, b, shape):
                f"bit-equal to the whole rows'")
 
 
+# 25b's edge cases of the split launches: (what, [B, C, H, W], the rank's
+# element map (plane, gplane, base), the bf16 instantiation too)
+SPLIT_EDGES = (
+    ("a rank's count not a multiple of 16, units of 1 (7x7)", (3, 5, 7, 7), (0, 0, 735), False),
+    ("a rank's count not a multiple of 16, units of 4 (2x2)", (3, 5, 2, 2), (0, 0, 60), True),
+    ("a 1-row band of a 2-row map (H W = 2)", (4, 6, 1, 2), (2, 4, 98), False),
+    ("an empty band", (4, 6, 0, 2), (0, 4, 100), False),
+    ("runs that start off a Philox group (bytes element by element)", (2, 8, 4, 4),
+     (0, 0, 5), True),
+    ("a band whose strips start off a group", (2, 8, 1, 16), (16, 48, 7), False),
+)
+
+
+def split_edge_checks(check_band, dev, g, err):
+    """The four split launches at :data:`SPLIT_EDGES`, each against its
+    plain version under the same element map (y and dx within 1e-5 of
+    their max in fp32, 2^-8 in bf16; the sums 1e-9 relative forward, 1e-5
+    of their max backward; the statistics 1e-6; dx 0 where the plain
+    version's is), each relaunch bit-equal; this rank's sums plus one
+    standing for the global ones."""
+    import torch
+
+    from lvae_tpu_torch.kernels import segment as seg
+    from lvae_tpu_torch.ops import math as om
+    from lvae_tpu_torch.ops.philox import ElementMap, dropout_bytes, mix_seed
+
+    key = seg.Key(42, torch.tensor(7, dtype=torch.int64, device=dev), 3)
+    t_ = om.bits8_keep_threshold(0.2)
+    for what, shape, emap, bf16_too in SPLIT_EDGES:
+        emap = ElementMap(*emap)
+        b, c, h, w = shape
+        x32 = torch.randn(shape, generator=g).to(dev) * 1.5 + 0.3
+        g32 = torch.randn(shape, generator=g).to(dev)
+        gamma = (torch.rand(c, generator=g) + 0.5).to(dev)
+        beta = (torch.randn(c, generator=g) * 0.2).to(dev)
+        mask = dropout_bytes(shape, mix_seed(*key), dev, emap)
+        n_global = 2 * b * max(h, 1) * w
+        for dtype in (torch.float32, torch.bfloat16) if bf16_too else (torch.float32,):
+            x, gg = x32.to(dtype), g32.to(dtype)
+            tol = 2 ** -8 if dtype == torch.bfloat16 else 1e-5
+            name = f"{what} {list(shape)} {'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+            part = seg.split_stats(x, t_, key, emap)
+            plain = om.segment_split_stats(x, t_, mask)
+            glob = part + 1.0
+            y, stats = seg.split_apply(x, gamma, beta, glob, n_global, t_, "elu", 1e-5, key,
+                                       emap, None, None, 0.9)
+            yp, sp = om.segment_split_apply(x, gamma, beta, glob, n_global, t_, "elu", 1e-5,
+                                            mask)
+            local = seg.split_bwd_reduce(x, gg, stats, t_, "elu", key, emap)
+            lp = om.segment_split_bwd_reduce(x, gg, stats, t_, "elu", mask)
+            got = seg.split_bwd_apply(x, gg, gamma, stats, local, local + 1.0, n_global, t_,
+                                      "elu", key, emap)
+            ref = om.segment_split_bwd_apply(x, gg, gamma, stats, local, local + 1.0,
+                                             n_global, t_, "elu", mask)
+            if x.numel():
+                e = (rel_elem(part.sum(dim=1), plain.sum(dim=1)),
+                     rel_max(y.float(), yp.float()), rel_elem(stats[:2], sp[:2]),
+                     rel_max(local.sum(dim=1), lp.sum(dim=1)),
+                     max(rel_max(a.float(), r.float()) for a, r in zip(got, ref)))
+                check_band(e[0] <= 1e-9 and e[1] <= tol and e[2] <= 1e-6 and e[3] <= 1e-5
+                           and e[4] <= tol and torch.equal(got[0] == 0, ref[0] == 0),
+                           f"{name}: the split launches against their plain versions (sums "
+                           f"{e[0]:.1e}, y {e[1]:.1e}, stats {e[2]:.1e}, backward sums "
+                           f"{e[3]:.1e}, dx dgamma dbeta {e[4]:.1e}; dx 0 where the plain "
+                           f"version's is)")
+                if dtype == torch.float32:
+                    for k, a, r in (("segment_split_stats", part.sum(dim=1), plain.sum(dim=1)),
+                                    ("segment_split_apply", y, yp),
+                                    ("segment_split_bwd_reduce", local.sum(dim=1),
+                                     lp.sum(dim=1)),
+                                    ("segment_split_bwd_apply", got[0], ref[0])):
+                        err[k] = max(err[k], (a - r).abs().max().item())
+            else:
+                check_band(float(part.abs().max()) == 0.0 and float(local.abs().max()) == 0.0
+                           and rel_elem(stats[:2], sp[:2]) <= 1e-6,
+                           f"{name}: zero sums and the global statistics")
+            again = (seg.split_stats(x, t_, key, emap),
+                     *seg.split_apply(x, gamma, beta, glob, n_global, t_, "elu", 1e-5, key,
+                                      emap, None, None, 0.9),
+                     seg.split_bwd_reduce(x, gg, stats, t_, "elu", key, emap),
+                     *seg.split_bwd_apply(x, gg, gamma, stats, local, local + 1.0, n_global,
+                                          t_, "elu", key, emap))
+            check_band(all(torch.equal(a, b2) for a, b2 in zip((part, y, stats, local, *got),
+                                                                again)),
+                       f"{name}: each split launch's relaunch bit-equal")
+
+
 def spatial_kernel_checks(card):
     """25b: the banded index map of K1, K1-bwd, K2, the dropout kernel and
     the split segments at every band shape of the flagship over 2 and 4
     ranks (the latents' 8, 4 and 2 rows, the segments' 32, 16, 8, 4 and 2;
-    a 1-row and an empty band among them), against their plain versions;
-    then K1, K1-bwd, the dropout kernel and the split launches timed at
-    the widest band of the flagship's 2 x 2 layout, per call and on the
-    device, beside the bound and the plain versions."""
+    a 1-row and an empty band among them), against their plain versions,
+    each split launch's relaunch bit-equal, and the split launches at
+    :data:`SPLIT_EDGES`; then K1, K1-bwd, K2, the dropout kernel and the
+    split launches (fp32 and bf16) timed at the widest band of the
+    flagship's 2 x 2 layout, per call and on the device, beside the bound
+    and the plain versions."""
     import torch
 
     from lvae_tpu_torch.kernels import segment as seg
@@ -5723,7 +5750,9 @@ def spatial_kernel_checks(card):
             banded_k1_checks(check_band, dev, g, err, n_space, b, layer, h, w)
         for h in (32, 16, 8, 4, 2):
             banded_segment_checks(check_band, dev, g, err, n_space, 1, b, (b, 64, h, h))
-    print(f"  {n_checks[0]} checks of the banded kernels pass  ({card})", flush=True)
+    split_edge_checks(check_band, dev, g, err)
+    print(f"  {n_checks[0]} checks of the banded kernels and the split launches' edge cases "
+          f"pass  ({card})", flush=True)
 
     # timed at band 0 of the flagship at 2 x 2 (data index 1): its bottom
     # latent [32, 32, 4, 8] and its widest segment [32, 64, 16, 32]
@@ -5746,14 +5775,25 @@ def spatial_kernel_checks(card):
     emap = ElementMap(16 * 32, 32 * 32, 32 * 64 * 32 * 32)
     mask = dropout_bytes(shape, mix_seed(*key), dev, emap)
     m = int(np.prod(shape))
-    slices = seg.split_slices(32, 16, 32)
-    part = seg.split_stats(x, t_, key, emap, slices)
+    plan = seg.split_plan(32, 64, 16, 32)
+    part = seg.split_stats(x, t_, key, emap, plan)
     n_global = 2 * 32 * 32 * 32
     _, stats = seg.split_apply(x, gamma, beta, part, n_global, t_, "elu", 1e-5, key, emap,
                                None, None, 0.9)
-    local = seg.split_bwd_reduce(x, gx, stats, t_, "elu", key, emap, slices)
+    local = seg.split_bwd_reduce(x, gx, stats, t_, "elu", key, emap, plan)
     sums = local.numel() * 8
+    # the bf16 instantiations on the same band (--precision bf16)
+    xb, gxb = x.bfloat16(), gx.bfloat16()
+    part_b = seg.split_stats(xb, t_, key, emap, plan)
+    _, stats_b = seg.split_apply(xb, gamma, beta, part_b, n_global, t_, "elu", 1e-5, key,
+                                 emap, None, None, 0.9)
+    local_b = seg.split_bwd_reduce(xb, gxb, stats_b, t_, "elu", key, emap, plan)
+    sums_b = local_b.numel() * 8
     calls = {
+        "sample_kl": (
+            lambda: sk.sample_kl(q, p, index, 1234, 0, 0, bd),
+            lambda: sk._plain_sample_kl(q, p, index, 1234, 0, 0, bd),
+            bound(24 * n + 8 * b, OPS_SAMPLE_KL * n), [b, 2 * c, h // 2, w]),
         "sample_kl_per_sample": (
             lambda: sk.sample_kl_per_sample(q, p, index, 1234, 0, 0, bd),
             lambda: sk._plain_sample_kl_per_sample(q, p, index, 1234, 0, 0, bd),
@@ -5769,7 +5809,7 @@ def spatial_kernel_checks(card):
                                                                   emap), t_),
                     bound(8 * m, OPS_SEGMENT * m), list(shape)),
         "segment_split_stats": (
-            lambda: seg.split_stats(x, t_, key, emap, slices),
+            lambda: seg.split_stats(x, t_, key, emap, plan),
             lambda: om.segment_split_stats(x, t_, mask), bound(4 * m + sums, OPS_SEGMENT * m),
             list(shape)),
         "segment_split_apply": (
@@ -5779,7 +5819,7 @@ def spatial_kernel_checks(card):
                                            mask),
             bound(8 * m + sums, OPS_SEGMENT * m), list(shape)),
         "segment_split_bwd_reduce": (
-            lambda: seg.split_bwd_reduce(x, gx, stats, t_, "elu", key, emap, slices),
+            lambda: seg.split_bwd_reduce(x, gx, stats, t_, "elu", key, emap, plan),
             lambda: om.segment_split_bwd_reduce(x, gx, stats, t_, "elu", mask),
             bound(8 * m + sums, OPS_SEGMENT * m), list(shape)),
         "segment_split_bwd_apply": (
@@ -5788,13 +5828,33 @@ def spatial_kernel_checks(card):
             lambda: om.segment_split_bwd_apply(x, gx, gamma, stats, local, part, n_global, t_,
                                                "elu", mask),
             bound(12 * m + 2 * sums, OPS_SEGMENT * m), list(shape)),
+        "segment_split_stats[bf16]": (
+            lambda: seg.split_stats(xb, t_, key, emap, plan),
+            lambda: om.segment_split_stats(xb, t_, mask),
+            bound(2 * m + sums_b, OPS_SEGMENT * m), list(shape)),
+        "segment_split_apply[bf16]": (
+            lambda: seg.split_apply(xb, gamma, beta, part_b, n_global, t_, "elu", 1e-5, key,
+                                    emap, None, None, 0.9),
+            lambda: om.segment_split_apply(xb, gamma, beta, part_b, n_global, t_, "elu", 1e-5,
+                                           mask),
+            bound(4 * m + sums_b, OPS_SEGMENT * m), list(shape)),
+        "segment_split_bwd_reduce[bf16]": (
+            lambda: seg.split_bwd_reduce(xb, gxb, stats_b, t_, "elu", key, emap, plan),
+            lambda: om.segment_split_bwd_reduce(xb, gxb, stats_b, t_, "elu", mask),
+            bound(4 * m + sums_b, OPS_SEGMENT * m), list(shape)),
+        "segment_split_bwd_apply[bf16]": (
+            lambda: seg.split_bwd_apply(xb, gxb, gamma, stats_b, local_b, part_b, n_global, t_,
+                                        "elu", key, emap),
+            lambda: om.segment_split_bwd_apply(xb, gxb, gamma, stats_b, local_b, part_b,
+                                               n_global, t_, "elu", mask),
+            bound(6 * m + 2 * sums_b, OPS_SEGMENT * m), list(shape)),
     }
     times = {}
     for name, (kern, plain, bnd, shp) in calls.items():
         times[name] = {"ms": cuda_ms(kern, 50), "plain_ms": cuda_ms(plain, 10),
                        "device_ms": device_ms(kern, 20), "plain_device_ms": device_ms(plain, 5),
                        "bound_ms": bnd[0], "bound_by": bnd[1], "shape": shp,
-                       "max_abs_err": err[name]}
+                       "max_abs_err": err.get(name, "checked at the edge shapes (bf16)")}
         r = times[name]
         print(f"  time banded {name} {shp}: per call kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms; device: kernel {fmt_ms(r['device_ms'])}, plain "
@@ -5869,7 +5929,9 @@ def spatial_cli(card, tag, args, data_dir, n_data, n_space, steps, tmp, expect=(
     bound of the one rank's (``graft_entry_torch.dryrun_multichip``'s
     rule). ``beside`` (a callable) runs in this process while the ranks
     run, its result returned beside the run's; the halo exchanges are then
-    counted but not timed. Returns ``(run, beside's result)``."""
+    counted but not timed. The ranks' spec and results go in a directory
+    of ``tmp`` of their own, so that another run may go on beside. Returns
+    ``(run, beside's result)``."""
     import threading
 
     import torch
@@ -5886,7 +5948,9 @@ def spatial_cli(card, tag, args, data_dir, n_data, n_space, steps, tmp, expect=(
                    "--checkpoint-interval", str(steps), "--max-steps", str(steps)]
     argv = base + ["--run-name", "sp", "--num-data-shards", str(n_data), "--spatial-shards",
                    str(n_space)]
-    spec = os.path.join(tmp, f"spec_{tag}.json")
+    work = os.path.join(tmp, "ranks_" + tag.replace(" ", "_"))
+    os.makedirs(work)
+    spec = os.path.join(work, "spec.json")
     with open(spec, "w") as f:
         json.dump({"argv": argv, "timed": beside is None}, f)
     box = {}
@@ -5913,7 +5977,7 @@ def spatial_cli(card, tag, args, data_dir, n_data, n_space, steps, tmp, expect=(
     t0 = time.perf_counter()
     one = train_main.main(base + ["--run-name", "one"])
     one_s = time.perf_counter() - t0
-    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
              for r in range(world)]
     for r in ranks:
         got = r["launches"]
@@ -6020,28 +6084,30 @@ def phase_spatial(card, train_u8, test_u8, c_train, c_test):
     bands), gloo ranks sharing the card; (b)
     :func:`spatial_kernel_checks`; (c) celeba64 at 1 x 2 for
     SPATIAL_CELEBA_STEPS steps through ``main``, so that K3 and K3-bwd run
-    on bands, its ranks running while this process runs the 2 x 2 dry run
-    (so only the 1 x 4 run's halo exchanges are timed)."""
+    on bands. The three runs go on side by side: 25c's ranks and 25a's 1 x
+    4 ranks run while this process runs the 2 x 2 dry run (their halo
+    exchanges counted, not timed)."""
     print("[25] height sharding (--spatial-shards)", flush=True)
     out = {"runs": {}}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         celeba_dir = os.path.join(tmp, "celeba")
         write_celeba(celeba_dir, c_train[:SPATIAL_TRAIN], c_test[:SPATIAL_TEST])
-        print("[25c] celeba64 1x2: K3 and K3-bwd on bands, its ranks beside 25a's 2 x 2 dry "
-              "run", flush=True)
-        out["runs"]["celeba64 1x2"], out["runs"]["flagship 2x2"] = spatial_cli(
-            card, "celeba64 1x2", CELEBA_ARGS, celeba_dir, 1, 2, SPATIAL_CELEBA_STEPS, tmp,
-            expect=("mix_log_prob", "mix_log_prob_bwd"), beside=lambda: spatial_dryrun(card))
-        print(f"  25c with the 2 x 2 dry run beside it took {time.perf_counter() - t0:.1f} s",
-              flush=True)
-        t1 = time.perf_counter()
         flagship_dir = os.path.join(tmp, "mnist")
         write_mnist(flagship_dir, train_u8[:SPATIAL_TRAIN], test_u8[:SPATIAL_TEST])
-        print("[25a] flagship 1x4: main --num-data-shards 1 --spatial-shards 4", flush=True)
-        out["runs"]["flagship 1x4"], _ = spatial_cli(
-            card, "flagship 1x4", FLAGSHIP_ARGS, flagship_dir, 1, 4, SPATIAL_STEPS, tmp)
-        print(f"  25a's 1 x 4 took {time.perf_counter() - t1:.1f} s", flush=True)
+
+        def flagship_1x4():
+            print("[25a] flagship 1x4: main --num-data-shards 1 --spatial-shards 4, its "
+                  "ranks beside the 2 x 2 dry run", flush=True)
+            return spatial_cli(card, "flagship 1x4", FLAGSHIP_ARGS, flagship_dir, 1, 4,
+                               SPATIAL_STEPS, tmp, beside=lambda: spatial_dryrun(card))
+
+        print("[25c] celeba64 1x2: K3 and K3-bwd on bands, its ranks beside 25a's", flush=True)
+        out["runs"]["celeba64 1x2"], (out["runs"]["flagship 1x4"], out["runs"]["flagship 2x2"]) \
+            = spatial_cli(card, "celeba64 1x2", CELEBA_ARGS, celeba_dir, 1, 2,
+                          SPATIAL_CELEBA_STEPS, tmp, expect=("mix_log_prob", "mix_log_prob_bwd"),
+                          beside=flagship_1x4)
+        print(f"  25a and 25c side by side took {time.perf_counter() - t0:.1f} s", flush=True)
         t1 = time.perf_counter()
         out["kernels"] = spatial_kernel_checks(card)
         print(f"  25b took {time.perf_counter() - t1:.1f} s; phase 25 "
@@ -6112,7 +6178,7 @@ def main():
     print(f"  phases 6-7 took {time.perf_counter() - t6:.1f} s")
     train_u8, test_u8 = train_data()
     lap("phase 8")
-    # phase 8's data and run stay until phase 24 exports the run
+    # phase 8's data and run stay until phase 24 (inside 23c) exports the run
     keep8 = tempfile.TemporaryDirectory()
     tr = phase_train(card, train_u8, test_u8, keep8.name)
     res.update(train_run={k: tr[k] for k in ("wall_s", "log_rates", "log_rate_late",
@@ -6178,11 +6244,9 @@ def main():
     res["steps_per_call"] = phase_graph(card, train_u8, test_u8, flagship_weights, c_data,
                                         celeba_weights)
     lap("phase 18")
-    # celeba64's bf16 run stays until phase 20 exports it
-    keep = tempfile.TemporaryDirectory()
     b16_err, b16_t, res["bf16"] = phase_bf16(card, per_step, timed, build_log, train_u8,
                                              test_u8, flagship_weights, c_train, c_test,
-                                             c_data, celeba_weights, keep.name)
+                                             c_data, celeba_weights)
 
     def times_and_bound(t):
         return [t[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")], \
@@ -6310,8 +6374,7 @@ def main():
                 if kern["name"] == "logsumexp" else "")
         kern["cifar10_deep"] = row
     lap("phase 20")
-    with keep:
-        mo = phase_multiobject(card, res["bf16"]["runs"]["celeba64 all"].pop("run_dir"))
+    mo = phase_multiobject(card)
     res["multiobject"] = mo
     # each kernel's launches on phase 20's paths: the multi-dSprites
     # training run (20a, less the init's), evaluate (20b), the eager
@@ -6325,8 +6388,7 @@ def main():
                     ["kernels"].get(counter, 0),
                     launches_in_artifacts=0)
     lap("phase 21")
-    st = phase_streaming(card, train_u8, test_u8, c_train, c_test, c_data, celeba_weights,
-                         flagship_weights)
+    st = phase_streaming(card, train_u8, test_u8, c_train, c_test, c_data, celeba_weights)
     res["streaming"] = st
     # each kernel's launches on phase 21's main paths: celeba64's streamed
     # run through main (21b) and the flagship's (21d), the init's left out
@@ -6344,7 +6406,15 @@ def main():
                                        for r in ms["bench"].values()),
                     launches_iw_sweep=ms["iw_launches"].get(counter, 0))
     lap("phase 23")
-    par = phase_parallel(card, train_u8, test_u8, flagship_weights)
+
+    def phase_24():
+        # beside 23c's resume and evaluate commands (subprocesses)
+        print("  [phase 24, beside 23c's last two commands]", flush=True)
+        return phase_checkpoint(card, tr["run_dir"], tr["data_dir"])
+
+    with keep8:
+        par = phase_parallel(card, train_u8, test_u8, flagship_weights, beside=phase_24)
+    ck = par.pop("beside")
     res["parallel"] = {k: v for k, v in par.items() if k != "split"}
     res["parallel"]["split_shapes"] = par["split"]["shapes"]
     # each kernel's launches on 23c's main run (each rank) and in 23a's
@@ -6370,9 +6440,6 @@ def main():
                    f"batch of 64)",
             path=f"lvae_tpu_torch.main --num-data-shards {PARALLEL_RANKS} --fused all (23c, "
                  f"rank 0: launches); every --spatial-shards run of phase 25"))
-    lap("phase 24")
-    with keep8:
-        ck = phase_checkpoint(card, tr["run_dir"], tr["data_dir"])
     res["checkpoint"] = {k: v for k, v in ck.items() if k != "launches"}
     # each kernel's launches on phase 24's two main paths: evaluate --load
     # <imported> and main --load <imported> --rng-impl rbg
@@ -6397,9 +6464,9 @@ def main():
                                     for tag, run in sp["runs"].items()}
         if counter in banded:
             kern["banded"] = {**banded[counter], "path": "25b: band 0 of the flagship at 2 x 2"}
-        elif counter == "sample_kl":
-            kern["banded"] = {"max_abs_err": sp["kernels"]["max_abs_err"]["sample_kl"],
-                              "ms": "not measured (checked in 25b: the bands' eps)"}
+        if f"{counter}[bf16]" in banded:
+            kern["banded_bf16"] = {**banded[f"{counter}[bf16]"],
+                                   "path": "25b: band 0 of the flagship at 2 x 2, bf16"}
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, **res}))

@@ -106,6 +106,14 @@
 
 #include "philox.cuh"
 
+// Two translation units: this file alone holds K5, K5-bwd and the dropout
+// kernel; segment_split.cu compiles it with LVAE_SEGMENT_SPLIT set to 1 and
+// holds the split launches (K5-split, K5-bwd-split) alone, so that the two
+// halves build side by side (kernels/build.py starts one nvcc a source).
+#ifndef LVAE_SEGMENT_SPLIT
+#define LVAE_SEGMENT_SPLIT 0
+#endif
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -143,7 +151,8 @@ struct Drop {
   lvae::ElementMap at;             // local element e is global element
                                    // global_element(at, e): this rank's rows of the
                                    // global batch, or its band of them (the identity
-                                   // but on the split path and the dropout alone)
+                                   // but for the dropout alone; the split launches
+                                   // walk strips, SplitArgs gstride and base)
 };
 
 // the global element of this rank's element e
@@ -229,11 +238,11 @@ __device__ __forceinline__ bool keep_at(const Drop& d, long long g) {
   return static_cast<int>((word_of(w, j >> 2) >> (8 * (j & 3))) & 255u) < d.t;
 }
 
-// keep_bits<16> of 16 global elements from any g0, element by element
-__device__ __forceinline__ uint32_t keep_bits_at(const Drop& d, long long g0) {
+// keep_bits<n> of n <= 16 global elements from any g0, element by element
+__device__ __forceinline__ uint32_t keep_bits_at(const Drop& d, long long g0, int n = 16) {
   if (!d.on) return 0xFFFFFFFFu;
   uint32_t bits = 0;
-  for (int j = 0; j < 16; ++j) bits |= static_cast<uint32_t>(keep_at(d, g0 + j)) << j;
+  for (int j = 0; j < n; ++j) bits |= static_cast<uint32_t>(keep_at(d, g0 + j)) << j;
   return bits;
 }
 
@@ -501,6 +510,7 @@ __device__ __forceinline__ void sweep_rest(const Share& sh, int ch, const Drop& 
   }
 }
 
+#if !LVAE_SEGMENT_SPLIT
 template <typename T>
 struct FwdArgs {
   const T* x;
@@ -782,6 +792,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs<T> a)
   }
   if (multi) cluster_wait();   // no CTA exits while another may read its `red`
 }
+#endif  // !LVAE_SEGMENT_SPLIT
 
 // the bytes are drawn only for 0 < t < 256, and then the step is needed
 Drop make_drop(int t, unsigned long long seed, unsigned long long site, const void* step) {
@@ -799,6 +810,7 @@ Drop make_drop(int t, unsigned long long seed, unsigned long long site, const vo
 
 bool bad_key(int t, const void* step) { return t > 0 && t < 256 && step == nullptr; }
 
+#if !LVAE_SEGMENT_SPLIT
 // dynamic shared memory per CTA: the chip units' data (x forward; g and
 // x backward; esize bytes per element each) and keep words, and the keep
 // words of a chunk of the units swept twice, where the share has more
@@ -1026,8 +1038,9 @@ cudaError_t max_clusters(const SegPlan& p, int direction, int act, int* out) {
   }
   return err;
 }
+#endif  // !LVAE_SEGMENT_SPLIT
 
-
+#if LVAE_SEGMENT_SPLIT
 // ---------------------------------------------------------------------------
 // K5-split and K5-bwd-split: the segment over R > 1 ranks (--num-data-shards)
 //
@@ -1040,10 +1053,10 @@ cudaError_t max_clusters(const SegPlan& p, int direction, int act, int* out) {
 //   forward:  split_stats     x -> part [2, S, C] fp64: per channel and
 //                             slice, sum(u) and sum(u^2) of this rank's rows;
 //             all_reduce(part) over the ranks;
-//             split_apply     the S slices summed in order; mean, var, r,
-//                             scale and shift from the global sums and
-//                             n = R B H W, as K5 computes them; y; the
-//                             [5, C] statistics; the running statistics;
+//             split_apply     the S slices summed; mean, var, r, scale and
+//                             shift from the global sums and n = R B H W, as
+//                             K5 computes them; y; the [5, C] statistics;
+//                             the running statistics;
 //   backward: split_bwd_reduce  x, g, stats -> part: sum(dz), sum(dz xhat);
 //             all_reduce(a copy of part);
 //             split_bwd_apply   dx from the global m1 = sum(dz) / n and
@@ -1052,21 +1065,99 @@ cudaError_t max_clusters(const SegPlan& p, int direction, int act, int* out) {
 //                               gradients over the ranks).
 // The order is flax's BatchNorm and _segment_fwd_impl's: one sweep of
 // sum(u) and sum(u^2) (the "fast variance"), var = E[u^2] - E[u]^2. The
-// sums are fp64, as K5's (E[u^2] - mean^2 cancels in fp32), summed in a
-// fixed tree within a block, in slice order across blocks, and by the
-// collective across the ranks. Dropout bytes are those of the global
-// element: this rank's element e takes global element global_element(at,
-// e)'s byte (its rows of the global batch: e + rank x the rank's element
-// count; its band of them under --spatial-shards: the band map), so R
-// ranks drop what one rank drops. Each thread makes one Philox call per
-// element. A rank whose band is empty (b hw = 0) writes zero sums.
+// sums are fp64 element by element, as K5's (E[u^2] - mean^2 cancels in
+// fp32), in a fixed order within a thread, a fixed tree within a block, a
+// fixed butterfly over the slices and the collective across the ranks: two
+// launches are bit-equal, and no float atomics are used. Dropout bytes are
+// those of the global element: this rank's element e takes the byte of
+// global element global_element(at, e) (its rows of the global batch: e +
+// rank x the rank's element count; its band of them under
+// --spatial-shards: the band map), so R ranks drop what one rank drops. A
+// rank whose band is empty (b hw = 0) writes zero sums.
 //
-// What bounds it: each launch reads its inputs once (8 B an element
-// forward, stats and apply together 12 B with y; backward 20 B) and the
-// split costs a second read of x (and g). A simple design: a block per
-// (slice, channel), threads on consecutive elements of a strip, scalar
-// accesses, no shared-memory staging.
-constexpr int kSplitThreads = 256;
+// What bounds it. Each launch reads its inputs once and writes its outputs
+// once: 4 B an element (split_stats), 8 (split_apply, split_bwd_reduce) and
+// 12 (split_bwd_apply) in fp32, half in bf16; at [32, 64, 32, 32] fp32 2.5,
+// 5.0, 5.0 and 7.5 us at 3.35 TB/s. Against K5 the split costs a second
+// read of x (and g), which the all-reduce between the launches forces.
+// Per element the launches also take a dropout byte (a Philox call gives
+// 16), convert to fp64 and add (F2F.F64.F32 issues at an eighth of the fp32
+// rate), or apply ELU (expm1f, ~30 instructions) or its derivative (expf):
+// in bf16, whose bytes are half, that work and not the bytes is what holds
+// the launches at the largest maps. The design keeps the rest off the path:
+// - Units, as K5's: 16 consecutive elements of one (row, channel) strip
+//   where H W % 16 == 0, else 4 (a 2x2 map) or 1. A strip is one run of
+//   global elements under both maps, so a unit's bytes are one Philox call
+//   (~70 integer operations) where its run starts a Philox group (V = 16)
+//   or word (V = 4), compared with t four at a time (below4); else element
+//   by element (keep_bits_at, dropout_kernel's rule; no model's map makes
+//   such runs).
+// - A warp takes 32 units at a time (a tile): lane l draws unit l's keep
+//   bits, the tile's V / F accesses a lane of 16 bytes (F elements: 4 in
+//   fp32, 8 in bf16) run over the tile with neighbouring lanes on
+//   neighbouring addresses, and a unit's bits reach the lanes that hold its
+//   accesses by one shuffle. bf16 stays packed in registers until used.
+// - Two stages in flight: a thread's tiles go in stages of kSplitAccesses
+//   accesses (split_stage), and the next stage's loads are issued before
+//   the current stage's bits are drawn and its elements used, so a
+//   thread's Philox calls and arithmetic run under its loads.
+// - No division per element: a unit's row is one multiply-high, an add
+//   and a shift (FastDiv by the units of a strip, its magic computed on
+//   the host), once per access.
+// - The grid is (S, C), a block per (slice, channel), S and the block's
+//   threads from kernels/segment.py split_plan, a function of the longest
+//   band's shape alone (so every rank's part has one shape): one wave of
+//   two blocks an SM on the small maps (4 slices of 8 warps at [32, 64, 32,
+//   32]: 256 blocks, where a block per 2,048 elements took 1,024), more
+//   slices where a warp would take more than 4 tiles (16 at [64, 64, 64,
+//   64]); the all-reduced [2, S, C] sums shrink with S (a quarter at both).
+// - The apply launches: every warp sums the S slices (a butterfly over its
+//   lanes, the same bits in every warp and block of the channel) and
+//   derives the channel's coefficients itself, after issuing its first
+//   stage, so that no warp waits on another.
+constexpr int kSplitMaxThreads = 256;
+constexpr int kSplitAccesses = 4;     // 16-byte accesses of a stage, over the inputs
+
+// tiles of 32 units in a stage of a thread's walk: kSplitAccesses accesses
+// over the launch's `operands` inputs, at least one tile (the walk's
+// mirror in tests/test_torch_segment_split.py takes the same)
+template <typename T, int V>
+__host__ __device__ constexpr int split_stage(int operands) {
+  return kSplitAccesses / (operands * (V / access_elems<T, V>())) > 0
+             ? kSplitAccesses / (operands * (V / access_elems<T, V>()))
+             : 1;
+}
+
+// F elements of T held as loaded (one access; bf16 stays packed, so a
+// stage of loads in flight takes half the registers of floats)
+template <typename T, int F>
+struct Packed {
+  using Word = typename Raw<F * static_cast<int>(sizeof(T))>::type;
+  Word w;
+  __device__ __forceinline__ void load(const T* __restrict__ p) {
+    w = *reinterpret_cast<const Word*>(p);
+  }
+  __device__ __forceinline__ float operator[](int j) const {
+    return up(reinterpret_cast<const T*>(&w)[j]);
+  }
+};
+
+// x / d for 0 <= x < 2^31 by a multiply-high, an add and a shift (the
+// round-up method, s = ceil(log2 d))
+struct FastDiv {
+  uint32_t d, m, s;
+};
+
+FastDiv fast_div(uint32_t d) {
+  uint32_t s = 0;
+  while ((1ull << s) < d) ++s;
+  const unsigned long long m = ((1ull << 32) * ((1ull << s) - d)) / d + 1;
+  return FastDiv{d, static_cast<uint32_t>(m), s};
+}
+
+__device__ __forceinline__ uint32_t div_of(const FastDiv& f, uint32_t x) {
+  return (__umulhi(x, f.m) + x) >> f.s;
+}
 
 template <typename T>
 struct SplitArgs {
@@ -1082,24 +1173,152 @@ struct SplitArgs {
   float* stats;             // [5, C]: written forward, read backward
   T* y;                     // forward y, backward dx
   float* dgb;               // backward: dgamma, dbeta [2, C]
-  long long b, hw;
+  unsigned units;           // a channel's units, b hw / V
+  unsigned hw;              // elements of a strip
+  FastDiv per_row;          // units of a strip, hw / V
   int c, slices;
+  long long gstride;        // global elements from a strip's first to the next's
+  long long base;           // the global element of local element 0
   double n_global;          // elements per channel over every rank
   double eps;
   float momentum, one_minus_momentum;
   Drop d;
 };
 
-// the flat NCHW index of channel ch's element ce (channel-local)
+// unit u of channel ch: the flat NCHW index of its first element and, where
+// g is given, that element's global element
+template <int V, typename T>
+__device__ __forceinline__ long long unit_at(const SplitArgs<T>& a, int ch, unsigned u,
+                                             long long* g = nullptr) {
+  const unsigned row = div_of(a.per_row, u);
+  const unsigned within = (u - row * a.per_row.d) * V;
+  const long long strip = static_cast<long long>(row) * a.c + ch;
+  if (g != nullptr) *g = strip * a.gstride + a.base + within;
+  return strip * a.hw + within;
+}
+
+// bit j: byte j of w below t, tt = t (0..255) in every byte: the four
+// unsigned byte compares at once (z's sign bits: the low seven bits' >=),
+// their sign bits gathered into bits 28-31 by one multiply
+__device__ __forceinline__ uint32_t below4(uint32_t w, uint32_t tt) {
+  const uint32_t z = (w | 0x80808080u) - (tt & 0x7F7F7F7Fu);
+  const uint32_t lt = ((~w & tt) | (~(w ^ tt) & ~z)) & 0x80808080u;
+  return (lt * 0x00204081u) >> 28;
+}
+
+// the keep bits of a unit of V elements from global element g0 (tt: t in
+// every byte): one Philox call where the unit's run starts a group (V = 16)
+// or a word (V = 4) of its bytes, compared four at a time; else element by
+// element
+template <int V>
+__device__ __forceinline__ uint32_t keep_unit(const Drop& d, uint32_t tt, long long g0) {
+  if (V > 1 && (g0 & (V - 1)) != 0) return keep_bits_at(d, g0, V);
+  const unsigned long long grp = static_cast<unsigned long long>(g0) >> 4;
+  const uint4 w = lvae::philox4x32_10(
+      make_uint4(static_cast<uint32_t>(grp), static_cast<uint32_t>(grp >> 32), 0u, kStream),
+      d.k0, d.k1);
+  if constexpr (V == 16) {
+    return below4(w.x, tt) | below4(w.y, tt) << 4 | below4(w.z, tt) << 8 |
+           below4(w.w, tt) << 12;
+  } else {
+    return (below4(word_of(w, static_cast<int>((g0 >> 2) & 3)), tt) >> (g0 & 3)) &
+           ((1u << V) - 1u);
+  }
+}
+
+// a walk's stage 1 registers into stage 0 (split_walk's shift)
+template <typename P, int kS, int A>
+__device__ __forceinline__ void copy_stage(P (&buf)[2][kS][A]) {
+#pragma unroll
+  for (int k = 0; k < kS; ++k) {
+#pragma unroll
+    for (int q = 0; q < A; ++q) buf[0][k][q] = buf[1][k][q];
+  }
+}
+
+// slice s's first unit of a channel
 template <typename T>
-__device__ __forceinline__ long long split_at(const SplitArgs<T>& a, long long ce, int ch) {
-  const long long row = ce / a.hw;
-  return (row * a.c + ch) * a.hw + (ce - row * a.hw);
+__device__ __forceinline__ unsigned slice_lo(const SplitArgs<T>& a, int s) {
+  return static_cast<unsigned>(static_cast<unsigned long long>(a.units) * s / a.slices);
+}
+
+// The units [lo, hi) of channel ch, a warp's tiles of 32 units at a time
+// (tiles warp, warp + nw, ...), in stages of kS tiles, two stages in
+// flight: load(s, k, q, e) of access q of the k-th tile of stage s (e its
+// first element's index); once the thread has issued its first stage,
+// ready() (in every thread: it may hold warp shuffles); then for each
+// stage, in order, the next stage's loads and body(s, k, q, e, bits), bits
+// the access's keep bits from bit 0. Every loop bound is the warp's, so the
+// shuffles see every lane. With kOneBody, a loop iteration drains stage 0
+// only and shift() then moves stage 1's registers to stage 0: one copy of
+// body in the loop, which keeps a long body (ELU, the backward) within the
+// instruction cache (a two-body loop of split_apply_kernel<bf16, 16> was
+// 5,372 instructions and ran 1-16% slower); else the loop holds both
+// stages' bodies and no copies (split_stats, a short body, 5% faster so).
+template <typename T, int V, int kS, bool kOneBody, typename Load, typename Ready,
+          typename Body, typename Shift>
+__device__ __forceinline__ void split_walk(const SplitArgs<T>& a, const Drop& d, int ch,
+                                           unsigned lo, unsigned hi, Load&& load,
+                                           Ready&& ready, Body&& body, Shift&& shift) {
+  constexpr int F = access_elems<T, V>(), A = V / F;
+  const unsigned lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const unsigned tiles = (hi - lo + 31) / 32, step = nw * kS;
+  const uint32_t tt = static_cast<uint32_t>(d.t > 0 ? d.t : 0) * 0x01010101u;
+  auto issue = [&](int s, unsigned t0) {
+#pragma unroll
+    for (int k = 0; k < kS; ++k) {
+      const unsigned tu = lo + (t0 + k * nw) * 32;
+#pragma unroll
+      for (int q = 0; q < A; ++q) {
+        const unsigned i = lane + 32 * q;
+        if (t0 + k * nw < tiles && tu + i / A < hi) {
+          load(s, k, q, unit_at<V>(a, ch, tu + i / A) + (i % A) * F);
+        }
+      }
+    }
+  };
+  auto drain = [&](int s, unsigned t0) {
+#pragma unroll
+    for (int k = 0; k < kS; ++k) {
+      if (t0 + k * nw >= tiles) break;
+      const unsigned tu = lo + (t0 + k * nw) * 32;
+      uint32_t own = 0xFFFFFFFFu;
+      if (d.on && tu + lane < hi) {
+        long long g0;
+        unit_at<V>(a, ch, tu + lane, &g0);
+        own = keep_unit<V>(d, tt, g0);
+      }
+#pragma unroll
+      for (int q = 0; q < A; ++q) {
+        const unsigned i = lane + 32 * q;
+        const uint32_t bits =
+            (A == 1 ? own : __shfl_sync(0xFFFFFFFFu, own, i / A)) >> ((i % A) * F);
+        if (tu + i / A < hi) body(s, k, q, unit_at<V>(a, ch, tu + i / A) + (i % A) * F, bits);
+      }
+    }
+  };
+  const unsigned warp = threadIdx.x >> 5;
+  issue(0, warp);
+  ready();
+  if constexpr (kOneBody) {
+    for (unsigned t0 = warp; t0 < tiles; t0 += step) {
+      issue(1, t0 + step);
+      drain(0, t0);
+      shift();
+    }
+  } else {
+    for (unsigned t0 = warp; t0 < tiles; t0 += 2 * step) {
+      issue(1, t0 + step);
+      drain(0, t0);
+      issue(0, t0 + 2 * step);
+      drain(1, t0 + step);
+    }
+  }
 }
 
 // the block's (s1, s2) in a fixed tree, in thread 0
 __device__ __forceinline__ void block_sums(double& s1, double& s2) {
-  __shared__ double ws[kSplitThreads / 32][2];
+  __shared__ double ws[kSplitMaxThreads / 32][2];
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     s1 += __shfl_down_sync(0xFFFFFFFFu, s1, o);
@@ -1123,152 +1342,221 @@ __device__ __forceinline__ void block_sums(double& s1, double& s2) {
   }
 }
 
-// channel ch's two sums of part over its S slices, in slice order
-__device__ __forceinline__ void slice_sums(const double* part, int slices, int c, int ch,
-                                           double& s1, double& s2) {
+// channel ch's two sums over the S slices of part, in every lane of the
+// calling warp: lane l adds slices l, l + 32, ... in order, then a fixed
+// butterfly over the lanes (IEEE addition commutes: every lane ends with the
+// same bits, in every block of the channel)
+__device__ __forceinline__ void slice_total(const double* part, int slices, int c, int ch,
+                                            double& s1, double& s2) {
   s1 = 0.0;
   s2 = 0.0;
-  for (int k = 0; k < slices; ++k) {
-    s1 += part[k * c + ch];
-    s2 += part[(slices + k) * c + ch];
+  for (int k = threadIdx.x & 31; k < slices; k += 32) {
+    s1 += part[static_cast<long long>(k) * c + ch];
+    s2 += part[static_cast<long long>(slices + k) * c + ch];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(0xFFFFFFFFu, s1, o);
+    s2 += __shfl_xor_sync(0xFFFFFFFFu, s2, o);
   }
 }
+
+// the reduce launches' output: this block's pair at slice s of channel ch
+template <typename T>
+__device__ __forceinline__ void put_part(const SplitArgs<T>& a, int s, int ch, double s1,
+                                         double s2) {
+  if (threadIdx.x == 0) {
+    a.out_part[static_cast<long long>(s) * a.c + ch] = s1;
+    a.out_part[static_cast<long long>(a.slices + s) * a.c + ch] = s2;
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kSplitMaxThreads) split_stats_kernel(const SplitArgs<T> a) {
+  constexpr int F = access_elems<T, V>(), kS = split_stage<T, V>(1);
+  const int s = blockIdx.x, ch = blockIdx.y;
+  const Drop d = drop_key(a.d);
+  Packed<T, F> xb[2][kS][V / F];
+  double s1 = 0.0, s2 = 0.0;
+  split_walk<T, V, kS, false>(
+      a, d, ch, slice_lo(a, s), slice_lo(a, s + 1),
+      [&](int st, int k, int q, long long e) { xb[st][k][q].load(a.x + e); }, [] {},
+      [&](int st, int k, int q, long long, uint32_t bits) {
+#pragma unroll
+        for (int j = 0; j < F; ++j) {
+          const double u = dropped(d, xb[st][k][q][j], (bits >> j) & 1u);
+          s1 += u;
+          s2 = __fma_rn(u, u, s2);
+        }
+      },
+      [] {});
+  block_sums(s1, s2);
+  put_part(a, s, ch, s1, s2);
+}
+
+template <typename T, int V, int kAct>
+__global__ void __launch_bounds__(kSplitMaxThreads) split_apply_kernel(const SplitArgs<T> a) {
+  constexpr int F = access_elems<T, V>(), kS = split_stage<T, V>(1);
+  const int s = blockIdx.x, ch = blockIdx.y;
+  const Drop d = drop_key(a.d);
+  Packed<T, F> xb[2][kS][V / F];
+  float scale = 0.0f, shift = 0.0f;
+  split_walk<T, V, kS, true>(
+      a, d, ch, slice_lo(a, s), slice_lo(a, s + 1),
+      [&](int st, int k, int q, long long e) { xb[st][k][q].load(a.x + e); },
+      [&] {
+        // every warp derives the coefficients itself (the same bits in
+        // each), so none waits for another
+        double s1, s2;
+        slice_total(a.part, a.slices, a.c, ch, s1, s2);
+        const double mean_d = s1 / a.n_global;
+        const double var_d = s2 / a.n_global - mean_d * mean_d;
+        const float mean = static_cast<float>(mean_d);
+        const float var = static_cast<float>(var_d);
+        const float r = static_cast<float>(1.0 / sqrt(var_d + a.eps));
+        scale = a.gamma[ch] * r;
+        shift = a.beta[ch] - mean * scale;
+        if (s == 0 && threadIdx.x == 0) {
+          a.stats[ch] = mean;
+          a.stats[a.c + ch] = var;
+          a.stats[2 * a.c + ch] = r;
+          a.stats[3 * a.c + ch] = scale;
+          a.stats[4 * a.c + ch] = shift;
+          if (a.running_mean != nullptr) {
+            a.running_mean[ch] = a.momentum * a.running_mean[ch] + a.one_minus_momentum * mean;
+            a.running_var[ch] = a.momentum * a.running_var[ch] + a.one_minus_momentum * var;
+          }
+        }
+      },
+      [&](int st, int k, int q, long long e, uint32_t bits) {
+        Vec<T, F> v;
+#pragma unroll
+        for (int j = 0; j < F; ++j) {
+          v.v[j] = act<kAct>(dropped(d, xb[st][k][q][j], (bits >> j) & 1u) * scale + shift);
+        }
+        v.store(a.y + e);
+      },
+      [&] { copy_stage(xb); });
+}
+
+// the forward's statistics of channel ch that dz and xhat are computed from
+struct SplitStats {
+  float mean, r, scale, shift;
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kSplitThreads) split_stats_kernel(const SplitArgs<T> a) {
+__device__ __forceinline__ SplitStats split_stats_of(const SplitArgs<T>& a, int ch) {
+  return SplitStats{a.stats[ch], a.stats[2 * a.c + ch], a.stats[3 * a.c + ch],
+                    a.stats[4 * a.c + ch]};
+}
+
+// dz and xhat of one element from x's v and g's dy, kept or not
+template <int kAct>
+__device__ __forceinline__ void split_dz(const Drop& d, const SplitStats& st, float v, float dy,
+                                         bool keep, float& dz, float& xhat) {
+  const float u = dropped(d, v, keep);
+  dz = dy * act_grad<kAct>(u * st.scale + st.shift);
+  xhat = (u - st.mean) * st.r;
+}
+
+template <typename T, int V, int kAct>
+__global__ void __launch_bounds__(kSplitMaxThreads) split_bwd_reduce_kernel(const SplitArgs<T> a) {
+  constexpr int F = access_elems<T, V>(), kS = split_stage<T, V>(2);
   const int s = blockIdx.x, ch = blockIdx.y;
   const Drop d = drop_key(a.d);
-  const long long n = a.b * a.hw;
-  const long long lo = n * s / a.slices, hi = n * (s + 1) / a.slices;
+  const SplitStats sts = split_stats_of(a, ch);
+  Packed<T, F> xb[2][kS][V / F], gb[2][kS][V / F];
   double s1 = 0.0, s2 = 0.0;
-  for (long long ce = lo + threadIdx.x; ce < hi; ce += blockDim.x) {
-    const long long e = split_at(a, ce, ch);
-    const double u = dropped(d, up(a.x[e]), keep_at(d, global_at(d, e)));
-    s1 += u;
-    s2 = __fma_rn(u, u, s2);
-  }
+  split_walk<T, V, kS, true>(
+      a, d, ch, slice_lo(a, s), slice_lo(a, s + 1),
+      [&](int st, int k, int q, long long e) {
+        xb[st][k][q].load(a.x + e);
+        gb[st][k][q].load(a.g + e);
+      },
+      [] {},
+      [&](int st, int k, int q, long long, uint32_t bits) {
+#pragma unroll
+        for (int j = 0; j < F; ++j) {
+          float dz, xhat;
+          split_dz<kAct>(d, sts, xb[st][k][q][j], gb[st][k][q][j], (bits >> j) & 1u, dz, xhat);
+          s1 += static_cast<double>(dz);
+          s2 += static_cast<double>(dz * xhat);
+        }
+      },
+      [&] {
+        copy_stage(xb);
+        copy_stage(gb);
+      });
   block_sums(s1, s2);
-  if (threadIdx.x == 0) {
-    a.out_part[s * a.c + ch] = s1;
-    a.out_part[(a.slices + s) * a.c + ch] = s2;
-  }
+  put_part(a, s, ch, s1, s2);
 }
 
-template <typename T, int kAct>
-__global__ void __launch_bounds__(kSplitThreads) split_apply_kernel(const SplitArgs<T> a) {
+template <typename T, int V, int kAct>
+__global__ void __launch_bounds__(kSplitMaxThreads) split_bwd_apply_kernel(const SplitArgs<T> a) {
+  constexpr int F = access_elems<T, V>(), kS = split_stage<T, V>(2);
   const int s = blockIdx.x, ch = blockIdx.y;
   const Drop d = drop_key(a.d);
-  double s1, s2;
-  slice_sums(a.part, a.slices, a.c, ch, s1, s2);
-  const double mean_d = s1 / a.n_global;
-  const double var_d = s2 / a.n_global - mean_d * mean_d;
-  const float mean = static_cast<float>(mean_d);
-  const float var = static_cast<float>(var_d);
-  const float r = static_cast<float>(1.0 / sqrt(var_d + a.eps));
-  const float scale = a.gamma[ch] * r;
-  const float shift = a.beta[ch] - mean * scale;
-  if (s == 0 && threadIdx.x == 0) {
-    a.stats[ch] = mean;
-    a.stats[a.c + ch] = var;
-    a.stats[2 * a.c + ch] = r;
-    a.stats[3 * a.c + ch] = scale;
-    a.stats[4 * a.c + ch] = shift;
-    if (a.running_mean != nullptr) {
-      a.running_mean[ch] = a.momentum * a.running_mean[ch] + a.one_minus_momentum * mean;
-      a.running_var[ch] = a.momentum * a.running_var[ch] + a.one_minus_momentum * var;
-    }
-  }
-  const long long n = a.b * a.hw;
-  const long long lo = n * s / a.slices, hi = n * (s + 1) / a.slices;
-  for (long long ce = lo + threadIdx.x; ce < hi; ce += blockDim.x) {
-    const long long e = split_at(a, ce, ch);
-    const float u = dropped(d, up(a.x[e]), keep_at(d, global_at(d, e)));
-    a.y[e] = down<T>(act<kAct>(u * scale + shift));
-  }
-}
-
-// dz and xhat of element e (the forward's statistics recomputed into)
-template <typename T, int kAct>
-__device__ __forceinline__ void split_dz(const SplitArgs<T>& a, const Drop& d, long long e,
-                                         float mean, float r, float scale, float shift,
-                                         float& dz, float& xhat, bool& keep) {
-  keep = keep_at(d, global_at(d, e));
-  const float u = dropped(d, up(a.x[e]), keep);
-  dz = up(a.g[e]) * act_grad<kAct>(u * scale + shift);
-  xhat = (u - mean) * r;
-}
-
-template <typename T, int kAct>
-__global__ void __launch_bounds__(kSplitThreads) split_bwd_reduce_kernel(const SplitArgs<T> a) {
-  const int s = blockIdx.x, ch = blockIdx.y;
-  const Drop d = drop_key(a.d);
-  const float mean = a.stats[ch], r = a.stats[2 * a.c + ch];
-  const float scale = a.stats[3 * a.c + ch], shift = a.stats[4 * a.c + ch];
-  const long long n = a.b * a.hw;
-  const long long lo = n * s / a.slices, hi = n * (s + 1) / a.slices;
-  double s1 = 0.0, s2 = 0.0;
-  for (long long ce = lo + threadIdx.x; ce < hi; ce += blockDim.x) {
-    float dz, xhat;
-    bool keep;
-    split_dz<T, kAct>(a, d, split_at(a, ce, ch), mean, r, scale, shift, dz, xhat, keep);
-    s1 += static_cast<double>(dz);
-    s2 += static_cast<double>(dz * xhat);
-  }
-  block_sums(s1, s2);
-  if (threadIdx.x == 0) {
-    a.out_part[s * a.c + ch] = s1;
-    a.out_part[(a.slices + s) * a.c + ch] = s2;
-  }
-}
-
-template <typename T, int kAct>
-__global__ void __launch_bounds__(kSplitThreads) split_bwd_apply_kernel(const SplitArgs<T> a) {
-  const int s = blockIdx.x, ch = blockIdx.y;
-  const Drop d = drop_key(a.d);
-  const float mean = a.stats[ch], r = a.stats[2 * a.c + ch];
-  const float scale = a.stats[3 * a.c + ch], shift = a.stats[4 * a.c + ch];
-  const float gr = a.gamma[ch] * r;
-  double s1, s2;
-  slice_sums(a.part, a.slices, a.c, ch, s1, s2);
-  const float m1 = static_cast<float>(s1 / a.n_global), m2 = static_cast<float>(s2 / a.n_global);
-  if (s == 0 && threadIdx.x == 0) {
-    double l1, l2;
-    slice_sums(a.local, a.slices, a.c, ch, l1, l2);
-    a.dgb[ch] = static_cast<float>(l2);
-    a.dgb[a.c + ch] = static_cast<float>(l1);
-  }
-  const long long n = a.b * a.hw;
-  const long long lo = n * s / a.slices, hi = n * (s + 1) / a.slices;
-  for (long long ce = lo + threadIdx.x; ce < hi; ce += blockDim.x) {
-    const long long e = split_at(a, ce, ch);
-    float dz, xhat;
-    bool keep;
-    split_dz<T, kAct>(a, d, e, mean, r, scale, shift, dz, xhat, keep);
-    const float du = gr * ((dz - m1) - xhat * m2);
-    a.y[e] = down<T>(d.on ? (keep ? du * d.scale : 0.0f) : du);
-  }
+  const SplitStats sts = split_stats_of(a, ch);
+  const float gr = a.gamma[ch] * sts.r;
+  Packed<T, F> xb[2][kS][V / F], gb[2][kS][V / F];
+  float m1 = 0.0f, m2 = 0.0f;
+  split_walk<T, V, kS, true>(
+      a, d, ch, slice_lo(a, s), slice_lo(a, s + 1),
+      [&](int st, int k, int q, long long e) {
+        xb[st][k][q].load(a.x + e);
+        gb[st][k][q].load(a.g + e);
+      },
+      [&] {
+        double s1, s2;
+        slice_total(a.part, a.slices, a.c, ch, s1, s2);   // in every warp, as the forward's
+        m1 = static_cast<float>(s1 / a.n_global);
+        m2 = static_cast<float>(s2 / a.n_global);
+        if (s == 0 && threadIdx.x < 32) {
+          slice_total(a.local, a.slices, a.c, ch, s1, s2);
+          if (threadIdx.x == 0) {
+            a.dgb[ch] = static_cast<float>(s2);
+            a.dgb[a.c + ch] = static_cast<float>(s1);
+          }
+        }
+      },
+      [&](int st, int k, int q, long long e, uint32_t bits) {
+        Vec<T, F> v;
+#pragma unroll
+        for (int j = 0; j < F; ++j) {
+          const bool keep = (bits >> j) & 1u;
+          float dz, xhat;
+          split_dz<kAct>(d, sts, xb[st][k][q][j], gb[st][k][q][j], keep, dz, xhat);
+          const float du = gr * ((dz - m1) - xhat * m2);
+          v.v[j] = d.on ? (keep ? du * d.scale : 0.0f) : du;
+        }
+        v.store(a.y + e);
+      },
+      [&] {
+        copy_stage(xb);
+        copy_stage(gb);
+      });
 }
 
 enum SplitLaunch { kSplitStats = 0, kSplitApply = 1, kSplitBwdReduce = 2, kSplitBwdApply = 3 };
 
-template <typename T, int kAct>
-cudaError_t split_launch_act(int which, const SplitArgs<T>& a, cudaStream_t s) {
+template <typename T, int V, int kAct>
+void split_launch_v(int which, const SplitArgs<T>& a, int threads, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(a.slices), static_cast<unsigned>(a.c));
   switch (which) {
-    case kSplitStats: split_stats_kernel<T><<<grid, kSplitThreads, 0, s>>>(a); break;
-    case kSplitApply: split_apply_kernel<T, kAct><<<grid, kSplitThreads, 0, s>>>(a); break;
-    case kSplitBwdReduce:
-      split_bwd_reduce_kernel<T, kAct><<<grid, kSplitThreads, 0, s>>>(a);
-      break;
-    default: split_bwd_apply_kernel<T, kAct><<<grid, kSplitThreads, 0, s>>>(a); break;
+    case kSplitStats: split_stats_kernel<T, V><<<grid, threads, 0, s>>>(a); break;
+    case kSplitApply: split_apply_kernel<T, V, kAct><<<grid, threads, 0, s>>>(a); break;
+    case kSplitBwdReduce: split_bwd_reduce_kernel<T, V, kAct><<<grid, threads, 0, s>>>(a); break;
+    default: split_bwd_apply_kernel<T, V, kAct><<<grid, threads, 0, s>>>(a); break;
   }
-  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t split_launch(int which, int act, const SplitArgs<T>& a, cudaStream_t s) {
-  return act == kElu ? split_launch_act<T, kElu>(which, a, s)
-                     : split_launch_act<T, kRelu>(which, a, s);
+template <typename T, int V>
+void split_launch(int which, int act, const SplitArgs<T>& a, int threads, cudaStream_t s) {
+  if (act == kElu) {
+    split_launch_v<T, V, kElu>(which, a, threads, s);
+  } else {
+    split_launch_v<T, V, kRelu>(which, a, threads, s);
+  }
 }
 
 // the arguments of every split launch, the pointers not a launch reads NULL
@@ -1279,27 +1567,52 @@ struct SplitCall {
   void *running_mean, *running_var, *stats, *y, *dgb;
   long long b, hw;
   lvae::ElementMap at;
-  int c, slices, esize, t, act;
+  int c, slices, threads, esize, t, act;
   double n_global, eps;
   float momentum, one_minus_momentum;
   unsigned long long seed, site;
   const void* step;
 };
 
+// the unit of a strip of hw elements (hw = 0, an empty band: no units)
+int split_vec(long long hw) { return hw % 16 == 0 ? 16 : hw % 4 == 0 ? 4 : 1; }
+
 template <typename T>
 cudaError_t split_run(int which, const SplitCall& k, cudaStream_t s) {
+  const int vec = split_vec(k.hw);
   SplitArgs<T> a{static_cast<const T*>(k.x), static_cast<const T*>(k.g),
                  static_cast<const float*>(k.gamma), static_cast<const float*>(k.beta),
                  k.part, k.local, k.out_part,
                  static_cast<float*>(k.running_mean), static_cast<float*>(k.running_var),
                  static_cast<float*>(k.stats), static_cast<T*>(k.y),
-                 static_cast<float*>(k.dgb), k.b, k.hw, k.c, k.slices, k.n_global, k.eps,
+                 static_cast<float*>(k.dgb),
+                 static_cast<unsigned>(k.b * k.hw / vec), static_cast<unsigned>(k.hw),
+                 fast_div(k.hw > 0 ? static_cast<uint32_t>(k.hw / vec) : 1u), k.c, k.slices,
+                 k.at.plane == 0 ? k.hw : k.at.gplane, k.at.base, k.n_global, k.eps,
                  k.momentum, k.one_minus_momentum, make_drop(k.t, k.seed, k.site, k.step)};
-  a.d.at = k.at;
-  return split_launch<T>(which, k.act, a, s);
+  if (vec == 16) {
+    split_launch<T, 16>(which, k.act, a, k.threads, s);
+  } else if (vec == 4) {
+    split_launch<T, 4>(which, k.act, a, k.threads, s);
+  } else {
+    split_launch<T, 1>(which, k.act, a, k.threads, s);
+  }
+  return cudaGetLastError();
 }
 
-}  // namespace
+// whether a split launch can take its tensors: 16-byte accesses (8 for a
+// bf16 unit of 4) need the data that aligned; a unit of 1 needs nothing
+bool split_misaligned(const SplitCall& k) {
+  if (split_vec(k.hw) == 1) return false;
+  const uintptr_t align = static_cast<uintptr_t>(
+      (split_vec(k.hw) == 4 ? 4 : 16 / k.esize) * k.esize);
+  const void* data[3] = {k.x, k.g, k.y};
+  for (const void* p : data) {
+    if (p != nullptr && reinterpret_cast<uintptr_t>(p) % align != 0) return true;
+  }
+  return false;
+}
+#endif  // LVAE_SEGMENT_SPLIT
 
 // a band map (plane, gplane, base) as the entry points take it: plane 0
 // (a contiguous run from base) or a band of a taller map
@@ -1307,6 +1620,9 @@ bool bad_map(long long plane, long long gplane, long long base) {
   return plane < 0 || base < 0 || (plane > 0 && gplane < plane);
 }
 
+}  // namespace
+
+#if !LVAE_SEGMENT_SPLIT
 // The bits8 dropout alone: y = x where its byte (the segment's, under
 // mix_seed(seed, *step, site)) is below t, scaled by 256 / t, else 0; for
 // 0 < t < 256 (the caller takes the other thresholds). x and y [n], fp32
@@ -1385,37 +1701,44 @@ extern "C" int lvae_segment_max_clusters(const SegPlan* plan, int direction, int
   return static_cast<int>(plan->esize == 4 ? max_clusters<float>(*plan, direction, act, out)
                                            : max_clusters<bf16>(*plan, direction, act, out));
 }
+#endif  // !LVAE_SEGMENT_SPLIT
 
+#if LVAE_SEGMENT_SPLIT
 // K5-split / K5-bwd-split, the four launches of the segment over R > 1
-// ranks (the comment above split_stats_kernel): `which` 0 split_stats, 1
-// split_apply, 2 split_bwd_reduce, 3 split_bwd_apply. x [b, c, hw] (and g,
-// y / dx) of esize 4 (fp32) or 2 (bf16); part, local and out_part [2,
+// ranks (the comment above kSplitMaxThreads): `which` 0 split_stats, 1
+// split_apply, 2 split_bwd_reduce, 3 split_bwd_apply, on a grid of
+// (slices, c) blocks of `threads` (kernels/segment.py split_plan). x [b, c,
+// hw] (and g, y / dx) of esize 4 (fp32) or 2 (bf16), 16-byte aligned (8 for
+// bf16 where hw % 16 != 0) unless hw % 4 != 0; part, local and out_part [2,
 // slices, c] fp64; gamma, beta, stats [5, c], the running statistics and
-// dgb [2, c] fp32; n_global the elements per channel over every rank;
-// the dropout key as K5's, element e taking global element
-// global_element({plane, gplane, base}, e)'s byte. hw may be 0 (a rank's
-// empty band: zero sums, nothing written but the statistics). Returns the
-// CUDA status.
+// dgb [2, c] fp32; n_global the elements per channel over every rank; the
+// dropout key as K5's, element e taking global element global_element({plane,
+// gplane, base}, e)'s byte, plane 0 (a run) or hw (a band of whole rows).
+// hw may be 0 (a rank's empty band: zero sums, nothing written but the
+// statistics). Returns the CUDA status.
 extern "C" int lvae_segment_split(int which, const void* x, const void* g, const void* gamma,
                                   const void* beta, const double* part, const double* local,
                                   double* out_part, void* running_mean, void* running_var,
                                   void* stats, void* y, void* dgb, long long b, int c,
-                                  long long hw, int slices, int esize, int t, int act,
-                                  double n_global, double eps, float momentum,
+                                  long long hw, int slices, int threads, int esize, int t,
+                                  int act, double n_global, double eps, float momentum,
                                   float one_minus_momentum, unsigned long long seed,
                                   unsigned long long site, const void* step, long long plane,
                                   long long gplane, long long base, void* stream) {
   if (which < kSplitStats || which > kSplitBwdApply || b < 1 || c < 1 || c > 65535 ||
-      hw < 0 || slices < 1 || slices > 65535 || (esize != 4 && esize != 2) ||
+      hw < 0 || b * hw > 0x7FFFFFFFLL || slices < 1 || slices > 65535 || threads < 32 ||
+      threads > kSplitMaxThreads || threads % 32 != 0 || (esize != 4 && esize != 2) ||
       (act != kElu && act != kRelu) || bad_key(t, step) || bad_map(plane, gplane, base) ||
-      n_global < 1.0) {
+      (plane != 0 && plane != hw) || n_global < 1.0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const SplitCall k{x, g, gamma, beta, part, local, out_part, running_mean, running_var,
                     stats, y, dgb, b, hw, lvae::ElementMap{plane, gplane, base}, c, slices,
-                    esize, t, act, n_global, eps, momentum, one_minus_momentum, seed, site,
-                    step};
+                    threads, esize, t, act, n_global, eps, momentum, one_minus_momentum, seed,
+                    site, step};
+  if (split_misaligned(k)) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(esize == 4 ? split_run<float>(which, k, s)
                                      : split_run<bf16>(which, k, s));
 }
+#endif  // LVAE_SEGMENT_SPLIT

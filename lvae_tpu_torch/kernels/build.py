@@ -131,9 +131,10 @@ _SIGNATURES = {
     # the element map's plane, gplane and base (ops/philox.py ElementMap), stream
     "lvae_dropout_bits8": (_P, _P, _I64, _INT, _INT, _U64, _U64, _P, _I64, _I64, _I64, _P),
     # which, x, g, gamma, beta, part, local, out_part, running_mean,
-    # running_var, stats, y, dgb, b, c, hw, slices, esize, t, act, n_global,
-    # eps, momentum, 1 - momentum, seed, site, step, the element map, stream
-    "lvae_segment_split": (_INT, *(_P,) * 12, _I64, _INT, _I64, _INT, _INT, _INT, _INT,
+    # running_var, stats, y, dgb, b, c, hw, slices, threads, esize, t, act,
+    # n_global, eps, momentum, 1 - momentum, seed, site, step, the element
+    # map, stream
+    "lvae_segment_split": (_INT, *(_P,) * 12, _I64, _INT, _I64, _INT, _INT, _INT, _INT, _INT,
                            ctypes.c_double, ctypes.c_double, ctypes.c_float, ctypes.c_float,
                            _U64, _U64, _P, _I64, _I64, _I64, _P),
 }

@@ -476,53 +476,107 @@ def dropout_bn_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
 # the segment over R > 1 ranks: K5-split and K5-bwd-split
 # ---------------------------------------------------------------------------
 
-SPLIT_THREADS = 256             # csrc/segment.cu kSplitThreads
-SPLIT_PER_THREAD = 8            # elements a thread of a slice aims at
+SPLIT_MAX_THREADS = 256         # csrc/segment.cu kSplitMaxThreads
+SPLIT_TILE = 32                 # units a warp takes at a time: a lane's draws
+SPLIT_CTAS_PER_SM = 2           # blocks of a one-wave grid on each SM
+SPLIT_TILES_PER_WARP = 4        # tiles a warp of a slice takes at most, past one wave
 SPLIT_MAX_SLICES = 64
 SPLIT_LAUNCHES = ("segment_split_stats", "segment_split_apply", "segment_split_bwd_reduce",
                   "segment_split_bwd_apply")
 
 
-def split_slices(b: int, h: int, w: int) -> int:
-    """The blocks (slices) a channel's ``b h w`` elements take in each
-    split launch: ``SPLIT_PER_THREAD`` elements a thread, at most
-    ``SPLIT_MAX_SLICES``."""
-    return max(1, min(SPLIT_MAX_SLICES, -(-b * h * w // (SPLIT_THREADS * SPLIT_PER_THREAD))))
+class SplitPlan(NamedTuple):
+    """The split launches' grid (``csrc/segment.cu`` ``lvae_segment_split``):
+    a block of ``threads`` per (slice, channel), a channel's units cut into
+    ``slices`` contiguous slices."""
+
+    slices: int
+    threads: int
+
+
+def split_unit(hw: int) -> int:
+    """Elements of a unit (one Philox call) of a strip of ``hw``: 16, 4 or
+    1, as K5's (``csrc/segment.cu`` ``split_vec``)."""
+    return 16 if hw % 16 == 0 else 4 if hw % 4 == 0 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(b: int, c: int, h: int, w: int) -> SplitPlan:
+    """The split launches' plan for a rank whose longest band of rows (its
+    whole rows where the height is not sharded) is ``[b, c, h, w]``, in
+    fp32 or bf16 alike: a function of that shape alone, so every rank's
+    ``[2, S, C]`` sums have one shape and the all-reduce between the
+    launches is the same on each. A channel's units (:func:`split_unit`)
+    are cut into tiles of ``SPLIT_TILE``, a warp's at a time, and the
+    tiles into ``S`` slices: a
+    wave of ``SPLIT_CTAS_PER_SM`` blocks an SM (4 slices of 64 channels on
+    an H100), or more where a warp would take more than
+    ``SPLIT_TILES_PER_WARP`` tiles (16 at [64, 64, 64, 64]), but no more
+    than give each of a block's 8 warps one tile, and at most
+    ``SPLIT_MAX_SLICES``; a slice of fewer tiles takes fewer warps. The
+    plan sets the order of the fp64 sums, and so the last bits of every
+    output. (Fitted to an H100's timings at the models' shapes, in both
+    dtypes: ``python -m lvae_tpu_torch.segment_ab``.)"""
+    if min(b, c, h, w) < 0 or min(b, c) < 1 or b * h * w > 0x7FFFFFFF:
+        raise ValueError(f"the split launches take [B, C, H, W] with B, C >= 1 and "
+                         f"B H W < 2^31, got {[b, c, h, w]}")
+    hw = h * w
+    tiles = -(-(b * hw // split_unit(hw)) // SPLIT_TILE)
+    warps = SPLIT_MAX_THREADS // 32
+    wave = max(SPLIT_CTAS_PER_SM * SMS // c, -(-tiles // (warps * SPLIT_TILES_PER_WARP)))
+    slices = max(1, min(SPLIT_MAX_SLICES, -(-tiles // warps), wave))
+    return SplitPlan(slices, 32 * max(1, min(warps, -(-tiles // slices))))
+
+
+def split_plan_of(x: torch.Tensor) -> SplitPlan:
+    """The plan of this rank's ``x`` under the height sharding in force
+    (:func:`lvae_tpu_torch.parallel.mesh.current_bands`): that of the
+    longest band, ``ceil(H / count)`` rows of ``x``'s global height (its
+    own rows without one), the same on every rank."""
+    b, c, hb, w = x.shape
+    bands = mesh.current_bands()
+    return split_plan(b, c, -(-bands.height(x) // bands.count) if bands is not None else hb, w)
 
 
 def _launch_split(which: int, x: torch.Tensor, t: int, act: str, key: Optional[Key],
-                  emap: ElementMap, slices: int, *, g=None, gamma=None, beta=None, part=None,
-                  local=None, out_part=None, running_mean=None, running_var=None,
+                  emap: ElementMap, plan: SplitPlan, *, g=None, gamma=None, beta=None,
+                  part=None, local=None, out_part=None, running_mean=None, running_var=None,
                   stats=None, y=None, dgb=None, n_global: int = 1, eps: float = 1e-5,
                   momentum: float = 0.9) -> None:
     """One launch of ``csrc/segment.cu`` ``lvae_segment_split`` (``which``:
-    0 stats, 1 apply, 2 bwd_reduce, 3 bwd_apply) on checked contiguous
-    CUDA tensors; NULL for what it does not read or write."""
+    0 stats, 1 apply, 2 bwd_reduce, 3 bwd_apply) with ``plan`` on checked
+    contiguous, 16-byte aligned CUDA tensors; NULL for what it does not read
+    or write."""
     b, c, h, w = x.shape
     ptr = lambda v: None if v is None else v.data_ptr()    # noqa: E731
     status = build.on_device(x, lambda stream: build.library().lvae_segment_split(
         which, x.data_ptr(), ptr(g), ptr(gamma), ptr(beta), ptr(part), ptr(local),
         ptr(out_part), ptr(running_mean), ptr(running_var), ptr(stats), ptr(y), ptr(dgb),
-        b, c, h * w, slices, build.esize(x.dtype), t, SEGMENT_ACTS.index(act),
-        float(n_global), eps, momentum, 1.0 - momentum, *_c_key(t, key), *emap,
-        stream))
+        b, c, h * w, plan.slices, plan.threads, build.esize(x.dtype), t,
+        SEGMENT_ACTS.index(act), float(n_global), eps, momentum, 1.0 - momentum,
+        *_c_key(t, key), *emap, stream))
     name = SPLIT_LAUNCHES[which]
     build.LAUNCHES[build.launch_name(name, x.dtype)] += 1
     build.check(status, name)
 
 
+def _sums_plan(part: torch.Tensor, x: torch.Tensor) -> SplitPlan:
+    """The apply launches' plan: the sums' slices (every one is read), the
+    threads of ``x``'s own plan (they set no bits of the result)."""
+    return SplitPlan(part.shape[1], split_plan_of(x).threads)
+
+
 def split_stats(x: torch.Tensor, t: int, key: Optional[Key], emap: ElementMap,
-                slices: Optional[int] = None) -> torch.Tensor:
+                plan: Optional[SplitPlan] = None) -> torch.Tensor:
     """K5-split's first launch: this rank's ``[2, S, C]`` fp64 sums of
-    ``u`` and ``u^2`` (the plain version's ``S`` is 1). ``slices`` (by
-    default :func:`split_slices` of ``x``'s shape) must be every rank's
-    alike: their sums are all-reduced."""
+    ``u`` and ``u^2`` (the plain version's ``S`` is 1). ``plan`` (by
+    default :func:`split_plan_of` ``x``) must be every rank's alike: their
+    sums are all-reduced."""
     if not x.is_cuda:
         return segment_split_stats(x, t, _plain_bytes(x, t, key, emap))
-    b, c, h, w = x.shape
-    slices = slices or split_slices(b, h, w)
-    part = torch.empty((2, slices, c), dtype=torch.float64, device=x.device)
-    _launch_split(0, x, t, "elu", key, emap, slices, out_part=part)
+    plan = plan or split_plan_of(x)
+    part = torch.empty((2, plan.slices, x.shape[1]), dtype=torch.float64, device=x.device)
+    _launch_split(0, _aligned(x), t, "elu", key, emap, plan, out_part=part)
     return part
 
 
@@ -538,24 +592,25 @@ def split_apply(x, gamma, beta, part, n_global, t, act, eps, key, emap, running_
         for name, v in (("running_mean", running_mean), ("running_var", running_var)):
             if v.dtype != torch.float32 or v.shape != (c,) or v.get_device() != x.get_device():
                 raise ValueError(f"{name} must be float32 [{c}] on {x.device}")
+    x = _aligned(x)
     y = torch.empty_like(x)
     stats = torch.empty((5, x.shape[1]), dtype=torch.float32, device=x.device)
-    _launch_split(1, x, t, act, key, emap, part.shape[1], gamma=gamma, beta=beta,
+    _launch_split(1, x, t, act, key, emap, _sums_plan(part, x), gamma=gamma, beta=beta,
                   part=part, running_mean=running_mean, running_var=running_var, stats=stats,
                   y=y, n_global=n_global, eps=eps, momentum=momentum)
     return y, stats
 
 
-def split_bwd_reduce(x, g, stats, t, act, key, emap, slices: Optional[int] = None
+def split_bwd_reduce(x, g, stats, t, act, key, emap, plan: Optional[SplitPlan] = None
                      ) -> torch.Tensor:
     """K5-bwd-split's first launch: this rank's ``[2, S, C]`` fp64 sums of
-    ``dz`` and ``dz xhat`` (``slices`` as :func:`split_stats`')."""
+    ``dz`` and ``dz xhat`` (``plan`` as :func:`split_stats`')."""
     if not x.is_cuda:
         return segment_split_bwd_reduce(x, g, stats, t, act, _plain_bytes(x, t, key, emap))
-    b, c, h, w = x.shape
-    slices = slices or split_slices(b, h, w)
-    part = torch.empty((2, slices, c), dtype=torch.float64, device=x.device)
-    _launch_split(2, x, t, act, key, emap, slices, g=g, stats=stats, out_part=part)
+    plan = plan or split_plan_of(x)
+    part = torch.empty((2, plan.slices, x.shape[1]), dtype=torch.float64, device=x.device)
+    _launch_split(2, _aligned(x), t, act, key, emap, plan, g=_aligned(g), stats=stats,
+                  out_part=part)
     return part
 
 
@@ -566,10 +621,11 @@ def split_bwd_apply(x, g, gamma, stats, local, part, n_global, t, act, key, emap
     if not x.is_cuda:
         return segment_split_bwd_apply(x, g, gamma, stats, local, part, n_global, t, act,
                                        _plain_bytes(x, t, key, emap))
+    x = _aligned(x)
     dx = torch.empty_like(x)
     dgb = torch.empty((2, x.shape[1]), dtype=torch.float32, device=x.device)
-    _launch_split(3, x, t, act, key, emap, part.shape[1], g=g, gamma=gamma, part=part,
-                  local=local, stats=stats, y=dx, dgb=dgb, n_global=n_global)
+    _launch_split(3, x, t, act, key, emap, _sums_plan(part, x), g=_aligned(g), gamma=gamma,
+                  part=part, local=local, stats=stats, y=dx, dgb=dgb, n_global=n_global)
     return (dx, *dgb.unbind(0))
 
 
@@ -580,9 +636,10 @@ class _SplitSegment(torch.autograd.Function):
     K5-bwd-split (the same for ``dz`` and ``dz xhat``), with the global
     batch's statistics, the dropout bytes of the global elements, and
     dgamma and dbeta this rank's part (the train step sums the gradients
-    over the ranks). Every rank takes the slices of the longest band, so
-    the sums all-reduce at one shape; an empty band adds zeros. The plain
-    versions on the CPU, where the all-reduce runs over gloo."""
+    over the ranks). Every rank takes the plan of the longest band
+    (:func:`split_plan_of`), so the sums all-reduce at one shape; an empty
+    band adds zeros. The plain versions on the CPU, where the all-reduce
+    runs over gloo."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, running_mean, running_var, t, act, eps, key, momentum,
@@ -590,14 +647,13 @@ class _SplitSegment(torch.autograd.Function):
         b, _, hb, w = x.shape
         emap = mesh.element_map(x, layout)
         bands = mesh.current_bands()
-        h = bands.height(x) if bands is not None else hb
-        slices = split_slices(b, -(-h // bands.count) if bands is not None else hb, w)
-        n_global = b * layout.n_data * h * w
-        part = mesh.all_reduce_(split_stats(x, t, key, emap, slices), layout)
+        n_global = b * layout.n_data * (bands.height(x) if bands is not None else hb) * w
+        plan = split_plan_of(x)       # the backward runs outside the bands' context
+        part = mesh.all_reduce_(split_stats(x, t, key, emap, plan), layout)
         y, stats = split_apply(x, gamma, beta, part, n_global, t, act, eps, key, emap,
                                running_mean, running_var, momentum)
         ctx.t, ctx.act, ctx.key, ctx.emap, ctx.n_global = t, act, key, emap, n_global
-        ctx.slices, ctx.layout = slices, layout
+        ctx.plan, ctx.layout = plan, layout
         ctx.save_for_backward(x, gamma, stats)
         ctx.mark_non_differentiable(stats)
         return y, stats
@@ -607,7 +663,7 @@ class _SplitSegment(torch.autograd.Function):
     def backward(ctx, g, _gstats):
         x, gamma, stats = ctx.saved_tensors
         g = g.contiguous()
-        local = split_bwd_reduce(x, g, stats, ctx.t, ctx.act, ctx.key, ctx.emap, ctx.slices)
+        local = split_bwd_reduce(x, g, stats, ctx.t, ctx.act, ctx.key, ctx.emap, ctx.plan)
         part = mesh.all_reduce_(local.clone(), ctx.layout)
         dx, dgamma, dbeta = split_bwd_apply(x, g, gamma, stats, local, part, ctx.n_global,
                                             ctx.t, ctx.act, ctx.key, ctx.emap)
