@@ -46,40 +46,58 @@
 // - A thread block cluster reduces one channel. Each CTA takes a fixed
 //   contiguous share of the channel's units; its threads walk the share 16
 //   bytes at a time, neighbouring threads on neighbouring addresses. Each
-//   thread sums in fp64 (E[u^2] - mean^2 cancels in fp32 at n = 524,288),
-//   the CTA in a fixed tree (warp shuffles, then warp 0 over the warps).
-//   The CTAs exchange their pairs through distributed shared memory and
-//   every CTA adds them in the same fixed tree over the ranks, so all hold
-//   the same statistics, two launches are bit-equal and no float atomics
-//   are used. Rank 0 writes the [5, C] row and moves the running
-//   statistics (forward), or writes dgamma and dbeta (backward); the
-//   channel's gamma, beta and running statistics are loaded while its data
-//   is in flight. A channel of up to 2,048 16-byte accesses takes a
-//   cluster of one, which needs no cluster barrier (a launch at the
-//   models' maps from 8x8 down then takes 3-6 us on an H100). The grid
-//   holds at most the clusters that fit on the card at once
-//   (cudaOccupancyMaxActiveClusters, asked once per kernel and plan), and
-//   they walk the channels.
+//   thread sums in fp64 element by element (E[u^2] - mean^2 cancels in fp32
+//   at n = 524,288, and the fp32 statistics must round as the plain
+//   version's fp64 ones do: a bf16 y one ulp from its plain version leaves
+//   no room for a shift or scale one fp32 ulp off), the CTA in a fixed
+//   tree (warp shuffles, then in every warp a butterfly over the warps'
+//   pairs, so no warp waits for another after the one barrier). The CTAs
+//   exchange their pairs through distributed shared memory and every warp
+//   adds them in the same fixed butterfly over the ranks, so all hold the
+//   same statistics, two launches are bit-equal and no float atomics are
+//   used. mean and var come from the sums times 1 / n, r from the fp64
+//   rsqrt: no division or square root slow path on a small map's chain.
+//   Rank 0 writes the [5, C] row and moves the running statistics
+//   (forward), or writes dgamma and dbeta (backward); the channel's gamma,
+//   beta and running statistics are loaded while its data is in flight. A
+//   channel of up to 2,048 16-byte accesses takes a cluster of one, which
+//   needs no cluster barrier. The grid holds at most the clusters that fit
+//   on the card at once (cudaOccupancyMaxActiveClusters, asked once per
+//   kernel and plan), and they walk the channels; _plan prefers a cluster
+//   a half or a quarter the size where that puts every channel's cluster
+//   on the card at once with its share on chip (bf16's 32x32 forward: 2
+//   CTAs a channel, one wave, where 4 took two rounds), and 256 threads
+//   where a cluster of 16's share leaves room for three CTAs an SM.
 // - On chip: where a CTA's share fits in shared memory (up to ~200 KB, a
-//   cluster of up to 16; every map of the models but celeba64's 64x64
-//   backward), the CTA copies its share in with cp.async, all of it in
-//   flight at once, turns it into u (forward) or dz and xhat (backward) in
+//   cluster of up to 16) and leaves room for a second CTA on the SM (or
+//   the grid is one wave), the CTA copies its share in with cp.async, all
+//   of it in flight at once, turns it into u (forward) or dz (backward) in
 //   place, and writes the output from there: 8 and 12 B per element of
-//   device memory, the bound. Each slot, once written out, takes the
-//   CTA's next channel, so that channel's reads overlap this one's writes.
-//   Where the share does not fit, the CTA keeps what fits beside a second
-//   CTA on the SM and reads the rest twice, the second time last chunk
-//   first (the likeliest still in L2); the outputs and the second reads
-//   stream past L2 (evict first) so that the rest stays there.
+//   device memory in fp32, the bound. Each slot, once written out, takes
+//   the CTA's next channel, so that channel's reads overlap this one's
+//   writes. Elsewhere (celeba64's 64x64 maps) the CTA keeps what fits
+//   beside a second CTA on the SM and reads the rest twice, the second
+//   time last chunk first (the likeliest still in L2); the outputs and the
+//   second reads stream past L2 (evict first) so that the rest stays
+//   there. Loads of what is read twice stay packed in registers until used
+//   (bf16: 2 B an element), which keeps the bf16 kernels within 64
+//   registers without spills.
 // - The dropout bytes: a unit is 16 consecutive elements of one (b, c)
 //   strip where H W % 16 == 0, else 4 (a 2x2 map) or 1; one Philox call
-//   (~70 integer operations) per unit gives its keep bits, staged in
-//   shared memory while the share's copies are in flight, generated once
-//   per direction on chip.
-// - What still costs: at 64x64 a cluster of 16 takes an SM per CTA and
-//   only 7 fit on an H100 at once (112 of its 132 SMs), and each channel's
-//   reduction and cluster barrier stall its SM between the reads and the
-//   writes: K5 runs at about twice its bound there.
+//   (~70 integer operations) per unit gives its keep bits, its bytes
+//   compared with t four at a time (below4), staged in shared memory while
+//   the share's copies are in flight, generated once per direction on chip.
+// - bf16's ELU (act_out): exp(z) - 1 from ex2.approx, z + z^2 / 2 near 0,
+//   ~10 instructions against expm1f's ~33, within a hundredth of a bf16 ulp
+//   of expm1f; fp32 keeps expm1f. The backward keeps dz in fp32 in shared
+//   memory from its first sweep to its second, so that act'(z) (expf, the
+//   plain version's bits) is computed once an element.
+// - What still costs: every element's fp64 conversion and adds (forward
+//   one F2F.F64.F32, a DADD and a DFMA; backward two F2F.F64.F32 and two
+//   DADD) and, backward, expf; each channel's reduction and cluster barrier
+//   stall its SM between the reads and the writes, and at 64x64 a cluster
+//   of 16 (four rounds of channels) takes the card in lockstep phases, so
+//   the bf16 backward there stays at a third of its bound (PERF.md).
 //
 // Storage: x, y, g and dx are fp32 or bf16 (lvae_tpu's segment reads and
 // writes x.dtype, segment_pallas.py:103,160,211,312,344; the model's bf16
@@ -90,12 +108,12 @@
 // even, as PyTorch's cast rounds it, and the dropout bytes and the keep
 // rule do not depend on T, so bf16 and fp32 runs drop the same elements.
 // A device-memory access is 16 bytes, F = 16 / sizeof(T) elements (8 in
-// bf16; 4, 8 bytes, on a 2x2 map's units of 4). In bf16 the share kept on
-// chip is the raw bf16 input (2 B an element forward, 4 B backward): the
-// first sweep reads it and sums, the second turns it into u (or dz and
-// xhat) again, where fp32 keeps u (dz and xhat) in place of x (g and x).
-// So a bf16 share takes half the shared memory, and bf16 moves half the
-// bytes: 4 B an element forward, 6 B backward.
+// bf16; 4, 8 bytes, on a 2x2 map's units of 4). On chip the forward keeps x
+// in T (fp32 turns it into u in place; bf16 keeps the raw input and drops
+// it again), the backward dz in fp32 and x in T (fp32 turns x into xhat in
+// place; bf16 recomputes xhat, a select and two operations): 2 B an
+// element forward and 6 B backward in bf16, where bf16 moves 4 and 6 B of
+// device memory.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -195,12 +213,45 @@ __device__ __forceinline__ float act_grad(float z) {
   return z > 0.0f ? 1.0f : 0.0f;
 }
 
+// K5's act of z for storage T. fp32 keeps act (expm1f, the plain version's
+// bits). A bf16 output is rounded to 8 significant bits, so its ELU below 0
+// is ex2.approx's exp(z) - 1 where z <= -2^-6 (relative error under 2e-5
+// there: 2^-22.5 of exp(z) over |exp(z) - 1| >= 0.0155) and z + z^2 / 2
+// above (the series' next term: under 4e-5 of z), a hundredth of a bf16 ulp
+// either way, so y stays within one ulp of the plain version's; about 10
+// instructions where expm1f takes ~33.
+template <typename T, int kAct>
+__device__ __forceinline__ float act_out(float z) {
+  if constexpr (kAct == kElu && !std::is_same_v<T, float>) {
+    const float big = __expf(z) - 1.0f;
+    const float small = __fmaf_rn(0.5f * z, z, z);
+    return z > 0.0f ? z : (z > -0.015625f ? small : big);
+  } else {
+    return act<kAct>(z);
+  }
+}
+
 __device__ __forceinline__ uint32_t word_of(const uint4& w, int i) {
   return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
 }
 
+// bit j: byte j of w below t, tt = t (0..255) in every byte: the four
+// unsigned byte compares at once (z's sign bits: the low seven bits' >=),
+// their sign bits gathered into bits 28-31 by one multiply
+__device__ __forceinline__ uint32_t below4(uint32_t w, uint32_t tt) {
+  const uint32_t z = (w | 0x80808080u) - (tt & 0x7F7F7F7Fu);
+  const uint32_t lt = ((~w & tt) | (~(w ^ tt) & ~z)) & 0x80808080u;
+  return (lt * 0x00204081u) >> 28;
+}
+
+// t in every byte of a word, for below4 (0 where t <= 0: nothing kept)
+__device__ __forceinline__ uint32_t t_bytes(const Drop& d) {
+  return static_cast<uint32_t>(d.t > 0 ? d.t : 0) * 0x01010101u;
+}
+
 // bit j: whether element e + j of a unit of V is kept (all set without a
-// mask); one Philox call for the unit
+// mask); one Philox call for the unit, its bytes compared four at a time
+// (V = 1 or 4: e's word, from byte e % 4)
 template <int V>
 __device__ __forceinline__ uint32_t keep_bits(const Drop& d, long long e) {
   if (!d.on) return 0xFFFFFFFFu;
@@ -208,23 +259,14 @@ __device__ __forceinline__ uint32_t keep_bits(const Drop& d, long long e) {
   const uint4 w = lvae::philox4x32_10(
       make_uint4(static_cast<uint32_t>(grp), static_cast<uint32_t>(grp >> 32), 0u, kStream),
       d.k0, d.k1);
-  uint32_t bits = 0;
+  const uint32_t tt = t_bytes(d);
   if constexpr (V == 16) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int byte = static_cast<int>((word_of(w, j >> 2) >> (8 * (j & 3))) & 255u);
-      bits |= static_cast<uint32_t>(byte < d.t) << j;
-    }
+    return below4(w.x, tt) | below4(w.y, tt) << 4 | below4(w.z, tt) << 8 |
+           below4(w.w, tt) << 12;
   } else {
-    const uint32_t word = word_of(w, static_cast<int>((e >> 2) & 3));
-    const int lo = static_cast<int>(e & 3);
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const int byte = static_cast<int>((word >> (8 * (lo + j))) & 255u);
-      bits |= static_cast<uint32_t>(byte < d.t) << j;
-    }
+    return (below4(word_of(w, static_cast<int>((e >> 2) & 3)), tt) >> (e & 3)) &
+           ((1u << V) - 1u);
   }
-  return bits;
 }
 
 // whether the global element g is kept (its byte alone: one Philox call)
@@ -306,16 +348,44 @@ struct Vec {
     for (int j = 0; j < F; ++j) v[j] = up(e[j]);
   }
   __device__ __forceinline__ Word word() const {
-    alignas(16) T e[F];
+    if constexpr (std::is_same_v<T, bf16> && F % 2 == 0) {
+      alignas(16) __nv_bfloat162 e[F / 2];      // two roundings to nearest even at once
 #pragma unroll
-    for (int j = 0; j < F; ++j) e[j] = down<T>(v[j]);
-    return *reinterpret_cast<const Word*>(e);
+      for (int j = 0; j < F / 2; ++j) e[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      return *reinterpret_cast<const Word*>(e);
+    } else {
+      alignas(16) T e[F];
+#pragma unroll
+      for (int j = 0; j < F; ++j) e[j] = down<T>(v[j]);
+      return *reinterpret_cast<const Word*>(e);
+    }
   }
   __device__ __forceinline__ void store(T* __restrict__ p) const {
     *reinterpret_cast<Word*>(p) = word();
   }
   __device__ __forceinline__ void stream(T* __restrict__ p) const {
     __stcs(reinterpret_cast<Word*>(p), word());
+  }
+};
+
+// F elements of T held as loaded (one access; bf16 stays packed, so the
+// loads in flight take half the registers of floats), `last` as Vec's
+template <typename T, int F>
+struct Packed {
+  using Word = typename Raw<F * static_cast<int>(sizeof(T))>::type;
+  Word w;
+  __device__ __forceinline__ void load(const T* __restrict__ p, bool last = false) {
+    const Word* q = reinterpret_cast<const Word*>(p);
+    w = last ? __ldcs(q) : *q;
+  }
+  __device__ __forceinline__ float operator[](int j) const {
+    return up(reinterpret_cast<const T*>(&w)[j]);
+  }
+  __device__ __forceinline__ Vec<T, F> unpacked() const {
+    Vec<T, F> v;
+#pragma unroll
+    for (int j = 0; j < F; ++j) v.v[j] = (*this)[j];
+    return v;
   }
 };
 
@@ -335,6 +405,39 @@ __device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// F floats to and from shared memory, 16 bytes at a time (F a multiple of
+// 4; F = 1 only on paths that keep nothing on chip)
+template <int F>
+__device__ __forceinline__ void put_floats(float* p, const float (&v)[F]) {
+  if constexpr (F % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < F / 4; ++q) {
+      reinterpret_cast<float4*>(p)[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                                                    v[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < F; ++j) p[j] = v[j];
+  }
+}
+
+template <int F>
+__device__ __forceinline__ void get_floats(const float* p, float (&v)[F]) {
+  if constexpr (F % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < F / 4; ++q) {
+      const float4 w = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q] = w.x;
+      v[4 * q + 1] = w.y;
+      v[4 * q + 2] = w.z;
+      v[4 * q + 3] = w.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < F; ++j) v[j] = p[j];
+  }
 }
 
 // This CTA's units of a channel, and where its elements lie in device
@@ -415,16 +518,19 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // The channel's two fp64 sums in every thread of every CTA of the cluster:
-// each CTA's by a fixed tree (shuffles within the warps, then warp 0 over
-// the warps), the CTAs' through distributed shared memory in a fixed tree
-// over the ranks; a cluster of one skips the exchange. `red` alternates
-// between two slots from one channel to the next: a CTA writes a slot
-// again only after the next channel's cluster.sync(), which every CTA
-// reaches after reading it (`total`, where every thread reads the sums,
-// alternates alike).
+// each CTA's by a fixed tree (shuffles within the warps, then, in every
+// warp, a butterfly over the warps' pairs, so that no warp waits for
+// another after the one barrier), the CTAs' through distributed shared
+// memory in a fixed butterfly over the ranks, again in every warp; a
+// cluster of one skips the exchange. Every warp ends with the same bits.
+// (Warp 0 alone reading the ranks' pairs and handing the total on through
+// shared memory measured up to 14% slower in clusters of 2-16.) `red`
+// alternates between two slots from one channel to the next: a CTA writes
+// a slot again only after the next channel's cluster.sync(), which every
+// thread reaches after reading it; warp_sums is written again only after
+// the next channel's first barrier.
 __device__ __forceinline__ void cluster_sums(cg::cluster_group& cluster, double& s1,
-                                             double& s2, double (*warp_sums)[2],
-                                             double* red, double* total) {
+                                             double& s2, double (*warp_sums)[2], double* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     s1 += __shfl_down_sync(0xFFFFFFFFu, s1, o);
@@ -437,36 +543,27 @@ __device__ __forceinline__ void cluster_sums(cg::cluster_group& cluster, double&
   }
   __syncthreads();
   const unsigned k = cluster.num_blocks();
-  if (threadIdx.x < 32) {
-    const bool mine = lane < (blockDim.x >> 5);
-    double a = mine ? warp_sums[lane][0] : 0.0, b = mine ? warp_sums[lane][1] : 0.0;
-    sum16(a, b);
-    if (lane == 0) {
-      double* to = k == 1 ? total : red;
-      to[0] = a;
-      to[1] = b;
-    }
-  }
+  const bool mine = lane < (blockDim.x >> 5);
+  double a = mine ? warp_sums[lane][0] : 0.0, b = mine ? warp_sums[lane][1] : 0.0;
+  sum16(a, b);
   if (k > 1) {
-    cluster.sync();
-    // warp 0: lane r reads rank r's pair
-    if (threadIdx.x < 32) {
-      double q1 = 0.0, q2 = 0.0;
-      if (lane < k) {
-        const double* q = cluster.map_shared_rank(red, lane);
-        q1 = q[0];
-        q2 = q[1];
-      }
-      sum16(q1, q2);
-      if (lane == 0) {
-        total[0] = q1;
-        total[1] = q2;
-      }
+    if (threadIdx.x == 0) {
+      red[0] = a;
+      red[1] = b;
     }
+    cluster.sync();
+    // lane r reads rank r's pair, one 16-byte access
+    a = 0.0;
+    b = 0.0;
+    if (lane < k) {
+      const double2 q = *reinterpret_cast<const double2*>(cluster.map_shared_rank(red, lane));
+      a = q.x;
+      b = q.y;
+    }
+    sum16(a, b);
   }
-  __syncthreads();
-  s1 = total[0];
-  s2 = total[1];
+  s1 = __shfl_sync(0xFFFFFFFFu, a, 0);
+  s2 = __shfl_sync(0xFFFFFFFFu, b, 0);
 }
 
 // The keep words of the units swept twice are staged kChunk at a time
@@ -476,10 +573,9 @@ constexpr unsigned kChunk = 2048;
 // share, in order, or last to first where `reverse` (the second sweep:
 // what the first sweep read last is the likeliest still in L2): its keep
 // words staged in keep[0 .. nu) (the second sweep of a single chunk keeps
-// the first's), then for every F elements, kUnroll
-// accesses in flight per thread: load(k, e, reverse) of the element e, then
-// body(k, l, bits) with l the share's element index and bits their keep
-// bits
+// the first's), then for every F elements, kUnroll accesses in flight per
+// thread: load(k, e, reverse) of the element e, then body(k, l, bits) with
+// l the share's element index and bits their keep bits
 template <int V, int F, int kUnroll, typename Load, typename Body>
 __device__ __forceinline__ void sweep_rest(const Share& sh, int ch, const Drop& d,
                                            unsigned from, bool reverse, uint32_t* keep,
@@ -510,6 +606,23 @@ __device__ __forceinline__ void sweep_rest(const Share& sh, int ch, const Drop& 
   }
 }
 
+// A channel's statistics from its sums s1 = sum(u), s2 = sum(u^2): mean =
+// s1 / n and var = s2 / n - mean^2 in fp64, 1 / n a multiplication (exact
+// where n is a power of two, as at every model shape; else within an fp64
+// ulp of the quotient), r = rsqrt(var + eps) in fp64 (within an fp64 ulp,
+// with no division or square root slow path on the way), each rounded once
+// to fp32 as the plain version rounds its fp64 values
+struct Coef {
+  float mean, var, r;
+};
+
+__device__ __forceinline__ Coef coef_of(double s1, double s2, double inv_n, double eps) {
+  const double mean = s1 * inv_n;
+  const double var = s2 * inv_n - mean * mean;
+  return Coef{static_cast<float>(mean), static_cast<float>(var),
+              static_cast<float>(rsqrt(var + eps))};
+}
+
 #if !LVAE_SEGMENT_SPLIT
 template <typename T>
 struct FwdArgs {
@@ -523,6 +636,7 @@ struct FwdArgs {
   SegPlan p;
   Drop d;
   double eps;
+  double inv_n;             // 1 / (b hw)
   float momentum, one_minus_momentum;
 };
 
@@ -541,7 +655,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs<T> a)
   constexpr int kUnroll = 4;
   extern __shared__ float4 smem4[];
   __shared__ double warp_sums[kMaxThreads / 32][2];
-  __shared__ double red[2][2], total[2][2];
+  __shared__ __align__(16) double red[2][2];
   cg::cluster_group cluster = cg::this_cluster();
   const Share sh = share_of(a.p, cluster.block_rank());
   const unsigned chip = static_cast<unsigned>(a.p.chip);
@@ -550,7 +664,6 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs<T> a)
   uint32_t* keep_rest = keep_chip + chip;
   const Drop d = drop_key(a.d);
   const int c = a.p.c;
-  const double n = static_cast<double>(a.p.b * a.p.hw);
   const unsigned T_ = blockDim.x;
   const unsigned n_chip = min(sh.n, chip), m_chip = n_chip * V / F;
   auto drop = [&](Vec<T, F>& v, uint32_t bits) {
@@ -587,7 +700,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs<T> a)
         s2 = __fma_rn(u, u, s2);
       }
     };
-    Vec<T, F> buf[kUnroll];
+    Packed<T, F> buf[kUnroll];
     auto load = [&](int k, long long e, bool last) { buf[k].load(a.x + e, last); };
     if constexpr (V > 1) {
       // channel ch's copies were issued by stage() before the loop or
@@ -607,33 +720,30 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs<T> a)
     }
     sweep_rest<V, F, kUnroll>(sh, ch, d, n_chip, false, keep_rest, load,
                               [&](int k, unsigned, uint32_t bits) {
-                                drop(buf[k], bits);
-                                add(buf[k]);
+                                Vec<T, F> v = buf[k].unpacked();
+                                drop(v, bits);
+                                add(v);
                               });
     const int slot = (ch / ch_step) & 1;
-    cluster_sums(cluster, s1, s2, warp_sums, red[slot], total[slot]);
+    cluster_sums(cluster, s1, s2, warp_sums, red[slot]);
     if (multi && next >= c) cluster_arrive();
-    const double mean_d = s1 / n;
-    const double var_d = s2 / n - mean_d * mean_d;
-    const float mean = static_cast<float>(mean_d);
-    const float var = static_cast<float>(var_d);
-    const float r = static_cast<float>(1.0 / sqrt(var_d + a.eps));
-    const float scale = gam * r;
-    const float shift = bet - mean * scale;
+    const Coef co = coef_of(s1, s2, a.inv_n, a.eps);
+    const float scale = gam * co.r;
+    const float shift = bet - co.mean * scale;
     if (writer) {
-      a.stats[ch] = mean;
-      a.stats[c + ch] = var;
-      a.stats[2 * c + ch] = r;
+      a.stats[ch] = co.mean;
+      a.stats[c + ch] = co.var;
+      a.stats[2 * c + ch] = co.r;
       a.stats[3 * c + ch] = scale;
       a.stats[4 * c + ch] = shift;
       if (a.running_mean != nullptr) {
-        a.running_mean[ch] = a.momentum * rm + a.one_minus_momentum * mean;
-        a.running_var[ch] = a.momentum * rv + a.one_minus_momentum * var;
+        a.running_mean[ch] = a.momentum * rm + a.one_minus_momentum * co.mean;
+        a.running_var[ch] = a.momentum * rv + a.one_minus_momentum * co.var;
       }
     }
     auto emit = [&](Vec<T, F>& v, unsigned l) {
 #pragma unroll
-      for (int j = 0; j < F; ++j) v.v[j] = act<kAct>(v.v[j] * scale + shift);
+      for (int j = 0; j < F; ++j) v.v[j] = act_out<T, kAct>(v.v[j] * scale + shift);
       v.stream(a.y + sh.elem(l, ch));
     };
     if constexpr (V > 1) {
@@ -649,8 +759,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) fwd_kernel(const FwdArgs<T> a)
     }
     sweep_rest<V, F, kUnroll>(sh, ch, d, n_chip, true, keep_rest, load,
                               [&](int k, unsigned l, uint32_t bits) {
-                                drop(buf[k], bits);
-                                emit(buf[k], l);
+                                Vec<T, F> v = buf[k].unpacked();
+                                drop(v, bits);
+                                emit(v, l);
                               });
   }
   if (multi) cluster_wait();   // no CTA exits while another may read its `red`
@@ -666,13 +777,17 @@ struct BwdArgs {
   float* dgb;               // [2, c]: dgamma, dbeta
   SegPlan p;
   Drop d;
+  double inv_n;             // 1 / (b hw)
 };
 
 // K5-bwd: sum(dz), sum(dz xhat), then dx, in one launch. As the forward:
-// the first p.chip units of the share of g and x are staged; fp32 turns
-// them into dz and xhat in place, bf16 keeps them and recomputes dz and
-// xhat for dx. The rest is read twice. Shared memory: [chip V] of T for
-// g (dz), [chip V] for x (xhat), [chip] keep words, [kChunk] keep words.
+// the first p.chip units of the share of g and x are staged. The first
+// sweep turns g into dz in an fp32 slot an access (bf16's raw g is copied
+// into the first half of its slot), so the second sweep takes dz as it is,
+// with no act'(z) again; fp32 turns x into xhat in place, bf16 keeps x and
+// recomputes xhat (a select and two operations). The rest is read twice.
+// Shared memory: [chip V] floats of dz, [chip V] of T for x (xhat), [chip]
+// keep words, [kChunk] keep words.
 template <typename T, int V, int kAct>
 __global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs<T> a) {
   constexpr int F = access_elems<T, V>();
@@ -681,25 +796,24 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs<T> a)
   constexpr int kUnroll = 2;
   extern __shared__ float4 smem4[];
   __shared__ double warp_sums[kMaxThreads / 32][2];
-  __shared__ double red[2][2], total[2][2];
+  __shared__ __align__(16) double red[2][2];
   cg::cluster_group cluster = cg::this_cluster();
   const Share sh = share_of(a.p, cluster.block_rank());
   const unsigned chip = static_cast<unsigned>(a.p.chip);
-  T* g_smem = reinterpret_cast<T*>(smem4);
-  T* x_smem = g_smem + static_cast<size_t>(V) * chip;
+  float* dz_smem = reinterpret_cast<float*>(smem4);
+  T* x_smem = reinterpret_cast<T*>(dz_smem + static_cast<size_t>(V) * chip);
   uint32_t* keep_chip = reinterpret_cast<uint32_t*>(x_smem + static_cast<size_t>(V) * chip);
   uint32_t* keep_rest = keep_chip + chip;
   const Drop d = drop_key(a.d);
   const int c = a.p.c;
-  const double n = static_cast<double>(a.p.b * a.p.hw);
   const unsigned T_ = blockDim.x;
   const unsigned n_chip = min(sh.n, chip), m_chip = n_chip * V / F;
   const int ch_step = gridDim.x / a.p.cluster;
-  // the chip units of g and x of channel ch into shared memory
+  // slot i's g and x of channel ch into shared memory, asynchronously
   auto stage_slot = [&](unsigned i, int ch) {
     if constexpr (V > 1) {
       const long long e = sh.elem(i * F, ch);
-      cp_async<kBytes>(g_smem + i * F, a.g + e);
+      cp_async<kBytes>(dz_smem + i * F, a.g + e);
       cp_async<kBytes>(x_smem + i * F, a.x + e);
     }
   };
@@ -730,7 +844,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs<T> a)
         s2 += static_cast<double>(dz.v[j] * xhat.v[j]);
       }
     };
-    Vec<T, F> gb[kUnroll], xb[kUnroll];
+    Packed<T, F> gb[kUnroll], xb[kUnroll];
     auto load = [&](int k, long long e, bool last) {
       gb[k].load(a.g + e, last);
       xb[k].load(a.x + e, last);
@@ -742,25 +856,24 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs<T> a)
       __syncthreads();
       for (unsigned i = threadIdx.x; i < m_chip; i += T_) {
         Vec<T, F> dz, xhat;
-        dz.load(g_smem + i * F);
+        dz.load(reinterpret_cast<const T*>(dz_smem + i * F));
         xhat.load(x_smem + i * F);
         recompute(dz, xhat, keep_of<V>(d, keep_chip, 0, i * F));
         add(dz, xhat);
-        if constexpr (kInPlace) {
-          dz.store(g_smem + i * F);
-          xhat.store(x_smem + i * F);
-        }
+        put_floats<F>(dz_smem + i * F, dz.v);
+        if constexpr (kInPlace) xhat.store(x_smem + i * F);
       }
     }
     sweep_rest<V, F, kUnroll>(sh, ch, d, n_chip, false, keep_rest, load,
                               [&](int k, unsigned, uint32_t bits) {
-                                recompute(gb[k], xb[k], bits);
-                                add(gb[k], xb[k]);
+                                Vec<T, F> dz = gb[k].unpacked(), xhat = xb[k].unpacked();
+                                recompute(dz, xhat, bits);
+                                add(dz, xhat);
                               });
     const int slot = (ch / ch_step) & 1;
-    cluster_sums(cluster, s1, s2, warp_sums, red[slot], total[slot]);
+    cluster_sums(cluster, s1, s2, warp_sums, red[slot]);
     if (multi && next >= c) cluster_arrive();
-    const float m1 = static_cast<float>(s1 / n), m2 = static_cast<float>(s2 / n);
+    const float m1 = static_cast<float>(s1 * a.inv_n), m2 = static_cast<float>(s2 * a.inv_n);
     if (cluster.block_rank() == 0 && threadIdx.x == 0) {
       a.dgb[ch] = static_cast<float>(s2);
       a.dgb[c + ch] = static_cast<float>(s1);
@@ -776,18 +889,24 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bwd_kernel(const BwdArgs<T> a)
     if constexpr (V > 1) {
       for (unsigned i = threadIdx.x; i < m_chip; i += T_) {
         Vec<T, F> dz, xhat;
-        dz.load(g_smem + i * F);
+        get_floats<F>(dz_smem + i * F, dz.v);
         xhat.load(x_smem + i * F);
         const uint32_t bits = keep_of<V>(d, keep_chip, 0, i * F);
-        if constexpr (!kInPlace) recompute(dz, xhat, bits);
+        if constexpr (!kInPlace) {
+#pragma unroll
+          for (int j = 0; j < F; ++j) {
+            xhat.v[j] = (dropped(d, xhat.v[j], (bits >> j) & 1u) - mean) * r;
+          }
+        }
         emit(dz, xhat, bits, i * F);
         if (next < c) stage_slot(i, next);
       }
     }
     sweep_rest<V, F, kUnroll>(sh, ch, d, n_chip, true, keep_rest, load,
                               [&](int k, unsigned l, uint32_t bits) {
-                                recompute(gb[k], xb[k], bits);
-                                emit(gb[k], xb[k], bits, l);
+                                Vec<T, F> dz = gb[k].unpacked(), xhat = xb[k].unpacked();
+                                recompute(dz, xhat, bits);
+                                emit(dz, xhat, bits, l);
                               });
   }
   if (multi) cluster_wait();   // no CTA exits while another may read its `red`
@@ -811,15 +930,15 @@ Drop make_drop(int t, unsigned long long seed, unsigned long long site, const vo
 bool bad_key(int t, const void* step) { return t > 0 && t < 256 && step == nullptr; }
 
 #if !LVAE_SEGMENT_SPLIT
-// dynamic shared memory per CTA: the chip units' data (x forward; g and
-// x backward; esize bytes per element each) and keep words, and the keep
-// words of a chunk of the units swept twice, where the share has more
+// dynamic shared memory per CTA: the chip units' data (x forward, esize
+// bytes per element; dz, 4 bytes, and x backward) and keep words, and the
+// keep words of a chunk of the units swept twice, where the share has more
 // than chip
 long long smem_of(const SegPlan& p, bool bwd) {
   const long long units = p.b * p.hw / p.vec;
   const long long stride = (units + p.cluster - 1) / p.cluster;
   const long long rest = stride - p.chip;
-  return p.chip * ((bwd ? 2LL : 1LL) * p.esize * p.vec + 4) +
+  return p.chip * ((bwd ? 4LL + p.esize : p.esize) * p.vec + 4) +
          4LL * (rest < kChunk ? rest : kChunk);
 }
 
@@ -1008,7 +1127,8 @@ int segment_fwd(const SegPlan& p, const void* x, const void* gamma, const void* 
   FwdArgs<T> a{static_cast<const T*>(x), static_cast<const float*>(gamma),
                static_cast<const float*>(beta), static_cast<float*>(running_mean),
                static_cast<float*>(running_var), static_cast<T*>(y),
-               static_cast<float*>(stats), p, d, eps, momentum, one_minus_momentum};
+               static_cast<float*>(stats), p, d, eps,
+               1.0 / static_cast<double>(p.b * p.hw), momentum, one_minus_momentum};
   return launch(pick_fwd<T>(p, act), p, a, s);
 }
 
@@ -1018,7 +1138,8 @@ int segment_bwd(const SegPlan& p, const void* x, const void* g, const void* gamm
                 cudaStream_t s) {
   BwdArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(g),
                static_cast<const float*>(gamma), static_cast<const float*>(stats),
-               static_cast<T*>(dx), static_cast<float*>(dgb), p, d};
+               static_cast<T*>(dx), static_cast<float*>(dgb), p, d,
+               1.0 / static_cast<double>(p.b * p.hw)};
   return launch(pick_bwd<T>(p, act), p, a, s);
 }
 
@@ -1128,20 +1249,6 @@ __host__ __device__ constexpr int split_stage(int operands) {
              : 1;
 }
 
-// F elements of T held as loaded (one access; bf16 stays packed, so a
-// stage of loads in flight takes half the registers of floats)
-template <typename T, int F>
-struct Packed {
-  using Word = typename Raw<F * static_cast<int>(sizeof(T))>::type;
-  Word w;
-  __device__ __forceinline__ void load(const T* __restrict__ p) {
-    w = *reinterpret_cast<const Word*>(p);
-  }
-  __device__ __forceinline__ float operator[](int j) const {
-    return up(reinterpret_cast<const T*>(&w)[j]);
-  }
-};
-
 // x / d for 0 <= x < 2^31 by a multiply-high, an add and a shift (the
 // round-up method, s = ceil(log2 d))
 struct FastDiv {
@@ -1195,15 +1302,6 @@ __device__ __forceinline__ long long unit_at(const SplitArgs<T>& a, int ch, unsi
   const long long strip = static_cast<long long>(row) * a.c + ch;
   if (g != nullptr) *g = strip * a.gstride + a.base + within;
   return strip * a.hw + within;
-}
-
-// bit j: byte j of w below t, tt = t (0..255) in every byte: the four
-// unsigned byte compares at once (z's sign bits: the low seven bits' >=),
-// their sign bits gathered into bits 28-31 by one multiply
-__device__ __forceinline__ uint32_t below4(uint32_t w, uint32_t tt) {
-  const uint32_t z = (w | 0x80808080u) - (tt & 0x7F7F7F7Fu);
-  const uint32_t lt = ((~w & tt) | (~(w ^ tt) & ~z)) & 0x80808080u;
-  return (lt * 0x00204081u) >> 28;
 }
 
 // the keep bits of a unit of V elements from global element g0 (tt: t in
@@ -1263,7 +1361,7 @@ __device__ __forceinline__ void split_walk(const SplitArgs<T>& a, const Drop& d,
   constexpr int F = access_elems<T, V>(), A = V / F;
   const unsigned lane = threadIdx.x & 31, nw = blockDim.x >> 5;
   const unsigned tiles = (hi - lo + 31) / 32, step = nw * kS;
-  const uint32_t tt = static_cast<uint32_t>(d.t > 0 ? d.t : 0) * 0x01010101u;
+  const uint32_t tt = t_bytes(d);
   auto issue = [&](int s, unsigned t0) {
 #pragma unroll
     for (int k = 0; k < kS; ++k) {

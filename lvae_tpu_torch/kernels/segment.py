@@ -67,6 +67,7 @@ from lvae_tpu_torch.parallel import mesh
 SMS = 132                       # streaming multiprocessors of an H100 SXM
 SMEM_MAX = 232_448              # shared memory a CTA can have
 SMEM_STATIC = 1024              # what the kernels declare statically, rounded up
+SMS_SMEM = 233_472               # shared memory an SM holds for its CTAs (228 KB)
 SMEM_BUDGET = 200 * 1024        # the dynamic shared memory a CTA's share may take
 PART_BUDGET = 104 * 1024        # ... where only part fits: two CTAs per SM
 KEEP_CHUNK = 2048               # csrc/segment.cu kChunk: keep words staged per step
@@ -132,17 +133,14 @@ def _plan(b: int, c: int, h: int, w: int, direction: str, path: Optional[str] = 
     shares, one per CTA: at most ``MAX_ACCESSES`` 16-byte accesses each,
     one CTA (no cluster barrier) up to ``ONE_CTA`` and two or more above,
     and on chip small enough that two CTAs fit on an SM (``PART_BUDGET``)
-    where a cluster of 16 allows and the grid has more CTAs than SMs; one
-    access per thread up to ``MAX_THREADS``, or 8 where the grid has four
-    CTAs per SM. An access is 16 bytes, ``16 / esize`` elements (8 in bf16;
-    a bf16 unit of 4 is one 8-byte access). On chip, a CTA keeps its share
-    in shared memory in its storage dtype: x (``esize`` B per element)
-    forward, g and x (``2 esize``) backward, and a keep word per unit,
-    within ``SMEM_BUDGET``. The two-sweep path
-    reads the share twice from device memory, all of it where forced,
-    else what does not fit beside a second CTA (``PART_BUDGET``); it
-    stages the keep words ``KEEP_CHUNK`` at a time. (The constants are
-    fitted to an H100's timings at the models' shapes.)"""
+    where a cluster of 16 allows and the grid has more CTAs than SMs, unless
+    a cluster of a half or a quarter the size puts every channel's cluster
+    on the card at once (one wave) with its share on chip; one access per
+    thread up to ``MAX_THREADS``, 8 where the grid has four CTAs per SM, 16
+    (256 threads) where a cluster of 16's share leaves room for three CTAs
+    an SM. An access is 16 bytes, ``16 / esize`` elements (8 in bf16; a
+    bf16 unit of 4 is one 8-byte access). The share's layout is
+    :func:`_layout`'s."""
     if direction not in ("fwd", "bwd"):
         raise ValueError(f"direction must be 'fwd' or 'bwd', got {direction!r}")
     if path not in (None, *PATHS):
@@ -153,33 +151,70 @@ def _plan(b: int, c: int, h: int, w: int, direction: str, path: Optional[str] = 
     if esize not in (4, 2):
         raise ValueError(f"esize must be 4 (fp32) or 2 (bf16), got {esize}")
     hw = h * w
-    vec = 16 if hw % 16 == 0 else 4 if hw % 4 == 0 else 1
+    vec = split_unit(hw)
     units = b * hw // vec
-    per_unit = (1 if direction == "fwd" else 2) * esize * vec + 4
+    per_unit = _per_unit(direction, esize, vec)
     per_f = min(vec, 16 // esize)               # elements per access
     accesses = b * hw // per_f                  # per channel
     k = _pow2_at_least(-(-accesses // MAX_ACCESSES))
     if accesses > ONE_CTA:
         k = max(k, 2)
-    one_wave = c * k <= SMS and -(-units // k) * per_unit <= SMEM_BUDGET
-    if vec > 1 and not one_wave:                # on chip, two CTAs per SM where possible
-        k = max(k, _pow2_at_least(-(-units * per_unit // PART_BUDGET)))
+    def one_wave(k: int) -> bool:
+        return c * k <= SMS and -(-units // k) * per_unit <= SMEM_BUDGET
+
+    if vec > 1 and not one_wave(k):
+        # the fewest rounds: one wave of larger shares where they fit on
+        # chip (the channels' clusters all on the card at once), else on
+        # chip two CTAs per SM where possible
+        smaller = [k2 for k2 in (k // 2, k // 4) if k2 >= 2 and one_wave(k2)]
+        k = smaller[0] if smaller else max(k, _pow2_at_least(-(-units * per_unit // PART_BUDGET)))
     k = min(16, k)
     stride = -(-units // k)
     mine = -(-stride * vec // per_f)            # accesses per CTA
     threads = min(MAX_THREADS, 32 * -(-mine // (32 * (8 if c * k >= 4 * SMS else 1))))
+    if k == 16 and 3 * (stride * per_unit + SMEM_STATIC) <= SMS_SMEM:
+        threads = min(threads, 256)             # three CTAs an SM, not two
+    return _layout(b, c, hw, direction, path, esize, k, threads)
+
+
+def _per_unit(direction: str, esize: int, vec: int) -> int:
+    """Shared memory a unit kept on chip takes: x in the storage dtype, the
+    backward's dz in fp32 beside it, and its keep word."""
+    return (esize if direction == "fwd" else esize + 4) * vec + 4
+
+
+def _layout(b: int, c: int, hw: int, direction: str, path: Optional[str], esize: int,
+            cluster: int, threads: int) -> Plan:
+    """The plan of ``cluster`` CTAs of ``threads`` a channel: which units of
+    a CTA's share stay in shared memory. On chip, a CTA keeps x in its
+    storage dtype (``esize`` B per element) and, backward, dz in fp32 (4 B
+    more), and a keep word per unit (:func:`_per_unit`), all of it where that fits
+    ``SMEM_BUDGET`` and either leaves room for a second CTA on the SM
+    (``PART_BUDGET``) or the grid is one wave; else (celeba64's 64x64 maps,
+    a cluster of 16 short of room for two CTAs) what fits beside a second
+    CTA, the rest read twice from device memory (the second time likely
+    from L2): two CTAs an SM and the rest read again outrun one CTA an SM
+    with nothing read again (``segment_ab``). Forced "two_sweep" reads the
+    whole share twice; the keep words of what is read twice are staged
+    ``KEEP_CHUNK`` at a time. (The constants are fitted to an H100's
+    timings at the models' shapes.)"""
+    vec = split_unit(hw)
+    units = b * hw // vec
+    per_unit = _per_unit(direction, esize, vec)
+    stride = -(-units // cluster)
     fits = vec > 1 and stride * per_unit <= SMEM_BUDGET
+    roomy = c * cluster <= SMS or stride * per_unit <= PART_BUDGET
     if path == PATHS[0] and not fits:
-        raise ValueError(f"{[b, c, h, w]} {direction}: a CTA's share does not fit in shared "
+        raise ValueError(f"{[b, c, hw]} {direction}: a CTA's share does not fit in shared "
                          f"memory, or H W % 4 != 0; only the two-sweep path takes it")
-    if fits and path != PATHS[1]:
+    if fits and (path == PATHS[0] or (path is None and roomy)):
         chip = stride
     elif vec > 1 and path is None:      # keep what fits beside a second CTA on the SM
         chip = min(stride, (PART_BUDGET - 4 * KEEP_CHUNK) // per_unit)
     else:
         chip = 0
     smem = chip * per_unit + 4 * min(stride - chip, KEEP_CHUNK)      # csrc smem_of
-    return Plan(b, hw, c, vec, k, threads, c, chip, smem, esize)
+    return Plan(b, hw, c, vec, cluster, threads, c, chip, smem, esize)
 
 
 def _c_struct(p: Plan) -> _CPlan:

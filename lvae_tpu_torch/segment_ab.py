@@ -1,9 +1,34 @@
-"""The split segment launches (K5-split's stats and apply, K5-bwd-split's
-reduce and apply) of this checkout against those of another checkout of
-the repository, on one card and in turns; and the SASS of both builds'
-split kernels.
+"""The segment kernels of this checkout against those of another checkout
+of the repository, on one card and in turns; and the SASS of both builds'
+kernels. A ``python -m`` tool for a machine with the card, not a phase of
+``chip_smoke.py``.
 
-    python -m lvae_tpu_torch.segment_ab --other <checkout> [--json out.json]
+    python -m lvae_tpu_torch.segment_ab --other <checkout> [--kernels split|segment]
+        [--shapes 128x64x64x64 ...] [--json out.json]
+
+``--kernels segment``: the one-launch K5 and K5-bwd (``fwd_kernel``,
+``bwd_kernel``) at every segment shape of the models (celeba64's
+[128,64,s,s] for s = 64 ... 2, which holds cifar10-deep's, and the
+flagship's [64,64,s,s] for s = 32 ... 2), fp32 and bf16, both directions,
+rate 0.2, elu. Each build runs its own plan (its checkout's
+``kernels/segment.py`` ``_plan``) through its C entry, each launch timed
+as a CUDA graph of ``--calls`` launches (``mixture_ab.graph_ms``) in the
+order other, this, this, other; between the turns this checkout also
+runs each variant its ``plan_variants`` names once. Both backwards take
+the other build's statistics. The outputs are held to the other build's
+at ``chip_smoke.py`` phase 18a's tolerances: bf16 y and dx within one
+bf16 ulp, fp32 y and dx 1e-5 of their max, mean and var 1e-6 relative
+(of max(|v|, 1)), dgamma and dbeta 1e-5 of their max, dx zero where the
+other's is; a relaunch of this build bit-equal. ``cuobjdump -sass``
+counts each ``fwd_kernel`` / ``bwd_kernel``'s instructions: in all,
+F2F.F64.F32, DADD, DFMA, MUFU, CALL, and the global and shared loads by
+width; ``-Xptxas -v`` gives their registers and spills. As context only,
+not a yardstick (it computes no dropout),
+cuDNN's ``F.batch_norm(training=True)`` then ``F.elu`` is timed at rate 0
+at the same shapes.
+
+``--kernels split`` (the default): the split segment launches
+(K5-split's stats and apply, K5-bwd-split's reduce and apply), as below.
 
 The other checkout's kernels are built from its own ``csrc/`` by its own
 ``kernels/build.py`` (into its own ``build/``, ``mixture_ab.load_build``)
@@ -35,13 +60,15 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
+import importlib.util
 import json
 import re
 import shutil
 import subprocess
 import sys
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -206,10 +233,292 @@ def _counts(ins) -> dict:
             "opcodes": dict(ops.most_common())}
 
 
+# ---------------------------------------------------------------------------
+# --kernels segment: the one-launch K5 and K5-bwd
+# ---------------------------------------------------------------------------
+
+# every segment shape of celeba64 (B = 128; cifar10-deep's are its 32x32 and
+# below) and of the flagship (B = 64), largest first
+SEGMENT_SHAPES = [(128, 64, s, s) for s in (64, 32, 16, 8, 4, 2)] + \
+                 [(64, 64, s, s) for s in (32, 16, 8, 4, 2)]
+DIRECTIONS = ("fwd", "bwd")
+
+
+def load_plans(checkout: Path):
+    """The checkout's ``kernels/segment.py`` as a module of its own: its
+    ``_plan`` and ``_c_struct`` (its imports resolve in this checkout's
+    package)."""
+    path = checkout / "lvae_tpu_torch" / "kernels" / "segment.py"
+    spec = importlib.util.spec_from_file_location(f"plans_{abs(hash(str(checkout)))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def plan_variants(plan: "seg.Plan", shape, direction: str, esize: int) -> Dict[str, "seg.Plan"]:
+    """This checkout's other launches of ``shape``: each path the plan can
+    be forced to where it differs, the default at half and twice its
+    threads (a thread count sets no bits of the result) and at half and
+    twice its cluster (``kernels/segment.py`` ``_layout``: another sum
+    order)."""
+    out = {}
+    for path in seg.PATHS:
+        try:
+            forced = seg._plan(*shape, direction, path, esize)
+        except ValueError:
+            continue
+        if forced != plan:
+            out[path] = forced
+    for factor in (0.5, 2):
+        threads = int(plan.threads * factor)
+        if 32 <= threads <= seg.MAX_THREADS and threads % 32 == 0:
+            out[f"threads {threads}"] = plan._replace(threads=threads)
+    b, c, h, w = shape
+    for factor in (0.5, 2):
+        cluster = int(plan.cluster * factor)
+        if 1 <= cluster <= 16:
+            out[f"cluster {cluster}"] = seg._layout(b, c, h * w, direction, None, esize, cluster,
+                                                    plan.threads)
+    return out
+
+
+class SegmentSide:
+    """One build's K5 and K5-bwd through its C entry, with its own plan."""
+
+    def __init__(self, mod, plans):
+        self.lib = mod.library()
+        self.plans = plans
+        self._keep = []             # the C plans of the calls made, kept alive
+
+    def plan(self, shape, direction: str, esize: int):
+        return self.plans._plan(*shape, direction, None, esize)
+
+    def _c(self, plan) -> int:
+        cp = self.plans._c_struct(plan)
+        self._keep.append(cp)
+        return ctypes.addressof(cp)
+
+    def fwd(self, plan, ops, y, stats) -> Callable:
+        cp, x = self._c(plan), ops["x"]
+        t = bits8_keep_threshold(RATE)
+
+        def call():
+            status = self.lib.lvae_segment_fwd(
+                cp, x.data_ptr(), ops["gamma"].data_ptr(), ops["beta"].data_ptr(), None, None,
+                y.data_ptr(), stats.data_ptr(), t, 0, 1e-5, 0.9, 0.1, SEED, SITE,
+                ops["step"].data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if status != 0:
+                raise RuntimeError(f"lvae_segment_fwd returned {status}")
+        return call
+
+    def bwd(self, plan, ops, stats, dx, dgb) -> Callable:
+        cp, x = self._c(plan), ops["x"]
+        t = bits8_keep_threshold(RATE)
+
+        def call():
+            status = self.lib.lvae_segment_bwd(
+                cp, x.data_ptr(), ops["g"].data_ptr(), ops["gamma"].data_ptr(),
+                stats.data_ptr(), dx.data_ptr(), dgb.data_ptr(), t, 0, SEED, SITE,
+                ops["step"].data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if status != 0:
+                raise RuntimeError(f"lvae_segment_bwd returned {status}")
+        return call
+
+
+def segment_held(a: dict, b: dict, bf16: bool, what: str) -> dict:
+    """The gaps of this build's K5 / K5-bwd outputs ``a`` to the other's
+    ``b``, each checked at phase 18a's tolerance."""
+    def ulps(u, v):
+        d = (u.view(torch.int16).int() - v.view(torch.int16).int()).abs()
+        return int(torch.where(u == v, torch.zeros_like(d), d).max())
+
+    def rel_max(u, v):
+        return ((u.double() - v.double()).abs().max()
+                / v.double().abs().max().clamp_min(1e-30)).item()
+
+    def rel_elem(u, v):
+        return ((u.double() - v.double()).abs() / v.double().abs().clamp_min(1.0)).max().item()
+
+    gaps, limits = {}, {}
+    if "y" in a:
+        gaps["stats"], limits["stats"] = rel_elem(a["stats"][:2], b["stats"][:2]), 1e-6
+        gaps["y"], limits["y"] = (ulps(a["y"], b["y"]), 1) if bf16 else (rel_max(a["y"], b["y"]),
+                                                                        1e-5)
+    if "dx" in a:
+        gaps["dx"], limits["dx"] = (ulps(a["dx"], b["dx"]), 1) if bf16 else (
+            rel_max(a["dx"], b["dx"]), 1e-5)
+        gaps["dgb"] = max(rel_max(a["dgb"][i], b["dgb"][i]) for i in range(2))
+        limits["dgb"] = 1e-5
+    bad = [f"{k} {gaps[k]:.2e} > {limits[k]:.0e}" for k in gaps if not gaps[k] <= limits[k]]
+    if "dx" in a and not torch.equal(a["dx"] == 0, b["dx"] == 0):
+        bad.append("dx zero at other elements")
+    if bad:
+        raise RuntimeError(f"{what}: this build's outputs off the other's: {', '.join(bad)}")
+    return gaps
+
+
+# fwd_kernel / bwd_kernel and their template arguments (the storage type,
+# then the integers: V, the act, ...), e.g. _110fwd_kernelIfLi16ELi0EEEv
+_SEGMENT = re.compile(r"\d(fwd|bwd)_kernelI(f|13__nv_bfloat16)((?:Li-?\d+E)+)EEv")
+
+
+def segment_sass(lib: Path) -> Dict[str, dict]:
+    """{``fwd_kernel<T, ...>``: counts} from ``cuobjdump -sass`` of a built
+    library: every instruction but NOPs, F2F.F64.F32, DADD, DFMA, MUFU,
+    CALL, and LDG / LDS / LDGSTS (cp.async) by width in bits."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    out, ins = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            m = _SEGMENT.search(line)
+            ins = None
+            if m:
+                args = ", ".join(re.findall(r"Li(-?\d+)E", m[3]))
+                name = f"{m[1]}_kernel<{'float' if m[2] == 'f' else 'bf16'}, {args}>"
+                ins = out.setdefault(name, [])
+        elif ins is not None:
+            m = _INSTR.search(line)
+            if m and m[1] != "NOP":
+                ins.append(m[1])
+    result = {}
+    for name, ops_ in out.items():
+        ops = collections.Counter(ops_)
+        count = lambda *prefixes: sum(n for op, n in ops.items()             # noqa: E731,B023
+                                      if op.startswith(prefixes))
+        widths = lambda prefix: dict(sorted(collections.Counter(                # noqa: E731,B023
+            _width(op) for op in ops_ if op.split(".")[0] == prefix).items()))
+        result[name] = {"total": len(ops_), "F2F.F64.F32": ops["F2F.F64.F32"],
+                        "DADD": count("DADD"), "DFMA": count("DFMA"), "MUFU": count("MUFU"),
+                        "CALL": count("CALL"), "LDG": widths("LDG"), "LDS": widths("LDS"),
+                        "LDGSTS": widths("LDGSTS"), "opcodes": dict(ops.most_common())}
+    return result
+
+
+def cudnn_ms(shape, dtype, gen, calls: int, replays: int) -> Optional[float]:
+    """Device ms of cuDNN's train-mode ``F.batch_norm`` then ``F.elu`` (no
+    dropout) on ``shape``, fp32 weights; None where the card refuses it."""
+    import torch.nn.functional as F
+
+    c = shape[1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.3).to(dtype)
+    w = torch.rand(c, generator=gen, device="cuda") + 0.5
+    b = torch.randn(c, generator=gen, device="cuda") * 0.2
+    try:
+        return graph_ms(lambda: F.elu(F.batch_norm(x, None, None, w, b, training=True)),
+                        calls, replays)
+    except RuntimeError as e:
+        print(f"    cudnn {list(shape)} {dtype}: {e}".splitlines()[0])
+        return None
+
+
+def segment_main(args, card: str) -> dict:
+    """The ``--kernels segment`` mode: {card, sass, times}."""
+    other_mod = load_build(args.other.resolve())
+    built = {"other": other_mod.build(), "this": build.build()}
+    libs = {s: b[0] for s, b in built.items()}
+    sides = {"other": SegmentSide(other_mod, load_plans(args.other.resolve())),
+             "this": SegmentSide(build, seg)}
+    result = {"card": card, "sass": {}, "times": [], "ptxas": {}}
+    for side, (_, log) in built.items():
+        entry = None
+        for line in log.splitlines():       # -Xptxas -v: registers, spills
+            if "Compiling entry function" in line:
+                m = _SEGMENT.search(line)
+                entry = m[0] if m else None
+            elif entry and ("registers" in line or "spill" in line):
+                text = line.split(":", 1)[-1].strip()
+                result["ptxas"].setdefault(side, {}).setdefault(entry, []).append(text)
+                print(f"  ptxas {side} {entry}: {text}")
+    for side, lib in libs.items():
+        result["sass"][side] = segment_sass(lib)
+        for name, c in sorted(result["sass"][side].items()):
+            print(f"  sass {side} {name}: {c['total']} instructions, F2F.F64.F32 "
+                  f"{c['F2F.F64.F32']}, DADD {c['DADD']}, DFMA {c['DFMA']}, MUFU {c['MUFU']}, "
+                  f"CALL {c['CALL']}, LDG {c['LDG']}, LDS {c['LDS']}, LDGSTS {c['LDGSTS']}")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    shapes = [tuple(int(v) for v in s.split("x")) for s in args.shapes] if args.shapes \
+        else SEGMENT_SHAPES
+    for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16, esize = dtype == torch.bfloat16, build.esize(dtype)
+            name = f"{list(shape)} {'bf16' if bf16 else 'fp32'}"
+            ops = operands(shape, ElementMap(), dtype, gen)
+            c = shape[1]
+            outs = {s: {"y": torch.empty_like(ops["x"]), "stats": torch.empty(5, c, device="cuda"),
+                        "dx": torch.empty_like(ops["x"]), "dgb": torch.empty(2, c, device="cuda")}
+                    for s in sides}
+            plans = {s: {d: sides[s].plan(shape, d, esize) for d in DIRECTIONS} for s in sides}
+            calls = {s: {"fwd": sides[s].fwd(plans[s]["fwd"], ops, outs[s]["y"],
+                                             outs[s]["stats"]),
+                         "bwd": sides[s].bwd(plans[s]["bwd"], ops, outs["other"]["stats"],
+                                             outs[s]["dx"], outs[s]["dgb"])}
+                     for s in sides}
+            for d in DIRECTIONS:
+                for s in ("other", "this"):
+                    calls[s][d]()
+            torch.cuda.synchronize()
+            gaps = segment_held(outs["this"], outs["other"], bf16, name)
+            first = {k: v.clone() for k, v in outs["this"].items()}
+            for d in DIRECTIONS:
+                calls["this"][d]()
+            torch.cuda.synchronize()
+            if not all(torch.equal(first[k], outs["this"][k]) for k in first):
+                raise RuntimeError(f"{name}: a relaunch of this build is not bit-equal")
+            n = int(torch.tensor(shape).prod())
+            row = {"shape": name, "bound_ms": {
+                       "fwd": 2 * esize * n / 3.35e12 * 1e3, "bwd": 3 * esize * n / 3.35e12 * 1e3},
+                   "plans": {s: {d: plans[s][d]._asdict() for d in DIRECTIONS} for s in sides},
+                   "gaps": gaps, "other_ms": {}, "this_ms": {}, "variants_ms": {}}
+            for d in DIRECTIONS:
+                t = {"other": [], "this": []}
+                for s in ("other", "this"):
+                    t[s].append(graph_ms(calls[s][d], args.calls, args.replays))
+                alt = {}
+                for label, p in plan_variants(plans["this"][d], shape, d, esize).items():
+                    o = {"y": torch.empty_like(ops["x"]), "stats": torch.empty(5, c, device="cuda"),
+                         "dx": torch.empty_like(ops["x"]), "dgb": torch.empty(2, c, device="cuda")}
+                    fn = (sides["this"].fwd(p, ops, o["y"], o["stats"]) if d == "fwd" else
+                          sides["this"].bwd(p, ops, outs["other"]["stats"], o["dx"], o["dgb"]))
+                    fn()
+                    torch.cuda.synchronize()
+                    segment_held({k: v for k, v in o.items()
+                                  if k in (("y", "stats") if d == "fwd" else ("dx", "dgb"))},
+                                 outs["other"], bf16, f"{name} {d} {label}")
+                    alt[label] = graph_ms(fn, args.calls, args.replays)
+                row["variants_ms"][d] = alt
+                for s in ("this", "other"):
+                    t[s].append(graph_ms(calls[s][d], args.calls, args.replays))
+                row["other_ms"][d], row["this_ms"][d] = t["other"], t["this"]
+            row["cudnn_bn_elu_ms"] = cudnn_ms(shape, dtype, gen, args.calls, args.replays)
+            result["times"].append(row)
+            print(f"  {name}: gaps " + ", ".join(f"{k} {v:.1e}" for k, v in gaps.items())
+                  + f"; cuDNN batch_norm + elu (rate 0) "
+                  + (f"{row['cudnn_bn_elu_ms']:.4f} ms" if row["cudnn_bn_elu_ms"] else "n/a"),
+                  flush=True)
+            for d in DIRECTIONS:
+                o, th, p = row["other_ms"][d], row["this_ms"][d], plans["this"][d]
+                print(f"    {('K5', 'K5-bwd')[d == 'bwd']}: other {o[0]:.4f} / {o[1]:.4f} ms, "
+                      f"this {th[0]:.4f} / {th[1]:.4f} ms ({sum(o) / sum(th):.2f}x), bound "
+                      f"{row['bound_ms'][d]:.4f}; this plan cluster {p.cluster} x {p.threads}, "
+                      f"chip {p.chip} of {p.units}; variants "
+                      + (", ".join(f"{k} {v:.4f}" for k, v in row["variants_ms"][d].items())
+                         or "none") + f"  ({card})", flush=True)
+            del ops, outs, calls, first
+            torch.cuda.empty_cache()
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path,
                     help="root of the other checkout (e.g. the parent commit's git archive)")
+    ap.add_argument("--kernels", choices=("split", "segment"), default="split",
+                    help="split: the four split launches (K5-split, K5-bwd-split); segment: "
+                         "the one-launch K5 and K5-bwd at every model segment shape")
+    ap.add_argument("--shapes", nargs="*", help="--kernels segment: BxCxHxW shapes to run "
+                                                "(default every model segment shape)")
     ap.add_argument("--json", type=Path, help="write every number here")
     ap.add_argument("--calls", type=int, default=20)
     ap.add_argument("--replays", type=int, default=10)
@@ -219,6 +528,12 @@ def main(argv=None) -> int:
         return 2
     card = card_line()
     print(f"card: {card}")
+    if args.kernels == "segment":
+        result = segment_main(args, card)
+        if args.json:
+            args.json.parent.mkdir(parents=True, exist_ok=True)
+            args.json.write_text(json.dumps(result, indent=1))
+        return 0
     other_mod = load_build(args.other.resolve())
     libs = {"other": other_mod.build()[0], "this": build.build()[0]}
     sides = {"other": Side(other_mod), "this": Side(build)}

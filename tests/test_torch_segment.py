@@ -236,7 +236,8 @@ def _assert_legal(plan, shape, direction):
     from lvae_tpu_torch.kernels import segment as seg
 
     b, c, h, w = shape
-    per_unit = (1 if direction == "fwd" else 2) * plan.esize * plan.vec + 4
+    # x in its storage dtype, the backward's dz in fp32, a keep word
+    per_unit = (plan.esize if direction == "fwd" else plan.esize + 4) * plan.vec + 4
     assert (plan.b, plan.c, plan.hw) == (b, c, h * w)
     assert plan.vec in (1, 4, 16) and plan.hw % plan.vec == 0
     assert plan.vec == 16 or (plan.hw % 16 != 0 and (plan.vec == 4) == (plan.hw % 4 == 0))
@@ -245,13 +246,16 @@ def _assert_legal(plan, shape, direction):
     assert 32 <= plan.threads <= seg.MAX_THREADS and plan.threads % 32 == 0
     assert 1 <= plan.clusters <= c and plan.channels_per_cta * plan.clusters >= c
     assert plan.smem + seg.SMEM_STATIC <= seg.SMEM_MAX
-    # on chip only where the CTA's whole share fits, and never for 4-byte units
+    # on chip only where the CTA's whole share fits, and never for 4-byte
+    # units; part of it where the whole share would leave no room for a
+    # second CTA on the SM of a grid larger than the card
     if plan.path == "on_chip":
         assert plan.vec > 1 and plan.chip == plan.units
         assert plan.units * per_unit <= seg.SMEM_BUDGET
     else:
         assert plan.chip < plan.units and (plan.vec > 1 or plan.chip == 0)
-        assert plan.units * per_unit > seg.SMEM_BUDGET or plan.chip == 0
+        assert plan.chip == 0 or plan.units * per_unit > seg.SMEM_BUDGET or (
+            c * plan.cluster > seg.SMS and plan.units * per_unit > seg.PART_BUDGET)
         assert plan.smem <= seg.PART_BUDGET
     assert plan.smem == plan.chip * per_unit + 4 * min(plan.units - plan.chip, seg.KEEP_CHUNK)
     # the CTAs' shares partition the channel's units, every share within
@@ -296,10 +300,10 @@ class TestPlan:
         two = seg._plan(*shape, direction, "two_sweep")
         _assert_legal(two, shape, direction)
         assert two.path == "two_sweep" and two.chip == 0 and plan.cluster == two.cluster
-        # every map of the models fits a CTA's share on chip but celeba64's
-        # 64x64 backward (4 MB of g and x per channel)
-        assert plan.path == ("two_sweep" if shape[2] == 64 and direction == "bwd"
-                             else "on_chip")
+        # every map of the models keeps a CTA's share on chip beside a second
+        # CTA on the SM but celeba64's 64x64 (2 MB of x per channel forward,
+        # 4 MB of g and x and 2 MB of dz backward, over 16 CTAs): part of it
+        assert plan.path == ("two_sweep" if shape[2] == 64 else "on_chip") and plan.chip > 0
 
     @pytest.mark.parametrize("shape", [s for s in MODEL_SHAPES if np.prod(s) <= 2 ** 19],
                              ids=lambda s: "x".join(map(str, s)))
@@ -330,9 +334,10 @@ class TestPlan:
         """bf16 storage (``esize`` 2): a legal plan at every model and odd
         shape, both directions, default and two-sweep; 16-byte accesses of
         8 elements (a 2x2 unit of 4: one 8-byte access); every element
-        assigned once where the map is small enough to walk; and with the
-        share kept on chip at 2 B an element, celeba64's 64x64 backward
-        fits on chip too."""
+        assigned once where the map is small enough to walk; and with x kept
+        on chip at 2 B an element (and dz at 4 backward), every model map's
+        share stays whole on chip but celeba64's 64x64 backward, which keeps
+        part of it beside a second CTA on the SM."""
         from lvae_tpu_torch.kernels import segment as seg
 
         for direction in DIRECTIONS:
@@ -343,7 +348,9 @@ class TestPlan:
                 if np.prod(shape) <= 2 ** 19:
                     _assert_every_element_once(plan)
             if shape in MODEL_SHAPES:
-                assert seg._plan(*shape, direction, None, 2).path == "on_chip"
+                plan = seg._plan(*shape, direction, None, 2)
+                part = shape[2] == 64 and direction == "bwd"
+                assert plan.path == ("two_sweep" if part else "on_chip") and plan.chip > 0
 
     @pytest.mark.parametrize("shape", ODD_SHAPES, ids=lambda s: "x".join(map(str, s)))
     def test_odd_shapes_get_a_legal_plan(self, shape):
