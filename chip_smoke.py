@@ -25,8 +25,9 @@ learned top prior):
 And celeba64 (64x64 RGB, z 32-32-32-32, 2 blocks per layer, 64 filters,
 the discretized-logistic-mixture head; phases 10-13): the mixture
 log-prob kernel and its backward (K3 at each of its 1, 2 or 4 pixels a
-thread in fp32 and bf16, K3-bwd on each of its two plans) against their
-plain versions; evaluation over 2,000 synthetic 64x64 RGB images read from
+thread in fp32 and bf16, K3-bwd on each of its two plans, the one pass at
+each of its 1 or 2 pixels a lane pair and on a map off alignment) against
+their plain versions; evaluation over 2,000 synthetic 64x64 RGB images read from
 ``celeba/celeba_64.npz`` with the k=100 IW log-likelihood over the first
 500; 40 training steps at batch 128 on 20,000 images; one step against
 the plain path and the CPU, and train images/s.
@@ -54,7 +55,8 @@ K5-bwd, the dropout kernel, K3 and K3-bwd against their plain bf16
 versions at the models' shapes (bf16 outputs bit-equal or within 1 ulp,
 the count printed; fp32 outputs at phases 10 and 14's tolerances), each
 timed against its fp32 instantiation in turns and its bound at bf16
-bytes; 60 flagship steps (``--fused auto``, as a CUDA graph of 10) and
+bytes (K3-bwd's default plan also at cifar10-deep's [128,100,32,32]); 60
+flagship steps (``--fused auto``, as a CUDA graph of 10) and
 40 celeba64 steps each under ``auto`` (eager) and ``all`` (graphed)
 through ``lvae_tpu_torch.main --precision bf16`` with init, every bf16
 instantiation held to its launch count and the checkpoint scored in bf16
@@ -88,9 +90,12 @@ widths on 10,000 synthetic scenes in the multiobject npz layout: one
 ``lvae_tpu_torch.main --fused all --steps-per-call 10`` with init and
 every launch counted, ``lvae_tpu_torch.evaluate --load <run> --ll``;
 multi-MNIST (48x48, padded to 64) through 5 steps and the test ELBO;
-``python -m lvae_tpu_torch.export_serving --load <run> --what reconstruct
---check --platforms cuda cpu``; the artifact served by a process that
-cannot import the port (B = 1, 7, 64 and a shuffled 7), its graph
+``python -m lvae_tpu_torch.export_serving --load <run> --check
+--platforms cuda cpu`` and the same command exporting phase 18b's
+celeba64 bf16 run's ``reconstruct`` (run beside phase 19); every artifact
+served by a process that cannot import the port (B = 1, 7, 64 and a
+shuffled 7; ``generate``; celeba64's served beside 20a-c, the eager
+references computed beside the serving), its graphs
 aten-only, its answers held to the eager plain path (1e-6) and kernel
 path, and batch-invariant; export s, artifact MiB, load and first-call s,
 and ``reconstruct`` img/s of the artifact against the eager kernel path.
@@ -187,6 +192,7 @@ code is non-zero and no result line is printed. Exits non-zero at once
 when no CUDA device is visible.
 """
 
+import atexit
 import contextlib
 import json
 import os
@@ -1407,12 +1413,14 @@ def phase_mixture(card, build_log=""):
         del ll, ref
         k3_plan_checks(x, p, k, shape)
 
-        default = km.bwd_plan(k, c)
-        plans = km.PLANS                    # one_pass fits a CTA at every K here
-        more["plans"][shape] = {"default": default.name, "smem": default.smem,
+        default = km.bwd_plan(k, c, b, h * w)
+        # every schedule, the one pass at each V (it fits a CTA at every K here)
+        plans = {f"one_pass V={v}": ("one_pass", v) for v in km.BWD_VECTORS}
+        plans["two_pass"] = ("two_pass", None)
+        more["plans"][shape] = {"default": default.name, "v": default.v, "smem": default.smem,
                                 "fwd_v": km.fwd_plan(b, h * w)}
-        print(f"  K3-bwd {shape}: default plan {default.name} ({default.smem} B of shared "
-              f"memory per CTA of {km.THREADS}); checked: {', '.join(plans)}")
+        print(f"  K3-bwd {shape}: default plan {default.name} V={default.v} ({default.smem} B "
+              f"of shared memory per CTA of {km.THREADS}); checked: {', '.join(plans)}")
         dp, dx = km.mix_log_prob_backward(x, p, gg, k)
         dp_h, dx_h = km._plain_mix_log_prob_bwd(x, p, gg, k, 256)
         xr, pr = x.clone().requires_grad_(), p.clone().requires_grad_()
@@ -1420,8 +1428,9 @@ def phase_mixture(card, build_log=""):
         check(bool((pr.grad[:, lo:lo + 2] == 0).all()),
               f"{shape}: autograd of the plain forward has no gradient where the "
               f"log-scale is below -7")
-        for plan in plans:
-            dpf, dxf = km.mix_log_prob_backward(x, p, gg, k, plan=plan)
+        one_pass = {}
+        for plan, (name, v) in plans.items():
+            dpf, dxf = km.mix_log_prob_backward(x, p, gg, k, plan=name, v=v)
             for what, dpr, dxr in (("the plain hand backward", dp_h, dx_h),
                                    ("autograd of the plain forward", pr.grad, xr.grad)):
                 e = max(rel_max(dpf, dpr), rel_max(dxf, dxr))
@@ -1438,13 +1447,28 @@ def phase_mixture(card, build_log=""):
                   f"backward: " + ", ".join(f"{n} {v:.2e}" for n, v in by.items()))
             check(bool((dpf[:, lo:lo + 2] == 0).all()),
                   f"K3-bwd {shape} {plan}: no gradient where the log-scale is below -7")
-            dp2, dx2 = km.mix_log_prob_backward(x, p, gg, k, plan=plan)
+            dp2, dx2 = km.mix_log_prob_backward(x, p, gg, k, plan=name, v=v)
             check(torch.equal(dpf, dp2) and torch.equal(dxf, dx2),
                   f"K3-bwd {shape} {plan}: a second launch is bit-equal")
-            if plan == default.name:
+            if (name, v) == (default.name, default.v if name == "one_pass" else None):
                 check(torch.equal(dpf, dp) and torch.equal(dxf, dx),
                       f"K3-bwd {shape}: the default launch is {plan}, bit for bit")
-            del dpf, dxf, dp2, dx2
+            if name == "one_pass":
+                one_pass[v] = (dpf, dxf)
+            del dp2, dx2
+        # every V of the one pass does the same arithmetic per pixel, and a
+        # map one element off alignment runs V = 1
+        off = torch.empty(p.numel() + 1, device=dev)[1:].view_as(p)
+        off.copy_(p)
+        for v, (dpf, dxf) in one_pass.items():
+            check(torch.equal(dpf, one_pass[1][0]) and torch.equal(dxf, one_pass[1][1]),
+                  f"K3-bwd {shape} one_pass V={v}: bit-equal to V=1")
+            dpo, dxo = km.mix_log_prob_backward(x, off, gg, k, plan="one_pass", v=v)
+            check(torch.equal(dpo, dpf) and torch.equal(dxo, dxf),
+                  f"K3-bwd {shape} one_pass V={v}: the map one element off alignment gives "
+                  f"the same bits")
+            del dpo, dxo
+        del one_pass, off, dpf, dxf
         pk = p.clone().requires_grad_()
         build.reset_launches()
         km.mix_log_prob(x, pk, k).backward(gg)
@@ -1453,10 +1477,10 @@ def phase_mixture(card, build_log=""):
         check(torch.equal(pk.grad, dp), f"{shape}: its gradient is K3-bwd's")
         build.reset_launches()
         del xr, pr, pk, dp_h, dx_h
-        if c == 3 and k != K_MIX:           # both plans where two passes is the default
-            for plan in plans:
+        if c == 3 and k != K_MIX:           # each plan where two passes is the default
+            for plan, (name, v) in plans.items():
                 t = cuda_ms(lambda: km.mix_log_prob_backward(x, p, gg, k, need_dx=False,
-                                                             plan=plan), 10)
+                                                             plan=name, v=v), 10)
                 more["plans"][shape][f"{plan}_ms"] = t
                 print(f"  time K3-bwd {shape} {plan} per call: {t:.4f} ms  ({card})")
         if c != 3 or k != K_MIX or h != 64:
@@ -2678,6 +2702,17 @@ def phase_bf16_kernels(card, per_step, timed, build_log=""):
                                                            plan=p),
                    lambda: km._plain_mix_log_prob_bwd(xm, pm.float(), gg, k, 256),
                    npix * (4 * q + 4 * mc + 4), npix * k * mc * 80)
+    # the default plan at cifar10-deep's head (BASELINE config 4), 32x32
+    del dp_h, dx_h
+    xc, pc = xm[:, :, :32, :32].contiguous(), p32[:, :, :32, :32].contiguous()
+    pc16, gc = pc.to(bf), gg[:, :32, :32].contiguous()
+    plan = km.bwd_plan(k, mc, mb, 32 * 32)
+    timed_pair(f"K3-bwd [{mb},{mq},32,32] C={mc} K={k} {plan.name} V={plan.v}",
+               lambda: km.mix_log_prob_backward(xc, pc16, gc, k, need_dx=False),
+               lambda: km.mix_log_prob_backward(xc, pc, gc, k, need_dx=False),
+               lambda: km._plain_mix_log_prob_bwd(xc, pc, gc, k, 256),
+               mb * 1024 * (4 * q + 4 * mc + 4), mb * 1024 * k * mc * 80)
+    del xc, pc, pc16, gc
     print(f"  bf16 outputs 1 ulp from the plain version's, elements over every check: "
           f"{apart}")
     build.reset_launches()
@@ -2685,14 +2720,16 @@ def phase_bf16_kernels(card, per_step, timed, build_log=""):
     return err, times, apart
 
 
-def bf16_cli_run(card, name, args, data, write, steps, expect):
+def bf16_cli_run(card, name, args, data, write, steps, expect, keep=None):
     """``lvae_tpu_torch.main --precision bf16 ...``: ``steps`` steps with
     data-dependent init, one test sweep and a checkpoint, which
     ``lvae_tpu_torch.evaluate`` scores in bf16 (its stored precision).
     ``expect(model, unfused dropout sites)`` gives {launch counter:
     launches}, held to the run's counts less the init's; every fp32
     instantiation of a bf16 kernel is held at 0. Returns the run's
-    record and the checkpoint's weights (the trained model's)."""
+    record and the checkpoint's weights (the trained model's). With
+    ``keep`` (a directory), the run and its data stay there, and the
+    record names the run's directory."""
     import torch
 
     from lvae_tpu_torch import evaluate
@@ -2700,7 +2737,8 @@ def bf16_cli_run(card, name, args, data, write, steps, expect):
     from lvae_tpu_torch.kernels import build
 
     out = {}
-    with tempfile.TemporaryDirectory() as tmp, init_counted() as init:
+    where = contextlib.nullcontext(keep) if keep else tempfile.TemporaryDirectory()
+    with where as tmp, init_counted() as init:
         data_dir = os.path.join(tmp, "data")
         write(data_dir)
         build.reset_launches()
@@ -2756,6 +2794,8 @@ def bf16_cli_run(card, name, args, data, write, steps, expect):
         out.update(launches=launches, wall_s=wall, ema_loss=(first, last),
                    test_elbo=[float(m["elbo"]) for m in tests],
                    log_rates={s: float(m["images_per_sec"]) for s, m in lines.items()})
+        if keep:
+            out["run_dir"] = trainer.run_dir
     build.reset_launches()
     return out, ckpt["model"]
 
@@ -2908,8 +2948,9 @@ def bf16_eval(card, name, config, weights, write, n_test, iw_batch, want=()):
 
 
 def phase_bf16(card, per_step, timed, build_log, train_u8, test_u8, flagship_weights,
-               c_train, c_test, c_data, celeba_weights):
-    """Phase 18: --precision bf16 on both models."""
+               c_train, c_test, c_data, celeba_weights, keep):
+    """Phase 18: --precision bf16 on both models; celeba64's ``all`` run
+    stays in the directory ``keep`` (phase 20 exports it)."""
     from lvae_tpu_torch.data.sources import make_synthetic
 
     t0 = time.perf_counter()
@@ -2949,7 +2990,7 @@ def phase_bf16(card, per_step, timed, build_log, train_u8, test_u8, flagship_wei
             card, f"celeba64 bf16 {fused}{' graphed' if extra else ''}",
             CELEBA_ARGS + ["--precision", "bf16", "--fused", fused] + extra, c_data,
             lambda d: write_celeba(d, c_train, c_test), BF16_CELEBA_STEPS,
-            celeba_counts(fused == "all"))
+            celeba_counts(fused == "all"), keep=keep if fused == "all" else None)
     out["runs"] = runs
     print(f"  [18c at {time.perf_counter() - t0:.1f} s of phase 18]", flush=True)
     print("[18c] one bf16 step, the kernel path vs the plain path; bf16 vs fp32 losses",
@@ -3938,57 +3979,133 @@ def served_ok(what, got, want, tol):
     return e
 
 
-def mo_serve(card, run_dir, tmp):
+def start_serving(serve_dir, req):
+    """The serving process of 20c (SERVE_SCRIPT, with nothing of the port
+    on its path) on the requests ``req`` ({key: (artifact, {name:
+    args})}), started and left running (:func:`finish_serving`)."""
+    import torch
+
+    os.makedirs(serve_dir)
+    torch.save(req, os.path.join(serve_dir, "requests.pt"))
+    p = start_command(["-c", SERVE_SCRIPT, serve_dir], cwd=serve_dir,
+                      env=dict(os.environ, PYTHONPATH=""))
+    p.serve_dir, p.t0 = serve_dir, time.perf_counter()
+    return p
+
+
+def finish_serving(p):
+    """(answers, seconds) of a :func:`start_serving` process."""
+    import torch
+
+    rc, _ = finish_command(p, 900)
+    check(rc == 0, f"the serving process exited 0 ({rc})")
+    return torch.load(os.path.join(p.serve_dir, "answers.pt")), time.perf_counter() - p.t0
+
+
+def keyed_requests(x):
+    """20c's requests of a surface that takes images: B = 1, 7 and 64 of
+    ``x`` with their global indices, and a shuffled 7 (:func:`serve_perm`)."""
+    import torch
+
+    seed = torch.tensor(5, dtype=torch.int32)
+    calls = {f"b{b}": (x[:b], seed, torch.arange(b, dtype=torch.int32)) for b in SERVE_B}
+    perm = serve_perm()
+    calls["perm7"] = (x[:7][perm], seed, perm.to(torch.int32))
+    return calls
+
+
+def serve_perm():
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(20).permutation(7))
+
+
+def mo_serve(card, run_dir, celeba, tmp):
     """20c and 20d: ``python -m lvae_tpu_torch.export_serving --load <run>
-    --what reconstruct --check --platforms cuda cpu`` (the CPU tests export
-    and serve generate and encode too); the artifact served by a process
-    that cannot import lvae_tpu_torch and held to the eager port; then the
-    times."""
+    --check --platforms cuda cpu``; every artifact (and celeba64's bf16
+    reconstruct, exported by the same command beside phase 19 and served
+    since phase 20 began: ``celeba``) served by a process that cannot
+    import lvae_tpu_torch and held to the eager port; then the times. The
+    eager references are computed while the artifacts are served."""
     import torch
 
     from lvae_tpu_torch import export_serving, serving
     from lvae_tpu_torch.kernels import build
 
-    print("[20c] export_serving --load <run> --what reconstruct --check --platforms cuda cpu; "
-          "the artifact served by a process without the port", flush=True)
+    print("[20c] export_serving --load <run> --check --platforms cuda cpu; the artifacts "
+          "served by a process without the port", flush=True)
+    model, data, _, _ = serving._restore_for_export(run_dir, None, torch.device("cuda"))
+    models = {"multi-dSprites": (model, data.preprocess), "celeba64 bf16": celeba["model"]}
+    x_mo, seed, perm = torch.from_numpy(data.test[:500]), torch.tensor(5, dtype=torch.int32), \
+        serve_perm()
+    c_path, c_manifest = celeba["req"]["celeba64 reconstruct"][0], celeba["manifest"]
     build.reset_launches()
     t0 = time.perf_counter()
-    arts = export_serving.main(["--load", run_dir, "--what", "reconstruct", "--check",
-                                "--platforms", "cuda", "cpu"])
+    arts = export_serving.main(["--load", run_dir, "--check", "--platforms", "cuda", "cpu"])
     cli_s = time.perf_counter() - t0
     check(not any(build.LAUNCHES.values()), "the exports and --check launched no kernel of "
                                            "the port")
-    exports = {"multi-dSprites": arts}
-    sizes = {f"{run} {name}": os.path.getsize(p) / 2 ** 20 for run, a in exports.items()
-             for name, p in a.paths.items() if name != "manifest"}
-    export_s = {f"{run} {name}": s["export_s"] for run, a in exports.items()
-                for name, s in a.manifest["surfaces"].items()}
-    check(arts.manifest["surfaces"]["reconstruct"]["batch"] is None, "a symbolic batch")
-    print(f"  export_serving --check: {cli_s:.1f} s in all; trace and save s by surface "
-          f"{ {k: round(v, 2) for k, v in export_s.items()} }; artifact MiB "
-          f"{ {k: round(v, 2) for k, v in sizes.items()} }  ({card})")
+    sizes = {f"multi-dSprites {name}": os.path.getsize(p) / 2 ** 20
+             for name, p in arts.paths.items() if name != "manifest"}
+    sizes["celeba64 bf16 reconstruct"] = os.path.getsize(c_path) / 2 ** 20
+    export_s = {f"multi-dSprites {name}": s["export_s"]
+                for name, s in arts.manifest["surfaces"].items()}
+    export_s["celeba64 bf16 reconstruct"] = c_manifest["surfaces"]["reconstruct"]["export_s"]
+    check(arts.manifest["surfaces"]["reconstruct"]["batch"] is None
+          and c_manifest["precision"] == "bf16", "a symbolic batch; celeba64's in bf16")
+    print(f"  export_serving --check: {cli_s:.1f} s in all (celeba64's beside phase 19); trace "
+          f"and save s by surface { {k: round(v, 2) for k, v in export_s.items()} }; artifact "
+          f"MiB { {k: round(v, 2) for k, v in sizes.items()} }  ({card})")
+    mo_req = {"reconstruct": (arts.paths["reconstruct"], keyed_requests(x_mo)),
+              "encode": (arts.paths["encode"], {k: v for k, v in keyed_requests(x_mo).items()
+                                                 if k != "perm7"}),
+              "generate": (arts.paths["generate"], {"seed5": (seed,)})}
+    serving_mo = start_serving(os.path.join(tmp, "serve"), mo_req)
+    req = {**mo_req, **celeba["req"]}
 
-    # the requests: test images with their global indices
-    model, data, _, _ = serving._restore_for_export(run_dir, None, torch.device("cuda"))
-    pre, x_mo = data.preprocess, torch.from_numpy(data.test[:500])
-    perm = torch.from_numpy(np.random.default_rng(20).permutation(7))
-    seed = torch.tensor(5, dtype=torch.int32)
+    # while they serve: the eager plain path against itself, cuDNN's default
+    # algorithms (why the comparisons run deterministic ones), then the
+    # eager port on the same requests, the plain path and the kernel path,
+    # deterministic algorithms on as in the serving processes
+    model, pre = models["multi-dSprites"]
+    set_kernels(model, False)
+    args = [a.cuda() for a in req["encode"][1]["b64"]]
+    self_gap = served_err("eager encode b64 twice", serving.encode(model, *args, pre),
+                          serving.encode(model, *args, pre))
+    print(f"  the eager plain path against itself (encode, B=64, cuDNN's default "
+          f"algorithms): {self_gap:.2e}")
+    eager, eager_launches = {}, {}
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        for path in ("plain", "kernels"):
+            build.reset_launches()
+            for key, (_, calls) in req.items():
+                run = "celeba64 bf16" if key.startswith("celeba64") else "multi-dSprites"
+                model, pre = models[run]
+                set_kernels(model, path == "kernels")
+                surface = key.split()[-1]
+                for name, args in calls.items():
+                    if surface == "generate":
+                        eager[path, key, name] = serving.generate(
+                            model, arts.manifest["surfaces"]["generate"]["n_images"],
+                            args[0].cuda())
+                    else:
+                        fn = serving.reconstruct if surface == "reconstruct" else serving.encode
+                        eager[path, key, name] = fn(model, args[0].cuda(), args[1].cuda(),
+                                                    args[2].cuda(), pre)
+            torch.cuda.synchronize()
+            eager_launches[path] = {k: v for k, v in build.LAUNCHES.items() if v}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    build.reset_launches()
 
-    def keyed(x):
-        calls = {f"b{b}": (x[:b], seed, torch.arange(b, dtype=torch.int32)) for b in SERVE_B}
-        calls["perm7"] = (x[:7][perm], seed, perm.to(torch.int32))
-        return calls
-
-    req = {"reconstruct": (arts.paths["reconstruct"], keyed(x_mo))}
-    serve_dir = os.path.join(tmp, "serve")
-    os.makedirs(serve_dir)
-    torch.save(req, os.path.join(serve_dir, "requests.pt"))
-    t0 = time.perf_counter()
-    subprocess.run([sys.executable, "-c", SERVE_SCRIPT, serve_dir], check=True,
-                   cwd=serve_dir, env=dict(os.environ, PYTHONPATH=""), timeout=900)
-    sub_s = time.perf_counter() - t0
-    ans = torch.load(os.path.join(serve_dir, "answers.pt"))
-    check(not ans["lvae_tpu_torch"], "the serving process imported nothing of the port")
+    (ans, sub_s), (c_ans, c_sub_s) = (finish_serving(serving_mo),
+                                      finish_serving(celeba["serving"]))
+    check(not ans["lvae_tpu_torch"] and not c_ans["lvae_tpu_torch"],
+          "the serving processes imported nothing of the port")
+    ans.update({k: v for k, v in c_ans.items() if k != "lvae_tpu_torch"})
     for key in req:
         ops = ans[key, "ops"]
         other = [op for op in ops if op[0] != "aten" and op[1] != "getitem"]
@@ -3996,68 +4113,46 @@ def mo_serve(card, run_dir, tmp):
               f"{key}: {ans[key, 'nodes']} call nodes of {len(ops)} distinct operators, "
               f"every one aten or a getitem ({other})")
     first = {k: (ans[k, "load_s"], ans[k, "first_call_s"]) for k in req}
-    print(f"  the serving process: {sub_s:.1f} s in all; load s, first call s by artifact "
+    print(f"  the serving processes: {sub_s:.1f} s (multi-dSprites) and {c_sub_s:.1f} s "
+          f"(celeba64 bf16, beside 20a-c); load s, first call s by artifact "
           f"{ {k: (round(a, 2), round(b, 3)) for k, (a, b) in first.items()} }  ({card})")
 
-    # the eager plain path against itself, cuDNN's default algorithms: why
-    # the comparisons below run deterministic ones
-    set_kernels(model, False)
-    args = [a.cuda() for a in req["reconstruct"][1]["b64"]]
-    self_gap = served_err("eager reconstruct b64 twice",
-                          serving.reconstruct(model, *args, pre),
-                          serving.reconstruct(model, *args, pre))
-    print(f"  the eager plain path against itself (reconstruct, B=64, cuDNN's default "
-          f"algorithms): {self_gap:.2e}")
-
-    # the eager port on the same runs: the plain path and the kernel path,
-    # deterministic algorithms on as in the serving process
     worst = {"plain": 0.0, "kernels": 0.0}
-    eager_launches, eager_plain = {}, {}
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True)
-    try:
-        for path in ("plain", "kernels"):
-            build.reset_launches()
-            set_kernels(model, path == "kernels")
-            for surface, (_, calls) in req.items():
-                for name, args in calls.items():
-                    want = serving.reconstruct(model, args[0].cuda(), args[1].cuda(),
-                                               args[2].cuda(), pre)
-                    if path == "plain":
-                        eager_plain[surface, name] = want
-                    worst[path] = max(worst[path], served_ok(
-                        f"{surface} {name}: the artifact vs the eager {path} path",
-                        ans[surface, name], want, SERVE_TOL[path]))
-            torch.cuda.synchronize()
-            eager_launches[path] = {k: v for k, v in build.LAUNCHES.items() if v}
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic = False
-    build.reset_launches()
+    eager_plain = {}
+    for (path, key, name), want in eager.items():
+        if path == "plain":
+            eager_plain[key, name] = want
+        worst[path] = max(worst[path], served_ok(
+            f"{key} {name}: the artifact vs the eager {path} path", ans[key, name], want,
+            SERVE_TOL[path]))
     check(not eager_launches["plain"], "the eager plain path launched no kernel")
-    check(eager_launches["kernels"].get("sample_kl", 0) > 0,
-          f"the eager kernel path launched K2 ({eager_launches['kernels']})")
+    check(all(eager_launches["kernels"].get(k, 0) > 0
+              for k in ("sample_kl", "mix_log_prob[bf16]")),
+          f"the eager kernel path launched K2 and K3 ({eager_launches['kernels']})")
     print(f"  the artifacts vs the eager port: plain path worst {worst['plain']:.2e}, kernel "
           f"path worst {worst['kernels']:.2e}; the kernel path's launches "
           f"{eager_launches['kernels']}  ({card})")
 
     # batch invariance: B = 1 and 7 are B = 64's first rows, the shuffled 7
-    # b7's rows, within 1e-6
+    # b7's rows. fp32 within 1e-6; a bf16 model's convolutions round by the
+    # algorithm each B picks, so its artifact is held to the eager plain
+    # path's own gap between the same batches
     invariance = {}
-    key = "reconstruct"
-    pairs = {"b1": ("b64", slice(0, 1)), "b7": ("b64", slice(0, 7)), "perm7": ("b7", perm)}
-    for name, (full, rows) in pairs.items():
-        gaps = [served_err(f"{key} {name} vs {full}'s rows", src[key, name],
-                           {k: v[rows] for k, v in src[key, full].items()})
-                for src in (ans, eager_plain)]
-        tol = SERVE_TOL["plain"]
-        check(gaps[0] <= tol, f"{key} {name} vs {full}'s rows: the artifact's gap "
-                              f"{gaps[0]:.2e}, the eager plain path's {gaps[1]:.2e}; "
-                              f"within {tol:.2e}")
-        invariance[f"{key} {name}"] = {"artifact": gaps[0], "eager": gaps[1]}
+    for key in ("reconstruct", "celeba64 reconstruct"):
+        pairs = {"b1": ("b64", slice(0, 1)), "b7": ("b64", slice(0, 7)), "perm7": ("b7", perm)}
+        for name, (full, rows) in pairs.items():
+            gaps = [served_err(f"{key} {name} vs {full}'s rows", src[key, name],
+                               {k: v[rows] for k, v in src[key, full].items()})
+                    for src in (ans, eager_plain)]
+            tol = SERVE_TOL["plain"] if key == "reconstruct" else gaps[1] + SERVE_TOL["plain"]
+            check(gaps[0] <= tol, f"{key} {name} vs {full}'s rows: the artifact's gap "
+                                  f"{gaps[0]:.2e}, the eager plain path's {gaps[1]:.2e}; "
+                                  f"within {tol:.2e}")
+            invariance[f"{key} {name}"] = {"artifact": gaps[0], "eager": gaps[1]}
 
     print("[20d] reconstruct images/s: the artifact vs the eager kernel path, in turns",
           flush=True)
+    model, pre = models["multi-dSprites"]
     set_kernels(model, True)
     art = serving.load_artifact(arts.paths["reconstruct"], "cuda").module()
     rates = {}
@@ -4082,26 +4177,51 @@ def mo_serve(card, run_dir, tmp):
         rates[b]["turns"] = turns
         print(f"  B={b}: artifact {rates[b]['artifact']:.1f} img/s, eager kernel path "
               f"{rates[b]['eager']:.1f} img/s (turns {turns})  ({card})")
-    del art, model
+    del art, models, eager, eager_plain
     torch.cuda.empty_cache()
     return {"export_s": export_s, "artifact_mib": sizes, "cli_s": cli_s,
             "graph_nodes": {k: ans[k, "nodes"] for k in req},
-            "serving_process_s": sub_s, "load_and_first_call_s": first,
+            "serving_process_s": sub_s, "celeba64_serving_process_s": c_sub_s,
+            "load_and_first_call_s": first,
             "worst": worst, "eager_launches": eager_launches, "invariance": invariance,
             "eager_self_gap": self_gap,
             "reconstruct_images_per_sec": {str(b): r for b, r in rates.items()}}
 
 
-def phase_multiobject(card):
+def start_celeba_export(run_dir):
+    """``python -m lvae_tpu_torch.export_serving --load <celeba64 bf16 run>
+    --what reconstruct --check`` on the card, started and left running
+    (phase 20 waits for it)."""
+    p = start_command(["-m", "lvae_tpu_torch.export_serving", "--load", run_dir, "--what",
+                       "reconstruct", "--check", "--platforms", "cuda"])
+    return {"run_dir": run_dir, "artifact_dir": os.path.join(run_dir, "serving"), "process": p}
+
+
+def phase_multiobject(card, celeba):
     """Phase 20: multi-dSprites (64x64 RGB, binary, the Bernoulli head) at
     the flagship's widths, trained (20a), scored (20b) and exported and
-    served (20c, 20d); multi-MNIST's 48 -> 64 padding."""
+    served (20c, 20d); multi-MNIST's 48 -> 64 padding; celeba64's bf16 run
+    (phase 18b's) exported beside phase 19 (``celeba``, of
+    :func:`start_celeba_export`) and served beside 20a-c."""
     import torch
 
+    from lvae_tpu_torch import serving
     from lvae_tpu_torch.data.registry import load_dataset
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
+        rc, _ = finish_command(celeba["process"], 900)
+        check(rc == 0, f"export_serving --load <celeba64 bf16 run> --what reconstruct --check "
+                       f"exited 0 ({rc})")
+        with open(os.path.join(celeba["artifact_dir"], "manifest.json")) as f:
+            celeba["manifest"] = json.load(f)
+        model, c_data, _, _ = serving._restore_for_export(celeba["run_dir"], None,
+                                                          torch.device("cuda"))
+        celeba["model"], celeba["x"] = (model, c_data.preprocess), torch.from_numpy(
+            c_data.test[:500])
+        celeba["req"] = {"celeba64 reconstruct": (
+            os.path.join(celeba["artifact_dir"], "reconstruct.pt2"), keyed_requests(celeba["x"]))}
+        celeba["serving"] = start_serving(os.path.join(tmp, "serve_celeba"), celeba["req"])
         name = "multi_dsprites_binary_rgb"
         write_multiobject(os.path.join(tmp, "data"), name,
                           multiobject_images(MO_N, MO_IMAGE, seed=20))
@@ -4119,7 +4239,7 @@ def phase_multiobject(card):
         print(f"  [20b at {time.perf_counter() - t0:.1f} s of phase 20]", flush=True)
         out["eval"] = mo_eval(card, tr["run_dir"], tmp)
         print(f"  [20c at {time.perf_counter() - t0:.1f} s of phase 20]", flush=True)
-        out["serve"] = mo_serve(card, tr["run_dir"], tmp)
+        out["serve"] = mo_serve(card, tr["run_dir"], celeba, tmp)
     out["wall_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     print(f"  phase 20 took {out['wall_s']:.1f} s", flush=True)
@@ -5169,12 +5289,16 @@ def run_command(argv, timeout_s):
     return finish_command(start_command(argv), timeout_s)
 
 
-def start_command(argv):
-    """``python argv`` started from the repository in a session of its own
-    (:func:`finish_command` waits for it)."""
-    p = subprocess.Popen([sys.executable, *argv], cwd=REPO, stdout=subprocess.PIPE,
+def start_command(argv, cwd=REPO, env=None):
+    """``python argv`` started (from the repository by default) in a session
+    of its own (:func:`finish_command` waits for it); should the script end
+    first, on a failure, the session is killed on the way out."""
+    import signal
+
+    p = subprocess.Popen([sys.executable, *argv], cwd=cwd, env=env, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True, start_new_session=True)
     p.argv = argv
+    atexit.register(lambda: p.poll() is None and os.killpg(p.pid, signal.SIGKILL))
     return p
 
 
@@ -6244,9 +6368,11 @@ def main():
     res["steps_per_call"] = phase_graph(card, train_u8, test_u8, flagship_weights, c_data,
                                         celeba_weights)
     lap("phase 18")
+    # celeba64's bf16 run stays until phase 20 exports it
+    keep = tempfile.TemporaryDirectory()
     b16_err, b16_t, res["bf16"] = phase_bf16(card, per_step, timed, build_log, train_u8,
                                              test_u8, flagship_weights, c_train, c_test,
-                                             c_data, celeba_weights)
+                                             c_data, celeba_weights, keep.name)
 
     def times_and_bound(t):
         return [t[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")], \
@@ -6285,7 +6411,8 @@ def main():
          {"plan": f"V={mix_more['plans'][f'[{CELEBA_B},100,64,64] C=3 K={K_MIX}']['fwd_v']}"}),
         ("mix_log_prob_bwd", "lvae_tpu/kernels/mixture_pallas.py:338", mix_err["bwd"],
          mix_t[("K3-bwd", CELEBA_B)],
-         {"plan": mix_more["plans"][f"[{CELEBA_B},100,64,64] C=3 K={K_MIX}"]["default"],
+         {"plan": "{default} V={v}".format(
+             **mix_more["plans"][f"[{CELEBA_B},100,64,64] C=3 K={K_MIX}"]),
           "two_pass_ms": two_pass[0], "two_pass_device_ms": two_pass[1]}),
     ):
         kernels.append(entry(name, "mixture.cu", replaces, ctr["launches"][name], e, t,
@@ -6332,12 +6459,19 @@ def main():
          "celeba64 auto", b16_err["mix_bwd"], b16_t[f"K3-bwd {mix16} one_pass"]),
     ):
         counter = name.replace("dropout_bits8", "dropout")
+        more = {}
+        if name == "mix_log_prob_bwd[bf16]":
+            plan = mix_more["plans"][mix16]
+            more = {"plan": f"{plan['default']} V={plan['v']}", "cifar10_deep_shape": {
+                key: v for key, v in b16_t.items() if "32,32] C=3" in key}}
         kernels.append(entry(
             name, source, replaces, b16_runs[run]["launches"][counter], e,
             [t[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms")],
             (t["bound_ms"], t["bound_by"]), None, fp32_ms=t["fp32_ms"],
             fp32_device_ms=t["fp32_device_ms"], storage="bf16",
-            path=f"lvae_tpu_torch.main --precision bf16 ({run})"))
+            path=f"lvae_tpu_torch.main --precision bf16 ({run})", **more))
+    # phase 20's export of celeba64's bf16 run runs beside phase 19
+    celeba = start_celeba_export(res["bf16"]["runs"]["celeba64 all"].pop("run_dir"))
     lap("phase 19")
     c_err, cifar = phase_cifar(card)
     res["cifar10_deep"] = cifar
@@ -6374,7 +6508,8 @@ def main():
                 if kern["name"] == "logsumexp" else "")
         kern["cifar10_deep"] = row
     lap("phase 20")
-    mo = phase_multiobject(card)
+    with keep:
+        mo = phase_multiobject(card, celeba)
     res["multiobject"] = mo
     # each kernel's launches on phase 20's paths: the multi-dSprites
     # training run (20a, less the init's), evaluate (20b), the eager

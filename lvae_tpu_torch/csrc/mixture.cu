@@ -25,21 +25,21 @@
 //   dm_jc = g w_j dL/dm,  dls_jc = g w_j dL/dls (0 where ls_raw <= -7:
 //           the floor blocks it, as the Pallas kernel's ls_raw > floor rule)
 //   dco   through 1 - tanh^2 and the autoregression, dx = 2 dxs.
-// dL/da and dL/dd per bin case are _bin_logprob_and_grads's; CUDA has
-// expm1f and log1pf, so 1/(e^d - 1) is 1/expm1f(d) and the TPU kernel's
-// series work-arounds (_log1mexp, _inv_expm1) have no counterpart.
+// dL/da and dL/dd per bin case are _bin_logprob_and_grads's, the TPU
+// kernel's series work-arounds (_log1mexp, _inv_expm1) replaced by the
+// forward's formulation (below).
 //
 // Layout: the model's own NCHW, read in place. params [B, K(1 + 3C), H, W]
 // with channel q the flax channel q: [pi (K)] ++ [means (KC)] ++
 // [log_scales (KC)] ++ [coeffs (KC)], component j channel c at slab entry
-// C j + c; x [B, C, H, W]; ll [B, H, W]. A thread of the backward takes one
-// pixel (b, p = h W + w), a thread of the forward V neighbouring ones, and
-// reads channel q at b Q HW + q HW + p, so at every q a warp reads 32 (or
-// 32 V) neighbouring values: all loads and stores coalesce, with no
-// transpose or regroup around the call (the TPU kernel streams batch-minor
-// tiles). The backward writes dparams in the same layout, and dx only when
-// given a pointer. K is a runtime argument; C is 1 or 3 (a template
-// argument).
+// C j + c; x [B, C, H, W]; ll [B, H, W]. A thread of the forward takes V
+// neighbouring pixels (b, p = h W + w), two lanes of the backward's one pass
+// V of them, and read channel q at b Q HW + q HW + p, so at every q a warp
+// (or half-warp) reads neighbouring values: all loads and stores coalesce,
+// with no transpose or regroup around the call (the TPU kernel streams
+// batch-minor tiles). The backward writes dparams in the same layout, and
+// dx only when given a pointer. K is a runtime argument; C is 1 or 3 (a
+// template argument).
 //
 // The forward (mix_fwd_kernel<C, P, V>, redesigned for the H100; the
 // parent design, a grid-stride loop of one pixel a thread with accurate
@@ -65,39 +65,68 @@
 // MUFU. Holding every t_j and pi_j in registers (the loop unrolled, a max
 // then a sum) was measured and lost at every V (PERF.md, PR 15).
 // The backward has two schedules (kernels/mixture.py bwd_plan):
-//   one pass (the default where it fits, K (2 + 2C + 3[C = 3]) floats a
-//     thread, 56,320 B a CTA of 128 at K = 10, C = 3: four CTAs per SM):
-//     each component is built once, with its gradient factors sharing the
-//     bin's exponentials (bin_terms), and its t_j, pi_j, dm, masked dls and
-//     tanh(coeffs) wait in shared memory, [value][thread], until the two
-//     logsumexps are known; a second loop over them writes the gradients
-//     with two exponentials a component and no bin math. This is the Pallas
-//     kernel's idea (_mixture_core holds every bin's lp, dm and dls in
-//     VMEM) in a CTA's shared memory.
-//   two passes (any K; the default where one pass leaves no room for a
-//     second CTA on an SM): the first pass finds the two logsumexps, the
-//     second recomputes every t_j and its bin terms and writes that
-//     component's 1 + 3C gradients.
+//   one pass (mix_bwd_one_pass_kernel<C, P, V>, redesigned for the H100 and
+//     bf16 parameters; the default where a CTA leaves room for a second on
+//     an SM): each component is built once and its t_j, pi_j, dm, masked
+//     dls and tanh(coeffs) wait in shared memory until the two logsumexps
+//     are known, then a loop over them writes the gradients with products
+//     alone. This is the Pallas kernel's idea (_mixture_core holds every
+//     bin's lp, dm and dls in VMEM) in a CTA's shared memory. Its design:
+//   - the grid is (pixel groups, batch), as the forward's, so no thread
+//     divides by hw (the parent design divided a 64-bit index by hw a
+//     pixel in a grid-stride loop);
+//   - lanes l and l ^ 16 of a warp share V = 2 (or 1) neighbouring pixels,
+//     l taking the even components and l ^ 16 the odd ones, and swap their
+//     maxima, sums and dx with two shuffles. The stash is per pixel (K x 11
+//     floats, C = 3), so the CTAs an SM holds are set by pixels; the split
+//     gives each pixel two lanes' worth of independent work and V = 2 two
+//     pixels' a lane, where one lane a pixel left the loop waiting on its
+//     loads. Each channel is one access of V values (bf16: 32 bits, fp32:
+//     64) both ways: a fifth of the parent's 100 2-byte loads and 100
+//     2-byte stores a pixel;
+//   - the loads of component j + 2 are issued before component j is
+//     computed, and the slabs of j + 4 prefetched into L2 (prefetch_l2);
+//     the per-lane addresses are two pointers stepped a component at a
+//     time, the channels' offsets shared by every lane (Slabs);
+//   - the bin math is the forward's (four hardware exponentials, the
+//     channels' logarithms of products), and its two gradient factors come
+//     from one reciprocal more (bin_grads): 5 MUFU a bin where the parent
+//     spent 10 with accurate expm1f; tanh(coeffs) is the forward's, the
+//     three reciprocals taken as one (tanh3); the logsumexps are a max in
+//     the first loop and e^(v - max) in a short second one, which leaves
+//     one exponential a component for each of w_j and softmax(pi)_j;
+//   - shared memory is [component][value][lane] of V floats, a warp's
+//     accesses on distinct banks.
+//   Per pixel and component, C = 3, V = 2: ~280 SASS instructions in the
+//   first loop, ~13 in the second and ~56 in the last, 23 MUFU (the parent
+//   design: ~570 and ~140, 42 MUFU).
+//   two passes (any K; the default where one pass at V = 1 leaves no room
+//     for a second CTA on an SM, K > 40 at C = 3): the first pass finds the
+//     two logsumexps, the second recomputes every t_j and its bin terms
+//     and writes that component's 1 + 3C gradients.
 //
 // Bound: at celeba64's training shape [128, 100, 64, 64] the forward reads
 // 400 B of params, 12 B of x and writes 4 B per pixel: 218 MB, ~65 us at
 // 3.35 TB/s (bf16 params: 113 MB, ~34 us). The backward reads the same plus
 // g (4 B) and writes 400 B of dparams (and 12 B of dx when asked): ~420-435
-// MB, ~128 us. What bounds the two-pass schedule on an H100 is instruction
-// issue: ~30 accurate special functions per bin per pass (expf, log1pf,
-// expm1f, logf, two divisions, tanhf), 2,696 SASS instructions (90 MUFU) for
-// mix_bwd_kernel<3>, and a throwaway build with -use_fast_math ran it 20%
-// faster. The one pass builds each bin once, shares e^-|v| between
-// softplus and sigmoid, and uses the hardware's approximate exp, log and
-// reciprocal where a few ulp are harmless (1,128 instructions, 44 MUFU);
-// fast math gains it only 6%, and prefetching the next component's ten
-// loads 2.4% (4.6% at C = 1). Measured by chip_smoke.py phase 10 on an
-// NVIDIA H100 80GB HBM3 at 700 W, dparams only (PERF.md section 6 has each
-// run's numbers): one pass ~0.19 ms, two passes ~0.36 ms of device time,
-// against ~3.5 ms for the plain PyTorch backward, 1.5x the memory bound; a
-// one-pass CTA alone on its SM (K = 24) is slower than two passes (~0.29
-// against ~0.23 ms per call at [32, 240, 64, 64]). The forward at [128,
-// 100, 64, 64] (lvae_tpu_torch/mixture_ab.py, in turns with the parent
+// MB, ~128 us (bf16: 218 MB, ~65 us). The two-pass schedule is bound by
+// instruction issue: ~30 accurate special functions per bin per pass,
+// 2,696 SASS instructions (90 MUFU) for mix_bwd_kernel<3>. The one pass, in
+// turns with the parent design (lvae_tpu_torch/mixture_ab.py --kernels bwd,
+// NVIDIA H100 80GB HBM3 at 700 W, dparams only; PERF.md section 6 has each
+// run's numbers): bf16 ~0.098 ms against 0.153 at [128, 100, 64, 64] (67%
+// of its bound), ~0.029 against 0.042 at cifar10-deep's [128, 100, 32, 32];
+// fp32 ~0.151 against 0.193 (85%); at K = 24, V = 1, ~0.095 (bf16) and
+// ~0.115 (fp32) against two passes' ~0.233. Cutting an eighth of its
+// instructions (the addresses, hand FMAs) gained it 1-4%, an L2 prefetch of
+// the next component but one 3-7%: it waits on its loads' latency, at the
+// four CTAs an SM that both its shared memory and its 128 registers allow.
+// Measured and dropped: 64-thread CTAs (equal), tanh(coeffs) recomputed in
+// the last loop to fit a fifth CTA (it spilled, 8% slower), the first loop
+// unrolled by two, a prefetch three components ahead, loads asking L2 for
+// 256 bytes (within 1%), and K = 10 as a template argument (bf16 1-4%
+// faster, fp32 1-3% slower).
+// The forward at [128, 100, 64, 64] (mixture_ab.py, in turns with the parent
 // design): fp32 0.075 ms against 0.127 (87% of its byte bound), bf16 0.051
 // against 0.127 (66%), where the special-function unit (22 MUFU a pixel
 // and component, ~0.03 ms) and instruction issue (~0.035 ms) sit beside the
@@ -114,8 +143,8 @@
 // directly: the fp32 value rounded to nearest even is the cast's bits, at
 // half the bytes and with no second kernel. A bf16 map halves the
 // parameter bytes: at [128, 100, 64, 64] the forward moves 218 -> 113 MB,
-// the backward 435 -> 226 MB (with dx). The forward loads bf16 values as
-// 16-, 32- or 64-bit words and moves each to an fp32's top half with a
+// the backward 435 -> 226 MB (with dx). Both kernels load bf16 values as
+// 16-, 32- or 64-bit words and move each to an fp32's top half with a
 // shift or a mask. A first build of it chose between a vector and a scalar
 // load per channel with a branch; each conversion then sat in the branch
 // right after its load, so every load waited on the one before, and bf16 at
@@ -327,180 +356,6 @@ __global__ void mix_bwd_kernel(const float* __restrict__ x, const P* __restrict_
   }
 }
 
-// One bin's log-prob and its two gradient factors for the one-pass
-// backward, with the special functions shared between them: e = e^-|v|
-// gives softplus(v) = max(v, 0) + log1p(e) and both sigmoid(v) and
-// sigmoid(-v) through one reciprocal, for v = a and v = a + d; and
-// 1 + 1/expm1(d) = -1/expm1(-d) reuses the interior's log term. The
-// exponentials, logarithms and reciprocals are the hardware's approximate
-// ones (__expf, __logf, __fdividef: a few ulp, which moves dparams by about
-// 1e-6 of their max); expm1f stays accurate, as 1/expm1(-d) needs its
-// relative accuracy at small d. The two-pass schedule's bin_logprob is
-// left as it is.
-__device__ __forceinline__ Bin bin_terms(float xs, float m, float ls, float hb) {
-  const float inv_s = __expf(-ls);
-  const float a = inv_s * ((xs - m) - hb);
-  const float d = (2.0f * hb) * inv_s;
-  const float plus = a + d;
-  const float ea = __expf(-fabsf(a)), ep = __expf(-fabsf(plus));
-  const float ra = __fdividef(1.0f, 1.0f + ea), rp = __fdividef(1.0f, 1.0f + ep);
-  const float sig_a = a >= 0.0f ? ra : ea * ra;          // sigmoid(a)
-  const float sig_p = plus >= 0.0f ? rp : ep * rp;       // sigmoid(a + d)
-  const float sp_a = fmaxf(a, 0.0f) + __logf(1.0f + ea); // softplus(a)
-  const float l1p = __logf(1.0f + ep);
-  Bin r;
-  float da, dd;
-  if (xs < -1.0f + hb) {            // left edge: log sigmoid(a + d)
-    r.lp = -(fmaxf(-plus, 0.0f) + l1p);
-    da = dd = plus >= 0.0f ? ep * rp : rp;               // sigmoid(-(a + d))
-  } else if (xs > 1.0f - hb) {      // right edge: log sigmoid(-a)
-    r.lp = -sp_a;
-    da = -sig_a;
-    dd = 0.0f;
-  } else {                          // interior, cancellation-free
-    const float em = expm1f(-d);    // in (-1, 0)
-    r.lp = plus + __logf(-em) - sp_a - (fmaxf(plus, 0.0f) + l1p);
-    da = (a >= 0.0f ? ea * ra : ra) - sig_p;             // sigmoid(-a) - sigmoid(a + d)
-    dd = -__fdividef(1.0f, em) - sig_p;
-  }
-  r.dm = -inv_s * da;
-  r.dls = -a * da - d * dd;
-  return r;
-}
-
-// lse_push with the hardware's approximate exponential (the one-pass
-// backward's weights; lse_push, which the two-pass schedule uses, stays as
-// it is).
-__device__ __forceinline__ void lse_push_approx(float& m, float& s, float v) {
-  if (v > m) {
-    s = s * __expf(m - v) + 1.0f;
-    m = v;
-  } else if (v != -INFINITY) {
-    s += __expf(v - m);
-  }
-}
-
-// Floats the one-pass backward keeps per component: t_j, pi_j, dm and the
-// masked dls per channel, and tanh(coeffs) (C = 3).
-template <int C>
-constexpr int kStored = C == 3 ? 11 : 4;
-// Parameter values a component reads: pi, means, log-scales, coeffs (C = 3)
-template <int C>
-constexpr int kRead = C == 3 ? 10 : 3;
-
-template <int C, typename P>
-__device__ __forceinline__ void load_component(const P* p, long long hw, int k, int j,
-                                               float (&v)[kRead<C>]) {
-  v[0] = ld(p + j * hw);
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    v[1 + c] = ld(p + (k + C * j + c) * hw);
-    v[1 + C + c] = ld(p + (k + k * C + C * j + c) * hw);
-    if constexpr (C == 3) v[1 + 2 * C + c] = ld(p + (k + 2 * k * C + C * j + c) * hw);
-  }
-}
-
-// K3-bwd in one pass of bin math: each thread builds its pixel's K
-// components once (bin_terms), keeps what the gradients need in shared
-// memory as [value][thread] (a warp's 32 accesses on 32 banks) and folds
-// t_j and pi_j into the two running logsumexps; a second loop over the
-// stored values writes the 1 + 3C gradients per component with two
-// exponentials and products. Component j + 1's values load while j is
-// computed.
-template <int C, typename P>
-__global__ void __launch_bounds__(kThreads, 4)
-mix_bwd_one_pass_kernel(const float* __restrict__ x, const P* __restrict__ params,
-                        const float* __restrict__ g, P* __restrict__ dparams,
-                        float* __restrict__ dx, long long npix, long long hw, int k,
-                        float hb) {
-  extern __shared__ float stash[];
-  constexpr int V = kStored<C>;
-  const long long q = static_cast<long long>(k) * (1 + 3 * C);
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  float* mine = stash + threadIdx.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < npix; i += step) {
-    const long long b = i / hw, p = i - b * hw;
-    const float gi = g[i];
-    float xs[C];
-    load_xs<C>(x, b, hw, p, xs);
-    const P* pp = params + b * q * hw + p;
-    P* dp = dparams + b * q * hw + p;
-    float mp = -INFINITY, sp = 0.0f, mt = -INFINITY, st = 0.0f;
-    float cur[kRead<C>];
-    load_component<C>(pp, hw, k, 0, cur);
-    for (int j = 0; j < k; ++j) {
-      float nxt[kRead<C>];
-      load_component<C>(pp, hw, k, j + 1 < k ? j + 1 : j, nxt);
-      float* s = mine + j * V * kThreads;
-      float m[C], co[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) m[c] = cur[1 + c];
-      if constexpr (C == 3) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          co[c] = tanhf(cur[1 + 2 * C + c]);
-          s[(2 + 2 * C + c) * kThreads] = co[c];
-        }
-        m[1] = m[1] + co[0] * xs[0];
-        m[2] = (m[2] + co[1] * xs[0]) + co[2] * xs[1];
-      }
-      float lp = 0.0f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float raw = cur[1 + C + c];
-        const Bin r = bin_terms(xs[c], m[c], fmaxf(raw, kLogScaleMin), hb);
-        lp += r.lp;
-        s[(2 + c) * kThreads] = r.dm;
-        s[(2 + C + c) * kThreads] = raw > kLogScaleMin ? r.dls : 0.0f;
-      }
-      const float t = lp + cur[0];
-      s[0] = t;
-      s[kThreads] = cur[0];
-      lse_push_approx(mp, sp, cur[0]);
-      lse_push_approx(mt, st, t);
-#pragma unroll
-      for (int v = 0; v < kRead<C>; ++v) cur[v] = nxt[v];
-    }
-    const float lse_pi = mp + logf(sp), lse_t = mt + logf(st);
-    float dxs[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) dxs[c] = 0.0f;
-    for (int j = 0; j < k; ++j) {
-      const float* s = mine + j * V * kThreads;
-      const float w = __expf(s[0] - lse_t);
-      const float gw = gi * w;
-      dp[j * hw] = down<P>(gi * (w - __expf(s[kThreads] - lse_pi)));
-      float dm[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        dm[c] = gw * s[(2 + c) * kThreads];
-        dp[(k + C * j + c) * hw] = down<P>(dm[c]);
-        dp[(k + k * C + C * j + c) * hw] = down<P>(gw * s[(2 + C + c) * kThreads]);
-      }
-      P* dco = dp + (k + 2 * k * C + C * j) * hw;
-      if constexpr (C == 3) {
-        float co[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) co[c] = s[(2 + 2 * C + c) * kThreads];
-        dco[0] = down<P>(dm[1] * xs[0] * (1.0f - co[0] * co[0]));
-        dco[hw] = down<P>(dm[2] * xs[0] * (1.0f - co[1] * co[1]));
-        dco[2 * hw] = down<P>(dm[2] * xs[1] * (1.0f - co[2] * co[2]));
-        dxs[0] += (-dm[0] + dm[1] * co[0]) + dm[2] * co[1];
-        dxs[1] += -dm[1] + dm[2] * co[2];
-        dxs[2] += -dm[2];
-      } else {
-        dco[0] = down<P>(0.0f);
-        dxs[0] += -dm[0];
-      }
-    }
-    if (dx != nullptr) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) dx[(b * C + c) * hw + p] = 2.0f * dxs[c];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K3, the forward (see the header): V pixels a thread, each channel read
 // with one vector load, the bin terms from four hardware exponentials and
@@ -597,6 +452,26 @@ struct Pixels {
   float xs[C][V], left[C][V], right[C][V];
 };
 
+// The V pixels at p0 of image b of x [B, C, HW].
+template <int C, int V>
+__device__ __forceinline__ Pixels<C, V> load_pixels(const float* x, long long b, long long hw,
+                                                    long long p0, float hb) {
+  Pixels<C, V> px;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    load_v<V>(x + (b * C + c) * hw + p0, px.xs[c]);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float xs = 2.0f * px.xs[c][v] - 1.0f;
+      const bool left = xs < -1.0f + hb;
+      px.xs[c][v] = xs;
+      px.left[c][v] = left ? -INFINITY : 0.0f;
+      px.right[c][v] = !left && xs > 1.0f - hb ? INFINITY : 0.0f;
+    }
+  }
+  return px;
+}
+
 // Component j's t_j = sum_c lp_jc + pi_j and pi_j for V pixels; img points
 // at the first pixel's channel 0. Per bin, with A = a + left, B = a + d +
 // right, D = d + right - left (+inf at either edge):
@@ -673,19 +548,7 @@ mix_fwd_kernel(const float* __restrict__ x, const P* __restrict__ params,
   if (p0 >= hw) return;
   const long long q = static_cast<long long>(k) * (1 + 3 * C);
   for (long long b = blockIdx.y; b < nb; b += gridDim.y) {
-    Pixels<C, V> px;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      load_v<V>(x + (b * C + c) * hw + p0, px.xs[c]);
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const float xs = 2.0f * px.xs[c][v] - 1.0f;
-        const bool left = xs < -1.0f + hb;
-        px.xs[c][v] = xs;
-        px.left[c][v] = left ? -INFINITY : 0.0f;
-        px.right[c][v] = !left && xs > 1.0f - hb ? INFINITY : 0.0f;
-      }
-    }
+    const Pixels<C, V> px = load_pixels<C, V>(x, b, hw, p0, hb);
     const P* img = params + b * q * hw + p0;
     float mt[V], st[V], mp[V], sp[V];
 #pragma unroll
@@ -711,6 +574,373 @@ mix_fwd_kernel(const float* __restrict__ x, const P* __restrict__ params,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// K3-bwd in one pass (see the header): a pixel group of V neighbouring
+// pixels is shared by lanes l and l ^ 16 of a warp, l taking the even
+// components and l ^ 16 the odd ones; each channel is read and written
+// with one access of V values.
+
+constexpr int kSplit = 2;                       // lanes a pixel group
+constexpr int kGroups = kThreads / kSplit;      // pixel groups a CTA
+
+// Floats the one-pass backward keeps per component and pixel: t_j (then
+// e^(t_j - max t)), pi_j (then e^(pi_j - max pi)), dm and the masked dls
+// per channel, and tanh(coeffs) (C = 3).
+template <int C>
+constexpr int kStash = C == 3 ? 11 : 4;
+// Parameter values a component reads: pi, means, log-scales, coeffs (C = 3)
+template <int C>
+constexpr int kRead = C == 3 ? 10 : 3;
+
+// One access of V values of P as it is loaded (bf16 words stay packed
+// until they are used, so a load never waits on the one before).
+template <typename P, int V> struct Word;
+template <> struct Word<float, 1> { using T = float; };
+template <> struct Word<float, 2> { using T = float2; };
+template <> struct Word<bf16, 1> { using T = unsigned short; };
+template <> struct Word<bf16, 2> { using T = unsigned; };
+template <typename P, int V>
+using word_t = typename Word<P, V>::T;
+
+template <typename P, int V>
+__device__ __forceinline__ word_t<P, V> ld_word(const P* p) {
+  return __ldg(reinterpret_cast<const word_t<P, V>*>(p));
+}
+__device__ __forceinline__ void unpack(float w, float (&o)[1]) { o[0] = w; }
+__device__ __forceinline__ void unpack(float2 w, float (&o)[2]) { o[0] = w.x; o[1] = w.y; }
+__device__ __forceinline__ void unpack(unsigned short w, float (&o)[1]) { o[0] = lo_bf16(w); }
+__device__ __forceinline__ void unpack(unsigned w, float (&o)[2]) {
+  o[0] = lo_bf16(w);
+  o[1] = hi_bf16(w);
+}
+
+// V values to P with one access; bf16 rounds to nearest even, as PyTorch's
+// cast does.
+template <int V>
+__device__ __forceinline__ void store_p(float* p, const float (&r)[V]) { store_v<V>(p, r); }
+template <int V>
+__device__ __forceinline__ void store_p(bf16* p, const float (&r)[V]) {
+  unsigned h[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) h[v] = __bfloat16_as_ushort(__float2bfloat16_rn(r[v]));
+  if constexpr (V == 2) *reinterpret_cast<unsigned*>(p) = h[0] | (h[1] << 16);
+  else *reinterpret_cast<unsigned short*>(p) = static_cast<unsigned short>(h[0]);
+}
+
+// V floats of shared memory (8-byte aligned at V = 2).
+template <int V>
+__device__ __forceinline__ void lds_v(const float* p, float (&o)[V]) {
+  if constexpr (V == 2) {
+    const float2 r = *reinterpret_cast<const float2*>(p);
+    o[0] = r.x;
+    o[1] = r.y;
+  } else {
+    o[0] = p[0];
+  }
+}
+
+// Where component j's slabs lie: pi at pi_j = img + j hw, channel c of the
+// means, log-scales and coeffs at cj = img + C j hw plus m[c], ls[c], co[c],
+// offsets that are the same for every lane (kept out of the per-lane
+// address arithmetic).
+template <int C>
+struct Slabs {
+  long long m[C], ls[C], co[C];
+
+  __device__ __forceinline__ Slabs(long long hw, int k) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      m[c] = (k + c) * hw;
+      ls[c] = (k + k * C + c) * hw;
+      co[c] = (k + 2 * k * C + c) * hw;
+    }
+  }
+};
+
+// Component j's slabs brought into L2 ahead of their loads (V = 2: at V = 1
+// the prefetches cost more than they hide). The loop waits on its loads'
+// latency, and one component ahead in registers is all the registers hold
+// (PERF.md, section 6).
+template <int C, typename P>
+__device__ __forceinline__ void prefetch_l2(const P* pi_j, const P* cj, const Slabs<C>& at) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(pi_j));
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(cj + at.m[c]));
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(cj + at.ls[c]));
+    if constexpr (C == 3) asm volatile("prefetch.global.L2 [%0];" ::"l"(cj + at.co[c]));
+  }
+}
+
+// Component j's parameter words for V pixels: pi, means, log-scales and
+// (C = 3) coefficients.
+template <int C, typename P, int V>
+struct Words {
+  word_t<P, V> w[kRead<C>];
+
+  __device__ __forceinline__ void load(const P* pi_j, const P* cj, const Slabs<C>& at) {
+    w[0] = ld_word<P, V>(pi_j);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      w[1 + c] = ld_word<P, V>(cj + at.m[c]);
+      w[1 + C + c] = ld_word<P, V>(cj + at.ls[c]);
+      if constexpr (C == 3) w[1 + 2 * C + c] = ld_word<P, V>(cj + at.co[c]);
+    }
+  }
+};
+
+// tanh of a component's three coefficients, as tanh_fast, with the three
+// reciprocals taken as one: |v| is clamped at 10 (tanh is 1 in fp32 past
+// it; the product of the three 1 + e^(2|v|) stays finite), and a NaN passes.
+__device__ __forceinline__ void tanh3(float (&v)[3]) {
+  float e[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float av = fabsf(v[i]) > 10.0f ? 10.0f : fabsf(v[i]);
+    e[i] = 1.0f + ex2(av * (2.0f * kLog2e));
+  }
+  const float e01 = e[0] * e[1];
+  const float r = rcp(e01 * e[2]);
+  const float ri[3] = {(e[1] * e[2]) * r, (e[0] * e[2]) * r, e01 * r};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) v[i] = copysignf(fmaf(-2.0f, ri[i], 1.0f), v[i]);
+}
+
+// Pixel v's bin terms for one component (the forward's, see `component`)
+// and their gradient factors: returns sum_c lp_c and sets dm[c] = d lp_c /
+// d m_c and dls[c] = d lp_c / d ls_c (0 where the raw log-scale is at or
+// under the floor). With q = 1 - e^-D (d h(D) below the series' bound) and
+// one reciprocal R = 1 / ((1 + e^-|A|)(1 + e^-|B|) q):
+//   sigmoid(-A) - sigmoid(B) = d lp / da,  1 / q - sigmoid(B) = d lp / dd,
+// the interior's 1 - sigmoid(a) - sigmoid(a + d) and 1 + 1 / expm1(d) -
+// sigmoid(a + d); at the left edge (A = -inf, D = +inf) both are 1 -
+// sigmoid(a + d), at the right (B = D = +inf) -sigmoid(a) and 0. q keeps its
+// relative accuracy at small d, which 1 / q needs.
+template <int C, int V>
+__device__ __forceinline__ float bin_grads(const Pixels<C, V>& px, int v, const float (&m)[C],
+                                           const float (&raw)[C], float hb, float log_2hb,
+                                           float (&dm)[C], float (&dls)[C]) {
+  float lin = 0.0f, num = 1.0f, den = 1.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float l = fmaxf(raw[c], kLogScaleMin);
+    const float inv_s = ex2(l * -kLog2e);
+    const float a = inv_s * ((px.xs[c][v] - m[c]) - hb);
+    const float d = (2.0f * hb) * inv_s;
+    const float A = a + px.left[c][v], B = (a + d) + px.right[c][v];
+    const float D = d + (px.right[c][v] - px.left[c][v]);
+    const bool series = D < kSeriesMax;
+    const float h = expm1_ratio(D);
+    const float q = series ? D * h : 1.0f - ex2(D * -kLog2e);
+    lin += fminf(fminf(B, -A), 0.0f) + (series ? log_2hb - l : 0.0f);
+    num *= series ? h : q;
+    const float ea = ex2(fabsf(A) * -kLog2e), eb = ex2(fabsf(B) * -kLog2e);
+    const float pa = 1.0f + ea, pb = 1.0f + eb;
+    const float pab = pa * pb;
+    den *= pab;
+    const float r = rcp(pab * q), qr = q * r;
+    const float ra = pb * qr, rb = pa * qr;                 // 1 / (1 + e^-|A|), 1 / (1 + e^-|B|)
+    const float sig_b = B >= 0.0f ? rb : eb * rb;           // sigmoid(B)
+    const float da = (A >= 0.0f ? ea * ra : ra) - sig_b;    // sigmoid(-A) - sigmoid(B)
+    const float dd = fmaf(pab, r, -sig_b);                  // 1 / q - sigmoid(B)
+    dm[c] = -inv_s * da;                                    // a = inv_s (xs - m - hb)
+    dls[c] = raw[c] > kLogScaleMin ? -fmaf(a, da, d * dd) : 0.0f;  // da/dls = -a, dd/dls = -d
+  }
+  return lin + kLn2 * (lg2(num) - lg2(den));
+}
+
+// K3-bwd, one pass, for a map whose rows are V-aligned (the C entry
+// launches V = 1 where they are not; every V computes the same bits).
+// Grid: x over pixel groups, kGroups a CTA; y over the batch (a loop where
+// B is above 65,535). Each lane builds its components once (bin_grads) and
+// keeps t_j, pi_j, dm, the masked dls and tanh(coeffs) in shared memory,
+// [component][value][thread] of V floats, tracking the two maxima; the
+// pair swaps its maxima, turns t_j and pi_j into e^(t_j - max) and e^(pi_j
+// - max), swaps the sums, and writes the 1 + 3C gradients of each of its
+// components with products alone; the pair's dx sums meet in the lane of
+// the even components, which writes dx.
+template <int C, typename P, int V>
+__global__ void __launch_bounds__(kThreads, 4)
+mix_bwd_one_pass_kernel(const float* __restrict__ x, const P* __restrict__ params,
+                        const float* __restrict__ g, P* __restrict__ dparams,
+                        float* __restrict__ dx, long long nb, long long hw, int k, float hb,
+                        float log_2hb) {
+  extern __shared__ float stash[];
+  constexpr int S = kStash<C>;
+  constexpr int kValue = kThreads * V;               // floats between two values of a lane
+  const int lane = threadIdx.x & 31, half = lane >> 4;
+  const long long p0 =
+      (static_cast<long long>(blockIdx.x) * kGroups + (threadIdx.x >> 5) * 16 + (lane & 15)) * V;
+  if (p0 >= hw) return;                              // the pair leaves together
+  const unsigned pair = (1u << lane) | (1u << (lane ^ 16));
+  const long long q = static_cast<long long>(k) * (1 + 3 * C);
+  const int n = (k - half + 1) >> 1;                 // this lane's components: j = 2 i + half
+  const Slabs<C> at(hw, k);
+  const long long step_pi = 2 * hw, step_c = 2 * C * hw;   // from component j to j + 2
+  float* mine = stash + threadIdx.x * V;
+  for (long long b = blockIdx.y; b < nb; b += gridDim.y) {
+    const Pixels<C, V> px = load_pixels<C, V>(x, b, hw, p0, hb);
+    const P* img = params + b * q * hw + p0;
+    float mt[V], mp[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) mt[v] = mp[v] = -INFINITY;
+    const P* pi_j = img + half * hw;
+    const P* cj = img + C * half * hw;
+    Words<C, P, V> cur;
+    if (n > 0) cur.load(pi_j, cj, at);
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+      if (i + 1 < n) {                               // the next component's words
+        pi_j += step_pi;
+        cj += step_c;
+      }
+      Words<C, P, V> nxt;
+      nxt.load(pi_j, cj, at);
+      if (V == 2 && i + 2 < n) prefetch_l2<C>(pi_j + step_pi, cj + step_c, at);
+      float pi[V], m[C][V], raw[C][V], co[C][V];
+      unpack(cur.w[0], pi);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        unpack(cur.w[1 + c], m[c]);
+        unpack(cur.w[1 + C + c], raw[c]);
+        if constexpr (C == 3) unpack(cur.w[1 + 2 * C + c], co[c]);
+      }
+      float t[V], dm[C][V], dls[C][V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float mv[C], rv[C], dmv[C], dlsv[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          mv[c] = m[c][v];
+          rv[c] = raw[c][v];
+        }
+        if constexpr (C == 3) {
+          float cv[3] = {co[0][v], co[1][v], co[2][v]};
+          tanh3(cv);
+#pragma unroll
+          for (int c = 0; c < C; ++c) co[c][v] = cv[c];
+          mv[1] = fmaf(cv[0], px.xs[0][v], mv[1]);
+          mv[2] = fmaf(cv[2], px.xs[1][v], fmaf(cv[1], px.xs[0][v], mv[2]));
+        }
+        t[v] = bin_grads<C, V>(px, v, mv, rv, hb, log_2hb, dmv, dlsv) + pi[v];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          dm[c][v] = dmv[c];
+          dls[c][v] = dlsv[c];
+        }
+        mt[v] = fmaxf(mt[v], t[v]);
+        mp[v] = fmaxf(mp[v], pi[v]);
+      }
+      float* s = mine + i * S * kValue;
+      store_v<V>(s, t);
+      store_v<V>(s + kValue, pi);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        store_v<V>(s + (2 + c) * kValue, dm[c]);
+        store_v<V>(s + (2 + C + c) * kValue, dls[c]);
+        if constexpr (C == 3) store_v<V>(s + (2 + 2 * C + c) * kValue, co[c]);
+      }
+      cur = nxt;
+    }
+    float st[V], sp[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      mt[v] = fmaxf(mt[v], __shfl_xor_sync(pair, mt[v], 16));
+      mp[v] = fmaxf(mp[v], __shfl_xor_sync(pair, mp[v], 16));
+      st[v] = sp[v] = 0.0f;
+    }
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) {
+      float* s = mine + i * S * kValue;
+      float t[V], pi[V];
+      lds_v<V>(s, t);
+      lds_v<V>(s + kValue, pi);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        t[v] = ex2((t[v] - mt[v]) * kLog2e);
+        pi[v] = ex2((pi[v] - mp[v]) * kLog2e);
+        st[v] += t[v];
+        sp[v] += pi[v];
+      }
+      store_v<V>(s, t);
+      store_v<V>(s + kValue, pi);
+    }
+    float gt[V], gp[V];
+    load_v<V>(g + b * hw + p0, gt);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {   // g / sum e^(t_j - max), g / sum e^(pi_j - max)
+      gp[v] = gt[v] * rcp(sp[v] + __shfl_xor_sync(pair, sp[v], 16));
+      gt[v] = gt[v] * rcp(st[v] + __shfl_xor_sync(pair, st[v], 16));
+    }
+    P* dpi_j = dparams + b * q * hw + p0 + half * hw;
+    P* dcj = dparams + b * q * hw + p0 + C * half * hw;
+    float dxs[C][V];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int v = 0; v < V; ++v) dxs[c][v] = 0.0f;
+#pragma unroll 1
+    for (int i = 0; i < n; ++i, dpi_j += step_pi, dcj += step_c) {
+      const float* s = mine + i * S * kValue;
+      float et[V], ep[V], dm[C][V], dls[C][V], co[C][V];
+      lds_v<V>(s, et);
+      lds_v<V>(s + kValue, ep);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        lds_v<V>(s + (2 + c) * kValue, dm[c]);
+        lds_v<V>(s + (2 + C + c) * kValue, dls[c]);
+        if constexpr (C == 3) lds_v<V>(s + (2 + 2 * C + c) * kValue, co[c]);
+      }
+      float dpi[V], dco[C][V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float gw = et[v] * gt[v];                // g w_j
+        dpi[v] = gw - ep[v] * gp[v];                   // g (w_j - softmax(pi)_j)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          dm[c][v] = gw * dm[c][v];
+          dls[c][v] = gw * dls[c][v];
+        }
+        if constexpr (C == 3) {
+          const float xs0 = px.xs[0][v], xs1 = px.xs[1][v];
+          const float c0 = co[0][v], c1 = co[1][v], c2 = co[2][v];
+          dco[0][v] = dm[1][v] * xs0 * fmaf(-c0, c0, 1.0f);
+          dco[1][v] = dm[2][v] * xs0 * fmaf(-c1, c1, 1.0f);
+          dco[2][v] = dm[2][v] * xs1 * fmaf(-c2, c2, 1.0f);
+          // the bin terms see xs_c - m_c; the autoregression adds couplings
+          dxs[0][v] += fmaf(dm[2][v], c1, fmaf(dm[1][v], c0, -dm[0][v]));
+          dxs[1][v] += fmaf(dm[2][v], c2, -dm[1][v]);
+          dxs[2][v] += -dm[2][v];
+        } else {
+          dco[0][v] = 0.0f;                            // C = 1: the coefficients are unused
+          dxs[0][v] += -dm[0][v];
+        }
+      }
+      store_p<V>(dpi_j, dpi);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        store_p<V>(dcj + at.m[c], dm[c]);
+        store_p<V>(dcj + at.ls[c], dls[c]);
+        store_p<V>(dcj + at.co[c], dco[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int v = 0; v < V; ++v) dxs[c][v] += __shfl_xor_sync(pair, dxs[c][v], 16);
+    if (dx != nullptr && half == 0) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float o[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) o[v] = 2.0f * dxs[c][v];
+        store_v<V>(dx + (b * C + c) * hw + p0, o);
+      }
+    }
+  }
+}
+
 unsigned int grid_for(long long npix) {
   long long blocks = (npix + kThreads - 1) / kThreads;
   if (blocks > (1LL << 20)) blocks = 1LL << 20;
@@ -718,22 +948,24 @@ unsigned int grid_for(long long npix) {
 }
 
 // The backward's schedules, which kernels/mixture.py bwd_plan chooses
-// from K and C: kOnePass keeps each pixel's component terms in kStored<C> K
-// floats of shared memory per thread and needs them to fit one CTA;
+// from K and C: kOnePass keeps each pixel's component terms in shared
+// memory, kStash<C> floats a component, and needs them to fit one CTA;
 // kTwoPass, the original schedule, recomputes them (no shared memory, any
 // K).
 constexpr int kOnePass = 0, kTwoPass = 1;
 constexpr long long kSmemMax = 232448;         // what one CTA can have
 constexpr int kMaxDevices = 64;
+constexpr long long kMaxGridY = 65535;
 
-long long one_pass_smem(int k, int c) {
-  return 4LL * k * (c == 3 ? kStored<3> : kStored<1>) * kThreads;
+// A CTA's stash: kThreads lanes, each ceil(K / 2) components of V pixels
+long long one_pass_smem(int k, int c, int v) {
+  return 4LL * kThreads * ((k + 1) / 2) * (c == 3 ? kStash<3> : kStash<1>) * v;
 }
 
 // Lift the one-pass kernel's dynamic shared memory limit to kSmemMax, once
 // per device. The limit is only a ceiling: each launch's own size sets its
 // occupancy.
-template <int C, typename P>
+template <int C, typename P, int V>
 cudaError_t allow_one_pass_smem() {
   static std::atomic<bool> done[kMaxDevices];
   int dev = 0;
@@ -741,7 +973,7 @@ cudaError_t allow_one_pass_smem() {
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!done[dev].load()) {
-    e = cudaFuncSetAttribute(mix_bwd_one_pass_kernel<C, P>,
+    e = cudaFuncSetAttribute(mix_bwd_one_pass_kernel<C, P, V>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kSmemMax));
     if (e != cudaSuccess) return e;
@@ -750,23 +982,43 @@ cudaError_t allow_one_pass_smem() {
   return cudaSuccess;
 }
 
+struct BwdArgs {
+  const float* x;
+  const void* params;
+  const float* g;
+  void* dparams;
+  float* dx;
+  long long nb, hw;
+  int k;
+  float hb, log_2hb;
+  cudaStream_t s;
+};
+
+template <int C, typename P, int V>
+int launch_one_pass(const BwdArgs& a) {
+  const long long smem = one_pass_smem(a.k, C, V);
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = allow_one_pass_smem<C, P, V>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>((a.hw + kGroups * V - 1) / (kGroups * V)),
+                  static_cast<unsigned>(a.nb < kMaxGridY ? a.nb : kMaxGridY));
+  mix_bwd_one_pass_kernel<C, P, V><<<grid, kThreads, smem, a.s>>>(
+      a.x, static_cast<const P*>(a.params), a.g, static_cast<P*>(a.dparams), a.dx, a.nb, a.hw,
+      a.k, a.hb, a.log_2hb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int C, typename P>
-int launch_bwd(int plan, const float* x, const void* params, const float* g, void* dparams,
-               float* dx, long long npix, long long hw, int k, float hb, cudaStream_t s) {
-  const P* pp = static_cast<const P*>(params);
-  P* dpp = static_cast<P*>(dparams);
+int launch_bwd(int plan, int v, const BwdArgs& a) {
   if (plan == kTwoPass) {
-    mix_bwd_kernel<C, P><<<grid_for(npix), kThreads, 0, s>>>(x, pp, g, dpp, dx, npix, hw, k,
-                                                             hb);
+    const long long npix = a.nb * a.hw;
+    mix_bwd_kernel<C, P><<<grid_for(npix), kThreads, 0, a.s>>>(
+        a.x, static_cast<const P*>(a.params), a.g, static_cast<P*>(a.dparams), a.dx, npix,
+        a.hw, a.k, a.hb);
     return static_cast<int>(cudaGetLastError());
   }
-  const long long smem = one_pass_smem(k, C);
-  if (plan != kOnePass || smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = allow_one_pass_smem<C, P>();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  mix_bwd_one_pass_kernel<C, P><<<grid_for(npix), kThreads, smem, s>>>(
-      x, pp, g, dpp, dx, npix, hw, k, hb);
-  return static_cast<int>(cudaGetLastError());
+  if (plan != kOnePass) return static_cast<int>(cudaErrorInvalidValue);
+  return v == 2 ? launch_one_pass<C, P, 2>(a) : launch_one_pass<C, P, 1>(a);
 }
 
 // K3's launch at V pixels a thread (kernels/mixture.py fwd_plan).
@@ -779,8 +1031,6 @@ struct FwdArgs {
   float hb, log_2hb;
   cudaStream_t s;
 };
-
-constexpr long long kMaxGridY = 65535;
 
 template <int C, typename P, int V>
 int launch_fwd(const FwdArgs& a) {
@@ -798,6 +1048,11 @@ int launch_fwd(int v, const FwdArgs& a) {
   return launch_fwd<C, P, 1>(a);
 }
 
+// p is a multiple of v elements of `bytes` each
+bool aligned(const void* p, int v, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % (static_cast<uintptr_t>(v) * bytes) == 0;
+}
+
 }  // namespace
 
 // x [b, c, hw] fp32, params [b, k (1 + 3c), hw] fp32 (esize 4) or bf16
@@ -812,11 +1067,9 @@ extern "C" int lvae_mix_log_prob(const void* x, const void* params, void* out, l
       k < 1 || n_bins < 2 || b < 0 || hw < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || hw == 0) return 0;
-  const auto aligned = [v](const void* p, int bytes) {
-    return reinterpret_cast<uintptr_t>(p) % (static_cast<uintptr_t>(v) * bytes) == 0;
-  };
   const float hb = 1.0f / static_cast<float>(n_bins - 1);
-  if (hw % v != 0 || !aligned(x, 4) || !aligned(out, 4) || !aligned(params, esize)) v = 1;
+  if (hw % v != 0 || !aligned(x, v, 4) || !aligned(out, v, 4) || !aligned(params, v, esize))
+    v = 1;
   const FwdArgs a{static_cast<const float*>(x), params, static_cast<float*>(out), b, hw, k, hb,
                   static_cast<float>(std::log(2.0 * static_cast<double>(hb))),
                   static_cast<cudaStream_t>(stream)};
@@ -826,40 +1079,26 @@ extern "C" int lvae_mix_log_prob(const void* x, const void* params, void* out, l
 
 // g [b, hw] fp32 -> dparams [b, k (1 + 3c), hw] in params' storage (esize
 // 4: fp32, 2: bf16) and, when dx is not NULL, dx [b, c, hw] fp32, on the
-// schedule plan (kOnePass or kTwoPass).
+// schedule plan (kOnePass or kTwoPass; kernels/mixture.py bwd_plan) at v
+// pixels a group (1 or 2; one pass only). Rows that are not v-aligned run
+// the v = 1 kernel, which gives the same bits.
 extern "C" int lvae_mix_log_prob_bwd_plan(const void* x, const void* params, const void* g,
                                           void* dparams, void* dx, long long b, long long hw,
-                                          int k, int c, int n_bins, int plan, int esize,
+                                          int k, int c, int n_bins, int plan, int v, int esize,
                                           void* stream) {
-  const long long npix = b * hw;
-  if (esize != 4 && esize != 2) return static_cast<int>(cudaErrorInvalidValue);
-  if (npix == 0) return 0;
+  if ((esize != 4 && esize != 2) || (c != 1 && c != 3) || (v != 1 && v != 2) || k < 1 ||
+      n_bins < 2 || b < 0 || hw < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0 || hw == 0) return 0;
+  if (hw % v != 0 || !aligned(x, v, 4) || !aligned(g, v, 4) || !aligned(dx, v, 4) ||
+      !aligned(params, v, esize) || !aligned(dparams, v, esize))
+    v = 1;
   const float hb = 1.0f / static_cast<float>(n_bins - 1);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const float*>(x);
-  auto gp = static_cast<const float*>(g);
-  auto dxp = static_cast<float*>(dx);
-  if (c == 3) {
-    return esize == 4 ? launch_bwd<3, float>(plan, xp, params, gp, dparams, dxp, npix, hw, k,
-                                             hb, s)
-                      : launch_bwd<3, bf16>(plan, xp, params, gp, dparams, dxp, npix, hw, k,
-                                            hb, s);
-  }
-  if (c == 1) {
-    return esize == 4 ? launch_bwd<1, float>(plan, xp, params, gp, dparams, dxp, npix, hw, k,
-                                             hb, s)
-                      : launch_bwd<1, bf16>(plan, xp, params, gp, dparams, dxp, npix, hw, k,
-                                            hb, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The same on one pass where its terms fit one CTA, else two passes (the
-// port's wrapper calls lvae_mix_log_prob_bwd_plan with bwd_plan's choice).
-extern "C" int lvae_mix_log_prob_bwd(const void* x, const void* params, const void* g,
-                                     void* dparams, void* dx, long long b, long long hw,
-                                     int k, int c, int n_bins, int esize, void* stream) {
-  const int plan = one_pass_smem(k, c) <= kSmemMax ? kOnePass : kTwoPass;
-  return lvae_mix_log_prob_bwd_plan(x, params, g, dparams, dx, b, hw, k, c, n_bins, plan,
-                                    esize, stream);
+  const BwdArgs a{static_cast<const float*>(x), params, static_cast<const float*>(g), dparams,
+                  static_cast<float*>(dx), b, hw, k, hb,
+                  static_cast<float>(std::log(2.0 * static_cast<double>(hb))),
+                  static_cast<cudaStream_t>(stream)};
+  if (c == 3)
+    return esize == 4 ? launch_bwd<3, float>(plan, v, a) : launch_bwd<3, bf16>(plan, v, a);
+  return esize == 4 ? launch_bwd<1, float>(plan, v, a) : launch_bwd<1, bf16>(plan, v, a);
 }

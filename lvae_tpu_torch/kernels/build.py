@@ -35,10 +35,10 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "lvae_tpu_torch"
 # -fmad=false: no multiply-add contraction, so each kernel rounds every
 # operation where its plain PyTorch version does. The sample+KL and segment
 # kernels are bound by bytes, where FMAs would buy nothing. The mixture
-# kernels are bound as much by instruction issue (csrc/mixture.cu), but a
-# throwaway build of them with -use_fast_math, which also contracts, made
-# the one-pass backward only 6% faster and moved it ~400x further from its
-# plain version.
+# kernels contract by hand (fmaf) where it pays: a throwaway build of the
+# first one-pass backward with -use_fast_math, which also contracts, made it
+# only 6% faster and moved it ~400x further from its plain version, and the
+# redesigned one pass built with -fmad=true gained nothing over its own fmaf.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
@@ -112,11 +112,11 @@ _SIGNATURES = {
     # x, params, out, b, hw, k, c, n_bins, pixels a thread (kernels/mixture.py
     # fwd_plan), params' esize, stream
     "lvae_mix_log_prob": (_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT, _INT, _P),
-    # x, params, g, dparams, dx (or NULL), b, hw, k, c, n_bins, esize, stream
-    "lvae_mix_log_prob_bwd": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT, _P),
-    # the same, with the plan (kernels/mixture.py PLANS index) before esize
+    # x, params, g, dparams, dx (or NULL), b, hw, k, c, n_bins, the plan
+    # (kernels/mixture.py PLANS index), pixels a group (bwd_plan's v), esize,
+    # stream
     "lvae_mix_log_prob_bwd_plan": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT,
-                                   _INT, _P),
+                                   _INT, _INT, _P),
     # plan (kernels/segment.py _CPlan), x, gamma, beta, running_mean,
     # running_var (or NULL), y, stats, t, act, eps, momentum, 1 - momentum,
     # train seed, dropout site, step (a device pointer; NULL without a

@@ -10,12 +10,14 @@ channel order), ll ``[B, H, W]``; C is 1 or 3.
 
 K3 takes a launch plan (:func:`fwd_plan`): how many neighbouring pixels
 a thread computes, each channel read with one vector load. K3-bwd has two
-schedules (:func:`bwd_plan`): "one_pass" builds each
-component's bin terms once and keeps them in shared memory until the
-logsumexps are known; "two_pass", the original kernel, finds the
-logsumexps in a first pass and recomputes every component in a second,
-and takes any K. The wrapper chooses from K and C alone: one pass where
-its CTA leaves room for a second on an SM.
+schedules (:func:`bwd_plan`): "one_pass" builds each component's bin terms
+once and keeps them in shared memory until the logsumexps are known, two
+lanes sharing V neighbouring pixels (each channel one access of V values)
+and taking alternate components; "two_pass", the original kernel, finds
+the logsumexps in a first pass and recomputes every component in a
+second, and takes any K. The wrapper chooses the schedule from K and C
+(one pass where its CTA leaves room for a second on an SM) and V from the
+batch and the map.
 
 params are fp32 or bf16 (the model's raw conv output under ``--precision
 bf16``, as ``lvae_tpu`` feeds its kernel, ``mixture_pallas.py:533-542``); x,
@@ -143,9 +145,13 @@ def fwd_plan(b: int, hw: int, plan: Optional[int] = None) -> int:
 
 PLANS = ("one_pass", "two_pass")   # csrc/mixture.cu kOnePass, kTwoPass
 THREADS = 128                      # csrc/mixture.cu kThreads
-# one pass by default while a second CTA fits on an SM beside the first
-# (228 KB each, less 1 KB reserved per CTA): at K = 24, C = 3, one CTA per
-# SM, two passes were faster on an H100 (PERF.md)
+SPLIT = 2                          # csrc/mixture.cu kSplit: lanes a pixel group (one pass)
+BWD_VECTORS = (2, 1)               # pixels a group: each channel one 2-value access, or one
+# one pass by default where a CTA of V = 1 leaves room for a second on an SM
+# (228 KB each, less 1 KB reserved per CTA), V = 2 where a CTA of V = 2
+# does: at K = 24, C = 3 one pass at V = 1 (three CTAs an SM) ran in about
+# half the time of two passes and 0.8x that of V = 2 (one CTA an SM) on an
+# H100 (PERF.md, section 6)
 ONE_PASS_BUDGET = 115_712
 SMEM_MAX = 232_448                 # csrc/mixture.cu kSmemMax: what one CTA can have
 
@@ -153,6 +159,7 @@ SMEM_MAX = 232_448                 # csrc/mixture.cu kSmemMax: what one CTA can 
 class Plan(NamedTuple):
     name: str       # one of PLANS
     smem: int       # dynamic shared memory per CTA of THREADS threads
+    v: int          # pixels a group of SPLIT lanes (one pass; 1 for two passes)
 
 
 def stored_per_component(c: int) -> int:
@@ -161,22 +168,40 @@ def stored_per_component(c: int) -> int:
     return 2 + 2 * c + (3 if c == 3 else 0)
 
 
-def bwd_plan(k: int, c: int, plan: Optional[str] = None) -> Plan:
-    """K3-bwd's schedule for K components of C channels (any batch and
-    map: the plan depends on neither). ``plan`` forces one; by default
-    "one_pass" where its shared memory is within ``ONE_PASS_BUDGET``, else
-    "two_pass". A forced "one_pass" must fit one CTA (``SMEM_MAX``)."""
+def one_pass_smem(k: int, c: int, v: int) -> int:
+    """A one-pass CTA's shared memory: THREADS lanes, each keeping its
+    ceil(K / SPLIT) components of V pixels (``csrc/mixture.cu``
+    ``one_pass_smem``)."""
+    return 4 * THREADS * -(-k // SPLIT) * stored_per_component(c) * v
+
+
+def bwd_plan(k: int, c: int, b: int, hw: int, plan: Optional[str] = None,
+             v: Optional[int] = None) -> Plan:
+    """K3-bwd's schedule for B maps of ``hw`` pixels, K components of C
+    channels. ``plan`` forces one; by default "one_pass" where a CTA of
+    V = 1 keeps its terms within ``ONE_PASS_BUDGET``, else "two_pass". The
+    one pass's V: 2 where it divides ``hw`` (so every row starts
+    V-aligned), leaves at least ``MIN_THREADS`` threads and a CTA within
+    the budget, else 1; ``v`` forces one of ``BWD_VECTORS`` (where it does
+    not divide ``hw``, or a pointer is off V alignment, the C entry runs
+    V = 1, which gives the same bits). A forced "one_pass" must fit one CTA
+    (``SMEM_MAX``)."""
     if plan not in (None, *PLANS):
         raise ValueError(f"plan must be one of {PLANS} or None, got {plan!r}")
-    smem = 4 * k * stored_per_component(c) * THREADS
+    if v is not None and v not in BWD_VECTORS:
+        raise ValueError(f"v must be one of {BWD_VECTORS} pixels a group, got {v!r}")
     if plan is None:
-        plan = PLANS[0] if smem <= ONE_PASS_BUDGET else PLANS[1]
+        plan = PLANS[0] if one_pass_smem(k, c, 1) <= ONE_PASS_BUDGET else PLANS[1]
     if plan == "two_pass":
-        return Plan(plan, 0)
+        return Plan(plan, 0, 1)
+    if v is None:
+        v = next((u for u in BWD_VECTORS if hw % u == 0 and b * hw * SPLIT // u >= MIN_THREADS
+                  and one_pass_smem(k, c, u) <= ONE_PASS_BUDGET), 1)
+    smem = one_pass_smem(k, c, v)
     if smem > SMEM_MAX:
-        raise ValueError(f"plan 'one_pass' keeps {smem} B per CTA for K = {k}, C = {c}: "
-                         f"more than the {SMEM_MAX} B a CTA can have")
-    return Plan(plan, smem)
+        raise ValueError(f"plan 'one_pass' keeps {smem} B per CTA for K = {k}, C = {c}, "
+                         f"V = {v}: more than the {SMEM_MAX} B a CTA can have")
+    return Plan(plan, smem, v)
 
 
 # ---------------------------------------------------------------------------
@@ -229,18 +254,20 @@ def _launch_fwd(x: torch.Tensor, params: torch.Tensor, k: int, n_bins: int,
 
 def mix_log_prob_backward(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor,
                           n_components: int = 10, n_bins: int = 256,
-                          need_dx: bool = True, plan: Optional[str] = None
+                          need_dx: bool = True, plan: Optional[str] = None,
+                          v: Optional[int] = None
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K3-bwd: ``(dparams [B, Q, H, W], dx [B, C, H, W] or None)`` from the
     cotangent ``g [B, H, W]`` of the per-pixel log-prob, dparams in params'
-    dtype and dx in x's. ``plan`` forces a schedule of :func:`bwd_plan` (the
-    CPU's plain version ignores it)."""
+    dtype and dx in x's. ``plan`` and ``v`` force a schedule and the one
+    pass's pixels a group (see :func:`bwd_plan`; the CPU's plain version
+    ignores both)."""
     _checked(x, params, n_components, n_bins)
     b, c, h, w = x.shape
     if tuple(g.shape) != (b, h, w) or g.device != x.device:
         raise ValueError(f"g must be [{b}, {h}, {w}] on {x.device}, got "
                          f"{tuple(g.shape)} on {g.device}")
-    chosen = bwd_plan(n_components, c, plan)
+    chosen = bwd_plan(n_components, c, b, h * w, plan, v)
     if x.device.type == "cpu":
         dparams, dx = _plain_mix_log_prob_bwd(x, params.to(x.dtype), g.to(x.dtype),
                                               n_components, n_bins)
@@ -254,7 +281,7 @@ def mix_log_prob_backward(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor
         status = build.library().lvae_mix_log_prob_bwd_plan(
             x.data_ptr(), params.data_ptr(), g.data_ptr(), dparams.data_ptr(),
             None if dx is None else dx.data_ptr(), b, h * w, n_components, c, n_bins,
-            PLANS.index(chosen.name), build.esize(params.dtype), _stream(x))
+            PLANS.index(chosen.name), chosen.v, build.esize(params.dtype), _stream(x))
     build.LAUNCHES[build.launch_name("mix_log_prob_bwd", params.dtype)] += 1
     build.check(status, "mix_log_prob_bwd")
     return dparams, dx

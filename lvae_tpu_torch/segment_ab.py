@@ -31,7 +31,7 @@ at the same shapes.
 (K5-split's stats and apply, K5-bwd-split's reduce and apply), as below.
 
 The other checkout's kernels are built from its own ``csrc/`` by its own
-``kernels/build.py`` (into its own ``build/``, ``mixture_ab.load_build``)
+``kernels/build.py`` (into its own ``build/``, ``mixture_ab.load_kernels``)
 and called through its C entry, as are this checkout's: both without the
 Python wrappers, each launch timed as a CUDA graph of ``--calls`` launches
 replayed ``--replays`` times (``mixture_ab.graph_ms``: device ms a call,
@@ -61,7 +61,6 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
-import importlib.util
 import json
 import re
 import shutil
@@ -74,7 +73,7 @@ import torch
 
 from lvae_tpu_torch.kernels import build
 from lvae_tpu_torch.kernels import segment as seg
-from lvae_tpu_torch.mixture_ab import graph_ms, load_build
+from lvae_tpu_torch.mixture_ab import _width, graph_ms, load_kernels
 from lvae_tpu_torch.ops.math import bits8_keep_threshold
 from lvae_tpu_torch.ops.philox import ElementMap
 from lvae_tpu_torch.profiling import card_line
@@ -215,13 +214,6 @@ def sass_counts(lib: Path) -> Dict[str, dict]:
     return {name: _counts(ins) for name, ins in out.items()}
 
 
-def _width(op: str) -> int:
-    for bits in (128, 64):
-        if f".{bits}" in op:
-            return bits
-    return 16 if ".U16" in op or ".S16" in op else 8 if ".U8" in op or ".S8" in op else 32
-
-
 def _counts(ins) -> dict:
     ops = collections.Counter(ins)
     ldg = collections.Counter(_width(op) for op in ins if op.startswith("LDG"))
@@ -242,17 +234,6 @@ def _counts(ins) -> dict:
 SEGMENT_SHAPES = [(128, 64, s, s) for s in (64, 32, 16, 8, 4, 2)] + \
                  [(64, 64, s, s) for s in (32, 16, 8, 4, 2)]
 DIRECTIONS = ("fwd", "bwd")
-
-
-def load_plans(checkout: Path):
-    """The checkout's ``kernels/segment.py`` as a module of its own: its
-    ``_plan`` and ``_c_struct`` (its imports resolve in this checkout's
-    package)."""
-    path = checkout / "lvae_tpu_torch" / "kernels" / "segment.py"
-    spec = importlib.util.spec_from_file_location(f"plans_{abs(hash(str(checkout)))}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def plan_variants(plan: "seg.Plan", shape, direction: str, esize: int) -> Dict[str, "seg.Plan"]:
@@ -415,10 +396,10 @@ def cudnn_ms(shape, dtype, gen, calls: int, replays: int) -> Optional[float]:
 
 def segment_main(args, card: str) -> dict:
     """The ``--kernels segment`` mode: {card, sass, times}."""
-    other_mod = load_build(args.other.resolve())
+    other_mod = load_kernels(args.other.resolve(), "build")
     built = {"other": other_mod.build(), "this": build.build()}
     libs = {s: b[0] for s, b in built.items()}
-    sides = {"other": SegmentSide(other_mod, load_plans(args.other.resolve())),
+    sides = {"other": SegmentSide(other_mod, load_kernels(args.other.resolve(), "segment")),
              "this": SegmentSide(build, seg)}
     result = {"card": card, "sass": {}, "times": [], "ptxas": {}}
     for side, (_, log) in built.items():
@@ -534,7 +515,7 @@ def main(argv=None) -> int:
             args.json.parent.mkdir(parents=True, exist_ok=True)
             args.json.write_text(json.dumps(result, indent=1))
         return 0
-    other_mod = load_build(args.other.resolve())
+    other_mod = load_kernels(args.other.resolve(), "build")
     libs = {"other": other_mod.build()[0], "this": build.build()[0]}
     sides = {"other": Side(other_mod), "this": Side(build)}
     result = {"card": card, "sass": {}, "times": []}

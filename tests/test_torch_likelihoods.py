@@ -325,41 +325,54 @@ class TestBwdPlan:
     run on the card (``chip_smoke.py`` phase 10 holds both plans to the
     plain versions)."""
 
-    @pytest.mark.parametrize("k,c,plan,smem", [
-        (10, 3, "one_pass", 56_320),      # every RGB model's head (celeba64, cifar10, svhn)
-        (10, 1, "one_pass", 20_480),      # a grey-scale mixture head
-        (1, 3, "one_pass", 5_632),
-        (20, 3, "one_pass", 112_640),     # the largest K with two CTAs per SM, C = 3
-        (21, 3, "two_pass", 0),
-        (24, 3, "two_pass", 0),           # chip_smoke.py's two-pass shape
-        (56, 1, "one_pass", 114_688),     # ... and C = 1
-        (57, 1, "two_pass", 0),
+    @pytest.mark.parametrize("k,c,b,hw,plan,smem,v", [
+        # every RGB model's head: celeba64's training batch, cifar10-deep's
+        (10, 3, 128, 64 * 64, "one_pass", 56_320, 2),
+        (10, 3, 128, 32 * 32, "one_pass", 56_320, 2),
+        (10, 1, 16, 32 * 32, "one_pass", 10_240, 1),    # grey-scale, 16,384 pixels
+        (10, 3, 8, 7 * 7, "one_pass", 28_160, 1),       # 49 pixels: 2 does not divide them
+        (1, 3, 64, 64 * 64, "one_pass", 11_264, 2),
+        (20, 3, 128, 64 * 64, "one_pass", 112_640, 2),  # the largest K at V = 2
+        (21, 3, 128, 64 * 64, "one_pass", 61_952, 1),
+        (24, 3, 32, 64 * 64, "one_pass", 67_584, 1),    # chip_smoke.py's large-K shape
+        (40, 3, 128, 64 * 64, "one_pass", 112_640, 1),  # the largest K with two CTAs per SM
+        (41, 3, 128, 64 * 64, "two_pass", 0, 1),
+        (56, 1, 128, 64 * 64, "one_pass", 114_688, 2),  # ... and C = 1
+        (112, 1, 128, 64 * 64, "one_pass", 114_688, 1),
+        (113, 1, 128, 64 * 64, "two_pass", 0, 1),
     ])
-    def test_default_plan(self, k, c, plan, smem):
-        assert km.bwd_plan(k, c) == km.Plan(plan, smem)
+    def test_default_plan(self, k, c, b, hw, plan, smem, v):
+        assert km.bwd_plan(k, c, b, hw) == km.Plan(plan, smem, v)
         if plan == "one_pass":   # room for a second CTA, and its 1 KB reserve, on an SM
             assert 2 * (smem + 1024) <= 233_472
-        assert km.bwd_plan(k, c, "two_pass") == km.Plan("two_pass", 0)
+        assert km.bwd_plan(k, c, b, hw, "two_pass") == km.Plan("two_pass", 0, 1)
 
-    @pytest.mark.parametrize("k,c,fits", [(21, 3, True), (41, 3, True), (42, 3, False),
-                                          (113, 1, True), (114, 1, False)])
-    def test_forced_one_pass_fits_one_cta(self, k, c, fits):
-        want = 4 * k * km.stored_per_component(c) * km.THREADS
+    @pytest.mark.parametrize("k,c,v,fits", [(21, 3, 2, True), (40, 3, 2, True), (41, 3, 2, False),
+                                            (82, 3, 1, True), (83, 3, 1, False),
+                                            (112, 1, 2, True), (113, 1, 2, False)])
+    def test_forced_one_pass_fits_one_cta(self, k, c, v, fits):
+        want = 4 * -(-k // km.SPLIT) * km.stored_per_component(c) * km.THREADS * v
         if fits:
-            assert km.bwd_plan(k, c, "one_pass") == km.Plan("one_pass", want)
+            assert km.bwd_plan(k, c, 128, 64 * 64, "one_pass", v) == km.Plan("one_pass", want, v)
             assert want <= km.SMEM_MAX
         else:
             with pytest.raises(ValueError, match="one_pass"):
-                km.bwd_plan(k, c, "one_pass")
+                km.bwd_plan(k, c, 128, 64 * 64, "one_pass", v)
+            if v == 2:           # left to the plan, V = 1 fits
+                assert km.bwd_plan(k, c, 128, 64 * 64, "one_pass") == km.Plan(
+                    "one_pass", want // 2, 1)
+                assert want // 2 <= km.SMEM_MAX
 
     def test_rejects_unknown_or_oversized_plans_on_any_device(self, rng):
         x, p = (_nchw(a) for a in _mix_data(rng, b=2, h=4, w=4))
         g = torch.ones(2, 4, 4)
         with pytest.raises(ValueError, match="plan"):
-            km.bwd_plan(10, 3, "three_pass")
+            km.bwd_plan(10, 3, 2, 16, "three_pass")
         with pytest.raises(ValueError, match="plan"):
             km.mix_log_prob_backward(x, p, g, plan="three_pass")
-        k = 42
+        with pytest.raises(ValueError, match="v must"):
+            km.mix_log_prob_backward(x, p, g, plan="one_pass", v=4)
+        k = 83                   # 42 components a lane: past a CTA at V = 1
         xs, ps = (_nchw(a) for a in _mix_data(rng, b=1, h=4, w=4, k=k))
         with pytest.raises(ValueError, match="one_pass"):
             km.mix_log_prob_backward(xs, ps, torch.ones(1, 4, 4), k, plan="one_pass")
